@@ -1,0 +1,16 @@
+"""sea_tpu_torch — the PyTorch / CUDA port of sea_tpu for NVIDIA Hopper.
+
+A package of its own beside `sea_tpu` (the JAX reference, which it never
+imports). Plain tensor code is PyTorch; each Pallas kernel of the reference
+becomes a hand-written Hopper kernel under `csrc/`, built with nvcc at first
+use. Entry points take a `device` and default to "cuda"; on CPU tensors the
+kernel wrappers run their plain PyTorch versions.
+
+Ported so far: the OPT-125m SEA forward to logits on the fused benchmark
+path (`models.opt.OptForCausalLM`, `benchmarking=True`), on the causal
+fused sparse attention kernel (`ops.kernels.block_sparse`).
+"""
+
+from .config import SeaConfig, opt_config
+
+__all__ = ["SeaConfig", "opt_config"]
