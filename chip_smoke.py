@@ -2,30 +2,53 @@
 
     python3 chip_smoke.py
 
-Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`,
-then runs five phases and fails (non-zero exit) if any of them fails:
+Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
+(one nvcc per source, all at once), then runs these phases and fails
+(non-zero exit) if any of them fails:
 
   1. device   — the card's name and power limit; TF32 off for matmuls and
                 convolutions (the port's float32 path is checked against
                 float32 references);
   2. mask     — the kernel's element predicate (`alive_mask`) against the
                 torch oracle `element_mask_int8`, bit for bit, for T up to 8192;
-  3. kernel   — the causal fused sparse attention kernel against its plain
-                PyTorch version at the main-path shapes (H=12, D=64, T_M=256,
-                k=64, production top-k budget), float32 and bfloat16, plus
-                edge cases; times of the kernel, the plain version and
-                PyTorch's own SDPA at the same shape (a yardstick only);
-  4. slice    — the main path: OPT-125m with the SEA student, seeded random
-                weights, scoring two prompts of 1024 tokens in one batch and
-                then one of 2048 to logits on the fused benchmark path; the
-                kernel must run 12 times per forward, and layer 0's kernel
-                inputs, captured from the run, are held against the plain
-                version; ms/forward beside the dense OPT-125m;
-  5. result   — one JSON line of per-kernel numbers, then the device line.
+  3. kernel   — the causal fused sparse attention kernel (K1) against its
+                plain PyTorch version at the main-path shapes (H=12, D=64,
+                T_M=256, k=64, production top-k budget), float32 and
+                bfloat16, plus edge cases; times of the kernel, the plain
+                version and PyTorch's own SDPA at the same shape (a yardstick
+                only);
+  4. slice    — the serving path: OPT-125m with the SEA student, seeded
+                random weights, scoring two prompts of 1024 tokens in one
+                batch and then one of 2048 to logits on the fused benchmark
+                path; K1 must run 12 times per forward (and the train
+                kernels never), and layer 0's kernel inputs, captured from
+                the run, are held against the plain version; ms/forward
+                beside the dense OPT-125m;
+  5. train-kernels — the differentiable path's kernels, forward with stats
+                (K2), dq (K3) and dk/dv (K4), against their plain versions
+                at the same shapes for T = 1024, 2048 and 4096, the whole
+                `FusedSparseAttention` backward against autograd through
+                `dense_reference`, two block sizes, and edge cases (empty
+                rows, T=128, a mask with every pixel on);
+  6. train    — the training path: OPT-125m with `use_fused_train`, full
+                width and depth, AdamW steps through `train_steps` on one
+                batch of 1 x 2048 tokens (3 steps) and one of 1 x 8192 (2
+                steps); every step must give a finite loss and launch K2, K3
+                and K4 12 times each and K1 never, and the loss must fall
+                over the 2048-token steps; layer 0's kernel inputs and
+                incoming gradient, captured from one more step of each
+                request, are held against the plain versions; ms/step,
+                tokens/s and peak memory beside the
+                dense OPT-125m train step at 1 x 2048;
+  7. result   — one JSON line of per-kernel numbers, then the device line.
 
-Tolerances: float32 1e-5 abs (both sides do float32 arithmetic, summed in
-another order); bfloat16 1e-5 plus half a bf16 ulp of the float32 plain
-result on the same bf16 inputs (the kernel sums in float32 and rounds once).
+Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
+float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
+bf16 ulp of the float32 plain result on the same bf16 inputs (the kernel
+sums in float32 and rounds once); gradients 1e-4·max|want| abs, plus 1e-8
+for tensors that are all zero (sums over up to T float32 products in another
+order, whose rounding scales with the largest terms rather than with each
+element).
 """
 
 from __future__ import annotations
@@ -44,14 +67,30 @@ from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
 from sea_tpu_torch.ops.masks import _ranks_desc, fp_min_for, topk_mask
+from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
 from sea_tpu_torch.utils.profiler import get_bench
 
 H, D, T_M, K = 12, 64, 256, 64
 F32_TOL, BF16_HALF_ULP = 1e-5, 2.0 ** -8
+GRAD_ATOL, GRAD_RTOL = 1e-8, 1e-4  # the latter of max|want|: see the module docstring
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # FFMA / tensor cores
 KERNEL_SOURCE = "sea_tpu_torch/csrc/block_sparse_causal.cu"
+DIFF_SOURCE = "sea_tpu_torch/csrc/block_sparse_diff.cu"
 REPLACES = "sea_tpu/ops/kernels/block_sparse.py:240"  # _causal_kernel_flat
+# the differentiable path: (wrapper, CUDA entry point, source, TPU kernel
+# replaced, FLOPs per alive element / D)
+TRAIN_KERNELS = {
+    "K2": (bs.causal_fwd_stats, "sea_causal_fwd_stats", KERNEL_SOURCE,
+           "sea_tpu/ops/kernels/block_sparse.py:1328", 4),  # _causal_kernel_fwd_stats
+    "K3": (bs.causal_dq, "sea_causal_dq", DIFF_SOURCE,
+           "sea_tpu/ops/kernels/block_sparse.py:1420", 6),  # _causal_kernel_dq
+    "K4": (bs.causal_dkv, "sea_causal_dkv", DIFF_SOURCE,
+           "sea_tpu/ops/kernels/block_sparse.py:1463", 8),  # _causal_kernel_dkv
+}
+TRAIN_LR = 1e-5  # longctx_train_step.py's AdamW rate
+CHECK_TS = (1024, 2048, 4096)  # train-kernel checks; blocks compared at the second
+TRAIN_REQUESTS = ((2048, 3), (8192, 2))  # (tokens, AdamW steps): requests A and B
 
 
 def log(*a):
@@ -106,6 +145,28 @@ def qkv(N, T, dtype, seed, device):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def reset_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    bs.sea_block_sparse_attention.launches = 0
+    bs.alive_mask.launches = 0
+    for wrapper, *_ in TRAIN_KERNELS.values():
+        wrapper.launches = 0
+
+
+def launch_counts() -> dict:
+    return {"K1": bs.sea_block_sparse_attention.launches,
+            **{kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS}}
+
+
+def check_grad(name, got, want) -> float:
+    """|got − want| <= 1e-8 + 1e-4·max|want| and finite; returns max|err|."""
+    err = max_err(got, want)
+    limit = GRAD_ATOL + GRAD_RTOL * float(want.float().abs().max())
+    require(bool(torch.isfinite(got).all()), f"{name}: not finite")
+    require(err <= limit, f"{name}: max|err| {err:.3g} over {limit:.3g}")
+    return err
 
 
 def tolerance(want: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -307,8 +368,7 @@ def phase_slice():
     requests = [r.to(dev) for r in requests]
 
     # the main path: every request once, kernel launches counted around it
-    bs.sea_block_sparse_attention.launches = 0
-    bs.alive_mask.launches = 0
+    reset_launches()
     outs = []
     per_forward = []
     for ids in requests:
@@ -318,6 +378,9 @@ def phase_slice():
         per_forward.append(bs.sea_block_sparse_attention.launches - before)
     torch.cuda.synchronize()
     launches = bs.sea_block_sparse_attention.launches
+    train_launches = {kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS}
+    require(not any(train_launches.values()),
+            f"the serving path launched train kernels: {train_launches}")
     for ids, logits, n in zip(requests, outs, per_forward):
         finite = bool(torch.isfinite(logits).all())
         log(f"[slice] request {tuple(ids.shape)}: logits {tuple(logits.shape)} "
@@ -371,52 +434,360 @@ def phase_slice():
         log(f"[slice] forward {tuple(ids.shape)}: SEA {sea_ms:.2f} ms "
             f"({ntok / sea_ms * 1e3:.0f} tokens/s), dense OPT-125m {dense_ms:.2f} ms "
             f"({ntok / dense_ms * 1e3:.0f} tokens/s)")
-    breakdown(model, requests[-1])
+    ids = requests[-1]
+
+    def forward():
+        with torch.inference_mode():
+            model(ids, torch.ones_like(ids), benchmarking=True)
+
+    breakdown(f"forward {tuple(ids.shape)}", forward)
     return launches, checks
 
 
-def breakdown(model, ids):
-    """Where one SEA forward's time goes: the attention stages by host region
-    with a device synchronise at each region's end, then the device kernels
-    by self time from torch.profiler, and the device's busy share."""
-    am = torch.ones_like(ids)
+def breakdown(label, run):
+    """Where the time of `run()` (one forward, or one train step) goes: the
+    SEA attention's forward stages by host region with a device synchronise
+    at each region's end, then the device kernels by self time from
+    torch.profiler, and the device's busy share."""
     bench = get_bench()
     bench.reset()
     bench.synchronize = True
     bench.activate_temp_buffers(True)
     t0 = time.perf_counter()
-    with torch.inference_mode():
-        model(ids, am, benchmarking=True)
+    run()
     torch.cuda.synchronize()
     wall = (time.perf_counter() - t0) * 1e3
     bench.activate_temp_buffers(False)
     bench.synchronize = False
-    log(f"[breakdown] forward {tuple(ids.shape)} with synchronised regions: {wall:.2f} ms; "
-        "SEA attention stages summed over the 12 layers:")
+    log(f"[breakdown] {label} with synchronised regions: {wall:.2f} ms; "
+        "SEA attention forward stages summed over the 12 layers:")
     for line in bench.format_tracetree().splitlines():
         log(f"[breakdown]   {line}")
     bench.reset()
 
     from torch.profiler import ProfilerActivity, profile
 
-    with torch.inference_mode(), profile(
+    with profile(
         activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA], acc_events=True
     ) as prof:
         t0 = time.perf_counter()
-        model(ids, am, benchmarking=True)
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     # device-side entries only: an aten op's self device time repeats the
-    # time of the kernels it launched, which are listed too
+    # time of the kernels it launched, which are listed too, and so does a
+    # user annotation's range on the device (the optimizer's step)
     kernels = [e for e in prof.key_averages()
-               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0]
+               if str(e.device_type).endswith("CUDA") and e.self_device_time_total > 0
+               and not getattr(e, "is_user_annotation", False)]
     kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[breakdown] profiled forward {wall:.2f} ms wall, {sum(e.count for e in kernels)} "
+    log(f"[breakdown] profiled {label} {wall:.2f} ms wall, {sum(e.count for e in kernels)} "
         f"kernel launches, device busy {busy:.2f} ms ({100 * busy / wall:.1f}%, idle "
         f"{100 - 100 * busy / wall:.1f}%); top kernels by device time:")
     for e in kernels[:12]:
         log(f"[breakdown]   {e.self_device_time_total / 1e3:8.3f} ms  x{e.count:<5d} {e.key[:90]}")
+
+
+# ---------------------------------------------------------------------------
+# The differentiable path: forward with stats (K2), dq (K3), dk/dv (K4)
+# ---------------------------------------------------------------------------
+
+
+def diff_bound(kid, ops: bs.KernelOperands, mask_m):
+    """Least time the card needs for the function one launch of `kid`
+    computes: the larger of its FLOPs on the alive elements (per element 4·D
+    for K2: q·k, p·v; 6·D for K3: q·k, dO·v, ds·k; 8·D for K4: q·k, dO·v,
+    dsᵀ·q, pᵀ·dO; the count is this mask's element nnz) at the float32 FMA
+    peak, and its bytes (each operand read once, each output written once)
+    at the HBM rate. The tile lists are the kernels' own device and are not
+    counted."""
+    N, Hh, T, Dd = ops.shape
+    flops = TRAIN_KERNELS[kid][4] * Dd * int(bs.mask_nnz(mask_m, ops.k.shape[1], True))
+    tile = N * Hh * T * Dd * 4  # one (NH, T, D) float32 tensor
+    row = N * Hh * T * 4  # one (NH, T) float32 tensor
+    nbytes = ops.mbits.numel() * 4 + ops.row_base.numel() * 4 + 3 * tile + {
+        "K2": row + tile + row,  # scaler; out, lse
+        "K3": tile + 2 * row + tile,  # dO·scaler, lse, delta; dq
+        "K4": tile + 2 * row + 2 * tile,  # dO·scaler, lse, delta; dk, dv
+    }[kid]
+    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def diff_operands(q, k, v, mask, sc):
+    return bs.kernel_operands(bs.prepare_inputs(q, k, v, mask, sc), differentiable=True)
+
+
+def check_train_kernels(label, q, k, v, mask, sc, do):
+    """K2, K3 and K4 against their plain versions on one set of inputs. K3
+    and K4 read the plain version's lse and backward terms, so that each
+    kernel is held alone. Returns {kernel: max|err|}."""
+    ops = diff_operands(q, k, v, mask, sc)
+    o, lse = bs.causal_fwd_stats(ops)
+    want_o, want_lse = bs.fwd_with_stats_reference(q, k, v, mask, sc)
+    torch.cuda.synchronize()
+    inf = torch.isinf(want_lse)
+    require(torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all()),
+            f"{label}: the +inf rows of lse differ")
+    err_lse = max_err(lse[~inf], want_lse[~inf]) if bool((~inf).any()) else 0.0
+    err_o = max_err(o, want_o)
+    require(err_o <= F32_TOL and err_lse <= F32_TOL,
+            f"{label}: K2 o err {err_o:.3g}, lse err {err_lse:.3g}")
+    _, dou, delta = bs.backward_terms(do, want_o, sc, torch.float32)
+    dq = bs.causal_dq(ops, dou, want_lse, delta)
+    dk, dv = bs.causal_dkv(ops, dou, want_lse, delta)
+    want_dk, want_dv = bs.dkv_reference(q, k, v, mask, dou, want_lse, delta)
+    errs = {
+        "K2": max(err_o, err_lse),
+        "K3": check_grad(f"{label} K3 dq", dq, bs.dq_reference(q, k, v, mask, dou, want_lse, delta)),
+        "K4": max(check_grad(f"{label} K4 dk", dk, want_dk), check_grad(f"{label} K4 dv", dv, want_dv)),
+    }
+    log(f"[train-kernels] {label}: K2 o {err_o:.3g}, lse {err_lse:.3g} ({int(inf.sum())} "
+        f"+inf rows); K3 dq {errs['K3']:.3g}; K4 dk/dv {errs['K4']:.3g} (max|err| vs plain)")
+    return errs
+
+
+def autograd_outputs(fn, q, k, v, sc, do):
+    """fn(q, k, v, sc)'s output and the gradients of <output, do> for q, k,
+    v and sc."""
+    leaves = [x.detach().clone().requires_grad_() for x in (q, k, v, sc)]
+    o = fn(*leaves)
+    return (o.detach(), *torch.autograd.grad(o, leaves, do))
+
+
+def check_fused_backward(label, q, k, v, mask, sc, do, **blocks):
+    """The whole FusedSparseAttention (K2 forward; K3, K4 backward) against
+    autograd through `dense_reference`. Returns its outputs."""
+    got = autograd_outputs(
+        lambda *a: bs.fused_sparse_attention(a[0], a[1], a[2], mask, a[3], **blocks),
+        q, k, v, sc, do)
+    want = autograd_outputs(
+        lambda *a: bs.dense_reference(a[0], a[1], a[2], mask, a[3]), q, k, v, sc, do)
+    err_o = max_err(got[0], want[0])
+    require(err_o <= F32_TOL, f"{label}: fused output err {err_o:.3g}")
+    errs = [check_grad(f"{label} fused {n}", g, w)
+            for n, g, w in zip(("dq", "dk", "dv", "dscaler"), got[1:], want[1:])]
+    log(f"[train-kernels] {label}: FusedSparseAttention vs autograd through dense_reference "
+        f"{blocks or ''}: o {err_o:.3g}, dq {errs[0]:.3g}, dk {errs[1]:.3g}, dv {errs[2]:.3g}, "
+        f"dscaler {errs[3]:.3g}")
+    return got
+
+
+def measure_train(q, k, v, mask, sc, do):
+    """Kernel, plain and library times of K2, K3 and K4 on one set of inputs,
+    with their bounds. The library call is F.scaled_dot_product_attention at
+    the same shape (dense causal): its forward for K2, and its backward
+    alone, timed once, for the pair K3 and K4."""
+    ops = diff_operands(q, k, v, mask, sc)
+    o, lse = bs.causal_fwd_stats(ops)
+    _, dou, delta = bs.backward_terms(do, o, sc, torch.float32)
+    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
+    sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
+    sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), do, retain_graph=True))
+    plain = dict(iters=5, warmup=1)
+    out = {
+        "K2": dict(
+            ms=time_ms(lambda: bs.causal_fwd_stats(ops)),
+            plain_ms=time_ms(lambda: bs.fwd_with_stats_reference(q, k, v, mask, sc), **plain),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+        ),
+        "K3": dict(
+            ms=time_ms(lambda: bs.causal_dq(ops, dou, lse, delta)),
+            plain_ms=time_ms(lambda: bs.dq_reference(q, k, v, mask, dou, lse, delta), **plain),
+            library_ms=sdpa_bwd,
+        ),
+        "K4": dict(
+            ms=time_ms(lambda: bs.causal_dkv(ops, dou, lse, delta)),
+            plain_ms=time_ms(lambda: bs.dkv_reference(q, k, v, mask, dou, lse, delta), **plain),
+            library_ms=sdpa_bwd,
+        ),
+    }
+    for kid, m in out.items():
+        m["bound_ms"], m["bound_by"], m["flops"], m["bytes"] = diff_bound(kid, ops, mask)
+    return out
+
+
+def log_times(label, m):
+    for kid, t in m.items():
+        log(f"[train-kernels] {label} {kid}: kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.3f} ms, "
+            f"sdpa {'fwd' if kid == 'K2' else 'bwd'} {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['flops'] / 1e9:.4f} GFLOP, "
+            f"{t['bytes'] / 1e6:.2f} MB)")
+
+
+def phase_train_kernels():
+    dev = "cuda"
+    for T in CHECK_TS:
+        mask = budget_mask(1, T, seed=T, device=dev)
+        q, k, v, sc = qkv(1, T, torch.float32, seed=T, device=dev)
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(T + 1)).to(dev)
+        check_train_kernels(f"T={T}", q, k, v, mask, sc, do)
+        got = check_fused_backward(f"T={T}", q, k, v, mask, sc, do)
+        if T == CHECK_TS[1]:
+            other = check_fused_backward(f"T={T}", q, k, v, mask, sc, do, block_q=128, block_k=256)
+            diff = max(max_err(a, b) for a, b in zip(got, other))
+            log(f"[train-kernels] T={T}: blocks 128 x 256 vs 64 x 64, max|diff| {diff:.3g}")
+            require(diff == 0.0, f"the result depends on the block sizes: {diff}")
+        log_times(f"T={T}", measure_train(q, k, v, mask, sc, do))
+
+    # edge cases, float32
+    q, k, v, sc = qkv(1, 1024, torch.float32, seed=7, device=dev)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev)
+    mask = budget_mask(1, 1024, seed=7, device=dev)
+    empty = mask.clone()
+    empty[:, :, 300:400] = 0.0
+    check_train_kernels("empty rows 300-399", q, k, v, empty, sc, do)
+    o, dq, dk, dv, dsc = check_fused_backward("empty rows 300-399", q, k, v, empty, sc, do)
+    _, lse = bs.causal_fwd_stats(diff_operands(q, k, v, empty, sc))
+    zero = max(float(o[:, :, 300:400].abs().max()), float(dq[:, :, 300:400].abs().max()))
+    finite = all(bool(torch.isfinite(x).all()) for x in (o, dq, dk, dv, dsc))
+    log(f"[train-kernels] empty rows: lse +inf on all of them: "
+        f"{bool(torch.isposinf(lse[:, :, 300:400]).all())}; |o|, |dq| there {zero}; "
+        f"all finite {finite}")
+    require(bool(torch.isposinf(lse[:, :, 300:400]).all()) and zero == 0.0 and finite,
+            "empty rows: lse, zero rows or NaN")
+
+    q1, k1, v1, sc1 = qkv(1, 128, torch.float32, seed=8, device=dev)
+    do1 = torch.randn(q1.shape, generator=torch.Generator().manual_seed(10)).to(dev)
+    m1 = budget_mask(1, 128, seed=8, device=dev)
+    check_train_kernels("T=128", q1, k1, v1, m1, sc1, do1)
+    check_fused_backward("T=128", q1, k1, v1, m1, sc1, do1)
+
+    full = torch.ones_like(mask)
+    check_train_kernels("every pixel on", q, k, v, full, sc, do)
+    check_fused_backward("every pixel on", q, k, v, full, sc, do)
+
+
+def run_train(model, ids, steps, label):
+    """`steps` AdamW steps through `train_steps` on one batch, the launch
+    counts set to 0 just before and read after every step. Checks a finite
+    loss and, for the SEA student, 12 launches of each of K2, K3 and K4 and
+    none of K1 per step (no kernel launch at all for the dense model).
+    Returns (losses, ms per step, launches over the run, peak GiB)."""
+    n_layers = model.cfg.num_layers
+    sparse = model.cfg.attention_method == "perlin"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    times, per_step = [], []
+    last = [time.perf_counter(), launch_counts()]
+
+    def on_step(i, loss):
+        torch.cuda.synchronize()
+        now, counts = time.perf_counter(), launch_counts()
+        times.append((now - last[0]) * 1e3)
+        per_step.append({kid: counts[kid] - last[1][kid] for kid in counts})
+        last[:] = [now, counts]
+        log(f"[train] {label} step {i + 1}: loss {loss:.6f}, {times[-1]:.2f} ms "
+            f"({ids.numel() / times[-1] * 1e3:.0f} tokens/s), launches {per_step[-1]}")
+
+    losses = train_steps(model, ids, torch.ones_like(ids), steps, lr=TRAIN_LR, callback=on_step)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {"K1": 0, **{kid: n_layers if sparse else 0 for kid in TRAIN_KERNELS}}
+    for i, (loss, n) in enumerate(zip(losses, per_step)):
+        require(np.isfinite(loss), f"{label} step {i + 1}: loss {loss}")
+        require(n == want, f"{label} step {i + 1}: launches {n}, want {want}")
+    steady = statistics.median(times[1:])
+    log(f"[train] {label}: {steady:.2f} ms/step after the first "
+        f"({ids.numel() / steady * 1e3:.0f} tokens/s), peak memory {peak:.2f} GiB")
+    return losses, times, launch_counts(), peak
+
+
+def capture_layer0(model, ids):
+    """Layer 0's kernel inputs and the gradient reaching its kernel output,
+    from one forward and backward of a train step (buffer registry and a
+    tensor hook); the parameters' gradients are cleared afterwards."""
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    grads = []
+    try:
+        out = model(ids, torch.ones_like(ids), labels=ids, training=True)
+        buf = {n: bench.get_temp_buffer(n, 0) for n in (
+            "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
+            "masked_estimated_attention_probs", "per_item_top_k", "fused_attention_output")}
+        buf["fused_attention_output"].register_hook(grads.append)
+        (out["loss"] + 0.0 * out["aux_loss"]).backward()
+    finally:
+        bench.activate_temp_buffers(False)
+    model.zero_grad(set_to_none=True)
+    buf = {n: b.detach() for n, b in buf.items()}
+    # the train-mode grouped top-k on the card against the CPU on the same estimates
+    probs = buf["masked_estimated_attention_probs"]
+    cpu_mask = topk_mask(
+        probs.cpu(), torch.ones((probs.shape[0], 1, probs.shape[2], 1), dtype=torch.bool),
+        buf["per_item_top_k"].cpu(), "causal_batch", False, fp_min_for(probs.dtype),
+    )
+    bad = int((cpu_mask != buf["partial_attention_mask_before_interp"].cpu()).sum())
+    log(f"[train] layer-0 train-mode top-k mask, card vs CPU on the same estimates: "
+        f"{bad} mismatches of {cpu_mask.numel()}")
+    require(bad == 0, "train-mode top-k masks differ between the card and the CPU")
+    mask = (buf["partial_attention_mask_before_interp"] > -1.0).float()
+    sc = torch.sigmoid(buf["estimated_scales"][..., 0])
+    return buf["q"], buf["k"], buf["v"], mask, sc, grads[0], buf["fused_attention_output"]
+
+
+def check_layer0(label, q, k, v, mask, sc, do, step_o):
+    """K2, K3 and K4, and the whole FusedSparseAttention, against their plain
+    versions on layer 0's captured inputs; K2 must also reproduce the step's
+    own output bit for bit. Returns {kernel: max|err|}."""
+    density = float(bs.mask_nnz(mask, q.shape[2], True)) / (q.shape[0] * H * q.shape[2] * (q.shape[2] + 1) / 2)
+    log(f"[train] layer-0 kernel inputs {tuple(q.shape)}, element-mask density {density:.4f} "
+        f"of the causal triangle, |dO| max {float(do.abs().max()):.3g}")
+    errs = check_train_kernels(label, q, k, v, mask, sc, do)
+    o, _ = bs.causal_fwd_stats(diff_operands(q, k, v, mask, sc))
+    require(torch.equal(o, step_o), f"{label}: K2 on the captured inputs differs from the step's output")
+    check_fused_backward(label, q, k, v, mask, sc, do)
+    return errs
+
+
+def phase_train():
+    dev = "cuda"
+    (t_a, steps_a), (t_b, steps_b) = TRAIN_REQUESTS
+    model = longctx_model(t_a, 12, dev)
+    g = torch.Generator().manual_seed(12)
+    ids_a = torch.randint(4, model.cfg.vocab_size, (1, t_a), generator=g).to(dev)
+    ids_b = torch.randint(4, model.cfg.vocab_size, (1, t_b), generator=g).to(dev)
+
+    # request A, the main path: 3 steps on 1 x 2048
+    losses, _, launches_a, _ = run_train(model, ids_a, steps_a, f"1x{t_a}")
+    require(losses[-1] < losses[0], f"the loss did not fall over {steps_a} steps: {losses}")
+
+    # layer 0 of one more step, held against the plain versions
+    captured = capture_layer0(model, ids_a)
+    errs_a = check_layer0(f"layer-0 1x{t_a}", *captured)
+    measured = measure_train(*captured[:6])
+    log_times(f"layer-0 1x{t_a}", measured)
+    del captured
+
+    optimizer = make_optimizer(model, TRAIN_LR)
+    am = torch.ones_like(ids_a)
+    breakdown(f"train step (1, {t_a})", lambda: train_step(model, optimizer, ids_a, am))
+    dense_cfg = dataclasses.replace(model.cfg, attention_method="none")
+    del model, optimizer
+    torch.cuda.empty_cache()
+
+    # the yardstick: the dense OPT-125m train step on the same batch
+    dense = OptForCausalLM(dense_cfg, device=dev, seed=0)
+    run_train(dense, ids_a, steps_a, f"dense 1x{t_a}")
+    del dense
+    torch.cuda.empty_cache()
+
+    # request B: 2 steps on 1 x 8192, longctx_train_step.py's default length,
+    # then layer 0 of one more step against the plain versions (the model is
+    # freed first: the dense plain versions hold several 3.2 GB score tensors)
+    model_b = longctx_model(t_b, 12, dev)
+    _, _, launches_b, _ = run_train(model_b, ids_b, steps_b, f"1x{t_b}")
+    captured = capture_layer0(model_b, ids_b)
+    del model_b
+    torch.cuda.empty_cache()
+    errs_b = check_layer0(f"layer-0 1x{t_b}", *captured)
+    del captured
+    torch.cuda.empty_cache()
+    launches = {kid: launches_a[kid] + launches_b[kid] for kid in TRAIN_KERNELS}
+    errs = {kid: max(errs_a[kid], errs_b[kid]) for kid in TRAIN_KERNELS}
+    return launches, errs, measured
 
 
 def main():
@@ -447,6 +818,25 @@ def main():
         "bound_by": m["bound_by"],
         "library_ms": m["library_ms"],
     }]
+
+    phase_train_kernels()
+    train_launches, train_errs, train_m = phase_train()
+    for kid, (_, name, source, replaces, _) in TRAIN_KERNELS.items():
+        t = train_m[kid]
+        require(train_launches[kid] > 0, f"the training path never launched {kid}")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": train_launches[kid],
+            "max_abs_err": train_errs[kid],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

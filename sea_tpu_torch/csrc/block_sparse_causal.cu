@@ -1,8 +1,15 @@
-// Causal fused block-sparse SEA attention for Hopper (sm_90a).
+// Causal fused block-sparse SEA attention for Hopper (sm_90a): the forward
+// kernel and its forward-with-stats variant.
 //
-// Replaces the TPU kernel `_causal_kernel_flat` in
-// sea_tpu/ops/kernels/block_sparse.py (impl "flat"). For every
-// (batch·head, query row r) it computes
+// Replaces two TPU kernels of sea_tpu/ops/kernels/block_sparse.py:
+//   * `_causal_kernel_flat` (impl "flat", the benchmark path), entry point
+//     `sea_causal_flat_forward`;
+//   * `_causal_kernel_fwd_stats` (the forward of the differentiable
+//     `fused_sparse_attention`), entry point `sea_causal_fwd_stats`: the same
+//     kernel body instantiated with STATS = true, without the undersampling
+//     predicate, and writing the per-row logsumexp (+inf on rows with no
+//     alive column) that the backward kernels (block_sparse_diff.cu) read.
+// For every (batch·head, query row r) it computes
 //
 //     out[r] = scaler[r] · softmax over alive s of (q_r · k_s) · v_s
 //
@@ -36,55 +43,26 @@
 // predicate (PERF.md; no hardware counters were read). Gathering alive
 // columns, wgmma and TMA are later work.
 //
-// The pixel index. nvcc contracts a·b + c into one FMA by default, which can
-// move a pixel at a run boundary; the predicate therefore pins every
-// rounding with __fadd_rn / __fdiv_rn / __fmul_rn / __fsub_rn and lives in
-// one function, `alive_elem`, which the debug kernel `alive_mask_kernel`
-// calls too so that the card can check it bit for bit against the oracle.
+// The element predicate lives in sea_mask.cuh (`alive_elem`), shared with the
+// backward kernels and with the debug kernel `alive_mask_kernel`, which lets
+// the card check it bit for bit against the oracle.
 
-#include <cuda_runtime.h>
-#include <cuda_bf16.h>
-#include <stdint.h>
-
-#include <atomic>
+#include "sea_mask.cuh"
 
 namespace {
 
-constexpr int BQ = 64;       // query rows per block
-constexpr int BKT = 64;      // key columns per sub-tile
+using sea::alive_elem;
+using sea::bad_geometry;
+using sea::keep_elem;
+using sea::load_f;
+using sea::store_f;
+using sea::MAX_DEVICES;
+using sea::MAX_WORDS;
+
+constexpr int BQ = sea::TILE;   // query rows per block
+constexpr int BKT = sea::TILE;  // key columns per sub-tile
 constexpr int TPB = 256;     // 16 row groups x 16 column lanes
-constexpr int MAX_WORDS = 16;
-constexpr int MAX_DEVICES = 64;
 constexpr float M_INIT = -1.0e30f;  // running-max floor: exp(-inf - m) == 0
-
-__device__ __forceinline__ float load_f(const float* p, long i) { return p[i]; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, long i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, long i, float x) { p[i] = x; }
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, long i, float x) {
-  p[i] = __float2bfloat16(x);
-}
-
-// Column s of global row r alive under the compressed mask words of row r.
-__device__ __forceinline__ bool alive_elem(const uint32_t* words, int s, int r,
-                                           int t_m) {
-  if (s > r) return false;
-  const float w = (float)(r + 1);
-  const float u = __fsub_rn(
-      __fmul_rn(__fdiv_rn(__fadd_rn((float)s, 0.5f), w), (float)t_m), 1e-4f);
-  int pix = (int)floorf(u);
-  pix = pix < 0 ? 0 : pix;
-  if (pix >= t_m) return false;
-  return (words[pix >> 5] >> (pix & 31)) & 1u;
-}
-
-// The undersampling keep-predicate, in the oracle's expression order.
-__device__ __forceinline__ bool keep_elem(int s, float w, float ps, float thr) {
-  const float frac = __fmul_rn(__fdiv_rn((float)(s + 1), w), ps);
-  const float d = fabsf(__fsub_rn(frac, floorf(__fadd_rn(frac, 0.5f))));
-  return d <= thr;
-}
 
 template <int D>
 struct Smem {
@@ -96,14 +74,17 @@ struct Smem {
   static constexpr int bytes = (Q + KP + V) * 4 + BQ * MAX_WORDS * 4;
 };
 
-template <int D, typename T>
+// STATS: the forward of the differentiable path. The undersampling predicate
+// is off and `lse` receives each row's logsumexp.
+template <int D, typename T, bool STATS>
 __global__ void __launch_bounds__(TPB) causal_flat_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint32_t* __restrict__ mbits, const float* __restrict__ scaler,
     const int* __restrict__ counts, const int* __restrict__ idx,
-    const int* __restrict__ rowbase, T* __restrict__ out, int t_dst, int t_src,
-    int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
-    float oversample, float k_cfg, float keep_lo, float keep_hi) {
+    const int* __restrict__ rowbase, T* __restrict__ out,
+    float* __restrict__ lse, int t_dst, int t_src, int t_m, int n_words,
+    int block_q, int block_k, int nq, int nkb, float oversample, float k_cfg,
+    float keep_lo, float keep_hi) {
   using S = Smem<D>;
   constexpr int DP = S::DP;
   constexpr int PP = BKT + 1;
@@ -137,7 +118,7 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
     const float oys = __fdiv_rn(fminf(fmaxf(w, keep_lo), keep_hi), k_cfg);
     thr[i] = __fadd_rn(__fmul_rn(__fdiv_rn(1.0f, oys), 0.5f), 1e-4f);
   }
-  const bool undersample = oversample != 1.0f;
+  const bool undersample = !STATS && oversample != 1.0f;
   const float dead = __uint_as_float(0xff800000u);  // -inf
 
   const int cnt = counts[bh * nq + qb];
@@ -243,6 +224,11 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
 #pragma unroll
     for (int jj = 0; jj < DPT; ++jj)
       store_f(out, o + tx + 16 * jj, acc[i][jj] / safe_l * sc);
+    // logsumexp; +inf for rows with no alive column, so that the backward's
+    // exp(s - lse) is 0 there (m and l are equal across the 16 lanes)
+    if (STATS && tx == 0)
+      lse[(long)bh * t_dst + row0 + rl] =
+          l > 0.f ? m_i[i] + logf(l) : __uint_as_float(0x7f800000u);
   }
 }
 
@@ -257,33 +243,25 @@ __global__ void alive_mask_kernel(const uint32_t* __restrict__ mbits,
     row[s] = alive_elem(words, s, r, t_m) ? 1 : 0;
 }
 
-template <int D, typename T>
+template <int D, typename T, bool STATS>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mbits, const void* scaler, const void* counts,
-                   const void* idx, const void* rowbase, void* out, int nh,
-                   int t_dst, int t_src, int t_m, int n_words, int block_q,
-                   int block_k, int nq, int nkb, float oversample, float k_cfg,
-                   float keep_lo, float keep_hi, cudaStream_t stream) {
+                   const void* idx, const void* rowbase, void* out, void* lse,
+                   int nh, int t_dst, int t_src, int t_m, int n_words,
+                   int block_q, int block_k, int nq, int nkb, float oversample,
+                   float k_cfg, float keep_lo, float keep_hi,
+                   cudaStream_t stream) {
   constexpr int bytes = Smem<D>::bytes;
-  // above 48 KB only with the opt-in, which holds per device: set it at a
-  // device's first launch (setting it twice from racing threads is harmless)
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  cudaError_t e =
+      sea::opt_in_smem(causal_flat_kernel<D, T, STATS>, bytes, opted_in);
   if (e != cudaSuccess) return e;
-  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
-  if (!opted_in[dev].load(std::memory_order_relaxed)) {
-    e = cudaFuncSetAttribute(causal_flat_kernel<D, T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (e != cudaSuccess) return e;
-    opted_in[dev].store(true, std::memory_order_relaxed);
-  }
   dim3 grid(t_dst / BQ, nh);
-  causal_flat_kernel<D, T><<<grid, TPB, bytes, stream>>>(
+  causal_flat_kernel<D, T, STATS><<<grid, TPB, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint32_t*)mbits,
       (const float*)scaler, (const int*)counts, (const int*)idx,
-      (const int*)rowbase, (T*)out, t_dst, t_src, t_m, n_words, block_q,
-      block_k, nq, nkb, oversample, k_cfg, keep_lo, keep_hi);
+      (const int*)rowbase, (T*)out, (float*)lse, t_dst, t_src, t_m, n_words,
+      block_q, block_k, nq, nkb, oversample, k_cfg, keep_lo, keep_hi);
   return cudaGetLastError();
 }
 
@@ -296,21 +274,35 @@ extern "C" int sea_causal_flat_forward(
     int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
     int nkb, float oversample, float k_cfg, float keep_lo, float keep_hi,
     int is_bf16, void* stream) {
-  // head_dim 64: every OPT size the repository runs but 2.7b (80)
-  if (head_dim != 64 || n_words > MAX_WORDS || t_dst % BQ != 0 ||
-      block_q % BQ != 0 || block_k % BKT != 0)
+  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e =
-      is_bf16 ? launch<64, __nv_bfloat16>(q, k, v, mbits, scaler, counts, idx,
-                                          rowbase, out, nh, t_dst, t_src, t_m,
-                                          n_words, block_q, block_k, nq, nkb,
-                                          oversample, k_cfg, keep_lo, keep_hi, s)
-              : launch<64, float>(q, k, v, mbits, scaler, counts, idx, rowbase,
-                                  out, nh, t_dst, t_src, t_m, n_words, block_q,
-                                  block_k, nq, nkb, oversample, k_cfg, keep_lo,
-                                  keep_hi, s);
+      is_bf16 ? launch<64, __nv_bfloat16, false>(
+                    q, k, v, mbits, scaler, counts, idx, rowbase, out, nullptr,
+                    nh, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb,
+                    oversample, k_cfg, keep_lo, keep_hi, s)
+              : launch<64, float, false>(
+                    q, k, v, mbits, scaler, counts, idx, rowbase, out, nullptr,
+                    nh, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb,
+                    oversample, k_cfg, keep_lo, keep_hi, s);
   return (int)e;
+}
+
+// The forward of the differentiable path: float32 in and out, lse (nh, t_dst)
+// float32.
+extern "C" int sea_causal_fwd_stats(
+    const void* q, const void* k, const void* v, const void* mbits,
+    const void* scaler, const void* counts, const void* idx,
+    const void* rowbase, void* out, void* lse, int nh, int t_dst, int t_src,
+    int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
+    int nkb, void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<64, float, true>(
+      q, k, v, mbits, scaler, counts, idx, rowbase, out, lse, nh, t_dst, t_src,
+      t_m, n_words, block_q, block_k, nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f,
+      (cudaStream_t)stream);
 }
 
 extern "C" int sea_alive_mask(const void* mbits, void* out, int nh, int t_dst,

@@ -1,6 +1,6 @@
 """SEA attention core (PyTorch port): estimator -> top-k mask -> sparse attention.
 
-Port of the causal benchmark path of `sea_tpu/models/attention.py`
+Port of the causal fused paths of `sea_tpu/models/attention.py`
 (`SeaAttention`), stage for stage, with the same profiler region and buffer
 names:
 
@@ -13,12 +13,24 @@ names:
   7-8 "attention.fused"  the fused causal sparse kernel
   9 "attention.avg_pool" mix with the running-average context, per-query gate
 
+Two paths run stage 7-8:
+
+  * the benchmark path (`benchmarking=True`): the forward kernel
+    (`sea_block_sparse_attention`) on the binary top-k mask;
+  * task-only training (`benchmarking=False` with `cfg.use_fused_train`, no
+    KD truths, `k_oversample == 1`): the differentiable fused kernel
+    (`fused_sparse_attention`) on the additive train-mode mask. Gradients
+    reach the estimator only through the gate head (`dec_scaler`) and the
+    average-context mix; `dec_row` and the CNN get none, because top-k is a
+    selection. This path also takes the thin (N, 1, T, 1) causal mask that
+    `OptModel.embed` builds for it.
+
 Not ported yet, and refused with NotImplementedError rather than routed
 elsewhere: the dense differentiable train path and its KD losses
-(`benchmarking=False`), the non-causal (BERT) module, the uniform-CSR path
-(`use_pallas=False`), the cosformer backend, the 'comp' predictor,
-`enc_per_layer`, LoRA, the differentiable fused train path and the decode
-cache.
+(`benchmarking=False` without `use_fused_train`), the non-causal (BERT)
+module, the uniform-CSR path (`use_pallas=False`), the cosformer backend,
+the 'comp' predictor, `enc_per_layer`, LoRA, the sequence-sharded and ring
+train kernels, and the decode cache.
 """
 
 from __future__ import annotations
@@ -30,7 +42,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SeaConfig
-from ..ops.kernels.block_sparse import sea_block_sparse_attention
+from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
 from ..ops.masks import fp_min_for, per_item_top_k, topk_mask
 from ..ops.performer import fast_attention, gaussian_orthogonal_random_matrix
 from ..utils.profiler import get_bench
@@ -212,16 +224,26 @@ class SeaAttention(nn.Module):
         training: bool = False,
     ) -> SeaAttentionOutput:
         cfg = self.cfg
-        if not benchmarking:
+        truths = (
+            attention_scores_truth is not None
+            or context_layer_truth is not None
+            or (cfg.kd_self_teacher and training)
+        )
+        # task-only training through the differentiable fused kernel
+        use_fused_train = (
+            not benchmarking
+            and cfg.use_fused_train
+            and cfg.use_pallas
+            and not truths
+            and cfg.k_oversample == 1.0
+        )
+        if not (benchmarking or use_fused_train):
             raise NotImplementedError(
-                "the dense train path (benchmarking=False) is not ported yet"
+                "the dense train path (benchmarking=False without "
+                "use_fused_train) is not ported yet"
             )
         if not cfg.use_pallas:
             raise NotImplementedError("the uniform-CSR path is not ported")
-        if attention_mask.shape[-1] == 1:
-            raise NotImplementedError(
-                "the thin causal mask belongs to the fused train path, not ported yet"
-            )
         bench = get_bench()
         N, H, T, D = q.shape
         assert H == cfg.num_heads and D == cfg.head_dim, (
@@ -231,11 +253,21 @@ class SeaAttention(nn.Module):
         T_M = cfg.predictor_length
         FP_MIN = fp_min_for(q.dtype)
 
-        # --- mask plumbing: (N, 1, T, T) additive causal mask ---------------
-        causal_attention_mask = attention_mask
-        T_DST, T_SRC = causal_attention_mask.shape[-2:]
-        attention_mask = causal_attention_mask[:, :, :, :1].transpose(-1, -2)
-        dst_attention_mask = causal_attention_mask[:, :, :, :1]
+        # --- mask plumbing: the (N, 1, T, T) additive causal mask, or its thin
+        # (N, 1, T, 1) dst column; every consumer below reads only the dst and
+        # src padding slices, and the kernels derive causality themselves ----
+        if attention_mask.shape[-1] == 1:
+            if not cfg.use_fused_train or truths or cfg.kd_self_teacher:
+                raise ValueError(
+                    "the thin causal mask requires the fused-train path (no KD loss)"
+                )
+            T_DST = T_SRC = attention_mask.shape[-2]
+            dst_attention_mask = attention_mask
+            attention_mask = attention_mask.transpose(-1, -2)
+        else:
+            T_DST, T_SRC = attention_mask.shape[-2:]
+            dst_attention_mask = attention_mask[:, :, :, :1]
+            attention_mask = dst_attention_mask.transpose(-1, -2)
         zero_one_attention_mask = (attention_mask > -1).float()
         dst_alive = dst_attention_mask > -1  # (N, 1, T_DST, 1)
 
@@ -320,12 +352,13 @@ class SeaAttention(nn.Module):
                 causal=True,
             )
             bench.register_temp_buffer("per_item_top_k", budget)
+            # binary {0, 1} on the benchmark path, additive {0, FP_MIN} in train
             partial_attention_mask_m = topk_mask(
                 masked_estimated_attention_probs,
                 dst_alive,
                 budget,
                 cfg.k_flatten_dim,
-                True,
+                benchmarking,
                 FP_MIN,
             )
         bench.register_temp_buffer(
@@ -342,18 +375,29 @@ class SeaAttention(nn.Module):
                 if cfg.partial_attention_scaler
                 else None
             )
-            mask_bin = (partial_attention_mask_m > 0).to(q.dtype)
-            partial_context_layer = sea_block_sparse_attention(
-                q_for_score,
-                k_for_score,
-                v,
-                mask_bin,
-                row_scaler,
-                is_causal=True,
-                block_q=cfg.block_q,
-                oversample=cfg.k_oversample,
-                k_cfg=float(cfg.effective_k),
-            )
+            if benchmarking:
+                mask_bin = (partial_attention_mask_m > 0).to(q.dtype)
+                partial_context_layer = sea_block_sparse_attention(
+                    q_for_score,
+                    k_for_score,
+                    v,
+                    mask_bin,
+                    row_scaler,
+                    is_causal=True,
+                    block_q=cfg.block_q,
+                    oversample=cfg.k_oversample,
+                    k_cfg=float(cfg.effective_k),
+                )
+            else:
+                mask_bin = (partial_attention_mask_m > -1.0).to(q.dtype)
+                if row_scaler is None:
+                    row_scaler = torch.ones((N, H, T_DST), dtype=q.dtype, device=q.device)
+                partial_context_layer = fused_sparse_attention(
+                    q_for_score, k_for_score, v, mask_bin, row_scaler,
+                    block_q=cfg.block_q,
+                )
+            # the kernel's output, whose gradient is the backward kernels' dO
+            bench.register_temp_buffer("fused_attention_output", partial_context_layer)
         with bench.region("attention.avg_pool"):
             avg_v = v * dst_alive.to(v.dtype)
             denom = torch.arange(

@@ -1,15 +1,19 @@
 """OPT decoder with switchable attention (PyTorch port of `sea_tpu/models/opt.py`).
 
 `attention_method` selects the self-attention of every layer:
-  * 'perlin' — the SEA student (`SeaAttention`), forward on the fused
-    benchmark path (`benchmarking=True`);
+  * 'perlin' — the SEA student (`SeaAttention`): forward on the fused
+    benchmark path (`benchmarking=True`), or task-only training through the
+    differentiable fused kernel (`benchmarking=False` with
+    `sea.use_fused_train`; `embed` then builds the thin causal mask);
   * 'none'   — dense causal softmax attention, the in-repo yardstick.
 
+`OptForCausalLM.forward(..., labels=ids, training=True)` returns the
+next-token cross entropy as `loss` beside `aux_loss`, as the JAX model does.
 Model dims follow facebook/opt-125m. The JAX package's `scan_layers`,
 `scan_benchmarking`, `scan_remat` and `external_layers` fields steer its
 compiler; the port has no such fields and runs a plain layer loop. Not
-ported yet: the other attention methods, KD captures, decode, and bfloat16
-compute.
+ported yet: the other attention methods, KD captures, decode, the chunked
+cross entropy, and bfloat16 compute.
 """
 
 from __future__ import annotations
@@ -182,6 +186,17 @@ class OptModel(nn.Module):
         h = self.embed_tokens(input_ids)
         positions = torch.cumsum(attention_mask_1d, dim=1) * attention_mask_1d - 1
         h = h + self.embed_positions((positions + 2).long())
+        if self.cfg.attention_method == "perlin" and self.cfg.sea.use_fused_train:
+            # the thin (N, 1, T, 1) dst-column mask: the fused kernels derive
+            # causality themselves, and the (T, T) additive mask would cost
+            # T² memory for nothing
+            fpmin = fp_min_for(h.dtype)
+            thin = torch.where(
+                attention_mask_1d[:, None, :, None] > 0,
+                torch.zeros((), dtype=h.dtype, device=h.device),
+                torch.full((), fpmin, dtype=h.dtype, device=h.device),
+            )
+            return h, thin
         return h, build_causal_mask(attention_mask_1d, T, h.dtype)
 
     def finalize(self, h: torch.Tensor) -> torch.Tensor:

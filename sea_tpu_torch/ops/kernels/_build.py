@@ -3,8 +3,9 @@
 Each `csrc/<name>.cu` becomes one shared library with a plain C interface,
 bound with `ctypes` (no PyTorch headers, so a build takes seconds). The
 libraries go to `sea_tpu_torch/_build/`, which git ignores; a library's file
-name carries a hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is reused. `build_all` starts one nvcc per source, all
+name carries a hash of its source, of the shared headers (`csrc/*.cuh`) and
+of the flags, so an edited source or header is rebuilt and an unchanged one
+is reused. `build_all` starts one nvcc per source, all
 at once, and waits for them together.
 """
 
@@ -53,9 +54,13 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """The library's path: its name carries a hash of the source, of every
+    header in `csrc/` (any of them may be included) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, str]:
