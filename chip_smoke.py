@@ -40,7 +40,25 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 request, are held against the plain versions; ms/step,
                 tokens/s and peak memory beside the
                 dense OPT-125m train step at 1 x 2048;
-  7. result   — one JSON line of per-kernel numbers, then the device line.
+  7. bidir-mask — the padded bidirectional kernel's (K5) element predicate
+                against the lengths-aware oracle, bit for bit, for T = 128,
+                512 and 2048 with example lengths 1, 77, 128, 255, 383 and T;
+  8. bidir-kernel — K5 against its plain version at T = 256, 512, 1024,
+                2048 and 200 (padded inside the wrapper), ragged lengths,
+                BERT-base heads (H=12, D=64, T_M=128, k=64, the non-causal
+                top-k budget), float32 and bfloat16, plus edge cases (empty
+                rows, lengths 0 and 1); times of K5, the plain version and
+                PyTorch's SDPA (dense, non-causal, boolean key-padding mask);
+  9. bert     — the BERT-base SEA forward to classification logits, full
+                width and depth, seeded random weights, on two right-padded
+                batches: 32 x 256 (the GLUE trainer's MRPC batch and
+                max_length) and 8 x 512 (BERT's most positions). K5 must run
+                12 times per forward and K1-K4 never; the logits must be
+                finite; layer 0's kernel inputs, captured from the run, are
+                held against the plain version and must reproduce the run's
+                own kernel output; ms/forward, tokens/s and peak memory
+                beside the dense BERT-base;
+ 10. result   — one JSON line of per-kernel numbers, then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -55,6 +73,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import math
 import statistics
 import subprocess
 import time
@@ -63,6 +82,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
 from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
@@ -91,6 +111,11 @@ TRAIN_KERNELS = {
 TRAIN_LR = 1e-5  # longctx_train_step.py's AdamW rate
 CHECK_TS = (1024, 2048, 4096)  # train-kernel checks; blocks compared at the second
 TRAIN_REQUESTS = ((2048, 3), (8192, 2))  # (tokens, AdamW steps): requests A and B
+BIDIR_T_M = 128  # bert_config's predictor length
+BIDIR_REPLACES = "sea_tpu/ops/kernels/block_sparse.py:839"  # _kernel
+# (batch, T, least and most length): the GLUE trainer's MRPC batch at its
+# max_length, then BERT's most positions
+BERT_REQUESTS = ((32, 256, 32, 256), (8, 512, 128, 512))
 
 
 def log(*a):
@@ -150,6 +175,7 @@ def max_err(a, b) -> float:
 def reset_launches():
     """Set every kernel wrapper's launch count to 0."""
     bs.sea_block_sparse_attention.launches = 0
+    bs.bidir_forward.launches = 0
     bs.alive_mask.launches = 0
     for wrapper, *_ in TRAIN_KERNELS.values():
         wrapper.launches = 0
@@ -157,7 +183,8 @@ def reset_launches():
 
 def launch_counts() -> dict:
     return {"K1": bs.sea_block_sparse_attention.launches,
-            **{kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS}}
+            **{kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS},
+            "K5": bs.bidir_forward.launches}
 
 
 def check_grad(name, got, want) -> float:
@@ -335,7 +362,7 @@ def phase_kernel():
     require(err <= F32_TOL, f"row_base: err {err}")
 
 
-def forward_ms(model, ids, am, iters=7):
+def forward_ms(model, *inputs, iters=7):
     """Median host ms of one forward ending in a synchronise, after one
     warm-up forward; also the last logits."""
     times = []
@@ -343,7 +370,7 @@ def forward_ms(model, ids, am, iters=7):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.inference_mode():
-            out = model(ids, am, benchmarking=True)["logits"]
+            out = model(*inputs, benchmarking=True)["logits"]
         torch.cuda.synchronize()
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
@@ -378,9 +405,8 @@ def phase_slice():
         per_forward.append(bs.sea_block_sparse_attention.launches - before)
     torch.cuda.synchronize()
     launches = bs.sea_block_sparse_attention.launches
-    train_launches = {kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS}
-    require(not any(train_launches.values()),
-            f"the serving path launched train kernels: {train_launches}")
+    others = {kid: n for kid, n in launch_counts().items() if kid != "K1"}
+    require(not any(others.values()), f"the serving path launched other kernels: {others}")
     for ids, logits, n in zip(requests, outs, per_forward):
         finite = bool(torch.isfinite(logits).all())
         log(f"[slice] request {tuple(ids.shape)}: logits {tuple(logits.shape)} "
@@ -447,7 +473,7 @@ def phase_slice():
 def breakdown(label, run):
     """Where the time of `run()` (one forward, or one train step) goes: the
     SEA attention's forward stages by host region with a device synchronise
-    at each region's end, then the device kernels by self time from
+    at each region's start and end, then the device kernels by self time from
     torch.profiler, and the device's busy share."""
     bench = get_bench()
     bench.reset()
@@ -685,7 +711,7 @@ def run_train(model, ids, steps, label):
 
     losses = train_steps(model, ids, torch.ones_like(ids), steps, lr=TRAIN_LR, callback=on_step)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"K1": 0, **{kid: n_layers if sparse else 0 for kid in TRAIN_KERNELS}}
+    want = {"K1": 0, **{kid: n_layers if sparse else 0 for kid in TRAIN_KERNELS}, "K5": 0}
     for i, (loss, n) in enumerate(zip(losses, per_step)):
         require(np.isfinite(loss), f"{label} step {i + 1}: loss {loss}")
         require(n == want, f"{label} step {i + 1}: launches {n}, want {want}")
@@ -790,6 +816,281 @@ def phase_train():
     return launches, errs, measured
 
 
+# ---------------------------------------------------------------------------
+# The padded bidirectional path: K5 and the BERT-base SEA forward
+# ---------------------------------------------------------------------------
+
+
+def bidir_mask(lengths, T, seed, device):
+    """(N, H, T, T_M=128) compressed mask of right-padded examples with the
+    non-causal budget of `per_item_top_k` (round(H·k·T_M/len), clipped to
+    [1, H·T_M], the same for every row of an example), spread at random over
+    each token row's H·T_M pixels; padded rows keep nothing, as the BERT
+    path's top-k gives them."""
+    rng = np.random.default_rng(seed)
+    width = H * BIDIR_T_M
+    flat = np.zeros((len(lengths), T, width), np.float32)
+    for n, length in enumerate(lengths):
+        if length == 0:
+            continue
+        budget = min(max(round(H * K * BIDIR_T_M / length), 1), width)
+        order = np.argsort(rng.random((length, width)), axis=-1)[:, :budget]
+        np.put_along_axis(flat[n, :length], order, 1.0, axis=-1)
+    m = np.transpose(flat.reshape(len(lengths), T, H, BIDIR_T_M), (0, 2, 1, 3)).copy()
+    return torch.from_numpy(m).to(device)
+
+
+def key_padding(lengths: torch.Tensor, T: int) -> torch.Tensor:
+    """(N, T) bool, True on each example's tokens."""
+    return torch.arange(T, device=lengths.device)[None, :] < lengths[:, None]
+
+
+def bidir_bound(ops: bs.KernelOperands, mask_m: torch.Tensor, lengths: torch.Tensor):
+    """Least time the card needs for one K5 launch's function: the larger of
+    4·D FLOPs per alive element (q·k and p·v; the count is this mask's
+    element nnz at each example's width) at the peak for the input type,
+    and the bytes at the HBM rate: q, the mask bits, the scaler and the
+    lengths read once and the output written once at the padded size, and
+    k and v read once at each example's own length (no key column past it
+    is alive, so the function never needs it). The tile lists are the
+    kernel's own device and are not counted."""
+    N, Hh, T, Dd = ops.shape
+    flops = 4 * Dd * int(bs.mask_nnz(mask_m, ops.k.shape[1], False, lengths=lengths))
+    es = ops.q.element_size()
+    kv_rows = int(ops.lengths.clamp(max=ops.k.shape[1]).sum())  # over the N·H rows
+    nbytes = (2 * ops.q.numel() * es  # q; out
+              + 2 * kv_rows * Dd * es  # k, v
+              + ops.mbits.numel() * 4 + ops.scaler.numel() * 4 + ops.lengths.numel() * 4)
+    t_ops = flops / PEAK_FLOPS[ops.q.dtype]
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
+
+
+def measure_bidir(q, k, v, mask, sc, lengths):
+    """K5-only, wrapper, plain and SDPA times for one call's inputs (q is
+    pre-divided by sqrt(D), so SDPA runs with scale 1)."""
+    kw = dict(is_causal=False, lengths=lengths)
+    x = bs.prepare_inputs(q, k, v, mask, sc, **kw)
+    ops = bs.kernel_operands(x)
+    keep = key_padding(lengths, k.shape[2])[:, None, None, :]
+    out = dict(
+        ms=time_ms(lambda: bs.bidir_forward(ops)),
+        wrapper_ms=time_ms(lambda: bs.sea_block_sparse_attention(q, k, v, mask, sc, **kw)),
+        plain_ms=time_ms(lambda: bs.dense_reference(q, k, v, mask, sc.to(q.dtype), **kw),
+                         iters=5, warmup=1),
+        library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=keep, scale=1.0)),
+    )
+    out["bound_ms"], out["bound_by"], out["flops"], out["bytes"] = bidir_bound(
+        ops, x.mask_m, lengths)
+    return out
+
+
+def check_bidir(label, q, k, v, mask, sc, lengths, timed=False):
+    """K5 against its plain version in float32 on the same (rounded)
+    inputs, within `tolerance`; returns (max|err|, K5's output)."""
+    kw = dict(is_causal=False, lengths=lengths)
+    got = bs.sea_block_sparse_attention(q, k, v, mask, sc, **kw)
+    want = bs.dense_reference(q.float(), k.float(), v.float(), mask,
+                              sc.to(q.dtype).float(), **kw)
+    diff = (got.float() - want).abs()
+    err = float(diff.max())
+    over = float((diff - tolerance(want, q.dtype)).max())
+    text = f"[bidir-kernel] {label}: max|err|={err:.3g} (margin to tol {-over:.3g})"
+    if timed:
+        m = measure_bidir(q, k, v, mask, sc, lengths)
+        text += (f"; K5 {m['ms']:.4f} ms (with prep {m['wrapper_ms']:.4f}), plain "
+                 f"{m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
+                 f"{m['bound_ms']:.4f} ms by {m['bound_by']} ({m['flops'] / 1e9:.4f} GFLOP, "
+                 f"{m['bytes'] / 1e6:.2f} MB)")
+    log(text)
+    require(over <= 0, f"K5 vs plain, {label}: {err}")
+    return err, got
+
+
+def bidir_lengths(T, seed):
+    """Four ragged right-padded lengths in [1, T], the first T."""
+    rng = np.random.default_rng(seed)
+    return [T, *(int(x) for x in rng.integers(1, T + 1, 3))]
+
+
+def phase_bidir_mask():
+    dev = "cuda"
+    g = torch.Generator().manual_seed(2)
+    pix = torch.arange(BIDIR_T_M)
+    for T in (128, 512, 2048):
+        lengths = torch.tensor([n for n in dict.fromkeys((1, 77, 128, 255, 383, T)) if n <= T],
+                               dtype=torch.int32, device=dev)
+        shape = (lengths.numel(), 2, T, BIDIR_T_M)
+        masks = {
+            "even": (pix % 2 == 0).float().expand(shape),
+            "odd": (pix % 2 == 1).float().expand(shape),
+            "random": (torch.rand(shape, generator=g) < 0.3).float(),
+        }
+        for name, m in masks.items():
+            m = m.contiguous().to(dev)
+            got = bs.alive_mask(m, T, is_causal=False, lengths=lengths)
+            want = bs.element_mask_int8(m, T, False, lengths=lengths)
+            torch.cuda.synchronize()
+            bad = int((got != want).sum())
+            log(f"[bidir-mask] T={T} lengths {lengths.tolist()} {name}: {bad} mismatches "
+                f"of {want.numel()} elements")
+            require(bad == 0, f"K5's predicate != the oracle at T={T} ({name})")
+
+
+def phase_bidir_kernel():
+    dev = "cuda"
+    errs = []
+    for T in (256, 512, 1024, 2048, 200):
+        lengths = bidir_lengths(T, seed=T)
+        mask = bidir_mask(lengths, T, seed=T, device=dev)
+        lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, sc = qkv(len(lengths), T, dtype, seed=T, device=dev)
+            err, got = check_bidir(f"T={T} lengths {lengths} {str(dtype)[6:]}",
+                                   q / math.sqrt(D), k, v, mask, sc, lt, timed=True)
+            require(got.shape[2] == T, f"T={T}: output rows {got.shape[2]}")
+            errs.append(err)
+
+    # edge cases, float32: empty rows, and examples of 0 and 1 tokens
+    T = 512
+    lengths = [T, 300, 1, 0]
+    lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    mask = bidir_mask(lengths, T, seed=3, device=dev)
+    mask[0, :, 100:164] = 0.0
+    q, k, v, sc = qkv(len(lengths), T, torch.float32, seed=3, device=dev)
+    err, got = check_bidir(f"T={T} lengths {lengths}, example 0 rows 100-163 empty",
+                           q / math.sqrt(D), k, v, mask, sc, lt)
+    zero = max(float(got[0, :, 100:164].abs().max()), float(got[3].abs().max()),
+               float(got[2, :, 1:].abs().max()), float(got[1, :, 300:].abs().max()))
+    log(f"[bidir-kernel] |out| on empty and padded rows: {zero}; all finite "
+        f"{bool(torch.isfinite(got).all())}")
+    require(zero == 0.0 and bool(torch.isfinite(got).all()), f"empty rows: |out| {zero}")
+    errs.append(err)
+    return max(errs)
+
+
+def bert_batch(n, T, lo, hi, seed, vocab, device):
+    """Right-padded token ids (0 on the padding), the 1-D attention mask and
+    sentence-pair token types (1 from the middle of each example), with
+    lengths uniform in [lo, hi]; the first example is `hi` long."""
+    rng = np.random.default_rng(seed)
+    lengths = rng.integers(lo, hi + 1, n)
+    lengths[0] = hi
+    pos = np.arange(T)[None, :]
+    am = pos < lengths[:, None]
+    ids = np.where(am, rng.integers(1000, vocab, (n, T)), 0)
+    types = am & (pos >= lengths[:, None] // 2)
+    return [torch.from_numpy(x.astype(np.int64)).to(device) for x in (ids, am, types)]
+
+
+def capture_bert_layer0(model, inputs):
+    """Layer 0's K5 inputs and output from one forward (buffer registry);
+    the grouped top-k on the card is held against the CPU on the same
+    estimates."""
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    try:
+        with torch.inference_mode():
+            model(*inputs, benchmarking=True)
+        buf = {n: bench.get_temp_buffer(n, 0) for n in (
+            "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
+            "lengths", "fused_attention_output", "masked_estimated_attention_probs",
+            "per_item_top_k")}
+    finally:
+        bench.activate_temp_buffers(False)
+        bench.reset()  # the other layers' buffers
+    lengths = buf["lengths"]
+    alive = key_padding(lengths, buf["q"].shape[2])[:, None, :, None]
+    probs = buf["masked_estimated_attention_probs"]
+    cpu_mask = topk_mask(probs.cpu(), alive.cpu(), buf["per_item_top_k"].cpu(),
+                         "causal_batch", True, fp_min_for(probs.dtype))
+    bad = int((cpu_mask != buf["partial_attention_mask_before_interp"].cpu()).sum())
+    log(f"[bert] layer-0 top-k mask, card vs CPU on the same estimates: "
+        f"{bad} mismatches of {cpu_mask.numel()}")
+    require(bad == 0, "non-causal top-k masks differ between the card and the CPU")
+    # the kernel's own operands: q / sqrt(D), v zeroed on the padded rows
+    q = buf["q"] / math.sqrt(D)
+    v = torch.where(alive, buf["v"], torch.zeros_like(buf["v"]))
+    mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
+    sc = torch.sigmoid(buf["estimated_scales"][..., 0])
+    return q, buf["k"], v, mask, sc, lengths, buf["fused_attention_output"]
+
+
+def phase_bert():
+    dev = "cuda"
+    cfg = bert_base("perlin")
+    t0 = time.perf_counter()
+    model = BertForSequenceClassification(cfg, device=dev, seed=0).eval()
+    dense = BertForSequenceClassification(
+        dataclasses.replace(cfg, attention_method="none"), device=dev, seed=0).eval()
+    torch.cuda.synchronize()
+    log(f"[bert] BERT-base perlin + dense built on {dev} in {time.perf_counter() - t0:.1f} s "
+        f"({sum(p.numel() for p in model.parameters()) / 1e6:.1f} M params)")
+    requests = [bert_batch(n, T, lo, hi, seed=20 + i, vocab=cfg.vocab_size, device=dev)
+                for i, (n, T, lo, hi) in enumerate(BERT_REQUESTS)]
+
+    # the main path: every request once, kernel launches counted around it
+    reset_launches()
+    outs, per_forward = [], []
+    for inputs in requests:
+        before = launch_counts()
+        with torch.inference_mode():
+            outs.append(model(*inputs, benchmarking=True)["logits"])
+        after = launch_counts()
+        per_forward.append({kid: after[kid] - before[kid] for kid in after})
+    torch.cuda.synchronize()
+    launches = bs.bidir_forward.launches
+    want = {"K1": 0, **{kid: 0 for kid in TRAIN_KERNELS}, "K5": cfg.num_layers}
+    for (ids, am, _), logits, n in zip(requests, outs, per_forward):
+        finite = bool(torch.isfinite(logits).all())
+        log(f"[bert] request {tuple(ids.shape)} (lengths {int(am.sum(1).min())}-"
+            f"{int(am.sum(1).max())}): logits {tuple(logits.shape)} finite={finite}, "
+            f"launches {n}")
+        require(finite and logits.shape == (ids.shape[0], cfg.num_labels),
+                f"logits of request {tuple(ids.shape)}")
+        require(n == want, f"launches in one forward {n}, want {want}")
+    log(f"[bert] main path: {launches} launches of sea_bidir_forward")
+
+    # layer 0's kernel inputs, captured from one more forward of each request
+    errs, captured = [], None
+    for inputs in requests:
+        q, k, v, mask, sc, lengths, run_out = capture_bert_layer0(model, inputs)
+        err, got = check_bidir(f"layer-0 {tuple(q.shape)}", q, k, v, mask, sc, lengths)
+        require(torch.equal(got, run_out), "K5 on the captured inputs differs from the run's output")
+        N, T = q.shape[0], q.shape[2]
+        alive = float(bs.mask_nnz(mask, T, False, lengths=lengths))
+        square = float((lengths.double() ** 2).sum()) * H
+        log(f"[bert] layer-0 K5 inputs {tuple(q.shape)}: reproduces the run's output bit for "
+            f"bit; element-mask density {alive / square:.4f} of the examples' squares")
+        errs.append(err)
+        if captured is None:
+            captured = (q, k, v, mask, sc, lengths)
+
+    for (ids, am, types), (n, T, _, _) in zip(requests, BERT_REQUESTS):
+        real = int(am.sum())
+        for label, mdl in (("SEA", model), ("dense", dense)):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            resident = torch.cuda.memory_allocated()
+            ms, out = forward_ms(mdl, ids, am, types)
+            peak = torch.cuda.max_memory_allocated()
+            require(bool(torch.isfinite(out).all()), f"{label} logits not finite")
+            log(f"[bert] forward {n}x{T} {label}: {ms:.2f} ms, {real / ms * 1e3:.0f} real "
+                f"tokens/s, {n * T / ms * 1e3:.0f} padded tokens/s, peak memory "
+                f"{peak / 2 ** 30:.2f} GiB ({(peak - resident) / 2 ** 30:.2f} GiB above the "
+                f"{resident / 2 ** 30:.2f} GiB resident: both models and the inputs)")
+
+    inputs = requests[0]
+
+    def forward():
+        with torch.inference_mode():
+            model(*inputs, benchmarking=True)
+
+    breakdown(f"BERT forward {tuple(inputs[0].shape)}", forward)
+    return launches, max(errs), captured
+
+
 def main():
     smi = phase_device()
     phase_sort()
@@ -837,6 +1138,30 @@ def main():
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+
+    phase_bidir_mask()
+    bidir_err = phase_bidir_kernel()
+    bidir_launches, bert_err, captured = phase_bert()
+    require(bidir_launches > 0, "the BERT path never launched K5")
+    # K5's numbers at the main path's own inputs (layer 0 of the 32 x 256 request)
+    m = measure_bidir(*captured)
+    log(f"[result] BERT main path {tuple(captured[0].shape)} layer 0: K5 {m['ms']:.4f} ms, "
+        f"plain {m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
+        f"{m['bound_ms']:.4f} ms by {m['bound_by']}; max|err| of the bidir-kernel phase "
+        f"{bidir_err:.3g}")
+    kernels.append({
+        "name": "sea_bidir_forward",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": BIDIR_REPLACES,
+        "launches": bidir_launches,
+        "max_abs_err": bert_err,
+        "ms": m["ms"],
+        "plain_ms": m["plain_ms"],
+        "bound_ms": m["bound_ms"],
+        "bound_by": m["bound_by"],
+        "library_ms": m["library_ms"],
+    })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -153,3 +153,19 @@ def opt_config(**kw) -> SeaConfig:
     )
     base.update(kw)
     return SeaConfig(**base).validate()
+
+
+def bert_config(**kw) -> SeaConfig:
+    """The canonical non-causal BERT configuration (H=12, D=64, T_M=128,
+    k=64, performer factor 1)."""
+    base = dict(
+        num_heads=12,
+        head_dim=64,
+        predictor_length=128,
+        k=64,
+        performer_nb_factor=1,
+        causal=False,
+        k_flatten_dim="causal_batch",
+    )
+    base.update(kw)
+    return SeaConfig(**base).validate()

@@ -1,28 +1,37 @@
-// Causal fused block-sparse SEA attention for Hopper (sm_90a): the forward
-// kernel and its forward-with-stats variant.
+// Fused block-sparse SEA attention forward kernels for Hopper (sm_90a): the
+// causal forward, its forward-with-stats variant, and the padded
+// bidirectional forward, three instances of one kernel body.
 //
-// Replaces two TPU kernels of sea_tpu/ops/kernels/block_sparse.py:
-//   * `_causal_kernel_flat` (impl "flat", the benchmark path), entry point
-//     `sea_causal_flat_forward`;
+// Replaces three TPU kernels of sea_tpu/ops/kernels/block_sparse.py:
+//   * `_causal_kernel_flat` (impl "flat", the causal benchmark path), entry
+//     point `sea_causal_flat_forward` (K1);
 //   * `_causal_kernel_fwd_stats` (the forward of the differentiable
-//     `fused_sparse_attention`), entry point `sea_causal_fwd_stats`: the same
-//     kernel body instantiated with STATS = true, without the undersampling
+//     `fused_sparse_attention`), entry point `sea_causal_fwd_stats` (K2): the
+//     body instantiated with STATS = true, without the undersampling
 //     predicate, and writing the per-row logsumexp (+inf on rows with no
-//     alive column) that the backward kernels (block_sparse_diff.cu) read.
+//     alive column) that the backward kernels (block_sparse_diff.cu) read;
+//   * `_kernel` (the padded bidirectional path of BERT/LRA benchmarking),
+//     entry point `sea_bidir_forward` (K5): the body instantiated with
+//     BIDIR = true.
 // For every (batch·head, query row r) it computes
 //
 //     out[r] = scaler[r] · softmax over alive s of (q_r · k_s) · v_s
 //
-// where column s is alive iff s <= r and the packed compressed mask of row r
-// has bit pixel(r, s) = floor((s + 0.5) / (r + 1) · T_M − 1e-4). Rows with no
-// alive column give 0. Optionally the train path's undersampling
-// keep-predicate (oversample != 1) applies too, and `rowbase` shifts each
-// q-block's rows to global positions.
+// Causal: column s is alive iff s <= r and the packed compressed mask of row
+// r has bit pixel(r, s) = floor((s + 0.5) / (r + 1) · T_M − 1e-4).
+// Bidirectional: every row of (batch·head) b has the width len = lengths[b],
+// the example's token count; s is alive iff s < len and the row's mask has
+// bit clip(floor((s + 0.5) / len · T_M − 1e-4), 0, T_M − 1). The caller
+// divides q by sqrt(D) first. Rows with no alive column give 0. Optionally
+// (causal only) the train path's undersampling keep-predicate
+// (oversample != 1) applies too, and `rowbase` shifts each q-block's rows to
+// global positions.
 //
 // Design. One thread block of 256 threads per (batch·head, 64-row q-tile).
 // It walks the q-block's list of active k-blocks (`counts`/`idx`, a
 // conservative superset built on the host side) in 64-column sub-tiles,
-// skips sub-tiles that lie wholly past the tile's last row, and for each
+// skips sub-tiles that lie wholly past the tile's last row (bidirectional:
+// past the example's length), and for each
 // sub-tile computes S = Q·Kᵀ with plain float32 FMAs (no TF32: the slice
 // runs float32 and must agree with the plain version), applies the element
 // predicate, and runs an online-softmax update of the row max m, the row sum
@@ -43,15 +52,22 @@
 // predicate (PERF.md; no hardware counters were read). Gathering alive
 // columns, wgmma and TMA are later work.
 //
-// The element predicate lives in sea_mask.cuh (`alive_elem`), shared with the
-// backward kernels and with the debug kernel `alive_mask_kernel`, which lets
-// the card check it bit for bit against the oracle.
+// K5 takes the same design. A BERT-base layer at 32 x 256 tokens is 1536
+// blocks of one 64-row q-tile each, and the padded columns past each
+// example's length are skipped whole sub-tiles at a time. Its bound is bytes
+// as well (4·D FLOPs per alive element against q, k, v read once).
+//
+// The element predicates live in sea_mask.cuh (`alive_elem`, `alive_elem_len`),
+// shared with the backward kernels and with the debug kernel
+// `alive_mask_kernel`, which lets the card check each bit for bit against the
+// oracle.
 
 #include "sea_mask.cuh"
 
 namespace {
 
 using sea::alive_elem;
+using sea::alive_elem_len;
 using sea::bad_geometry;
 using sea::keep_elem;
 using sea::load_f;
@@ -76,12 +92,15 @@ struct Smem {
 
 // STATS: the forward of the differentiable path. The undersampling predicate
 // is off and `lse` receives each row's logsumexp.
-template <int D, typename T, bool STATS>
+// BIDIR: the padded bidirectional forward. Row widths come from `lengths`
+// (one per batch·head); `rowbase` and the undersampling predicate are unused.
+template <int D, typename T, bool STATS, bool BIDIR>
 __global__ void __launch_bounds__(TPB) causal_flat_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint32_t* __restrict__ mbits, const float* __restrict__ scaler,
     const int* __restrict__ counts, const int* __restrict__ idx,
-    const int* __restrict__ rowbase, T* __restrict__ out,
+    const int* __restrict__ rowbase, const int* __restrict__ lengths,
+    T* __restrict__ out,
     float* __restrict__ lse, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, float oversample, float k_cfg,
     float keep_lo, float keep_hi) {
@@ -98,7 +117,8 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
   const int bh = blockIdx.y;
   const int row0 = blockIdx.x * BQ;  // first local row of the tile
   const int qb = row0 / block_q;     // q-block of the tile lists
-  const int grow0 = rowbase[qb] + (row0 - qb * block_q);
+  const int grow0 = BIDIR ? row0 : rowbase[qb] + (row0 - qb * block_q);
+  const int len = BIDIR ? lengths[bh] : 0;
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
   const long qoff = ((long)bh * t_dst + row0) * D;
@@ -118,18 +138,19 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
     const float oys = __fdiv_rn(fminf(fmaxf(w, keep_lo), keep_hi), k_cfg);
     thr[i] = __fadd_rn(__fmul_rn(__fdiv_rn(1.0f, oys), 0.5f), 1e-4f);
   }
-  const bool undersample = !STATS && oversample != 1.0f;
+  const bool undersample = !STATS && !BIDIR && oversample != 1.0f;
   const float dead = __uint_as_float(0xff800000u);  // -inf
 
   const int cnt = counts[bh * nq + qb];
   const int* lst = idx + ((long)bh * nq + qb) * nkb;
-  const int last_row = grow0 + BQ - 1;
+  // every column from here on is dead on every row of the tile
+  const int col_end = BIDIR ? len : grow0 + BQ;
   const long kvbase = (long)bh * t_src * D;
 
   for (int e = 0; e < cnt; ++e) {
     const int kb = lst[e];
     for (int c0 = kb * block_k; c0 < (kb + 1) * block_k; c0 += BKT) {
-      if (c0 > last_row || c0 >= t_src) break;  // wholly past the causal edge
+      if (c0 >= col_end || c0 >= t_src) break;  // wholly past the causal edge or the length
       __syncthreads();  // the previous sub-tile's P and V are consumed
       for (int i = tid; i < BKT * D; i += TPB) {
         const int c = i / D, d = i % D;
@@ -167,7 +188,8 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int col = c0 + tx + 16 * j;
-          bool a = alive_elem(words, col, r, t_m);
+          bool a = BIDIR ? alive_elem_len(words, col, len, t_m)
+                         : alive_elem(words, col, r, t_m);
           if (undersample) a = a && keep_elem(col, w, ps[i], thr[i]);
           s[i][j] = a ? s[i][j] : dead;
           rmax = fmaxf(rmax, s[i][j]);
@@ -232,36 +254,42 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
   }
 }
 
+// BIDIR: the predicate of K5, with the width lengths[bh]; else that of K1.
+template <bool BIDIR>
 __global__ void alive_mask_kernel(const uint32_t* __restrict__ mbits,
+                                  const int* __restrict__ lengths,
                                   int8_t* __restrict__ out, int t_dst,
                                   int t_src, int t_m, int n_words) {
   const int bh = blockIdx.z, r = blockIdx.y;
+  const int len = BIDIR ? lengths[bh] : 0;
   const uint32_t* words = mbits + ((long)bh * t_dst + r) * n_words;
   int8_t* row = out + ((long)bh * t_dst + r) * t_src;
   for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < t_src;
        s += gridDim.x * blockDim.x)
-    row[s] = alive_elem(words, s, r, t_m) ? 1 : 0;
+    row[s] = (BIDIR ? alive_elem_len(words, s, len, t_m)
+                    : alive_elem(words, s, r, t_m)) ? 1 : 0;
 }
 
-template <int D, typename T, bool STATS>
+template <int D, typename T, bool STATS, bool BIDIR>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mbits, const void* scaler, const void* counts,
-                   const void* idx, const void* rowbase, void* out, void* lse,
-                   int nh, int t_dst, int t_src, int t_m, int n_words,
-                   int block_q, int block_k, int nq, int nkb, float oversample,
-                   float k_cfg, float keep_lo, float keep_hi,
+                   const void* idx, const void* rowbase, const void* lengths,
+                   void* out, void* lse, int nh, int t_dst, int t_src, int t_m,
+                   int n_words, int block_q, int block_k, int nq, int nkb,
+                   float oversample, float k_cfg, float keep_lo, float keep_hi,
                    cudaStream_t stream) {
   constexpr int bytes = Smem<D>::bytes;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e =
-      sea::opt_in_smem(causal_flat_kernel<D, T, STATS>, bytes, opted_in);
+  cudaError_t e = sea::opt_in_smem(causal_flat_kernel<D, T, STATS, BIDIR>,
+                                   bytes, opted_in);
   if (e != cudaSuccess) return e;
   dim3 grid(t_dst / BQ, nh);
-  causal_flat_kernel<D, T, STATS><<<grid, TPB, bytes, stream>>>(
+  causal_flat_kernel<D, T, STATS, BIDIR><<<grid, TPB, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint32_t*)mbits,
       (const float*)scaler, (const int*)counts, (const int*)idx,
-      (const int*)rowbase, (T*)out, (float*)lse, t_dst, t_src, t_m, n_words,
-      block_q, block_k, nq, nkb, oversample, k_cfg, keep_lo, keep_hi);
+      (const int*)rowbase, (const int*)lengths, (T*)out, (float*)lse, t_dst,
+      t_src, t_m, n_words, block_q, block_k, nq, nkb, oversample, k_cfg,
+      keep_lo, keep_hi);
   return cudaGetLastError();
 }
 
@@ -278,14 +306,14 @@ extern "C" int sea_causal_flat_forward(
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e =
-      is_bf16 ? launch<64, __nv_bfloat16, false>(
-                    q, k, v, mbits, scaler, counts, idx, rowbase, out, nullptr,
-                    nh, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb,
-                    oversample, k_cfg, keep_lo, keep_hi, s)
-              : launch<64, float, false>(
-                    q, k, v, mbits, scaler, counts, idx, rowbase, out, nullptr,
-                    nh, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb,
-                    oversample, k_cfg, keep_lo, keep_hi, s);
+      is_bf16 ? launch<64, __nv_bfloat16, false, false>(
+                    q, k, v, mbits, scaler, counts, idx, rowbase, nullptr, out,
+                    nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
+                    nq, nkb, oversample, k_cfg, keep_lo, keep_hi, s)
+              : launch<64, float, false, false>(
+                    q, k, v, mbits, scaler, counts, idx, rowbase, nullptr, out,
+                    nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
+                    nq, nkb, oversample, k_cfg, keep_lo, keep_hi, s);
   return (int)e;
 }
 
@@ -299,16 +327,50 @@ extern "C" int sea_causal_fwd_stats(
     int nkb, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<64, float, true>(
-      q, k, v, mbits, scaler, counts, idx, rowbase, out, lse, nh, t_dst, t_src,
-      t_m, n_words, block_q, block_k, nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f,
-      (cudaStream_t)stream);
+  return (int)launch<64, float, true, false>(
+      q, k, v, mbits, scaler, counts, idx, rowbase, nullptr, out, lse, nh,
+      t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, 1.0f, 1.0f, 1.0f,
+      1.0f, (cudaStream_t)stream);
+}
+
+// The padded bidirectional forward (K5): f32 or bf16 in and out, `lengths`
+// (nh,) int32, the row width of each batch·head.
+extern "C" int sea_bidir_forward(
+    const void* q, const void* k, const void* v, const void* mbits,
+    const void* scaler, const void* counts, const void* idx,
+    const void* lengths, void* out, int nh, int t_dst, int t_src,
+    int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
+    int nkb, int is_bf16, void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e =
+      is_bf16 ? launch<64, __nv_bfloat16, false, true>(
+                    q, k, v, mbits, scaler, counts, idx, nullptr, lengths, out,
+                    nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
+                    nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f, s)
+              : launch<64, float, false, true>(
+                    q, k, v, mbits, scaler, counts, idx, nullptr, lengths, out,
+                    nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
+                    nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f, s);
+  return (int)e;
 }
 
 extern "C" int sea_alive_mask(const void* mbits, void* out, int nh, int t_dst,
                               int t_src, int t_m, int n_words, void* stream) {
   dim3 grid((t_src + 255) / 256, t_dst, nh);
-  alive_mask_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)mbits, (int8_t*)out, t_dst, t_src, t_m, n_words);
+  alive_mask_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)mbits, nullptr, (int8_t*)out, t_dst, t_src, t_m,
+      n_words);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int sea_bidir_alive_mask(const void* mbits, const void* lengths,
+                                    void* out, int nh, int t_dst, int t_src,
+                                    int t_m, int n_words, void* stream) {
+  dim3 grid((t_src + 255) / 256, t_dst, nh);
+  alive_mask_kernel<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)mbits, (const int*)lengths, (int8_t*)out, t_dst, t_src,
+      t_m, n_words);
   return (int)cudaGetLastError();
 }

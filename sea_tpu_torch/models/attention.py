@@ -1,17 +1,28 @@
 """SEA attention core (PyTorch port): estimator -> top-k mask -> sparse attention.
 
-Port of the causal fused paths of `sea_tpu/models/attention.py`
-(`SeaAttention`), stage for stage, with the same profiler region and buffer
-names:
+Port of the fused paths of `sea_tpu/models/attention.py` (`SeaAttention`),
+stage for stage, with the same profiler region and buffer names:
 
   1 "vmask"           identity-value construction, v_for_atten = [id ‖ v]
   2 "performer"       FAVOR+ linear attention over (q, k, v_for_atten), fp32
   3 "performer_value" concat [performer_ctx ‖ v]
-  4 "predictor"       enc MLP -> dec_row + ChannelSplit -> causal CNN -> score
+  4 "predictor"       enc MLP -> dec_row + ChannelSplit -> CNN -> score
   5 "mask_softmax"    softmax of the estimate
   6 "mask"            grouped top-k over (N, T_DST, H·T_M) with per-row budget
-  7-8 "attention.fused"  the fused causal sparse kernel
-  9 "attention.avg_pool" mix with the running-average context, per-query gate
+  7-8 "attention.fused"  the fused sparse kernel
+  9 "attention.avg_pool" mix with the average context, per-query gate
+
+The module is causal (OPT) or non-causal (BERT), as `cfg.causal` says:
+
+  * causal: learned identity values, ReLU-feature causal performer, the
+    dilated causal CNN, a per-row budget, kernel K1 (or K2-K4 in training),
+    and the running average of v;
+  * non-causal: tent identity rows at each token's relative position,
+    softmax-feature performer, the strided CNN (no LayerNorm), one budget per
+    example, kernel K5 on q / sqrt(D) with each example's token count as its
+    row width (right padding), and the average of v weighted by the
+    estimate's mean row, resized to T (`resize_noncausal`). It takes the
+    (N, 1, 1, T) additive padding mask and runs the benchmark path only.
 
 Two paths run stage 7-8:
 
@@ -27,14 +38,16 @@ Two paths run stage 7-8:
 
 Not ported yet, and refused with NotImplementedError rather than routed
 elsewhere: the dense differentiable train path and its KD losses
-(`benchmarking=False` without `use_fused_train`), the non-causal (BERT)
-module, the uniform-CSR path (`use_pallas=False`), the cosformer backend,
+(`benchmarking=False` without `use_fused_train`, and every train path of
+the non-causal module), the non-causal oversampled benchmark path (a CSR
+route in JAX), the uniform-CSR path (`use_pallas=False`), the cosformer backend,
 the 'comp' predictor, `enc_per_layer`, LoRA, the sequence-sharded and ring
 train kernels, and the decode cache.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -43,10 +56,10 @@ from torch import nn
 
 from ..config import SeaConfig
 from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
-from ..ops.masks import fp_min_for, per_item_top_k, topk_mask
+from ..ops.masks import fp_min_for, per_item_top_k, resize_noncausal, topk_mask
 from ..ops.performer import fast_attention, gaussian_orthogonal_random_matrix
 from ..utils.profiler import get_bench
-from .modules import CausalConv2d, ChannelSplit, interpolate, upsample_nearest
+from .modules import CausalConv2d, ChannelSplit, KeepRes, interpolate, upsample_nearest
 
 
 class SeaAttentionOutput(NamedTuple):
@@ -97,18 +110,23 @@ def init_random_(root: nn.Module, generator: torch.Generator):
                 m.performer_proj.copy_(gaussian_orthogonal_random_matrix(
                     generator, m.cfg.nb_features, m.cfg.head_dim, device="cpu"
                 ))
-                m.v_eye_learned_causal.copy_(randn(m.v_eye_learned_causal.shape))
+                if m.cfg.causal:
+                    m.v_eye_learned_causal.copy_(randn(m.v_eye_learned_causal.shape))
 
 
 class SeaAttention(nn.Module):
-    """The SEA attention module, one per transformer layer (causal). Built on
+    """The SEA attention module, one per transformer layer. Built on
     `device` with seeded random weights (`seed=None` leaves them
-    uninitialised, for `load_state_dict` or a parent's init)."""
+    uninitialised, for `load_state_dict` or a parent's init). Only the
+    modules the JAX package builds for `cfg` exist, so that its variable
+    trees map one to one."""
 
     def __init__(self, cfg: SeaConfig, *, device="cuda", seed: Optional[int] = 0):
         super().__init__()
-        if not cfg.causal:
-            raise NotImplementedError("the non-causal SEA module is not ported yet")
+        if not cfg.causal and cfg.k_oversample != 1.0:
+            raise NotImplementedError(
+                "the non-causal oversampled benchmark path (uniform CSR) is not ported"
+            )
         if cfg.predictor_method != "mlp" or cfg.predictor_backend != "performer":
             raise NotImplementedError(
                 "only predictor_method='mlp' with the performer backend is ported"
@@ -136,22 +154,30 @@ class SeaAttention(nn.Module):
         down = cfg.dec_row_down_scale
         self.dec_row = nn.Linear(2 * D, (T_M // down) * splits)
         self.channel_split = ChannelSplit(splits)
-        # causal CNN: LN -> 2x dilated causal conv -> up(1,4) -> 1x1 conv
-        # (padding 1 widens T_M to T_M+2) -> area resize back to T_M -> LN
         ch = splits * H
-        self.cnn_ln1 = _layer_norm(T_M // down)
-        self.cnn_conv1 = CausalConv2d(ch, ch, 3, padding=2, dilation=2, causal=True)
-        self.cnn_conv2 = CausalConv2d(ch, ch, 3, padding=2, dilation=2, causal=True)
-        if cfg.cnn_deeper:
-            self.cnn_conv3 = CausalConv2d(ch, ch, 3, padding=2, dilation=2, causal=True)
-        self.cnn_conv4 = CausalConv2d(ch, H, 1, padding=1, causal=True)
-        self.cnn_ln2 = _layer_norm(T_M)
+        if cfg.causal:
+            # LN -> 2x dilated causal conv -> up(1,4) -> 1x1 conv (padding 1
+            # widens T_M to T_M+2) -> area resize back to T_M -> LN
+            self.cnn_ln1 = _layer_norm(T_M // down)
+            self.cnn_conv1 = CausalConv2d(ch, ch, 3, padding=2, dilation=2, causal=True)
+            self.cnn_conv2 = CausalConv2d(ch, ch, 3, padding=2, dilation=2, causal=True)
+            if cfg.cnn_deeper:
+                self.cnn_conv3 = CausalConv2d(ch, ch, 3, padding=2, dilation=2, causal=True)
+            self.cnn_conv4 = CausalConv2d(ch, H, 1, padding=1, causal=True)
+            self.cnn_ln2 = _layer_norm(T_M)
+        else:
+            # strided conv (2, 1) -> conv -> nearest up (2, 1) -> conv, then
+            # a resize to (T, T_M) (linear widening of T_M/2)
+            self.cnn_conv1 = CausalConv2d(ch, 4 * H, 3, padding=1, stride=(2, 1))
+            self.cnn_conv2 = CausalConv2d(4 * H, 4 * H, 3, padding=1)
+            self.cnn_conv3 = CausalConv2d(4 * H, H, 3, padding=1)
         # per-query two-channel gate head
         self.dec_scaler = nn.Linear(2 * D, 2)
-        # learned identity-value embeddings
-        self.v_eye_learned_causal = nn.Parameter(
-            torch.empty(1, 1, cfg.max_position_embeddings, D)
-        )
+        if cfg.causal:
+            # learned identity-value embeddings
+            self.v_eye_learned_causal = nn.Parameter(
+                torch.empty(1, 1, cfg.max_position_embeddings, D)
+            )
         if seed is not None:
             init_random_(self, torch.Generator().manual_seed(seed))
         self.to(device)
@@ -167,16 +193,35 @@ class SeaAttention(nn.Module):
             pcl = self.out_norm_ln(pcl)
         return pcl
 
-    def _identity_values(self, v_for_atten: torch.Tensor, t_src: int) -> torch.Tensor:
-        """Stage 1 "vmask": a slice of the learned positional table."""
-        N, H, _, D = v_for_atten.shape
-        v_id = self.v_eye_learned_causal[:, :, :t_src, :].to(v_for_atten.dtype)
-        return v_id.expand(N, H, t_src, D)
+    def _identity_values(self, v_for_atten: torch.Tensor, zero_one_mask: torch.Tensor,
+                         t_src: int) -> torch.Tensor:
+        """Stage 1 "vmask". Causal: a slice of the learned positional table.
+        Non-causal: identity rows sampled bilinearly at each token's
+        relative position among the kept tokens (zero_one_mask (N, 1, 1, T)),
+        a tent max(0, 1 − |pos·(D−1) − j|) over the D channels."""
+        N, H, T, D = v_for_atten.shape
+        if self.cfg.causal:
+            v_id = self.v_eye_learned_causal[:, :, :t_src, :].to(v_for_atten.dtype)
+            return v_id.expand(N, H, t_src, D)
+        cs = torch.cumsum(zero_one_mask, dim=-1)
+        L = zero_one_mask.sum(-1, keepdim=True)
+        pos01 = (cs - 1.0) / (L - 1.0 + 1e-8)  # tensor / tensor: a true division
+        r = pos01.reshape(N, 1, T, 1) * (D - 1)
+        j = torch.arange(D, dtype=torch.float32, device=r.device).reshape(1, 1, 1, D)
+        tent = torch.clamp(1.0 - torch.abs(r - j), min=0.0)
+        return tent.expand(N, H, T, D).to(v_for_atten.dtype)
 
     def _predictor_cnn(self, x: torch.Tensor) -> torch.Tensor:
         """Stage 4 CNN. x: (N, C, T, T_M/down) -> (N, H, T, T_M)."""
         cfg = self.cfg
         T_M = cfg.predictor_length
+        if not cfg.causal:
+            # an odd T comes back with T + 1 rows: the resize shrinks them
+            return KeepRes(
+                (self.cnn_conv1, torch.relu, self.cnn_conv2, torch.relu,
+                 lambda y: upsample_nearest(y, (2, 1)), self.cnn_conv3),
+                output_width=T_M,
+            )(x)
 
         def stack(y):
             y = self.cnn_ln1(y)
@@ -232,6 +277,7 @@ class SeaAttention(nn.Module):
         # task-only training through the differentiable fused kernel
         use_fused_train = (
             not benchmarking
+            and cfg.causal
             and cfg.use_fused_train
             and cfg.use_pallas
             and not truths
@@ -253,10 +299,14 @@ class SeaAttention(nn.Module):
         T_M = cfg.predictor_length
         FP_MIN = fp_min_for(q.dtype)
 
-        # --- mask plumbing: the (N, 1, T, T) additive causal mask, or its thin
-        # (N, 1, T, 1) dst column; every consumer below reads only the dst and
-        # src padding slices, and the kernels derive causality themselves ----
-        if attention_mask.shape[-1] == 1:
+        # --- mask plumbing: causal, the (N, 1, T, T) additive mask or its thin
+        # (N, 1, T, 1) dst column, of which every consumer below reads only
+        # the dst and src padding slices (the kernels derive causality
+        # themselves); non-causal, the (N, 1, 1, T) padding mask -------------
+        if not cfg.causal:
+            T_DST = T_SRC = attention_mask.shape[-1]
+            dst_attention_mask = attention_mask.transpose(-1, -2)
+        elif attention_mask.shape[-1] == 1:
             if not cfg.use_fused_train or truths or cfg.kd_self_teacher:
                 raise ValueError(
                     "the thin causal mask requires the fused-train path (no KD loss)"
@@ -277,7 +327,7 @@ class SeaAttention(nn.Module):
 
         # --- 1 "vmask" ----------------------------------------------------
         with bench.region("vmask"):
-            v_id = self._identity_values(v_for_atten, T_SRC)
+            v_id = self._identity_values(v_for_atten, zero_one_attention_mask, T_SRC)
             v_for_atten = torch.cat([v_id, v_for_atten], dim=-1)
             v_for_atten = torch.where(dst_alive, v_for_atten, torch.zeros_like(v_for_atten))
             v = torch.where(dst_alive, v, torch.zeros_like(v))
@@ -290,8 +340,8 @@ class SeaAttention(nn.Module):
                 k_for_atten.float(),
                 v_for_atten.float(),
                 self.performer_proj,
-                causal=True,
-                generalized=True,
+                causal=cfg.causal,
+                generalized=cfg.causal,
             ).to(q_for_atten.dtype)
             bench.register_temp_buffer("performer_context_layer", performer_context_layer)
 
@@ -340,7 +390,7 @@ class SeaAttention(nn.Module):
             token_length = zero_one_attention_mask.sum(-1).reshape(N, -1)
             causal_token_length = torch.arange(
                 1, T_DST + 1, dtype=torch.float32, device=q.device
-            ).reshape(1, T_DST, 1).expand(N, T_DST, 1)
+            ).reshape(1, T_DST, 1).expand(N, T_DST, 1) if cfg.causal else None
             budget = per_item_top_k(
                 cfg_k=cfg.effective_k,
                 k_oversample=cfg.k_oversample,
@@ -349,7 +399,7 @@ class SeaAttention(nn.Module):
                 t_m=T_M,
                 token_length=token_length,
                 causal_token_length=causal_token_length,
-                causal=True,
+                causal=cfg.causal,
             )
             bench.register_temp_buffer("per_item_top_k", budget)
             # binary {0, 1} on the benchmark path, additive {0, FP_MIN} in train
@@ -377,15 +427,24 @@ class SeaAttention(nn.Module):
             )
             if benchmarking:
                 mask_bin = (partial_attention_mask_m > 0).to(q.dtype)
+                if cfg.causal:
+                    q_kern, lengths = q_for_score, None
+                else:
+                    # the BERT path scales the scores by 1/sqrt(D); for D = 64
+                    # (and 16) the reciprocal a CUDA division takes is exact
+                    q_kern = q_for_score / math.sqrt(D)
+                    lengths = zero_one_attention_mask[:, 0, 0, :].sum(-1).to(torch.int32)
+                    bench.register_temp_buffer("lengths", lengths)
                 partial_context_layer = sea_block_sparse_attention(
-                    q_for_score,
+                    q_kern,
                     k_for_score,
                     v,
                     mask_bin,
                     row_scaler,
-                    is_causal=True,
+                    is_causal=cfg.causal,
+                    lengths=lengths,
                     block_q=cfg.block_q,
-                    oversample=cfg.k_oversample,
+                    oversample=cfg.k_oversample if cfg.causal else 1.0,
                     k_cfg=float(cfg.effective_k),
                 )
             else:
@@ -399,11 +458,25 @@ class SeaAttention(nn.Module):
             # the kernel's output, whose gradient is the backward kernels' dO
             bench.register_temp_buffer("fused_attention_output", partial_context_layer)
         with bench.region("attention.avg_pool"):
-            avg_v = v * dst_alive.to(v.dtype)
-            denom = torch.arange(
-                1, T_SRC + 1, dtype=torch.float32, device=v.device
-            ).reshape(1, 1, -1, 1)
-            average_context_layer = (torch.cumsum(avg_v.float(), dim=-2) / denom).to(v.dtype)
+            if cfg.causal:
+                avg_v = v * dst_alive.to(v.dtype)
+                denom = torch.arange(
+                    1, T_SRC + 1, dtype=torch.float32, device=v.device
+                ).reshape(1, 1, -1, 1)
+                average_context_layer = (
+                    torch.cumsum(avg_v.float(), dim=-2) / denom
+                ).to(v.dtype)
+            else:
+                # the estimate's mean over every row, padded rows included
+                # (as in the JAX package), resized to T columns: one weight
+                # per key, zero at padding
+                mean_probs = estimated_attention_probs.mean(-2, keepdim=True)
+                w = resize_noncausal(
+                    mean_probs, 0.0, attention_mask=attention_mask, target_width=T_SRC,
+                ).transpose(-1, -2)
+                average_context_layer = (
+                    v * dst_alive.to(v.dtype) * w.to(v.dtype)
+                ).sum(-2, keepdim=True)
             average_scale = torch.sigmoid(estimated_scales[..., 1:2])
             partial_context_layer = (
                 partial_context_layer * average_scale

@@ -1,19 +1,21 @@
 """Predictor CNN building blocks (PyTorch port of `sea_tpu/models/modules.py`).
 
-  * `interpolate` — area (adaptive-average) downscale of the last two axes.
-    The bilinear upscale branch serves only the non-causal CNN and is not
-    ported yet;
+  * `interpolate` — area (adaptive-average) downscale or linear upscale of
+    each of the last two axes, height first, as `jax.image.resize(...,
+    "linear")` computes it (half-pixel centres, triangle weights that fall
+    outside the input dropped and the rest renormalised);
   * `CausalConv2d` — a (2k-1, k) kernel whose bottom half is zeroed, with
     height padding (k-1)·dilation on both sides, so the convolution along
     the query-time axis never reads a later row;
   * `upsample_nearest` — integer nearest-neighbour upsample in float32;
+  * `KeepRes` — run a stack of layers, then resize back to the input height;
   * `ChannelSplit` — (N, C, H, W) -> (N, C·s, H, W/s).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -32,24 +34,39 @@ def _area_matrix(in_size: int, out_size: int) -> np.ndarray:
     return w
 
 
+def _linear_matrix(in_size: int, out_size: int) -> np.ndarray:
+    """Linear-upscale matrix (out_size, in_size) of `jax.image.resize`
+    (out_size > in_size): sample i sits at (i + 0.5)·in/out − 0.5 and takes
+    the triangle weights max(0, 1 − |sample − j|) of the input cells j,
+    renormalised to sum 1 (at the borders one of the two cells lies outside
+    and drops out). Computed in float32 as JAX computes it."""
+    f32 = np.float32
+    inv_scale = f32(in_size / out_size)
+    sample = (np.arange(out_size, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    w = np.maximum(f32(0.0), f32(1.0) - np.abs(
+        sample[None, :] - np.arange(in_size, dtype=f32)[:, None]))
+    return (w / w.sum(axis=0, keepdims=True, dtype=f32)).T.astype(f32)
+
+
+def _resize_matrix(in_size: int, out_size: int, device) -> torch.Tensor:
+    """(out, in) float32: area averaging to shrink, linear weights to grow."""
+    m = (_area_matrix if out_size < in_size else _linear_matrix)(in_size, out_size)
+    return torch.from_numpy(m).to(device)
+
+
 def interpolate(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
-    """Resize the last two axes of (..., H, W) to `size` by area averaging,
-    in float32, cast back to the input dtype."""
+    """Resize the last two axes of (..., H, W) to `size`, height first, each
+    by area averaging (shrink) or linear interpolation (grow), in float32,
+    cast back to the input dtype."""
     *_, H, W = x.shape
     H2, W2 = size
     if (H, W) == (H2, W2):
         return x
-    if H2 > H or W2 > W:
-        raise NotImplementedError(
-            "the bilinear upscale branch (non-causal CNN) is not ported yet"
-        )
     y = x.float()
     if H2 != H:
-        m = torch.from_numpy(_area_matrix(H, H2)).to(y.device)
-        y = torch.einsum("oh,...hw->...ow", m, y)
+        y = torch.einsum("oh,...hw->...ow", _resize_matrix(H, H2, y.device), y)
     if W2 != W:
-        m = torch.from_numpy(_area_matrix(W, W2)).to(y.device)
-        y = torch.einsum("ow,...hw->...ho", m, y)
+        y = torch.einsum("ow,...hw->...ho", _resize_matrix(W, W2, y.device), y)
     return y.to(x.dtype)
 
 
@@ -116,6 +133,26 @@ class CausalConv2d(nn.Module):
             padding=(pad_h, self.padding), dilation=(d, d),
         )
         return y.to(x.dtype)
+
+
+class KeepRes(nn.Module):
+    """Run `layers` (callables: modules, activations, resizes), then resize
+    back to the input height and `output_width` (default: the input width).
+    It holds the layers, it does not own them: their parameters stay where
+    they are registered."""
+
+    def __init__(self, layers: Sequence[Callable[[torch.Tensor], torch.Tensor]],
+                 output_width: Optional[int] = None):
+        super().__init__()
+        self.layers = tuple(layers)
+        self.output_width = output_width
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x
+        for layer in self.layers:
+            y = layer(y)
+        w = self.output_width if self.output_width is not None else x.shape[-1]
+        return interpolate(y, (x.shape[-2], w))
 
 
 class ChannelSplit(nn.Module):

@@ -1,33 +1,39 @@
-"""Fused causal block-sparse SEA attention (PyTorch port, Hopper kernels).
+"""Fused block-sparse SEA attention (PyTorch port, Hopper kernels).
 
-Port of the causal paths of `sea_tpu/ops/kernels/block_sparse.py`: the
-forward `sea_block_sparse_attention` (Pallas kernel `_causal_kernel_flat`)
-and the differentiable `fused_sparse_attention` (`_causal_kernel_fwd_stats`,
-`_causal_kernel_dq`, `_causal_kernel_dkv`). The forward computes, for every
-(batch·head, query row r):
+Port of `sea_tpu/ops/kernels/block_sparse.py`: the forward
+`sea_block_sparse_attention`, causal (Pallas kernel `_causal_kernel_flat`)
+and padded bidirectional (`_kernel`), and the differentiable causal
+`fused_sparse_attention` (`_causal_kernel_fwd_stats`, `_causal_kernel_dq`,
+`_causal_kernel_dkv`). The forward computes, for every (batch·head, query
+row r):
 
     out[r] = scaler[r] · softmax over alive s of (q_r · k_s) · v_s
 
-Column s of row r is alive iff the compressed (T_M-wide) mask has bit
-pixel(r, s) = floor((s + 0.5) / w_r · T_M − 1e-4), w_r = r + 1 (the
-dense-resize floor rule), and s <= r. Rows with no alive column give 0. With
-`oversample != 1` the train path's undersampling keep-predicate also applies,
-and `row_base` shifts each q-block's rows to global positions.
+Column s of row r is alive iff s < w_r and the compressed (T_M-wide) mask
+has bit pixel(r, s) = clip(floor((s + 0.5) / w_r · T_M − 1e-4), 0, T_M − 1)
+(the dense-resize floor rule). Causal rows have width w_r = r + 1; the
+padded bidirectional path gives every row of example n the width
+lengths[n], its token count (right padding), and T_SRC without `lengths`.
+Rows with no alive column give 0. With `oversample != 1` (causal only) the
+train path's undersampling keep-predicate also applies, and `row_base`
+shifts each q-block's rows to global positions.
 
 Layout of this module:
 
   * prep, plain PyTorch on the tensors' device (it was XLA-side in JAX):
     `pack_compressed_bits`, `_pixel_starts`, `_causal_activity`,
-    `_compact_lists`, `tile_activity_lists`. The tile lists are a
+    `_length_activity`, `_compact_lists`, `tile_activity_lists`. The tile
+    lists are a
     conservative superset of the (q-block, k-block) tiles with an alive
     column; the kernel still applies the element predicate on every tile;
   * oracles: `element_mask_int8`, `mask_nnz`, `dense_reference`. The last
     is also the kernel's plain version, which the wrapper runs for tensors
     on the CPU;
   * the wrapper `sea_block_sparse_attention`, which on a CUDA tensor
-    launches the hand-written kernel in `csrc/block_sparse_causal.cu` or
-    raises, and `alive_mask`, which launches the kernel's element predicate
-    alone so that the card can check it bit for bit;
+    launches one of the hand-written kernels in `csrc/block_sparse_causal.cu`
+    (K1 causal, `launch_causal_flat`; K5 padded bidirectional,
+    `bidir_forward`) or raises, and `alive_mask`, which launches a kernel's
+    element predicate alone so that the card can check it bit for bit;
   * the differentiable path: `kernel_operands(..., differentiable=True)`
     (the port of `_diff_prep`, with the transposed tile lists), the plain
     versions `fwd_with_stats_reference`, `dq_reference` and `dkv_reference`,
@@ -138,6 +144,30 @@ def _causal_activity(
     return act.reshape(N, H, NQ, block_q, NKB).any(dim=3)
 
 
+def _length_activity(
+    mask_m: torch.Tensor, t_src: int, block_q: int, block_k: int,
+    lengths: torch.Tensor,
+) -> torch.Tensor:
+    """(N, H, NQ, NKB) bool for the padded bidirectional path: every row of
+    example n has width lengths[n]. Unchunked: the pixel runs depend on the
+    example only, so the work is (N, T_M, NKB) plus one product."""
+    N, H, T_DST, T_M = mask_m.shape
+    NQ, NKB = T_DST // block_q, t_src // block_k
+    vs, ve = _pixel_starts(lengths.to(torch.float32), T_M)  # (N, T_M)
+    lo = torch.clamp(vs - 1, min=0) // block_k
+    hi = torch.minimum(ve, lengths.to(torch.int32)[:, None] - 1) // block_k
+    j_ids = torch.arange(NKB, dtype=torch.int32, device=mask_m.device)
+    inside = (
+        (j_ids[None, None, :] >= lo[:, :, None])
+        & (j_ids[None, None, :] <= hi[:, :, None])
+        & (ve > vs)[:, :, None]
+    )  # (N, T_M, NKB)
+    act = torch.einsum(
+        "nhrb,nbj->nhrj", (mask_m > 0).to(torch.float32), inside.to(torch.float32)
+    ) > 0
+    return act.reshape(N, H, NQ, block_q, NKB).any(dim=3)
+
+
 def _compact_lists(act: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """act (..., NKB) bool -> (counts, idx): the active indices ascending,
     padded by repeating the last active one."""
@@ -161,6 +191,7 @@ def tile_activity_lists(
     block_q: int,
     block_k: int,
     row_chunk: int = 512,
+    lengths: Optional[torch.Tensor] = None,  # (N,) non-causal token lengths
     row_widths: Optional[torch.Tensor] = None,  # (T_DST,) causal widths override
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per (n, h, q-block): ascending list of active k-block indices from
@@ -169,6 +200,8 @@ def tile_activity_lists(
 
     Returns (counts (N, H, NQ) int32, idx (N, H, NQ, NKB) int32)."""
     T_DST = mask_m.shape[2]
+    if not is_causal and lengths is not None:
+        return _compact_lists(_length_activity(mask_m, t_src, block_q, block_k, lengths))
     if not is_causal:
         row_widths = torch.full((T_DST,), float(t_src), device=mask_m.device)
     act = _causal_activity(mask_m, t_src, block_q, block_k, row_widths, row_chunk)
@@ -191,45 +224,55 @@ def element_mask_int8(
     t_src: int,
     is_causal: bool,
     row_chunk: int = 256,
+    lengths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Materialised (N, H, T_DST, T_SRC) int8 alive mask (dense-resize rule
-    plus causality). O(T²): for tests and checks only."""
+    plus causality; or, non-causal with `lengths` (N,), example n's width
+    lengths[n] and s < lengths[n]). O(T²): for tests and checks only."""
     N, H, T_DST, T_M = mask_m.shape
     dev = mask_m.device
-    m = (mask_m > 0).reshape(N * H, T_DST, T_M)
+    m = mask_m > 0
     s_idx = torch.arange(t_src, dtype=torch.float32, device=dev)[None, :]
-    out = torch.empty((N * H, T_DST, t_src), dtype=torch.int8, device=dev)
+    out = torch.empty((N, H, T_DST, t_src), dtype=torch.int8, device=dev)
     for r0 in range(0, T_DST, row_chunk):
         rows = torch.arange(r0, min(r0 + row_chunk, T_DST), device=dev)
         if is_causal:
             w = (rows + 1).to(torch.float32)[:, None]
+        elif lengths is not None:
+            w = lengths.to(device=dev, dtype=torch.float32).reshape(N, 1, 1, 1)
         else:
             w = torch.full((rows.numel(), 1), float(t_src), device=dev)
-        pixel = _pixels(s_idx, w, T_M)  # (RC, T_SRC)
-        alive = torch.gather(
-            m[:, rows], -1, pixel[None].expand(N * H, -1, -1)
-        )
-        if is_causal:
-            alive = alive & (s_idx <= rows[:, None].to(torch.float32))[None]
-        out[:, rows] = alive.to(torch.int8)
-    return out.reshape(N, H, T_DST, t_src)
+        pixel = _pixels(s_idx, w, T_M).expand(N, H, rows.numel(), t_src)
+        # s < w: s <= r when causal; no-op at the full width
+        alive = torch.gather(m[:, :, rows], -1, pixel) & (s_idx < w)
+        out[:, :, rows] = alive.to(torch.int8)
+    return out
 
 
-def mask_nnz(mask_m: torch.Tensor, t_src: int, is_causal: bool) -> torch.Tensor:
+def mask_nnz(mask_m: torch.Tensor, t_src: int, is_causal: bool,
+             lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Realized element-mask nnz, computed in the compressed domain: the sum
-    over alive pixels of their run length."""
+    over alive pixels of their run length (non-causal `lengths` (N,): runs
+    of example n's width)."""
     T_DST, T_M = mask_m.shape[2], mask_m.shape[3]
-    rows = torch.arange(T_DST, dtype=torch.float32, device=mask_m.device)
-    widths = rows + 1.0 if is_causal else torch.full_like(rows, float(t_src))
-    vs, ve = _pixel_starts(widths, T_M)
-    run = torch.clamp(ve - vs, min=0).to(torch.int64)
-    return ((mask_m > 0).to(torch.int64) * run[None, None]).sum()
+    if lengths is not None and not is_causal:
+        vs, ve = _pixel_starts(lengths.to(device=mask_m.device, dtype=torch.float32), T_M)
+        run = torch.clamp(ve - vs, min=0).to(torch.int64)[:, None, None, :]
+    else:
+        rows = torch.arange(T_DST, dtype=torch.float32, device=mask_m.device)
+        widths = rows + 1.0 if is_causal else torch.full_like(rows, float(t_src))
+        vs, ve = _pixel_starts(widths, T_M)
+        run = torch.clamp(ve - vs, min=0).to(torch.int64)[None, None]
+    return ((mask_m > 0).to(torch.int64) * run).sum()
 
 
 def _dense_widths(t_dst: int, t_src: int, is_causal: bool,
-                  row_widths: Optional[torch.Tensor], device) -> torch.Tensor:
-    """(T_DST, 1) float32 width of each row: `row_widths` if given, else
-    r + 1 (causal) or T_SRC."""
+                  row_widths: Optional[torch.Tensor], device,
+                  lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """float32 width of each row: (N, 1, 1, 1) `lengths` (non-causal only),
+    else (T_DST, 1): `row_widths` if given, else r + 1 (causal) or T_SRC."""
+    if lengths is not None and not is_causal:
+        return lengths.to(device=device, dtype=torch.float32).reshape(-1, 1, 1, 1)
     if row_widths is not None:
         return row_widths.to(device=device, dtype=torch.float32).reshape(t_dst, 1)
     if is_causal:
@@ -237,17 +280,14 @@ def _dense_widths(t_dst: int, t_src: int, is_causal: bool,
     return torch.full((t_dst, 1), float(t_src), device=device)
 
 
-def _alive_dense(mask_m: torch.Tensor, t_src: int, is_causal: bool,
-                 w: torch.Tensor) -> torch.Tensor:
+def _alive_dense(mask_m: torch.Tensor, t_src: int, w: torch.Tensor) -> torch.Tensor:
     """(N, H, T_DST, T_SRC) bool element mask of the dense-resize rule for
-    row widths `w` (T_DST, 1); causal rows also keep s < w only."""
+    the row widths `w` of `_dense_widths`; every row keeps s < w only (s <= r
+    when causal, s < lengths[n] with lengths, nothing dropped at T_SRC)."""
     N, H, T_DST, T_M = mask_m.shape
     s_idx = torch.arange(t_src, dtype=torch.float32, device=mask_m.device)[None, :]
-    pixel = _pixels(s_idx, w, T_M)  # (T_DST, T_SRC)
-    alive = torch.gather(mask_m > 0, -1, pixel.expand(N, H, T_DST, t_src))
-    if is_causal:
-        alive = alive & (s_idx < w)
-    return alive
+    pixel = _pixels(s_idx, w, T_M).expand(N, H, T_DST, t_src)
+    return torch.gather(mask_m > 0, -1, pixel) & (s_idx < w)
 
 
 def dense_reference(
@@ -258,18 +298,21 @@ def dense_reference(
     row_scaler: Optional[torch.Tensor] = None,
     *,
     is_causal: bool = True,
+    lengths: Optional[torch.Tensor] = None,
     oversample: float = 1.0,
     k_cfg: float = 64.0,
     row_widths: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """The plain PyTorch version of the kernel: dense-resize element mask,
-    per-row masked softmax, optional undersampling keep-predicate, row
-    scaler. O(T²) memory. `row_widths` (T_DST,) overrides each row's causal
-    width (default r + 1), as `row_base` does in the kernel."""
+    """The plain PyTorch version of the kernels (K1 causal, K5 non-causal):
+    dense-resize element mask, per-row masked softmax, optional
+    undersampling keep-predicate, row scaler. O(T²) memory. `row_widths`
+    (T_DST,) overrides each row's causal width (default r + 1), as
+    `row_base` does in the kernel; non-causal `lengths` (N,) gives example
+    n's rows the width lengths[n] and keeps s < lengths[n] only."""
     T_SRC = k.shape[2]
     s_idx = torch.arange(T_SRC, dtype=torch.float32, device=q.device)[None, :]
-    w = _dense_widths(q.shape[2], T_SRC, is_causal, row_widths, q.device)
-    alive = _alive_dense(mask_m, T_SRC, is_causal, w)
+    w = _dense_widths(q.shape[2], T_SRC, is_causal, row_widths, q.device, lengths)
+    alive = _alive_dense(mask_m, T_SRC, w)
     if oversample != 1.0:
         ps = torch.clamp(torch.floor(_div(w, oversample) + 0.5), min=1.0)
         oys = _div(torch.clamp(w, round(k_cfg), round(k_cfg * oversample)), k_cfg)
@@ -320,7 +363,9 @@ def _lib() -> ctypes.CDLL:
     return _bound("block_sparse_causal", {
         "sea_causal_flat_forward": [_P] * 9 + [_I] * 10 + [_F] * 4 + [_I, _P],
         "sea_causal_fwd_stats": [_P] * 10 + [_I] * 10 + [_P],
+        "sea_bidir_forward": [_P] * 9 + [_I] * 10 + [_I, _P],
         "sea_alive_mask": [_P, _P] + [_I] * 5 + [_P],
+        "sea_bidir_alive_mask": [_P, _P, _P] + [_I] * 5 + [_P],
     })
 
 
@@ -342,9 +387,9 @@ def _require_cuda(t: torch.Tensor, what: str):
                          f"or on a CUDA device (kernel), got {t.device}")
 
 
-class CausalInputs(NamedTuple):
+class KernelInputs(NamedTuple):
     """The wrapper's inputs, padded to a multiple of 128 rows, with the
-    q-block geometry resolved."""
+    q-block geometry and the non-causal lengths resolved."""
 
     q: torch.Tensor
     k: torch.Tensor
@@ -356,6 +401,8 @@ class CausalInputs(NamedTuple):
     block_q: int
     block_k: int
     t_dst0: int  # rows before padding
+    is_causal: bool = True
+    lengths: Optional[torch.Tensor] = None  # (N,) int32 widths, non-causal only
 
 
 class KernelOperands(NamedTuple):
@@ -372,6 +419,7 @@ class KernelOperands(NamedTuple):
     counts_t: Optional[torch.Tensor]  # (NH, NKB) int32: active q-blocks per k-block
     idx_t: Optional[torch.Tensor]  # (NH, NKB, NQ) int32; both differentiable path only
     row_base: torch.Tensor  # (NQ,) int32
+    lengths: Optional[torch.Tensor]  # (NH,) int32 row widths, non-causal only
     shape: Tuple[int, int, int, int]  # (N, H, T_DST, D)
     t_m: int
     block_q: int
@@ -382,18 +430,24 @@ class KernelOperands(NamedTuple):
 
 # the fields of KernelOperands that hold tensors
 OPERAND_TENSORS = ("q", "k", "v", "mbits", "scaler", "counts", "idx", "counts_t",
-                   "idx_t", "row_base")
+                   "idx_t", "row_base", "lengths")
 
 
 def prepare_inputs(
-    q, k, v, mask_m, row_scaler=None, *, row_base=None, block_q=None, block_k=None,
-) -> CausalInputs:
+    q, k, v, mask_m, row_scaler=None, *, is_causal=True, lengths=None, row_base=None,
+    block_q=None, block_k=None,
+) -> KernelInputs:
     """Pad T to a multiple of 128 (padded rows have empty masks) and resolve
-    the q-block geometry, the row bases and the scaler."""
+    the q-block geometry, the row bases and the scaler; non-causal, also the
+    per-example widths (`lengths`, default the unpadded T_SRC)."""
     N, H, T_DST0, D = q.shape
     T_SRC0 = k.shape[2]
     T_DST = -(-T_DST0 // 128) * 128
     T_SRC = -(-T_SRC0 // 128) * 128
+    if is_causal and lengths is not None:
+        raise ValueError("lengths are the non-causal path's widths")
+    if not is_causal and row_base is not None:
+        raise ValueError("row_base is causal only")
     if T_DST != T_DST0 or T_SRC != T_SRC0:
         if row_base is not None:
             raise ValueError("row_base requires pre-padded shards")
@@ -421,19 +475,25 @@ def prepare_inputs(
         row_widths = (rw + 1).reshape(-1).to(torch.float32)
     if row_scaler is None:
         row_scaler = torch.ones((N, H, T_DST), dtype=q.dtype, device=q.device)
-    return CausalInputs(
+    if not is_causal:
+        if lengths is None:
+            lengths = torch.full((N,), T_SRC0, dtype=torch.int32)
+        lengths = lengths.to(device=q.device, dtype=torch.int32)
+        if lengths.shape != (N,):
+            raise ValueError(f"lengths must be ({N},), got {tuple(lengths.shape)}")
+    return KernelInputs(
         q, k, v, mask_m, row_scaler.to(q.dtype), row_base_arr, row_widths,
-        block_q, block_k, T_DST0,
+        block_q, block_k, T_DST0, is_causal, lengths,
     )
 
 
-def kernel_operands(x: CausalInputs, oversample: float = 1.0, k_cfg: float = 64.0,
+def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.0,
                     *, differentiable: bool = False) -> KernelOperands:
     """Check what the kernels take, then build their operands on the inputs'
-    device: the packed mask bits and the tile lists. `differentiable` builds
-    those of the differentiable path (the port of `_diff_prep`): float32
-    only, plus the transposed (per-k-block) lists that the dk/dv kernel
-    walks."""
+    device: the packed mask bits and the tile lists (per-example widths on
+    the non-causal path). `differentiable` builds those of the causal
+    differentiable path (the port of `_diff_prep`): float32 only, plus the
+    transposed (per-k-block) lists that the dk/dv kernel walks."""
     q, k, v, mask_m = x.q, x.k, x.v, x.mask_m
     N, H, T_DST, D = q.shape
     T_SRC = k.shape[2]
@@ -441,6 +501,8 @@ def kernel_operands(x: CausalInputs, oversample: float = 1.0, k_cfg: float = 64.
     n_words = (T_M + 31) // 32
     NH = N * H
     NQ, NKB = T_DST // x.block_q, T_SRC // x.block_k
+    if differentiable and not x.is_causal:
+        raise ValueError("the differentiable path is causal only")
     dtypes = (torch.float32,) if differentiable else (torch.float32, torch.bfloat16)
     if q.dtype not in dtypes:
         raise ValueError(f"kernel takes {' or '.join(map(str, dtypes))}, got {q.dtype}")
@@ -456,7 +518,10 @@ def kernel_operands(x: CausalInputs, oversample: float = 1.0, k_cfg: float = 64.
     if x.block_q % KERNEL_TILE or x.block_k % KERNEL_TILE:
         raise ValueError(f"block_q and block_k must be multiples of {KERNEL_TILE}")
 
-    act = _causal_activity(mask_m, T_SRC, x.block_q, x.block_k, x.row_widths)
+    if x.is_causal:
+        act = _causal_activity(mask_m, T_SRC, x.block_q, x.block_k, x.row_widths)
+    else:
+        act = _length_activity(mask_m, T_SRC, x.block_q, x.block_k, x.lengths)
     counts, idx = _compact_lists(act)
     counts_t = idx_t = None
     if differentiable:
@@ -474,6 +539,7 @@ def kernel_operands(x: CausalInputs, oversample: float = 1.0, k_cfg: float = 64.
         counts_t=counts_t,
         idx_t=idx_t,
         row_base=x.row_base.contiguous(),
+        lengths=None if x.is_causal else x.lengths.repeat_interleave(H).contiguous(),
         shape=(N, H, T_DST, D),
         t_m=T_M,
         block_q=x.block_q,
@@ -510,6 +576,30 @@ def launch_causal_flat(ops: KernelOperands) -> torch.Tensor:
     return out.reshape(ops.shape)
 
 
+def bidir_forward(ops: KernelOperands) -> torch.Tensor:
+    """One launch of the padded bidirectional kernel (K5) on the current
+    stream; (N, H, T, D). It counts its own launches."""
+    _require_cuda(ops.q, "sea_block_sparse_attention")
+    if ops.lengths is None:
+        raise ValueError("bidir_forward: operands of the causal path")
+    out = torch.empty_like(ops.q)
+    lib = _lib()
+    with torch.cuda.device(ops.q.device):
+        stream = torch.cuda.current_stream(ops.q.device).cuda_stream
+        err = lib.sea_bidir_forward(
+            ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(),
+            ops.mbits.data_ptr(), ops.scaler.data_ptr(), ops.counts.data_ptr(),
+            ops.idx.data_ptr(), ops.lengths.data_ptr(), out.data_ptr(),
+            *_geometry(ops), int(ops.q.dtype == torch.bfloat16), stream,
+        )
+    _check(err, "sea_bidir_forward")
+    bidir_forward.launches += 1
+    return out.reshape(ops.shape)
+
+
+bidir_forward.launches = 0
+
+
 def sea_block_sparse_attention(
     q: torch.Tensor,  # (N, H, T_DST, D) — pre-scaled
     k: torch.Tensor,  # (N, H, T_SRC, D)
@@ -518,6 +608,7 @@ def sea_block_sparse_attention(
     row_scaler: Optional[torch.Tensor] = None,  # (N, H, T_DST) sigmoid scaler
     *,
     is_causal: bool = True,
+    lengths: Optional[torch.Tensor] = None,  # (N,) token lengths (non-causal)
     row_base: Optional[torch.Tensor] = None,  # (NQ,) global base row per q-block
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
@@ -528,47 +619,59 @@ def sea_block_sparse_attention(
     over alive columns only; rows with no alive column give zeros.
 
     Sequence lengths are zero-padded to a multiple of 128 (padded rows have
-    empty masks and are sliced off). On CPU tensors this runs the plain
-    version (`dense_reference`); on CUDA tensors it launches the kernel."""
-    if not is_causal:
-        raise NotImplementedError(
-            "the non-causal (padded bidirectional) kernel is not ported yet"
-        )
+    empty masks and are sliced off). Non-causal, example n's rows have the
+    width lengths[n] (right padding), the unpadded T_SRC without `lengths`;
+    `oversample` is causal only. On CPU tensors this runs the plain version
+    (`dense_reference`); on CUDA tensors it launches the kernel (K1 causal,
+    K5 non-causal)."""
+    if not is_causal and oversample != 1.0:
+        raise ValueError("oversample is causal only")
     x = prepare_inputs(
-        q, k, v, mask_m, row_scaler, row_base=row_base, block_q=block_q,
-        block_k=block_k,
+        q, k, v, mask_m, row_scaler, is_causal=is_causal, lengths=lengths,
+        row_base=row_base, block_q=block_q, block_k=block_k,
     )
     if x.q.device.type == "cpu":
         out = dense_reference(
-            x.q, x.k, x.v, x.mask_m, x.scaler, is_causal=True,
+            x.q, x.k, x.v, x.mask_m, x.scaler, is_causal=is_causal, lengths=x.lengths,
             oversample=oversample, k_cfg=k_cfg, row_widths=x.row_widths,
         )
-    else:
+    elif is_causal:
         out = launch_causal_flat(kernel_operands(x, oversample, k_cfg))
+    else:
+        out = bidir_forward(kernel_operands(x))
     return out[:, :, : x.t_dst0]
 
 
 sea_block_sparse_attention.launches = 0
 
 
-def alive_mask(mask_m: torch.Tensor, t_src: int) -> torch.Tensor:
-    """(N, H, T_DST, T_SRC) int8 causal alive mask from the kernel's own
-    element predicate (`alive_elem` in the CUDA source), for a bit-for-bit
-    check against `element_mask_int8`. CPU tensors take the oracle."""
-    if mask_m.device.type == "cpu":
-        return element_mask_int8(mask_m, t_src, True)
-    _require_cuda(mask_m, "alive_mask")
+def alive_mask(mask_m: torch.Tensor, t_src: int, *, is_causal: bool = True,
+               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(N, H, T_DST, T_SRC) int8 alive mask from a kernel's own element
+    predicate (`alive_elem` of K1 causal, `alive_elem_len` of K5 non-causal,
+    with `lengths` (N,), default T_SRC), for a bit-for-bit check against
+    `element_mask_int8`. CPU tensors take the oracle."""
     N, H, T_DST, T_M = mask_m.shape
+    if not is_causal and lengths is None:
+        lengths = torch.full((N,), t_src, dtype=torch.int32)
+    if mask_m.device.type == "cpu":
+        return element_mask_int8(mask_m, t_src, is_causal, lengths=lengths)
+    _require_cuda(mask_m, "alive_mask")
     n_words = (T_M + 31) // 32
     mbits = pack_compressed_bits(mask_m).reshape(N * H, T_DST, n_words).contiguous()
     out = torch.empty((N * H, T_DST, t_src), dtype=torch.int8, device=mask_m.device)
     lib = _lib()
+    geometry = (N * H, T_DST, t_src, T_M, n_words)
     with torch.cuda.device(mask_m.device):
         stream = torch.cuda.current_stream(mask_m.device).cuda_stream
-        err = lib.sea_alive_mask(
-            mbits.data_ptr(), out.data_ptr(), N * H, T_DST, t_src, T_M, n_words,
-            stream,
-        )
+        if is_causal:
+            err = lib.sea_alive_mask(mbits.data_ptr(), out.data_ptr(), *geometry, stream)
+        else:
+            lengths_nh = lengths.to(device=mask_m.device, dtype=torch.int32)
+            lengths_nh = lengths_nh.repeat_interleave(H).contiguous()
+            err = lib.sea_bidir_alive_mask(
+                mbits.data_ptr(), lengths_nh.data_ptr(), out.data_ptr(), *geometry, stream,
+            )
     _check(err, "sea_alive_mask")
     alive_mask.launches += 1
     return out.reshape(N, H, T_DST, t_src)
@@ -590,7 +693,7 @@ def fwd_with_stats_reference(
     alive columns, (N, H, T_DST) float32, +inf on rows with no alive column."""
     T_SRC = k.shape[2]
     w = _dense_widths(q.shape[2], T_SRC, True, row_widths, q.device)
-    out, m, l = _softmax_pv(q, k, v, _alive_dense(mask_m, T_SRC, True, w), scaler)
+    out, m, l = _softmax_pv(q, k, v, _alive_dense(mask_m, T_SRC, w), scaler)
     # m is finite (NEG_INF) on empty rows, where l = 0 and lse is +inf
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("inf")))
     return out.to(q.dtype), lse[..., 0]
@@ -600,7 +703,7 @@ def _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths):
     """Dense p = exp(s − lse) (0 off the mask) and ds = p·(dp − delta)."""
     T_SRC = k.shape[2]
     w = _dense_widths(q.shape[2], T_SRC, True, row_widths, q.device)
-    alive = _alive_dense(mask_m, T_SRC, True, w)
+    alive = _alive_dense(mask_m, T_SRC, w)
     scores = torch.einsum("nhtd,nhsd->nhts", q.float(), k.float())
     p = torch.where(alive, torch.exp(scores - lse[..., None]), torch.zeros_like(scores))
     dp = torch.einsum("nhtd,nhsd->nhts", dou.float(), v.float())
@@ -750,7 +853,7 @@ class FusedSparseAttention(torch.autograd.Function):
             ctx.ops, ctx.row_widths = None, row_widths
             ctx.save_for_backward(q, k, v, mask_m, scaler, o, lse)
             return o
-        x = CausalInputs(q, k, v, mask_m, scaler, row_base, row_widths, block_q,
+        x = KernelInputs(q, k, v, mask_m, scaler, row_base, row_widths, block_q,
                          block_k, q.shape[2])
         ops = kernel_operands(x, differentiable=True)
         o, lse = causal_fwd_stats(ops)

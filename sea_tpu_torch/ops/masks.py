@@ -1,8 +1,11 @@
 """Grouped top-k selection of the compressed mask (PyTorch port).
 
 Port of the benchmark-path half of `sea_tpu/ops/masks.py`: the mask fill
-constant, the per-row budget and the grouped top-k. The dense train-path
-resize (`resize_from_m_to_t`) is not ported yet.
+constant, the per-row budget, the grouped top-k, and the non-causal
+`resize_from_m_to_t` without jitter or undersampling, as `resize_noncausal`
+(the BERT benchmark path's average-pool weights). The causal resize, the jitter and the
+undersampling keep-predicate belong to the dense train path and are not
+ported yet.
 
 Two numerical rules keep the port bit-exact with the JAX package:
 
@@ -33,6 +36,44 @@ def fp_min_for(dtype: torch.dtype) -> float:
 def round_half_away(x: torch.Tensor) -> torch.Tensor:
     """Half away from zero for x >= 0 (all inputs here are)."""
     return torch.floor(x + 0.5)
+
+
+def resize_noncausal(
+    x: torch.Tensor,
+    masked_fill_value: float,
+    attention_mask: torch.Tensor,
+    target_width: Optional[int] = None,
+) -> torch.Tensor:
+    """Nearest-neighbour width-resize of a compressed (N, H, T1, T_M) map to
+    (N, H, T1, T2), padding-aware: the non-causal `resize_from_m_to_t`
+    without jitter or undersampling.
+
+    attention_mask: (N, 1, 1, T2) additive, 0 to keep and <= FP_MIN at
+    padding. Column c of example n reads pixel
+    floor((cs_c − 1 + 0.5) / L · T_M − 1e-4) with cs the running count of
+    kept columns and L their total; a padded column reads the fill value
+    (index T_M). The map is the same for every row; the resize is a gather,
+    so it is exact whatever the matmul precision."""
+    N, H, T1, T_M = x.shape
+    T2 = target_width if target_width is not None else T1
+    if tuple(attention_mask.shape) != (N, 1, 1, T2):
+        raise ValueError(f"attention_mask must be (N, 1, 1, T2) = {(N, 1, 1, T2)}, "
+                         f"got {tuple(attention_mask.shape)}")
+    mask = (attention_mask[:, 0, 0, :] > -1).to(torch.float32)  # (N, T2)
+    mask_cs = torch.cumsum(mask, dim=-1)
+    token_length = mask_cs[:, -1:]
+    # `/ token_length` divides by a tensor: a true division, bit for bit
+    # the JAX package's index map
+    idx = (
+        torch.floor(((mask_cs - 1) + 0.5) / token_length * T_M - 1e-4).to(torch.int64)
+        + ((1 - mask) * T_M).to(torch.int64)
+    )
+    idx = torch.clamp(idx, 0, T_M)  # (N, T2)
+    grid_input = torch.cat(
+        [x, torch.full((N, H, T1, 1), masked_fill_value, dtype=x.dtype, device=x.device)],
+        dim=-1,
+    )
+    return torch.gather(grid_input, -1, idx[:, None, None, :].expand(N, H, T1, T2))
 
 
 def per_item_top_k(

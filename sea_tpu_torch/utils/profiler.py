@@ -8,7 +8,8 @@ then returns at once.
 
 Region times are host times. On a CUDA device they measure the enqueue, not
 the device work, unless `synchronize` is set, which synchronises the device
-at each region's end.
+at each region's start and end, so that a region is charged with its own
+device work and not with what was queued before it.
 """
 
 from __future__ import annotations
@@ -71,6 +72,8 @@ class Benchmark:
         parent = self._stack[-1]
         node = parent.children.setdefault(name, _Region(name))
         self._stack.append(node)
+        if self.synchronize and torch.cuda.is_available():
+            torch.cuda.synchronize()
         t0 = time.perf_counter()
         try:
             yield

@@ -121,5 +121,11 @@ def test_train_path_is_refused():
     q, k, v, mask = (t(x) for x in make_inputs(cfg, T=64))
     with pytest.raises(NotImplementedError):
         model(q, k, v, q, k, v, q, k, mask, benchmarking=False)
+    # the non-causal module runs the benchmark path only, without oversampling
+    noncausal = torch_sea_config(dataclasses.replace(cfg, causal=False))
+    model = SeaAttention(noncausal, device="cpu")
+    pad = torch.zeros((1, 1, 1, 64))  # (N, 1, 1, T) additive: no padding
     with pytest.raises(NotImplementedError):
-        SeaAttention(torch_sea_config(dataclasses.replace(cfg, causal=False)), device="cpu")
+        model(q, k, v, q, k, v, q, k, pad, benchmarking=False)
+    with pytest.raises(NotImplementedError):
+        SeaAttention(dataclasses.replace(noncausal, k_oversample=2.0), device="cpu")

@@ -148,11 +148,94 @@ def test_plain_row_base_matches():
 
 
 def test_wrapper_refuses_what_is_not_ported():
+    """Still refused, as the JAX wrapper refuses it: the undersampling
+    predicate off the causal path, and row_base with unpadded T."""
     q, k, v, mask, scaler = (t(x) for x in make_case(T=128, T_M=16))
-    with pytest.raises(NotImplementedError):
-        tb.sea_block_sparse_attention(q, k, v, mask, scaler, is_causal=False)
+    with pytest.raises(ValueError):
+        tb.sea_block_sparse_attention(q, k, v, mask, scaler, is_causal=False, oversample=2.0)
     with pytest.raises(ValueError):
         tb.sea_block_sparse_attention(
             q[:, :, :100], k[:, :, :100], v[:, :, :100], mask[:, :, :100],
             row_base=torch.zeros(2, dtype=torch.int32),
         )
+
+
+# --- the padded bidirectional path (kernel K5) ------------------------------
+
+
+def right_padded(case, lengths):
+    """Zero the rows of each example's padding, as the BERT path's top-k
+    does (padded query rows keep no pixel)."""
+    q, k, v, mask, scaler = case
+    mask = mask.copy()
+    for n, length in enumerate(lengths):
+        mask[n, :, length:] = 0.0
+    return q, k, v, mask, scaler
+
+
+@pytest.mark.parametrize("t_m", [32, 128])
+def test_tile_activity_lists_lengths_exact(t_m):
+    lengths = np.array([160, 256, 1, 0], np.int32)
+    mask = make_case(N=4, T=256, T_M=t_m, density=0.1)[3]
+    for bq, bk in ((64, 64), (128, 128)):
+        wc, wi = jb.tile_activity_lists(
+            jnp.asarray(mask), 256, False, bq, bk, lengths=jnp.asarray(lengths))
+        gc, gi = tb.tile_activity_lists(t(mask), 256, False, bq, bk, lengths=t(lengths))
+        np.testing.assert_array_equal(gc.numpy(), np.asarray(wc))
+        np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+
+
+def test_element_mask_lengths_and_nnz_exact():
+    """The lengths-aware oracle against the rule written out in numpy, and
+    the compressed-domain nnz against its sum; lengths 0 and 1 included."""
+    T, T_M = 256, 128
+    lengths = np.array([0, 1, 77, 200, 256], np.int32)
+    mask = make_case(N=5, H=2, T=T, T_M=T_M, density=0.3)[3]
+    got = tb.element_mask_int8(t(mask), T, False, lengths=t(lengths)).numpy()
+    s = np.arange(T, dtype=np.float32)
+    for n, length in enumerate(lengths):
+        w = np.float32(max(length, 1))
+        pix = np.clip(np.floor((s + np.float32(0.5)) / w * np.float32(T_M)
+                               - np.float32(1e-4)), 0, T_M - 1).astype(np.int64)
+        want = mask[n][:, :, pix] * (s < length)
+        np.testing.assert_array_equal(got[n], want.astype(np.int8))
+    nnz = int(tb.mask_nnz(t(mask), T, False, lengths=t(lengths)))
+    assert nnz == int(got.astype(np.int64).sum())
+    np.testing.assert_array_equal(
+        tb.alive_mask(t(mask), T, is_causal=False, lengths=t(lengths)).numpy(), got)
+
+
+def _run_both_bidir(case, lengths, **kw):
+    q, k, v, mask, scaler = right_padded(case, lengths)
+    want = jb.sea_block_sparse_attention(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+        jnp.asarray(scaler), is_causal=False, lengths=jnp.asarray(lengths),
+        interpret=True, **kw,
+    )
+    got = tb.sea_block_sparse_attention(
+        t(q), t(k), t(v), t(mask), t(scaler), is_causal=False, lengths=t(lengths), **kw)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
+    plain = tb.dense_reference(t(q), t(k), t(v), t(mask), t(scaler), is_causal=False,
+                               lengths=t(lengths))
+    jplain = jb.dense_reference(q, k, v, jnp.asarray(mask), scaler, is_causal=False,
+                                lengths=jnp.asarray(lengths))
+    np.testing.assert_allclose(plain.numpy(), np.asarray(jplain), atol=ATOL)
+    return got
+
+
+@pytest.mark.parametrize("t_m", [32, 128])
+@pytest.mark.parametrize("T", [256, 200])
+def test_plain_bidir_matches_jax_kernel(T, t_m):
+    """T=200 is padded to 256 inside both wrappers."""
+    lengths = np.array([160, T], np.int32)
+    _run_both_bidir(make_case(N=2, T=T, T_M=t_m, density=0.2, seed=T + t_m), lengths)
+
+
+def test_plain_bidir_short_examples():
+    """A one-token example and one whose rows keep no pixel give what the
+    JAX kernel gives; the empty rows are exact zeros."""
+    case = list(make_case(N=2, T=128, T_M=32, density=0.3, seed=5))
+    case[3][1] = 0.0
+    got = _run_both_bidir(tuple(case), np.array([1, 77], np.int32))
+    assert float(got[1].abs().max()) == 0.0

@@ -76,3 +76,19 @@ def test_ranks_desc_stable_on_ties():
         tm._ranks_desc(t(x)).numpy(), np.asarray(jm._ranks_desc(jnp.asarray(x)))
     )
     np.testing.assert_array_equal(tm._ranks_desc(t(x)).numpy(), [[2, 0, 3, 1, 5, 4]])
+
+
+@pytest.mark.parametrize("fill", [0.0, float(np.finfo(np.float32).min) / 2], ids=["zero", "fp_min"])
+def test_resize_from_m_to_t_noncausal_exact(fill):
+    """The non-causal resize of the BERT path's average-pool weights (T1 = 1)
+    and of a full map, on right-padded masks: bit for bit."""
+    rng = np.random.default_rng(5)
+    T2, T_M = 200, 128
+    am = np.zeros((3, 1, 1, T2), np.float32)
+    for n, length in enumerate((200, 77, 1)):
+        am[n, ..., length:] = jm.fp_min_for(jnp.float32)
+    for T1 in (1, 7):
+        x = rng.uniform(size=(3, 2, T1, T_M)).astype(np.float32)
+        want = jm.resize_from_m_to_t(jnp.asarray(x), fill, jnp.asarray(am), T2, is_causal=False)
+        got = tm.resize_noncausal(t(x), fill, t(am), T2)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))

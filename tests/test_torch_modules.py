@@ -56,6 +56,32 @@ def test_interpolate_area_downscale_matches():
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
+@pytest.mark.parametrize(
+    "shape,size",
+    [
+        ((2, 3, 75, 64), (75, 128)),  # the non-causal CNN's width, 64 -> 128
+        ((2, 3, 102, 64), (101, 128)),  # an odd T: T + 1 rows shrink to T
+        ((1, 2, 7, 5), (13, 11)),  # both axes grow, by ratios that are not whole
+    ],
+    ids=["width_64_128", "odd_height", "both_grow"],
+)
+def test_interpolate_linear_upscale_matches(shape, size):
+    """The linear branch against jax.image.resize, borders included (JAX
+    renormalises the weights that fall outside the input), within 1e-6."""
+    x = np.random.default_rng(3).standard_normal(shape).astype(np.float32)
+    want = jmod.interpolate(jnp.asarray(x), size)
+    got = tmod.interpolate(t(x), size)
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
+def test_keep_res_matches():
+    x = np.random.default_rng(4).standard_normal((1, 2, 9, 16)).astype(np.float32)
+    want = jmod.KeepRes(layers=(jax.nn.relu,), output_width=32).apply({}, jnp.asarray(x))
+    got = tmod.KeepRes([torch.nn.ReLU()], output_width=32)(t(x))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-6)
+
+
 def test_upsample_and_channel_split_exact():
     rng = np.random.default_rng(2)
     x = rng.standard_normal((2, 3, 5, 8)).astype(np.float32)
