@@ -58,7 +58,39 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 held against the plain version and must reproduce the run's
                 own kernel output; ms/forward, tokens/s and peak memory
                 beside the dense BERT-base;
- 10. result   — one JSON line of per-kernel numbers, then the device line.
+ 10. ring-kernels — the ring's windowed kernels, forward with stats (K6),
+                dq (K7) and dk/dv (K8), against their plain versions on every
+                (shard, window) of a ring of 4 shards (zigzag rows, blocks 128)
+                over synthetic 1 x 4096 inputs (H=12, D=64, T_M=256, the budget
+                mask, a band of rows with nothing alive, windows wholly past
+                their rows' causal edge); the merged ring forward and backward
+                against K2-K4 unsharded on the same inputs; times of the S²
+                launches of a layer against one launch of K2/K3/K4;
+ 11. ring-serve — the OPT-125m benchmark forward at 1 x 16384 inside
+                `sharded_attention_scope(LocalGroup(4), kind="auto")`, which
+                must resolve to 'ring': 192 K6 launches and no other kernel per
+                forward, finite logits, layer 0's attention output within 1e-4
+                of the unsharded forward's (K1); ms/forward beside the
+                unsharded forward;
+ 12. ring-train — OPT-125m with `use_fused_train` at full width and depth,
+                2 AdamW steps on 1 x 16384 tokens inside the same scope, then
+                the same from the same weights unsharded (K2-K4): 192 launches
+                each of K6, K7 and K8 per step and none of K1-K5, the loss
+                falling, the first step's loss within 1e-4 of the unsharded
+                step's, every layer's top-k mask compared between the arms and
+                every parameter gradient within 2e-4 of the unsharded step's
+                when no pick differs (the gap is printed either way); on layer
+                0's inputs and incoming gradient captured from the ring arm,
+                the ring's output within 3e-5 and its dq, dk, dv and dscaler
+                within 2e-4 of the unsharded kernels', and K6-K8 against their
+                plain versions on every (shard, window), timed; ms/step,
+                tokens/s and peak memory of both arms;
+ 13. seq-head  — the 'seq' and 'head' kinds at 1 x 4096 over LocalGroup(4):
+                the benchmark forward (K1 with row_base, 48 launches) and two
+                train steps (K2-K4, 48 launches each a step) against the
+                unsharded ones; the 'auto' rule ('seq' at 4096, 'ring' at 16384,
+                never 'ring' for one shard);
+ 14. result   — one JSON line of per-kernel numbers, then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -66,11 +98,16 @@ bf16 ulp of the float32 plain result on the same bf16 inputs (the kernel
 sums in float32 and rounds once); gradients 1e-4·max|want| abs, plus 1e-8
 for tensors that are all zero (sums over up to T float32 products in another
 order, whose rounding scales with the largest terms rather than with each
-element).
+element). The ring phases hold the JAX package's own sharded bounds:
+the ring's output 3e-5 and its gradients 2e-4 abs against the unsharded
+kernels (tests/test_sharded_attention.py:150, :309-312), a layer's
+attention output 1e-4 (:257), the first train step's loss 1e-4
+(__graft_entry__.py:283-299).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -82,11 +119,19 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sea_tpu_torch.config import opt_config
 from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
 from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
 from sea_tpu_torch.ops.masks import _ranks_desc, fp_min_for, topk_mask
+from sea_tpu_torch.parallel import (
+    AttnShardingContext,
+    LocalGroup,
+    resolve_attention_kind,
+    sharded_attention_scope,
+)
+from sea_tpu_torch.parallel import sharded_attention as sa
 from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
 from sea_tpu_torch.utils.profiler import get_bench
 
@@ -116,6 +161,21 @@ BIDIR_REPLACES = "sea_tpu/ops/kernels/block_sparse.py:839"  # _kernel
 # (batch, T, least and most length): the GLUE trainer's MRPC batch at its
 # max_length, then BERT's most positions
 BERT_REQUESTS = ((32, 256, 32, 256), (8, 512, 128, 512))
+# the ring's windowed kernels: (wrapper, CUDA entry point, source, TPU kernel
+# replaced, FLOPs per alive element / D)
+RING_KERNELS = {
+    "K6": (bs.fwd_stats_window, "sea_window_fwd_stats", KERNEL_SOURCE,
+           "sea_tpu/ops/kernels/block_sparse.py:1598", 4),  # _causal_kernel_fwd_stats_cb
+    "K7": (bs.dq_window, "sea_window_dq", DIFF_SOURCE,
+           "sea_tpu/ops/kernels/block_sparse.py:1688", 6),  # _causal_kernel_dq_cb
+    "K8": (bs.dkv_window, "sea_window_dkv", DIFF_SOURCE,
+           "sea_tpu/ops/kernels/block_sparse.py:1698", 8),  # _causal_kernel_dkv_win
+}
+RING_SHARDS, RING_BLOCK = 4, 128  # LocalGroup(4); the ring's default blocks
+RING_T = 16384  # the ring's main path: kind="auto" resolves to 'ring' from here
+RING_CHECK_T = 4096  # ring-kernels' synthetic inputs and the seq-head phase
+# the JAX package's bounds (see the module docstring)
+RING_OUT_TOL, RING_GRAD_TOL, LAYER_TOL, LOSS_TOL = 3e-5, 2e-4, 1e-4, 1e-4
 
 
 def log(*a):
@@ -177,14 +237,15 @@ def reset_launches():
     bs.sea_block_sparse_attention.launches = 0
     bs.bidir_forward.launches = 0
     bs.alive_mask.launches = 0
-    for wrapper, *_ in TRAIN_KERNELS.values():
+    for wrapper, *_ in (*TRAIN_KERNELS.values(), *RING_KERNELS.values()):
         wrapper.launches = 0
 
 
 def launch_counts() -> dict:
     return {"K1": bs.sea_block_sparse_attention.launches,
             **{kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS},
-            "K5": bs.bidir_forward.launches}
+            "K5": bs.bidir_forward.launches,
+            **{kid: RING_KERNELS[kid][0].launches for kid in RING_KERNELS}}
 
 
 def check_grad(name, got, want) -> float:
@@ -268,7 +329,9 @@ def phase_device():
         f"({', '.join(_build.sources())})")
     for name, text in logs.items():
         for line in text.splitlines():
-            if "registers" in line or "spill" in line:
+            if "Function properties for" in line:
+                log(f"[build] {name}: {line.split('Function properties for')[-1].strip()}")
+            elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
     return smi
 
@@ -375,6 +438,19 @@ def forward_ms(model, *inputs, iters=7):
         if i:
             times.append((time.perf_counter() - t0) * 1e3)
     return statistics.median(times), out
+
+
+def host_ms(fn, iters):
+    """Median host ms of `fn()` ending in a synchronise, after one warm-up."""
+    times = []
+    for i in range(iters + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
 
 
 def phase_slice():
@@ -686,12 +762,14 @@ def phase_train_kernels():
     check_fused_backward("every pixel on", q, k, v, full, sc, do)
 
 
-def run_train(model, ids, steps, label):
+def run_train(model, ids, steps, label, want=None, after_step=None):
     """`steps` AdamW steps through `train_steps` on one batch, the launch
     counts set to 0 just before and read after every step. Checks a finite
     loss and, for the SEA student, 12 launches of each of K2, K3 and K4 and
-    none of K1 per step (no kernel launch at all for the dense model).
-    Returns (losses, ms per step, launches over the run, peak GiB)."""
+    none of the other kernels per step (no kernel launch at all for the
+    dense model), or the launches `want` per step. `after_step(i)` runs after
+    step i's checks, outside its time. Returns (losses, ms per step,
+    launches over the run, peak GiB)."""
     n_layers = model.cfg.num_layers
     sparse = model.cfg.attention_method == "perlin"
     torch.cuda.synchronize()
@@ -708,10 +786,16 @@ def run_train(model, ids, steps, label):
         last[:] = [now, counts]
         log(f"[train] {label} step {i + 1}: loss {loss:.6f}, {times[-1]:.2f} ms "
             f"({ids.numel() / times[-1] * 1e3:.0f} tokens/s), launches {per_step[-1]}")
+        if after_step is not None:
+            after_step(i)
+            torch.cuda.synchronize()
+            last[:] = [time.perf_counter(), launch_counts()]
 
     losses = train_steps(model, ids, torch.ones_like(ids), steps, lr=TRAIN_LR, callback=on_step)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {"K1": 0, **{kid: n_layers if sparse else 0 for kid in TRAIN_KERNELS}, "K5": 0}
+    if want is None:
+        want = {**dict.fromkeys(launch_counts(), 0),
+                **{kid: n_layers if sparse else 0 for kid in TRAIN_KERNELS}}
     for i, (loss, n) in enumerate(zip(losses, per_step)):
         require(np.isfinite(loss), f"{label} step {i + 1}: loss {loss}")
         require(n == want, f"{label} step {i + 1}: launches {n}, want {want}")
@@ -721,22 +805,35 @@ def run_train(model, ids, steps, label):
     return losses, times, launch_counts(), peak
 
 
+@contextlib.contextmanager
+def layer0_registry(model):
+    """The buffer registry on while layer 0's SEA attention runs, and off
+    for the other layers; layer 0's buffers stay in it afterwards."""
+    bench = get_bench()
+    attn = model.model.layers[0].self_attn.perlin
+    hooks = [attn.register_forward_pre_hook(lambda *_: bench.activate_temp_buffers(True)),
+             attn.register_forward_hook(lambda *_: bench.activate_temp_buffers(False))]
+    try:
+        yield bench
+    finally:
+        for h in hooks:
+            h.remove()
+        bench.activate_temp_buffers(False)
+
+
 def capture_layer0(model, ids):
     """Layer 0's kernel inputs and the gradient reaching its kernel output,
-    from one forward and backward of a train step (buffer registry and a
-    tensor hook); the parameters' gradients are cleared afterwards."""
-    bench = get_bench()
-    bench.activate_temp_buffers(True)
+    from one forward and backward of a train step (buffer registry for
+    layer 0 and a tensor hook); the parameters' gradients are cleared
+    afterwards."""
     grads = []
-    try:
+    with layer0_registry(model) as bench:
         out = model(ids, torch.ones_like(ids), labels=ids, training=True)
         buf = {n: bench.get_temp_buffer(n, 0) for n in (
             "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
             "masked_estimated_attention_probs", "per_item_top_k", "fused_attention_output")}
         buf["fused_attention_output"].register_hook(grads.append)
         (out["loss"] + 0.0 * out["aux_loss"]).backward()
-    finally:
-        bench.activate_temp_buffers(False)
     model.zero_grad(set_to_none=True)
     buf = {n: b.detach() for n, b in buf.items()}
     # the train-mode grouped top-k on the card against the CPU on the same estimates
@@ -1041,7 +1138,7 @@ def phase_bert():
         per_forward.append({kid: after[kid] - before[kid] for kid in after})
     torch.cuda.synchronize()
     launches = bs.bidir_forward.launches
-    want = {"K1": 0, **{kid: 0 for kid in TRAIN_KERNELS}, "K5": cfg.num_layers}
+    want = {**dict.fromkeys(launch_counts(), 0), "K5": cfg.num_layers}
     for (ids, am, _), logits, n in zip(requests, outs, per_forward):
         finite = bool(torch.isfinite(logits).all())
         log(f"[bert] request {tuple(ids.shape)} (lengths {int(am.sum(1).min())}-"
@@ -1089,6 +1186,419 @@ def phase_bert():
 
     breakdown(f"BERT forward {tuple(inputs[0].shape)}", forward)
     return launches, max(errs), captured
+
+
+# ---------------------------------------------------------------------------
+# The ring: K6, K7, K8, and OPT-125m sequence-sharded over LocalGroup(4)
+# ---------------------------------------------------------------------------
+
+
+def window_nnz(mask_l, rows_l, col0, ch) -> int:
+    """Alive elements of the rows whose global ids are `rows_l` (mask_l
+    their compressed mask) in the columns col0 .. col0 + ch − 1: each alive
+    pixel's run of columns, cut to the window."""
+    vs, ve = bs._pixel_starts((rows_l + 1).float(), mask_l.shape[-1])
+    run = (ve.clamp(max=col0 + ch) - vs.clamp(min=col0)).clamp(min=0).to(torch.int64)
+    return int(((mask_l > 0).to(torch.int64) * run).sum())
+
+
+def window_bound(kid, ops: bs.WindowOperands, nnz):
+    """(t_ops, t_bytes) in ms of one launch of `kid` on one window, as
+    `diff_bound` counts K2-K4: its FLOPs on the window's alive elements at
+    the float32 FMA peak, and its bytes (q and the per-row operands of the
+    shard's rows, k and v of the window, each read once; each output
+    written once) at the HBM rate. The tile lists are not counted."""
+    N, Hh, TL, Dd = ops.shape
+    flops = RING_KERNELS[kid][4] * Dd * nnz
+    q_tile = N * Hh * TL * Dd * 4
+    kv_tile = N * Hh * ops.window * Dd * 4
+    row = N * Hh * TL * 4
+    nbytes = ops.mbits.numel() * 4 + ops.row_base.numel() * 4 + q_tile + 2 * kv_tile + {
+        "K6": q_tile + row,  # out, lse (the scaler is one)
+        "K7": q_tile + 2 * row + q_tile,  # dO·scaler, lse, delta; dq
+        "K8": q_tile + 2 * row + 2 * kv_tile,  # dO·scaler, lse, delta; dk, dv
+    }[kid]
+    return 1e3 * flops / PEAK_FLOPS[torch.float32], 1e3 * nbytes / HBM_BYTES_PER_S
+
+
+def ring_windows(label, q, k, v, mask, sc, do, timed=False, zigzag=True):
+    """K6, K7 and K8 against their plain versions on every (shard, window)
+    of a ring of RING_SHARDS shards (zigzag rows unless `zigzag` is False,
+    blocks RING_BLOCK) over
+    (q, k, v, mask, sc) with incoming gradient `do`, at the ring's merged
+    logsumexp and delta. Returns {kernel: max|err|} and, if `timed`, each
+    kernel's numbers per launch averaged over the S² launches of one layer
+    (ms, plain ms, bound ms, the library's ms on one window's shapes: SDPA's
+    forward for K6 and its backward for the pair K7 + K8) beside their sums
+    and one launch of K2, K3 or K4 at the same T."""
+    group = LocalGroup(RING_SHARDS, q.device)
+    N, Hh, T, Dd = q.shape
+    S = group.size
+    bq, bk = sa._ring_blocks(T, S, RING_BLOCK, RING_BLOCK)
+    perm, _, rows = sa._row_order(T, S, bq, zigzag, q.device)
+    qp, maskp, scp, dop = (x if perm is None else x[:, :, perm] for x in (q, mask, sc, do))
+    out, L, ops = sa._ring_forward(qp, k, v, maskp, scp, rows, group, bq, bk)
+    _, dou, delta = bs.backward_terms(dop, out, scp, torch.float32)
+    L_b = torch.where(torch.isneginf(L), float("inf"), L)
+    q_l, m_l, dou_l, L_l, delta_l, k_w, v_w = (
+        group.split_rows(x) for x in (qp, maskp, dou, L_b, delta, k, v))
+    r_l = group.split_rows(rows, 0)
+    errs = dict.fromkeys(RING_KERNELS, 0.0)
+    sums = {kid: dict(ms=0.0, plain_ms=0.0, t_ops=0.0, t_bytes=0.0, bound_ms=0.0)
+            for kid in RING_KERNELS}
+    empty = 0
+    for j in range(S):
+        widths = (r_l[j] + 1).float()
+        for w in range(S):
+            col0, ch = w * ops[j].window, ops[j].window
+            per_call = (dou_l[j], L_l[j], delta_l[j])
+            plain = {
+                "K6": lambda: bs.fwd_stats_window_reference(
+                    q_l[j], k_w[w], v_w[w], m_l[j], col0, row_widths=widths),
+                "K7": lambda: bs.dq_window_reference(
+                    q_l[j], k_w[w], v_w[w], m_l[j], *per_call, col0, row_widths=widths),
+                "K8": lambda: bs.dkv_window_reference(
+                    q_l[j], k_w[w], v_w[w], m_l[j], *per_call, col0, row_widths=widths),
+            }
+            kern = {
+                "K6": lambda: bs.fwd_stats_window(ops[j], w, k_w[w], v_w[w]),
+                "K7": lambda: bs.dq_window(ops[j], w, k_w[w], v_w[w], *per_call),
+                "K8": lambda: bs.dkv_window(ops[j], w, k_w[w], v_w[w], *per_call),
+            }
+            where = f"{label} shard {j} window {w}"
+            (o, lse), (want_o, want_lse) = kern["K6"](), plain["K6"]()
+            torch.cuda.synchronize()
+            inf = torch.isposinf(want_lse)
+            require(torch.equal(torch.isposinf(lse), inf) and not bool(torch.isnan(lse).any()),
+                    f"{where}: K6's +inf rows of lse differ")
+            e6 = max(max_err(o, want_o),
+                     max_err(lse[~inf], want_lse[~inf]) if bool((~inf).any()) else 0.0)
+            require(e6 <= F32_TOL and bool(torch.isfinite(o).all()), f"{where}: K6 err {e6:.3g}")
+            empty += int(bool(inf.all()))
+            e7 = check_grad(f"{where} K7 dq", kern["K7"](), plain["K7"]())
+            (dk, dv), (want_dk, want_dv) = kern["K8"](), plain["K8"]()
+            e8 = max(check_grad(f"{where} K8 dk", dk, want_dk),
+                     check_grad(f"{where} K8 dv", dv, want_dv))
+            for kid, e in (("K6", e6), ("K7", e7), ("K8", e8)):
+                errs[kid] = max(errs[kid], e)
+            if timed:
+                nnz = window_nnz(m_l[j], r_l[j], col0, ch)
+                for kid in RING_KERNELS:
+                    t_ops, t_bytes = window_bound(kid, ops[j], nnz)
+                    sums[kid]["ms"] += time_ms(kern[kid], iters=10)
+                    sums[kid]["plain_ms"] += time_ms(plain[kid], iters=3, warmup=1)
+                    sums[kid]["t_ops"] += t_ops
+                    sums[kid]["t_bytes"] += t_bytes
+                    sums[kid]["bound_ms"] += max(t_ops, t_bytes)
+    log(f"[ring-kernels] {label}: {S * S} (shard, window) pairs, {empty} of them with "
+        f"nothing alive on any row; max|err| vs plain K6 {errs['K6']:.3g}, K7 "
+        f"{errs['K7']:.3g}, K8 {errs['K8']:.3g}")
+    if not timed:
+        return errs, None
+
+    # the library's times on one window's shapes, and one launch of K2-K4 at T
+    qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q_l[0], k_w[0], v_w[0]))
+    sdpa_out = F.scaled_dot_product_attention(qq, kk, vv)
+    library = {
+        "K6": time_ms(lambda: F.scaled_dot_product_attention(q_l[0], k_w[0], v_w[0])),
+        "K7": time_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), dou_l[0],
+                                                  retain_graph=True)),
+    }
+    library["K8"] = library["K7"]
+    del sdpa_out, qq, kk, vv
+    def unsharded_ms(blocks):
+        ops_u = bs.kernel_operands(bs.prepare_inputs(q, k, v, mask, sc, block_q=blocks,
+                                                     block_k=blocks), differentiable=True)
+        o_u, lse_u = bs.causal_fwd_stats(ops_u)
+        _, dou_u, delta_u = bs.backward_terms(do, o_u, sc, torch.float32)
+        return {
+            "K6": time_ms(lambda: bs.causal_fwd_stats(ops_u)),
+            "K7": time_ms(lambda: bs.causal_dq(ops_u, dou_u, lse_u, delta_u)),
+            "K8": time_ms(lambda: bs.causal_dkv(ops_u, dou_u, lse_u, delta_u)),
+        }
+
+    # K2-K4 with the unsharded path's 64-wide tile lists, and with the
+    # ring's 128-wide ones: what the lists' width costs apart from the split
+    unsharded, unsharded_wide = unsharded_ms(bs.KERNEL_TILE), unsharded_ms(bq)
+    n = S * S
+    timing = {}
+    for kid, t in sums.items():
+        timing[kid] = dict(
+            ms=t["ms"] / n, sum_ms=t["ms"], plain_ms=t["plain_ms"] / n,
+            bound_ms=t["bound_ms"] / n, sum_bound_ms=t["bound_ms"],
+            bound_by="operations" if t["t_ops"] >= t["t_bytes"] else "bytes",
+            library_ms=library[kid], unsharded_ms=unsharded[kid],
+        )
+        names = {"K6": "K2", "K7": "K3", "K8": "K4"}
+        log(f"[ring-kernels] {label} {kid}: {n} launches {t['ms']:.4f} ms "
+            f"({t['ms'] / n:.4f} a launch) against one {names[kid]} launch at T={T} "
+            f"{unsharded[kid]:.4f} ms ({t['ms'] / unsharded[kid]:.2f}x; {names[kid]} on "
+            f"{bq}-wide lists {unsharded_wide[kid]:.4f} ms, "
+            f"{t['ms'] / unsharded_wide[kid]:.2f}x); plain "
+            f"{t['plain_ms'] / n:.3f} ms a window; sdpa {'fwd' if kid == 'K6' else 'bwd'} "
+            f"{library[kid]:.4f} ms on one window's shapes; bound {t['bound_ms']:.4f} ms over "
+            f"the {n} ({t['bound_ms'] / n:.4f} a launch) by {timing[kid]['bound_by']}")
+    return errs, timing
+
+
+def ring_vs_unsharded(label, q, k, v, mask, sc, do):
+    """The whole differentiable ring (K6 forward, K7/K8 backward; zigzag,
+    blocks RING_BLOCK, LocalGroup(RING_SHARDS)) against FusedSparseAttention
+    (K2-K4) unsharded on the same inputs: the output within 3e-5 and dq, dk,
+    dv, dscaler within 2e-4 abs and each also within 1e-8 + 1e-4·max|want|
+    (check_grad's rule), so that a ring whose gradients are far smaller than
+    2e-4 (a CE loss's over 16384 tokens) cannot drop, misroute or zero a dk/dv
+    chunk unseen. Returns the ring's (o, dq, dk, dv, dscaler)."""
+    group = LocalGroup(RING_SHARDS, q.device)
+    got = autograd_outputs(
+        lambda a, b, c, d: sa.ring_fused_train_attention(
+            a, b, c, mask, d, group, True, RING_BLOCK, RING_BLOCK), q, k, v, sc, do)
+    want = autograd_outputs(
+        lambda a, b, c, d: bs.fused_sparse_attention(a, b, c, mask, d), q, k, v, sc, do)
+    errs = [max_err(g, w) for g, w in zip(got, want)]
+    rel = [e / max(float(w.abs().max()), 1e-30) for e, w in zip(errs, want)]
+    finite = all(bool(torch.isfinite(g).all()) for g in got)
+    log(f"[ring-kernels] {label}: ring (K6-K8) vs unsharded (K2-K4) max|err| o {errs[0]:.3g}, "
+        f"dq {errs[1]:.3g}, dk {errs[2]:.3g}, dv {errs[3]:.3g}, dscaler {errs[4]:.3g} "
+        f"(relative to max|want|: {', '.join(f'{r:.3g}' for r in rel)}); finite {finite}")
+    require(finite and errs[0] <= RING_OUT_TOL and max(errs[1:]) <= RING_GRAD_TOL,
+            f"{label}: ring vs unsharded {errs}")
+    for name, g, w in zip(("dq", "dk", "dv", "dscaler"), got[1:], want[1:]):
+        check_grad(f"{label} ring {name}", g, w)
+    return got
+
+
+def phase_ring_kernels():
+    dev = "cuda"
+    T = RING_CHECK_T
+    q, k, v, sc = qkv(1, T, torch.float32, seed=21, device=dev)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(22)).to(dev)
+    mask = budget_mask(1, T, seed=21, device=dev)
+    dead = slice(T // 4, T // 4 + 64)
+    mask[:, :, dead] = 0.0  # rows with nothing alive
+    errs, timing = ring_windows(f"1x{T} zigzag", q, k, v, mask, sc, do, timed=True)
+    # rows in the natural order: shard 0's rows end before windows 1-3 begin
+    natural, _ = ring_windows(f"1x{T} natural order", q, k, v, mask, sc, do, zigzag=False)
+    errs = {kid: max(errs[kid], natural[kid]) for kid in errs}
+    o, dq, *_ = ring_vs_unsharded(f"1x{T}", q, k, v, mask, sc, do)
+    zero = max(float(o[:, :, dead].abs().max()), float(dq[:, :, dead].abs().max()))
+    log(f"[ring-kernels] 1x{T}: |o|, |dq| on rows {dead.start}-{dead.stop - 1}, which have "
+        f"nothing alive: {zero}")
+    require(zero == 0.0, "rows with nothing alive: nonzero output or dq")
+    return errs, timing
+
+
+def serve_model(t):
+    """The serving OPT-125m SEA student with positions up to `t`, random
+    weights from seed 0."""
+    sea = opt_config(max_position_embeddings=t)
+    cfg = dataclasses.replace(opt_125m("perlin", sea=sea), max_position_embeddings=t)
+    return OptForCausalLM(cfg, device="cuda", seed=0).eval()
+
+
+def layer0_forward(model, ids, scope=None):
+    """One benchmark forward (inside `scope` if given): (logits, layer 0's
+    attention output `partial_context_layer`, its kernel output)."""
+    with contextlib.ExitStack() as stack:
+        if scope is not None:
+            stack.enter_context(sharded_attention_scope(**scope))
+        bench = stack.enter_context(layer0_registry(model))
+        stack.enter_context(torch.inference_mode())
+        logits = model(ids, torch.ones_like(ids), benchmarking=True)["logits"]
+    out = (logits, bench.get_temp_buffer("partial_context_layer", 0),
+           bench.get_temp_buffer("fused_attention_output", 0))
+    bench.reset()
+    return out
+
+
+def phase_ring_serve():
+    dev = "cuda"
+    T = RING_T
+    model = serve_model(T)
+    n_layers = model.cfg.num_layers
+    ids = torch.randint(4, model.cfg.vocab_size, (1, T),
+                        generator=torch.Generator().manual_seed(13)).to(dev)
+    am = torch.ones_like(ids)
+    scope = dict(group=LocalGroup(RING_SHARDS, dev), kind="auto")
+
+    # the main path: one forward inside the scope, launches counted around it
+    with sharded_attention_scope(**scope) as ctx:
+        kind = resolve_attention_kind(ctx, t=T)
+        require(kind == "ring", f"kind='auto' at T={T} over {RING_SHARDS} shards gave {kind}")
+        reset_launches()
+        with torch.inference_mode():
+            logits = model(ids, am, benchmarking=True)["logits"]
+        torch.cuda.synchronize()
+        counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), "K6": RING_SHARDS ** 2 * n_layers}
+    finite = bool(torch.isfinite(logits).all())
+    log(f"[ring-serve] 1x{T} under kind='auto' -> {kind}: logits {tuple(logits.shape)} "
+        f"finite={finite}, launches {counts}")
+    require(finite and logits.shape == (1, T, model.cfg.vocab_size), "ring logits")
+    require(counts == want, f"ring forward launches {counts}, want {want}")
+
+    # layer 0 against the unsharded forward (K1)
+    ring = layer0_forward(model, ids, scope)
+    before = launch_counts()["K1"]
+    plain = layer0_forward(model, ids)
+    require(launch_counts()["K1"] - before == n_layers, "the unsharded forward's K1 launches")
+    err_ctx, err_kernel, err_logits = (max_err(a, b) for a, b in zip(ring[1:] + ring[:1],
+                                                                      plain[1:] + plain[:1]))
+    log(f"[ring-serve] layer 0 ring vs unsharded: attention output max|err| {err_ctx:.3g}, "
+        f"kernel output {err_kernel:.3g}; logits after 12 layers {err_logits:.3g}; the run's "
+        f"logits reproduced {torch.equal(ring[0], logits)}")
+    require(err_ctx <= LAYER_TOL, f"layer-0 attention output, ring vs unsharded: {err_ctx}")
+    del ring, plain
+
+    def ring_forward():
+        with sharded_attention_scope(**scope), torch.inference_mode():
+            model(ids, am, benchmarking=True)
+
+    def plain_forward():
+        with torch.inference_mode():
+            model(ids, am, benchmarking=True)
+
+    times = {label: host_ms(fn, iters=3)
+             for label, fn in (("ring", ring_forward), ("unsharded", plain_forward))}
+    log(f"[ring-serve] forward 1x{T}: ring over {RING_SHARDS} shards {times['ring']:.2f} ms "
+        f"({T / times['ring'] * 1e3:.0f} tokens/s), unsharded {times['unsharded']:.2f} ms "
+        f"({T / times['unsharded'] * 1e3:.0f} tokens/s)")
+    breakdown(f"ring forward (1, {T})", ring_forward)
+    del model
+    torch.cuda.empty_cache()
+    return counts["K6"]
+def train_arm(model, ids, steps, label, want=None):
+    """`run_train` with the first step's every-layer top-k masks (bool, from
+    forward hooks) and parameter gradients kept for `compare_arms`."""
+    masks, grads = [], {}
+    hooks = [layer.self_attn.perlin.register_forward_hook(
+        lambda m, args, out: masks.append(out.partial_attention_mask > -1.0))
+        for layer in model.model.layers]
+
+    def after_step(i):
+        if i == 0:
+            for h in hooks:
+                h.remove()
+            grads.update({n: p.grad.detach().clone() for n, p in model.named_parameters()})
+
+    losses, times, launches, peak = run_train(model, ids, steps, label, want=want,
+                                              after_step=after_step)
+    return dict(label=label, losses=losses, times=times, launches=launches, peak=peak,
+                masks=masks, grads=grads, tokens=ids.numel())
+
+
+def compare_arms(phase, a, b):
+    """Arm `a` (sharded) against arm `b` (unsharded) from the same weights
+    and batch: the first step's loss within 1e-4; the top-k picks of every
+    layer compared; every parameter gradient within 2e-4 abs when no pick
+    differs (a later layer's near-tie pick can flip under the arms' float
+    reassociation; the gap is then printed and not held to the bound)."""
+    dloss = abs(a["losses"][0] - b["losses"][0])
+    differ = [(i, int((ma != mb).sum())) for i, (ma, mb) in enumerate(zip(a["masks"], b["masks"]))]
+    differ = [(i, n) for i, n in differ if n]
+    gaps = {n: max_err(g, b["grads"][n]) for n, g in a["grads"].items()}
+    worst = max(gaps, key=gaps.get)
+    scale = max(float(g.abs().max()) for g in b["grads"].values())
+    log(f"[{phase}] {a['label']} vs {b['label']}: first-step loss {a['losses'][0]:.6f} vs "
+        f"{b['losses'][0]:.6f} (|diff| {dloss:.3g}); top-k picks differing by layer "
+        f"{differ or 'none'} of {len(a['masks'])} layers; max|grad diff| {gaps[worst]:.3g} "
+        f"({worst}; largest gradient {scale:.3g})")
+    require(len(a["masks"]) == len(b["masks"]) > 0, "top-k masks captured")
+    require(dloss <= LOSS_TOL, f"{phase}: first-step loss differs by {dloss}")
+    if differ:
+        log(f"[{phase}] top-k picks differ, so the gradient gap {gaps[worst]:.3g} is "
+            f"reported and not held to {RING_GRAD_TOL}")
+    else:
+        require(gaps[worst] <= RING_GRAD_TOL, f"{phase}: gradient {worst} differs by {gaps[worst]}")
+    for arm in (a, b):
+        steady = statistics.median(arm["times"][1:])
+        log(f"[{phase}] {arm['label']}: {steady:.2f} ms/step after the first "
+            f"({arm['tokens'] / steady * 1e3:.0f} tokens/s), peak memory {arm['peak']:.2f} GiB")
+
+
+def phase_ring_train():
+    dev = "cuda"
+    T, steps = RING_T, 2
+    group = LocalGroup(RING_SHARDS, dev)
+
+    # the main path: 2 steps inside the scope, launches counted step by step
+    with sharded_attention_scope(group, kind="auto") as ctx:
+        kind = resolve_attention_kind(ctx, t=T)
+        require(kind == "ring", f"kind='auto' at T={T} over {RING_SHARDS} shards gave {kind}")
+        model = longctx_model(T, 12, dev)
+        ids = torch.randint(4, model.cfg.vocab_size, (1, T),
+                            generator=torch.Generator().manual_seed(14)).to(dev)
+        n = RING_SHARDS ** 2 * model.cfg.num_layers
+        want = {**dict.fromkeys(launch_counts(), 0), "K6": n, "K7": n, "K8": n}
+        ring = train_arm(model, ids, steps, f"ring 1x{T}", want=want)
+        launches = {kid: ring["launches"][kid] for kid in RING_KERNELS}
+        require(ring["losses"][-1] < ring["losses"][0],
+                f"the loss did not fall over {steps} steps: {ring['losses']}")
+        # layer 0 of one more step, for the op-level checks below
+        captured = capture_layer0(model, ids)
+    del model
+    torch.cuda.empty_cache()
+
+    # the unsharded arm (K2-K4) from the same weights and batch
+    model = longctx_model(T, 12, dev)
+    plain = train_arm(model, ids, steps, f"unsharded 1x{T}")
+    del model
+    torch.cuda.empty_cache()
+    compare_arms("ring-train", ring, plain)
+    del ring, plain
+    torch.cuda.empty_cache()
+
+    # layer 0's attention op at the inputs captured from the ring arm
+    q, k, v, mask, sc, do, step_o = captured
+    got = ring_vs_unsharded(f"layer-0 1x{T}", q, k, v, mask, sc, do)
+    require(torch.equal(got[0], step_o), "the ring on the captured inputs differs from the step's output")
+    log(f"[ring-train] layer-0 ring output reproduces the step's own bit for bit")
+    del got
+    errs, timing = ring_windows(f"layer-0 1x{T}", q, k, v, mask, sc, do, timed=True)
+    return launches, errs, timing
+
+
+def phase_seq_head():
+    dev = "cuda"
+    T = RING_CHECK_T
+    for t, size, want in ((T, RING_SHARDS, "seq"), (RING_T, RING_SHARDS, "ring"),
+                          (RING_T, 1, "seq"), (4 * RING_T, 1, "seq")):
+        got = resolve_attention_kind(AttnShardingContext(LocalGroup(size, dev)), t=t)
+        log(f"[seq-head] kind='auto' at T={t} over {size} shard(s): {got}")
+        require(got == want, f"the auto rule at T={t}, {size} shards: {got}, want {want}")
+
+    group = LocalGroup(RING_SHARDS, dev)
+    model = serve_model(T)
+    n_layers = model.cfg.num_layers
+    ids = torch.randint(4, model.cfg.vocab_size, (1, T),
+                        generator=torch.Generator().manual_seed(15)).to(dev)
+    plain = layer0_forward(model, ids)
+    for kind in ("seq", "head", "auto"):
+        reset_launches()
+        got = layer0_forward(model, ids, dict(group=group, kind=kind))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {**dict.fromkeys(counts, 0), "K1": RING_SHARDS * n_layers}
+        err_ctx, err_logits = max_err(got[1], plain[1]), max_err(got[0], plain[0])
+        log(f"[seq-head] forward 1x{T} kind={kind}: launches {counts}; layer-0 attention "
+            f"output max|err| {err_ctx:.3g} vs unsharded, logits {err_logits:.3g}; finite "
+            f"{bool(torch.isfinite(got[0]).all())}")
+        require(counts == want, f"{kind} forward launches {counts}, want {want}")
+        require(err_ctx <= LAYER_TOL and bool(torch.isfinite(got[0]).all()),
+                f"{kind} forward: layer-0 err {err_ctx}")
+    del model, plain, got
+    torch.cuda.empty_cache()
+
+    unsharded = train_arm(longctx_model(T, 12, dev), ids, 2, f"unsharded 1x{T}")
+    for kind in ("seq", "head"):
+        with sharded_attention_scope(group, kind=kind):
+            n = RING_SHARDS * n_layers
+            arm = train_arm(longctx_model(T, 12, dev), ids, 2, f"{kind} 1x{T}",
+                            want={**dict.fromkeys(launch_counts(), 0),
+                                  **dict.fromkeys(TRAIN_KERNELS, n)})
+        compare_arms("seq-head", arm, unsharded)
+        del arm
+        torch.cuda.empty_cache()
 
 
 def main():
@@ -1162,6 +1672,31 @@ def main():
         "bound_by": m["bound_by"],
         "library_ms": m["library_ms"],
     })
+
+    ring_errs, _ = phase_ring_kernels()
+    serve_launches = phase_ring_serve()
+    train_launches, train_errs, ring_m = phase_ring_train()
+    phase_seq_head()
+    # K6-K8 at the ring main path's own layer-0 inputs (the 1 x 16384 train
+    # step), each number a launch's share of the 16 of a layer
+    launches = {"K6": serve_launches + train_launches["K6"],
+                "K7": train_launches["K7"], "K8": train_launches["K8"]}
+    for kid, (_, name, source, replaces, _) in RING_KERNELS.items():
+        t = ring_m[kid]
+        require(launches[kid] > 0, f"the ring's main path never launched {kid}")
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[kid],
+            "max_abs_err": max(ring_errs[kid], train_errs[kid]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -7,8 +7,11 @@ use. Entry points take a `device` and default to "cuda"; on CPU tensors the
 kernel wrappers run their plain PyTorch versions.
 
 Ported so far: the OPT-125m SEA forward to logits on the fused benchmark
-path (`models.opt.OptForCausalLM`, `benchmarking=True`), on the causal
-fused sparse attention kernel (`ops.kernels.block_sparse`).
+path (`models.opt.OptForCausalLM`, `benchmarking=True`) and its task-only
+training (`training.longctx`), both also sequence-, head- or ring-sharded
+inside `parallel.sharded_attention_scope`, and the BERT-base SEA forward
+(`models.bert`), on the fused sparse attention kernels
+(`ops.kernels.block_sparse`).
 """
 
 from .config import SeaConfig, opt_config

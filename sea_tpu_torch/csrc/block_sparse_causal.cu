@@ -12,7 +12,16 @@
 //     alive column) that the backward kernels (block_sparse_diff.cu) read;
 //   * `_kernel` (the padded bidirectional path of BERT/LRA benchmarking),
 //     entry point `sea_bidir_forward` (K5): the body instantiated with
-//     BIDIR = true.
+//     BIDIR = true;
+//   * `_causal_kernel_fwd_stats_cb` (`fwd_stats_window`, the ring forward of
+//     sea_tpu/parallel/sharded_attention.py), entry point
+//     `sea_window_fwd_stats` (K6): K2's instance over one K/V window. The
+//     window holds the global columns col_base .. col_base + t_src − 1; the
+//     tile lists carry global k-block ids, the pixel and causal math use
+//     global columns, and only the K/V loads subtract col_base. The scaler is
+//     one (the ring applies the real one after merging the windows), and a
+//     row with nothing alive in the window gets lse = +inf and a zero output,
+//     as in K2. K1, K2 and K5 pass col_base = 0 and their whole K/V.
 // For every (batch·head, query row r) it computes
 //
 //     out[r] = scaler[r] · softmax over alive s of (q_r · k_s) · v_s
@@ -40,6 +49,10 @@
 // 4·ty .. 4·ty+3 and score columns tx + 16·j; row reductions are shuffles
 // inside each 16-lane half warp. Q, K, V and P live in shared memory with
 // rows padded by one float so that the column walks hit distinct banks.
+//
+// K6 walks the same lists restricted to one window: the ring launches it S
+// times per shard (S² per layer), each over a 1/S slice of the columns, so
+// its bound and its design are K2's on a smaller problem.
 //
 // What bounds it on this card. The function itself is bound by bytes: it
 // needs 4·D FLOPs per alive element only, and the main path's masks keep
@@ -69,6 +82,7 @@ namespace {
 using sea::alive_elem;
 using sea::alive_elem_len;
 using sea::bad_geometry;
+using sea::bad_window;
 using sea::keep_elem;
 using sea::load_f;
 using sea::store_f;
@@ -103,7 +117,7 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
     T* __restrict__ out,
     float* __restrict__ lse, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, float oversample, float k_cfg,
-    float keep_lo, float keep_hi) {
+    float keep_lo, float keep_hi, int col_base) {
   using S = Smem<D>;
   constexpr int DP = S::DP;
   constexpr int PP = BKT + 1;
@@ -145,16 +159,19 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
   const int* lst = idx + ((long)bh * nq + qb) * nkb;
   // every column from here on is dead on every row of the tile
   const int col_end = BIDIR ? len : grow0 + BQ;
-  const long kvbase = (long)bh * t_src * D;
+  // k and v hold the (global) columns col_base .. col_stop − 1
+  const int col_stop = col_base + t_src;
+  const long kvbase = ((long)bh * t_src - col_base) * D;
 
   for (int e = 0; e < cnt; ++e) {
     const int kb = lst[e];
     for (int c0 = kb * block_k; c0 < (kb + 1) * block_k; c0 += BKT) {
-      if (c0 >= col_end || c0 >= t_src) break;  // wholly past the causal edge or the length
+      // wholly past the causal edge, the length or the window
+      if (c0 >= col_end || c0 >= col_stop) break;
       __syncthreads();  // the previous sub-tile's P and V are consumed
       for (int i = tid; i < BKT * D; i += TPB) {
         const int c = i / D, d = i % D;
-        const bool in = c0 + c < t_src;
+        const bool in = c0 + c < col_stop;
         KPs[c * DP + d] = in ? load_f(k, kvbase + (long)c0 * D + i) : 0.f;
         Vs[i] = in ? load_f(v, kvbase + (long)c0 * D + i) : 0.f;
       }
@@ -241,7 +258,7 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
     const int rl = ty * 4 + i;
     const float l = l_i[i];
     const float safe_l = l > 0.f ? l : 1.f;
-    const float sc = scaler[(long)bh * t_dst + row0 + rl];
+    const float sc = scaler ? scaler[(long)bh * t_dst + row0 + rl] : 1.f;
     const long o = qoff + (long)rl * D;
 #pragma unroll
     for (int jj = 0; jj < DPT; ++jj)
@@ -277,7 +294,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    void* out, void* lse, int nh, int t_dst, int t_src, int t_m,
                    int n_words, int block_q, int block_k, int nq, int nkb,
                    float oversample, float k_cfg, float keep_lo, float keep_hi,
-                   cudaStream_t stream) {
+                   int col_base, cudaStream_t stream) {
   constexpr int bytes = Smem<D>::bytes;
   static std::atomic<bool> opted_in[MAX_DEVICES];
   cudaError_t e = sea::opt_in_smem(causal_flat_kernel<D, T, STATS, BIDIR>,
@@ -289,7 +306,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
       (const float*)scaler, (const int*)counts, (const int*)idx,
       (const int*)rowbase, (const int*)lengths, (T*)out, (float*)lse, t_dst,
       t_src, t_m, n_words, block_q, block_k, nq, nkb, oversample, k_cfg,
-      keep_lo, keep_hi);
+      keep_lo, keep_hi, col_base);
   return cudaGetLastError();
 }
 
@@ -309,11 +326,11 @@ extern "C" int sea_causal_flat_forward(
       is_bf16 ? launch<64, __nv_bfloat16, false, false>(
                     q, k, v, mbits, scaler, counts, idx, rowbase, nullptr, out,
                     nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
-                    nq, nkb, oversample, k_cfg, keep_lo, keep_hi, s)
+                    nq, nkb, oversample, k_cfg, keep_lo, keep_hi, 0, s)
               : launch<64, float, false, false>(
                     q, k, v, mbits, scaler, counts, idx, rowbase, nullptr, out,
                     nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
-                    nq, nkb, oversample, k_cfg, keep_lo, keep_hi, s);
+                    nq, nkb, oversample, k_cfg, keep_lo, keep_hi, 0, s);
   return (int)e;
 }
 
@@ -330,7 +347,27 @@ extern "C" int sea_causal_fwd_stats(
   return (int)launch<64, float, true, false>(
       q, k, v, mbits, scaler, counts, idx, rowbase, nullptr, out, lse, nh,
       t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, 1.0f, 1.0f, 1.0f,
-      1.0f, (cudaStream_t)stream);
+      1.0f, 0, (cudaStream_t)stream);
+}
+
+// K6, the forward with stats over one K/V window (float32): k and v are
+// (nh, t_win, D) and hold the global columns col_base .. col_base + t_win − 1;
+// idx (nh, nq, nkw) carries global k-block ids of that window; the scaler is
+// one; out (nh, t_dst, D) is the window-normalised output and lse (nh, t_dst)
+// the window's logsumexp, +inf on rows with nothing alive in it.
+extern "C" int sea_window_fwd_stats(
+    const void* q, const void* k, const void* v, const void* mbits,
+    const void* counts, const void* idx, const void* rowbase, void* out,
+    void* lse, int nh, int t_dst, int t_win, int head_dim, int t_m,
+    int n_words, int block_q, int block_k, int nq, int nkw, int col_base,
+    void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
+      bad_window(col_base, block_k))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch<64, float, true, false>(
+      q, k, v, mbits, nullptr, counts, idx, rowbase, nullptr, out, lse, nh,
+      t_dst, t_win, t_m, n_words, block_q, block_k, nq, nkw, 1.0f, 1.0f, 1.0f,
+      1.0f, col_base, (cudaStream_t)stream);
 }
 
 // The padded bidirectional forward (K5): f32 or bf16 in and out, `lengths`
@@ -348,11 +385,11 @@ extern "C" int sea_bidir_forward(
       is_bf16 ? launch<64, __nv_bfloat16, false, true>(
                     q, k, v, mbits, scaler, counts, idx, nullptr, lengths, out,
                     nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
-                    nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f, s)
+                    nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f, 0, s)
               : launch<64, float, false, true>(
                     q, k, v, mbits, scaler, counts, idx, nullptr, lengths, out,
                     nullptr, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
-                    nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f, s);
+                    nq, nkb, 1.0f, 1.0f, 1.0f, 1.0f, 0, s);
   return (int)e;
 }
 

@@ -1,12 +1,25 @@
 // Backward kernels of the differentiable causal fused sparse attention for
 // Hopper (sm_90a).
 //
-// Replaces two TPU kernels of sea_tpu/ops/kernels/block_sparse.py, the
+// Replaces four TPU kernels of sea_tpu/ops/kernels/block_sparse.py, the
 // backward of `fused_sparse_attention` (`_fused_bwd`):
-//   * `_causal_kernel_dq`, entry point `sea_causal_dq`:
+//   * `_causal_kernel_dq`, entry point `sea_causal_dq` (K3):
 //         dq[r] = Σ_s ds[r, s] · k[s];
-//   * `_causal_kernel_dkv`, entry point `sea_causal_dkv`:
+//   * `_causal_kernel_dkv`, entry point `sea_causal_dkv` (K4):
 //         dk[s] = Σ_r ds[r, s] · q[r],   dv[s] = Σ_r p[r, s] · dou[r];
+// and the backward of the ring's `ring_fused_train_attention`
+// (sea_tpu/parallel/sharded_attention.py), the same sums over one K/V window
+// that holds the global columns col_base .. col_base + t_src − 1:
+//   * `_causal_kernel_dq_cb` (`dq_window`), entry point `sea_window_dq` (K7):
+//     K3 with the window offset on the K/V loads; its tile lists carry
+//     global k-block ids, and lse and delta are the rows' totals over all
+//     windows, so that the windows' dq contributions sum to K3's dq;
+//   * `_causal_kernel_dkv_win` (`dkv_window`), entry point `sea_window_dkv`
+//     (K8): K4 over the window's k-tiles, whose grid and transposed lists are
+//     window-local (local k-tiles, local q-block ids) while the pixel and
+//     causal math, and the skip of sub-tiles that end before the k-tile, use
+//     the global column col_base + local column.
+// K3 and K4 pass col_base = 0 and their whole K/V.
 // with the flash-style recompute, over the alive elements only:
 //         p  = exp(q_r · k_s − lse[r])   (0 off the element mask),
 //         dp = dou_r · v_s,
@@ -54,6 +67,7 @@ namespace {
 
 using sea::alive_elem;
 using sea::bad_geometry;
+using sea::bad_window;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
 
@@ -91,7 +105,7 @@ __global__ void __launch_bounds__(TPB) causal_dq_kernel(
     const float* __restrict__ delta, const int* __restrict__ counts,
     const int* __restrict__ idx, const int* __restrict__ rowbase,
     float* __restrict__ dq, int t_dst, int t_src, int t_m, int n_words,
-    int block_q, int block_k, int nq, int nkb) {
+    int block_q, int block_k, int nq, int nkb, int col_base) {
   constexpr int DP = Tiles<D>::DP, PP = Tiles<D>::PP, DPT = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;
@@ -131,16 +145,19 @@ __global__ void __launch_bounds__(TPB) causal_dq_kernel(
   const int cnt = counts[bh * nq + qb];
   const int* lst = idx + ((long)bh * nq + qb) * nkb;
   const int last_row = grow0 + BQ - 1;
-  const long kvbase = (long)bh * t_src * D;
+  // k and v hold the (global) columns col_base .. col_stop − 1
+  const int col_stop = col_base + t_src;
+  const long kvbase = ((long)bh * t_src - col_base) * D;
 
   for (int e = 0; e < cnt; ++e) {
     const int kb = lst[e];
     for (int c0 = kb * block_k; c0 < (kb + 1) * block_k; c0 += BKT) {
-      if (c0 > last_row || c0 >= t_src) break;  // wholly past the causal edge
+      // wholly past the causal edge or the window
+      if (c0 > last_row || c0 >= col_stop) break;
       __syncthreads();  // the previous sub-tile's dS and K are consumed
       for (int i = tid; i < BKT * D; i += TPB) {
         const int c = i / D, d = i % D;
-        const bool in = c0 + c < t_src;
+        const bool in = c0 + c < col_stop;
         Ks[c * DP + d] = in ? k[kvbase + (long)c0 * D + i] : 0.f;
         Vs[c * DP + d] = in ? v[kvbase + (long)c0 * D + i] : 0.f;
       }
@@ -220,7 +237,8 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
     const float* __restrict__ delta, const int* __restrict__ counts_t,
     const int* __restrict__ idx_t, const int* __restrict__ rowbase,
     float* __restrict__ dk, float* __restrict__ dv, int t_dst, int t_src,
-    int t_m, int n_words, int block_q, int block_k, int nq, int nkb) {
+    int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
+    int col_base) {
   constexpr int DP = Tiles<D>::DP, PP = Tiles<D>::PP, DPT = D / 16;
   extern __shared__ float smem[];
   float* Ks = smem;
@@ -234,8 +252,9 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
   uint32_t* Ms = reinterpret_cast<uint32_t*>(Dl + BQ);
 
   const int bh = blockIdx.y;
-  const int col0 = blockIdx.x * BKT;  // first column of the k-tile
+  const int col0 = blockIdx.x * BKT;  // first column of the k-tile in k, v
   const int kb = col0 / block_k;      // k-block of the transposed lists
+  const int gcol0 = col_base + col0;  // its global column
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
 
   const long koff = ((long)bh * t_src + col0) * D;
@@ -261,7 +280,7 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
     for (int r0 = qb * block_q; r0 < (qb + 1) * block_q; r0 += BQ) {
       if (r0 >= t_dst) break;
       const int grow0 = rowbase[qb] + (r0 - qb * block_q);
-      if (grow0 + BQ - 1 < col0) continue;  // every row ends before the tile
+      if (grow0 + BQ - 1 < gcol0) continue;  // every row ends before the tile
       __syncthreads();  // the previous sub-tile's Pᵀ, dSᵀ, Q and dO are consumed
       for (int i = tid; i < BQ * D; i += TPB) {
         const int r = i / D, d = i % D;
@@ -308,7 +327,7 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int cl = ty * 4 + i;
-        const int col = col0 + cl;
+        const int col = gcol0 + cl;
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
           const int rl = tx + 16 * j;
@@ -355,6 +374,49 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
   }
 }
 
+// col_base: the global column of k's and v's first row (0 for K3 and K4).
+cudaError_t launch_dq(const void* q, const void* k, const void* v,
+                      const void* mbits, const void* dou, const void* lse,
+                      const void* delta, const void* counts, const void* idx,
+                      const void* rowbase, void* dq, int nh, int t_dst,
+                      int t_src, int t_m, int n_words, int block_q,
+                      int block_k, int nq, int nkb, int col_base,
+                      cudaStream_t stream) {
+  constexpr int bytes = dq_smem_bytes<64>();
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<64>, bytes, opted_in);
+  if (e != cudaSuccess) return e;
+  dim3 grid(t_dst / BQ, nh);
+  causal_dq_kernel<64><<<grid, TPB, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v,
+      (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
+      (const float*)delta, (const int*)counts, (const int*)idx,
+      (const int*)rowbase, (float*)dq, t_dst, t_src, t_m, n_words, block_q,
+      block_k, nq, nkb, col_base);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_dkv(const void* q, const void* k, const void* v,
+                       const void* mbits, const void* dou, const void* lse,
+                       const void* delta, const void* counts_t,
+                       const void* idx_t, const void* rowbase, void* dk,
+                       void* dv, int nh, int t_dst, int t_src, int t_m,
+                       int n_words, int block_q, int block_k, int nq, int nkb,
+                       int col_base, cudaStream_t stream) {
+  constexpr int bytes = dkv_smem_bytes<64>();
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<64>, bytes, opted_in);
+  if (e != cudaSuccess) return e;
+  dim3 grid(t_src / BKT, nh);
+  causal_dkv_kernel<64><<<grid, TPB, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v,
+      (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
+      (const float*)delta, (const int*)counts_t, (const int*)idx_t,
+      (const int*)rowbase, (float*)dk, (float*)dv, t_dst, t_src, t_m, n_words,
+      block_q, block_k, nq, nkb, col_base);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
@@ -367,18 +429,9 @@ extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
                              void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  constexpr int bytes = dq_smem_bytes<64>();
-  static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<64>, bytes, opted_in);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(t_dst / BQ, nh);
-  causal_dq_kernel<64><<<grid, TPB, bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
-      (const float*)delta, (const int*)counts, (const int*)idx,
-      (const int*)rowbase, (float*)dq, t_dst, t_src, t_m, n_words, block_q,
-      block_k, nq, nkb);
-  return (int)cudaGetLastError();
+  return (int)launch_dq(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
+                        dq, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
+                        nq, nkb, 0, (cudaStream_t)stream);
 }
 
 extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
@@ -391,16 +444,47 @@ extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
                               int nkb, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  constexpr int bytes = dkv_smem_bytes<64>();
-  static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<64>, bytes, opted_in);
-  if (e != cudaSuccess) return (int)e;
-  dim3 grid(t_src / BKT, nh);
-  causal_dkv_kernel<64><<<grid, TPB, bytes, (cudaStream_t)stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
-      (const float*)delta, (const int*)counts_t, (const int*)idx_t,
-      (const int*)rowbase, (float*)dk, (float*)dv, t_dst, t_src, t_m, n_words,
-      block_q, block_k, nq, nkb);
-  return (int)cudaGetLastError();
+  return (int)launch_dkv(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
+                         rowbase, dk, dv, nh, t_dst, t_src, t_m, n_words,
+                         block_q, block_k, nq, nkb, 0, (cudaStream_t)stream);
+}
+
+// K7: dq (nh, t_dst, D) of one K/V window. k and v are (nh, t_win, D) and
+// hold the global columns col_base .. col_base + t_win − 1; idx (nh, nq, nkw)
+// carries global k-block ids of that window; lse and delta are the rows'
+// totals over every window (lse +inf on rows with nothing alive at all).
+extern "C" int sea_window_dq(const void* q, const void* k, const void* v,
+                             const void* mbits, const void* dou,
+                             const void* lse, const void* delta,
+                             const void* counts, const void* idx,
+                             const void* rowbase, void* dq, int nh, int t_dst,
+                             int t_win, int head_dim, int t_m, int n_words,
+                             int block_q, int block_k, int nq, int nkw,
+                             int col_base, void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
+      bad_window(col_base, block_k))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_dq(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
+                        dq, nh, t_dst, t_win, t_m, n_words, block_q, block_k,
+                        nq, nkw, col_base, (cudaStream_t)stream);
+}
+
+// K8: dk, dv (nh, t_win, D) of one K/V window from the local query rows.
+// counts_t (nh, nkw) and idx_t (nh, nkw, nq) are the window's transposed
+// lists: per local k-block, the local q-blocks with an alive element in it.
+extern "C" int sea_window_dkv(const void* q, const void* k, const void* v,
+                              const void* mbits, const void* dou,
+                              const void* lse, const void* delta,
+                              const void* counts_t, const void* idx_t,
+                              const void* rowbase, void* dk, void* dv, int nh,
+                              int t_dst, int t_win, int head_dim, int t_m,
+                              int n_words, int block_q, int block_k, int nq,
+                              int nkw, int col_base, void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
+      bad_window(col_base, block_k))
+    return (int)cudaErrorInvalidValue;
+  return (int)launch_dkv(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
+                         rowbase, dk, dv, nh, t_dst, t_win, t_m, n_words,
+                         block_q, block_k, nq, nkw, col_base,
+                         (cudaStream_t)stream);
 }

@@ -36,13 +36,20 @@ Two paths run stage 7-8:
     selection. This path also takes the thin (N, 1, T, 1) causal mask that
     `OptModel.embed` builds for it.
 
+Inside `parallel.context.sharded_attention_scope(group, kind=...)` both
+causal paths run sharded over the shard group, by the kind that
+`resolve_attention_kind` picks: 'ring' (K/V sequence-sharded and rotating
+around the group, kernels K6 forward and K7/K8 backward; blocks
+`block_q or 128`), 'head' or 'seq' (K1, or K2-K4 in training, on each
+shard's heads or rows; the JAX package's `auto_block` sizes in training).
+Without a scope nothing changes.
+
 Not ported yet, and refused with NotImplementedError rather than routed
 elsewhere: the dense differentiable train path and its KD losses
 (`benchmarking=False` without `use_fused_train`, and every train path of
 the non-causal module), the non-causal oversampled benchmark path (a CSR
 route in JAX), the uniform-CSR path (`use_pallas=False`), the cosformer backend,
-the 'comp' predictor, `enc_per_layer`, LoRA, the sequence-sharded and ring
-train kernels, and the decode cache.
+the 'comp' predictor, `enc_per_layer`, LoRA, and the decode cache.
 """
 
 from __future__ import annotations
@@ -58,6 +65,8 @@ from ..config import SeaConfig
 from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
 from ..ops.masks import fp_min_for, per_item_top_k, resize_noncausal, topk_mask
 from ..ops.performer import fast_attention, gaussian_orthogonal_random_matrix
+from ..parallel import sharded_attention as sharded
+from ..parallel.context import current_attention_sharding, resolve_attention_kind
 from ..utils.profiler import get_bench
 from .modules import CausalConv2d, ChannelSplit, KeepRes, interpolate, upsample_nearest
 
@@ -72,6 +81,15 @@ class SeaAttentionOutput(NamedTuple):
     dense_attention_probs: Optional[torch.Tensor]
     key_for_score: torch.Tensor
     state: Any
+
+
+def auto_block(t: int) -> int:
+    """The JAX package's block size of the differentiable path: the largest
+    of 512, 256 and 128 that divides T."""
+    for b in (512, 256, 128):
+        if t % b == 0:
+            return b
+    raise ValueError(f"use_fused_train needs a multiple of 128 tokens, got {t}")
 
 
 def softmax_fp32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
@@ -425,6 +443,9 @@ class SeaAttention(nn.Module):
                 if cfg.partial_attention_scaler
                 else None
             )
+            shard_ctx = current_attention_sharding() if cfg.causal else None
+            kind = None if shard_ctx is None else resolve_attention_kind(
+                shard_ctx, t=T_SRC, oversample=cfg.k_oversample)
             if benchmarking:
                 mask_bin = (partial_attention_mask_m > 0).to(q.dtype)
                 if cfg.causal:
@@ -435,26 +456,68 @@ class SeaAttention(nn.Module):
                     q_kern = q_for_score / math.sqrt(D)
                     lengths = zero_one_attention_mask[:, 0, 0, :].sum(-1).to(torch.int32)
                     bench.register_temp_buffer("lengths", lengths)
-                partial_context_layer = sea_block_sparse_attention(
-                    q_kern,
-                    k_for_score,
-                    v,
-                    mask_bin,
-                    row_scaler,
-                    is_causal=cfg.causal,
-                    lengths=lengths,
-                    block_q=cfg.block_q,
-                    oversample=cfg.k_oversample if cfg.causal else 1.0,
-                    k_cfg=float(cfg.effective_k),
-                )
+                kernel_kw = dict(oversample=cfg.k_oversample, k_cfg=float(cfg.effective_k))
+                if kind == "head":
+                    partial_context_layer = sharded.head_sharded_sea_attention(
+                        q_kern, k_for_score, v, mask_bin, row_scaler, shard_ctx.group,
+                        block_q=shard_ctx.block_q, block_k=shard_ctx.block_k, **kernel_kw,
+                    )
+                elif kind == "ring":
+                    assert cfg.k_oversample == 1.0, (
+                        "ring sharding does not implement the oversample "
+                        "keep-predicate; use kind='seq'"
+                    )
+                    partial_context_layer = sharded.ring_sea_attention(
+                        q_kern, k_for_score, v, mask_bin, row_scaler, shard_ctx.group,
+                        zigzag=shard_ctx.zigzag, block_q=shard_ctx.block_q or 128,
+                        block_k=shard_ctx.block_k or 128,
+                    )
+                elif kind == "seq":
+                    partial_context_layer = sharded.sharded_sea_attention(
+                        q_kern, k_for_score, v, mask_bin, row_scaler, shard_ctx.group,
+                        zigzag=shard_ctx.zigzag, block_q=shard_ctx.block_q,
+                        block_k=shard_ctx.block_k, **kernel_kw,
+                    )
+                else:
+                    partial_context_layer = sea_block_sparse_attention(
+                        q_kern,
+                        k_for_score,
+                        v,
+                        mask_bin,
+                        row_scaler,
+                        is_causal=cfg.causal,
+                        lengths=lengths,
+                        block_q=cfg.block_q,
+                        oversample=cfg.k_oversample if cfg.causal else 1.0,
+                        k_cfg=float(cfg.effective_k),
+                    )
             else:
                 mask_bin = (partial_attention_mask_m > -1.0).to(q.dtype)
                 if row_scaler is None:
                     row_scaler = torch.ones((N, H, T_DST), dtype=q.dtype, device=q.device)
-                partial_context_layer = fused_sparse_attention(
-                    q_for_score, k_for_score, v, mask_bin, row_scaler,
-                    block_q=cfg.block_q,
-                )
+                if kind == "ring":
+                    partial_context_layer = sharded.ring_fused_train_attention(
+                        q_for_score, k_for_score, v, mask_bin, row_scaler, shard_ctx.group,
+                        shard_ctx.zigzag, shard_ctx.block_q or 128, shard_ctx.block_k or 128,
+                    )
+                elif kind in ("head", "seq"):
+                    blocks = dict(block_q=shard_ctx.block_q or cfg.block_q or auto_block(T_DST),
+                                  block_k=shard_ctx.block_k or auto_block(T_SRC))
+                    if kind == "head":
+                        partial_context_layer = sharded.head_sharded_fused_train(
+                            q_for_score, k_for_score, v, mask_bin, row_scaler,
+                            shard_ctx.group, **blocks,
+                        )
+                    else:
+                        partial_context_layer = sharded.sharded_fused_train_attention(
+                            q_for_score, k_for_score, v, mask_bin, row_scaler,
+                            shard_ctx.group, zigzag=shard_ctx.zigzag, **blocks,
+                        )
+                else:
+                    partial_context_layer = fused_sparse_attention(
+                        q_for_score, k_for_score, v, mask_bin, row_scaler,
+                        block_q=cfg.block_q,
+                    )
             # the kernel's output, whose gradient is the backward kernels' dO
             bench.register_temp_buffer("fused_attention_output", partial_context_layer)
         with bench.region("attention.avg_pool"):

@@ -42,7 +42,17 @@ Layout of this module:
     and `FusedSparseAttention` / `fused_sparse_attention`, whose backward
     computes `backward_terms` in plain PyTorch and then launches K3 and K4.
     The logsumexp and delta stay (N, H, T): the TPU's 128-lane broadcast of
-    them is dropped.
+    them is dropped;
+  * the ring's windowed kernels (`fwd_stats_window`, `dq_window`,
+    `dkv_window` in JAX): `window_operands` (the port of `_ring_shared_prep`
+    with every window's tile lists built in one batched `_compact_lists`
+    call), the plain versions `fwd_stats_window_reference`,
+    `dq_window_reference` and `dkv_window_reference`, and the wrappers
+    `fwd_stats_window` (K6, `csrc/block_sparse_causal.cu`), `dq_window` (K7)
+    and `dkv_window` (K8, both `csrc/block_sparse_diff.cu`). A window is the
+    K/V of S consecutive global columns col0 .. col0 + CH − 1; its pixel and
+    causal math use global columns. `parallel/sharded_attention.py` merges
+    the windows.
 
 Each wrapper counts its kernel launches in a `launches` attribute.
 """
@@ -280,12 +290,16 @@ def _dense_widths(t_dst: int, t_src: int, is_causal: bool,
     return torch.full((t_dst, 1), float(t_src), device=device)
 
 
-def _alive_dense(mask_m: torch.Tensor, t_src: int, w: torch.Tensor) -> torch.Tensor:
+def _alive_dense(mask_m: torch.Tensor, t_src: int, w: torch.Tensor,
+                 col0: int = 0) -> torch.Tensor:
     """(N, H, T_DST, T_SRC) bool element mask of the dense-resize rule for
     the row widths `w` of `_dense_widths`; every row keeps s < w only (s <= r
-    when causal, s < lengths[n] with lengths, nothing dropped at T_SRC)."""
+    when causal, s < lengths[n] with lengths, nothing dropped at T_SRC).
+    `col0` shifts the columns to the global ids col0 .. col0 + T_SRC − 1 (a
+    K/V window of the ring)."""
     N, H, T_DST, T_M = mask_m.shape
-    s_idx = torch.arange(t_src, dtype=torch.float32, device=mask_m.device)[None, :]
+    s_idx = torch.arange(col0, col0 + t_src, dtype=torch.float32,
+                         device=mask_m.device)[None, :]
     pixel = _pixels(s_idx, w, T_M).expand(N, H, T_DST, t_src)
     return torch.gather(mask_m > 0, -1, pixel) & (s_idx < w)
 
@@ -363,6 +377,7 @@ def _lib() -> ctypes.CDLL:
     return _bound("block_sparse_causal", {
         "sea_causal_flat_forward": [_P] * 9 + [_I] * 10 + [_F] * 4 + [_I, _P],
         "sea_causal_fwd_stats": [_P] * 10 + [_I] * 10 + [_P],
+        "sea_window_fwd_stats": [_P] * 9 + [_I] * 11 + [_P],
         "sea_bidir_forward": [_P] * 9 + [_I] * 10 + [_I, _P],
         "sea_alive_mask": [_P, _P] + [_I] * 5 + [_P],
         "sea_bidir_alive_mask": [_P, _P, _P] + [_I] * 5 + [_P],
@@ -373,6 +388,8 @@ def _diff_lib() -> ctypes.CDLL:
     return _bound("block_sparse_diff", {
         "sea_causal_dq": [_P] * 11 + [_I] * 10 + [_P],
         "sea_causal_dkv": [_P] * 12 + [_I] * 10 + [_P],
+        "sea_window_dq": [_P] * 11 + [_I] * 11 + [_P],
+        "sea_window_dkv": [_P] * 12 + [_I] * 11 + [_P],
     })
 
 
@@ -687,23 +704,25 @@ alive_mask.launches = 0
 
 def fwd_with_stats_reference(
     q, k, v, mask_m, scaler, *, row_widths: Optional[torch.Tensor] = None,
+    col0: int = 0,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the forward-with-stats kernel: the causal output
     of `dense_reference` (no undersampling) and the per-row logsumexp over
-    alive columns, (N, H, T_DST) float32, +inf on rows with no alive column."""
+    alive columns, (N, H, T_DST) float32, +inf on rows with no alive column.
+    `col0`: k and v are the global columns col0 .. col0 + T_SRC − 1."""
     T_SRC = k.shape[2]
     w = _dense_widths(q.shape[2], T_SRC, True, row_widths, q.device)
-    out, m, l = _softmax_pv(q, k, v, _alive_dense(mask_m, T_SRC, w), scaler)
+    out, m, l = _softmax_pv(q, k, v, _alive_dense(mask_m, T_SRC, w, col0), scaler)
     # m is finite (NEG_INF) on empty rows, where l = 0 and lse is +inf
     lse = torch.where(l > 0, m + torch.log(l), torch.full_like(l, float("inf")))
     return out.to(q.dtype), lse[..., 0]
 
 
-def _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths):
+def _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths, col0=0):
     """Dense p = exp(s − lse) (0 off the mask) and ds = p·(dp − delta)."""
     T_SRC = k.shape[2]
     w = _dense_widths(q.shape[2], T_SRC, True, row_widths, q.device)
-    alive = _alive_dense(mask_m, T_SRC, w)
+    alive = _alive_dense(mask_m, T_SRC, w, col0)
     scores = torch.einsum("nhtd,nhsd->nhts", q.float(), k.float())
     p = torch.where(alive, torch.exp(scores - lse[..., None]), torch.zeros_like(scores))
     dp = torch.einsum("nhtd,nhsd->nhts", dou.float(), v.float())
@@ -711,19 +730,19 @@ def _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths):
 
 
 def dq_reference(q, k, v, mask_m, dou, lse, delta, *,
-                 row_widths: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 row_widths: Optional[torch.Tensor] = None, col0: int = 0) -> torch.Tensor:
     """The plain version of the dq kernel: dq = ds·k over the element mask,
     with p = exp(s − lse), dp = dou·vᵀ and ds = p·(dp − delta)."""
-    _, ds = _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths)
+    _, ds = _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths, col0)
     return torch.einsum("nhts,nhsd->nhtd", ds, k.float()).to(q.dtype)
 
 
 def dkv_reference(q, k, v, mask_m, dou, lse, delta, *,
-                  row_widths: Optional[torch.Tensor] = None
+                  row_widths: Optional[torch.Tensor] = None, col0: int = 0,
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The plain version of the dk/dv kernel: dk = dsᵀ·q and dv = pᵀ·dou
     over the element mask (terms as in `dq_reference`)."""
-    p, ds = _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths)
+    p, ds = _grad_terms(q, k, v, mask_m, dou, lse, delta, row_widths, col0)
     dk = torch.einsum("nhts,nhtd->nhsd", ds, q.float())
     dv = torch.einsum("nhts,nhtd->nhsd", p, dou.float())
     return dk.to(q.dtype), dv.to(q.dtype)
@@ -835,47 +854,64 @@ def causal_dkv(ops: KernelOperands, dou, lse, delta
 causal_dkv.launches = 0
 
 
+def fused_forward(q, k, v, mask_m, scaler, row_base, row_widths, block_q, block_k):
+    """The forward of `FusedSparseAttention` on pre-padded inputs: the
+    forward-with-stats kernel (K2) on CUDA tensors, its plain version on CPU
+    tensors. Returns (o, meta, saved): what `fused_backward` needs, split
+    into the tensors to save (`saved`, for `save_for_backward`) and the rest
+    (`meta`). On the card `saved` holds the kernels' operands (the flattened
+    q, k, v, the mask bits, the scaler and the tile lists) in place of the
+    inputs they were made from."""
+    if q.device.type == "cpu":
+        o, lse = fwd_with_stats_reference(q, k, v, mask_m, scaler, row_widths=row_widths)
+        return o, (None, row_widths), (q, k, v, mask_m, scaler, o, lse)
+    x = KernelInputs(q, k, v, mask_m, scaler, row_base, row_widths, block_q,
+                     block_k, q.shape[2])
+    ops = kernel_operands(x, differentiable=True)
+    o, lse = causal_fwd_stats(ops)
+    meta = (ops._replace(**dict.fromkeys(OPERAND_TENSORS)), None)
+    return o, meta, (*(getattr(ops, f) for f in OPERAND_TENSORS), o, lse)
+
+
+def fused_backward(meta, saved, do):
+    """The backward of `FusedSparseAttention` from `fused_forward`'s `meta`
+    and `saved`: `backward_terms` in plain PyTorch, then the dq (K3) and dk/dv
+    (K4) kernels, or their plain versions on the CPU. Returns (dq, dk, dv,
+    dscaler)."""
+    ops, row_widths = meta
+    *saved, o, lse = saved
+    if ops is None:
+        q, k, v, mask_m, scaler = saved
+        dscaler, dou, delta = backward_terms(do, o, scaler, q.dtype)
+        dq = dq_reference(q, k, v, mask_m, dou, lse, delta, row_widths=row_widths)
+        dk, dv = dkv_reference(q, k, v, mask_m, dou, lse, delta, row_widths=row_widths)
+        return dq, dk, dv, dscaler
+    ops = ops._replace(**dict(zip(OPERAND_TENSORS, saved)))
+    scaler = ops.scaler.reshape(ops.shape[:3])
+    dscaler, dou, delta = backward_terms(do, o, scaler, torch.float32)
+    dq = causal_dq(ops, dou, lse, delta)
+    dk, dv = causal_dkv(ops, dou, lse, delta)
+    return dq, dk, dv, dscaler
+
+
 class FusedSparseAttention(torch.autograd.Function):
     """The port of the JAX package's `fused_sparse_attention` custom_vjp on
     pre-padded inputs. Forward: the forward-with-stats kernel. Backward:
     `backward_terms` in plain PyTorch, then the dq and dk/dv kernels. The
     mask, the row bases and the widths get no gradient. CPU tensors take the
-    plain versions at every step; CUDA tensors launch the kernels.
-
-    On the card the backward reads the kernels' operands (the flattened
-    q, k, v, the mask bits, the scaler and the tile lists), saved through
-    `save_for_backward` in place of the inputs they were made from."""
+    plain versions at every step; CUDA tensors launch the kernels
+    (`fused_forward`, `fused_backward`)."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask_m, scaler, row_base, row_widths, block_q, block_k):
-        if q.device.type == "cpu":
-            o, lse = fwd_with_stats_reference(q, k, v, mask_m, scaler, row_widths=row_widths)
-            ctx.ops, ctx.row_widths = None, row_widths
-            ctx.save_for_backward(q, k, v, mask_m, scaler, o, lse)
-            return o
-        x = KernelInputs(q, k, v, mask_m, scaler, row_base, row_widths, block_q,
-                         block_k, q.shape[2])
-        ops = kernel_operands(x, differentiable=True)
-        o, lse = causal_fwd_stats(ops)
-        ctx.ops = ops._replace(**dict.fromkeys(OPERAND_TENSORS))
-        ctx.save_for_backward(*(getattr(ops, f) for f in OPERAND_TENSORS), o, lse)
+        o, ctx.meta, saved = fused_forward(
+            q, k, v, mask_m, scaler, row_base, row_widths, block_q, block_k)
+        ctx.save_for_backward(*saved)
         return o
 
     @staticmethod
     def backward(ctx, do):
-        *saved, o, lse = ctx.saved_tensors
-        if ctx.ops is None:
-            q, k, v, mask_m, scaler = saved
-            dscaler, dou, delta = backward_terms(do, o, scaler, q.dtype)
-            dq = dq_reference(q, k, v, mask_m, dou, lse, delta, row_widths=ctx.row_widths)
-            dk, dv = dkv_reference(q, k, v, mask_m, dou, lse, delta,
-                                   row_widths=ctx.row_widths)
-        else:
-            ops = ctx.ops._replace(**dict(zip(OPERAND_TENSORS, saved)))
-            scaler = ops.scaler.reshape(ops.shape[:3])
-            dscaler, dou, delta = backward_terms(do, o, scaler, torch.float32)
-            dq = causal_dq(ops, dou, lse, delta)
-            dk, dv = causal_dkv(ops, dou, lse, delta)
+        dq, dk, dv, dscaler = fused_backward(ctx.meta, ctx.saved_tensors, do)
         return dq, dk, dv, None, dscaler, None, None, None, None
 
 
@@ -905,3 +941,213 @@ def fused_sparse_attention(
         x.block_k,
     )
     return o[:, :, : x.t_dst0]
+
+
+# ---------------------------------------------------------------------------
+# The ring's windowed kernels: forward with stats (K6), dq (K7), dk/dv (K8)
+# ---------------------------------------------------------------------------
+
+
+def fwd_stats_window_reference(q, k_win, v_win, mask_m, col0: int, *,
+                               row_widths: Optional[torch.Tensor] = None
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K6: `fwd_with_stats_reference` over one K/V
+    window, the global columns col0 .. col0 + CH − 1 of a causal sequence,
+    with the scaler one. Returns the window-normalised output (N, H, T_DST,
+    D) and the window's logsumexp (N, H, T_DST), +inf on rows with nothing
+    alive in the window (whose output is 0)."""
+    return fwd_with_stats_reference(q, k_win, v_win, mask_m, None,
+                                    row_widths=row_widths, col0=col0)
+
+
+def dq_window_reference(q, k_win, v_win, mask_m, dou, lse, delta, col0: int, *,
+                        row_widths: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The plain version of K7: `dq_reference` over one K/V window (global
+    columns col0 .. col0 + CH − 1). lse and delta are the rows' totals over
+    every window, so the windows' contributions sum to the whole dq."""
+    return dq_reference(q, k_win, v_win, mask_m, dou, lse, delta,
+                        row_widths=row_widths, col0=col0)
+
+
+def dkv_window_reference(q, k_win, v_win, mask_m, dou, lse, delta, col0: int, *,
+                         row_widths: Optional[torch.Tensor] = None
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The plain version of K8: `dkv_reference` over one K/V window, the
+    window's dk and dv (N, H, CH, D) from the given query rows."""
+    return dkv_reference(q, k_win, v_win, mask_m, dou, lse, delta,
+                         row_widths=row_widths, col0=col0)
+
+
+class WindowOperands(NamedTuple):
+    """One sequence shard's operands of the windowed kernels: its query rows
+    (global ids `row_widths` − 1), their mask, and the tile lists of every
+    K/V window. Window w holds the global columns w·CH .. (w + 1)·CH − 1."""
+
+    q: torch.Tensor  # (NH, TL, D) float32
+    mask_m: Optional[torch.Tensor]  # (N, H, TL, T_M), CPU only: the plain versions' mask
+    mbits: torch.Tensor  # (NH, TL, n_words) int32 bit patterns
+    row_base: torch.Tensor  # (NQ,) int32 global base row of each q-block
+    row_widths: torch.Tensor  # (TL,) float32 causal width (global row + 1)
+    counts: torch.Tensor  # (S, NH, NQ) int32: active k-blocks per q-block and window
+    idx: torch.Tensor  # (S, NH, NQ, NKW) int32 GLOBAL k-block ids
+    counts_t: torch.Tensor  # (S, NH, NKW) int32: active q-blocks per window k-block
+    idx_t: torch.Tensor  # (S, NH, NKW, NQ) int32 LOCAL q-block ids
+    shape: Tuple[int, int, int, int]  # (N, H, TL, D)
+    t_m: int
+    block_q: int
+    block_k: int
+    window: int  # CH, the columns of one window
+
+
+def window_operands(q, mask_m, rows, t_src: int, n_windows: int,
+                    block_q: int, block_k: int) -> WindowOperands:
+    """The port of the ring's `_ring_shared_prep` for one shard: q (N, H,
+    TL, D) and mask_m (N, H, TL, T_M) hold the shard's query rows, whose
+    global ids are `rows` (TL,) in whole blocks of `block_q`; the source
+    has `t_src` columns in `n_windows` windows. The tile activity is built
+    once over all t_src columns with the rows' global widths, and every
+    window's lists, forward and transposed, come out of one batched
+    `_compact_lists` call each (the forward lists with global k-block ids,
+    the transposed ones with local q-block ids). The mask itself is kept
+    for CPU tensors only, whose wrappers take the plain versions; on the
+    card the kernels read its packed bits."""
+    N, H, TL, D = q.shape
+    T_M = mask_m.shape[-1]
+    NH, NQ = N * H, TL // block_q
+    CH = t_src // n_windows
+    NKW = CH // block_k
+    if block_q % KERNEL_TILE or block_k % KERNEL_TILE or TL % block_q \
+            or t_src % n_windows or CH % block_k:
+        raise ValueError(f"rows {TL} and windows {CH} must be whole blocks "
+                         f"({block_q}, {block_k}), multiples of {KERNEL_TILE}")
+    rows = rows.to(device=q.device, dtype=torch.int32)
+    row_widths = (rows + 1).to(torch.float32)
+    act = _causal_activity(mask_m, t_src, block_q, block_k, row_widths=row_widths)
+    act = act.reshape(NH, NQ, n_windows, NKW)
+    counts, idx = _compact_lists(act.permute(2, 0, 1, 3))
+    first = torch.arange(n_windows, dtype=torch.int32, device=q.device) * NKW
+    counts_t, idx_t = _compact_lists(act.permute(2, 0, 3, 1))
+    return WindowOperands(
+        q=q.reshape(NH, TL, D).contiguous(),
+        mask_m=mask_m if q.device.type == "cpu" else None,
+        mbits=pack_compressed_bits(mask_m).reshape(NH, TL, -1).contiguous(),
+        row_base=rows[::block_q].contiguous(),
+        row_widths=row_widths,
+        counts=counts.contiguous(),
+        idx=(idx + first[:, None, None, None]).contiguous(),
+        counts_t=counts_t.contiguous(),
+        idx_t=idx_t.contiguous(),
+        shape=(N, H, TL, D),
+        t_m=T_M,
+        block_q=block_q,
+        block_k=block_k,
+        window=CH,
+    )
+
+
+def _window_args(ops: WindowOperands, w: int, k_win, v_win, what: str, *per_call):
+    """Check one window launch's tensors; the ints every window entry point
+    takes after its pointers."""
+    _require_cuda(ops.q, what)
+    N, H, TL, D = ops.shape
+    if D != HEAD_DIM or ops.mbits.shape[-1] > MAX_WORDS:
+        raise ValueError(f"{what}: kernel takes head_dim {HEAD_DIM} and T_M <= "
+                         f"{32 * MAX_WORDS}, got {D} and {ops.t_m}")
+    for x in (ops.q, k_win, v_win, *per_call):
+        if x.device != ops.q.device or x.dtype != torch.float32 or not x.is_contiguous():
+            raise ValueError(f"{what}: contiguous float32 tensors on {ops.q.device} only")
+    if k_win.shape != (N, H, ops.window, D) or v_win.shape != k_win.shape:
+        raise ValueError(f"{what}: k and v must be ({N}, {H}, {ops.window}, {D})")
+    if not 0 <= w < ops.counts.shape[0]:
+        raise ValueError(f"{what}: window {w} of {ops.counts.shape[0]}")
+    return (N * H, TL, ops.window, D, ops.t_m, ops.mbits.shape[-1], ops.block_q,
+            ops.block_k, TL // ops.block_q, ops.window // ops.block_k,
+            w * ops.window)
+
+
+def fwd_stats_window(ops: WindowOperands, w: int, k_win, v_win
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K6 over window `w` (k_win, v_win (N, H, CH, D) its columns): the
+    window-normalised output (N, H, TL, D) and logsumexp (N, H, TL) float32.
+    One launch on the current stream for CUDA tensors; the plain version for
+    CPU tensors."""
+    N, H, TL, D = ops.shape
+    if ops.q.device.type == "cpu":
+        return fwd_stats_window_reference(
+            ops.q.reshape(ops.shape), k_win, v_win, ops.mask_m, w * ops.window,
+            row_widths=ops.row_widths)
+    geometry = _window_args(ops, w, k_win, v_win, "fwd_stats_window")
+    out = torch.empty_like(ops.q)
+    lse = torch.empty((N * H, TL), dtype=torch.float32, device=ops.q.device)
+    lib = _lib()
+    with torch.cuda.device(ops.q.device):
+        stream = torch.cuda.current_stream(ops.q.device).cuda_stream
+        err = lib.sea_window_fwd_stats(
+            ops.q.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), ops.mbits.data_ptr(),
+            ops.counts[w].data_ptr(), ops.idx[w].data_ptr(), ops.row_base.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), *geometry, stream,
+        )
+    _check(err, "sea_window_fwd_stats")
+    fwd_stats_window.launches += 1
+    return out.reshape(ops.shape), lse.reshape(N, H, TL)
+
+
+fwd_stats_window.launches = 0
+
+
+def dq_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta) -> torch.Tensor:
+    """K7: window `w`'s contribution to dq (N, H, TL, D), given dou (N, H,
+    TL, D) and the rows' total lse and delta (N, H, TL)."""
+    N, H, TL, D = ops.shape
+    if ops.q.device.type == "cpu":
+        return dq_window_reference(
+            ops.q.reshape(ops.shape), k_win, v_win, ops.mask_m, dou, lse, delta,
+            w * ops.window, row_widths=ops.row_widths)
+    dou, lse, delta = (_flat(x, N * H) for x in (dou, lse, delta))
+    geometry = _window_args(ops, w, k_win, v_win, "dq_window", dou, lse, delta)
+    dq = torch.empty_like(ops.q)
+    lib = _diff_lib()
+    with torch.cuda.device(ops.q.device):
+        stream = torch.cuda.current_stream(ops.q.device).cuda_stream
+        err = lib.sea_window_dq(
+            ops.q.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), ops.mbits.data_ptr(),
+            dou.data_ptr(), lse.data_ptr(), delta.data_ptr(), ops.counts[w].data_ptr(),
+            ops.idx[w].data_ptr(), ops.row_base.data_ptr(), dq.data_ptr(), *geometry,
+            stream,
+        )
+    _check(err, "sea_window_dq")
+    dq_window.launches += 1
+    return dq.reshape(ops.shape)
+
+
+dq_window.launches = 0
+
+
+def dkv_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K8: window `w`'s dk and dv (N, H, CH, D) from the shard's query rows,
+    over the window's transposed tile lists."""
+    N, H, TL, D = ops.shape
+    if ops.q.device.type == "cpu":
+        return dkv_window_reference(
+            ops.q.reshape(ops.shape), k_win, v_win, ops.mask_m, dou, lse, delta,
+            w * ops.window, row_widths=ops.row_widths)
+    dou, lse, delta = (_flat(x, N * H) for x in (dou, lse, delta))
+    geometry = _window_args(ops, w, k_win, v_win, "dkv_window", dou, lse, delta)
+    dk = torch.empty_like(k_win)
+    dv = torch.empty_like(v_win)
+    lib = _diff_lib()
+    with torch.cuda.device(ops.q.device):
+        stream = torch.cuda.current_stream(ops.q.device).cuda_stream
+        err = lib.sea_window_dkv(
+            ops.q.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), ops.mbits.data_ptr(),
+            dou.data_ptr(), lse.data_ptr(), delta.data_ptr(), ops.counts_t[w].data_ptr(),
+            ops.idx_t[w].data_ptr(), ops.row_base.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *geometry, stream,
+        )
+    _check(err, "sea_window_dkv")
+    dkv_window.launches += 1
+    return dk, dv
+
+
+dkv_window.launches = 0
