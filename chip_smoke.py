@@ -90,7 +90,34 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 train steps (K2-K4, 48 launches each a step) against the
                 unsharded ones; the 'auto' rule ('seq' at 4096, 'ring' at 16384,
                 never 'ring' for one shard);
- 14. result   — one JSON line of per-kernel numbers, then the device line.
+ 14. impl-mask — the restricted element predicates of the impl variants K9a
+                ('flat_wr'), K9b ('flat_fori') and K9c ('subtile') on their own
+                tile lists (`alive_mask(impl=)`), against `element_mask_int8` bit
+                for bit: budget masks at T = 1024, 2048, 4096 and bench.py's
+                `host_topk_mask` at 4096, under every block shape of bench.py's
+                candidates and each wrapper's defaults;
+ 15. impl-kernels — bench.py's canonical configuration (N=1, H=12, T=4096,
+                D=64, T_M=256, K=64, its `host_topk_mask` and inputs from seed
+                0) in float32 and bfloat16 through every impl and every block
+                shape: each kernel against its plain version (`impl_reference`)
+                and its largest difference from K1's output; at each impl's
+                default blocks the kernel's, K1's, the plain version's and
+                SDPA's times, the bound, the mean words per listed tile (K9a/b)
+                and the share of skipped pieces (K9c). This run is what
+                launches K9b and K9c;
+ 16. sweep    — the attention-operator sweep (`sea_tpu_torch.benchmarks`,
+                dense, performer, cosformer, sea_fused) at T = 1024, 2048,
+                4096 in float32 and bfloat16: no record may hold an error, and
+                sea_fused must launch K9a and never K1; the records as JSON
+                lines, dense/sea_fused beside each T; then, outside the
+                counted run, sea_fused's call (K9a) on the sweep's own inputs
+                at each T and type against its plain version;
+ 17. cosformer-slice — OPT-125m with the cosformer estimator backend at full
+                width and depth on 1 x 2048 tokens: 12 K1 launches per forward
+                and no other kernel, finite logits, layer 0's kernel inputs
+                held against the plain version; ms/forward beside the
+                performer-backend forward of the same weights;
+ 18. result   — one JSON line of per-kernel numbers, then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -119,6 +146,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from sea_tpu_torch.benchmarks import attention_method_sweep, host_topk_mask, sweep_inputs
 from sea_tpu_torch.config import opt_config
 from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
 from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m
@@ -176,6 +204,18 @@ RING_T = 16384  # the ring's main path: kind="auto" resolves to 'ring' from here
 RING_CHECK_T = 4096  # ring-kernels' synthetic inputs and the seq-head phase
 # the JAX package's bounds (see the module docstring)
 RING_OUT_TOL, RING_GRAD_TOL, LAYER_TOL, LOSS_TOL = 3e-5, 2e-4, 1e-4, 1e-4
+# the causal forward's impl variants: (impl, TPU kernel replaced); each one's
+# entry point and wrapper are `bs.IMPL_KERNELS[impl]`
+IMPL_VARIANTS = {
+    "K9a": ("flat_wr", "sea_tpu/ops/kernels/block_sparse.py:349"),  # _causal_kernel_flat_wr
+    "K9b": ("flat_fori", "sea_tpu/ops/kernels/block_sparse.py:557"),  # _causal_kernel_flat_fori
+    "K9c": ("subtile", "sea_tpu/ops/kernels/block_sparse.py:685"),  # _causal_kernel, subtile
+}
+# bench.py's block candidates (bench.py:104-123), then each wrapper's defaults
+BENCH_BLOCKS = ((512, 512), (1024, 512), (256, 512), (256, 256), (512, 256), (None, None))
+BENCH_T = 4096  # bench.py's canonical length
+SWEEP_TS = [1024, 2048, 4096]
+COS_T = 2048  # the cosformer slice's request, 1 x COS_T tokens
 
 
 def log(*a):
@@ -239,13 +279,17 @@ def reset_launches():
     bs.alive_mask.launches = 0
     for wrapper, *_ in (*TRAIN_KERNELS.values(), *RING_KERNELS.values()):
         wrapper.launches = 0
+    for kernel in bs.IMPL_KERNELS.values():
+        kernel.wrapper.launches = 0
 
 
 def launch_counts() -> dict:
     return {"K1": bs.sea_block_sparse_attention.launches,
             **{kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS},
             "K5": bs.bidir_forward.launches,
-            **{kid: RING_KERNELS[kid][0].launches for kid in RING_KERNELS}}
+            **{kid: RING_KERNELS[kid][0].launches for kid in RING_KERNELS},
+            **{kid: bs.IMPL_KERNELS[impl].wrapper.launches
+               for kid, (impl, _) in IMPL_VARIANTS.items()}}
 
 
 def check_grad(name, got, want) -> float:
@@ -1601,6 +1645,259 @@ def phase_seq_head():
         torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The impl variants K9a-c, the attention-operator sweep, the cosformer slice
+# ---------------------------------------------------------------------------
+
+
+def block_label(bq, bk):
+    return "defaults" if bq is None else f"{bq}x{bk}"
+
+
+def phase_impl_mask():
+    dev = "cuda"
+    masks = [(f"budget T={T}", T, budget_mask(1, T, seed=T, device=dev)) for T in (1024, 2048, 4096)]
+    masks.append((f"host_topk_mask T={BENCH_T}", BENCH_T,
+                  torch.from_numpy(host_topk_mask(1, H, BENCH_T, T_M, K, seed=0)).to(dev)))
+    checked = 0
+    for label, T, m in masks:
+        want = bs.element_mask_int8(m, T, True)
+        for kid, (impl, _) in IMPL_VARIANTS.items():
+            bad = {}
+            for bq, bk in BENCH_BLOCKS:
+                if bq is not None and (T % bq or T % bk):
+                    continue
+                got = bs.alive_mask(m, T, impl=impl, block_q=bq, block_k=bk)
+                torch.cuda.synchronize()
+                bad[block_label(bq, bk)] = int((got != want).sum())
+                checked += got.numel()
+            log(f"[impl-mask] {label} {kid} ({impl}): mismatches by blocks {bad}")
+            require(not any(bad.values()), f"{kid}'s predicate != element_mask_int8 ({label})")
+        del want
+    log(f"[impl-mask] {checked / 1e9:.2f} G elements checked")
+
+
+def bench_inputs(dtype, device):
+    """bench.py's canonical inputs (bench.py:73-79): q, k, v, the scaler and
+    the host-built top-k mask, from numpy seeded 0 in bench.py's order."""
+    rng = np.random.default_rng(0)
+    shape = (1, H, BENCH_T, D)
+    q = rng.standard_normal(shape).astype(np.float32) * 0.2
+    k = rng.standard_normal(shape).astype(np.float32) * 0.2
+    v = rng.standard_normal(shape).astype(np.float32)
+    sc = rng.uniform(0.1, 1.0, (1, H, BENCH_T)).astype(np.float32)
+    q, k, v, sc = (torch.from_numpy(x).to(device, dtype) for x in (q, k, v, sc))
+    mask = torch.from_numpy(host_topk_mask(1, H, BENCH_T, T_M, K, seed=0)).to(device)
+    return q, k, v, sc, mask
+
+
+def impl_operands(q, k, v, mask, sc, impl, bq, bk):
+    """The operands `sea_block_sparse_attention(..., impl=)` builds, at the
+    blocks given or the wrapper's defaults."""
+    bq, bk, sub = bs.impl_blocks(impl, q.shape[2], k.shape[2], bq, bk)
+    x = bs.prepare_inputs(q, k, v, mask, sc, block_q=bq, block_k=bk)
+    return bs.kernel_operands(x, impl=impl, sub=sub)
+
+
+def tile_stats(ops) -> str:
+    """What the restriction saves on these operands: K9a/b's mean words per
+    listed tile (of the row's n_words) and the shares of one- and two-word
+    exact ranges; K9c's share of the listed outer tiles' pieces it skips."""
+    listed = torch.arange(ops.idx.shape[-1], device=ops.idx.device) < ops.counts[..., None]
+    aux = ops.tile_aux[listed]
+    if ops.impl == "subtile":
+        n = ops.block_k // ops.sub
+        bits = (aux[:, None] >> torch.arange(n, device=aux.device, dtype=torch.int32)) & 1
+        active = float(bits.sum()) / bits.numel()
+        return (f"{int(listed.sum())} listed outer tiles of {n} pieces of {ops.sub}: "
+                f"{100 * (1 - active):.1f}% of pieces skipped")
+    lo, hi, exact = aux & 0xFF, (aux >> 8) & 0xFF, (aux >> 16) != 0
+    words = (hi - lo + 1).float()
+    return (f"{int(listed.sum())} listed tiles: {float(words.mean()):.3f} words of "
+            f"{ops.mbits.shape[-1]} on average; exact one word {100 * float((exact & (lo == hi)).float().mean()):.1f}%, "
+            f"two {100 * float((exact & (hi == lo + 1)).float().mean()):.1f}%")
+
+
+def phase_impl_kernels():
+    """bench.py's configuration through every impl and block shape. Returns
+    the main-path launches of K9a-c, {kid: max|kernel - plain| in float32}
+    and {kid: times at the defaults in float32}."""
+    dev = "cuda"
+    errs, timing = dict.fromkeys(IMPL_VARIANTS, 0.0), {}
+    launches = dict.fromkeys(IMPL_VARIANTS, 0)
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, sc, mask = bench_inputs(dtype, dev)
+        ref = bs.sea_block_sparse_attention(q, k, v, mask, sc)  # K1, 64 x 64
+        # the main path: every impl and block shape once, launches counted
+        reset_launches()
+        outs = {}
+        for kid, (impl, _) in IMPL_VARIANTS.items():
+            for bq, bk in BENCH_BLOCKS:
+                outs[kid, bq, bk] = bs.sea_block_sparse_attention(
+                    q, k, v, mask, sc, block_q=bq, block_k=bk, impl=impl)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want_counts = {**dict.fromkeys(counts, 0),
+                       **dict.fromkeys(IMPL_VARIANTS, len(BENCH_BLOCKS))}
+        log(f"[impl-kernels] {str(dtype)[6:]} 1x{BENCH_T}: launches {counts}")
+        require(counts == want_counts, f"impl launches {counts}, want {want_counts}")
+        for kid in IMPL_VARIANTS:
+            launches[kid] += counts[kid]
+        for (kid, bq, bk), got in outs.items():
+            impl = IMPL_VARIANTS[kid][0]
+            ops = impl_operands(q, k, v, mask, sc, impl, bq, bk)
+            want = bs.impl_reference(ops._replace(q=ops.q.float(), k=ops.k.float(),
+                                                  v=ops.v.float()), impl)
+            diff = (got.float() - want).abs()
+            err = float(diff.max())
+            over = float((diff - tolerance(want, dtype)).max())
+            vs_k1 = max_err(got, ref)
+            log(f"[impl-kernels] {str(dtype)[6:]} {kid} ({impl}) blocks {block_label(bq, bk)}: "
+                f"max|err| vs plain {err:.3g} (margin to tol {-over:.3g}); max|diff| vs K1 "
+                f"{vs_k1:.3g}; {tile_stats(ops)}")
+            require(over <= 0, f"{kid} vs plain at blocks {block_label(bq, bk)} {dtype}: {err}")
+            if dtype == torch.float32:
+                errs[kid] = max(errs[kid], err)
+        del outs
+
+        # times at the defaults, K1 beside them at the same inputs
+        x = bs.prepare_inputs(q, k, v, mask, sc)
+        k1_ops = bs.kernel_operands(x)
+        k1_ms = time_ms(lambda: bs.launch_causal_flat(k1_ops))
+        for kid, (impl, _) in IMPL_VARIANTS.items():
+            ops = impl_operands(q, k, v, mask, sc, impl, None, None)
+            wrapper = bs.IMPL_KERNELS[impl].wrapper
+            m = dict(
+                ms=time_ms(lambda: wrapper(ops)),
+                wrapper_ms=time_ms(lambda: bs.sea_block_sparse_attention(
+                    q, k, v, mask, sc, impl=impl)),
+                plain_ms=time_ms(lambda: bs.impl_reference(ops, impl), iters=5, warmup=1),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)),
+            )
+            m["bound_ms"], m["bound_by"], m["flops"], m["bytes"] = bound(ops, mask)
+            log(f"[impl-kernels] {str(dtype)[6:]} {kid} ({impl}) at its defaults "
+                f"({ops.block_q}x{ops.block_k}{f', sub {ops.sub}' if ops.sub else ''}): kernel "
+                f"{m['ms']:.4f} ms (K1 {k1_ms:.4f} ms; with prep {m['wrapper_ms']:.4f}), plain "
+                f"{m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} "
+                f"ms by {m['bound_by']} ({m['flops'] / 1e9:.4f} GFLOP, {m['bytes'] / 1e6:.2f} MB)")
+            if dtype == torch.float32:
+                timing[kid] = m
+        del q, k, v, sc, mask, ref
+        torch.cuda.empty_cache()
+    return launches, errs, timing
+
+
+def phase_sweep():
+    """The attention-operator sweep on the card, float32 and bfloat16, then
+    K9a against its plain version on each T's sea_fused inputs. Returns
+    K9a's launches in the sweep and its largest error in float32."""
+    n_k9a, err_f32 = 0, 0.0
+    for dtype in ("float32", "bfloat16"):
+        reset_launches()
+        res = attention_method_sweep(seq_lens=SWEEP_TS, dtype=dtype)
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        for rec in res:
+            log(f"[sweep] {json.dumps(rec)}")
+        bad = [r for r in res if "error" in r]
+        require(not bad, f"sweep records with an error: {bad}")
+        require({(r["method"], r["seq_len"]) for r in res}
+                == {(m, T) for m in ("dense", "performer", "cosformer", "sea_fused")
+                    for T in SWEEP_TS}, "the sweep's records")
+        by = {(r["method"], r["seq_len"]): r["ms"] for r in res}
+        ratios = {T: by["dense", T] / by["sea_fused", T] for T in SWEEP_TS}
+        log(f"[sweep] {dtype}: launches {counts}; dense / sea_fused ms by T "
+            f"{ {T: round(r, 3) for T, r in ratios.items()} }")
+        require(counts["K9a"] > 0 and counts["K1"] == 0,
+                f"sea_fused must launch K9a and never K1: {counts}")
+        require(not any(n for kid, n in counts.items() if kid != "K9a"),
+                f"the sweep launched other kernels: {counts}")
+        n_k9a += counts["K9a"]
+
+        # sea_fused's call (`attention_operators`) on the sweep's own inputs,
+        # held to the plain version in float32 on the same (rounded) inputs
+        dt = getattr(torch, dtype)
+        for T in SWEEP_TS:
+            q, k, v, mask = sweep_inputs(T, H, D, T_M, K, dt, "cuda")
+            got = bs.sea_block_sparse_attention(q, k, v, mask, None, impl="flat_wr")
+            ops = impl_operands(q, k, v, mask, None, "flat_wr", None, None)
+            want = bs.impl_reference(ops._replace(q=ops.q.float(), k=ops.k.float(),
+                                                  v=ops.v.float()), "flat_wr")
+            diff = (got.float() - want).abs()
+            err = float(diff.max())
+            over = float((diff - tolerance(want, dt)).max())
+            log(f"[sweep] {dtype} T={T} sea_fused (K9a) vs plain: max|err| {err:.3g} "
+                f"(margin to tol {-over:.3g})")
+            require(over <= 0, f"K9a vs plain on the sweep's inputs at T={T} {dtype}: {err}")
+            if dt == torch.float32:
+                err_f32 = max(err_f32, err)
+            del q, k, v, mask, got, ops, want, diff
+        torch.cuda.empty_cache()
+    return n_k9a, err_f32
+
+
+def phase_cosformer_slice():
+    dev = "cuda"
+    cfg = opt_125m("perlin", sea=opt_config(predictor_backend="cosformer"))
+    model = OptForCausalLM(cfg, device=dev, seed=0).eval()
+    ids = torch.randint(4, cfg.vocab_size, (1, COS_T),
+                        generator=torch.Generator().manual_seed(16)).to(dev)
+    am = torch.ones_like(ids)
+
+    # the main path: one forward, launches counted around it
+    reset_launches()
+    with torch.inference_mode():
+        logits = model(ids, am, benchmarking=True)["logits"]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), "K1": cfg.num_layers}
+    finite = bool(torch.isfinite(logits).all())
+    log(f"[cosformer-slice] OPT-125m, cosformer backend, 1x{COS_T}: logits "
+        f"{tuple(logits.shape)} finite={finite}, launches {counts}")
+    require(finite and logits.shape == (1, COS_T, cfg.vocab_size), "cosformer logits")
+    require(counts == want, f"cosformer forward launches {counts}, want {want}")
+
+    # layer 0's kernel inputs, captured from a forward, against the plain version
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    with torch.inference_mode():
+        model(ids, am, benchmarking=True)
+    buf = {n: bench.get_temp_buffer(n, 0) for n in (
+        "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales")}
+    bench.activate_temp_buffers(False)
+    bench.reset()
+    q, k, v = buf["q"], buf["k"], buf["v"]
+    mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
+    sc = torch.sigmoid(buf["estimated_scales"][..., 0])
+    err = max_err(bs.sea_block_sparse_attention(q, k, v, mask, sc, k_cfg=float(K)),
+                  bs.dense_reference(q, k, v, mask, sc, k_cfg=float(K)))
+    log(f"[cosformer-slice] layer-0 kernel inputs {tuple(q.shape)}: K1 vs plain max|err| {err:.3g}")
+    require(err <= F32_TOL, f"K1 vs plain on the cosformer layer-0 inputs: {err}")
+
+    # the performer backend with the same weights (all but the cosformer's)
+    perf = OptForCausalLM(opt_125m("perlin"), device=dev, seed=None).eval()
+    perf.load_state_dict({n: p for n, p in model.state_dict().items()
+                          if "cosformer_backend" not in n}, strict=False)
+    missing = [n for n in perf.state_dict() if n not in model.state_dict()]
+    require(not missing, f"weights the performer model did not get: {missing[:3]}")
+    cos_ms, _ = forward_ms(model, ids, am)
+    perf_ms, perf_out = forward_ms(perf, ids, am)
+    require(bool(torch.isfinite(perf_out).all()), "performer-backend logits not finite")
+    log(f"[cosformer-slice] forward 1x{COS_T}: cosformer backend {cos_ms:.2f} ms "
+        f"({COS_T / cos_ms * 1e3:.0f} tokens/s), performer backend {perf_ms:.2f} ms "
+        f"({COS_T / perf_ms * 1e3:.0f} tokens/s)")
+
+    def forward():
+        with torch.inference_mode():
+            model(ids, am, benchmarking=True)
+
+    breakdown(f"cosformer-backend forward (1, {COS_T})", forward)
+    del model, perf
+    torch.cuda.empty_cache()
+    return err
+
+
 def main():
     smi = phase_device()
     phase_sort()
@@ -1691,6 +1988,31 @@ def main():
             "replaces": replaces,
             "launches": launches[kid],
             "max_abs_err": max(ring_errs[kid], train_errs[kid]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+
+    phase_impl_mask()
+    impl_launches, impl_errs, impl_m = phase_impl_kernels()
+    # K9a's main path is the sweep
+    impl_launches["K9a"], sweep_err = phase_sweep()
+    impl_errs["K9a"] = max(impl_errs["K9a"], sweep_err)
+    cos_err = phase_cosformer_slice()
+    log(f"[result] cosformer slice layer-0 K1 max|err| {cos_err:.3g}")
+    # K9a-c at bench.py's canonical shapes, float32, each impl's default blocks
+    for kid, (impl, replaces) in IMPL_VARIANTS.items():
+        t = impl_m[kid]
+        require(impl_launches[kid] > 0, f"the main path never launched {kid}")
+        kernels.append({
+            "name": bs.IMPL_KERNELS[impl].entry,
+            "route": "cuda",
+            "source": KERNEL_SOURCE,
+            "replaces": replaces,
+            "launches": impl_launches[kid],
+            "max_abs_err": impl_errs[kid],
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],

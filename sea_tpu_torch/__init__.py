@@ -11,7 +11,9 @@ path (`models.opt.OptForCausalLM`, `benchmarking=True`) and its task-only
 training (`training.longctx`), both also sequence-, head- or ring-sharded
 inside `parallel.sharded_attention_scope`, and the BERT-base SEA forward
 (`models.bert`), on the fused sparse attention kernels
-(`ops.kernels.block_sparse`).
+(`ops.kernels.block_sparse`); the cosformer estimator backend
+(`ops.cosformer`); and the attention-operator sweep (`benchmarks`, dense,
+performer, cosformer and the fused kernel's 'flat_wr' variant).
 """
 
 from .config import SeaConfig, opt_config

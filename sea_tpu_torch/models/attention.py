@@ -5,6 +5,7 @@ stage for stage, with the same profiler region and buffer names:
 
   1 "vmask"           identity-value construction, v_for_atten = [id ‖ v]
   2 "performer"       FAVOR+ linear attention over (q, k, v_for_atten), fp32
+                      (or the cosformer backend, `predictor_backend="cosformer"`)
   3 "performer_value" concat [performer_ctx ‖ v]
   4 "predictor"       enc MLP -> dec_row + ChannelSplit -> CNN -> score
   5 "mask_softmax"    softmax of the estimate
@@ -48,8 +49,8 @@ Not ported yet, and refused with NotImplementedError rather than routed
 elsewhere: the dense differentiable train path and its KD losses
 (`benchmarking=False` without `use_fused_train`, and every train path of
 the non-causal module), the non-causal oversampled benchmark path (a CSR
-route in JAX), the uniform-CSR path (`use_pallas=False`), the cosformer backend,
-the 'comp' predictor, `enc_per_layer`, LoRA, and the decode cache.
+route in JAX), the uniform-CSR path (`use_pallas=False`), the 'comp'
+predictor, `enc_per_layer`, LoRA, and the decode cache.
 """
 
 from __future__ import annotations
@@ -63,6 +64,7 @@ from torch import nn
 
 from ..config import SeaConfig
 from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
+from ..ops.cosformer import CosformerAttention
 from ..ops.masks import fp_min_for, per_item_top_k, resize_noncausal, topk_mask
 from ..ops.performer import fast_attention, gaussian_orthogonal_random_matrix
 from ..parallel import sharded_attention as sharded
@@ -145,10 +147,8 @@ class SeaAttention(nn.Module):
             raise NotImplementedError(
                 "the non-causal oversampled benchmark path (uniform CSR) is not ported"
             )
-        if cfg.predictor_method != "mlp" or cfg.predictor_backend != "performer":
-            raise NotImplementedError(
-                "only predictor_method='mlp' with the performer backend is ported"
-            )
+        if cfg.predictor_method != "mlp":
+            raise NotImplementedError("only predictor_method='mlp' is ported")
         if cfg.enc_per_layer or cfg.lora_enabled or cfg.lora_in_approx_enabled:
             raise NotImplementedError("enc_per_layer and LoRA are not ported yet")
         self.cfg = cfg
@@ -159,6 +159,13 @@ class SeaAttention(nn.Module):
             "performer_proj",
             torch.empty(cfg.nb_features, D),
         )
+        if cfg.predictor_backend == "cosformer":
+            # the cosformer estimator backend (reference attention.py:169-178):
+            # CosformerAttention(embed_dim, vdim=2·embed_dim, no out-projection)
+            self.cosformer_backend = CosformerAttention(
+                H * D, H, vdim=2 * H * D, has_outproj=False, causal=cfg.causal,
+                device="cpu",
+            )
         if cfg.context_output_method == "norm":
             self.norm_partial = _layer_norm(H * D)
         if cfg.out_norm:
@@ -353,14 +360,27 @@ class SeaAttention(nn.Module):
 
         # --- 2 "performer" (float32) ---------------------------------------
         with bench.region("performer"):
-            performer_context_layer = fast_attention(
-                q_for_atten.float(),
-                k_for_atten.float(),
-                v_for_atten.float(),
-                self.performer_proj,
-                causal=cfg.causal,
-                generalized=cfg.causal,
-            ).to(q_for_atten.dtype)
+            if cfg.predictor_backend == "cosformer":
+                # the sequence-first layout: (N, H, T, d) -> (T, N, H·d)
+                D2 = v_for_atten.shape[-1]
+
+                def to_seq(x, d):
+                    return x.permute(0, 2, 1, 3).reshape(N, -1, H * d).transpose(0, 1).float()
+
+                t_out = self.cosformer_backend(
+                    to_seq(q_for_atten, D), to_seq(k_for_atten, D), to_seq(v_for_atten, D2)
+                )  # (T, N, H·2D)
+                performer_context_layer = t_out.reshape(-1, N, H, D2).permute(
+                    1, 2, 0, 3).to(q_for_atten.dtype)
+            else:
+                performer_context_layer = fast_attention(
+                    q_for_atten.float(),
+                    k_for_atten.float(),
+                    v_for_atten.float(),
+                    self.performer_proj,
+                    causal=cfg.causal,
+                    generalized=cfg.causal,
+                ).to(q_for_atten.dtype)
             bench.register_temp_buffer("performer_context_layer", performer_context_layer)
 
         # --- 3 "performer_value" -------------------------------------------

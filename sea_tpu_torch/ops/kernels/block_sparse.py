@@ -1,8 +1,10 @@
 """Fused block-sparse SEA attention (PyTorch port, Hopper kernels).
 
 Port of `sea_tpu/ops/kernels/block_sparse.py`: the forward
-`sea_block_sparse_attention`, causal (Pallas kernel `_causal_kernel_flat`)
-and padded bidirectional (`_kernel`), and the differentiable causal
+`sea_block_sparse_attention`, causal (Pallas kernel `_causal_kernel_flat`,
+and by `impl=` its variants `_causal_kernel_flat_wr`,
+`_causal_kernel_flat_fori` and `_causal_kernel` 'subtile') and padded
+bidirectional (`_kernel`), and the differentiable causal
 `fused_sparse_attention` (`_causal_kernel_fwd_stats`, `_causal_kernel_dq`,
 `_causal_kernel_dkv`). The forward computes, for every (batch·head, query
 row r):
@@ -22,18 +24,23 @@ Layout of this module:
 
   * prep, plain PyTorch on the tensors' device (it was XLA-side in JAX):
     `pack_compressed_bits`, `_pixel_starts`, `_causal_activity`,
-    `_length_activity`, `_compact_lists`, `tile_activity_lists`. The tile
-    lists are a
-    conservative superset of the (q-block, k-block) tiles with an alive
-    column; the kernel still applies the element predicate on every tile;
+    `_length_activity`, `_compact_lists`, `tile_activity_lists`, and for the
+    impl variants `_tile_word_ranges`, `tile_activity_sub` and `impl_tiles`.
+    The tile lists are a conservative superset of the (q-block, k-block)
+    tiles with an alive column; the kernel still applies the element
+    predicate on every tile;
   * oracles: `element_mask_int8`, `mask_nnz`, `dense_reference`. The last
     is also the kernel's plain version, which the wrapper runs for tensors
-    on the CPU;
+    on the CPU; for the impl variants, `alive_from_operands` (the element
+    mask a variant sees on its operands) and `impl_reference` (the softmax
+    over it, their plain version);
   * the wrapper `sea_block_sparse_attention`, which on a CUDA tensor
     launches one of the hand-written kernels in `csrc/block_sparse_causal.cu`
-    (K1 causal, `launch_causal_flat`; K5 padded bidirectional,
-    `bidir_forward`) or raises, and `alive_mask`, which launches a kernel's
-    element predicate alone so that the card can check it bit for bit;
+    (K1 causal, `launch_causal_flat`; by `impl`, K9a-c through the wrappers
+    of `IMPL_KERNELS`; K5 padded bidirectional, `bidir_forward`) or raises, and `alive_mask`, which
+    launches a kernel's element predicate alone (with `impl`, the variant's
+    restricted one on its own tile lists) so that the card can check it bit
+    for bit;
   * the differentiable path: `kernel_operands(..., differentiable=True)`
     (the port of `_diff_prep`, with the transposed tile lists), the plain
     versions `fwd_with_stats_reference`, `dq_reference` and `dkv_reference`,
@@ -60,7 +67,7 @@ Each wrapper counts its kernel launches in a `launches` attribute.
 from __future__ import annotations
 
 import ctypes
-from typing import NamedTuple, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +78,7 @@ NEG_INF = -1e30
 KERNEL_TILE = 64  # rows and columns of the CUDA kernel's tile
 MAX_WORDS = 16  # packed mask words per row the kernel holds (T_M <= 512)
 HEAD_DIM = 64  # the head width the kernel is compiled for
+SUB_BLOCK = 128  # 'subtile' piece width, min(SUB_BLOCK, block_k) (the JAX default)
 
 
 def _div(a: torch.Tensor, b) -> torch.Tensor:
@@ -192,6 +200,71 @@ def _compact_lists(act: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     last = torch.gather(idx, -1, torch.clamp(counts - 1, min=0)[..., None].long())
     idx = torch.where(within, idx, last)
     return counts, idx
+
+
+def tile_activity_sub(
+    mask_m: torch.Tensor,
+    t_src: int,
+    block_q: int,
+    block_ko: int,
+    sub: int,
+    row_widths: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Causal activity at `sub` granularity grouped under `block_ko` outer
+    k-blocks (impl 'subtile'). Returns (counts (N, H, NQ), idx (N, H, NQ,
+    NKO), submask (N, H, NQ, NKO) int32 bitmask of the active sub-pieces,
+    aligned with idx; bit 31 wraps to the sign, as in the JAX package)."""
+    spb = block_ko // sub
+    act = _causal_activity(mask_m, t_src, block_q, sub, row_widths)  # (..., NKBi)
+    N, H, NQ, NKBi = act.shape
+    grouped = act.reshape(N, H, NQ, NKBi // spb, spb)
+    weights = torch.ones(spb, dtype=torch.int64, device=act.device) << torch.arange(
+        spb, device=act.device)
+    bits = (grouped.to(torch.int64) * weights).sum(-1)
+    bits = torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32)
+    counts, idx = _compact_lists(grouped.any(-1))
+    submask = torch.gather(bits, -1, idx.long())
+    return counts, idx, submask
+
+
+def _tile_word_ranges(
+    idx: torch.Tensor,  # (..., NQ, NKB) active k-block list
+    t_m: int,
+    n_words: int,
+    block_q: int,
+    block_k: int,
+    row_widths: Optional[torch.Tensor] = None,  # (T_DST,) causal widths
+) -> torch.Tensor:
+    """Packed per-tile word ranges wlo | whi << 8 | exact << 16, aligned with
+    `idx` (impls 'flat_wr' and 'flat_fori'). The JAX package's corner
+    evaluation of the TPU kernel's pixel expression (c·a + (a/2 − 1e-4),
+    a = T_M/w; monotone in the column and the width), padded by one pixel
+    each side: that padding also covers the few-ulp gap to the division form
+    the port's kernels use. `exact`: no pixel was clipped into whi from above
+    (a tile across the causal edge has pixels past T_M and is never exact)."""
+    NQ = idx.shape[-2]
+    dev = idx.device
+    if row_widths is None:
+        widths = torch.arange(NQ * block_q, dtype=torch.float32, device=dev) + 1.0
+    else:
+        widths = row_widths.to(device=dev, dtype=torch.float32)
+    w_rows = widths.reshape(NQ, block_q)
+    w_min = w_rows.min(dim=1).values[:, None]  # (NQ, 1) narrowest row of the block
+    w_max = w_rows.max(dim=1).values[:, None]
+
+    c0 = (idx * block_k).to(torch.float32)
+    c1 = c0 + float(block_k) - 1.0
+
+    def pix(c, w):
+        a = _div(torch.ones_like(w), w) * float(t_m)
+        return (c * a + (a * 0.5 - 1e-4)).to(torch.int32)  # truncation, as astype
+
+    lo = pix(c0, w_max)
+    hi = pix(c1, w_min)
+    wlo = torch.clamp((lo - 1) >> 5, 0, n_words - 1)
+    whi = torch.clamp((hi + 1) >> 5, 0, n_words - 1)
+    exact = ((hi + 1) >> 5) == whi
+    return (wlo | (whi << 8) | (exact.to(torch.int32) << 16)).to(torch.int32)
 
 
 def tile_activity_lists(
@@ -324,17 +397,107 @@ def dense_reference(
     `row_base` does in the kernel; non-causal `lengths` (N,) gives example
     n's rows the width lengths[n] and keeps s < lengths[n] only."""
     T_SRC = k.shape[2]
-    s_idx = torch.arange(T_SRC, dtype=torch.float32, device=q.device)[None, :]
     w = _dense_widths(q.shape[2], T_SRC, is_causal, row_widths, q.device, lengths)
     alive = _alive_dense(mask_m, T_SRC, w)
     if oversample != 1.0:
-        ps = torch.clamp(torch.floor(_div(w, oversample) + 0.5), min=1.0)
-        oys = _div(torch.clamp(w, round(k_cfg), round(k_cfg * oversample)), k_cfg)
-        frac = (s_idx + 1) / w * ps
-        thr = _div(torch.ones_like(oys), oys) * 0.5 + 1e-4
-        alive = alive & (torch.abs(frac - torch.floor(frac + 0.5)) <= thr)
+        alive = alive & _keep_dense(w, T_SRC, oversample, k_cfg)
     out, _, _ = _softmax_pv(q, k, v, alive, row_scaler)
     return out.to(q.dtype)
+
+
+def _dense_tiles(counts: torch.Tensor, idx: torch.Tensor, aux: torch.Tensor,
+                 fill: int) -> torch.Tensor:
+    """(..., NQ, NKB) int32: each listed tile's `aux` entry (its word range
+    or piece bitmask) at its k-block, `fill` where a tile is not listed."""
+    NKB = idx.shape[-1]
+    # one spare column takes the list's padding slots, then is dropped
+    dense = torch.full((*idx.shape[:-1], NKB + 1), fill, dtype=torch.int32,
+                       device=idx.device)
+    listed = torch.arange(NKB, device=idx.device) < counts[..., None]
+    dense.scatter_(-1, torch.where(listed, idx, NKB).long(), aux.to(torch.int32))
+    return dense[..., :NKB]
+
+
+def _restricted_alive(mbits, counts, idx, aux, row_widths, t_src: int, t_m: int,
+                      block_q: int, block_k: int, sub: int, impl: str) -> torch.Tensor:
+    """(NH, T_DST, T_SRC) bool, the body of `alive_from_operands`: mbits
+    (NH, T_DST, n_words), counts (NH, NQ), idx and aux (NH, NQ, NKB),
+    row_widths (T_DST,) float32."""
+    NH, T_DST, _ = mbits.shape
+    dev = mbits.device
+    w = row_widths.to(device=dev, dtype=torch.float32)[:, None]
+    s_idx = torch.arange(t_src, dtype=torch.float32, device=dev)[None, :]
+    pix = _pixels(s_idx, w, t_m)  # (T_DST, T_SRC)
+    wi = (pix >> 5).to(torch.int32)
+    words = torch.gather(mbits, -1, (pix >> 5).expand(NH, T_DST, t_src))
+    alive = ((words >> (pix & 31).to(torch.int32)) & 1).bool() & (s_idx < w)
+    # each element's tile: rows by q-block, columns by k-block
+    qb = torch.arange(T_DST, device=dev) // block_q
+    kb = torch.arange(t_src, device=dev) // block_k
+
+    def per_element(dense):
+        return dense[:, qb][:, :, kb]  # (NH, T_DST, T_SRC)
+
+    if impl == "flat":
+        keep = per_element(_dense_tiles(counts, idx, torch.ones_like(idx), 0)) > 0
+    elif impl in ("flat_wr", "flat_fori"):
+        wr = per_element(_dense_tiles(counts, idx, aux, -1))
+        keep = (wr >= 0) & (wi >= (wr & 0xFF)) & (wi <= ((wr >> 8) & 0xFF))
+    elif impl == "subtile":
+        piece = ((torch.arange(t_src, device=dev) % block_k) // sub).to(torch.int32)
+        # an arithmetic shift: bit 31 still lands in bit 0
+        keep = ((per_element(_dense_tiles(counts, idx, aux, 0)) >> piece) & 1).bool()
+    else:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    return alive & keep
+
+
+def alive_from_operands(ops: "KernelOperands", impl: str) -> torch.Tensor:
+    """(N, H, T_DST, T_SRC) bool: the element mask that impl `impl`'s kernel
+    sees on these operands: the oracle's bits, read from the packed words
+    `mbits` at the oracle's pixel, causal, on listed tiles only; then
+    'flat_wr' and 'flat_fori' keep a column only if its word lies in its
+    tile's range, and 'subtile' only if its piece is active. A list, range or
+    piece mask that dropped an alive element makes this differ from
+    `element_mask_int8`."""
+    N, H, T_DST, _ = ops.shape
+    alive = _restricted_alive(ops.mbits, ops.counts, ops.idx, ops.tile_aux,
+                              _row_widths(ops.row_base, ops.block_q), ops.k.shape[1],
+                              ops.t_m, ops.block_q, ops.block_k, ops.sub, impl)
+    return alive.reshape(N, H, T_DST, -1)
+
+
+def _row_widths(row_base: torch.Tensor, block_q: int) -> torch.Tensor:
+    """(T_DST,) float32 causal width of each row of the q-blocks based at
+    `row_base` (NQ,): base + local row + 1."""
+    local = torch.arange(block_q, dtype=torch.int32, device=row_base.device)
+    return (row_base[:, None] + local[None, :] + 1).reshape(-1).to(torch.float32)
+
+
+def impl_reference(ops: "KernelOperands", impl: str) -> torch.Tensor:
+    """The plain version of impl `impl`'s kernel on its operands: the
+    softmax of `dense_reference` over `alive_from_operands`, with the
+    undersampling keep-predicate and the row scaler. (N, H, T_DST, D) in
+    q's dtype."""
+    shape = ops.shape
+    q, k, v = (x.reshape(shape[0], shape[1], -1, shape[3]) for x in (ops.q, ops.k, ops.v))
+    alive = alive_from_operands(ops, impl)
+    w = _row_widths(ops.row_base, ops.block_q)[:, None]
+    if ops.oversample != 1.0:
+        alive = alive & _keep_dense(w, k.shape[2], ops.oversample, ops.k_cfg)
+    out, _, _ = _softmax_pv(q, k, v, alive, ops.scaler.reshape(shape[:3]))
+    return out.to(q.dtype)
+
+
+def _keep_dense(w: torch.Tensor, t_src: int, oversample: float, k_cfg: float):
+    """The undersampling keep-predicate (the train path's, reference
+    `resize_m_to_t.py:54-71`) for row widths `w` over t_src columns."""
+    s_idx = torch.arange(t_src, dtype=torch.float32, device=w.device)[None, :]
+    ps = torch.clamp(torch.floor(_div(w, oversample) + 0.5), min=1.0)
+    oys = _div(torch.clamp(w, round(k_cfg), round(k_cfg * oversample)), k_cfg)
+    frac = (s_idx + 1) / w * ps
+    thr = _div(torch.ones_like(oys), oys) * 0.5 + 1e-4
+    return torch.abs(frac - torch.floor(frac + 0.5)) <= thr
 
 
 def _softmax_pv(q, k, v, alive, scaler):
@@ -381,6 +544,8 @@ def _lib() -> ctypes.CDLL:
         "sea_bidir_forward": [_P] * 9 + [_I] * 10 + [_I, _P],
         "sea_alive_mask": [_P, _P] + [_I] * 5 + [_P],
         "sea_bidir_alive_mask": [_P, _P, _P] + [_I] * 5 + [_P],
+        **dict.fromkeys((v.entry for v in IMPL_KERNELS.values()), [_P] * 10 + [_I] * 11 + [_F] * 4 + [_I, _P]),
+        "sea_impl_alive_mask": [_P] * 3 + [_I] * 9 + [_P],
     })
 
 
@@ -443,11 +608,16 @@ class KernelOperands(NamedTuple):
     block_k: int
     oversample: float
     k_cfg: float
+    # impls 'flat_wr'/'flat_fori': each listed tile's word range; 'subtile':
+    # its bitmask of active `sub`-wide pieces; (NH, NQ, NKB) int32 beside idx
+    tile_aux: Optional[torch.Tensor] = None
+    impl: str = "flat"
+    sub: int = 0  # 'subtile' only: the piece width
 
 
 # the fields of KernelOperands that hold tensors
 OPERAND_TENSORS = ("q", "k", "v", "mbits", "scaler", "counts", "idx", "counts_t",
-                   "idx_t", "row_base", "lengths")
+                   "idx_t", "row_base", "lengths", "tile_aux")
 
 
 def prepare_inputs(
@@ -504,13 +674,46 @@ def prepare_inputs(
     )
 
 
+def impl_tiles(mask_m: torch.Tensor, t_src: int, impl: str, block_q: int, block_k: int,
+               sub: int = 0, row_widths: Optional[torch.Tensor] = None):
+    """The causal tile lists of impl `impl`: (counts (N, H, NQ), idx (N, H,
+    NQ, NKB), aux) with aux None for 'flat', each listed tile's word range
+    for 'flat_wr'/'flat_fori' (`_tile_word_ranges`), and for 'subtile' the
+    outer lists at `block_k` with their active `sub`-wide pieces
+    (`tile_activity_sub`)."""
+    check_impl(impl, block_k, sub)
+    if impl == "subtile":
+        return tile_activity_sub(mask_m, t_src, block_q, block_k, sub, row_widths)
+    counts, idx = _compact_lists(
+        _causal_activity(mask_m, t_src, block_q, block_k, row_widths))
+    if impl == "flat":
+        return counts, idx, None
+    n_words = (mask_m.shape[-1] + 31) // 32
+    return counts, idx, _tile_word_ranges(idx, mask_m.shape[-1], n_words, block_q,
+                                          block_k, row_widths)
+
+
+def check_impl(impl: str, block_k: int, sub: int = 0):
+    """Refuse an unknown impl, and for 'subtile' a piece width the kernel
+    does not take: a multiple of the 64-column sub-tile, dividing block_k,
+    at most 32 pieces a block (one int32 bitmask)."""
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    if impl == "subtile" and (sub <= 0 or sub % KERNEL_TILE or block_k % sub
+                              or block_k // sub > 32):
+        raise ValueError(f"subtile: sub {sub} must be a multiple of {KERNEL_TILE} "
+                         f"dividing block_k {block_k} at most 32 times")
+
+
 def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.0,
-                    *, differentiable: bool = False) -> KernelOperands:
+                    *, differentiable: bool = False, impl: str = "flat",
+                    sub: int = 0) -> KernelOperands:
     """Check what the kernels take, then build their operands on the inputs'
     device: the packed mask bits and the tile lists (per-example widths on
     the non-causal path). `differentiable` builds those of the causal
     differentiable path (the port of `_diff_prep`): float32 only, plus the
-    transposed (per-k-block) lists that the dk/dv kernel walks."""
+    transposed (per-k-block) lists that the dk/dv kernel walks. `impl`
+    (causal forward only) builds the lists of K9a-c beside: `impl_tiles`."""
     q, k, v, mask_m = x.q, x.k, x.v, x.mask_m
     N, H, T_DST, D = q.shape
     T_SRC = k.shape[2]
@@ -534,12 +737,18 @@ def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.
         raise ValueError(f"kernel takes T_M <= {32 * MAX_WORDS}, got {T_M}")
     if x.block_q % KERNEL_TILE or x.block_k % KERNEL_TILE:
         raise ValueError(f"block_q and block_k must be multiples of {KERNEL_TILE}")
+    if impl != "flat" and (differentiable or not x.is_causal):
+        raise ValueError(f"impl {impl!r} is the causal forward's only")
 
-    if x.is_causal:
-        act = _causal_activity(mask_m, T_SRC, x.block_q, x.block_k, x.row_widths)
+    aux = None
+    if x.is_causal and not differentiable:
+        counts, idx, aux = impl_tiles(mask_m, T_SRC, impl, x.block_q, x.block_k, sub,
+                                      x.row_widths)
     else:
-        act = _length_activity(mask_m, T_SRC, x.block_q, x.block_k, x.lengths)
-    counts, idx = _compact_lists(act)
+        act = (_causal_activity(mask_m, T_SRC, x.block_q, x.block_k, x.row_widths)
+               if x.is_causal else
+               _length_activity(mask_m, T_SRC, x.block_q, x.block_k, x.lengths))
+        counts, idx = _compact_lists(act)
     counts_t = idx_t = None
     if differentiable:
         counts_t, idx_t = _compact_lists(act.transpose(-1, -2))
@@ -563,6 +772,9 @@ def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.
         block_k=x.block_k,
         oversample=float(oversample),
         k_cfg=float(k_cfg),
+        tile_aux=None if aux is None else aux.reshape(NH, NQ, NKB).contiguous(),
+        impl=impl,
+        sub=sub if impl == "subtile" else 0,
     )
 
 
@@ -591,6 +803,82 @@ def launch_causal_flat(ops: KernelOperands) -> torch.Tensor:
     _check(err, "sea_causal_flat_forward")
     sea_block_sparse_attention.launches += 1
     return out.reshape(ops.shape)
+
+
+def _launch_impl(ops: KernelOperands, impl: str) -> torch.Tensor:
+    """One launch of impl `impl`'s kernel (K9a-c) on the current stream;
+    (N, H, T, D)."""
+    _require_cuda(ops.q, "sea_block_sparse_attention")
+    if ops.impl != impl:
+        raise ValueError(f"operands built for impl {ops.impl!r}, not {impl!r}")
+    out = torch.empty_like(ops.q)
+    lib = _lib()
+    entry = IMPL_KERNELS[impl].entry
+    with torch.cuda.device(ops.q.device):
+        stream = torch.cuda.current_stream(ops.q.device).cuda_stream
+        err = getattr(lib, entry)(
+            ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(),
+            ops.mbits.data_ptr(), ops.scaler.data_ptr(), ops.counts.data_ptr(),
+            ops.idx.data_ptr(), ops.tile_aux.data_ptr(), ops.row_base.data_ptr(),
+            out.data_ptr(), *_geometry(ops), ops.sub, ops.oversample, ops.k_cfg,
+            float(round(ops.k_cfg)), float(round(ops.k_cfg * ops.oversample)),
+            int(ops.q.dtype == torch.bfloat16), stream,
+        )
+    _check(err, entry)
+    return out.reshape(ops.shape)
+
+
+class ImplKernel(NamedTuple):
+    """A causal variant's kernel: its C entry point, its number in the CUDA
+    source's `Impl` enum, and its wrapper, which launches it once on
+    operands built with its impl and counts that in `launches`."""
+    entry: str
+    enum: int
+    wrapper: Callable[[KernelOperands], torch.Tensor]
+
+
+def _impl_kernel(impl: str, entry: str, enum: int, kid: str) -> ImplKernel:
+    def wrapper(ops: KernelOperands) -> torch.Tensor:
+        out = _launch_impl(ops, impl)
+        wrapper.launches += 1
+        return out
+
+    wrapper.__doc__ = f"{kid}, impl {impl!r}: one launch on operands built with that impl."
+    wrapper.launches = 0
+    return ImplKernel(entry, enum, wrapper)
+
+
+# the causal forward's variants K9a-c by impl ('flat', K1, is
+# `launch_causal_flat`, whose launches `sea_block_sparse_attention` counts)
+IMPL_KERNELS = {
+    "flat_wr": _impl_kernel("flat_wr", "sea_causal_word_range_forward", 1, "K9a"),
+    "flat_fori": _impl_kernel("flat_fori", "sea_causal_word_loop_forward", 2, "K9b"),
+    "subtile": _impl_kernel("subtile", "sea_causal_subtile_forward", 3, "K9c"),
+}
+# the causal forward's impls (the JAX package's `impl=`): K1, K9a, K9b, K9c
+IMPLS = ("flat", *IMPL_KERNELS)
+
+
+def _auto_block(t: int) -> int:
+    """The JAX package's default block: the largest of 512, 256 and 128
+    that divides t (t itself if none does)."""
+    for b in (512, 256, 128):
+        if t % b == 0:
+            return b
+    return t
+
+
+def impl_blocks(impl: str, t_dst: int, t_src: int, block_q: Optional[int] = None,
+                block_k: Optional[int] = None) -> Tuple[Optional[int], Optional[int], int]:
+    """(block_q, block_k, sub) that impl `impl` runs at: 'subtile' takes the
+    JAX package's outer blocks where none is given (`_auto_block` of the
+    128-padded lengths) and pieces of min(SUB_BLOCK, block_k); the others
+    keep the blocks given (None: the 64 x 64 default) and no pieces."""
+    if impl != "subtile":
+        return block_q, block_k, 0
+    block_q = block_q or _auto_block(-(-t_dst // 128) * 128)
+    block_k = block_k or _auto_block(-(-t_src // 128) * 128)
+    return block_q, block_k, min(SUB_BLOCK, block_k)
 
 
 def bidir_forward(ops: KernelOperands) -> torch.Tensor:
@@ -631,6 +919,7 @@ def sea_block_sparse_attention(
     block_k: Optional[int] = None,
     oversample: float = 1.0,
     k_cfg: float = 64.0,
+    impl: str = "flat",  # 'flat' | 'flat_wr' | 'flat_fori' | 'subtile' (causal only)
 ) -> torch.Tensor:
     """Fused sparse attention: softmax(mask(q·kᵀ))·v·scaler, per (row, head),
     over alive columns only; rows with no alive column give zeros.
@@ -639,23 +928,42 @@ def sea_block_sparse_attention(
     empty masks and are sliced off). Non-causal, example n's rows have the
     width lengths[n] (right padding), the unpadded T_SRC without `lengths`;
     `oversample` is causal only. On CPU tensors this runs the plain version
-    (`dense_reference`); on CUDA tensors it launches the kernel (K1 causal,
-    K5 non-causal)."""
+    (`dense_reference`, or `impl_reference` for the impls but 'flat'); on
+    CUDA tensors it launches the kernel: causal, by `impl`, K1 ('flat',
+    the default), K9a ('flat_wr'), K9b ('flat_fori') or K9c ('subtile');
+    non-causal, K5 whatever `impl` says, as the JAX package runs its one
+    non-causal kernel. All compute the same function. The tile lists are
+    64 x 64 by default; 'subtile' takes the JAX package's default outer
+    blocks (the largest of 512, 256, 128 dividing T) and pieces of
+    min(SUB_BLOCK, block_k) columns (`impl_blocks`)."""
     if not is_causal and oversample != 1.0:
         raise ValueError("oversample is causal only")
+    if impl not in IMPLS:
+        raise ValueError(f"unknown impl {impl!r}; one of {IMPLS}")
+    sub = 0
+    if is_causal:
+        block_q, block_k, sub = impl_blocks(impl, q.shape[2], k.shape[2], block_q, block_k)
     x = prepare_inputs(
         q, k, v, mask_m, row_scaler, is_causal=is_causal, lengths=lengths,
         row_base=row_base, block_q=block_q, block_k=block_k,
     )
-    if x.q.device.type == "cpu":
+    if not is_causal:
+        impl = "flat"
+    if x.q.device.type == "cpu" and impl == "flat":
         out = dense_reference(
             x.q, x.k, x.v, x.mask_m, x.scaler, is_causal=is_causal, lengths=x.lengths,
             oversample=oversample, k_cfg=k_cfg, row_widths=x.row_widths,
         )
-    elif is_causal:
-        out = launch_causal_flat(kernel_operands(x, oversample, k_cfg))
-    else:
+    elif not is_causal:
         out = bidir_forward(kernel_operands(x))
+    else:
+        ops = kernel_operands(x, oversample, k_cfg, impl=impl, sub=sub)
+        if x.q.device.type == "cpu":
+            out = impl_reference(ops, impl)
+        elif impl == "flat":
+            out = launch_causal_flat(ops)
+        else:
+            out = IMPL_KERNELS[impl].wrapper(ops)
     return out[:, :, : x.t_dst0]
 
 
@@ -663,18 +971,25 @@ sea_block_sparse_attention.launches = 0
 
 
 def alive_mask(mask_m: torch.Tensor, t_src: int, *, is_causal: bool = True,
-               lengths: Optional[torch.Tensor] = None) -> torch.Tensor:
+               lengths: Optional[torch.Tensor] = None, impl: str = "flat",
+               block_q: Optional[int] = None, block_k: Optional[int] = None
+               ) -> torch.Tensor:
     """(N, H, T_DST, T_SRC) int8 alive mask from a kernel's own element
     predicate (`alive_elem` of K1 causal, `alive_elem_len` of K5 non-causal,
     with `lengths` (N,), default T_SRC), for a bit-for-bit check against
-    `element_mask_int8`. CPU tensors take the oracle."""
+    `element_mask_int8`. CPU tensors take the oracle. A causal `impl` but
+    'flat' takes the restricted predicate of K9a-c on that impl's tile
+    lists at the wrapper's default blocks (or those given), on the tiles the
+    lists hold only; its plain version on CPU tensors."""
     N, H, T_DST, T_M = mask_m.shape
     if not is_causal and lengths is None:
         lengths = torch.full((N,), t_src, dtype=torch.int32)
+    n_words = (T_M + 31) // 32
+    if is_causal and impl != "flat":
+        return _impl_alive_mask(mask_m, t_src, impl, block_q, block_k)
     if mask_m.device.type == "cpu":
         return element_mask_int8(mask_m, t_src, is_causal, lengths=lengths)
     _require_cuda(mask_m, "alive_mask")
-    n_words = (T_M + 31) // 32
     mbits = pack_compressed_bits(mask_m).reshape(N * H, T_DST, n_words).contiguous()
     out = torch.empty((N * H, T_DST, t_src), dtype=torch.int8, device=mask_m.device)
     lib = _lib()
@@ -695,6 +1010,36 @@ def alive_mask(mask_m: torch.Tensor, t_src: int, *, is_causal: bool = True,
 
 
 alive_mask.launches = 0
+
+
+def _impl_alive_mask(mask_m, t_src, impl, block_q, block_k):
+    """`alive_mask` for impl 'flat_wr', 'flat_fori' or 'subtile'."""
+    N, H, T_DST, T_M = mask_m.shape
+    block_q, block_k, sub = impl_blocks(impl, T_DST, t_src, block_q, block_k)
+    block_q, block_k = block_q or KERNEL_TILE, block_k or KERNEL_TILE
+    if T_DST % block_q or t_src % block_k:
+        raise ValueError(f"T ({T_DST}, {t_src}) must be whole blocks ({block_q}, {block_k})")
+    NH, NQ, NKB = N * H, T_DST // block_q, t_src // block_k
+    counts, idx, aux = impl_tiles(mask_m, t_src, impl, block_q, block_k, sub)
+    counts, idx, aux = counts.reshape(NH, NQ), idx.reshape(NH, NQ, NKB), aux.reshape(NH, NQ, NKB)
+    mbits = pack_compressed_bits(mask_m).reshape(NH, T_DST, -1).contiguous()
+    if mask_m.device.type == "cpu":
+        widths = torch.arange(1, T_DST + 1, dtype=torch.float32)
+        alive = _restricted_alive(mbits, counts, idx, aux, widths, t_src, T_M,
+                                  block_q, block_k, sub, impl)
+        return alive.to(torch.int8).reshape(N, H, T_DST, t_src)
+    _require_cuda(mask_m, "alive_mask")
+    tiles = _dense_tiles(counts, idx, aux, 0 if impl == "subtile" else -1).contiguous()
+    out = torch.empty((NH, T_DST, t_src), dtype=torch.int8, device=mask_m.device)
+    with torch.cuda.device(mask_m.device):
+        stream = torch.cuda.current_stream(mask_m.device).cuda_stream
+        err = _lib().sea_impl_alive_mask(
+            mbits.data_ptr(), tiles.data_ptr(), out.data_ptr(), IMPL_KERNELS[impl].enum, NH,
+            T_DST, t_src, T_M, mbits.shape[-1], block_q, block_k, sub, stream,
+        )
+    _check(err, "sea_impl_alive_mask")
+    alive_mask.launches += 1
+    return out.reshape(N, H, T_DST, t_src)
 
 
 # ---------------------------------------------------------------------------

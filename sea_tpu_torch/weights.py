@@ -4,7 +4,8 @@
 tree of nested dicts of arrays (as the JAX modules' `init` returns them, or
 as numpy arrays) to a `state_dict` for the matching port module:
 
-  * Dense `kernel` (in, out) -> `weight` (out, in);
+  * Dense `kernel` (in, out) -> `weight` (out, in), the cosformer
+    backend's `q_proj`/`k_proj`/`v_proj` among them;
   * LayerNorm `scale` -> `weight`; Embed `embedding` -> `weight`;
   * conv `weight` (OIHW), `bias` and `v_eye_learned_causal` keep their names
     and layouts;
