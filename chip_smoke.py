@@ -8,9 +8,14 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
 
   1. device   — the card's name and power limit; TF32 off for matmuls and
                 convolutions (the port's float32 path is checked against
-                float32 references);
+                float32 references); the build's registers and spills (no
+                instance of the forward body may spill), and the tensor-core
+                instructions (HMMA) of every instance of the forward body in
+                `cuobjdump -sass`, none of which may lack them;
   2. mask     — the kernel's element predicate (`alive_mask`) against the
                 torch oracle `element_mask_int8`, bit for bit, for T up to 8192;
+                the forward body's pixel quotients, taken from each row's
+                reciprocal, against IEEE division on every row width to 2^17;
   3. kernel   — the causal fused sparse attention kernel (K1) against its
                 plain PyTorch version at the main-path shapes (H=12, D=64,
                 T_M=256, k=64, production top-k budget), float32 and
@@ -100,7 +105,7 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 D=64, T_M=256, K=64, its `host_topk_mask` and inputs from seed
                 0) in float32 and bfloat16 through every impl and every block
                 shape: each kernel against its plain version (`impl_reference`)
-                and its largest difference from K1's output; at each impl's
+                and equal to K1's output bit for bit; at each impl's
                 default blocks the kernel's, K1's, the plain version's and
                 SDPA's times, the bound, the mean words per listed tile (K9a/b)
                 and the share of skipped pieces (K9c). This run is what
@@ -138,9 +143,11 @@ import contextlib
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -216,6 +223,7 @@ BENCH_BLOCKS = ((512, 512), (1024, 512), (256, 512), (256, 256), (512, 256), (No
 BENCH_T = 4096  # bench.py's canonical length
 SWEEP_TS = [1024, 2048, 4096]
 COS_T = 2048  # the cosformer slice's request, 1 x COS_T tokens
+QUOT_W_MAX = 1 << 17  # row widths whose pixel quotients phase_mask checks
 
 
 def log(*a):
@@ -371,13 +379,56 @@ def phase_device():
     logs = _build.build_all()
     log(f"[build] {len(logs)} source(s) compiled in {time.perf_counter() - t0:.1f} s "
         f"({', '.join(_build.sources())})")
+    spilled = []
     for name, text in logs.items():
+        fn = None
         for line in text.splitlines():
             if "Function properties for" in line:
-                log(f"[build] {name}: {line.split('Function properties for')[-1].strip()}")
+                fn = line.split("Function properties for")[-1].strip()
+                log(f"[build] {name}: {fn}")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
+                if "bytes spill stores" in line and FLAT_INSTANCE.search(fn or ""):
+                    if int(line.split("bytes spill stores")[0].split(",")[-1]):
+                        spilled.append(fn)
+    require(not spilled, f"forward-body instances that spill: {spilled}")
+    tensor_core_check()
     return smi
+
+
+# `causal_flat_kernel`'s template arguments <D, T, STATS, BIDIR, IMPL> as the
+# mangled name spells them, and the kernels each instance is
+FLAT_INSTANCE = re.compile(
+    r"causal_flat_kernelILi64E(f|13__nv_bfloat16)Lb([01])ELb([01])ELi([0-3])EE")
+INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
+                 (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
+
+
+def tensor_core_check():
+    """Count the tensor-core instructions (HMMA) of every `causal_flat_kernel`
+    instance in the built library's SASS (`cuobjdump -sass`); K1's and K9a's
+    instances, in both types, and every other instance must have some."""
+    lib = _build._target("block_sparse_causal")
+    cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    hmma, name = {}, None
+    for line in sass.splitlines():
+        if "Function :" in line:
+            found = FLAT_INSTANCE.search(line)
+            name = None
+            if found:
+                dt, stats, bidir, impl = found.groups()
+                name = (f"{INSTANCE_KIDS[int(stats), int(bidir), int(impl)]} "
+                        f"{'float32' if dt == 'f' else 'bfloat16'}")
+                hmma[name] = 0
+        elif name and "HMMA" in line:
+            hmma[name] += 1
+    log(f"[device] HMMA instructions by causal_flat_kernel instance: {hmma}")
+    want = {f"{kid} {dt}" for kid in INSTANCE_KIDS.values() for dt in ("float32", "bfloat16")
+            if kid != "K2/K6" or dt == "float32"}
+    require(set(hmma) == want, f"causal_flat_kernel instances in the SASS: {sorted(hmma)}")
+    require(all(hmma.values()), f"instances without tensor-core instructions: {hmma}")
 
 
 def phase_sort():
@@ -412,6 +463,12 @@ def phase_mask():
             bad = int((got != want).sum())
             log(f"[mask] T={T} {name}: {bad} mismatches of {T * T} elements")
             require(bad == 0, f"alive_mask != element_mask_int8 at T={T} ({name})")
+    # the forward kernels' pixels: quotients from the row's reciprocal, which
+    # must be IEEE division's bit for bit on every row width they can meet
+    bad = bs.quotient_mismatches(QUOT_W_MAX, dev)
+    log(f"[mask] reciprocal quotients vs IEEE division, x = s + 0.5 and s + 1 for every "
+        f"0 <= s < w <= {QUOT_W_MAX}: {bad} mismatches of {QUOT_W_MAX * (QUOT_W_MAX + 1)}")
+    require(bad == 0, "the forward's reciprocal quotients differ from IEEE division")
 
 
 def phase_kernel():
@@ -1721,9 +1778,9 @@ def tile_stats(ops) -> str:
 def phase_impl_kernels():
     """bench.py's configuration through every impl and block shape. Returns
     the main-path launches of K9a-c, {kid: max|kernel - plain| in float32}
-    and {kid: times at the defaults in float32}."""
+    and {dtype: {kid: times at the defaults}}, K1's beside them."""
     dev = "cuda"
-    errs, timing = dict.fromkeys(IMPL_VARIANTS, 0.0), {}
+    errs, timing = dict.fromkeys(IMPL_VARIANTS, 0.0), {torch.float32: {}, torch.bfloat16: {}}
     launches = dict.fromkeys(IMPL_VARIANTS, 0)
     for dtype in (torch.float32, torch.bfloat16):
         q, k, v, sc, mask = bench_inputs(dtype, dev)
@@ -1756,6 +1813,8 @@ def phase_impl_kernels():
                 f"max|err| vs plain {err:.3g} (margin to tol {-over:.3g}); max|diff| vs K1 "
                 f"{vs_k1:.3g}; {tile_stats(ops)}")
             require(over <= 0, f"{kid} vs plain at blocks {block_label(bq, bk)} {dtype}: {err}")
+            require(vs_k1 == 0, f"{kid} at blocks {block_label(bq, bk)} {dtype} differs from "
+                                f"K1 by {vs_k1}")
             if dtype == torch.float32:
                 errs[kid] = max(errs[kid], err)
         del outs
@@ -1764,6 +1823,10 @@ def phase_impl_kernels():
         x = bs.prepare_inputs(q, k, v, mask, sc)
         k1_ops = bs.kernel_operands(x)
         k1_ms = time_ms(lambda: bs.launch_causal_flat(k1_ops))
+        timing[dtype]["K1"] = dict(
+            ms=k1_ms, wrapper_ms=time_ms(lambda: bs.sea_block_sparse_attention(q, k, v, mask, sc)),
+            library_ms=time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)))
+        timing[dtype]["K1"]["bound_ms"], timing[dtype]["K1"]["bound_by"], *_ = bound(k1_ops, mask)
         for kid, (impl, _) in IMPL_VARIANTS.items():
             ops = impl_operands(q, k, v, mask, sc, impl, None, None)
             wrapper = bs.IMPL_KERNELS[impl].wrapper
@@ -1781,8 +1844,7 @@ def phase_impl_kernels():
                 f"{m['ms']:.4f} ms (K1 {k1_ms:.4f} ms; with prep {m['wrapper_ms']:.4f}), plain "
                 f"{m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} "
                 f"ms by {m['bound_by']} ({m['flops'] / 1e9:.4f} GFLOP, {m['bytes'] / 1e6:.2f} MB)")
-            if dtype == torch.float32:
-                timing[kid] = m
+            timing[dtype][kid] = m
         del q, k, v, sc, mask, ref
         torch.cuda.empty_cache()
     return launches, errs, timing
@@ -1827,8 +1889,12 @@ def phase_sweep():
             diff = (got.float() - want).abs()
             err = float(diff.max())
             over = float((diff - tolerance(want, dt)).max())
+            ms = time_ms(lambda: bs.IMPL_KERNELS["flat_wr"].wrapper(ops))
+            sdpa_ms = time_ms(lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True))
+            bound_ms, bound_by, *_ = bound(ops, mask)
             log(f"[sweep] {dtype} T={T} sea_fused (K9a) vs plain: max|err| {err:.3g} "
-                f"(margin to tol {-over:.3g})")
+                f"(margin to tol {-over:.3g}); K9a {ms:.4f} ms, sdpa {sdpa_ms:.4f} ms, bound "
+                f"{bound_ms:.4f} ms by {bound_by}")
             require(over <= 0, f"K9a vs plain on the sweep's inputs at T={T} {dtype}: {err}")
             if dt == torch.float32:
                 err_f32 = max(err_f32, err)
@@ -1913,6 +1979,11 @@ def main():
     log(f"[result] main-path T=2048 layer 0: kernel {m['ms']:.4f} ms, plain "
         f"{m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
         f"{m['bound_ms']:.4f} ms by {m['bound_by']}")
+    # the same inputs rounded to bfloat16
+    mb = measure(*(x.bfloat16() for x in (q, k, v)), mask, sc, k_cfg=float(K))
+    log(f"[result] main-path T=2048 layer 0, bfloat16: K1 {mb['ms']:.4f} ms (with prep "
+        f"{mb['wrapper_ms']:.4f}), sdpa {mb['library_ms']:.4f} ms, bound {mb['bound_ms']:.4f} "
+        f"ms by {mb['bound_by']}")
     kernels = [{
         "name": "sea_causal_flat_forward",
         "route": "cuda",
@@ -2002,9 +2073,14 @@ def main():
     impl_errs["K9a"] = max(impl_errs["K9a"], sweep_err)
     cos_err = phase_cosformer_slice()
     log(f"[result] cosformer slice layer-0 K1 max|err| {cos_err:.3g}")
+    for dtype, m in impl_m.items():
+        log(f"[result] bench.py 1x{H}x{BENCH_T} {str(dtype)[6:]}: " + "; ".join(
+            f"{kid} {t['ms']:.4f} ms (with prep {t['wrapper_ms']:.4f}), sdpa "
+            f"{t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by {t['bound_by']}"
+            for kid, t in m.items()))
     # K9a-c at bench.py's canonical shapes, float32, each impl's default blocks
     for kid, (impl, replaces) in IMPL_VARIANTS.items():
-        t = impl_m[kid]
+        t = impl_m[torch.float32][kid]
         require(impl_launches[kid] > 0, f"the main path never launched {kid}")
         kernels.append({
             "name": bs.IMPL_KERNELS[impl].entry,

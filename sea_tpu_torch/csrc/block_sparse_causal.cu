@@ -44,34 +44,76 @@
 // (oversample != 1) applies too, and `rowbase` shifts each q-block's rows to
 // global positions.
 //
-// Design. One thread block of 256 threads per (batch·head, 64-row q-tile).
-// It walks the q-block's list of active k-blocks (`counts`/`idx`, a
-// conservative superset built on the host side) in 64-column sub-tiles,
-// skips sub-tiles that lie wholly past the tile's last row (bidirectional:
-// past the example's length), and for each
-// sub-tile computes S = Q·Kᵀ with plain float32 FMAs (no TF32: the slice
-// runs float32 and must agree with the plain version), applies the element
-// predicate, and runs an online-softmax update of the row max m, the row sum
-// l and the float32 accumulator acc += P·V. Blocks are independent; nothing
-// carries across the grid. Thread (ty, tx) of the 16 x 16 layout owns rows
-// 4·ty .. 4·ty+3 and score columns tx + 16·j; row reductions are shuffles
-// inside each 16-lane half warp. Q, K, V and P live in shared memory with
-// rows padded by one float so that the column walks hit distinct banks.
-//
-// K6 walks the same lists restricted to one window: the ring launches it S
-// times per shard (S² per layer), each over a 1/S slice of the columns, so
-// its bound and its design are K2's on a smaller problem.
-//
 // What bounds it on this card. The function itself is bound by bytes: it
 // needs 4·D FLOPs per alive element only, and the main path's masks keep
 // about 6-12% of the causal triangle, so reading q, k, v, the mask bits and
 // the scaler once and writing out at HBM's 3.35 TB/s takes longer than the
-// alive work at the FP32 FMA peak (67 TFLOP/s). This kernel is far from that
-// bound because it does dense work on every visited 64 x 64 tile (4·64·64·D
-// FLOPs, nearly the whole triangle on these masks) on the FMA pipes, with one
-// shared-memory load per two FMAs and one IEEE division per element for the
-// predicate (PERF.md; no hardware counters were read). Gathering alive
-// columns, wgmma and TMA are later work.
+// alive work. The kernel does not gather alive columns: it does dense work on
+// every visited 64 x 64 tile (4·64·64·D FLOPs), and the 64 x 64 lists keep
+// nearly the whole triangle on these masks. So its time goes to the two
+// products of every visited tile, which are the work tensor cores are for,
+// to the element predicate and the softmax's exp, both per element on the
+// ALU and SFU pipes, and to reading each visited K/V sub-tile from L2 once
+// per q-tile. On bench.py's shapes in bf16 the predicate is the largest of
+// the parts measured (PERF.md).
+//
+// Design. One thread block of 4 warps (128 threads) per (batch·head, 64-row
+// q-tile); blocks start with every head's last q-tile, the heaviest causal
+// one, and end with the first, so that the light blocks fill the tail. It
+// walks the q-block's list of active k-blocks (`counts`/`idx`, a
+// conservative superset built on the host side) in 64-column sub-tiles, in
+// increasing order, and skips sub-tiles that lie wholly past the tile's last
+// row (bidirectional: past the example's length). The body is
+// FlashAttention-2's, on mma.sync:
+//   * each warp owns 16 query rows, and keeps the row max m, the row sum l
+//     and the output accumulator (the mma C fragments, float32) of its rows;
+//     a thread holds two rows (g and g + 8 of the warp's 16) and, of each,
+//     the columns 8·j + 2·(lane % 4) + {0, 1};
+//   * K/V sub-tiles arrive by cp.async (16 bytes a thread) in a ring of two
+//     stages, so that the next listed sub-tile loads while this one's
+//     products run;
+//   * S = Q·Kᵀ on the tensor cores; then the element predicate per element
+//     in the fragment layout (a dead element goes to −inf before the row
+//     max, so exp is taken of alive scores only), the online-softmax update
+//     with row reductions as shuffles inside each lane quad, and P·V with P
+//     re-packed from the S fragments as the A operand, never through shared
+//     memory;
+//   * bfloat16 (FMA-free products): Q's fragments in registers for the
+//     whole tile, m16n8k16 bf16 mmas with float32 sums, K and V operands by
+//     ldmatrix from shared rows padded by 16 bytes (conflict free). The
+//     products of bf16 values are exact in float32. P is split as P_hi =
+//     bf16(P) and P_lo = bf16(P − P_hi), two mmas into the same accumulator
+//     (relative error about 2^-16, where a single rounding of P would cost
+//     2^-9 and break the half-ulp gate on cancelling rows);
+//   * float32: split TF32 ("3xTF32"), Q in shared memory (its fragments
+//     would take the registers the split needs). Each operand is hi + lo in
+//     TF32 (cvt.rna), and a·b is summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+//     with m16n8k8 TF32 mmas into float32, for both products; the dropped
+//     a_lo·b_lo and the rounding of the lo parts are about 2^-21 of a
+//     product, so the result keeps float32 accuracy to a few 1e-7 (not the
+//     3-digit TF32 of `allow_tf32`). The reduction index of each product is
+//     permuted inside each 8-wide k-step (column 2·t and 2·t + 1 as k = t and
+//     t + 4) so that the S fragment is the P·V A fragment as it stands and K
+//     and Q are read as float2;
+//   * the predicate keeps the element mask bit for bit and costs no branch:
+//     each element's quotient (s + 0.5) / w comes from the row's reciprocal
+//     by the fast path of IEEE division itself (`sea::quot`; chip_smoke holds
+//     it equal to the division on every row width to 2^17), where a division
+//     per element would cost a reciprocal, a range check and a slow-path
+//     branch;
+//   * exp(x − m) is 2^(x·log2 e − m·log2 e) on the SFU (ex2.approx, about
+//     2^-22 relative), whose 2^0 is 1 exactly;
+//   * deterministic: no atomics, no row split across blocks, each row's sums
+//     in a fixed order. A sub-tile with no alive element leaves m, l and acc
+//     exactly as they were (corr = 2^0 = 1, P = 0), so a variant that skips
+//     it or a shard that never lists it gives the same bits.
+// TMA, wgmma and warp specialisation are later work: mma.sync reaches part
+// of the tensor cores' rate, and the predicate still costs some 20
+// instructions per element of every visited tile.
+//
+// K6 walks the same lists restricted to one window: the ring launches it S
+// times per shard (S² per layer), each over a 1/S slice of the columns, so
+// its bound and its design are K2's on a smaller problem.
 //
 // K5 takes the same design. A BERT-base layer at 32 x 256 tokens is 1536
 // blocks of one 64-row q-tile each, and the padded columns past each
@@ -89,17 +131,19 @@
 //   * K9a (WORD_RANGE) reads the tile's word range wr = lo | hi << 8 |
 //     exact << 16 (`_tile_word_ranges`: corner evaluation padded by one
 //     pixel, so the few-ulp gap between the TPU's reciprocal form and the
-//     division form stays inside it). With `exact` and one word, each thread
-//     holds its rows' word in a register for the tile and looks nothing up;
-//     with two, one register select per element; otherwise a lookup in the
-//     q-tile's staged words, dead outside lo .. hi.
+//     division form stays inside it). With `exact` and one or two words,
+//     each thread takes each of its two rows' word from the candidates it
+//     holds in registers for the sub-tile; otherwise the row's staged word,
+//     dead outside lo .. hi. (The staged word is read either way, so that the
+//     choice is a select, not a branch per element.)
 //   * K9b (WORD_LOOP) keeps no shared-memory copy of the mask words: for each
-//     row, a thread walks w = lo .. hi (a dynamic trip count of at most 16),
-//     reads word w through L1 once and selects it into the elements whose
-//     word it is, as the TPU's fori_loop body does. Against K9a it saves the
-//     staging of 64 x n_words words per block and a shared-memory lookup per
-//     element, and costs one global (L1) load per word of the range, per row
-//     and sub-tile, and a compare-select per element and word.
+//     of its two rows, a thread walks w = lo .. hi (a dynamic trip count of at
+//     most 16), reads word w through L1 once and selects it into the 16
+//     elements whose word it is, as the TPU's fori_loop body does. Against
+//     K9a it saves the staging of 64 x n_words words per block and a
+//     shared-memory lookup per element, and costs one global (L1) load per
+//     word of the range, per row and sub-tile, and a compare-select per
+//     element and word.
 //   * K9c (SUBTILE) walks outer k-blocks (`block_k`, the JAX package's
 //     auto_block width) and, inside each, visits only the `sub`-wide pieces
 //     whose bit is set in the tile's `submask` (`tile_activity_sub`), skipping
@@ -107,18 +151,20 @@
 //     q-block's first row is wide enough (`sub_short`), a piece's pixels fall
 //     in two words, and each thread loads the two candidates of its rows once
 //     per piece (the TPU kernel's short path).
-// Every variant walks the listed 64-column sub-tiles in increasing order, and
-// a sub-tile with no alive element leaves m, l and acc exactly as they were
-// (exp only of alive scores, corr = exp(0) = 1), so each should equal K1's
-// output bit for bit on the same inputs. Their bound is K1's, by bytes; what
-// they change is the predicate's cost per visited element (K9a, K9b) and the
-// number of visited sub-tiles (K9c), not the bytes.
+// Every variant walks the listed 64-column sub-tiles in increasing order
+// through the same body, and a sub-tile with no alive element changes
+// nothing, so each equals K1's output bit for bit on the same inputs. Their
+// bound is K1's, by bytes; what they change is the predicate's cost per
+// visited element (K9a, K9b) and the number of visited sub-tiles (K9c), not
+// the bytes.
 //
 // The element predicates live in sea_mask.cuh (`alive_elem`, `alive_elem_len`,
 // and K9a-c's `alive_elem_wr`, `alive_elem_loop`, `alive_elem_sub`), shared
 // with the backward kernels and with the debug kernels `alive_mask_kernel`
 // and `impl_alive_mask_kernel`, which let the card check each bit for bit
 // against the oracle.
+
+#include <type_traits>
 
 #include "sea_mask.cuh"
 
@@ -128,15 +174,14 @@ using sea::alive_elem;
 using sea::alive_elem_len;
 using sea::bad_geometry;
 using sea::bad_window;
-using sea::keep_elem;
-using sea::load_f;
-using sea::store_f;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
 
 constexpr int BQ = sea::TILE;   // query rows per block
 constexpr int BKT = sea::TILE;  // key columns per sub-tile
-constexpr int TPB = 256;     // 16 row groups x 16 column lanes
+constexpr int WARPS = BQ / 16;  // each owns 16 query rows
+constexpr int TPB = 32 * WARPS;
+constexpr int NT = BKT / 8;     // 8-column score tiles of a sub-tile
 constexpr float M_INIT = -1.0e30f;  // running-max floor: exp(-inf - m) == 0
 
 // Which mask words the causal element predicate reads: all of the row's
@@ -144,15 +189,142 @@ constexpr float M_INIT = -1.0e30f;  // running-max floor: exp(-inf - m) == 0
 // the words of the active pieces only (K9c).
 enum Impl : int { FLAT = 0, WORD_RANGE = 1, WORD_LOOP = 2, SUBTILE = 3 };
 
-template <int D>
+// ---------------------------------------------------------------------------
+// The tensor-core and copy instructions (PTX, sm_80 and later).
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest `N` has landed (for this thread)
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p)));
+}
+
+// c += a·b, a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 sums
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a·b, a 16 x 8 (row), b 8 x 8 (col), TF32 in, float32 sums
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// 2^x on the special-function unit (relative error about 2^-22; 2^0 == 1)
+__device__ __forceinline__ float exp2_sfu(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = hi + lo in TF32 (to about 2^-22 of x)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = to_tf32(x);
+  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
+}
+
+// the bf16 pairs hi = (bf16(x0), bf16(x1)) and lo = the bf16 of what is left
+__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
+                                           uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l =
+      __floats2bfloat162_rn(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// ---------------------------------------------------------------------------
+
+// Shared memory: two stages of (K, V) sub-tiles, then (float32) the q-tile,
+// then its mask words. Row strides padded so that every fragment read is free
+// of bank conflicts: bf16 rows by 16 bytes (ldmatrix's 8 rows of a matrix
+// start on banks 4·i); float32 K and Q rows by 8 floats (float2 reads of rows
+// g = 0..3 at banks 8·g + 2·t) and V rows by 4 (reads of rows 2·t at banks
+// 8·t + g). bf16 keeps Q's fragments in registers (16 a thread); float32's
+// would take 32 more than the split products leave.
+template <int D, typename T>
 struct Smem {
-  static constexpr int DP = D + 1;
-  static constexpr int Q = BQ * DP;
-  // K sub-tile (BKT x DP), then the P sub-tile (BQ x BKT+1) in the same room
-  static constexpr int KP = (BKT * DP > BQ * (BKT + 1)) ? BKT * DP : BQ * (BKT + 1);
-  static constexpr int V = BKT * D;
-  static constexpr int bytes = (Q + KP + V) * 4 + BQ * MAX_WORDS * 4;
+  static constexpr bool F32 = std::is_same<T, float>::value;
+  static constexpr int KLD = D + 8;
+  static constexpr int VLD = F32 ? D + 4 : D + 8;
+  static constexpr int K_BYTES = BKT * KLD * (int)sizeof(T);
+  static constexpr int STAGE = K_BYTES + BKT * VLD * (int)sizeof(T);
+  static constexpr int Q_BYTES = F32 ? BQ * KLD * 4 : 0;
+  static constexpr int bytes = 2 * STAGE + Q_BYTES + BQ * MAX_WORDS * 4;
 };
+
+// 64 rows of D elements into shared rows of `ld`, 16 bytes a thread and copy.
+template <int D, typename T>
+__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* __restrict__ src,
+                                          int tid) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements per copy
+  constexpr int CPR = D / EPC;              // copies per row
+  static_assert(BKT * CPR % TPB == 0, "whole copies per thread");
+#pragma unroll
+  for (int it = 0; it < BKT * CPR / TPB; ++it) {
+    const int i = tid + it * TPB;
+    const int c = i / CPR, d = (i % CPR) * EPC;
+    cp_async16(dst + c * ld + d, src + (long)c * D + d);
+  }
+}
+
+// One 64-column K/V sub-tile into a stage.
+template <int D, typename T>
+__device__ __forceinline__ void load_kv(unsigned char* stage, const T* __restrict__ k,
+                                        const T* __restrict__ v, long base, int tid) {
+  using S = Smem<D, T>;
+  copy_rows<D, T>(reinterpret_cast<T*>(stage), S::KLD, k + base, tid);
+  copy_rows<D, T>(reinterpret_cast<T*>(stage + S::K_BYTES), S::VLD, v + base, tid);
+}
+
+// Blocks an SM should hold, which caps registers at 65536 / (128·blocks):
+// bf16 fits three (168 registers, no spill) and overlaps their barriers;
+// float32's split products need the 255 of two.
+template <typename T>
+constexpr int MIN_BLOCKS = std::is_same<T, float>::value ? 2 : 3;
 
 // STATS: the forward of the differentiable path. The undersampling predicate
 // is off and `lse` receives each row's logsumexp.
@@ -163,7 +335,7 @@ struct Smem {
 // tile's word range (WORD_RANGE, WORD_LOOP) or bitmask of active `sub`-wide
 // pieces (SUBTILE); FLAT reads neither.
 template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>
-__global__ void __launch_bounds__(TPB) causal_flat_kernel(
+__global__ void __launch_bounds__(TPB, MIN_BLOCKS<T>) causal_flat_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint32_t* __restrict__ mbits, const float* __restrict__ scaler,
     const int* __restrict__ counts, const int* __restrict__ idx,
@@ -172,45 +344,67 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
     float* __restrict__ lse, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, int sub, float oversample,
     float k_cfg, float keep_lo, float keep_hi, int col_base) {
-  using S = Smem<D>;
-  constexpr int DP = S::DP;
-  constexpr int PP = BKT + 1;
-  constexpr int DPT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* KPs = Qs + S::Q;
-  float* Vs = KPs + S::KP;
-  uint32_t* Ms = reinterpret_cast<uint32_t*>(Vs + S::V);
+  using S = Smem<D, T>;
+  constexpr bool F32 = S::F32;
+  static_assert(D % 16 == 0, "head width");
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float* Qs = reinterpret_cast<const float*>(smem + 2 * S::STAGE);  // float32
+  uint32_t* Ms = reinterpret_cast<uint32_t*>(smem + 2 * S::STAGE + S::Q_BYTES);
 
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * BQ;  // first local row of the tile
+  // blocks start in order of x, then y: every head's last (heaviest causal)
+  // q-tile first, then the ones before it
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // first local row of the tile
   const int qb = row0 / block_q;     // q-block of the tile lists
   const int grow0 = BIDIR ? row0 : rowbase[qb] + (row0 - qb * block_q);
   const int len = BIDIR ? lengths[bh] : 0;
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // the fragment row and column pair
+  const int wrow0 = (tid >> 5) * 16;       // the warp's first row in the tile
 
-  const long qoff = ((long)bh * t_dst + row0) * D;
-  for (int i = tid; i < BQ * D; i += TPB) Qs[(i / D) * DP + (i % D)] = load_f(q, qoff + i);
   const long moff = ((long)bh * t_dst + row0) * n_words;
   // WORD_LOOP reads its rows' words from global memory (L1) instead
   if (IMPL != WORD_LOOP)
     for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
-  // WORD_RANGE and SUBTILE read other rows' staged words before the first
-  // sub-tile's barrier
-  if (IMPL == WORD_RANGE || IMPL == SUBTILE) __syncthreads();
 
-  float m_i[4], l_i[4], acc[4][DPT], ps[4], thr[4];
+  // bf16: Q's A fragments for the whole tile, k-step j's four registers
+  // (rows g, g + 8; columns 16·j + 2·t4 (+8)). float32: the q-tile goes to
+  // shared memory with the first K/V sub-tile.
+  const long qoff = ((long)bh * t_dst + row0) * D;
+  uint32_t qa[D / 16][4];
+  if constexpr (F32) {
+    copy_rows<D, T>(reinterpret_cast<T*>(smem + 2 * S::STAGE), S::KLD, q + qoff, tid);
+  } else {
+    const T* qr0 = q + qoff + (long)(wrow0 + g) * D;
+    const T* qr1 = qr0 + 8 * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_i[i] = M_INIT;
-    l_i[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = 0.f;
-    const float w = (float)(grow0 + ty * 4 + i + 1);
-    ps[i] = fmaxf(floorf(__fadd_rn(__fdiv_rn(w, oversample), 0.5f)), 1.0f);
-    const float oys = __fdiv_rn(fminf(fmaxf(w, keep_lo), keep_hi), k_cfg);
-    thr[i] = __fadd_rn(__fmul_rn(__fdiv_rn(1.0f, oys), 0.5f), 1e-4f);
+    for (int j = 0; j < D / 16; ++j) {
+      qa[j][0] = *reinterpret_cast<const uint32_t*>(qr0 + 16 * j + 2 * t4);
+      qa[j][1] = *reinterpret_cast<const uint32_t*>(qr1 + 16 * j + 2 * t4);
+      qa[j][2] = *reinterpret_cast<const uint32_t*>(qr0 + 16 * j + 8 + 2 * t4);
+      qa[j][3] = *reinterpret_cast<const uint32_t*>(qr1 + 16 * j + 8 + 2 * t4);
+    }
   }
+
+  // per fragment row h: rows wrow0 + g + 8·h of the tile; wf, the row's
+  // width (causal r + 1, bidirectional the length) and yw its reciprocal
+  float m_i[2], l_i[2], ps[2], thr[2], wf[2], yw[2];
+  float acc[D / 8][4];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    m_i[h] = M_INIT;
+    l_i[h] = 0.f;
+    const float w = (float)(grow0 + wrow0 + g + 8 * h + 1);
+    wf[h] = BIDIR ? (float)len : w;
+    yw[h] = sea::recip(wf[h]);
+    ps[h] = fmaxf(floorf(__fadd_rn(__fdiv_rn(w, oversample), 0.5f)), 1.0f);
+    const float oys = __fdiv_rn(fminf(fmaxf(w, keep_lo), keep_hi), k_cfg);
+    thr[h] = __fadd_rn(__fmul_rn(__fdiv_rn(1.0f, oys), 0.5f), 1e-4f);
+  }
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
   const bool undersample = !STATS && !BIDIR && oversample != 1.0f;
   const float dead = __uint_as_float(0xff800000u);  // -inf
 
@@ -221,165 +415,263 @@ __global__ void __launch_bounds__(TPB) causal_flat_kernel(
   const bool shrt = IMPL == SUBTILE && sea::sub_short(grow0 - (row0 - qb * block_q), t_m, sub);
   // every column from here on is dead on every row of the tile
   const int col_end = BIDIR ? len : grow0 + BQ;
-  // k and v hold the (global) columns col_base .. col_stop − 1
+  // k and v hold the (global) columns col_base .. col_stop − 1; col_stop and
+  // every c0 are multiples of 64, so a visited sub-tile lies wholly inside
   const int col_stop = col_base + t_src;
   const long kvbase = ((long)bh * t_src - col_base) * D;
 
-  for (int e = 0; e < cnt; ++e) {
-    const int kb = lst[e];
-    const int aux = IMPL != FLAT ? tls[e] : 0;
+  // The walk: advance (e, c0) to the first visited sub-tile at or after it
+  // (list entry e, first column c0); false when the list is done.
+  auto seek = [&](int& e, int& c0) -> bool {
+    for (; e < cnt; ++e, c0 = -1) {
+      const int start = lst[e] * block_k;
+      for (c0 = c0 < start ? start : c0; c0 < start + block_k; c0 += BKT) {
+        // wholly past the causal edge, the length or the window
+        if (c0 >= col_end || c0 >= col_stop) break;
+        // SUBTILE skips the dead pieces whole: no loads, no Q·Kᵀ, no
+        // predicate, no P·V
+        if (IMPL == SUBTILE && ((((unsigned)tls[e]) >> ((c0 - start) / sub)) & 1u) == 0u)
+          continue;
+        return true;
+      }
+    }
+    return false;
+  };
+
+  // SUBTILE: the rows' two candidates of the current piece, kept across its
+  // sub-tiles; WORD_RANGE: the rows' one or two candidate words
+  uint32_t cand0[2] = {0u, 0u}, cand1[2] = {0u, 0u};
+  int cand_w[2] = {0, 0};
+
+  int e = 0, c0 = -1, stage = 0;
+  bool have = seek(e, c0);
+  if (have) load_kv<D, T>(smem, k, v, kvbase + (long)c0 * D, tid);
+  cp_async_commit();
+  while (have) {
+    int ne = e, nc0 = c0 + BKT;
+    const bool more = seek(ne, nc0);
+    // the next sub-tile's copies run while this one's products do
+    if (more) load_kv<D, T>(smem + (stage ^ 1) * S::STAGE, k, v, kvbase + (long)nc0 * D, tid);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this stage (and, first time, the mask words) landed
+    const T* Ks = reinterpret_cast<const T*>(smem + stage * S::STAGE);
+    const T* Vs = reinterpret_cast<const T*>(smem + stage * S::STAGE + S::K_BYTES);
+
+    // S = Q·Kᵀ: s[j] is the C fragment of score columns 8·j .. 8·j + 7
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+    if constexpr (F32) {
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        // k = t4 is column 8·kk + 2·t4 of Q and K, k = t4 + 4 the one after
+        const float2 qa0 =
+            *reinterpret_cast<const float2*>(Qs + (wrow0 + g) * S::KLD + 8 * kk + 2 * t4);
+        const float2 qa1 =
+            *reinterpret_cast<const float2*>(Qs + (wrow0 + g + 8) * S::KLD + 8 * kk + 2 * t4);
+        uint32_t ah[4], al[4];
+        split_tf32(qa0.x, ah[0], al[0]);
+        split_tf32(qa1.x, ah[1], al[1]);
+        split_tf32(qa0.y, ah[2], al[2]);
+        split_tf32(qa1.y, ah[3], al[3]);
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 kv =
+              *reinterpret_cast<const float2*>(Ks + (8 * j + g) * S::KLD + 8 * kk + 2 * t4);
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(kv.x, bh0, bl0);
+          split_tf32(kv.y, bh1, bl1);
+          mma_tf32(s[j], al, bh0, bh1);
+          mma_tf32(s[j], ah, bl0, bl1);
+          mma_tf32(s[j], ah, bh0, bh1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < NT / 2; ++jp) {
+          // matrices: (columns 16·jp + 0..7, d + 0..7), (.., d + 8..15),
+          // (columns + 8..15, d + 0..7), (.., d + 8..15)
+          uint32_t b[4];
+          ldsm_x4(b, Ks + (16 * jp + ((lane >> 4) << 3) + (lane & 7)) * S::KLD + 16 * kk +
+                         (((lane >> 3) & 1) << 3));
+          mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
+          mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
+        }
+      }
+    }
+
     // WORD_RANGE, WORD_LOOP: the tile's word range; WORD_RANGE keeps each of
-    // its rows' one or two candidate words in registers for the tile.
-    // SUBTILE: the rows' two candidates of the current piece.
-    sea::WordRange g{0, 0, false, false};
-    uint32_t cand0[4] = {0u, 0u, 0u, 0u}, cand1[4] = {0u, 0u, 0u, 0u};
-    int cand_w[4] = {0, 0, 0, 0};
-    if (IMPL == WORD_RANGE || IMPL == WORD_LOOP) g = sea::word_range(aux);
-    if (IMPL == WORD_RANGE && (g.one || g.two)) {
+    // its rows' one or two candidate words in registers.
+    // SUBTILE: the candidates at the first sub-tile of each piece.
+    sea::WordRange wr{0, 0, false, false};
+    if (IMPL == WORD_RANGE || IMPL == WORD_LOOP) wr = sea::word_range(tls[e]);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const uint32_t* words = Ms + (ty * 4 + i) * n_words;
-        cand0[i] = words[g.lo];
-        cand1[i] = g.two ? words[g.lo + 1] : 0u;
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wrow0 + g + 8 * h;
+      const uint32_t* words = Ms + rl * n_words;
+      if (IMPL == WORD_RANGE && (wr.one || wr.two)) {
+        cand0[h] = words[wr.lo];
+        cand1[h] = wr.two ? words[wr.lo + 1] : 0u;
+      }
+      if (IMPL == SUBTILE && shrt && (c0 - lst[e] * block_k) % sub == 0)
+        sea::sub_candidates(words, c0, grow0 + rl, t_m, n_words, cand_w[h], cand0[h],
+                            cand1[h]);
+    }
+
+    // the element predicate and the online softmax, row by row
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wrow0 + g + 8 * h;
+      const int r = grow0 + rl;
+      const uint32_t* words = Ms + rl * n_words;
+      // element j's column is c0 + 8·(j / 2) + 2·t4 + j % 2, and its pixel
+      // (causal: -1 where dead whatever the mask holds) comes from the row's
+      // reciprocal; x0 + j's offset is the exact (float)col + 0.5
+      const float x0 = __fadd_rn((float)(c0 + 2 * t4), 0.5f);
+      auto pixel = [&](int j) {
+        const int col = c0 + 8 * (j >> 1) + 2 * t4 + (j & 1);
+        const float x = __fadd_rn(x0, (float)(8 * (j >> 1) + (j & 1)));
+        const int p = sea::floor_pixel(sea::quot(x, wf[h], yw[h]), t_m);
+        return BIDIR ? sea::len_clip(p, t_m) : sea::causal_clip(p, col, r, t_m);
+      };
+      // WORD_LOOP: the words of the thread's 16 columns in one walk over the
+      // range, each word read once through L1
+      uint32_t lw[2 * NT];
+      int lpix[2 * NT];
+      if (IMPL == WORD_LOOP) {
+        int wi[2 * NT];
+#pragma unroll
+        for (int j = 0; j < 2 * NT; ++j) {
+          lpix[j] = pixel(j);
+          wi[j] = lpix[j] >= 0 ? lpix[j] >> 5 : -1;
+        }
+        sea::loop_words<2 * NT>(mbits + moff + (long)rl * n_words, wr.lo, wr.hi, wi, lw);
+      }
+      float rmax = M_INIT;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        const int col = c0 + 8 * (j >> 1) + 2 * t4 + (j & 1);
+        const int pix = IMPL == WORD_LOOP ? lpix[j] : pixel(j);
+        const int wi = (pix < 0 ? 0 : pix) >> 5;  // a word to read also when dead
+        uint32_t word;
+        if (IMPL == WORD_RANGE)
+          word = sea::range_word(words, wi, wr, cand0[h], cand1[h]);
+        else if (IMPL == WORD_LOOP)
+          word = lw[j];
+        else if (IMPL == SUBTILE)
+          word = sea::sub_word(words, wi, shrt, cand_w[h], cand0[h], cand1[h]);
+        else
+          word = words[wi];
+        bool a = (BIDIR ? col < len : pix >= 0) & sea::pixel_bit(word, pix);
+        if (undersample)
+          a = a & sea::keep_quot(sea::quot((float)(col + 1), wf[h], yw[h]), ps[h], thr[h]);
+        float& x = s[j >> 1][2 * h + (j & 1)];
+        x = a ? x : dead;
+        rmax = fmaxf(rmax, x);
+      }
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m_i[h], rmax);
+      // exp(x - m) as 2^(x·log2 e - m·log2 e): one FFMA and the SFU's exp2;
+      // a row whose max did not move gets corr = 2^0 = 1 exactly
+      const float corr = exp2_sfu(__fmul_rn(__fsub_rn(m_i[h], m_new), LOG2E));
+      const float ml = __fmul_rn(m_new, LOG2E);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        float& x = s[j >> 1][2 * h + (j & 1)];
+        x = exp2_sfu(__fmaf_rn(x, LOG2E, -ml));  // dead elements: 2^-inf == 0
+        psum += x;
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_i[h] = l_i[h] * corr + psum;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * h] *= corr;
+        acc[j][2 * h + 1] *= corr;
+      }
+      m_i[h] = m_new;
+    }
+
+    // acc += P·V, P from the S fragments (k = the sub-tile's columns)
+    if constexpr (F32) {
+#pragma unroll
+      for (int kk = 0; kk < NT; ++kk) {
+        // k = t4 is column 8·kk + 2·t4, k = t4 + 4 is the one after
+        uint32_t ah[4], al[4];
+        split_tf32(s[kk][0], ah[0], al[0]);
+        split_tf32(s[kk][2], ah[1], al[1]);
+        split_tf32(s[kk][1], ah[2], al[2]);
+        split_tf32(s[kk][3], ah[3], al[3]);
+        const T* v0 = Vs + (8 * kk + 2 * t4) * S::VLD + g;
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          uint32_t bh0, bl0, bh1, bl1;
+          split_tf32(v0[8 * j], bh0, bl0);
+          split_tf32(v0[S::VLD + 8 * j], bh1, bl1);
+          mma_tf32(acc[j], al, bh0, bh1);
+          mma_tf32(acc[j], ah, bl0, bl1);
+          mma_tf32(acc[j], ah, bh0, bh1);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int kk = 0; kk < NT / 2; ++kk) {
+        // columns 16·kk .. 16·kk + 15 are score tiles 2·kk and 2·kk + 1
+        uint32_t ph[4], pl[4];
+        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
+        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
+        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
+        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
+#pragma unroll
+        for (int jp = 0; jp < D / 16; ++jp) {
+          // matrices (transposed): (k + 0..7, d 16·jp + 0..7), (k + 8..15, ..),
+          // (k + 0..7, d + 8..15), (k + 8..15, ..)
+          uint32_t b[4];
+          ldsm_x4_trans(b, Vs + (16 * kk + (((lane >> 3) & 1) << 3) + (lane & 7)) * S::VLD +
+                               16 * jp + ((lane >> 4) << 3));
+          mma_bf16(acc[2 * jp], pl, b[0], b[1]);
+          mma_bf16(acc[2 * jp], ph, b[0], b[1]);
+          mma_bf16(acc[2 * jp + 1], pl, b[2], b[3]);
+          mma_bf16(acc[2 * jp + 1], ph, b[2], b[3]);
+        }
       }
     }
-    for (int c0 = kb * block_k; c0 < (kb + 1) * block_k; c0 += BKT) {
-      // wholly past the causal edge, the length or the window
-      if (c0 >= col_end || c0 >= col_stop) break;
-      if (IMPL == SUBTILE) {
-        // skip the dead pieces whole: no loads, no Q·Kᵀ, no predicate, no P·V
-        const int off = c0 - kb * block_k;
-        if ((((unsigned)aux >> (off / sub)) & 1u) == 0u) continue;
-        if (shrt && off % sub == 0) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            sea::sub_candidates(Ms + (ty * 4 + i) * n_words, c0, grow0 + ty * 4 + i,
-                                t_m, n_words, cand_w[i], cand0[i], cand1[i]);
-        }
-      }
-      __syncthreads();  // the previous sub-tile's P and V are consumed
-      for (int i = tid; i < BKT * D; i += TPB) {
-        const int c = i / D, d = i % D;
-        const bool in = c0 + c < col_stop;
-        KPs[c * DP + d] = in ? load_f(k, kvbase + (long)c0 * D + i) : 0.f;
-        Vs[i] = in ? load_f(v, kvbase + (long)c0 * D + i) : 0.f;
-      }
-      __syncthreads();
-
-      float s[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        float qv[4], kv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) qv[i] = Qs[(ty * 4 + i) * DP + d];
-#pragma unroll
-        for (int j = 0; j < 4; ++j) kv[j] = KPs[(tx + 16 * j) * DP + d];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rl = ty * 4 + i;
-        const int r = grow0 + rl;
-        const uint32_t* words = Ms + rl * n_words;
-        const float w = (float)(r + 1);
-        float rmax = M_INIT;
-        // WORD_LOOP: the words of the thread's 4 columns in one walk over
-        // the range, each word read once through L1
-        uint32_t lw[4] = {0u, 0u, 0u, 0u};
-        int lpix[4] = {-1, -1, -1, -1};
-        if (IMPL == WORD_LOOP) {
-          int wi[4];
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            lpix[j] = sea::causal_pixel(c0 + tx + 16 * j, r, t_m);
-            wi[j] = lpix[j] >= 0 ? lpix[j] >> 5 : -1;
-          }
-          sea::loop_words<4>(mbits + moff + (long)rl * n_words, g.lo, g.hi, wi, lw);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = c0 + tx + 16 * j;
-          bool a;
-          if (BIDIR)
-            a = alive_elem_len(words, col, len, t_m);
-          else if (IMPL == WORD_RANGE)
-            a = sea::alive_elem_wr(words, col, r, t_m, g, cand0[i], cand1[i]);
-          else if (IMPL == WORD_LOOP)
-            a = lpix[j] >= 0 && sea::pixel_bit(lw[j], lpix[j]);
-          else if (IMPL == SUBTILE)
-            a = sea::alive_elem_sub(words, col, r, t_m, shrt, cand_w[i], cand0[i],
-                                    cand1[i]);
-          else
-            a = alive_elem(words, col, r, t_m);
-          if (undersample) a = a && keep_elem(col, w, ps[i], thr[i]);
-          s[i][j] = a ? s[i][j] : dead;
-          rmax = fmaxf(rmax, s[i][j]);
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, off));
-        const float m_new = fmaxf(m_i[i], rmax);
-        const float corr = expf(m_i[i] - m_new);
-        float psum = 0.f;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = expf(s[i][j] - m_new);  // dead lanes: exp(-inf) == 0
-          psum += s[i][j];
-        }
-#pragma unroll
-        for (int off = 8; off > 0; off >>= 1)
-          psum += __shfl_xor_sync(0xffffffffu, psum, off);
-        l_i[i] = l_i[i] * corr + psum;
-#pragma unroll
-        for (int jj = 0; jj < DPT; ++jj) acc[i][jj] *= corr;
-        m_i[i] = m_new;
-      }
-
-      __syncthreads();  // every thread is done reading K
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) KPs[(ty * 4 + i) * PP + tx + 16 * j] = s[i][j];
-      __syncthreads();
-
-#pragma unroll 8
-      for (int c = 0; c < BKT; ++c) {
-        float pv[4], vv[DPT];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) pv[i] = KPs[(ty * 4 + i) * PP + c];
-#pragma unroll
-        for (int jj = 0; jj < DPT; ++jj) vv[jj] = Vs[c * D + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = fmaf(pv[i], vv[jj], acc[i][jj]);
-      }
-    }
+    __syncthreads();  // every warp is done with this stage before it refills
+    e = ne;
+    c0 = nc0;
+    have = more;
+    stage ^= 1;
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int rl = ty * 4 + i;
-    const float l = l_i[i];
+  for (int h = 0; h < 2; ++h) {
+    const int rl = wrow0 + g + 8 * h;
+    const float l = l_i[h];
     const float safe_l = l > 0.f ? l : 1.f;
     const float sc = scaler ? scaler[(long)bh * t_dst + row0 + rl] : 1.f;
-    const long o = qoff + (long)rl * D;
+    T* o = out + qoff + (long)rl * D + 2 * t4;
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj)
-      store_f(out, o + tx + 16 * jj, acc[i][jj] / safe_l * sc);
+    for (int j = 0; j < D / 8; ++j) {
+      const float x0 = acc[j][2 * h] / safe_l * sc;
+      const float x1 = acc[j][2 * h + 1] / safe_l * sc;
+      if constexpr (F32)
+        *reinterpret_cast<float2*>(o + 8 * j) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(x0, x1);
+    }
     // logsumexp; +inf for rows with no alive column, so that the backward's
-    // exp(s - lse) is 0 there (m and l are equal across the 16 lanes)
-    if (STATS && tx == 0)
+    // exp(s - lse) is 0 there (m and l are equal across the lane quad)
+    if (STATS && t4 == 0)
       lse[(long)bh * t_dst + row0 + rl] =
-          l > 0.f ? m_i[i] + logf(l) : __uint_as_float(0x7f800000u);
+          l > 0.f ? m_i[h] + logf(l) : __uint_as_float(0x7f800000u);
   }
 }
 
@@ -445,6 +737,29 @@ __global__ void impl_alive_mask_kernel(const uint32_t* __restrict__ mbits,
   }
 }
 
+// The forward's quotient from a row's reciprocal (sea::quot) against IEEE
+// division, for x = s + 0.5 and s + 1 on every 0 <= s < w <= w_max: the
+// number of quotients whose bits differ is added to *bad.
+__global__ void quot_check_kernel(int w_max, unsigned long long* bad) {
+  unsigned long long n = 0;
+  for (int w = blockIdx.x + 1; w <= w_max; w += gridDim.x) {
+    const float wf = (float)w, y = sea::recip(wf);
+    for (int s = threadIdx.x; s < w; s += blockDim.x) {
+      const float xs[2] = {__fadd_rn((float)s, 0.5f), (float)(s + 1)};
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        n += __float_as_uint(sea::quot(xs[i], wf, y)) != __float_as_uint(__fdiv_rn(xs[i], wf));
+    }
+  }
+  if (n) atomicAdd(bad, n);
+}
+
+// The copies and fragment reads are 16-, 8- and 4-byte wide: q, k, v and out
+// must start on 16 bytes (every row of a head then does, D being 64).
+inline bool misaligned(const void* q, const void* k, const void* v, const void* out) {
+  return (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15u) != 0;
+}
+
 template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mbits, const void* scaler, const void* counts,
@@ -454,12 +769,13 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    int block_k, int nq, int nkb, int sub, float oversample,
                    float k_cfg, float keep_lo, float keep_hi, int col_base,
                    cudaStream_t stream) {
-  constexpr int bytes = Smem<D>::bytes;
+  if (misaligned(q, k, v, out)) return cudaErrorInvalidValue;
+  constexpr int bytes = Smem<D, T>::bytes;
   static std::atomic<bool> opted_in[MAX_DEVICES];
   cudaError_t e = sea::opt_in_smem(causal_flat_kernel<D, T, STATS, BIDIR, IMPL>,
                                    bytes, opted_in);
   if (e != cudaSuccess) return e;
-  dim3 grid(t_dst / BQ, nh);
+  dim3 grid(nh, t_dst / BQ);
   causal_flat_kernel<D, T, STATS, BIDIR, IMPL><<<grid, TPB, bytes, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const uint32_t*)mbits,
       (const float*)scaler, (const int*)counts, (const int*)idx,
@@ -688,5 +1004,14 @@ extern "C" int sea_impl_alive_mask(const void* mbits, const void* tiles,
     default:
       return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// quot_check_kernel over 1 <= w <= w_max; `bad` one uint64 on the device,
+// zeroed by the caller.
+extern "C" int sea_quot_check(int w_max, void* bad, void* stream) {
+  if (w_max <= 0 || w_max > (1 << 24)) return (int)cudaErrorInvalidValue;
+  quot_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(
+      w_max, (unsigned long long*)bad);
   return (int)cudaGetLastError();
 }

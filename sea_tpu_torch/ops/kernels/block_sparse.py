@@ -546,6 +546,7 @@ def _lib() -> ctypes.CDLL:
         "sea_bidir_alive_mask": [_P, _P, _P] + [_I] * 5 + [_P],
         **dict.fromkeys((v.entry for v in IMPL_KERNELS.values()), [_P] * 10 + [_I] * 11 + [_F] * 4 + [_I, _P]),
         "sea_impl_alive_mask": [_P] * 3 + [_I] * 9 + [_P],
+        "sea_quot_check": [_I, _P, _P],
     })
 
 
@@ -1010,6 +1011,19 @@ def alive_mask(mask_m: torch.Tensor, t_src: int, *, is_causal: bool = True,
 
 
 alive_mask.launches = 0
+
+
+def quotient_mismatches(w_max: int, device) -> int:
+    """How many of the forward kernels' pixel and keep quotients, taken from
+    a row's reciprocal, differ from IEEE division's: x = s + 0.5 and s + 1
+    over every 0 <= s < w <= w_max (CUDA only)."""
+    bad = torch.zeros(1, dtype=torch.int64, device=device)
+    _require_cuda(bad, "quotient_mismatches")
+    with torch.cuda.device(bad.device):
+        stream = torch.cuda.current_stream(bad.device).cuda_stream
+        err = _lib().sea_quot_check(w_max, bad.data_ptr(), stream)
+    _check(err, "sea_quot_check")
+    return int(bad)
 
 
 def _impl_alive_mask(mask_m, t_src, impl, block_q, block_k):

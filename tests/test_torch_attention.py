@@ -96,6 +96,37 @@ def test_sea_attention_benchmark_forward_matches(extra):
     )
 
 
+# Two examples a call, through the configurations that the canonical cases
+# leave at their defaults. Tolerance 1e-5 abs on the context: these inputs
+# measured within 9.6e-7 of JAX (float32 sums in another order).
+TWO_ATOL = 1e-5
+
+
+@pytest.mark.parametrize(
+    "extra",
+    [
+        {"partial_attention_scaler": False},
+        {"predictor_backend": "cosformer"},
+        {"context_output_method": "norm"},
+        {"out_norm": True},
+        {"block_q": 64},
+    ],
+    ids=["no_scaler", "cosformer", "norm", "out_norm", "block_q64"],
+)
+def test_sea_attention_two_examples_match(extra):
+    cfg = tiny_cfg(**extra)
+    inputs = make_inputs(cfg, N=2, seed=1)
+    variables, want, probs, budget = run_jax(cfg, inputs)
+    assert_topk_margin(probs, budget)
+    got = run_torch(cfg, variables, inputs)
+    np.testing.assert_array_equal(
+        got.partial_attention_mask.numpy(), np.asarray(want.partial_attention_mask)
+    )
+    np.testing.assert_allclose(
+        got.context_layer.numpy(), np.asarray(want.context_layer), atol=TWO_ATOL
+    )
+
+
 def test_buffers_capture_the_kernel_inputs():
     """The registry holds what the kernel was given, under the JAX names."""
     cfg = tiny_cfg()

@@ -24,7 +24,7 @@ from sea_tpu.utils.profiler import get_bench as jax_bench
 from sea_tpu_torch.models import opt as topt
 from sea_tpu_torch.ops import cosformer as tc
 from sea_tpu_torch.weights import state_dict_from_jax
-from tests._torch_parity import assert_topk_margin, t, torch_opt_config
+from tests._torch_parity import t, topk_near_ties, torch_opt_config
 
 ATOL = 1e-5
 # logits of two full-width layers and the tied 768-wide head: float32 sums of
@@ -111,11 +111,13 @@ def test_cosformer_module_with_carried_weights(causal, outproj):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=ATOL)
 
 
-# a seed whose estimates keep every top-k boundary at least TOPK_MARGIN apart
-# (or exactly tied) on the JAX side: its smallest nonzero gap is 2.17e-7, the
-# only one of seeds 0-39 above the margin
 SEED = 21
 T = 128
+# Rows whose top-k cut is within TOPK_MARGIN (a near tie) are not held: the
+# two sides may pick differently there. At SEED none is (the smallest nonzero
+# gap is 2.17e-7); another torch or jax may move a few below the margin, and
+# at most this many row-layers of the 2 x 128 may be near ties.
+MAX_NEAR_TIES = 8
 
 
 def test_opt_full_width_cosformer_backend_matches_jax():
@@ -143,7 +145,9 @@ def test_opt_full_width_cosformer_backend_matches_jax():
     finally:
         bench.activate_temp_buffers(False)
     assert len(probs) == cfg.num_layers
-    assert_topk_margin(probs, budget, TOPK_MARGIN)
+    ties = topk_near_ties(probs, budget, TOPK_MARGIN)
+    n_ties = sum(int(x.sum()) for x in ties)
+    assert n_ties <= MAX_NEAR_TIES, f"{n_ties} near-tie rows"
 
     port = topt.OptForCausalLM(torch_opt_config(cfg), device="cpu", seed=None)
     port.load_state_dict(state_dict_from_jax(variables))
@@ -156,7 +160,13 @@ def test_opt_full_width_cosformer_backend_matches_jax():
     for h in hooks:
         h.remove()
     assert len(got_masks) == cfg.num_layers
-    for g, w in zip(got_masks, masks):
-        np.testing.assert_array_equal(g, w)
-    np.testing.assert_allclose(got["logits"].numpy(), np.asarray(want["logits"]),
-                               atol=LOGIT_ATOL)
+    # every row that is not a near tie picks exactly JAX's pixels; a near tie
+    # that picks otherwise changes its own and later positions (causal), so
+    # the logits are held before the first such row
+    first = T
+    for g, w, tie in zip(got_masks, masks, ties):
+        same = (g == w).all(axis=(1, 3))  # (N, T): every head's pixels of the row
+        assert (same | tie).all(), np.argwhere(~same & ~tie)[:5]
+        first = min([first, *np.nonzero(~same.all(axis=0))[0]])
+    np.testing.assert_allclose(got["logits"][:, :first].numpy(),
+                               np.asarray(want["logits"])[:, :first], atol=LOGIT_ATOL)

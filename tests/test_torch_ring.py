@@ -22,7 +22,6 @@ on every (shard, window), by chip_smoke.py.
 """
 
 import os
-import socket
 import subprocess
 import sys
 
@@ -232,9 +231,9 @@ import torch.distributed as dist
 from sea_tpu_torch.parallel import DistGroup
 from sea_tpu_torch.parallel import sharded_attention as tsa
 
-port, rank, world, data, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
+init, rank, world, data, out = sys.argv[1], int(sys.argv[2]), int(sys.argv[3]), sys.argv[4], sys.argv[5]
 torch.set_num_threads(1)
-dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", world_size=world, rank=rank)
+dist.init_process_group("gloo", init_method=init, world_size=world, rank=rank)
 case = np.load(data)
 leaves = [torch.tensor(case[n]).requires_grad_() for n in ("q", "k", "v", "scaler")]
 group = DistGroup()
@@ -251,14 +250,6 @@ print("OK", rank)
 """
 
 
-def _free_port() -> int:
-    s = socket.socket()
-    s.bind(("localhost", 0))
-    port = s.getsockname()[1]
-    s.close()
-    return port
-
-
 def test_dist_group_ring_matches_local_group(tmp_path):
     """The ring's forward (zigzag off) and its differentiable form (zigzag
     on) over `DistGroup`, four gloo processes with one shard each, give
@@ -272,13 +263,15 @@ def test_dist_group_ring_matches_local_group(tmp_path):
                                  zigzag=False, block_q=B, block_k=B)
     want = dict(o=o, fwd=fwd, **dict(zip(("dq", "dk", "dv", "dscaler"), grads)))
 
-    port = _free_port()
+    # rendezvous through a file of this test's own directory: no port that
+    # another process could take between choosing it and binding it
+    init = (tmp_path / "rendezvous").as_uri()
     env = dict(os.environ, PYTHONPATH=os.pathsep.join(
         [os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
          os.environ.get("PYTHONPATH", "")]))
     procs = [
         subprocess.Popen(
-            [sys.executable, "-c", _CHILD, str(port), str(r), str(S), str(data),
+            [sys.executable, "-c", _CHILD, init, str(r), str(S), str(data),
              str(tmp_path / f"rank{r}.npz")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env,
         )
