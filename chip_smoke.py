@@ -9,9 +9,11 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
   1. device   — the card's name and power limit; TF32 off for matmuls and
                 convolutions (the port's float32 path is checked against
                 float32 references); the build's registers and spills (no
-                instance of the forward body may spill), and the tensor-core
-                instructions (HMMA) of every instance of the forward body in
-                `cuobjdump -sass`, none of which may lack them;
+                instance of the forward body or of the backward bodies may
+                spill), and the tensor-core instructions (HMMA) of every
+                instance of the forward body (K1, K2/K6, K5, K9a-c) and of
+                the backward bodies (K3/K7, K4/K8) in `cuobjdump -sass`,
+                none of which may lack them;
   2. mask     — the kernel's element predicate (`alive_mask`) against the
                 torch oracle `element_mask_int8`, bit for bit, for T up to 8192;
                 the forward body's pixel quotients, taken from each row's
@@ -34,7 +36,8 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 at the same shapes for T = 1024, 2048 and 4096, the whole
                 `FusedSparseAttention` backward against autograd through
                 `dense_reference`, two block sizes, and edge cases (empty
-                rows, T=128, a mask with every pixel on);
+                rows, T=128, a mask with every pixel on); two launches of K3
+                and of K4 on the same operands must give the same bits;
   6. train    — the training path: OPT-125m with `use_fused_train`, full
                 width and depth, AdamW steps through `train_steps` on one
                 batch of 1 x 2048 tokens (3 steps) and one of 1 x 8192 (2
@@ -388,10 +391,10 @@ def phase_device():
                 log(f"[build] {name}: {fn}")
             elif "registers" in line or "spill" in line:
                 log(f"[build] {name}: {line.strip()}")
-                if "bytes spill stores" in line and FLAT_INSTANCE.search(fn or ""):
+                if "bytes spill stores" in line and instance_name(fn or ""):
                     if int(line.split("bytes spill stores")[0].split(",")[-1]):
                         spilled.append(fn)
-    require(not spilled, f"forward-body instances that spill: {spilled}")
+    require(not spilled, f"forward- or backward-body instances that spill: {spilled}")
     tensor_core_check()
     return smi
 
@@ -402,32 +405,53 @@ FLAT_INSTANCE = re.compile(
     r"causal_flat_kernelILi64E(f|13__nv_bfloat16)Lb([01])ELb([01])ELi([0-3])EE")
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
+# the backward bodies `causal_dq_kernel<D>` and `causal_dkv_kernel<D>`
+# (float32 only), and the kernels each is
+DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_kernelILi64EE")
+DIFF_KIDS = {"dq": "K3/K7", "dkv": "K4/K8"}
+
+
+def instance_name(mangled: str):
+    """'<kernels> <type>' of a forward- or backward-body instance from its
+    mangled name; None for any other function."""
+    found = FLAT_INSTANCE.search(mangled)
+    if found:
+        dt, stats, bidir, impl = found.groups()
+        return (f"{INSTANCE_KIDS[int(stats), int(bidir), int(impl)]} "
+                f"{'float32' if dt == 'f' else 'bfloat16'}")
+    found = DIFF_INSTANCE.search(mangled)
+    return f"{DIFF_KIDS[found.group(1)]} float32" if found else None
+
+
+def required_instances() -> set:
+    """The instances (as `instance_name` names them) that the entry points
+    launch: the forward body's in both types (K2/K6 float32 only) and the
+    backward bodies' (float32)."""
+    return ({f"{kid} {dt}" for kid in INSTANCE_KIDS.values() for dt in ("float32", "bfloat16")
+             if kid != "K2/K6" or dt == "float32"}
+            | {f"{kid} float32" for kid in DIFF_KIDS.values()})
 
 
 def tensor_core_check():
-    """Count the tensor-core instructions (HMMA) of every `causal_flat_kernel`
-    instance in the built library's SASS (`cuobjdump -sass`); K1's and K9a's
-    instances, in both types, and every other instance must have some."""
-    lib = _build._target("block_sparse_causal")
+    """Count the tensor-core instructions (HMMA) of every instance of the
+    forward body (`causal_flat_kernel`) and of the backward bodies
+    (`causal_dq_kernel`, `causal_dkv_kernel`) in the built libraries' SASS
+    (`cuobjdump -sass`); every instance the entry points launch must be
+    there and have some."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass", str(lib)], capture_output=True,
-                          text=True, check=True, timeout=300).stdout
     hmma, name = {}, None
-    for line in sass.splitlines():
-        if "Function :" in line:
-            found = FLAT_INSTANCE.search(line)
-            name = None
-            if found:
-                dt, stats, bidir, impl = found.groups()
-                name = (f"{INSTANCE_KIDS[int(stats), int(bidir), int(impl)]} "
-                        f"{'float32' if dt == 'f' else 'bfloat16'}")
-                hmma[name] = 0
-        elif name and "HMMA" in line:
-            hmma[name] += 1
-    log(f"[device] HMMA instructions by causal_flat_kernel instance: {hmma}")
-    want = {f"{kid} {dt}" for kid in INSTANCE_KIDS.values() for dt in ("float32", "bfloat16")
-            if kid != "K2/K6" or dt == "float32"}
-    require(set(hmma) == want, f"causal_flat_kernel instances in the SASS: {sorted(hmma)}")
+    for lib in ("block_sparse_causal", "block_sparse_diff"):
+        sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
+                              capture_output=True, text=True, check=True, timeout=300).stdout
+        for line in sass.splitlines():
+            if "Function :" in line:
+                name = instance_name(line)
+                if name:
+                    hmma[name] = 0
+            elif name and "HMMA" in line:
+                hmma[name] += 1
+    log(f"[device] HMMA instructions by mma-body instance: {hmma}")
+    require(set(hmma) == required_instances(), f"mma-body instances in the SASS: {sorted(hmma)}")
     require(all(hmma.values()), f"instances without tensor-core instructions: {hmma}")
 
 
@@ -741,6 +765,10 @@ def check_train_kernels(label, q, k, v, mask, sc, do):
     _, dou, delta = bs.backward_terms(do, want_o, sc, torch.float32)
     dq = bs.causal_dq(ops, dou, want_lse, delta)
     dk, dv = bs.causal_dkv(ops, dou, want_lse, delta)
+    # run to run: no atomics and every sum in a fixed order, so the same bits
+    again = (bs.causal_dq(ops, dou, want_lse, delta), *bs.causal_dkv(ops, dou, want_lse, delta))
+    require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+            f"{label}: two launches of K3 or K4 on the same operands differ")
     want_dk, want_dv = bs.dkv_reference(q, k, v, mask, dou, want_lse, delta)
     errs = {
         "K2": max(err_o, err_lse),
@@ -748,7 +776,8 @@ def check_train_kernels(label, q, k, v, mask, sc, do):
         "K4": max(check_grad(f"{label} K4 dk", dk, want_dk), check_grad(f"{label} K4 dv", dv, want_dv)),
     }
     log(f"[train-kernels] {label}: K2 o {err_o:.3g}, lse {err_lse:.3g} ({int(inf.sum())} "
-        f"+inf rows); K3 dq {errs['K3']:.3g}; K4 dk/dv {errs['K4']:.3g} (max|err| vs plain)")
+        f"+inf rows); K3 dq {errs['K3']:.3g}; K4 dk/dv {errs['K4']:.3g} (max|err| vs plain); "
+        "two launches of K3 and of K4 equal bit for bit")
     return errs
 
 

@@ -167,6 +167,7 @@
 #include <type_traits>
 
 #include "sea_mask.cuh"
+#include "sea_mma.cuh"
 
 namespace {
 
@@ -174,8 +175,20 @@ using sea::alive_elem;
 using sea::alive_elem_len;
 using sea::bad_geometry;
 using sea::bad_window;
+using sea::copy_rows;
+using sea::cp_async_commit;
+using sea::cp_async_wait;
+using sea::exp2_sfu;
+using sea::ldsm_x4;
+using sea::ldsm_x4_trans;
+using sea::LOG2E;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
+using sea::misaligned;
+using sea::mma_bf16;
+using sea::mma_tf32;
+using sea::split_bf16;
+using sea::split_tf32;
 
 constexpr int BQ = sea::TILE;   // query rows per block
 constexpr int BKT = sea::TILE;  // key columns per sub-tile
@@ -188,95 +201,6 @@ constexpr float M_INIT = -1.0e30f;  // running-max floor: exp(-inf - m) == 0
 // (K1, K2, K5, K6), the tile's word range staged (K9a) or walked (K9b), or
 // the words of the active pieces only (K9c).
 enum Impl : int { FLAT = 0, WORD_RANGE = 1, WORD_LOOP = 2, SUBTILE = 3 };
-
-// ---------------------------------------------------------------------------
-// The tensor-core and copy instructions (PTX, sm_80 and later).
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// every group but the newest `N` has landed (for this thread)
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a·b, a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// c += a·b, a 16 x 8 (row), b 8 x 8 (col), TF32 in, float32 sums
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-constexpr float LOG2E = 1.4426950408889634f;
-
-// 2^x on the special-function unit (relative error about 2^-22; 2^0 == 1)
-__device__ __forceinline__ float exp2_sfu(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo in TF32 (to about 2^-22 of x)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
-// the bf16 pairs hi = (bf16(x0), bf16(x1)) and lo = the bf16 of what is left
-__device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
-                                           uint32_t& lo) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(x0, x1);
-  const float2 hf = __bfloat1622float2(h);
-  const __nv_bfloat162 l =
-      __floats2bfloat162_rn(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
-  hi = *reinterpret_cast<const uint32_t*>(&h);
-  lo = *reinterpret_cast<const uint32_t*>(&l);
-}
-
-// ---------------------------------------------------------------------------
 
 // Shared memory: two stages of (K, V) sub-tiles, then (float32) the q-tile,
 // then its mask words. Row strides padded so that every fragment read is free
@@ -296,28 +220,13 @@ struct Smem {
   static constexpr int bytes = 2 * STAGE + Q_BYTES + BQ * MAX_WORDS * 4;
 };
 
-// 64 rows of D elements into shared rows of `ld`, 16 bytes a thread and copy.
-template <int D, typename T>
-__device__ __forceinline__ void copy_rows(T* dst, int ld, const T* __restrict__ src,
-                                          int tid) {
-  constexpr int EPC = 16 / (int)sizeof(T);  // elements per copy
-  constexpr int CPR = D / EPC;              // copies per row
-  static_assert(BKT * CPR % TPB == 0, "whole copies per thread");
-#pragma unroll
-  for (int it = 0; it < BKT * CPR / TPB; ++it) {
-    const int i = tid + it * TPB;
-    const int c = i / CPR, d = (i % CPR) * EPC;
-    cp_async16(dst + c * ld + d, src + (long)c * D + d);
-  }
-}
-
 // One 64-column K/V sub-tile into a stage.
 template <int D, typename T>
 __device__ __forceinline__ void load_kv(unsigned char* stage, const T* __restrict__ k,
                                         const T* __restrict__ v, long base, int tid) {
   using S = Smem<D, T>;
-  copy_rows<D, T>(reinterpret_cast<T*>(stage), S::KLD, k + base, tid);
-  copy_rows<D, T>(reinterpret_cast<T*>(stage + S::K_BYTES), S::VLD, v + base, tid);
+  copy_rows<D, TPB>(reinterpret_cast<T*>(stage), S::KLD, k + base, tid);
+  copy_rows<D, TPB>(reinterpret_cast<T*>(stage + S::K_BYTES), S::VLD, v + base, tid);
 }
 
 // Blocks an SM should hold, which caps registers at 65536 / (128·blocks):
@@ -373,7 +282,7 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<T>) causal_flat_kernel(
   const long qoff = ((long)bh * t_dst + row0) * D;
   uint32_t qa[D / 16][4];
   if constexpr (F32) {
-    copy_rows<D, T>(reinterpret_cast<T*>(smem + 2 * S::STAGE), S::KLD, q + qoff, tid);
+    copy_rows<D, TPB>(reinterpret_cast<T*>(smem + 2 * S::STAGE), S::KLD, q + qoff, tid);
   } else {
     const T* qr0 = q + qoff + (long)(wrow0 + g) * D;
     const T* qr1 = qr0 + 8 * D;
@@ -536,8 +445,8 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<T>) causal_flat_kernel(
       auto pixel = [&](int j) {
         const int col = c0 + 8 * (j >> 1) + 2 * t4 + (j & 1);
         const float x = __fadd_rn(x0, (float)(8 * (j >> 1) + (j & 1)));
-        const int p = sea::floor_pixel(sea::quot(x, wf[h], yw[h]), t_m);
-        return BIDIR ? sea::len_clip(p, t_m) : sea::causal_clip(p, col, r, t_m);
+        return BIDIR ? sea::len_clip(sea::floor_pixel(sea::quot(x, wf[h], yw[h]), t_m), t_m)
+                     : sea::causal_pixel_recip(x, col, r, wf[h], yw[h], t_m);
       };
       // WORD_LOOP: the words of the thread's 16 columns in one walk over the
       // range, each word read once through L1
@@ -752,12 +661,6 @@ __global__ void quot_check_kernel(int w_max, unsigned long long* bad) {
     }
   }
   if (n) atomicAdd(bad, n);
-}
-
-// The copies and fragment reads are 16-, 8- and 4-byte wide: q, k, v and out
-// must start on 16 bytes (every row of a head then does, D being 64).
-inline bool misaligned(const void* q, const void* k, const void* v, const void* out) {
-  return (((uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out) & 15u) != 0;
 }
 
 template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>

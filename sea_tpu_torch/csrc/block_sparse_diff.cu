@@ -27,78 +27,110 @@
 // `lse` comes from the forward-with-stats kernel (+inf on rows with no alive
 // column, where p is then 0), `dou` = dO · scaler and `delta` = Σ_d dou · o /
 // scaler are computed outside the kernels in plain PyTorch, as the JAX
-// package does. The element mask is sea_mask.cuh's `alive_elem`, the one the
-// forward kernels use, so all three kernels agree on it bit for bit.
+// package does. The element mask is the forward body's, from sea_mask.cuh
+// (`causal_pixel_recip`), so all three kernels agree on it bit for bit.
 //
-// Design. Both kernels use the forward kernel's layout: 256 threads as a
-// 16 x 16 grid, thread (ty, tx) owning 4 rows x 4 columns of each 64 x 64
-// score tile (rows 4·ty + i, columns tx + 16·j) and 4 rows x D/16 columns of
-// its output (columns tx + 16·jj); plain float32 FMAs (no TF32); tiles in
-// shared memory with rows padded by one float. Neither kernel uses atomics,
-// so the gradients are the same from run to run.
-//   * dq: one block per (batch·head, 64-row q-tile). Q, dO, the rows' mask
-//     words, lse and delta stay in shared memory; the block walks its
-//     q-block's list of active k-blocks (`counts`/`idx`) in 64-column
-//     sub-tiles, stopping at the causal edge, recomputes S and dP in one pass
-//     over d, forms dS in shared memory and accumulates dq += dS · K in
-//     registers.
-//   * dk/dv: one block per (batch·head, 64-column k-tile). K and V stay in
-//     shared memory; the block walks the TRANSPOSED lists (`counts_t`/`idx_t`:
-//     the q-blocks with an alive element in its k-block) in 64-row
-//     sub-tiles, skipping sub-tiles that end before the k-tile's first
-//     column, recomputes Sᵀ and dPᵀ, forms Pᵀ and dSᵀ in shared memory and
-//     accumulates dv += Pᵀ · dO and dk += dSᵀ · Q in registers.
+// Design. Both kernels are FlashAttention-2's backward on mma.sync, float32
+// as split TF32 ("3xTF32", as the forward body: each operand hi + lo in TF32,
+// a·b summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with m16n8k8 TF32 mmas
+// into float32, each product to about 2^-21 of its size). A block is 4
+// warps (128 threads); every product is one of the forward's two shapes
+// (sea_mma.cuh): Q·Kᵀ-shaped, with both operands read as float2 along d, or
+// P·V-shaped, with the A operand a C fragment as it stands and B read down
+// its columns. So no score tile goes through shared memory.
+//   * dq: one block per (batch·head, 64-row q-tile), every head's last
+//     (heaviest causal) q-tile first; each warp owns 16 rows, and each
+//     thread keeps its two rows' lse·log2 e, delta, width and reciprocal in
+//     registers. Q, dO and the rows' mask words stay in shared memory; the
+//     block walks the q-block's list (`counts`/`idx`) in 64-column
+//     sub-tiles, in increasing order, stopping at the causal edge and the
+//     window's end, with the K and V sub-tiles double-buffered by cp.async.
+//     Per sub-tile: S = Q·Kᵀ and dP = dO·Vᵀ, the element predicate in the
+//     fragment layout, P = 2^(S·log2 e − lse·log2 e) where alive and exactly
+//     0 elsewhere, dS = P·(dP − delta) in place of S, and dq += dS·K.
+//   * dk/dv: one block per (batch·head, 64-column k-tile), every head's
+//     first (heaviest causal) k-tile first; each warp owns 16 k-columns, and
+//     K and V stay in shared memory. The block walks the TRANSPOSED lists
+//     (`counts_t`/`idx_t`) in 64-row q sub-tiles, in increasing order,
+//     skipping sub-tiles whose rows all end before the k-tile; each
+//     sub-tile's Q, dO and mask words arrive by cp.async and its 64 rows'
+//     lse·log2 e, delta, width and reciprocal are computed once, all double-
+//     buffered. Per sub-tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, the predicate (a
+//     thread's 16 fragment columns are 16 query rows, whose terms come from
+//     shared memory), Pᵀ, dSᵀ = Pᵀ·(dPᵀ − delta) in place of dPᵀ, then
+//     dv += Pᵀ·dO and dk += dSᵀ·Q.
+//   * Shared tiles have rows padded by 8 floats, as the forward pads K and
+//     Q: float2 reads along rows are free of bank conflicts, and the scalar
+//     reads down columns (K in dq, Q and dO in dk/dv) meet two-way conflicts
+//     but take immediate offsets, which ran faster than an unpadded layout
+//     permuted to avoid them. dq takes 112 KB (two blocks an SM), dk/dv 118
+//     KB (one).
+//   * The splits round by integer operations (`sea::to_tf32_rna`: cvt.rna's
+//     bits without its NaN and infinity checks, which cost more than any
+//     other part of the splits).
+//   * The predicate is the forward's: the pixel quotient from each row's
+//     reciprocal (`sea::causal_pixel_recip`, IEEE division's bits), no
+//     division per element; exp is 2^x on the SFU.
+//   * Deterministic: no atomics, no row (dq) or column (dk/dv) split across
+//     blocks, every sum in a fixed order. A dead sub-tile gives P = dS = 0
+//     exactly and so adds exact zeros: lists of other block sizes (or a
+//     shard that never lists it) give the same bits.
 //
 // What bounds them on this card. As functions they are bound by bytes: per
 // alive element dq needs 6·D FLOPs and dk/dv 8·D, and at the main path's
 // densities (6-12% of the causal triangle) reading q, k, v, dO, the mask
 // bits, lse and delta once and writing the gradients at 3.35 TB/s takes
-// longer than that work at the FP32 FMA peak (67 TFLOP/s). Like the forward
-// kernel they are far from it: they do dense work on every visited 64 x 64
-// tile on the FMA pipes, with one shared-memory load per two FMAs and one
-// IEEE division per element for the predicate. dk/dv holds six 64 x 65
-// float tiles (about 104 KB), so it needs the dynamic shared-memory opt-in
-// and fits two blocks per SM. wgmma, TMA and gathering alive columns are
-// later work.
+// longer than that work at the FP32 FMA peak (67 TFLOP/s). The kernels are
+// far from it: they do dense work on every visited 64 x 64 tile, three
+// (dq) or four (dk/dv) products of three TF32 mmas each, the predicate of
+// some 20 instructions per element, and read each visited sub-tile from L2
+// once per tile of the other side. TMA, wgmma and gathering alive columns
+// are later work.
 
 #include "sea_mask.cuh"
+#include "sea_mma.cuh"
 
 namespace {
 
-using sea::alive_elem;
+using sea::alive_elem_recip;
 using sea::bad_geometry;
 using sea::bad_window;
+using sea::copy_rows;
+using sea::cp_async4;
+using sea::cp_async_commit;
+using sea::cp_async_wait;
+using sea::exp2_sfu;
+using sea::LOG2E;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
+using sea::misaligned;
+using sea::mma_3xtf32;
+using sea::split_a;
 
 constexpr int BQ = sea::TILE;   // query rows per tile
 constexpr int BKT = sea::TILE;  // key columns per tile
-constexpr int TPB = 256;  // 16 row groups x 16 column lanes
+constexpr int TPB = 128;        // 4 warps of 16 rows (dq) or 16 columns (dk/dv)
+constexpr int LD = 64 + 8;       // floats of a padded tile row
+constexpr int TILE_F = 64 * LD;  // floats of one tile
 
-template <int D>
-struct Tiles {
-  static constexpr int DP = D + 1;   // padded row of a D-wide tile
-  static constexpr int PP = BKT + 1; // padded row of a score tile
-  static_assert(BQ == BKT, "square score tiles");
-};
+// dq: two stages of (K, V), then Q, dO, then the mask words.
+constexpr int DQ_SMEM = 6 * TILE_F * 4 + BQ * MAX_WORDS * 4;
+// dk/dv: K, V, then two stages of (Q, dO, mask words, row terms).
+constexpr int DKV_STAGE = 2 * TILE_F * 4 + BQ * MAX_WORDS * 4 + BQ * 16;
+constexpr int DKV_SMEM = 2 * TILE_F * 4 + 2 * DKV_STAGE;
 
-// dq: Q, dO (BQ x DP), K, V (BKT x DP), dS (BQ x PP), words, lse, delta.
-template <int D>
-constexpr int dq_smem_bytes() {
-  return (2 * BQ * Tiles<D>::DP + 2 * BKT * Tiles<D>::DP + BQ * Tiles<D>::PP +
-          2 * BQ) * 4 + BQ * MAX_WORDS * 4;
+__device__ __forceinline__ float2 ld2(const float* tile, int c, int d) {
+  return *reinterpret_cast<const float2*>(tile + c * LD + d);
 }
 
-// dk/dv: K, V (BKT x DP), Q, dO (BQ x DP), Pᵀ, dSᵀ (BKT x PP), words, lse,
-// delta.
+// 64 rows of D floats into a tile
 template <int D>
-constexpr int dkv_smem_bytes() {
-  return (2 * BKT * Tiles<D>::DP + 2 * BQ * Tiles<D>::DP +
-          2 * BKT * Tiles<D>::PP + 2 * BQ) * 4 + BQ * MAX_WORDS * 4;
+__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int tid) {
+  copy_rows<D, TPB>(dst, LD, src, tid);
 }
 
 template <int D>
-__global__ void __launch_bounds__(TPB) causal_dq_kernel(
+__global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
     const float* __restrict__ v, const uint32_t* __restrict__ mbits,
     const float* __restrict__ dou, const float* __restrict__ lse,
@@ -106,129 +138,157 @@ __global__ void __launch_bounds__(TPB) causal_dq_kernel(
     const int* __restrict__ idx, const int* __restrict__ rowbase,
     float* __restrict__ dq, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, int col_base) {
-  constexpr int DP = Tiles<D>::DP, PP = Tiles<D>::PP, DPT = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Os = Qs + BQ * DP;
-  float* Ks = Os + BQ * DP;
-  float* Vs = Ks + BKT * DP;
-  float* dSs = Vs + BKT * DP;
-  float* Ls = dSs + BQ * PP;
-  float* Dl = Ls + BQ;
-  uint32_t* Ms = reinterpret_cast<uint32_t*>(Dl + BQ);
+  static_assert(D == 64, "64-wide tiles");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const kv_st = reinterpret_cast<float*>(smem);  // stage s: K, then V
+  float* const Qs = kv_st + 4 * TILE_F;
+  float* const Os = Qs + TILE_F;
+  uint32_t* const Ms = reinterpret_cast<uint32_t*>(Os + TILE_F);
 
-  const int bh = blockIdx.y;
-  const int row0 = blockIdx.x * BQ;
+  // blocks start in order of x, then y: every head's last q-tile first
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // first local row of the tile
   const int qb = row0 / block_q;
   const int grow0 = rowbase[qb] + (row0 - qb * block_q);
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wrow0 = (tid >> 5) * 16;
 
-  const long qoff = ((long)bh * t_dst + row0) * D;
-  for (int i = tid; i < BQ * D; i += TPB) {
-    const int r = i / D, d = i % D;
-    Qs[r * DP + d] = q[qoff + i];
-    Os[r * DP + d] = dou[qoff + i];
-  }
   const long moff = ((long)bh * t_dst + row0) * n_words;
   for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
-  for (int i = tid; i < BQ; i += TPB) {
-    Ls[i] = lse[(long)bh * t_dst + row0 + i];
-    Dl[i] = delta[(long)bh * t_dst + row0 + i];
-  }
+  const long qoff = ((long)bh * t_dst + row0) * D;
+  copy_tile<D>(Qs, q + qoff, tid);
+  copy_tile<D>(Os, dou + qoff, tid);
 
-  float acc[4][DPT];
+  // per fragment row h (tile row wrow0 + g + 8·h): lse·log2 e, delta, the
+  // causal width and its reciprocal
+  float l2[2], dl[2], wf[2], yw[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    const int rl = wrow0 + g + 8 * h;
+    l2[h] = __fmul_rn(lse[(long)bh * t_dst + row0 + rl], LOG2E);
+    dl[h] = delta[(long)bh * t_dst + row0 + rl];
+    wf[h] = (float)(grow0 + rl + 1);
+    yw[h] = sea::recip(wf[h]);
+  }
+  float acc[D / 8][4];
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = 0.f;
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
 
   const int cnt = counts[bh * nq + qb];
   const int* lst = idx + ((long)bh * nq + qb) * nkb;
-  const int last_row = grow0 + BQ - 1;
-  // k and v hold the (global) columns col_base .. col_stop − 1
+  const int col_end = grow0 + BQ;  // every column from here on is dead
+  // k and v hold the (global) columns col_base .. col_stop − 1; col_stop and
+  // every c0 are multiples of 64, so a visited sub-tile lies wholly inside
   const int col_stop = col_base + t_src;
   const long kvbase = ((long)bh * t_src - col_base) * D;
 
-  for (int e = 0; e < cnt; ++e) {
-    const int kb = lst[e];
-    for (int c0 = kb * block_k; c0 < (kb + 1) * block_k; c0 += BKT) {
-      // wholly past the causal edge or the window
-      if (c0 > last_row || c0 >= col_stop) break;
-      __syncthreads();  // the previous sub-tile's dS and K are consumed
-      for (int i = tid; i < BKT * D; i += TPB) {
-        const int c = i / D, d = i % D;
-        const bool in = c0 + c < col_stop;
-        Ks[c * DP + d] = in ? k[kvbase + (long)c0 * D + i] : 0.f;
-        Vs[c * DP + d] = in ? v[kvbase + (long)c0 * D + i] : 0.f;
-      }
-      __syncthreads();
+  // advance (e, c0) to the first visited sub-tile at or after it; false
+  // when the list is done
+  auto seek = [&](int& e, int& c0) -> bool {
+    for (; e < cnt; ++e, c0 = -1) {
+      const int start = lst[e] * block_k;
+      c0 = c0 < start ? start : c0;
+      // inside the block and not wholly past the causal edge or the window
+      if (c0 < start + block_k && c0 < col_end && c0 < col_stop) return true;
+    }
+    return false;
+  };
+  auto load_kv = [&](int stage, int c0) {
+    float* Kd = kv_st + stage * 2 * TILE_F;
+    copy_tile<D>(Kd, k + kvbase + (long)c0 * D, tid);
+    copy_tile<D>(Kd + TILE_F, v + kvbase + (long)c0 * D, tid);
+  };
 
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float qv[4], ov[4], kv[4], vv[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          qv[i] = Qs[(ty * 4 + i) * DP + d];
-          ov[i] = Os[(ty * 4 + i) * DP + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          kv[j] = Ks[(tx + 16 * j) * DP + d];
-          vv[j] = Vs[(tx + 16 * j) * DP + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-            dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-          }
-      }
+  int e = 0, c0 = -1, stage = 0;
+  bool have = seek(e, c0);
+  if (have) load_kv(0, c0);
+  cp_async_commit();
+  while (have) {
+    int ne = e, nc0 = c0 + BKT;
+    const bool more = seek(ne, nc0);
+    // the next sub-tile's copies run while this one's products do
+    if (more) load_kv(stage ^ 1, nc0);
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this stage (and, first time, Q, dO and the words) landed
+    const float* Ks = kv_st + stage * 2 * TILE_F;
+    const float* Vs = Ks + TILE_F;
 
+    // S = Q·Kᵀ and dP = dO·Vᵀ: s[j], dp[j] the C fragments of score
+    // columns 8·j .. 8·j + 7
+    float s[BKT / 8][4], dp[BKT / 8][4];
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int rl = ty * 4 + i;
-        const int r = grow0 + rl;
-        const uint32_t* words = Ms + rl * n_words;
+    for (int j = 0; j < BKT / 8; ++j)
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int col = c0 + tx + 16 * j;
-          // off the mask p is 0 without evaluating exp, so an empty row's
-          // lse = +inf never meets a score
-          const float p = alive_elem(words, col, r, t_m) ? expf(s[i][j] - Ls[rl]) : 0.f;
-          dSs[rl * PP + tx + 16 * j] = p * (dp[i][j] - Dl[rl]);
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 8
-      for (int c = 0; c < BKT; ++c) {
-        float dsv[4], kv[DPT];
+      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dsv[i] = dSs[(ty * 4 + i) * PP + c];
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int d = 8 * kk + 2 * t4;
+      uint32_t qh[4], ql[4], oh[4], ol[4];
+      split_a(ld2(Qs, wrow0 + g, d), ld2(Qs, wrow0 + g + 8, d), qh, ql);
+      split_a(ld2(Os, wrow0 + g, d), ld2(Os, wrow0 + g + 8, d), oh, ol);
 #pragma unroll
-        for (int jj = 0; jj < DPT; ++jj) kv[jj] = Ks[c * DP + tx + 16 * jj];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < DPT; ++jj) acc[i][jj] = fmaf(dsv[i], kv[jj], acc[i][jj]);
+      for (int j = 0; j < BKT / 8; ++j) {
+        const float2 kf = ld2(Ks, 8 * j + g, d);
+        const float2 vf = ld2(Vs, 8 * j + g, d);
+        mma_3xtf32(s[j], qh, ql, kf.x, kf.y);
+        mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);
       }
     }
+
+    // the element predicate, P and dS, row by row: element (j, b) of row h
+    // is column c0 + 8·j + 2·t4 + b
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int rl = wrow0 + g + 8 * h;
+      const int r = grow0 + rl;
+      const uint32_t* words = Ms + rl * n_words;
+#pragma unroll
+      for (int j = 0; j < BKT / 8; ++j)
+#pragma unroll
+        for (int b = 0; b < 2; ++b) {
+          const int col = c0 + 8 * j + 2 * t4 + b;
+          const float x = __fadd_rn((float)col, 0.5f);
+          float& sv = s[j][2 * h + b];
+          // off the mask P is exactly 0 (an empty row's lse = +inf never
+          // meets a score)
+          const float p = alive_elem_recip(words, x, col, r, wf[h], yw[h], t_m)
+                              ? exp2_sfu(__fmaf_rn(sv, LOG2E, -l2[h])) : 0.f;
+          sv = p * (dp[j][2 * h + b] - dl[h]);
+        }
+    }
+
+    // dq += dS·K, dS from the S fragments (k = the sub-tile's columns)
+#pragma unroll
+    for (int kk = 0; kk < BKT / 8; ++kk) {
+      uint32_t ah[4], al[4];
+      split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
+      const int c = 8 * kk + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        mma_3xtf32(acc[j], ah, al, Ks[c * LD + 8 * j + g], Ks[(c + 1) * LD + 8 * j + g]);
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+    e = ne;
+    c0 = nc0;
+    have = more;
+    stage ^= 1;
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long o = qoff + (long)(ty * 4 + i) * D;
+  for (int h = 0; h < 2; ++h) {
+    float* o = dq + qoff + (long)(wrow0 + g + 8 * h) * D + 2 * t4;
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) dq[o + tx + 16 * jj] = acc[i][jj];
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
+// one block an SM, which its shared memory fills
 template <int D>
 __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
     const float* __restrict__ q, const float* __restrict__ k,
@@ -239,137 +299,179 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
     float* __restrict__ dk, float* __restrict__ dv, int t_dst, int t_src,
     int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
     int col_base) {
-  constexpr int DP = Tiles<D>::DP, PP = Tiles<D>::PP, DPT = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + BKT * DP;
-  float* Qs = Vs + BKT * DP;
-  float* Os = Qs + BQ * DP;
-  float* Pt = Os + BQ * DP;
-  float* dSt = Pt + BKT * PP;
-  float* Ls = dSt + BKT * PP;
-  float* Dl = Ls + BQ;
-  uint32_t* Ms = reinterpret_cast<uint32_t*>(Dl + BQ);
+  static_assert(D == 64, "64-wide tiles");
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* const Ks = reinterpret_cast<float*>(smem);
+  float* const Vs = Ks + TILE_F;
+  // stage s: Q, dO, the mask words, then per row (lse·log2 e, delta, the
+  // causal width, its reciprocal)
+  unsigned char* const q_st = smem + 2 * TILE_F * 4;
+  auto Qs = [&](int s) { return reinterpret_cast<float*>(q_st + s * DKV_STAGE); };
+  auto Ms = [&](int s) {
+    return reinterpret_cast<uint32_t*>(q_st + s * DKV_STAGE + 2 * TILE_F * 4);
+  };
+  auto Rs = [&](int s) {
+    return reinterpret_cast<float4*>(q_st + s * DKV_STAGE + 2 * TILE_F * 4 + BQ * MAX_WORDS * 4);
+  };
 
-  const int bh = blockIdx.y;
-  const int col0 = blockIdx.x * BKT;  // first column of the k-tile in k, v
+  // blocks start in order of x, then y: every head's first k-tile first
+  const int bh = blockIdx.x;
+  const int col0 = blockIdx.y * BKT;  // first column of the k-tile in k, v
   const int kb = col0 / block_k;      // k-block of the transposed lists
   const int gcol0 = col_base + col0;  // its global column
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int wcol0 = (tid >> 5) * 16;  // the warp's first column in the tile
 
   const long koff = ((long)bh * t_src + col0) * D;
-  for (int i = tid; i < BKT * D; i += TPB) {
-    const int c = i / D, d = i % D;
-    Ks[c * DP + d] = k[koff + i];
-    Vs[c * DP + d] = v[koff + i];
-  }
+  copy_tile<D>(Ks, k + koff, tid);
+  copy_tile<D>(Vs, v + koff, tid);
 
-  // thread (ty, tx): k-tile rows ty·4 + i, output columns tx + 16·jj
-  float acc_k[4][DPT], acc_v[4][DPT];
+  // per fragment row h: the k-tile column wcol0 + g + 8·h, global, and its
+  // exact (float)col + 0.5
+  int gc[2];
+  float xc[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int h = 0; h < 2; ++h) {
+    gc[h] = gcol0 + wcol0 + g + 8 * h;
+    xc[h] = __fadd_rn((float)gc[h], 0.5f);
+  }
+  float acc_k[D / 8][4], acc_v[D / 8][4];
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) acc_k[i][jj] = acc_v[i][jj] = 0.f;
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
 
   const int cnt = counts_t[bh * nkb + kb];
   const int* lst = idx_t + ((long)bh * nkb + kb) * nq;
   const long rbase = (long)bh * t_dst;
+  // the global row of the sub-tile at local row r0 of list entry e
+  auto grow_of = [&](int e, int r0) { return rowbase[lst[e]] + (r0 - lst[e] * block_q); };
 
-  for (int e = 0; e < cnt; ++e) {
-    const int qb = lst[e];
-    for (int r0 = qb * block_q; r0 < (qb + 1) * block_q; r0 += BQ) {
-      if (r0 >= t_dst) break;
-      const int grow0 = rowbase[qb] + (r0 - qb * block_q);
-      if (grow0 + BQ - 1 < gcol0) continue;  // every row ends before the tile
-      __syncthreads();  // the previous sub-tile's Pᵀ, dSᵀ, Q and dO are consumed
-      for (int i = tid; i < BQ * D; i += TPB) {
-        const int r = i / D, d = i % D;
-        Qs[r * DP + d] = q[(rbase + r0) * D + i];
-        Os[r * DP + d] = dou[(rbase + r0) * D + i];
-      }
-      for (int i = tid; i < BQ * n_words; i += TPB)
-        Ms[i] = mbits[(rbase + r0) * n_words + i];
-      for (int i = tid; i < BQ; i += TPB) {
-        Ls[i] = lse[rbase + r0 + i];
-        Dl[i] = delta[rbase + r0 + i];
-      }
-      __syncthreads();
+  // advance (e, r0) to the first visited sub-tile at or after it; false
+  // when the list is done
+  auto seek = [&](int& e, int& r0) -> bool {
+    for (; e < cnt; ++e, r0 = -1) {
+      const int start = lst[e] * block_q;
+      for (r0 = r0 < start ? start : r0; r0 < start + block_q && r0 < t_dst; r0 += BQ)
+        // skip a sub-tile whose every row ends before the k-tile
+        if (grow_of(e, r0) + BQ - 1 >= gcol0) return true;
+    }
+    return false;
+  };
+  auto load_q = [&](int s, int r0) {
+    copy_tile<D>(Qs(s), q + (rbase + r0) * D, tid);
+    copy_tile<D>(Qs(s) + TILE_F, dou + (rbase + r0) * D, tid);
+    const uint32_t* src = mbits + (rbase + r0) * n_words;
+    for (int i = tid; i < BQ * n_words; i += TPB) cp_async4(Ms(s) + i, src + i);
+  };
+  // row tid's terms of the sub-tile whose first global row is grow0
+  auto put_terms = [&](int s, int grow0, float l, float dlt) {
+    const float w = (float)(grow0 + tid + 1);
+    Rs(s)[tid] = make_float4(__fmul_rn(l, LOG2E), dlt, w, sea::recip(w));
+  };
 
-      // sᵀ[i][j] = k_c · q_r and dpᵀ[i][j] = v_c · dou_r for the k-tile row
-      // c = ty·4 + i and the sub-tile row r = tx + 16·j
-      float s[4][4], dp[4][4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; ++d) {
-        float kv[4], vv[4], qv[4], ov[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          kv[i] = Ks[(ty * 4 + i) * DP + d];
-          vv[i] = Vs[(ty * 4 + i) * DP + d];
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          qv[j] = Qs[(tx + 16 * j) * DP + d];
-          ov[j] = Os[(tx + 16 * j) * DP + d];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-            dp[i][j] = fmaf(vv[i], ov[j], dp[i][j]);
-          }
-      }
-
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int cl = ty * 4 + i;
-        const int col = gcol0 + cl;
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const int rl = tx + 16 * j;
-          const float p = alive_elem(Ms + rl * n_words, col, grow0 + rl, t_m)
-                              ? expf(s[i][j] - Ls[rl]) : 0.f;
-          Pt[cl * PP + rl] = p;
-          dSt[cl * PP + rl] = p * (dp[i][j] - Dl[rl]);
-        }
-      }
-      __syncthreads();
-
-#pragma unroll 4
-      for (int r = 0; r < BQ; ++r) {
-        float pv[4], dsv[4], ov[DPT], qv[DPT];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          pv[i] = Pt[(ty * 4 + i) * PP + r];
-          dsv[i] = dSt[(ty * 4 + i) * PP + r];
-        }
-#pragma unroll
-        for (int jj = 0; jj < DPT; ++jj) {
-          ov[jj] = Os[r * DP + tx + 16 * jj];
-          qv[jj] = Qs[r * DP + tx + 16 * jj];
-        }
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int jj = 0; jj < DPT; ++jj) {
-            acc_v[i][jj] = fmaf(pv[i], ov[jj], acc_v[i][jj]);
-            acc_k[i][jj] = fmaf(dsv[i], qv[jj], acc_k[i][jj]);
-          }
+  int e = 0, r0 = -1, stage = 0;
+  bool have = seek(e, r0);
+  if (have) {
+    load_q(0, r0);
+    if (tid < BQ) put_terms(0, grow_of(e, r0), lse[rbase + r0 + tid], delta[rbase + r0 + tid]);
+  }
+  cp_async_commit();
+  while (have) {
+    int ne = e, nr0 = r0 + BQ;
+    const bool more = seek(ne, nr0);
+    // the next sub-tile's copies, and its lse and delta, load while this
+    // one's products run
+    float nl = 0.f, nd = 0.f;
+    if (more) {
+      load_q(stage ^ 1, nr0);
+      if (tid < BQ) {
+        nl = lse[rbase + nr0 + tid];
+        nd = delta[rbase + nr0 + tid];
       }
     }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncthreads();  // this stage (and, first time, K and V) landed
+    const float* Qt = Qs(stage);
+    const float* Ot = Qt + TILE_F;
+    const uint32_t* Mt = Ms(stage);
+    const float4* Rt = Rs(stage);
+    const int grow0 = grow_of(e, r0);
+
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: st[j], dpt[j] the C fragments of the
+    // sub-tile's rows 8·j .. 8·j + 7
+    float st[BQ / 8][4], dpt[BQ / 8][4];
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const int d = 8 * kk + 2 * t4;
+      uint32_t kh[4], kl[4], vh[4], vl[4];
+      split_a(ld2(Ks, wcol0 + g, d), ld2(Ks, wcol0 + g + 8, d), kh, kl);
+      split_a(ld2(Vs, wcol0 + g, d), ld2(Vs, wcol0 + g + 8, d), vh, vl);
+#pragma unroll
+      for (int j = 0; j < BQ / 8; ++j) {
+        const float2 qf = ld2(Qt, 8 * j + g, d);
+        const float2 of = ld2(Ot, 8 * j + g, d);
+        mma_3xtf32(st[j], kh, kl, qf.x, qf.y);
+        mma_3xtf32(dpt[j], vh, vl, of.x, of.y);
+      }
+    }
+
+    // the element predicate, Pᵀ and dSᵀ: element (j, b) of fragment row h
+    // is (column gc[h], sub-tile row 8·j + 2·t4 + b)
+#pragma unroll
+    for (int j = 0; j < BQ / 8; ++j)
+#pragma unroll
+      for (int b = 0; b < 2; ++b) {
+        const int rl = 8 * j + 2 * t4 + b;
+        const float4 rt = Rt[rl];  // lse·log2 e, delta, width, reciprocal
+        const uint32_t* words = Mt + rl * n_words;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float& pt = st[j][2 * h + b];
+          const float pv = alive_elem_recip(words, xc[h], gc[h], grow0 + rl, rt.z, rt.w, t_m)
+                               ? exp2_sfu(__fmaf_rn(pt, LOG2E, -rt.x)) : 0.f;
+          pt = pv;
+          dpt[j][2 * h + b] = pv * (dpt[j][2 * h + b] - rt.y);
+        }
+      }
+
+    // dv += Pᵀ·dO and dk += dSᵀ·Q, Pᵀ and dSᵀ from their C fragments
+    // (k = the sub-tile's rows)
+#pragma unroll
+    for (int kk = 0; kk < BQ / 8; ++kk) {
+      uint32_t ph[4], pl[4], dh[4], dl[4];
+      split_a(make_float2(st[kk][0], st[kk][1]), make_float2(st[kk][2], st[kk][3]), ph, pl);
+      split_a(make_float2(dpt[kk][0], dpt[kk][1]), make_float2(dpt[kk][2], dpt[kk][3]), dh, dl);
+      const int c = 8 * kk + 2 * t4;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        const int n = 8 * j + g;
+        mma_3xtf32(acc_v[j], ph, pl, Ot[c * LD + n], Ot[(c + 1) * LD + n]);
+        mma_3xtf32(acc_k[j], dh, dl, Qt[c * LD + n], Qt[(c + 1) * LD + n]);
+      }
+    }
+    if (more && tid < BQ) put_terms(stage ^ 1, grow_of(ne, nr0), nl, nd);
+    __syncthreads();  // this stage is consumed; the next one's terms are in
+    e = ne;
+    r0 = nr0;
+    have = more;
+    stage ^= 1;
   }
+  cp_async_wait<0>();
 
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const long o = koff + (long)(ty * 4 + i) * D;
+  for (int h = 0; h < 2; ++h) {
+    const long o = koff + (long)(wcol0 + g + 8 * h) * D + 2 * t4;
 #pragma unroll
-    for (int jj = 0; jj < DPT; ++jj) {
-      dk[o + tx + 16 * jj] = acc_k[i][jj];
-      dv[o + tx + 16 * jj] = acc_v[i][jj];
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + o + 8 * j) = make_float2(acc_k[j][2 * h], acc_k[j][2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + o + 8 * j) = make_float2(acc_v[j][2 * h], acc_v[j][2 * h + 1]);
     }
   }
 }
@@ -382,12 +484,12 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       int t_src, int t_m, int n_words, int block_q,
                       int block_k, int nq, int nkb, int col_base,
                       cudaStream_t stream) {
-  constexpr int bytes = dq_smem_bytes<64>();
+  if (misaligned(q, k, v, dou, dq)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<64>, bytes, opted_in);
+  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<64>, DQ_SMEM, opted_in);
   if (e != cudaSuccess) return e;
-  dim3 grid(t_dst / BQ, nh);
-  causal_dq_kernel<64><<<grid, TPB, bytes, stream>>>(
+  dim3 grid(nh, t_dst / BQ);
+  causal_dq_kernel<64><<<grid, TPB, DQ_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
       (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
       (const float*)delta, (const int*)counts, (const int*)idx,
@@ -403,12 +505,12 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        void* dv, int nh, int t_dst, int t_src, int t_m,
                        int n_words, int block_q, int block_k, int nq, int nkb,
                        int col_base, cudaStream_t stream) {
-  constexpr int bytes = dkv_smem_bytes<64>();
+  if (misaligned(q, k, v, dou, dk, dv)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<64>, bytes, opted_in);
+  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<64>, DKV_SMEM, opted_in);
   if (e != cudaSuccess) return e;
-  dim3 grid(t_src / BKT, nh);
-  causal_dkv_kernel<64><<<grid, TPB, bytes, stream>>>(
+  dim3 grid(nh, t_src / BKT);
+  causal_dkv_kernel<64><<<grid, TPB, DKV_SMEM, stream>>>(
       (const float*)q, (const float*)k, (const float*)v,
       (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
       (const float*)delta, (const int*)counts_t, (const int*)idx_t,
