@@ -125,7 +125,28 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 and no other kernel, finite logits, layer 0's kernel inputs
                 held against the plain version; ms/forward beside the
                 performer-backend forward of the same weights;
- 18. result   — one JSON line of per-kernel numbers, then the device line.
+ 18. dense-vs-fused — one OPT-125m attention layer (H=12, D=64, T_M=256,
+                k=64) on 1 x 2048, float32 with TF32 off: the dense train path
+                (plain PyTorch, no kernel) as the reference of the fused
+                kernels, as the JAX package holds them to it: the benchmark
+                path's context (one K1 launch) within 2e-4 of the dense path's
+                (tests/test_fused_path.py:12), use_fused_train's loss Σ context²
+                (K2, K3, K4 once each) within 1e-4 relative and every gradient
+                within 5e-3 + 1e-2·|dense| (:88); the arms' top-k masks
+                compared row by row (a row that picked otherwise would be left
+                out of the context check, the gradients then reported only);
+ 19. kd       — the OPT-125m KD trainer (`OptTrainer`, full width and depth,
+                random teacher, synthetic corpus, its defaults: 1 x 512 windows,
+                stride 256, accumulation 8, use_remat) for 2 optimizer steps
+                (16 micro-steps) through `train()`: no kernel launched (the KD
+                step is the dense train path), every logged loss term finite,
+                the student moved and the teacher unchanged bit for bit, the KD
+                loss of the stream's first batch lower after the steps; ms per
+                micro-step, tokens/s and peak memory beside the dense teacher's
+                own CE step on the same batch, a [breakdown] of a micro-step,
+                `evaluate(max_batches=4)`'s PPL and ms per window, and one
+                micro-step at 1 x 2048 with its time and peak memory;
+ 20. result   — one JSON line of per-kernel numbers, then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -149,6 +170,7 @@ import math
 import re
 import statistics
 import subprocess
+import tempfile
 import time
 from pathlib import Path
 
@@ -158,6 +180,7 @@ import torch.nn.functional as F
 
 from sea_tpu_torch.benchmarks import attention_method_sweep, host_topk_mask, sweep_inputs
 from sea_tpu_torch.config import opt_config
+from sea_tpu_torch.models.attention import SeaAttention
 from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
 from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m
 from sea_tpu_torch.ops.kernels import _build
@@ -171,6 +194,7 @@ from sea_tpu_torch.parallel import (
 )
 from sea_tpu_torch.parallel import sharded_attention as sa
 from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
+from sea_tpu_torch.training.opt_trainer import OptTrainer, TrainerConfig
 from sea_tpu_torch.utils.profiler import get_bench
 
 H, D, T_M, K = 12, 64, 256, 64
@@ -227,6 +251,11 @@ BENCH_T = 4096  # bench.py's canonical length
 SWEEP_TS = [1024, 2048, 4096]
 COS_T = 2048  # the cosformer slice's request, 1 x COS_T tokens
 QUOT_W_MAX = 1 << 17  # row widths whose pixel quotients phase_mask checks
+DENSE_T = 2048  # dense-vs-fused: one OPT-125m attention layer on 1 x DENSE_T
+KD_STEPS = 2  # the kd phase's optimizer steps (8 micro-steps each)
+KD_ITERS = 3  # timed steady micro-steps and dense CE steps
+KD_EVAL_WINDOWS = 4
+KD_LONG_T = 2048  # one KD micro-step at OPT's context
 
 
 def log(*a):
@@ -1993,6 +2022,239 @@ def phase_cosformer_slice():
     return err
 
 
+# ---------------------------------------------------------------------------
+# The dense train path against the fused kernels, and KD training
+# ---------------------------------------------------------------------------
+
+
+def attention_inputs(T, seed, device):
+    """q, k, v of OPT-125m's attention width (1, H, T, D) as the JAX
+    package's attention tests draw them (N(0, 0.25)) and the square
+    additive causal mask."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy((rng.standard_normal((1, H, T, D)) * 0.5).astype(np.float32))
+               .to(device) for _ in range(3))
+    causal = torch.tril(torch.ones((T, T), dtype=torch.bool, device=device))
+    mask = torch.where(causal, 0.0, fp_min_for(torch.float32))[None, None]
+    return q, k, v, mask
+
+
+def dead_rows(a, b):
+    """(T,) rows whose dead set differs between two masks (any head)."""
+    return (a != b).any(-1).any(1)[0]
+
+
+def phase_dense_vs_fused():
+    """The dense train path (plain PyTorch) as the reference of the fused
+    kernels at OPT-125m's attention width on 1 x DENSE_T, float32 with TF32
+    off: the benchmark path's context (one K1 launch) within 2e-4 of the
+    dense path's (tests/test_fused_path.py:12), and use_fused_train's loss
+    Σ context² (K2, K3, K4 once each) at rtol 1e-4 and every gradient at
+    atol 5e-3, rtol 1e-2 of the dense path's (:88). The arms compute their
+    top-k masks by the same code on the same inputs; rows whose picks differ
+    would be counted, left out of the context check, and the gradients then
+    reported and not held."""
+    dev = "cuda"
+    cfg = opt_config()
+    q, k, v, mask = attention_inputs(DENSE_T, 17, dev)
+    dense = SeaAttention(cfg, device=dev, seed=0)
+    fused = SeaAttention(dataclasses.replace(cfg, use_fused_train=True), device=dev, seed=None)
+    fused.load_state_dict(dense.state_dict())
+
+    bench = get_bench()
+
+    def arm(model, benchmarking, training):
+        """One arm's output, loss Σ context², gradients, launches and
+        compressed top-k mask (from the buffer registry)."""
+        reset_launches()
+        bench.reset()
+        bench.activate_temp_buffers(True)
+        try:
+            out = model(q, k, v, q, k, v, q, k, mask, benchmarking=benchmarking,
+                        training=training)
+            mask_m = bench.get_temp_buffer("partial_attention_mask_before_interp", 0).detach()
+        finally:
+            bench.activate_temp_buffers(False)
+            bench.reset()
+        loss = None
+        if not benchmarking:
+            loss = (out.context_layer.float() ** 2).sum()
+            model.zero_grad(set_to_none=True)
+            loss.backward()
+        torch.cuda.synchronize()
+        grads = {n: p.grad for n, p in model.named_parameters()}
+        # dead pixels: additive masks (train) hold FP_MIN, binary ones 0
+        dead = mask_m < -1 if not benchmarking else mask_m <= 0
+        return out, loss, grads, launch_counts(), dead
+
+    d_out, d_loss, d_grads, d_n, d_dead = arm(dense, False, True)
+    with torch.no_grad():
+        b_out, _, _, b_n, b_dead = arm(dense, True, False)
+    f_out, f_loss, f_grads, f_n, f_dead = arm(fused, False, True)
+    zero = dict.fromkeys(launch_counts(), 0)
+    require(d_n == zero, f"the dense path launched kernels: {d_n}")
+    require(b_n == {**zero, "K1": 1}, f"the benchmark arm's launches {b_n}")
+    require(f_n == {**zero, "K2": 1, "K3": 1, "K4": 1}, f"the fused-train arm's launches {f_n}")
+
+    rows_b = dead_rows(d_dead, b_dead)
+    rows_f = dead_rows(d_dead, f_dead)
+    keep = ~rows_b
+    ctx_err = max_err(d_out.context_layer.detach()[:, keep], b_out.context_layer[:, keep])
+    log(f"[dense-vs-fused] 1x{DENSE_T}, H={H} D={D} T_M={T_M} k={K}: top-k rows differing from "
+        f"the dense arm's: benchmark {int(rows_b.sum())}, fused-train {int(rows_f.sum())}; "
+        f"context, dense vs benchmark path (K1), max|err| {ctx_err:.3g} over "
+        f"{int(keep.sum())} rows (bound 2e-4)")
+    require(ctx_err < 2e-4, f"dense vs benchmark context {ctx_err}")
+    f_loss, d_loss = float(f_loss), float(d_loss)
+    rel = abs(f_loss - d_loss) / abs(d_loss)
+    worst, worst_name = 0.0, None
+    unreached = []
+    for name, g in d_grads.items():
+        f = f_grads[name]
+        if f is None:
+            unreached.append(name)
+            require(g is None or float(g.abs().max()) == 0.0, f"{name}: dense gradient where fused has none")
+            continue
+        excess = float(((f - g).abs() - (5e-3 + 1e-2 * g.abs())).max())
+        if excess > worst or worst_name is None:
+            worst, worst_name = excess, name
+    gaps = {n: max_err(f_grads[n], g) for n, g in d_grads.items() if f_grads[n] is not None}
+    top = max(gaps, key=gaps.get)
+    log(f"[dense-vs-fused] use_fused_train (K2-K4) vs dense: loss {float(f_loss):.6f} vs "
+        f"{float(d_loss):.6f} (rel {rel:.3g}, bound 1e-4); max|grad err| {gaps[top]:.3g} "
+        f"({top}); largest excess over 5e-3 + 1e-2|dense| {worst:.3g} ({worst_name}); "
+        f"{len(unreached)} parameters behind the top-k without a gradient on either path")
+    require(rel <= 1e-4, f"fused-train loss vs dense: rel {rel}")
+    if rows_f.any():
+        log(f"[dense-vs-fused] top-k picks differ, so the gradients are reported and not held")
+    else:
+        require(worst <= 0.0, f"fused-train gradient {worst_name} off the dense path's by {worst}")
+    del dense, fused
+    torch.cuda.empty_cache()
+    return dict(context=ctx_err, loss_rel=rel, grad=gaps[top])
+
+
+def kd_config(save_dir):
+    """The KD trainer's defaults (OPT-125m, 1 x 512, stride 256,
+    accumulation 8, use_remat), KD_STEPS optimizer steps, a log line each."""
+    return TrainerConfig(model="opt-125m", num_steps=KD_STEPS, log_steps=1,
+                         eval_steps=10 ** 9, save_dir=save_dir)
+
+
+def phase_kd():
+    dev = "cuda"
+    with tempfile.TemporaryDirectory() as save_dir:
+        t0 = time.perf_counter()
+        tr = OptTrainer(kd_config(save_dir), device=dev)
+        torch.cuda.synchronize()
+        cfg = tr.cfg
+        log(f"[kd] OPT-125m teacher and student on {dev} in {time.perf_counter() - t0:.1f} s: "
+            f"{tr.s_cfg.num_layers} layers, vocab {tr.s_cfg.vocab_size}, "
+            f"{cfg.batch_size}x{cfg.max_seq_len} windows, stride {cfg.stride}, accumulation "
+            f"{cfg.gradient_accumulation_steps}, remat {cfg.use_remat}, "
+            f"{len(tr.corpus)} training windows (synthetic corpus)")
+        fixed = next(tr.corpus.batches(cfg.batch_size, shuffle=True, seed=cfg.seed))
+        fixed_t = tr._tensors(*fixed)
+
+        def fixed_loss():
+            with torch.no_grad():
+                loss, details = tr.kd.kd_loss(*fixed_t, use_remat=False)
+            return float(loss), {n: float(x) for n, x in details.items()}
+
+        before, before_terms = fixed_loss()
+        student0 = {n: x.clone() for n, x in tr.student.state_dict().items()}
+        teacher0 = {n: x.clone() for n, x in tr.teacher.state_dict().items()}
+
+        # the main path: KD_STEPS updates of accumulation 8 through train()
+        micro = KD_STEPS * cfg.gradient_accumulation_steps
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        require(tr.step == KD_STEPS, f"the trainer took {tr.step} steps, not {KD_STEPS}")
+        require(not any(counts.values()), f"the KD step launched kernels: {counts}")
+        with open(tr.metrics_path) as f:
+            records = [json.loads(line) for line in f]
+        for rec in records:
+            log(f"[kd] step {rec['step']}: " + ", ".join(
+                f"{n} {v:.6f}" for n, v in rec.items() if n not in ("step", "time")))
+        require(len(records) == KD_STEPS and all(
+            math.isfinite(v) for rec in records for n, v in rec.items() if n != "time"),
+            "a KD loss term is not finite")
+        ntok = cfg.batch_size * cfg.max_seq_len
+        log(f"[kd] main path: {KD_STEPS} steps, {micro} micro-steps in {wall:.1f} ms: "
+            f"{wall / micro:.2f} ms per micro-step with the updates "
+            f"({ntok * micro / wall * 1e3:.0f} tokens/s), peak memory {peak:.2f} GiB; "
+            f"kernel launches {counts}")
+
+        after, after_terms = fixed_loss()
+        moved = sum(not torch.equal(x, student0[n]) for n, x in tr.student.state_dict().items())
+        same = all(torch.equal(x, teacher0[n]) for n, x in tr.teacher.state_dict().items())
+        log(f"[kd] fixed batch (the stream's first): KD loss {before:.6f} -> {after:.6f}; "
+            f"terms before {before_terms}, after {after_terms}; {moved} of {len(student0)} "
+            f"student tensors moved; teacher unchanged bit for bit: {same}")
+        require(all(math.isfinite(v) for v in (*before_terms.values(), *after_terms.values())),
+                "a fixed-batch KD term is not finite")
+        require(moved > 0 and same, "the student did not move or the teacher changed")
+        require(after < before, f"the fixed batch's KD loss did not fall: {before} -> {after}")
+
+        # steady micro-steps on the fixed batch, beside the dense teacher's CE step
+        def micro_step():
+            tr.micro_step(*fixed)
+            tr.student.zero_grad(set_to_none=True)
+
+        torch.cuda.reset_peak_memory_stats()
+        kd_ms = host_ms(micro_step, KD_ITERS)
+        kd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        dense = OptForCausalLM(tr.t_cfg, device=dev, seed=0)
+        dense_opt = make_optimizer(dense, TRAIN_LR)
+        ids, am = fixed_t[0], fixed_t[1]
+        torch.cuda.reset_peak_memory_stats()
+        dense_ms = host_ms(lambda: train_step(dense, dense_opt, ids, am), KD_ITERS)
+        dense_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        del dense, dense_opt
+        log(f"[kd] micro-step 1x{cfg.max_seq_len}: {kd_ms:.2f} ms ({ntok / kd_ms * 1e3:.0f} "
+            f"tokens/s), peak {kd_peak:.2f} GiB; the dense teacher's own CE train step on the "
+            f"same batch {dense_ms:.2f} ms ({ntok / dense_ms * 1e3:.0f} tokens/s), peak "
+            f"{dense_peak:.2f} GiB")
+        breakdown(f"KD micro-step (1, {cfg.max_seq_len})", micro_step)
+
+        t0 = time.perf_counter()
+        ppl = tr.evaluate(max_batches=KD_EVAL_WINDOWS)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3 / KD_EVAL_WINDOWS
+        log(f"[kd] evaluate(max_batches={KD_EVAL_WINDOWS}): student PPL {ppl:.4f} "
+            f"(random weights, synthetic corpus), {eval_ms:.2f} ms per window")
+        require(math.isfinite(ppl), f"PPL {ppl}")
+
+        # one micro-step at OPT's context, 1 x KD_LONG_T
+        ids = torch.randint(4, tr.s_cfg.vocab_size, (1, KD_LONG_T),
+                            generator=torch.Generator().manual_seed(18))
+        long = (ids, torch.ones_like(ids), ids)
+        tr.micro_step(*long)  # warm-up
+        tr.student.zero_grad(set_to_none=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        details = tr.micro_step(*long)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+        long_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        terms = {n: float(x) for n, x in details.items()}
+        log(f"[kd] micro-step 1x{KD_LONG_T}: {long_ms:.2f} ms ({KD_LONG_T / long_ms * 1e3:.0f} "
+            f"tokens/s), peak {long_peak:.2f} GiB; terms {terms}")
+        require(all(math.isfinite(v) for v in terms.values()),
+                f"a KD term at 1x{KD_LONG_T} is not finite: {terms}")
+        del tr
+    torch.cuda.empty_cache()
+    return dict(micro_ms=kd_ms, peak=peak, ppl=ppl, long_ms=long_ms, long_peak=long_peak)
+
+
 def main():
     smi = phase_device()
     phase_sort()
@@ -2124,6 +2386,14 @@ def main():
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+    dense_errs = phase_dense_vs_fused()
+    log(f"[result] dense vs fused at 1x{DENSE_T}: K1 context {dense_errs['context']:.3g}, "
+        f"K2-K4 loss rel {dense_errs['loss_rel']:.3g}, gradient {dense_errs['grad']:.3g}")
+    kd = phase_kd()
+    log(f"[result] KD at 1x512: {kd['micro_ms']:.2f} ms per micro-step, peak "
+        f"{kd['peak']:.2f} GiB, PPL {kd['ppl']:.4f}; 1x{KD_LONG_T}: {kd['long_ms']:.2f} ms, "
+        f"peak {kd['long_peak']:.2f} GiB")
+
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -12,8 +12,10 @@ training (`training.longctx`), both also sequence-, head- or ring-sharded
 inside `parallel.sharded_attention_scope`, and the BERT-base SEA forward
 (`models.bert`), on the fused sparse attention kernels
 (`ops.kernels.block_sparse`); the cosformer estimator backend
-(`ops.cosformer`); and the attention-operator sweep (`benchmarks`, dense,
-performer, cosformer and the fused kernel's 'flat_wr' variant).
+(`ops.cosformer`); the attention-operator sweep (`benchmarks`, dense,
+performer, cosformer and the fused kernel's 'flat_wr' variant); and the
+dense train path of the SEA attention with, on it, the OPT-125m
+knowledge-distillation trainer (`training.opt_trainer`, `training.distill`).
 """
 
 from .config import SeaConfig, opt_config

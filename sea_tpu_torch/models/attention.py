@@ -1,16 +1,17 @@
 """SEA attention core (PyTorch port): estimator -> top-k mask -> sparse attention.
 
-Port of the fused paths of `sea_tpu/models/attention.py` (`SeaAttention`),
-stage for stage, with the same profiler region and buffer names:
+Port of `sea_tpu/models/attention.py` (`SeaAttention`), stage for stage,
+with the same profiler region and buffer names:
 
   1 "vmask"           identity-value construction, v_for_atten = [id ‖ v]
   2 "performer"       FAVOR+ linear attention over (q, k, v_for_atten), fp32
                       (or the cosformer backend, `predictor_backend="cosformer"`)
   3 "performer_value" concat [performer_ctx ‖ v]
   4 "predictor"       enc MLP -> dec_row + ChannelSplit -> CNN -> score
-  5 "mask_softmax"    softmax of the estimate
+  5 "mask_softmax"    softmax of the estimate (and the estimator's KD loss)
   6 "mask"            grouped top-k over (N, T_DST, H·T_M) with per-row budget
-  7-8 "attention.fused"  the fused sparse kernel
+  7-8 "attention.fused"  the fused sparse kernel, or on the dense train path
+      "interp", "attention"  the resized mask and dense masked attention
   9 "attention.avg_pool" mix with the average context, per-query gate
 
 The module is causal (OPT) or non-causal (BERT), as `cfg.causal` says:
@@ -25,7 +26,7 @@ The module is causal (OPT) or non-causal (BERT), as `cfg.causal` says:
     estimate's mean row, resized to T (`resize_noncausal`). It takes the
     (N, 1, 1, T) additive padding mask and runs the benchmark path only.
 
-Two paths run stage 7-8:
+Three paths run stages 7-8:
 
   * the benchmark path (`benchmarking=True`): the forward kernel
     (`sea_block_sparse_attention`) on the binary top-k mask;
@@ -35,28 +36,35 @@ Two paths run stage 7-8:
     reach the estimator only through the gate head (`dec_scaler`) and the
     average-context mix; `dec_row` and the CNN get none, because top-k is a
     selection. This path also takes the thin (N, 1, T, 1) causal mask that
-    `OptModel.embed` builds for it.
+    `OptModel.embed` builds for it;
+  * the dense train path (`benchmarking=False` otherwise), plain PyTorch as
+    in the JAX module: the compressed mask resized to (T, T) ("interp"),
+    dense scores, the masked softmax with dead entries zeroed, the row
+    scaler and P·V ("attention"). With the teacher's truths it adds the KD
+    losses: the estimate's resized scores and the dense scores each against
+    the teacher's scores (0.1 · KL plus the softmaxes' squared error), and
+    the context layer's squared error; it returns the resized estimate. In
+    training the causal resizes take the jitter's draws (`jitter=`). It is
+    the train path of KD and the reference the fused kernels are held to.
 
 Inside `parallel.context.sharded_attention_scope(group, kind=...)` both
-causal paths run sharded over the shard group, by the kind that
+causal fused paths run sharded over the shard group, by the kind that
 `resolve_attention_kind` picks: 'ring' (K/V sequence-sharded and rotating
 around the group, kernels K6 forward and K7/K8 backward; blocks
 `block_q or 128`), 'head' or 'seq' (K1, or K2-K4 in training, on each
 shard's heads or rows; the JAX package's `auto_block` sizes in training).
-Without a scope nothing changes.
+Without a scope nothing changes; the dense path is never sharded.
 
 Not ported yet, and refused with NotImplementedError rather than routed
-elsewhere: the dense differentiable train path and its KD losses
-(`benchmarking=False` without `use_fused_train`, and every train path of
-the non-causal module), the non-causal oversampled benchmark path (a CSR
-route in JAX), the uniform-CSR path (`use_pallas=False`), the 'comp'
-predictor, `enc_per_layer`, LoRA, and the decode cache.
+elsewhere: `kd_self_teacher`, the non-causal oversampled benchmark path (a
+CSR route in JAX), the uniform-CSR benchmark path (`use_pallas=False`), the
+'comp' predictor, `enc_per_layer`, LoRA, and the decode cache.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional
+from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -65,7 +73,13 @@ from torch import nn
 from ..config import SeaConfig
 from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
 from ..ops.cosformer import CosformerAttention
-from ..ops.masks import fp_min_for, per_item_top_k, resize_noncausal, topk_mask
+from ..ops.masks import (
+    fp_min_for,
+    per_item_top_k,
+    resize_index,
+    resize_with_index,
+    topk_mask,
+)
 from ..ops.performer import fast_attention, gaussian_orthogonal_random_matrix
 from ..parallel import sharded_attention as sharded
 from ..parallel.context import current_attention_sharding, resolve_attention_kind
@@ -97,6 +111,21 @@ def auto_block(t: int) -> int:
 def softmax_fp32(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
     """Softmax in float32, cast back to the input dtype."""
     return torch.softmax(x.float(), dim=dim).to(x.dtype)
+
+
+def _kl_div_attention(log_input, target, attention_mask):
+    """Padding-masked attention KL: summed over the kept (row, column) pairs
+    of the (N, 1, 1, T) additive mask, divided by the kept rows."""
+    loss_pointwise = target * (torch.log(target + 1e-12) - log_input)
+    one_mask = (attention_mask > -1).float()
+    mask = one_mask * one_mask.transpose(-1, -2)
+    return (loss_pointwise * mask).sum() / (one_mask[:, :, 0, :].sum() + 1e-8)
+
+
+def _kl_div_batchmean(log_input, target):
+    """`F.kl_div(reduction='batchmean')` over the rows of (N, H, T, T)."""
+    rows = log_input.shape[0] * log_input.shape[1] * log_input.shape[2]
+    return (target * (torch.log(target + 1e-12) - log_input)).sum() / rows
 
 
 def _layer_norm(features: int) -> nn.LayerNorm:
@@ -292,13 +321,19 @@ class SeaAttention(nn.Module):
         *,
         benchmarking: bool = False,
         training: bool = False,
+        jitter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
     ) -> SeaAttentionOutput:
+        """jitter: the resize jitter's draws (`ops.masks.resize_jitter_draws`
+        of the (N, 1, T, T) mask's shape), read only on the dense path when
+        `training` and causal; None draws nothing, as the JAX module does
+        without an `rng`."""
         cfg = self.cfg
-        truths = (
-            attention_scores_truth is not None
-            or context_layer_truth is not None
-            or (cfg.kd_self_teacher and training)
-        )
+        if cfg.kd_self_teacher and training and attention_scores_truth is None:
+            raise NotImplementedError(
+                "kd_self_teacher is not ported yet (ROADMAP queue 1, "
+                "'KD and trainer leftovers')"
+            )
+        truths = attention_scores_truth is not None or context_layer_truth is not None
         # task-only training through the differentiable fused kernel
         use_fused_train = (
             not benchmarking
@@ -308,12 +343,7 @@ class SeaAttention(nn.Module):
             and not truths
             and cfg.k_oversample == 1.0
         )
-        if not (benchmarking or use_fused_train):
-            raise NotImplementedError(
-                "the dense train path (benchmarking=False without "
-                "use_fused_train) is not ported yet"
-            )
-        if not cfg.use_pallas:
+        if benchmarking and not cfg.use_pallas:
             raise NotImplementedError("the uniform-CSR path is not ported")
         bench = get_bench()
         N, H, T, D = q.shape
@@ -324,15 +354,17 @@ class SeaAttention(nn.Module):
         T_M = cfg.predictor_length
         FP_MIN = fp_min_for(q.dtype)
 
-        # --- mask plumbing: causal, the (N, 1, T, T) additive mask or its thin
-        # (N, 1, T, 1) dst column, of which every consumer below reads only
-        # the dst and src padding slices (the kernels derive causality
-        # themselves); non-causal, the (N, 1, 1, T) padding mask -------------
+        # --- mask plumbing: causal, the (N, 1, T, T) additive mask (kept as
+        # causal_attention_mask for the dense path) or its thin (N, 1, T, 1)
+        # dst column, of which the fused paths read only the dst and src
+        # padding slices (the kernels derive causality themselves);
+        # non-causal, the (N, 1, 1, T) padding mask -------------------------
+        causal_attention_mask = None
         if not cfg.causal:
             T_DST = T_SRC = attention_mask.shape[-1]
             dst_attention_mask = attention_mask.transpose(-1, -2)
         elif attention_mask.shape[-1] == 1:
-            if not cfg.use_fused_train or truths or cfg.kd_self_teacher:
+            if not cfg.use_fused_train or truths or not (benchmarking or use_fused_train):
                 raise ValueError(
                     "the thin causal mask requires the fused-train path (no KD loss)"
                 )
@@ -340,6 +372,7 @@ class SeaAttention(nn.Module):
             dst_attention_mask = attention_mask
             attention_mask = attention_mask.transpose(-1, -2)
         else:
+            causal_attention_mask = attention_mask
             T_DST, T_SRC = attention_mask.shape[-2:]
             dst_attention_mask = attention_mask[:, :, :, :1]
             attention_mask = dst_attention_mask.transpose(-1, -2)
@@ -411,11 +444,42 @@ class SeaAttention(nn.Module):
                 )
             bench.register_temp_buffer("t_attention_predictor", t_attention_predictor)
 
-        # --- 5 "mask_softmax" ----------------------------------------------
+        # --- 5 "mask_softmax" + the estimator's KD losses ---------------------
         with bench.region("mask_softmax"):
             estimated_attention_probs = softmax_fp32(estimated_attention_score, -1)
         bench.register_temp_buffer("estimated_attention_score", estimated_attention_score)
         bench.register_temp_buffer("estimated_attention_probs", estimated_attention_probs)
+
+        # every resize of one forward reads one column map: the mask and the
+        # jitter's draws are the same for each (as in the JAX module, whose
+        # resizes split one rng alike)
+        index = None
+
+        def resize(x, fill, handle_oversample):
+            nonlocal index
+            if index is None:
+                index = resize_index(
+                    causal_attention_mask if cfg.causal else attention_mask, T_M,
+                    jitter if (training and cfg.causal) else None,
+                )
+            return resize_with_index(
+                x, fill, index, cfg.effective_k,
+                cfg.k_oversample if handle_oversample else None,
+            )
+
+        loss = torch.zeros((), dtype=torch.float32, device=q.device)
+        estimated_attention_probs_resized = None
+        if not benchmarking and attention_scores_truth is not None:
+            estimated_attention_probs_resized = resize(estimated_attention_probs, 0.0, False)
+            estimated_attention_score_resized = resize(
+                estimated_attention_score, FP_MIN, False).float()
+            loss = loss + self._scores_kd_loss(
+                estimated_attention_score_resized, attention_scores_truth,
+                causal_attention_mask, attention_mask, FP_MIN,
+            )
+            bench.register_temp_buffer(
+                "estimated_attention_probs_resized", estimated_attention_probs_resized
+            )
 
         # --- 6 "mask": grouped top-k ----------------------------------------
         with bench.region("mask"):
@@ -453,8 +517,116 @@ class SeaAttention(nn.Module):
             "partial_attention_mask_before_interp", partial_attention_mask_m
         )
 
-        # --- 7-8 the fused kernel: mask expansion, tile-skipped masked
-        # softmax, P·V and the row scaler in one launch ----------------------
+        partial_attention_probs = dense_attention_probs = None
+        if benchmarking or use_fused_train:
+            partial_attention_mask = partial_attention_mask_m
+            partial_context_layer, estimated_scales = self._fused_attention(
+                q_for_score, k_for_score, v, partial_attention_mask_m,
+                t_attention_predictor, zero_one_attention_mask, T_DST, T_SRC, benchmarking,
+            )
+        else:
+            # --- 7 "interp": the compressed mask resized to (T_DST, T_SRC) ---
+            with bench.region("interp"):
+                partial_attention_mask = resize(partial_attention_mask_m, FP_MIN, True)
+                if cfg.causal:
+                    partial_attention_mask = partial_attention_mask.masked_fill(
+                        causal_attention_mask < -1, FP_MIN)
+
+            # --- 8 "attention": dense scores, the truth's KD loss, the masked
+            # softmax, the row scaler and P·V ----------------------------------
+            with bench.region("attention"):
+                estimated_scales = self.dec_scaler(t_attention_predictor)
+                bench.register_temp_buffer("estimated_scales", estimated_scales)
+                attention_scores_dense = torch.einsum(
+                    "nhtd,nhsd->nhts", q_for_score, k_for_score)
+                if attention_scores_truth is not None:
+                    if not cfg.causal:
+                        # only here, as in the JAX module: the BERT scores
+                        # take 1/sqrt(D) on the KD path alone
+                        attention_scores_dense = attention_scores_dense / math.sqrt(D)
+                    loss = loss + self._scores_kd_loss(
+                        attention_scores_dense.float(), attention_scores_truth,
+                        causal_attention_mask, attention_mask, FP_MIN,
+                    )
+                bench.register_temp_buffer("attention_scores_dense", attention_scores_dense)
+                amask = causal_attention_mask if cfg.causal else attention_mask
+                dense_attention_probs = softmax_fp32(attention_scores_dense + amask, -1)
+                partial_attention_scores = attention_scores_dense + partial_attention_mask
+                partial_attention_probs = softmax_fp32(partial_attention_scores, -1)
+                partial_attention_probs = partial_attention_probs.masked_fill(
+                    partial_attention_mask < -1, 0.0)
+                bench.register_temp_buffer("partial_attention_scores", partial_attention_scores)
+                bench.register_temp_buffer("attention_matrix", partial_attention_probs)
+                if cfg.partial_attention_scaler:
+                    partial_attention_probs = partial_attention_probs * torch.sigmoid(
+                        estimated_scales[..., 0:1])
+                partial_context_layer = torch.einsum(
+                    "nhts,nhsd->nhtd", partial_attention_probs, v)
+
+        # --- 9 "attention.avg_pool": mix with the average context ------------
+        with bench.region("attention.avg_pool"):
+            if cfg.causal:
+                avg_v = v * dst_alive.to(v.dtype)
+                denom = torch.arange(
+                    1, T_SRC + 1, dtype=torch.float32, device=v.device
+                ).reshape(1, 1, -1, 1)
+                average_context_layer = (
+                    torch.cumsum(avg_v.float(), dim=-2) / denom
+                ).to(v.dtype)
+                if average_context_layer.shape[-2] > T_DST:
+                    average_context_layer = average_context_layer[..., -T_DST:, :]
+            else:
+                # the estimate's mean over every row, padded rows included
+                # (as in the JAX package), resized to T columns: one weight
+                # per key, zero at padding
+                mean_probs = estimated_attention_probs.mean(-2, keepdim=True)
+                w = resize(mean_probs, 0.0, False).transpose(-1, -2)
+                average_context_layer = (
+                    v * dst_alive.to(v.dtype) * w.to(v.dtype)
+                ).sum(-2, keepdim=True)
+            average_scale = torch.sigmoid(estimated_scales[..., 1:2])
+            partial_context_layer = (
+                partial_context_layer * average_scale
+                + (1 - average_scale) * average_context_layer
+            )
+        partial_context_layer = partial_context_layer.permute(0, 2, 1, 3).reshape(
+            N, T_DST, H * D
+        )
+        partial_context_layer = self._context_output(partial_context_layer)
+        if not benchmarking and context_layer_truth is not None:
+            loss = loss + torch.mean(
+                (context_layer_truth.float() - partial_context_layer.float()) ** 2
+            )
+        bench.register_temp_buffer("partial_context_layer", partial_context_layer)
+        return SeaAttentionOutput(
+            loss=loss,
+            context_layer=partial_context_layer,
+            partial_attention_probs=partial_attention_probs,
+            partial_attention_mask=partial_attention_mask,
+            estimated_attention_probs_m=estimated_attention_probs,
+            estimated_attention_probs=(
+                estimated_attention_probs if benchmarking or use_fused_train
+                else estimated_attention_probs_resized
+            ),
+            dense_attention_probs=dense_attention_probs,
+            key_for_score=k_for_score,
+            state=None,
+        )
+
+    def _fused_attention(self, q_for_score, k_for_score, v, partial_attention_mask_m,
+                         t_attention_predictor, zero_one_attention_mask, T_DST, T_SRC,
+                         benchmarking):
+        """Stages 7-8 in one launch of a fused kernel: mask expansion,
+        tile-skipped masked softmax, P·V and the row scaler. The benchmark
+        path takes the forward kernel on the binary mask (K1 causal, K5
+        non-causal), task-only training the differentiable one on the
+        additive mask (K2-K4), each sharded by the scope's kind. Returns the
+        (N, H, T_DST, D) context and the gate head's (N, H, T_DST, 2)
+        estimated scales."""
+        cfg = self.cfg
+        bench = get_bench()
+        N, H, _, D = q_for_score.shape
+        dtype, device = q_for_score.dtype, q_for_score.device
         with bench.region("attention.fused"):
             estimated_scales = self.dec_scaler(t_attention_predictor)
             bench.register_temp_buffer("estimated_scales", estimated_scales)
@@ -467,7 +639,7 @@ class SeaAttention(nn.Module):
             kind = None if shard_ctx is None else resolve_attention_kind(
                 shard_ctx, t=T_SRC, oversample=cfg.k_oversample)
             if benchmarking:
-                mask_bin = (partial_attention_mask_m > 0).to(q.dtype)
+                mask_bin = (partial_attention_mask_m > 0).to(dtype)
                 if cfg.causal:
                     q_kern, lengths = q_for_score, None
                 else:
@@ -512,9 +684,9 @@ class SeaAttention(nn.Module):
                         k_cfg=float(cfg.effective_k),
                     )
             else:
-                mask_bin = (partial_attention_mask_m > -1.0).to(q.dtype)
+                mask_bin = (partial_attention_mask_m > -1.0).to(dtype)
                 if row_scaler is None:
-                    row_scaler = torch.ones((N, H, T_DST), dtype=q.dtype, device=q.device)
+                    row_scaler = torch.ones((N, H, T_DST), dtype=dtype, device=device)
                 if kind == "ring":
                     partial_context_layer = sharded.ring_fused_train_attention(
                         q_for_score, k_for_score, v, mask_bin, row_scaler, shard_ctx.group,
@@ -540,44 +712,27 @@ class SeaAttention(nn.Module):
                     )
             # the kernel's output, whose gradient is the backward kernels' dO
             bench.register_temp_buffer("fused_attention_output", partial_context_layer)
-        with bench.region("attention.avg_pool"):
-            if cfg.causal:
-                avg_v = v * dst_alive.to(v.dtype)
-                denom = torch.arange(
-                    1, T_SRC + 1, dtype=torch.float32, device=v.device
-                ).reshape(1, 1, -1, 1)
-                average_context_layer = (
-                    torch.cumsum(avg_v.float(), dim=-2) / denom
-                ).to(v.dtype)
-            else:
-                # the estimate's mean over every row, padded rows included
-                # (as in the JAX package), resized to T columns: one weight
-                # per key, zero at padding
-                mean_probs = estimated_attention_probs.mean(-2, keepdim=True)
-                w = resize_noncausal(
-                    mean_probs, 0.0, attention_mask=attention_mask, target_width=T_SRC,
-                ).transpose(-1, -2)
-                average_context_layer = (
-                    v * dst_alive.to(v.dtype) * w.to(v.dtype)
-                ).sum(-2, keepdim=True)
-            average_scale = torch.sigmoid(estimated_scales[..., 1:2])
-            partial_context_layer = (
-                partial_context_layer * average_scale
-                + (1 - average_scale) * average_context_layer
-            )
-        partial_context_layer = partial_context_layer.permute(0, 2, 1, 3).reshape(
-            N, T_DST, H * D
-        )
-        partial_context_layer = self._context_output(partial_context_layer)
-        bench.register_temp_buffer("partial_context_layer", partial_context_layer)
-        return SeaAttentionOutput(
-            loss=torch.zeros((), dtype=torch.float32, device=q.device),
-            context_layer=partial_context_layer,
-            partial_attention_probs=None,
-            partial_attention_mask=partial_attention_mask_m,
-            estimated_attention_probs_m=estimated_attention_probs,
-            estimated_attention_probs=estimated_attention_probs,
-            dense_attention_probs=None,
-            key_for_score=k_for_score,
-            state=None,
-        )
+        return partial_context_layer, estimated_scales
+
+    def _scores_kd_loss(self, scores, truth, causal_attention_mask, attention_mask, fp_min):
+        """A KD loss of float32 (N, H, T, T) scores against the teacher's:
+        0.1 · KL(softmax(truth) ‖ softmax(scores)) plus the mean squared
+        difference of the two softmaxes, dead entries set to FP_MIN on both
+        sides first. Causal: the KL is `F.kl_div(reduction='batchmean')` over
+        every row; non-causal: summed over the kept (row, column) pairs of
+        the padding mask and divided by the kept rows."""
+        truth = truth.float()
+        if self.cfg.causal:
+            dead = causal_attention_mask < -1
+        else:
+            dead = attention_mask < -1
+        est = scores.masked_fill(dead, fp_min)
+        tru = truth.masked_fill(dead, fp_min)
+        log_input = torch.log_softmax(est, -1)
+        target = torch.softmax(tru, -1)
+        if self.cfg.causal:
+            kl = _kl_div_batchmean(log_input, target)
+        else:
+            kl = _kl_div_attention(log_input, target, attention_mask)
+        return kl * 0.1 + torch.mean((torch.softmax(est, -1) - target) ** 2)
+

@@ -2,24 +2,35 @@
 
 `attention_method` selects the self-attention of every layer:
   * 'perlin' — the SEA student (`SeaAttention`): forward on the fused
-    benchmark path (`benchmarking=True`), or task-only training through the
+    benchmark path (`benchmarking=True`), task-only training through the
     differentiable fused kernel (`benchmarking=False` with
-    `sea.use_fused_train`; `embed` then builds the thin causal mask);
-  * 'none'   — dense causal softmax attention, the in-repo yardstick.
+    `sea.use_fused_train`; `embed` then builds the thin causal mask), or the
+    dense train path (otherwise), which takes the teacher's per-layer
+    `LayerTeacherOutput` as its KD truths;
+  * 'none'   — dense causal softmax attention: the KD teacher, whose layers
+    return their captures (the clamped causal-masked scores and the
+    context before `out_proj`), and the in-repo yardstick.
 
 `OptForCausalLM.forward(..., labels=ids, training=True)` returns the
-next-token cross entropy as `loss` beside `aux_loss`, as the JAX model does.
-Model dims follow facebook/opt-125m. The JAX package's `scan_layers`,
+next-token cross entropy as `loss` beside `aux_loss` and, with
+`output_hidden_states`, the hidden state after the embedding and after each
+layer, as the JAX model does. The teacher captures come back with
+`output_captures=True`: a returned capture keeps its (N, H, T, T) scores
+alive through the backward (XLA drops outputs nobody reads; eager PyTorch
+cannot), 2.2 GiB more for the dense OPT-125m train step at 1 x 2048. The KD
+loop takes each layer's capture from the layer itself. With
+`sea.layerwise`, training detaches every layer's input, as the JAX model
+does. Model dims follow facebook/opt-125m. The JAX package's `scan_layers`,
 `scan_benchmarking`, `scan_remat` and `external_layers` fields steer its
 compiler; the port has no such fields and runs a plain layer loop. Not
-ported yet: the other attention methods, KD captures, decode, the chunked
-cross entropy, and bfloat16 compute.
+ported yet: the other attention methods, decode, the chunked cross entropy,
+and bfloat16 compute.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -56,6 +67,17 @@ def opt_125m(attention_method: str = "perlin", sea: Optional[SeaConfig] = None) 
         attention_method=attention_method,
         sea=sea if sea is not None else opt_config(),
     )
+
+
+class LayerTeacherOutput(NamedTuple):
+    """Per-layer distillation targets captured by the dense teacher."""
+
+    attention_scores: torch.Tensor  # (N, H, T, T) pre-softmax, causal-masked
+    context_layer: torch.Tensor  # (N, T, H·D) before out_proj
+
+
+# one layer's resize-jitter draws (`ops.masks.resize_jitter_draws`)
+JitterDraws = Tuple[torch.Tensor, torch.Tensor]
 
 
 def build_causal_mask(
@@ -100,11 +122,15 @@ class OptAttention(nn.Module):
         self,
         hidden_states: torch.Tensor,
         causal_mask: torch.Tensor,
+        teacher: Optional[LayerTeacherOutput] = None,
         *,
         benchmarking: bool = False,
         training: bool = False,
+        jitter: Optional[JitterDraws] = None,
     ):
-        """Returns (attn_output (N, T, E), aux_loss | None)."""
+        """Returns (attn_output (N, T, E), aux_loss | None, teacher capture
+        | None): the 'none' method captures, the student takes `teacher` as
+        its KD truths and `jitter` as its resize-jitter draws."""
         c = self.cfg
         N, T, E = hidden_states.shape
         scaling = c.head_dim ** -0.5
@@ -118,13 +144,16 @@ class OptAttention(nn.Module):
             probs = softmax_fp32(scores, -1)
             ctx = torch.einsum("nhts,nhsd->nhtd", probs, v)
             ctx = ctx.permute(0, 2, 1, 3).reshape(N, T, E)
-            return self.out_proj(ctx), None
+            capture = LayerTeacherOutput(attention_scores=scores, context_layer=ctx)
+            return self.out_proj(ctx), None, capture
 
         out = self.perlin(
             q, k, v, q, k, v, q, k, causal_mask,
-            benchmarking=benchmarking, training=training,
+            attention_scores_truth=teacher.attention_scores if teacher else None,
+            context_layer_truth=teacher.context_layer if teacher else None,
+            benchmarking=benchmarking, training=training, jitter=jitter,
         )
-        return self.out_proj(out.context_layer), out.loss
+        return self.out_proj(out.context_layer), out.loss, None
 
 
 class OptDecoderLayer(nn.Module):
@@ -139,14 +168,21 @@ class OptDecoderLayer(nn.Module):
         self.fc2 = nn.Linear(cfg.ffn_dim, cfg.hidden_size)
         self.final_layer_norm = _layer_norm(cfg.hidden_size)
 
-    def forward(self, hidden_states, causal_mask, *, benchmarking=False, training=False):
+    def forward(self, hidden_states, causal_mask, teacher=None, *, benchmarking=False,
+                training=False, jitter=None):
+        """Returns (hidden states, aux_loss | None, teacher capture | None)."""
         c = self.cfg
+        if c.sea.layerwise and training:
+            # every layer optimises its own distillation loss: no gradient
+            # crosses a layer boundary
+            hidden_states = hidden_states.detach()
         residual = hidden_states
         h = hidden_states
         if c.do_layer_norm_before:
             h = self.self_attn_layer_norm(h)
-        h, aux_loss = self.self_attn(
-            h, causal_mask, benchmarking=benchmarking, training=training
+        h, aux_loss, capture = self.self_attn(
+            h, causal_mask, teacher, benchmarking=benchmarking, training=training,
+            jitter=jitter,
         )
         h = F.dropout(h, c.dropout, training)
         h = residual + h
@@ -161,7 +197,7 @@ class OptDecoderLayer(nn.Module):
         h = residual + h
         if not c.do_layer_norm_before:
             h = self.final_layer_norm(h)
-        return h, aux_loss
+        return h, aux_loss, capture
 
 
 class OptModel(nn.Module):
@@ -204,19 +240,43 @@ class OptModel(nn.Module):
             h = self.final_layer_norm(h)
         return h
 
-    def forward(self, input_ids, attention_mask_1d, *, benchmarking=False, training=False):
+    def forward(
+        self,
+        input_ids,
+        attention_mask_1d,
+        teacher_outputs: Optional[Sequence[LayerTeacherOutput]] = None,
+        *,
+        benchmarking=False,
+        training=False,
+        jitter: Optional[Sequence[JitterDraws]] = None,
+        output_hidden_states=False,
+        output_captures=False,
+    ):
+        """Returns (final hidden states, [hidden states] | None, teacher
+        captures (empty without `output_captures`), aux_loss).
+        `teacher_outputs` and `jitter` hold one entry per layer."""
         h, causal_mask = self.embed(input_ids, attention_mask_1d)
+        hidden_states = [h] if output_hidden_states else None
+        captures: List[LayerTeacherOutput] = []
         aux_losses = []
-        for layer in self.layers:
-            h, aux = layer(h, causal_mask, benchmarking=benchmarking, training=training)
+        for i, layer in enumerate(self.layers):
+            h, aux, capture = layer(
+                h, causal_mask, teacher_outputs[i] if teacher_outputs is not None else None,
+                benchmarking=benchmarking, training=training,
+                jitter=jitter[i] if jitter is not None else None,
+            )
+            if output_hidden_states:
+                hidden_states.append(h)
             if aux is not None:
                 aux_losses.append(aux)
+            if output_captures and capture is not None:
+                captures.append(capture)
         h = self.finalize(h)
         aux_loss = (
             sum(aux_losses) / len(aux_losses) if aux_losses
             else torch.zeros((), device=h.device)
         )
-        return h, aux_loss
+        return h, hidden_states, captures, aux_loss
 
 
 class OptForCausalLM(nn.Module):
@@ -242,16 +302,23 @@ class OptForCausalLM(nn.Module):
         input_ids: torch.Tensor,
         attention_mask_1d: torch.Tensor,
         labels: Optional[torch.Tensor] = None,
+        teacher_outputs: Optional[Sequence[LayerTeacherOutput]] = None,
         *,
         benchmarking: bool = False,
         training: bool = False,
+        jitter: Optional[Sequence[JitterDraws]] = None,
+        output_hidden_states: bool = False,
+        output_captures: bool = False,
     ):
-        h, aux_loss = self.model(
-            input_ids, attention_mask_1d, benchmarking=benchmarking, training=training
+        h, hidden_states, captures, aux_loss = self.model(
+            input_ids, attention_mask_1d, teacher_outputs, benchmarking=benchmarking,
+            training=training, jitter=jitter, output_hidden_states=output_hidden_states,
+            output_captures=output_captures,
         )
         logits = self.logits(h)
         loss = cross_entropy_shifted(logits, labels) if labels is not None else None
-        return {"logits": logits, "loss": loss, "aux_loss": aux_loss}
+        return {"logits": logits, "loss": loss, "hidden_states": hidden_states,
+                "teacher_captures": captures, "aux_loss": aux_loss}
 
 
 def cross_entropy_shifted(

@@ -1,11 +1,14 @@
-"""Grouped top-k selection of the compressed mask (PyTorch port).
+"""Compressed-mask resize and grouped top-k selection (PyTorch port).
 
-Port of the benchmark-path half of `sea_tpu/ops/masks.py`: the mask fill
-constant, the per-row budget, the grouped top-k, and the non-causal
-`resize_from_m_to_t` without jitter or undersampling, as `resize_noncausal`
-(the BERT benchmark path's average-pool weights). The causal resize, the jitter and the
-undersampling keep-predicate belong to the dense train path and are not
-ported yet.
+Port of `sea_tpu/ops/masks.py`: the mask fill constant, the per-row budget,
+the grouped top-k (`topk_mask`, `causal_topk_masking`) and
+`resize_from_m_to_t`, causal and non-causal, with the training jitter and
+the undersampling keep-predicate. The resize is one index computation
+(`resize_index`) and one gather (`resize_with_index`); the dense train path
+computes the index once per forward and gathers its three maps through it.
+The JAX package's blocked one-hot matmuls are a TPU speed device with the
+same values; a gather is exact at any matmul precision (a one-hot matmul is
+exact only without TF32).
 
 Two numerical rules keep the port bit-exact with the JAX package:
 
@@ -18,9 +21,11 @@ Two numerical rules keep the port bit-exact with the JAX package:
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
+
+from .kernels.block_sparse import _keep_dense
 
 
 def fp_min_for(dtype: torch.dtype) -> float:
@@ -38,42 +43,122 @@ def round_half_away(x: torch.Tensor) -> torch.Tensor:
     return torch.floor(x + 0.5)
 
 
-def resize_noncausal(
+class ResizeIndex(NamedTuple):
+    """The column map of `resize_from_m_to_t`: `idx` (N, 1, T1 or 1, T2)
+    int64, the compressed pixel each column reads (T_M at padding, the fill
+    value's column), and `token_length` (N, 1, T1 or 1, 1) float32, each
+    row's count of kept columns. Rows are 1 when the mask is (N, 1, 1, T2)
+    (non-causal: the map is the same for every row)."""
+
+    idx: torch.Tensor
+    token_length: torch.Tensor
+
+
+def resize_jitter_draws(
+    shape, generator: torch.Generator
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The training jitter's two draws, on the generator's device: U(0, 1)
+    noise of the mask's shape (N, 1, T1, T2) and one U(0, 1) gate. The
+    resize maps them to U(-0.75, 0.75) and to p = 0.1 itself, so that a
+    test can pass in the JAX package's `jax.random.uniform` draws."""
+    dev = generator.device
+    noise = torch.rand(tuple(shape), generator=generator, device=dev, dtype=torch.float32)
+    gate = torch.rand((), generator=generator, device=dev, dtype=torch.float32)
+    return noise, gate
+
+
+def resize_index(
+    attention_mask: torch.Tensor,
+    t_m: int,
+    jitter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> ResizeIndex:
+    """Column map of the padding-aware nearest resize from T_M to T2.
+
+    attention_mask: additive, 0 to keep and <= FP_MIN at padding or past
+    the causal edge; (N, 1, T1, T2) causal, (N, 1, 1, T2) non-causal.
+    Column c of a row reads pixel floor((cs_c − 1 + 0.5) / L · T_M − 1e-4),
+    cs being the running count of kept columns and L their total; a dropped
+    column reads index T_M. All divisions are by tensors: a true division,
+    bit for bit the JAX package's index map.
+
+    jitter: `resize_jitter_draws`' (noise, gate). With probability 0.1 (gate
+    < 0.1) the running count moves by U(-0.75, 0.75), clamped to
+    [1, argmax(cs)]: the clamp's upper end is the *index* of the row's
+    largest count, a reference quirk kept as it is."""
+    mask = (attention_mask > -1).to(torch.float32)
+    mask_cs = torch.cumsum(mask, dim=-1)
+    token_length = mask_cs[..., -1:]
+    if jitter is not None:
+        noise, gate = jitter
+        noise = noise.to(mask_cs.device) * 1.5 - 0.75
+        hi = torch.argmax(mask_cs, dim=-1, keepdim=True).to(mask_cs.dtype)
+        jittered = torch.minimum(torch.maximum(mask_cs + noise, torch.ones_like(mask_cs)), hi)
+        mask_cs = torch.where(gate.to(mask_cs.device) < 0.1, jittered, mask_cs)
+    idx = (
+        torch.floor(((mask_cs - 1) + 0.5) / token_length * t_m - 1e-4).to(torch.int64)
+        + ((1 - mask) * t_m).to(torch.int64)
+    )
+    return ResizeIndex(torch.clamp(idx, 0, t_m), token_length)
+
+
+def resize_with_index(
     x: torch.Tensor,
     masked_fill_value: float,
-    attention_mask: torch.Tensor,
-    target_width: Optional[int] = None,
+    index: ResizeIndex,
+    k: Optional[float] = None,
+    oversampled: Optional[float] = None,
 ) -> torch.Tensor:
-    """Nearest-neighbour width-resize of a compressed (N, H, T1, T_M) map to
-    (N, H, T1, T2), padding-aware: the non-causal `resize_from_m_to_t`
-    without jitter or undersampling.
+    """Gather (N, H, T1, T_M) `x` through `index` to (N, H, T1, T2), the
+    dropped columns reading `masked_fill_value`. A gather is exact whatever
+    the matmul precision (the JAX package's one-hot matmuls, a TPU speed
+    device, give the same values).
 
-    attention_mask: (N, 1, 1, T2) additive, 0 to keep and <= FP_MIN at
-    padding. Column c of example n reads pixel
-    floor((cs_c − 1 + 0.5) / L · T_M − 1e-4) with cs the running count of
-    kept columns and L their total; a padded column reads the fill value
-    (index T_M). The map is the same for every row; the resize is a gather,
-    so it is exact whatever the matmul precision."""
+    k / oversampled: when oversampled is not 1, also the undersampling
+    keep-predicate: column c of a row of L kept columns survives iff
+    frac = (c + 1) / L · max(round(L / oversampled), 1) lies within
+    0.5 / oys + 1e-4 of an integer, oys = clip(L, round(k),
+    round(k · oversampled)) / k (`round` half away from zero on tensors,
+    Python's `round` on the two bounds, as the JAX package does): the
+    kernels' own predicate, `block_sparse._keep_dense`."""
     N, H, T1, T_M = x.shape
-    T2 = target_width if target_width is not None else T1
-    if tuple(attention_mask.shape) != (N, 1, 1, T2):
-        raise ValueError(f"attention_mask must be (N, 1, 1, T2) = {(N, 1, 1, T2)}, "
-                         f"got {tuple(attention_mask.shape)}")
-    mask = (attention_mask[:, 0, 0, :] > -1).to(torch.float32)  # (N, T2)
-    mask_cs = torch.cumsum(mask, dim=-1)
-    token_length = mask_cs[:, -1:]
-    # `/ token_length` divides by a tensor: a true division, bit for bit
-    # the JAX package's index map
-    idx = (
-        torch.floor(((mask_cs - 1) + 0.5) / token_length * T_M - 1e-4).to(torch.int64)
-        + ((1 - mask) * T_M).to(torch.int64)
-    )
-    idx = torch.clamp(idx, 0, T_M)  # (N, T2)
+    idx = index.idx
+    T2 = idx.shape[-1]
     grid_input = torch.cat(
         [x, torch.full((N, H, T1, 1), masked_fill_value, dtype=x.dtype, device=x.device)],
         dim=-1,
     )
-    return torch.gather(grid_input, -1, idx[:, None, None, :].expand(N, H, T1, T2))
+    output = torch.gather(grid_input, -1, idx.expand(N, H, T1, T2))
+    if oversampled is not None and oversampled != 1.0:
+        assert k is not None
+        keep = _keep_dense(index.token_length, T2, oversampled, k)
+        output = torch.where(keep, output, torch.full_like(output, masked_fill_value))
+    return output
+
+
+def resize_from_m_to_t(
+    x: torch.Tensor,
+    masked_fill_value: float,
+    attention_mask: torch.Tensor,
+    target_width: Optional[int] = None,
+    is_causal: bool = True,
+    k: Optional[float] = None,
+    oversampled: Optional[float] = None,
+    jitter: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+) -> torch.Tensor:
+    """Nearest-neighbour width-resize of a compressed (N, H, T1, T_M) map to
+    (N, H, T1, T2), padding-aware: `resize_index` then `resize_with_index`.
+
+    attention_mask: (N, 1, T1, T2) when causal, (N, 1, 1, T2) when not;
+    target_width: T2 (defaults to T1); jitter: the training jitter's draws
+    (`resize_jitter_draws`); k / oversampled: the undersampling
+    keep-predicate."""
+    N, H, T1, T_M = x.shape
+    T2 = target_width if target_width is not None else T1
+    want = (N, 1, T1, T2) if is_causal else (N, 1, 1, T2)
+    if tuple(attention_mask.shape) != want:
+        raise ValueError(f"attention_mask must be {want}, got {tuple(attention_mask.shape)}")
+    index = resize_index(attention_mask, T_M, jitter)
+    return resize_with_index(x, masked_fill_value, index, k, oversampled)
 
 
 def per_item_top_k(
@@ -181,3 +266,40 @@ def topk_mask(
     elif k_flatten_dim == "query":
         mask = torch.where(dst_alive, mask, torch.full_like(mask, fill))
     return mask.reshape(N, H, T_DST, T_M)
+
+
+def causal_topk_masking(
+    estimated_probs: torch.Tensor,
+    k: int,
+    attention_mask: torch.Tensor,
+    dst_attention_mask: torch.Tensor,
+    causal_attention_mask: torch.Tensor,
+    not_padded: bool = True,
+    k_oversample: float = 1.0,
+    benchmarking: bool = False,
+) -> torch.Tensor:
+    """The standalone grouped top-k over (N, T_DST, H·T_M) with the causal
+    budget round(H·k·k_oversample·T_M / (r + 1)) per row r, padded query
+    rows (dst_attention_mask (N, 1, T_DST, 1)) zeroed first and filled
+    after. `attention_mask`, `causal_attention_mask` and `not_padded` are
+    read by neither package; they keep the reference op's signature."""
+    N, H, T_DST, T_M = estimated_probs.shape
+    causal_token_length = torch.arange(
+        1, T_DST + 1, dtype=torch.float32, device=estimated_probs.device
+    ).reshape(1, T_DST, 1).expand(N, T_DST, 1)
+    dst_alive = dst_attention_mask > -1
+    probs = estimated_probs * dst_alive.to(estimated_probs.dtype)
+    budget = per_item_top_k(
+        cfg_k=k,
+        k_oversample=k_oversample,
+        k_flatten_dim="causal_batch",
+        num_heads=H,
+        t_m=T_M,
+        token_length=None,
+        causal_token_length=causal_token_length,
+        causal=True,
+    )
+    return topk_mask(
+        probs, dst_alive, budget, "causal_batch", benchmarking,
+        fp_min_for(estimated_probs.dtype),
+    )

@@ -8,7 +8,9 @@ Port of `sea_tpu/ops/performer.py`:
     `torch.Generator`,
   * causal prefix linear attention in chunks: a running (M, Dv) state for
     the flow between chunks and a small causal-masked dense product inside
-    each chunk, the same arithmetic as the JAX scan.
+    each chunk, the same arithmetic as the JAX scan;
+  * `redraw_projections`, the trainers' periodic redraw of every module's
+    projection.
 
 Everything is computed in float32 whatever the caller's dtype.
 """
@@ -167,3 +169,14 @@ def fast_attention(
     if causal:
         return causal_linear_attention(qp, kp, v, chunk=chunk)
     return linear_attention_noncausal(qp, kp, v.float())
+
+
+def redraw_projections(model: torch.nn.Module, generator: torch.Generator) -> None:
+    """Redraw every FAVOR+ projection buffer (`performer_proj`) under `model`
+    in place from `generator`, in module order: the trainers' periodic
+    feature redraw. The buffers are never trained."""
+    with torch.no_grad():
+        for name, buf in model.named_buffers():
+            if name.rsplit(".", 1)[-1] == "performer_proj":
+                buf.copy_(gaussian_orthogonal_random_matrix(
+                    generator, buf.shape[0], buf.shape[1], device=buf.device))

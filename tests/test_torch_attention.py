@@ -147,16 +147,29 @@ def test_buffers_capture_the_kernel_inputs():
 
 
 def test_train_path_is_refused():
+    """What stays refused around the train path: the self-teacher KD loss in
+    training, the uniform-CSR benchmark path and the non-causal oversampled
+    module. The dense train path itself now runs, causal and non-causal
+    (tests/test_torch_train_path.py holds it against JAX)."""
     cfg = tiny_cfg()
     model = SeaAttention(torch_sea_config(cfg), device="cpu", seed=0)
     q, k, v, mask = (t(x) for x in make_inputs(cfg, T=64))
+    with torch.no_grad():
+        out = model(q, k, v, q, k, v, q, k, mask, benchmarking=False)
+    assert torch.isfinite(out.context_layer).all()
+    selfteach = SeaAttention(torch_sea_config(dataclasses.replace(cfg, kd_self_teacher=True)),
+                             device="cpu", seed=0)
     with pytest.raises(NotImplementedError):
-        model(q, k, v, q, k, v, q, k, mask, benchmarking=False)
-    # the non-causal module runs the benchmark path only, without oversampling
+        selfteach(q, k, v, q, k, v, q, k, mask, benchmarking=False, training=True)
+    csr = SeaAttention(torch_sea_config(dataclasses.replace(cfg, use_pallas=False)),
+                       device="cpu", seed=0)
+    with pytest.raises(NotImplementedError):
+        csr(q, k, v, q, k, v, q, k, mask, benchmarking=True)
     noncausal = torch_sea_config(dataclasses.replace(cfg, causal=False))
     model = SeaAttention(noncausal, device="cpu")
     pad = torch.zeros((1, 1, 1, 64))  # (N, 1, 1, T) additive: no padding
-    with pytest.raises(NotImplementedError):
-        model(q, k, v, q, k, v, q, k, pad, benchmarking=False)
+    with torch.no_grad():
+        out = model(q, k, v, q, k, v, q, k, pad, benchmarking=False)
+    assert torch.isfinite(out.context_layer).all()
     with pytest.raises(NotImplementedError):
         SeaAttention(dataclasses.replace(noncausal, k_oversample=2.0), device="cpu")

@@ -259,8 +259,13 @@ def test_thin_mask_needs_the_fused_train_path():
     tq, tk, tv = (t(x) for x in (q, k, v))
     with pytest.raises(ValueError):
         port(tq, tk, tv, tq, tk, tv, tq, tk, t(mask)[:, :, :, :1], benchmarking=True)
-    with pytest.raises(NotImplementedError):
-        port(tq, tk, tv, tq, tk, tv, tq, tk, t(mask), benchmarking=False, training=True)
+    # the dense train path needs the square mask
+    with pytest.raises(ValueError):
+        port(tq, tk, tv, tq, tk, tv, tq, tk, t(mask)[:, :, :, :1], benchmarking=False,
+             training=True)
+    with torch.no_grad():
+        out = port(tq, tk, tv, tq, tk, tv, tq, tk, t(mask), benchmarking=False, training=True)
+    assert torch.isfinite(out.context_layer).all()
 
 
 SEED = 4  # keeps every top-k boundary of the tiny model >= 1e-4 apart (or tied)
