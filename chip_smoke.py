@@ -146,7 +146,35 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 own CE step on the same batch, a [breakdown] of a micro-step,
                 `evaluate(max_batches=4)`'s PPL and ms per window, and one
                 micro-step at 1 x 2048 with its time and peak memory;
- 20. result   — one JSON line of per-kernel numbers, then the device line.
+ 20. decode   — OPT-125m with the decode cache (`opt_config` plus use_cache,
+                full width and depth, seeded random weights, float32):
+                `generate_greedy` with `parallel_prefill` on 1 x 1024 prompt
+                tokens, max_len 2048, 64 new tokens; the prefill must launch
+                K1 exactly 12 times and nothing in the phase any other kernel;
+                layer 0's K1 inputs, captured from the prefill, held against
+                the plain version; the decode logits at positions 1024-1087
+                against the full SEA forward of the generated sequence (the
+                dense path): at most 2e-2 apart with argmax agreement 1.0
+                (tests/test_opt_decode.py:13) on the rows whose top-k picks
+                agree in every layer, the rows that differ counted; paged
+                decode against contiguous decode for 16 steps (1e-5);
+                `generate_sample` (temperature 0.8, top-p 0.9) and
+                `generate_beam` (4 beams, 32 steps) give valid ids and finite,
+                ordered scores; ms of the prefill, ms per decode step and
+                tokens/s at N = 1 and 8, peak memory, a [breakdown] of 8 steps;
+ 21. serve    — the continuous-batching engine (`ServingEngine`, 4 slots,
+                pages of 16, 128 pages a slot, a pool for every slot) on the
+                same model: 8 requests, prompts of 17-300 tokens and 32-64
+                new tokens, greedy, temperature 0.8 with top-k 50, and
+                temperature 0.8 with top-p 0.9, 5 submitted at once and 3
+                after 24 decode steps; no kernel launched, every request
+                finished with its token count of valid ids; each greedy
+                request equal to `generate_greedy` (sequential prefill) on its
+                prompt alone up to the first step whose top-2 logit margin
+                there is under 1e-4; run with chunk 1 and chunk 8, whose
+                greedy outputs must be equal; tokens/s, ms per engine step,
+                steps and the pool's bytes;
+ 22. result   — one JSON line of per-kernel numbers, then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -193,6 +221,7 @@ from sea_tpu_torch.parallel import (
     sharded_attention_scope,
 )
 from sea_tpu_torch.parallel import sharded_attention as sa
+from sea_tpu_torch.serving import ServingEngine
 from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
 from sea_tpu_torch.training.opt_trainer import OptTrainer, TrainerConfig
 from sea_tpu_torch.utils.profiler import get_bench
@@ -256,6 +285,18 @@ KD_STEPS = 2  # the kd phase's optimizer steps (8 micro-steps each)
 KD_ITERS = 3  # timed steady micro-steps and dense CE steps
 KD_EVAL_WINDOWS = 4
 KD_LONG_T = 2048  # one KD micro-step at OPT's context
+DECODE_P, DECODE_MAX_LEN, DECODE_STEPS = 1024, 2048, 64  # the decode phase's request
+DECODE_BATCH = 8  # the second decode rate's rows
+DECODE_TOL = 2e-2  # decode against the forward (tests/test_opt_decode.py:13)
+PAGED_STEPS, PAGED_TOL = 16, 1e-5
+BEAM_SIZE, BEAM_STEPS = 4, 32
+PAGE_SIZE = 16
+SERVE_SLOTS, SERVE_PAGES_PER_SLOT = 4, 128
+SERVE_PROMPTS = (17, 300, 64, 211, 128, 33, 256, 90)  # tokens
+SERVE_NEW = (32, 64, 48, 40, 64, 56, 36, 44)
+SERVE_FIRST, SERVE_STAGGER = 5, 24  # requests at once; decode steps before the rest
+SERVE_CHUNKS = (1, 8)
+NEAR_TIE = 1e-4  # a top-2 logit margin under which a greedy pick may flip
 
 
 def log(*a):
@@ -607,6 +648,42 @@ def host_ms(fn, iters):
     return statistics.median(times)
 
 
+def layer0_k1(phase, run):
+    """Run `run()` (a benchmark-path forward) with the buffer registry on, then
+    hold layer 0's grouped top-k on the card to the CPU's on the same
+    estimates and K1 on layer 0's captured inputs to its plain version.
+    Returns (q, k, v, mask, scaler, max|err|)."""
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    run()
+    buf = {n: bench.get_temp_buffer(n, 0) for n in (
+        "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
+        "masked_estimated_attention_probs", "per_item_top_k")}
+    bench.activate_temp_buffers(False)
+    # the grouped top-k on the card against the CPU on the same estimates
+    probs = buf["masked_estimated_attention_probs"]
+    cpu_mask = topk_mask(
+        probs.cpu(), torch.ones((probs.shape[0], 1, probs.shape[2], 1), dtype=torch.bool),
+        buf["per_item_top_k"].cpu(), "causal_batch", True, fp_min_for(probs.dtype),
+    )
+    bad = int((cpu_mask != buf["partial_attention_mask_before_interp"].cpu()).sum())
+    log(f"[{phase}] layer-0 top-k mask, card vs CPU on the same estimates: "
+        f"{bad} mismatches of {cpu_mask.numel()}")
+    require(bad == 0, "top-k masks differ between the card and the CPU")
+    q, k, v = buf["q"], buf["k"], buf["v"]
+    mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
+    sc = torch.sigmoid(buf["estimated_scales"][..., 0])
+    got = bs.sea_block_sparse_attention(q, k, v, mask, sc, k_cfg=float(K))
+    want = bs.dense_reference(q, k, v, mask, sc, k_cfg=float(K))
+    err = max_err(got, want)
+    density = float(bs.mask_nnz(mask, q.shape[2], True)) / (
+        q.shape[0] * H * q.shape[2] * (q.shape[2] + 1) / 2)
+    log(f"[{phase}] layer-0 kernel inputs {tuple(q.shape)}: kernel vs plain "
+        f"max|err|={err:.3g}; element-mask density {density:.4f} of the causal triangle")
+    require(err <= F32_TOL, f"kernel vs plain on layer-0 inputs: {err}")
+    return q, k, v, mask, sc, err
+
+
 def phase_slice():
     dev = "cuda"
     cfg = opt_125m("perlin")
@@ -648,38 +725,13 @@ def phase_slice():
         f"{bs.alive_mask.launches} of alive_mask")
 
     # layer 0's kernel inputs, captured by the buffer registry from the run
-    bench = get_bench()
     checks = []
     for ids in requests:
-        bench.activate_temp_buffers(True)
-        with torch.inference_mode():
-            model(ids, torch.ones_like(ids), benchmarking=True)
-        buf = {n: bench.get_temp_buffer(n, 0) for n in (
-            "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
-            "masked_estimated_attention_probs", "per_item_top_k")}
-        bench.activate_temp_buffers(False)
-        # the grouped top-k on the card against the CPU on the same estimates
-        probs = buf["masked_estimated_attention_probs"]
-        cpu_mask = topk_mask(
-            probs.cpu(), torch.ones((probs.shape[0], 1, probs.shape[2], 1), dtype=torch.bool),
-            buf["per_item_top_k"].cpu(), "causal_batch", True, fp_min_for(probs.dtype),
-        )
-        bad = int((cpu_mask != buf["partial_attention_mask_before_interp"].cpu()).sum())
-        log(f"[slice] layer-0 top-k mask, card vs CPU on the same estimates: "
-            f"{bad} mismatches of {cpu_mask.numel()}")
-        require(bad == 0, "top-k masks differ between the card and the CPU")
-        q, k, v = buf["q"], buf["k"], buf["v"]
-        mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
-        sc = torch.sigmoid(buf["estimated_scales"][..., 0])
-        got = bs.sea_block_sparse_attention(q, k, v, mask, sc, k_cfg=float(K))
-        want = bs.dense_reference(q, k, v, mask, sc, k_cfg=float(K))
-        err = max_err(got, want)
-        density = float(bs.mask_nnz(mask, q.shape[2], True)) / (
-            q.shape[0] * H * q.shape[2] * (q.shape[2] + 1) / 2)
-        log(f"[slice] layer-0 kernel inputs {tuple(q.shape)}: kernel vs plain "
-            f"max|err|={err:.3g}; element-mask density {density:.4f} of the causal triangle")
-        require(err <= F32_TOL, f"kernel vs plain on layer-0 inputs: {err}")
-        checks.append((q, k, v, mask, sc, err))
+        def forward():
+            with torch.inference_mode():
+                model(ids, torch.ones_like(ids), benchmarking=True)
+
+        checks.append(layer0_k1("slice", forward))
 
     for ids in requests:
         am = torch.ones_like(ids)
@@ -2255,6 +2307,299 @@ def phase_kd():
     return dict(micro_ms=kd_ms, peak=peak, ppl=ppl, long_ms=long_ms, long_peak=long_peak)
 
 
+# ---------------------------------------------------------------------------
+# Decode and serving
+# ---------------------------------------------------------------------------
+
+
+def decode_model():
+    """OPT-125m with the decode cache: `opt_config` plus use_cache, seeded
+    random weights, float32."""
+    cfg = dataclasses.replace(opt_125m("perlin"), sea=opt_config(use_cache=True))
+    return OptForCausalLM(cfg, device="cuda", seed=0).eval()
+
+
+def valid_ids(x, vocab) -> bool:
+    return bool(((x >= 0) & (x < vocab)).all())
+
+
+def decode_steps(model, tokens, states, start):
+    """Decode steps fed `tokens` (N, n) from position `start`: the per-step
+    logits (N, n, V), the per-layer top-k rows of each step (buffer
+    'decode_mask_m', step-major) and the final states."""
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    pos = torch.full((), start, dtype=torch.int32, device=tokens.device)
+    rows = []
+    for i in range(tokens.shape[1]):
+        lg, states = model.decode_step(tokens[:, i:i + 1], pos + i, states)
+        rows.append(lg)
+    masks = bench.buffers.get("decode_mask_m", [])
+    bench.activate_temp_buffers(False)
+    return torch.cat(rows, dim=1), masks, states
+
+
+def decode_ms(model, prompt, steps, reps=3):
+    """Median host ms per step of `steps` greedy decode steps after a
+    parallel prefill (the prefill not timed), over `reps` runs."""
+    times = []
+    for _ in range(reps):
+        logits, states = model.prefill_parallel(prompt, DECODE_MAX_LEN, last_only=True)
+        tok = logits[:, -1].argmax(-1)[:, None]
+        pos = torch.full((), prompt.shape[1], dtype=torch.int32, device=prompt.device)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(steps):
+            lg, states = model.decode_step(tok, pos + i, states)
+            tok = lg[:, 0].argmax(-1)[:, None]
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3 / steps)
+    return statistics.median(times), times
+
+
+def phase_decode():
+    dev = "cuda"
+    t0 = time.perf_counter()
+    model = decode_model()
+    cfg = model.cfg
+    L, V = cfg.num_layers, cfg.vocab_size
+    torch.cuda.synchronize()
+    log(f"[decode] OPT-125m with the decode cache built on {dev} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    g = torch.Generator().manual_seed(19)
+    prompt = torch.randint(4, V, (1, DECODE_P), generator=g).to(dev)
+
+    # the main path: greedy generation, the prompt prefilled in one forward
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = model.generate_greedy(prompt, DECODE_MAX_LEN, DECODE_STEPS, parallel_prefill=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[decode] main path: generate_greedy 1x{DECODE_P} -> {DECODE_STEPS} tokens, "
+        f"max_len {DECODE_MAX_LEN}, parallel prefill: {wall:.1f} ms, peak {peak:.2f} GiB; "
+        f"kernel launches {counts}")
+    launches = counts["K1"]
+    require(launches == L, f"the prefill launched K1 {launches} times, not {L}")
+    others = {kid: n for kid, n in counts.items() if kid != "K1" and n}
+    require(not others, f"the decode path launched other kernels: {others}")
+    require(tokens.shape == (1, DECODE_STEPS) and valid_ids(tokens, V), "greedy tokens")
+
+    # layer 0's K1 inputs, captured from the prefill
+    check = layer0_k1("decode", lambda: model.prefill_parallel(
+        prompt, DECODE_MAX_LEN, last_only=True))
+
+    # the decode logits against the full forward of the generated sequence
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    last, states = model.prefill_parallel(prompt, DECODE_MAX_LEN, last_only=True)
+    pre_masks = bench.buffers["partial_attention_mask_before_interp"]
+    bench.activate_temp_buffers(False)
+    dec, dec_masks, _ = decode_steps(model, tokens, states, DECODE_P)
+    require(torch.equal(last[:, -1].argmax(-1), tokens[:, 0])
+            and torch.equal(dec[:, :-1].argmax(-1), tokens[:, 1:]),
+            "the decode steps do not reproduce generate_greedy's tokens")
+    seq = torch.cat([prompt, tokens], dim=1)
+    bench.activate_temp_buffers(True)
+    with torch.inference_mode():
+        full = model(seq, torch.ones_like(seq))["logits"][:, DECODE_P:]
+    fwd_masks = bench.buffers["partial_attention_mask_before_interp"]
+    bench.activate_temp_buffers(False)
+    differ = torch.zeros(DECODE_STEPS, dtype=torch.bool)
+    for i in range(DECODE_STEPS):
+        for li in range(L):
+            d = dec_masks[i * L + li][0, :, 0] > -1
+            f = fwd_masks[li][0, :, DECODE_P + i] > -1
+            differ[i] |= bool((d != f).any())
+    # the prompt's rows: the prefill's benchmark path against the forward's
+    # dense path, the same estimator on hidden states that differ by the paths
+    pre_differ = torch.zeros(DECODE_P, dtype=torch.bool, device=dev)
+    for li in range(L):
+        pre = pre_masks[li][0] > 0
+        fwd = fwd_masks[li][0, :, :DECODE_P] > -1
+        pre_differ |= (pre != fwd).any(-1).any(0)
+    bench.buffers = {}
+    del fwd_masks, pre_masks
+    gap = (dec - full).abs().amax(-1)[0].cpu()
+    agree = (dec.argmax(-1) == full.argmax(-1))[0].cpu()
+    same = ~differ
+    n_same = int(same.sum())
+    log(f"[decode] prompt rows whose picks differ in some layer between the prefill "
+        f"(benchmark path) and the forward (dense path): {int(pre_differ.sum())} of {DECODE_P}")
+    log(f"[decode] decode vs the full forward at positions {DECODE_P}-"
+        f"{DECODE_P + DECODE_STEPS - 1}: {int(differ.sum())} of {DECODE_STEPS} rows pick "
+        f"otherwise in some layer; over all rows max|gap| {float(gap.max()):.3g}, argmax "
+        f"agreement {float(agree.float().mean()):.4f}; over the {n_same} rows that pick "
+        f"alike max|gap| {float(gap[same].max()) if n_same else float('nan'):.3g}, "
+        f"argmax agreement {float(agree[same].float().mean()) if n_same else float('nan'):.4f}")
+    require(n_same * 2 > DECODE_STEPS, "most decoded rows pick otherwise than the forward")
+    require(float(gap[same].max()) <= DECODE_TOL and bool(agree[same].all()),
+            "decode against the forward on rows that pick alike")
+
+    # paged decode against contiguous decode, from the prefilled prompt
+    ps = PAGE_SIZE
+    mp = DECODE_MAX_LEN // ps
+    pages = (torch.randperm(mp, generator=torch.Generator().manual_seed(29)) + 1)[None].to(dev)
+    Hh, Dd = cfg.sea.num_heads, cfg.sea.head_dim
+    pool_k = torch.zeros((L, mp + 1, ps, Hh, Dd), device=dev)
+    pool_v = torch.zeros_like(pool_k)
+    pos = torch.arange(DECODE_P, device=dev)
+    page_of, offset = pages[0, pos // ps], pos % ps
+    for li, st in enumerate(states):
+        pool_k[li, page_of, offset] = st.k_cache[0, :, :DECODE_P].transpose(0, 1)
+        pool_v[li, page_of, offset] = st.v_cache[0, :, :DECODE_P].transpose(0, 1)
+    paged = [st._replace(k_cache=st.k_cache[:, :, :0], v_cache=st.v_cache[:, :, :0])
+             for st in states]
+    contiguous = states
+    start = torch.full((), DECODE_P, dtype=torch.int32, device=dev)
+    paged_err = 0.0
+    for i in range(PAGED_STEPS):
+        tok = tokens[:, i:i + 1]
+        lc, contiguous = model.decode_step(tok, start + i, contiguous)
+        lp, paged, pool_k, pool_v = model.decode_step_paged(
+            tok, start + i, paged, pool_k, pool_v, pages)
+        paged_err = max(paged_err, max_err(lc, lp))
+    log(f"[decode] paged (pages of {ps}, a scattered table of {mp}) against contiguous "
+        f"decode over {PAGED_STEPS} steps from position {DECODE_P}: max|err| {paged_err:.3g}")
+    require(paged_err <= PAGED_TOL, f"paged decode against contiguous: {paged_err}")
+    del pool_k, pool_v, paged, contiguous
+
+    sampled = model.generate_sample(prompt, DECODE_MAX_LEN, DECODE_STEPS,
+                                    torch.Generator(dev).manual_seed(3), temperature=0.8,
+                                    top_p=0.9, parallel_prefill=True)
+    beams, scores = model.generate_beam(prompt, DECODE_MAX_LEN, BEAM_STEPS,
+                                        beam_size=BEAM_SIZE, parallel_prefill=True)
+    log(f"[decode] generate_sample (temperature 0.8, top-p 0.9): {DECODE_STEPS} tokens, "
+        f"{int((sampled != tokens).sum())} differ from greedy; generate_beam ({BEAM_SIZE} "
+        f"beams, {BEAM_STEPS} steps): scores {[round(float(x), 4) for x in scores[0]]}")
+    require(sampled.shape == tokens.shape and valid_ids(sampled, V), "sampled tokens")
+    require(beams.shape == (1, BEAM_SIZE, BEAM_STEPS) and valid_ids(beams, V), "beam tokens")
+    require(bool(torch.isfinite(scores).all()) and bool((scores[:, 1:] <= scores[:, :-1]).all()),
+            "beam scores not finite or not best first")
+    counts = launch_counts()
+    require(counts["K1"] > 0 and not any(n for kid, n in counts.items() if kid != "K1"),
+            f"a kernel other than K1 in the decode phase: {counts}")
+
+    # rates: the prefill, and decode steps at N = 1 and N = DECODE_BATCH
+    prefill_ms = host_ms(
+        lambda: model.prefill_parallel(prompt, DECODE_MAX_LEN, last_only=True), 3)
+    step_ms, step_runs = decode_ms(model, prompt, DECODE_STEPS)
+    prompts8 = torch.randint(4, V, (DECODE_BATCH, DECODE_P), generator=g).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    step8_ms, step8_runs = decode_ms(model, prompts8, DECODE_STEPS)
+    peak8 = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[decode] prefill 1x{DECODE_P}: {prefill_ms:.2f} ms ({DECODE_P / prefill_ms * 1e3:.0f} "
+        f"tokens/s); decode at N=1: {step_ms:.3f} ms per step ({1e3 / step_ms:.1f} tokens/s; "
+        f"runs {[round(x, 3) for x in step_runs]}); at N={DECODE_BATCH}: {step8_ms:.3f} ms per "
+        f"step ({DECODE_BATCH * 1e3 / step8_ms:.1f} tokens/s; runs "
+        f"{[round(x, 3) for x in step8_runs]}), peak {peak8:.2f} GiB")
+
+    _, states = model.prefill_parallel(prompt, DECODE_MAX_LEN, last_only=True)
+
+    def eight_steps():
+        st = states
+        for i in range(8):
+            _, st = model.decode_step(tokens[:, i:i + 1], start + i, st)
+
+    breakdown(f"8 decode steps (1, 1) from position {DECODE_P}", eight_steps)
+    del model, states
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=check[-1], prefill_ms=prefill_ms, step_ms=step_ms,
+                step8_ms=step8_ms, peak=peak)
+
+
+def greedy_margins(model, prompt, tokens):
+    """The top-2 logit margin of each of `tokens`' greedy picks in a run of
+    `prompt` alone (sequential prefill, as `generate_greedy` runs it)."""
+    ids = torch.tensor([prompt + tokens], device="cuda")
+    states = model.init_decode_states(1, DECODE_MAX_LEN)
+    pos = torch.zeros((), dtype=torch.int32, device="cuda")
+    margins = []
+    for t in range(ids.shape[1] - 1):
+        logits, states = model.decode_step(ids[:, t:t + 1], pos + t, states)
+        if t >= len(prompt) - 1:
+            top2 = torch.topk(logits[0, 0], 2).values
+            margins.append(float(top2[0] - top2[1]))
+    return margins
+
+
+def serve_run(model, requests, chunk):
+    """Every request through one engine, SERVE_FIRST at once and the rest
+    after SERVE_STAGGER decode steps: (outputs by request, ms, engine steps,
+    pool bytes), no kernel launched."""
+    eng = ServingEngine(model, max_slots=SERVE_SLOTS, page_size=PAGE_SIZE,
+                        num_pages=1 + SERVE_SLOTS * SERVE_PAGES_PER_SLOT,
+                        max_pages_per_slot=SERVE_PAGES_PER_SLOT, seed=0, device="cuda")
+    pool_bytes = 2 * eng.pool_k.numel() * eng.pool_k.element_size()
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, n, **kw) for p, n, kw in requests[:SERVE_FIRST]]
+    steps = 0
+    for _ in range(SERVE_STAGGER // chunk):
+        eng.step(chunk)
+        steps += 1
+    rids += [eng.submit(p, n, **kw) for p, n, kw in requests[SERVE_FIRST:]]
+    while eng.has_work:
+        eng.step(chunk)
+        steps += 1
+        require(steps < 10_000, "the engine did not finish")
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    require(not any(counts.values()), f"the engine launched kernels: {counts}")
+    outs = []
+    for rid, (p, n, _) in zip(rids, requests):
+        req = eng.finished[rid]
+        require(req.done and not req.truncated and len(req.output) == n
+                and all(0 <= x < model.cfg.vocab_size for x in req.output),
+                f"request {rid}: {len(req.output)} tokens of {n}, truncated {req.truncated}")
+        outs.append(req.output)
+    return outs, wall, steps, pool_bytes
+
+
+def phase_serve():
+    model = decode_model()
+    V = model.cfg.vocab_size
+    rng = np.random.default_rng(23)
+    kinds = ({}, dict(temperature=0.8, top_k=50), dict(temperature=0.8, top_p=0.9))
+    requests = [(rng.integers(4, V, size=p).tolist(), n, kinds[i % 3])
+                for i, (p, n) in enumerate(zip(SERVE_PROMPTS, SERVE_NEW))]
+    fed = sum(len(p) + n - 1 for p, n, _ in requests)
+    new = sum(SERVE_NEW)
+    runs = {}
+    for chunk in SERVE_CHUNKS:
+        outs, wall, steps, pool_bytes = serve_run(model, requests, chunk)
+        runs[chunk] = outs
+        log(f"[serve] chunk {chunk}: {len(requests)} requests ({fed} tokens fed, {new} "
+            f"generated) in {wall:.1f} ms over {steps} engine steps ({steps * chunk} decode "
+            f"steps): {wall / steps:.2f} ms per engine step, {wall / (steps * chunk):.2f} ms "
+            f"per decode step; {new / wall * 1e3:.1f} generated tokens/s, {fed / wall * 1e3:.1f} "
+            f"fed tokens/s; pools {pool_bytes / 2 ** 20:.1f} MiB "
+            f"({SERVE_SLOTS} slots x {SERVE_PAGES_PER_SLOT} pages of {PAGE_SIZE})")
+    greedy = [i for i, (_, _, kw) in enumerate(requests) if not kw]
+    a, b = SERVE_CHUNKS
+    require(all(runs[a][i] == runs[b][i] for i in greedy),
+            f"greedy outputs differ between chunk {a} and chunk {b}")
+    for i in greedy:
+        p, n, _ = requests[i]
+        solo = model.generate_greedy(torch.tensor([p], device="cuda"), DECODE_MAX_LEN, n)[0]
+        solo = solo.tolist()
+        margins = greedy_margins(model, p, solo)
+        stop = next((s for s, m in enumerate(margins) if m < NEAR_TIE), n)
+        log(f"[serve] greedy request {i} (prompt {len(p)}, {n} tokens): equal to "
+            f"generate_greedy alone on {sum(x == y for x, y in zip(runs[a][i], solo))} of {n} "
+            f"tokens; compared up to step {stop} (smallest top-2 margin "
+            f"{min(margins):.3g})")
+        require(runs[a][i][:stop] == solo[:stop],
+                f"greedy request {i} differs from generate_greedy before step {stop}")
+    del model
+    torch.cuda.empty_cache()
+
+
 def main():
     smi = phase_device()
     phase_sort()
@@ -2393,6 +2738,14 @@ def main():
     log(f"[result] KD at 1x512: {kd['micro_ms']:.2f} ms per micro-step, peak "
         f"{kd['peak']:.2f} GiB, PPL {kd['ppl']:.4f}; 1x{KD_LONG_T}: {kd['long_ms']:.2f} ms, "
         f"peak {kd['long_peak']:.2f} GiB")
+
+    dec = phase_decode()
+    kernels[0]["launches"] += dec["launches"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], dec["err"])
+    log(f"[result] decode: prefill 1x{DECODE_P} {dec['prefill_ms']:.2f} ms, "
+        f"{dec['step_ms']:.3f} ms per step at N=1, {dec['step8_ms']:.3f} at "
+        f"N={DECODE_BATCH}, peak {dec['peak']:.2f} GiB")
+    phase_serve()
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

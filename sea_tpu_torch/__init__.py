@@ -15,7 +15,10 @@ inside `parallel.sharded_attention_scope`, and the BERT-base SEA forward
 (`ops.cosformer`); the attention-operator sweep (`benchmarks`, dense,
 performer, cosformer and the fused kernel's 'flat_wr' variant); and the
 dense train path of the SEA attention with, on it, the OPT-125m
-knowledge-distillation trainer (`training.opt_trainer`, `training.distill`).
+knowledge-distillation trainer (`training.opt_trainer`, `training.distill`);
+and decode: the SEA decode cache (`models.state`), OPT's parallel prefill
+(kernel K1) and greedy, sampled (`ops.sampling`) and beam generation, and
+the continuous-batching serving engine over a paged K/V pool (`serving`).
 """
 
 from .config import SeaConfig, opt_config

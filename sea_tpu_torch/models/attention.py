@@ -55,10 +55,19 @@ around the group, kernels K6 forward and K7/K8 backward; blocks
 shard's heads or rows; the JAX package's `auto_block` sizes in training).
 Without a scope nothing changes; the dense path is never sharded.
 
+The decode cache (`cfg.use_cache`, causal, performer backend): `init_state`,
+`decode` (one step against a contiguous K/V cache), `decode_paged` (one step
+against a paged K/V pool, float32 or int8, the serving engine's) and
+`prefill_state` (the cache of a whole prompt in one pass). A step runs
+stages 1-8 on one row: the FAVOR+ prefix step, the predictor on a 24-row
+window of CNN inputs, the per-row top-k, the row mask resized to the cache
+width by decode's own pixel rule, and dense row attention against the cache
+(plain PyTorch: no kernel, as in JAX).
+
 Not ported yet, and refused with NotImplementedError rather than routed
 elsewhere: `kd_self_teacher`, the non-causal oversampled benchmark path (a
 CSR route in JAX), the uniform-CSR benchmark path (`use_pallas=False`), the
-'comp' predictor, `enc_per_layer`, LoRA, and the decode cache.
+'comp' predictor, `enc_per_layer` and LoRA.
 """
 
 from __future__ import annotations
@@ -74,17 +83,33 @@ from ..config import SeaConfig
 from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
 from ..ops.cosformer import CosformerAttention
 from ..ops.masks import (
+    _ranks_desc,
     fp_min_for,
     per_item_top_k,
     resize_index,
     resize_with_index,
     topk_mask,
 )
-from ..ops.performer import fast_attention, gaussian_orthogonal_random_matrix
+from ..ops.performer import (
+    causal_linear_attention,
+    fast_attention,
+    gaussian_orthogonal_random_matrix,
+    relu_kernel_features,
+)
 from ..parallel import sharded_attention as sharded
 from ..parallel.context import current_attention_sharding, resolve_attention_kind
 from ..utils.profiler import get_bench
 from .modules import CausalConv2d, ChannelSplit, KeepRes, interpolate, upsample_nearest
+from .state import (
+    CNN_WINDOW,
+    SeaDecodeState,
+    cnn_window_push,
+    cumavg_step,
+    dequantize_kv,
+    init_decode_state,
+    performer_decode_step,
+    quantize_kv,
+)
 
 
 class SeaAttentionOutput(NamedTuple):
@@ -97,6 +122,14 @@ class SeaAttentionOutput(NamedTuple):
     dense_attention_probs: Optional[torch.Tensor]
     key_for_score: torch.Tensor
     state: Any
+
+
+def _rowwise_update(cache: torch.Tensor, new: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+    """`cache` (N, H, S, D) with `new` (N, H, 1, D) written at each row's own
+    position `pos` (N,), out of place: a caller's earlier state keeps its
+    cache (the serving engine's frozen slots, beam search's parents)."""
+    index = pos.long().reshape(-1, 1, 1, 1).expand(new.shape)
+    return cache.scatter(2, index, new.to(cache.dtype))
 
 
 def auto_block(t: int) -> int:
@@ -736,3 +769,259 @@ class SeaAttention(nn.Module):
             kl = _kl_div_attention(log_input, target, attention_mask)
         return kl * 0.1 + torch.mean((torch.softmax(est, -1) - target) ** 2)
 
+
+    # ------------------------------------------------------------------
+    # the decode cache
+    def _check_decode(self):
+        cfg = self.cfg
+        if not cfg.use_cache:
+            raise ValueError("decode needs SeaConfig(use_cache=True)")
+        if not cfg.causal or cfg.predictor_backend != "performer":
+            raise ValueError(
+                "the decode cache is causal and carries the FAVOR+ prefix only "
+                "(predictor_backend='performer')"
+            )
+
+    def init_state(self, batch: int, max_len: int, dtype=torch.float32) -> SeaDecodeState:
+        """An empty decode state for `batch` rows and a `max_len`-token cache,
+        on this module's device."""
+        cfg = self.cfg
+        return init_decode_state(
+            batch, cfg.num_heads, cfg.head_dim, cfg.nb_features, cfg.predictor_length,
+            cfg.splits, cfg.dec_row_down_scale, max_len, dtype,
+            device=self.performer_proj.device,
+        )
+
+    def decode(
+        self,
+        q: torch.Tensor,  # (N, H, 1, D), pre-scaled like the forward's q
+        k: torch.Tensor,
+        v: torch.Tensor,
+        state: SeaDecodeState,
+    ) -> Tuple[torch.Tensor, SeaDecodeState]:
+        """One autoregressive step against the contiguous cache: the same
+        result as the dense forward's last row (the FAVOR+ state is the exact
+        prefix sum, the CNN window covers the stack's receptive field).
+        Returns ((N, 1, H·D), the new state)."""
+        row_mask, t_pred, S, z, window, filled, pos_b = self._decode_common(q, k, v, state)
+        # the K/V cache written at each row's own position (lockstep rows
+        # share one, serving slots each have their own)
+        k_cache = _rowwise_update(state.k_cache, k, pos_b)
+        v_cache = _rowwise_update(state.v_cache, v, pos_b)
+        # stage 8: dense row attention against the cache
+        scores = torch.einsum("nhtd,nhsd->nhts", q, k_cache) + row_mask
+        out, cum_sum, cum_len = self._decode_mix(scores, row_mask, v_cache, t_pred, state, v)
+        return out, SeaDecodeState(
+            performer_S=S, performer_z=z, cnn_window=window, cnn_filled=filled,
+            cumavg_sum=cum_sum, cumavg_len=cum_len, k_cache=k_cache, v_cache=v_cache,
+            length=state.length + 1,
+        )
+
+    def decode_paged(
+        self,
+        q: torch.Tensor,  # (N, H, 1, D)
+        k: torch.Tensor,
+        v: torch.Tensor,
+        state: SeaDecodeState,  # k_cache / v_cache may be zero-width (N, H, 0, D)
+        pool_k,  # (P, page_size, H, D), or an (int8 data, float32 scale) pair
+        pool_v,
+        pages: torch.Tensor,  # (N, max_pages) page ids, position-major
+    ):
+        """One step against a paged K/V pool (the serving path). Token t of
+        row n lives at (pages[n, t // page_size], t % page_size); unallocated
+        pages may point at a dummy page, which the length-derived row mask
+        keeps out of the softmax. The arithmetic is `decode`'s; only the
+        cache layout differs.
+
+        The pools are written in place (each row's new K/V at its position)
+        and returned: (out, new_state, pool_k, pool_v). An int8 pool is an
+        (int8 data, float32 per-(token, head) scale) pair (`quantize_kv`): new
+        K/V are quantised on write and the gathered pages dequantised on
+        read."""
+        quant = isinstance(pool_k, tuple)
+        if quant:
+            (pool_k, pool_k_scale), (pool_v, pool_v_scale) = pool_k, pool_v
+        page_size = pool_k.shape[1]
+        N, H, _, D = q.shape
+        mp = pages.shape[1]
+        row_mask, t_pred, S, z, window, filled, pos_b = self._decode_common(
+            q, k, v, state, max_len=mp * page_size
+        )
+
+        # the new K/V written at (page, offset) per row
+        pages = pages.long()
+        pos = pos_b.long()
+        page_ids = torch.gather(pages, 1, (pos // page_size)[:, None])[:, 0]
+        offsets = pos % page_size
+        if quant:
+            qk, sk = quantize_kv(k[:, :, 0, :])
+            qv, sv = quantize_kv(v[:, :, 0, :])
+            pool_k[page_ids, offsets] = qk
+            pool_v[page_ids, offsets] = qv
+            pool_k_scale[page_ids, offsets] = sk
+            pool_v_scale[page_ids, offsets] = sv
+            k_pages = dequantize_kv(pool_k[pages], pool_k_scale[pages], q.dtype)
+            v_pages = dequantize_kv(pool_v[pages], pool_v_scale[pages], q.dtype)
+        else:
+            pool_k[page_ids, offsets] = k[:, :, 0, :].to(pool_k.dtype)
+            pool_v[page_ids, offsets] = v[:, :, 0, :].to(pool_v.dtype)
+            k_pages = pool_k[pages]  # (N, mp, ps, H, D)
+            v_pages = pool_v[pages]
+        # position-major pages: the flattened (mp, ps) axis is a contiguous
+        # cache of width mp·ps
+        scores = torch.einsum("nhtd,npshd->nhtps", q, k_pages).reshape(N, H, 1, mp * page_size)
+        scores = scores + row_mask
+        out, cum_sum, cum_len = self._decode_mix(scores, row_mask, v_pages, t_pred, state, v)
+        new_state = SeaDecodeState(
+            performer_S=S, performer_z=z, cnn_window=window, cnn_filled=filled,
+            cumavg_sum=cum_sum, cumavg_len=cum_len, k_cache=state.k_cache,
+            v_cache=state.v_cache, length=state.length + 1,
+        )
+        if quant:
+            return out, new_state, (pool_k, pool_k_scale), (pool_v, pool_v_scale)
+        return out, new_state, pool_k, pool_v
+
+    def prefill_state(
+        self, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, max_len: int
+    ) -> SeaDecodeState:
+        """The decode cache of a whole prompt (N, H, P, D) in one pass, in
+        place of P `decode` steps (same conventions: q pre-scaled). Each
+        field is the parallel form of the sequential updates: S and z the
+        prefix sums of the causal linear attention, the window the last 24
+        per-position predictor rows (dec_row is pointwise), the sum of v, and
+        K/V at positions [0, P); float sums run in another order than the
+        sequential loop's."""
+        self._check_decode()
+        N, H, P, D = q.shape
+        if P > max_len:
+            raise ValueError(f"a prompt of {P} tokens does not fit a {max_len}-token cache")
+
+        # stage 1: identity value rows for positions [0, P)
+        v_id = self.v_eye_learned_causal[0, 0, :P]
+        v_for_atten = torch.cat([v_id[None, None].to(v.dtype).expand(N, H, P, D), v], dim=-1)
+
+        # stage 2: causal FAVOR+ over the prompt and its final (S, z)
+        proj = self.performer_proj
+        qp = relu_kernel_features(q, proj)
+        kp = relu_kernel_features(k, proj)
+        perf_ctx, (S, z) = causal_linear_attention(
+            qp, kp, v_for_atten.float(), return_state=True
+        )
+        perf_ctx = perf_ctx.to(q.dtype)
+
+        # stages 3-4: per-position predictor rows; the window keeps the last 24
+        performer_value = torch.cat([perf_ctx, v], dim=-1)
+        t_pred = F.gelu(self.enc_ln(self.enc_dense(performer_value)), approximate="none")
+        rows = self.channel_split(self.dec_row(t_pred))  # (N, C, P, Wd)
+        W = rows.shape[2]
+        if W >= CNN_WINDOW:
+            window = rows[:, :, W - CNN_WINDOW:, :]
+        else:
+            window = F.pad(rows, (0, 0, CNN_WINDOW - W, 0))
+
+        def count(n):
+            return torch.full((), n, dtype=torch.int32, device=q.device)
+
+        k_cache = torch.zeros((N, H, max_len, D), dtype=k.dtype, device=k.device)
+        v_cache = torch.zeros((N, H, max_len, D), dtype=v.dtype, device=v.device)
+        k_cache[:, :, :P] = k
+        v_cache[:, :, :P] = v
+        return SeaDecodeState(
+            performer_S=S,
+            performer_z=z,
+            cnn_window=window.float(),
+            cnn_filled=count(min(P, CNN_WINDOW)),
+            cumavg_sum=v.float().sum(dim=2, keepdim=True),
+            cumavg_len=count(P),
+            k_cache=k_cache,
+            v_cache=v_cache,
+            length=count(P),
+        )
+
+    def _decode_common(self, q, k, v, state: SeaDecodeState, max_len: Optional[int] = None):
+        """Stages 1-7 of a step, whatever the cache layout: the identity
+        value, the FAVOR+ prefix step, the predictor on the CNN window, the
+        per-row top-k and the row mask resized to the cache width. Positions
+        are () (lockstep) or (N,) (per slot); everything is per row."""
+        self._check_decode()
+        cfg = self.cfg
+        bench = get_bench()
+        N, H, _, D = q.shape
+        T_M = cfg.predictor_length
+        if max_len is None:
+            max_len = state.k_cache.shape[2]
+        FP_MIN = fp_min_for(q.dtype)
+        pos_b = torch.broadcast_to(state.length, (N,))
+        new_len = (pos_b + 1).float()  # (N,)
+
+        with bench.region("decode.performer"):
+            # stage 1: the identity value row, gathered per row
+            v_id = self.v_eye_learned_causal[0, 0].index_select(0, pos_b.long())  # (N, D)
+            v_id = v_id[:, None, None, :].to(v.dtype).expand(N, H, 1, D)
+            v_for_atten = torch.cat([v_id, v], dim=-1)
+            # stage 2: the FAVOR+ prefix step (ReLU features, float32)
+            proj = self.performer_proj
+            qp = relu_kernel_features(q, proj)
+            kp = relu_kernel_features(k, proj)
+            perf_ctx, S, z = performer_decode_step(
+                state.performer_S, state.performer_z, qp, kp, v_for_atten
+            )
+            perf_ctx = perf_ctx.to(q.dtype)
+
+        with bench.region("decode.predictor"):
+            # stages 3-4: the predictor on the CNN window
+            performer_value = torch.cat([perf_ctx, v], dim=-1)
+            t_pred = F.gelu(self.enc_ln(self.enc_dense(performer_value)), approximate="none")
+            row = self.channel_split(self.dec_row(t_pred))  # (N, C, 1, Wd)
+            window, filled = cnn_window_push(state.cnn_window, state.cnn_filled, row)
+            estimated_attention_score = self._predictor_cnn(window)[:, :, -1:, :]
+            estimated_attention_probs = softmax_fp32(estimated_attention_score, -1)
+
+        with bench.region("decode.mask"):
+            # stage 6: the row's top-k, budget max(floor(H·k·os·T_M / new_len
+            # + 0.5), 1), ties to the lower index (JAX's stable argsort)
+            t = estimated_attention_probs.permute(0, 2, 1, 3).reshape(N, 1, H * T_M)
+            # a true division by a tensor, never through a reciprocal
+            num = torch.full_like(new_len, H * (cfg.effective_k * cfg.k_oversample * T_M))
+            budget = torch.clamp(torch.floor(num / new_len + 0.5), min=1.0)  # (N,)
+            ranks = _ranks_desc(t)
+            dead_m = (ranks >= budget[:, None, None]).reshape(N, 1, H, T_M).permute(0, 2, 1, 3)
+            fp_min = torch.full((), FP_MIN, dtype=q.dtype, device=q.device)
+            mask_m = torch.where(dead_m, fp_min, torch.zeros_like(fp_min))
+            bench.register_temp_buffer("decode_mask_m", mask_m)
+
+        with bench.region("decode.interp"):
+            # stage 7: the row resized to the cache width, decode's own pixel
+            # rule floor((s + 0.5) / new_len · T_M − 1e-4), in this order
+            s_idx = torch.arange(max_len, dtype=torch.float32, device=q.device)
+            pix = torch.floor((s_idx[None, :] + 0.5) / new_len[:, None] * T_M - 1e-4).long()
+            pix = torch.clamp(pix, 0, T_M - 1)  # (N, max_len)
+            row_mask = torch.gather(mask_m[:, :, 0, :], -1,
+                                    pix[:, None, :].expand(N, H, max_len))[:, :, None, :]
+            alive_src = (s_idx[None, :] < new_len[:, None])[:, None, None, :]
+            row_mask = torch.where(alive_src, row_mask, fp_min)
+        return row_mask, t_pred, S, z, window, filled, pos_b
+
+    def _decode_mix(self, scores, row_mask, v_cache, t_pred, state: SeaDecodeState, v):
+        """Stage 8 and the average mix, whatever the cache layout: the masked
+        softmax, the row scaler, P·V and the running-average blend.
+        `v_cache` is (N, H, S, D) contiguous or (N, mp, ps, H, D) paged."""
+        cfg = self.cfg
+        N, H, _, D = v.shape
+        with get_bench().region("decode.attention"):
+            probs = softmax_fp32(scores, -1)
+            probs = probs.masked_fill(row_mask < -1, 0.0)
+            estimated_scales = self.dec_scaler(t_pred)
+            if cfg.partial_attention_scaler:
+                probs = probs * torch.sigmoid(estimated_scales[..., 0:1])
+            if v_cache.dim() == 5:  # paged (N, mp, ps, H, D)
+                mp, ps = v_cache.shape[1], v_cache.shape[2]
+                ctx = torch.einsum("nhtps,npshd->nhtd", probs.reshape(N, H, 1, mp, ps), v_cache)
+            else:
+                ctx = torch.einsum("nhts,nhsd->nhtd", probs, v_cache)
+
+            # the running-average mix
+            avg, cum_sum, cum_len = cumavg_step(state.cumavg_sum, state.cumavg_len, v)
+            avg_scale = torch.sigmoid(estimated_scales[..., 1:2])
+            ctx = ctx * avg_scale + (1 - avg_scale) * avg
+        return ctx.permute(0, 2, 1, 3).reshape(N, 1, H * D), cum_sum, cum_len

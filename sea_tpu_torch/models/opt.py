@@ -22,9 +22,18 @@ loop takes each layer's capture from the layer itself. With
 `sea.layerwise`, training detaches every layer's input, as the JAX model
 does. Model dims follow facebook/opt-125m. The JAX package's `scan_layers`,
 `scan_benchmarking`, `scan_remat` and `external_layers` fields steer its
-compiler; the port has no such fields and runs a plain layer loop. Not
-ported yet: the other attention methods, decode, the chunked cross entropy,
-and bfloat16 compute.
+compiler; the port has no such fields and runs a plain layer loop.
+
+Decode and generation (the SEA student with `sea.use_cache`): per-layer
+`SeaDecodeState`s (`init_decode_states`), the prompt ingested by P decode
+steps or one batched forward (`prefill_parallel`, whose attention output is
+the benchmark path's, kernel K1), `decode_step` against contiguous caches and
+`decode_step_paged` against the serving engine's paged pools, and the loops
+`generate_greedy`, `generate_sample` and `generate_beam` (Python loops where
+JAX has `lax.scan`; nothing is read back to the host inside them).
+
+Not ported yet: the other attention methods, the chunked cross entropy,
+bfloat16 compute, and the `scan_*` decode helpers of scanned models.
 """
 
 from __future__ import annotations
@@ -38,7 +47,9 @@ from torch import nn
 
 from ..config import SeaConfig, opt_config
 from ..ops.masks import fp_min_for
+from ..ops.sampling import sample_logits
 from .attention import SeaAttention, _layer_norm, init_random_, softmax_fp32
+from .state import SeaDecodeState
 
 
 @dataclasses.dataclass(frozen=True)
@@ -155,6 +166,42 @@ class OptAttention(nn.Module):
         )
         return self.out_proj(out.context_layer), out.loss, None
 
+    def _qkv(self, hidden_states: torch.Tensor):
+        if self.cfg.attention_method != "perlin":
+            raise NotImplementedError("decode is ported for the SEA student ('perlin') only")
+        scaling = self.cfg.head_dim ** -0.5
+        return (self._heads(self.q_proj(hidden_states) * scaling),
+                self._heads(self.k_proj(hidden_states)),
+                self._heads(self.v_proj(hidden_states)))
+
+    def init_state(self, batch: int, max_len: int, dtype=torch.float32) -> SeaDecodeState:
+        if self.cfg.attention_method != "perlin":
+            raise NotImplementedError("decode is ported for the SEA student ('perlin') only")
+        return self.perlin.init_state(batch, max_len, dtype)
+
+    def decode(self, hidden_states: torch.Tensor, state: SeaDecodeState):
+        """One decode step: (N, 1, E) -> (attention output, new state)."""
+        q, k, v = self._qkv(hidden_states)
+        out, new_state = self.perlin.decode(q, k, v, state)
+        return self.out_proj(out), new_state
+
+    def prefill(self, hidden_states: torch.Tensor, causal_mask: torch.Tensor, max_len: int):
+        """The prompt in one pass: the SEA forward for its output (the
+        benchmark path, kernel K1, when `sea.use_pallas`) and the decode
+        cache built in parallel (`SeaAttention.prefill_state`)."""
+        q, k, v = self._qkv(hidden_states)
+        out = self.perlin(q, k, v, q, k, v, q, k, causal_mask,
+                          benchmarking=self.cfg.sea.use_pallas)
+        state = self.perlin.prefill_state(q, k, v, max_len)
+        return self.out_proj(out.context_layer), state
+
+    def decode_paged(self, hidden_states, state, pool_k, pool_v, pages):
+        """One decode step against this layer's page pools (the serving path)."""
+        q, k, v = self._qkv(hidden_states)
+        out, new_state, pool_k, pool_v = self.perlin.decode_paged(
+            q, k, v, state, pool_k, pool_v, pages)
+        return self.out_proj(out), new_state, pool_k, pool_v
+
 
 class OptDecoderLayer(nn.Module):
     """Pre-LN decoder layer."""
@@ -176,28 +223,50 @@ class OptDecoderLayer(nn.Module):
             # every layer optimises its own distillation loss: no gradient
             # crosses a layer boundary
             hidden_states = hidden_states.detach()
+
+        def attend(h):
+            h, aux_loss, capture = self.self_attn(
+                h, causal_mask, teacher, benchmarking=benchmarking, training=training,
+                jitter=jitter,
+            )
+            return F.dropout(h, c.dropout, training), aux_loss, capture
+
+        return self._around_attention(hidden_states, attend, training)
+
+    def _around_attention(self, hidden_states, attend, training: bool = False):
+        """The layer around one attention call `attend(h) -> (h, *rest)`;
+        returns (hidden states, *rest). Decode and prefill are inference
+        (`training=False`: the FFN's dropout is the identity)."""
+        c = self.cfg
         residual = hidden_states
         h = hidden_states
         if c.do_layer_norm_before:
             h = self.self_attn_layer_norm(h)
-        h, aux_loss, capture = self.self_attn(
-            h, causal_mask, teacher, benchmarking=benchmarking, training=training,
-            jitter=jitter,
-        )
-        h = F.dropout(h, c.dropout, training)
+        h, *rest = attend(h)
         h = residual + h
         if not c.do_layer_norm_before:
             h = self.self_attn_layer_norm(h)
-
         residual = h
         if c.do_layer_norm_before:
             h = self.final_layer_norm(h)
         h = self.fc2(torch.relu(self.fc1(h)))
-        h = F.dropout(h, c.dropout, training)
-        h = residual + h
+        h = residual + F.dropout(h, c.dropout, training)
         if not c.do_layer_norm_before:
             h = self.final_layer_norm(h)
-        return h, aux_loss, capture
+        return (h, *rest)
+
+    def decode(self, hidden_states, state):
+        return self._around_attention(hidden_states, lambda h: self.self_attn.decode(h, state))
+
+    def prefill(self, hidden_states, causal_mask, max_len: int):
+        """The parallel twin of `decode`: (layer output, decode state)."""
+        return self._around_attention(
+            hidden_states, lambda h: self.self_attn.prefill(h, causal_mask, max_len))
+
+    def decode_paged(self, hidden_states, state, pool_k, pool_v, pages):
+        return self._around_attention(
+            hidden_states,
+            lambda h: self.self_attn.decode_paged(h, state, pool_k, pool_v, pages))
 
 
 class OptModel(nn.Module):
@@ -297,6 +366,174 @@ class OptForCausalLM(nn.Module):
     def logits(self, h: torch.Tensor) -> torch.Tensor:
         return h @ self.model.embed_tokens.weight.T
 
+    # ------------------------------------------------------------------
+    # decode and generation (inference: no autograd)
+    @property
+    def device(self) -> torch.device:
+        return self.model.embed_tokens.weight.device
+
+    def init_decode_states(self, batch: int, max_len: int, dtype=torch.float32):
+        return [layer.self_attn.init_state(batch, max_len, dtype) for layer in self.model.layers]
+
+    @torch.no_grad()
+    def prefill_parallel(self, prompt_ids: torch.Tensor, max_len: int, last_only: bool = False):
+        """The whole prompt (N, P) in one batched forward in place of P
+        `decode_step`s: (logits (N, P, V), per-layer decode states at
+        position P). Each layer's state is built from the forward's hidden
+        states; its prefix sums run in another order than the sequential
+        loop's. `last_only` projects only the last position's logits
+        (N, 1, V), all that generation needs."""
+        N, P = prompt_ids.shape
+        h, causal_mask = self.model.embed(prompt_ids, torch.ones_like(prompt_ids))
+        states = []
+        for layer in self.model.layers:
+            h, st = layer.prefill(h, causal_mask, max_len)
+            states.append(st)
+        h = self.model.finalize(h)
+        if last_only:
+            h = h[:, -1:]
+        return self.logits(h), states
+
+    def _prefill(self, prompt_ids: torch.Tensor, max_len: int, parallel: bool):
+        """The generation loops' prompt step: (states at position P, the
+        last position's logits (N, V))."""
+        N, P = prompt_ids.shape
+        if parallel:
+            logits, states = self.prefill_parallel(prompt_ids, max_len, last_only=True)
+            return states, logits[:, -1]
+        states = self.init_decode_states(N, max_len)
+        position = torch.zeros((), dtype=torch.int32, device=prompt_ids.device)
+        for t in range(P):
+            logits, states = self.decode_step(prompt_ids[:, t:t + 1], position + t, states)
+        return states, logits[:, 0]
+
+    @staticmethod
+    def _decode_pos(position: torch.Tensor) -> torch.Tensor:
+        """() -> (1, 1) (lockstep), (N,) -> (N, 1) (per slot)."""
+        return position.reshape(1, 1) if position.dim() == 0 else position[:, None]
+
+    def _embed_step(self, token_ids: torch.Tensor, position) -> torch.Tensor:
+        position = torch.as_tensor(position, device=token_ids.device)
+        h = self.model.embed_tokens(token_ids)
+        # OPT's learned positions sit 2 rows up
+        return h + self.model.embed_positions(self._decode_pos(position).long() + 2)
+
+    @torch.no_grad()
+    def decode_step(self, token_ids: torch.Tensor, position, states: List[SeaDecodeState]):
+        """One step: token_ids (N, 1); position a () tensor or int (0-based,
+        rows in lockstep) or an (N,) tensor (per slot); states one
+        `SeaDecodeState` per layer. Returns (logits (N, 1, V), new states)."""
+        h = self._embed_step(token_ids, position)
+        new_states = []
+        for layer, st in zip(self.model.layers, states):
+            h, st = layer.decode(h, st)
+            new_states.append(st)
+        return self.logits(self.model.finalize(h)), new_states
+
+    @torch.no_grad()
+    def decode_step_paged(self, token_ids, position, states, pool_k, pool_v, pages):
+        """One serving step over paged K/V pools: pool_k, pool_v (L, P,
+        page_size, H, D), layer l's pool at index l; pages (N, max_pages), one
+        page table for every layer (a page id addresses the same slots in
+        each layer's pool). The pools are written in place. Returns (logits,
+        new states, pool_k, pool_v)."""
+        h = self._embed_step(token_ids, position)
+        new_states = []
+        for li, (layer, st) in enumerate(zip(self.model.layers, states)):
+            h, st, _, _ = layer.decode_paged(h, st, pool_k[li], pool_v[li], pages)
+            new_states.append(st)
+        return self.logits(self.model.finalize(h)), new_states, pool_k, pool_v
+
+    @torch.no_grad()
+    def generate_greedy(self, prompt_ids: torch.Tensor, max_len: int, num_steps: int,
+                        parallel_prefill: bool = False) -> torch.Tensor:
+        """Greedy continuation (N, num_steps) of the prompts (N, P): the
+        prompt through the decode cache (P decode steps, or one batched
+        forward with `parallel_prefill`), then one step a token. The loop
+        stays on the device: no token is read back before the end."""
+        N, P = prompt_ids.shape
+        states, last_logits = self._prefill(prompt_ids, max_len, parallel_prefill)
+        position = torch.full((), P, dtype=torch.int32, device=prompt_ids.device)
+        tokens = []
+        for i in range(num_steps):
+            nxt = torch.argmax(last_logits, dim=-1)[:, None]
+            logits, states = self.decode_step(nxt, position + i, states)
+            last_logits = logits[:, 0]
+            tokens.append(nxt[:, 0])
+        return torch.stack(tokens, dim=1)
+
+    @torch.no_grad()
+    def generate_sample(self, prompt_ids: torch.Tensor, max_len: int, num_steps: int,
+                        generator: Optional[torch.Generator] = None, temperature=1.0,
+                        top_k=0, top_p=1.0, parallel_prefill: bool = False,
+                        gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Sampled continuation (N, num_steps): temperature, then top-k, then
+        top-p, then a categorical draw (`ops.sampling.sample_logits`); each
+        parameter a scalar or per row (N,), temperature <= 0 greedy for that
+        row. Step i's draws are the i-th (N, V) block of Gumbel noise from
+        `generator` (as JAX folds the step into its key), or `gumbel[i]`
+        when the draws (num_steps, N, V) are given."""
+        N, P = prompt_ids.shape
+        states, last_logits = self._prefill(prompt_ids, max_len, parallel_prefill)
+        position = torch.full((), P, dtype=torch.int32, device=prompt_ids.device)
+        tokens = []
+        for i in range(num_steps):
+            nxt = sample_logits(
+                last_logits, temperature, top_k, top_p, generator=generator,
+                gumbel=None if gumbel is None else gumbel[i],
+            )[:, None]
+            logits, states = self.decode_step(nxt, position + i, states)
+            last_logits = logits[:, 0]
+            tokens.append(nxt[:, 0])
+        return torch.stack(tokens, dim=1)
+
+    @torch.no_grad()
+    def generate_beam(self, prompt_ids: torch.Tensor, max_len: int, num_steps: int,
+                      beam_size: int = 4, length_penalty: float = 1.0,
+                      parallel_prefill: bool = False):
+        """Beam search over the decode cache, a fixed number of steps (no
+        early stop at EOS). Returns (tokens (N, beam_size, num_steps),
+        scores (N, beam_size)), best first; a score is the beam's summed
+        log-probability over num_steps ** length_penalty. Ties between
+        candidates go to the lower index, as `jax.lax.top_k` breaks them."""
+        N, P = prompt_ids.shape
+        B = beam_size
+        V = self.cfg.vocab_size
+        device = prompt_ids.device
+
+        # the prompt once at batch N, then every state row repeated per beam
+        states, last_logits = self._prefill(prompt_ids, max_len, parallel_prefill)
+        beam_logp, first_tok = _top_k_stable(torch.log_softmax(last_logits.float(), -1), B)
+        states = [_map_rows(st, lambda x: torch.repeat_interleave(x, B, dim=0))
+                  for st in states]
+        last_tok = first_tok.reshape(N * B, 1)
+        position = torch.full((), P, dtype=torch.int32, device=device)
+        base = torch.arange(N, device=device)[:, None] * B
+        toks, parents = [], []
+        for i in range(num_steps - 1):
+            logits, states = self.decode_step(last_tok, position + i, states)
+            logp = torch.log_softmax(logits[:, 0].float(), -1)
+            total = beam_logp.reshape(N, B, 1) + logp.reshape(N, B, V)
+            beam_logp, flat_idx = _top_k_stable(total.reshape(N, B * V), B)
+            parent = flat_idx // V  # (N, B)
+            tok = flat_idx % V
+            # the states follow their surviving parent beams
+            gather_idx = (base + parent).reshape(-1)
+            states = [_map_rows(st, lambda x: x.index_select(0, gather_idx)) for st in states]
+            last_tok = tok.reshape(N * B, 1)
+            toks.append(tok)
+            parents.append(parent)
+
+        # walk the beams' paths back from the last step
+        beam_ptr = torch.arange(B, device=device)[None, :].expand(N, B)
+        rev = []
+        for tok_t, parent_t in zip(reversed(toks), reversed(parents)):
+            rev.append(torch.gather(tok_t, 1, beam_ptr))
+            beam_ptr = torch.gather(parent_t, 1, beam_ptr)
+        first = torch.gather(first_tok, 1, beam_ptr)
+        seq = torch.stack([first] + rev[::-1], dim=-1)  # (N, B, num_steps)
+        return seq, beam_logp / (num_steps ** length_penalty)
+
     def forward(
         self,
         input_ids: torch.Tensor,
@@ -319,6 +556,19 @@ class OptForCausalLM(nn.Module):
         loss = cross_entropy_shifted(logits, labels) if labels is not None else None
         return {"logits": logits, "loss": loss, "hidden_states": hidden_states,
                 "teacher_captures": captures, "aux_loss": aux_loss}
+
+
+def _top_k_stable(x: torch.Tensor, k: int):
+    """The k largest entries along the last axis and their indices, ties to
+    the lower index (`jax.lax.top_k`'s order; `torch.topk` leaves it
+    unspecified). `+ 0.0` sorts -0.0 with +0.0."""
+    idx = torch.sort(-x + 0.0, dim=-1, stable=True).indices[..., :k]
+    return torch.gather(x, -1, idx), idx
+
+
+def _map_rows(state: SeaDecodeState, fn) -> SeaDecodeState:
+    """`fn` on every field with a leading batch axis; () fields kept."""
+    return SeaDecodeState(*(fn(x) if x.dim() > 0 else x for x in state))
 
 
 def cross_entropy_shifted(

@@ -8,7 +8,8 @@ Port of `sea_tpu/ops/performer.py`:
     `torch.Generator`,
   * causal prefix linear attention in chunks: a running (M, Dv) state for
     the flow between chunks and a small causal-masked dense product inside
-    each chunk, the same arithmetic as the JAX scan;
+    each chunk, the same arithmetic as the JAX scan, optionally starting
+    from and returning the running sums (the decode cache's prefill);
   * `redraw_projections`, the trainers' periodic redraw of every module's
     projection.
 
@@ -18,7 +19,7 @@ Everything is computed in float32 whatever the caller's dtype.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -110,11 +111,17 @@ def causal_linear_attention(
     v: torch.Tensor,
     chunk: int = 128,
     eps: float = 1e-6,
-) -> torch.Tensor:
+    state: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    return_state: bool = False,
+):
     """out_t = (q'_t · C_t) / (q'_t · (s_t + eps)), with prefix sums
     C_t = sum_{s<=t} k'_s v_s^T and s_t = sum_{s<=t} k'_s, in chunks of
     `chunk` rows. T is zero-padded to a whole chunk; padding rows have
-    den <= 0, which is replaced by 1 before the division."""
+    den <= 0, which is replaced by 1 before the division.
+
+    `state`, if given, is the (S, z) of every earlier position, which the
+    sums start from (the decode cache); `return_state=True` returns
+    (out, (S, z)) with the final sums."""
     qp, kp, v = qp.float(), kp.float(), v.float()
     *batch, T, M = qp.shape
     Dv = v.shape[-1]
@@ -126,8 +133,11 @@ def causal_linear_attention(
         v = torch.nn.functional.pad(v, (0, 0, 0, pad))
     nc = (T + pad) // chunk
 
-    S = torch.zeros((*batch, M, Dv), dtype=torch.float32, device=qp.device)
-    z = torch.zeros((*batch, M), dtype=torch.float32, device=qp.device)
+    if state is None:
+        S = torch.zeros((*batch, M, Dv), dtype=torch.float32, device=qp.device)
+        z = torch.zeros((*batch, M), dtype=torch.float32, device=qp.device)
+    else:
+        S, z = state
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.float32, device=qp.device))
     outs = []
     for c in range(nc):
@@ -146,7 +156,10 @@ def causal_linear_attention(
         outs.append(num / den[..., None])
         S = S + torch.einsum("...sm,...sd->...md", k_i, v_i)
         z = z + k_i.sum(dim=-2)
-    return torch.cat(outs, dim=-2)[..., :T, :]
+    out = torch.cat(outs, dim=-2)[..., :T, :]
+    if return_state:
+        return out, (S, z)
+    return out
 
 
 def fast_attention(
