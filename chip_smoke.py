@@ -38,6 +38,14 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 `dense_reference`, two block sizes, and edge cases (empty
                 rows, T=128, a mask with every pixel on); two launches of K3
                 and of K4 on the same operands must give the same bits;
+ 5b. bf16-kernels — the bf16 instances of K2, K3 and K4 against their plain
+                versions on the same bf16 operands (the plain result in
+                float32) at T = 1024, 2048 and 4096 and on a band of empty
+                rows: o within 1e-5 plus half a bf16 ulp, lse within 1e-5,
+                each gradient within 1e-4·max|want| plus half a bf16 ulp; two
+                launches, and blocks 128 x 256 against 64 x 64, equal bit for
+                bit; zeros and no NaN on the empty rows; times at T = 2048
+                beside SDPA's bf16 forward and backward;
   6. train    — the training path: OPT-125m with `use_fused_train`, full
                 width and depth, AdamW steps through `train_steps` on one
                 batch of 1 x 2048 tokens (3 steps) and one of 1 x 8192 (2
@@ -174,7 +182,41 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 there is under 1e-4; run with chunk 1 and chunk 8, whose
                 greedy outputs must be equal; tokens/s, ms per engine step,
                 steps and the pool's bytes;
- 22. result   — one JSON line of per-kernel numbers, then the device line.
+ 22. opt13b-serve — OPT-1.3b (`opt_1_3b`, full width and depth, seeded
+                random weights cast to bf16 as exp_opt27b.py casts its tree),
+                the SEA student's forward at 1 x 2048: 24 launches of K1's
+                bf16 instance and no other kernel, finite bf16 logits, layer
+                0's K1 against its plain version; ms, tokens/s and peak
+                memory beside the dense OPT-1.3b on the same weights; then
+                float32 parameters with compute_dtype bfloat16 (JAX's
+                promotion rule): 24 launches of K1's float32 instance, the
+                embedding and layer outputs bf16, the logits float32;
+ 23. opt13b-train — OPT-1.3b with use_fused_train and bf16 parameters, 3
+                AdamW steps (lr 1e-3) on 1 x 2048: 24 launches each of K2,
+                K3 and K4's bf16 instances a step and no other kernel, the
+                loss finite and falling; layer 0's captured inputs and
+                gradient against the plain versions (as bf16-kernels), K2
+                reproducing the step's output bit for bit, timed beside
+                SDPA; ms per step, tokens/s, peak memory;
+ 24. opt13b-decode — OPT-1.3b with the decode cache, bf16 parameters and
+                states: generate_greedy of 32 tokens from a 1 x 512 prompt
+                prefilled in one forward (24 bf16 K1 launches, no other
+                kernel); the decode logits against the dense forward of the
+                generated sequence, every row (in bf16 over 24 layers each
+                row picks otherwise in some layer; the layers are counted),
+                within 0.18 of the largest |logit| (JAX's own bf16 gap over
+                every row, PERF.md) and the same argmax where the top-2
+                margin exceeds twice the gap; the engine with dtype=torch.bfloat16,
+                4 slots, 4 greedy requests of 17-64 prompt tokens, no kernel,
+                each equal to its prompt decoded alone at bf16 states up to
+                its first top-2 margin under 0.0625;
+ 25. opt13b-kd — `OptTrainer(model="opt-1.3b", param_dtype="bfloat16",
+                moment_dtype="bfloat16")` at 1 x 512, accumulation 2, 2
+                updates: no kernel, every logged term finite, the student
+                moved, the teacher unchanged bit for bit, AdamW's first
+                moment bf16; ms per micro-step and peak memory;
+ 26. result   — one JSON line of per-kernel numbers (K1-K4's bf16 instances
+                beside the float32 ones), then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -210,7 +252,7 @@ from sea_tpu_torch.benchmarks import attention_method_sweep, host_topk_mask, swe
 from sea_tpu_torch.config import opt_config
 from sea_tpu_torch.models.attention import SeaAttention
 from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
-from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m
+from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m, opt_1_3b
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
 from sea_tpu_torch.ops.masks import _ranks_desc, fp_min_for, topk_mask
@@ -244,6 +286,9 @@ TRAIN_KERNELS = {
     "K4": (bs.causal_dkv, "sea_causal_dkv", DIFF_SOURCE,
            "sea_tpu/ops/kernels/block_sparse.py:1463", 8),  # _causal_kernel_dkv
 }
+# the kernels with a bfloat16 instance on an OPT path, by wrapper
+BF16_WRAPPERS = {"K1": bs.sea_block_sparse_attention,
+                 **{kid: w for kid, (w, *_) in TRAIN_KERNELS.items()}}
 TRAIN_LR = 1e-5  # longctx_train_step.py's AdamW rate
 CHECK_TS = (1024, 2048, 4096)  # train-kernel checks; blocks compared at the second
 TRAIN_REQUESTS = ((2048, 3), (8192, 2))  # (tokens, AdamW steps): requests A and B
@@ -297,6 +342,21 @@ SERVE_NEW = (32, 64, 48, 40, 64, 56, 36, 44)
 SERVE_FIRST, SERVE_STAGGER = 5, 24  # requests at once; decode steps before the rest
 SERVE_CHUNKS = (1, 8)
 NEAR_TIE = 1e-4  # a top-2 logit margin under which a greedy pick may flip
+OPT13B_T = 2048  # the OPT-1.3b serve and train requests, 1 x OPT13B_T
+OPT13B_TRAIN_STEPS = 3
+# a bf16 weight of OPT-1.3b's random init (|w| about 0.02, an ulp 1.2e-4)
+# does not move under longctx's rate 1e-5; Adam's first steps move each
+# weight by about the rate
+OPT13B_TRAIN_LR = 1e-3
+OPT13B_P, OPT13B_STEPS, OPT13B_MAX_LEN = 512, 32, 1024  # the decode request
+# decode against the forward in bf16, of the forward's largest |logit|:
+# JAX's own bf16 run of tests/test_opt_decode.py's comparison (tiny OPT cast
+# to bf16, T = 12 and 48, seeds 0-4, every row) reaches 0.18 (PERF.md)
+OPT13B_DECODE_REL = 0.18
+OPT13B_NEAR_TIE = 0.0625  # a bf16 top-2 margin (2 ulps at logits in [4, 8))
+OPT13B_SERVE_PROMPTS = (17, 33, 50, 64)  # tokens; 4 slots, 4 greedy requests
+OPT13B_SERVE_NEW = (16, 12, 16, 8)
+OPT13B_KD_T, OPT13B_KD_ACCUM, OPT13B_KD_STEPS = 512, 2, 2
 
 
 def log(*a):
@@ -354,23 +414,28 @@ def max_err(a, b) -> float:
 
 
 def reset_launches():
-    """Set every kernel wrapper's launch count to 0."""
+    """Set every kernel wrapper's launch counts to 0."""
     bs.sea_block_sparse_attention.launches = 0
     bs.bidir_forward.launches = 0
     bs.alive_mask.launches = 0
     for wrapper, *_ in (*TRAIN_KERNELS.values(), *RING_KERNELS.values()):
         wrapper.launches = 0
+    for wrapper in BF16_WRAPPERS.values():
+        wrapper.bf16_launches = 0
     for kernel in bs.IMPL_KERNELS.values():
         kernel.wrapper.launches = 0
 
 
 def launch_counts() -> dict:
+    """Launches by kernel; 'K1'-'K4' count both types, 'K1 bf16'-'K4 bf16'
+    the bfloat16 instances alone."""
     return {"K1": bs.sea_block_sparse_attention.launches,
             **{kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS},
             "K5": bs.bidir_forward.launches,
             **{kid: RING_KERNELS[kid][0].launches for kid in RING_KERNELS},
             **{kid: bs.IMPL_KERNELS[impl].wrapper.launches
-               for kid, (impl, _) in IMPL_VARIANTS.items()}}
+               for kid, (impl, _) in IMPL_VARIANTS.items()},
+            **{f"{kid} bf16": w.bf16_launches for kid, w in BF16_WRAPPERS.items()}}
 
 
 def check_grad(name, got, want) -> float:
@@ -444,9 +509,10 @@ def phase_device():
     ).stdout.strip().splitlines()[0]
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     log(f"[device] {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}; "
         f"torch {torch.__version__} cuda {torch.version.cuda}; "
-        "TF32 off for matmuls and cuDNN convolutions")
+        "TF32 off for matmuls and cuDNN convolutions, bf16 matmuls reduce in float32")
     log(f"[device] nvidia-smi: {smi}")
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -475,10 +541,13 @@ FLAT_INSTANCE = re.compile(
     r"causal_flat_kernelILi64E(f|13__nv_bfloat16)Lb([01])ELb([01])ELi([0-3])EE")
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
-# the backward bodies `causal_dq_kernel<D>` and `causal_dkv_kernel<D>`
-# (float32 only), and the kernels each is
-DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_kernelILi64EE")
+# the backward bodies `causal_dq_kernel<D, T>` and `causal_dkv_kernel<D, T>`,
+# and the kernels each is
+DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_kernelILi64E(f|13__nv_bfloat16)EE")
 DIFF_KIDS = {"dq": "K3/K7", "dkv": "K4/K8"}
+# the ring's windowed kernels (K6-K8) take float32 only: a bf16 instance is
+# the unsharded kernel's alone
+BF16_KIDS = {"K2/K6": "K2", "K3/K7": "K3", "K4/K8": "K4"}
 
 
 def instance_name(mangled: str):
@@ -487,19 +556,24 @@ def instance_name(mangled: str):
     found = FLAT_INSTANCE.search(mangled)
     if found:
         dt, stats, bidir, impl = found.groups()
-        return (f"{INSTANCE_KIDS[int(stats), int(bidir), int(impl)]} "
-                f"{'float32' if dt == 'f' else 'bfloat16'}")
-    found = DIFF_INSTANCE.search(mangled)
-    return f"{DIFF_KIDS[found.group(1)]} float32" if found else None
+        kid = INSTANCE_KIDS[int(stats), int(bidir), int(impl)]
+    else:
+        found = DIFF_INSTANCE.search(mangled)
+        if not found:
+            return None
+        kid, dt = DIFF_KIDS[found.group(1)], found.group(2)
+    if dt == "f":
+        return f"{kid} float32"
+    return f"{BF16_KIDS.get(kid, kid)} bfloat16"
 
 
 def required_instances() -> set:
     """The instances (as `instance_name` names them) that the entry points
-    launch: the forward body's in both types (K2/K6 float32 only) and the
-    backward bodies' (float32)."""
-    return ({f"{kid} {dt}" for kid in INSTANCE_KIDS.values() for dt in ("float32", "bfloat16")
-             if kid != "K2/K6" or dt == "float32"}
-            | {f"{kid} float32" for kid in DIFF_KIDS.values()})
+    launch: every one of the forward body's and the backward bodies' in
+    both types."""
+    kids = [*INSTANCE_KIDS.values(), *DIFF_KIDS.values()]
+    return ({f"{kid} float32" for kid in kids}
+            | {f"{BF16_KIDS.get(kid, kid)} bfloat16" for kid in kids})
 
 
 def tensor_core_check():
@@ -674,13 +748,16 @@ def layer0_k1(phase, run):
     mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
     sc = torch.sigmoid(buf["estimated_scales"][..., 0])
     got = bs.sea_block_sparse_attention(q, k, v, mask, sc, k_cfg=float(K))
-    want = bs.dense_reference(q, k, v, mask, sc, k_cfg=float(K))
+    # the plain version in float32 on the same values (bf16 inputs upcast)
+    want = bs.dense_reference(q.float(), k.float(), v.float(), mask.float(),
+                              sc.to(q.dtype).float(), k_cfg=float(K))
     err = max_err(got, want)
     density = float(bs.mask_nnz(mask, q.shape[2], True)) / (
-        q.shape[0] * H * q.shape[2] * (q.shape[2] + 1) / 2)
-    log(f"[{phase}] layer-0 kernel inputs {tuple(q.shape)}: kernel vs plain "
-        f"max|err|={err:.3g}; element-mask density {density:.4f} of the causal triangle")
-    require(err <= F32_TOL, f"kernel vs plain on layer-0 inputs: {err}")
+        q.shape[0] * q.shape[1] * q.shape[2] * (q.shape[2] + 1) / 2)
+    log(f"[{phase}] layer-0 kernel inputs {tuple(q.shape)} {str(q.dtype)[6:]}: kernel vs "
+        f"plain max|err|={err:.3g}; element-mask density {density:.4f} of the causal triangle")
+    require(bool(((got.float() - want).abs() <= tolerance(want, q.dtype)).all()),
+            f"kernel vs plain on layer-0 inputs: {err}")
     return q, k, v, mask, sc, err
 
 
@@ -806,20 +883,22 @@ def diff_bound(kid, ops: bs.KernelOperands, mask_m):
     """Least time the card needs for the function one launch of `kid`
     computes: the larger of its FLOPs on the alive elements (per element 4·D
     for K2: q·k, p·v; 6·D for K3: q·k, dO·v, ds·k; 8·D for K4: q·k, dO·v,
-    dsᵀ·q, pᵀ·dO; the count is this mask's element nnz) at the float32 FMA
-    peak, and its bytes (each operand read once, each output written once)
-    at the HBM rate. The tile lists are the kernels' own device and are not
-    counted."""
+    dsᵀ·q, pᵀ·dO; the count is this mask's element nnz) at the peak for the
+    operands' type (the float32 FMA pipes, bf16's tensor cores), and its
+    bytes (each operand read once, each output written once; q, k, v, dO
+    and the outputs in the operands' type, the scaler, lse and delta
+    float32) at the HBM rate. The tile lists are the kernels' own device and
+    are not counted."""
     N, Hh, T, Dd = ops.shape
     flops = TRAIN_KERNELS[kid][4] * Dd * int(bs.mask_nnz(mask_m, ops.k.shape[1], True))
-    tile = N * Hh * T * Dd * 4  # one (NH, T, D) float32 tensor
+    tile = N * Hh * T * Dd * ops.q.element_size()  # one (NH, T, D) tensor
     row = N * Hh * T * 4  # one (NH, T) float32 tensor
     nbytes = ops.mbits.numel() * 4 + ops.row_base.numel() * 4 + 3 * tile + {
         "K2": row + tile + row,  # scaler; out, lse
         "K3": tile + 2 * row + tile,  # dO·scaler, lse, delta; dq
         "K4": tile + 2 * row + 2 * tile,  # dO·scaler, lse, delta; dk, dv
     }[kid]
-    t_ops = flops / PEAK_FLOPS[torch.float32]
+    t_ops = flops / PEAK_FLOPS[ops.q.dtype]
     t_bytes = nbytes / HBM_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes"), flops, nbytes
 
@@ -889,13 +968,14 @@ def check_fused_backward(label, q, k, v, mask, sc, do, **blocks):
 
 
 def measure_train(q, k, v, mask, sc, do):
-    """Kernel, plain and library times of K2, K3 and K4 on one set of inputs,
-    with their bounds. The library call is F.scaled_dot_product_attention at
-    the same shape (dense causal): its forward for K2, and its backward
-    alone, timed once, for the pair K3 and K4."""
+    """Kernel, plain and library times of K2, K3 and K4 on one set of inputs
+    (float32 or bfloat16), with their bounds. The library call is
+    F.scaled_dot_product_attention at the same shape and type (dense
+    causal): its forward for K2, and its backward alone, timed once, for the
+    pair K3 and K4."""
     ops = diff_operands(q, k, v, mask, sc)
     o, lse = bs.causal_fwd_stats(ops)
-    _, dou, delta = bs.backward_terms(do, o, sc, torch.float32)
+    _, dou, delta = bs.backward_terms(do, o, sc, q.dtype)
     qq, kk, vv = (x.detach().clone().requires_grad_() for x in (q, k, v))
     sdpa_out = F.scaled_dot_product_attention(qq, kk, vv, is_causal=True)
     sdpa_bwd = time_ms(lambda: torch.autograd.grad(sdpa_out, (qq, kk, vv), do, retain_graph=True))
@@ -973,7 +1053,112 @@ def phase_train_kernels():
     check_fused_backward("every pixel on", q, k, v, full, sc, do)
 
 
-def run_train(model, ids, steps, label, want=None, after_step=None):
+# ---------------------------------------------------------------------------
+# bfloat16 K2-K4
+# ---------------------------------------------------------------------------
+
+
+def check_grad_bf16(name, got, want) -> float:
+    """A bf16 gradient against the float32 plain result on the same bf16
+    operands: |got − want| <= 1e-8 + 1e-4·max|want| + half a bf16 ulp of
+    want (the kernel sums in float32 and rounds once), and finite."""
+    err = (got.float() - want).abs()
+    limit = GRAD_ATOL + GRAD_RTOL * float(want.abs().max()) + BF16_HALF_ULP * want.abs()
+    require(bool(torch.isfinite(got).all()), f"{name}: not finite")
+    require(bool((err <= limit).all()),
+            f"{name}: max|err| {float(err.max()):.3g}, worst margin "
+            f"{float((err - limit).max()):.3g}")
+    return float(err.max())
+
+
+def bf16_case(T, seed, device):
+    """bf16 q, k, v, scaler and dO for 1 x T, and the budget mask."""
+    q, k, v, sc = qkv(1, T, torch.bfloat16, seed, device)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(seed + 1))
+    return q, k, v, sc.bfloat16(), do.to(device, torch.bfloat16), budget_mask(1, T, seed, device)
+
+
+def bf16_kernel_outputs(q, k, v, mask, sc, do, lse, delta, dou, **blocks):
+    """K2's (o, lse), then K3 and K4 on the given lse and backward terms:
+    (o, lse, dq, dk, dv)."""
+    ops = bs.kernel_operands(bs.prepare_inputs(q, k, v, mask, sc, **blocks), differentiable=True)
+    o, lse_k = bs.causal_fwd_stats(ops)
+    return (o, lse_k, bs.causal_dq(ops, dou, lse, delta), *bs.causal_dkv(ops, dou, lse, delta))
+
+
+def check_bf16_kernels(label, q, k, v, mask, sc, do):
+    """K2, K3 and K4 in bf16 against their plain versions on the same bf16
+    operands: o within 1e-5 plus half a bf16 ulp of the float32 plain
+    result, lse within 1e-5, each gradient within 1e-4·max|want| plus half
+    a bf16 ulp. K3 and K4 read the plain version's lse and the backward
+    terms as the path computes them (dou in bf16, delta float32), so that
+    each kernel is held alone; two launches of each, and the 128 x 256
+    lists against the 64 x 64 ones, give the same bits. Returns ({kernel:
+    max|err|}, the kernels' outputs)."""
+    f = [x.float() for x in (q, k, v, sc)]
+    want_o, want_lse = bs.fwd_with_stats_reference(f[0], f[1], f[2], mask, f[3])
+    _, dou, delta = bs.backward_terms(do, want_o.to(torch.bfloat16), sc, torch.bfloat16)
+    got = bf16_kernel_outputs(q, k, v, mask, sc, do, want_lse, delta, dou)
+    o, lse, dq, dk, dv = got
+    torch.cuda.synchronize()
+    require(all(x.dtype == torch.bfloat16 for x in (o, dq, dk, dv)) and lse.dtype == torch.float32,
+            f"{label}: output types {[x.dtype for x in got]}")
+    inf = torch.isinf(want_lse)
+    require(torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all()),
+            f"{label}: the +inf rows of lse differ")
+    err_lse = max_err(lse[~inf], want_lse[~inf]) if bool((~inf).any()) else 0.0
+    err_o = (o.float() - want_o).abs()
+    require(bool((err_o <= tolerance(want_o, torch.bfloat16)).all()) and err_lse <= F32_TOL,
+            f"{label}: K2 bf16 o err {float(err_o.max()):.3g}, lse err {err_lse:.3g}")
+    want_dq = bs.dq_reference(f[0], f[1], f[2], mask, dou.float(), want_lse, delta)
+    want_dk, want_dv = bs.dkv_reference(f[0], f[1], f[2], mask, dou.float(), want_lse, delta)
+    errs = {
+        "K2": max(float(err_o.max()), err_lse),
+        "K3": check_grad_bf16(f"{label} K3 bf16 dq", dq, want_dq),
+        "K4": max(check_grad_bf16(f"{label} K4 bf16 dk", dk, want_dk),
+                  check_grad_bf16(f"{label} K4 bf16 dv", dv, want_dv)),
+    }
+    again = bf16_kernel_outputs(q, k, v, mask, sc, do, want_lse, delta, dou)
+    require(all(torch.equal(a, b) for a, b in zip(got, again)),
+            f"{label}: two launches of K2, K3 or K4 in bf16 differ")
+    other = bf16_kernel_outputs(q, k, v, mask, sc, do, want_lse, delta, dou,
+                                block_q=128, block_k=256)
+    require(all(torch.equal(a, b) for a, b in zip(got, other)),
+            f"{label}: bf16 K2-K4 at blocks 128 x 256 differ from 64 x 64")
+    log(f"[bf16-kernels] {label}: K2 o {errs['K2']:.3g} (lse {err_lse:.3g}, {int(inf.sum())} "
+        f"+inf rows); K3 dq {errs['K3']:.3g}; K4 dk/dv {errs['K4']:.3g} (max|err| vs the float32 "
+        "plain result on the bf16 operands); two launches, and blocks 128 x 256 against "
+        "64 x 64, equal bit for bit")
+    return errs, got
+
+
+def phase_bf16_kernels():
+    """K2, K3 and K4's bf16 instances against their plain versions at
+    CHECK_TS and on rows with nothing alive; times at T = CHECK_TS[1]
+    beside SDPA's bf16 forward and backward. Returns {kernel: max|err|}."""
+    dev = "cuda"
+    errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    for T in CHECK_TS:
+        q, k, v, sc, do, mask = bf16_case(T, seed=T, device=dev)
+        e, _ = check_bf16_kernels(f"T={T}", q, k, v, mask, sc, do)
+        errs = {kid: max(errs[kid], e[kid]) for kid in errs}
+        if T == CHECK_TS[1]:
+            log_times(f"bf16 T={T}", measure_train(q, k, v, mask, sc, do))
+    q, k, v, sc, do, mask = bf16_case(1024, seed=7, device=dev)
+    mask[:, :, 300:400] = 0.0
+    e, (o, lse, dq, dk, dv) = check_bf16_kernels("empty rows 300-399", q, k, v, mask, sc, do)
+    errs = {kid: max(errs[kid], e[kid]) for kid in errs}
+    zero = max(float(o[:, :, 300:400].abs().max()), float(dq[:, :, 300:400].abs().max()))
+    finite = all(bool(torch.isfinite(x).all()) for x in (o, dq, dk, dv))
+    log(f"[bf16-kernels] empty rows: lse +inf on all of them "
+        f"{bool(torch.isposinf(lse[:, :, 300:400]).all())}; |o|, |dq| there {zero}; "
+        f"all finite {finite}")
+    require(bool(torch.isposinf(lse[:, :, 300:400]).all()) and zero == 0.0 and finite,
+            "bf16 empty rows: lse, zero rows or NaN")
+    return errs
+
+
+def run_train(model, ids, steps, label, want=None, after_step=None, lr=TRAIN_LR):
     """`steps` AdamW steps through `train_steps` on one batch, the launch
     counts set to 0 just before and read after every step. Checks a finite
     loss and, for the SEA student, 12 launches of each of K2, K3 and K4 and
@@ -1002,7 +1187,7 @@ def run_train(model, ids, steps, label, want=None, after_step=None):
             torch.cuda.synchronize()
             last[:] = [time.perf_counter(), launch_counts()]
 
-    losses = train_steps(model, ids, torch.ones_like(ids), steps, lr=TRAIN_LR, callback=on_step)
+    losses = train_steps(model, ids, torch.ones_like(ids), steps, lr=lr, callback=on_step)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if want is None:
         want = {**dict.fromkeys(launch_counts(), 0),
@@ -1079,7 +1264,7 @@ def check_layer0(label, q, k, v, mask, sc, do, step_o):
 def phase_train():
     dev = "cuda"
     (t_a, steps_a), (t_b, steps_b) = TRAIN_REQUESTS
-    model = longctx_model(t_a, 12, dev)
+    model = longctx_model(t_a, 12, dev, "float32")
     g = torch.Generator().manual_seed(12)
     ids_a = torch.randint(4, model.cfg.vocab_size, (1, t_a), generator=g).to(dev)
     ids_b = torch.randint(4, model.cfg.vocab_size, (1, t_b), generator=g).to(dev)
@@ -1111,7 +1296,7 @@ def phase_train():
     # request B: 2 steps on 1 x 8192, longctx_train_step.py's default length,
     # then layer 0 of one more step against the plain versions (the model is
     # freed first: the dense plain versions hold several 3.2 GB score tensors)
-    model_b = longctx_model(t_b, 12, dev)
+    model_b = longctx_model(t_b, 12, dev, "float32")
     _, _, launches_b, _ = run_train(model_b, ids_b, steps_b, f"1x{t_b}")
     captured = capture_layer0(model_b, ids_b)
     del model_b
@@ -1736,7 +1921,7 @@ def phase_ring_train():
     with sharded_attention_scope(group, kind="auto") as ctx:
         kind = resolve_attention_kind(ctx, t=T)
         require(kind == "ring", f"kind='auto' at T={T} over {RING_SHARDS} shards gave {kind}")
-        model = longctx_model(T, 12, dev)
+        model = longctx_model(T, 12, dev, "float32")
         ids = torch.randint(4, model.cfg.vocab_size, (1, T),
                             generator=torch.Generator().manual_seed(14)).to(dev)
         n = RING_SHARDS ** 2 * model.cfg.num_layers
@@ -1751,7 +1936,7 @@ def phase_ring_train():
     torch.cuda.empty_cache()
 
     # the unsharded arm (K2-K4) from the same weights and batch
-    model = longctx_model(T, 12, dev)
+    model = longctx_model(T, 12, dev, "float32")
     plain = train_arm(model, ids, steps, f"unsharded 1x{T}")
     del model
     torch.cuda.empty_cache()
@@ -1800,11 +1985,11 @@ def phase_seq_head():
     del model, plain, got
     torch.cuda.empty_cache()
 
-    unsharded = train_arm(longctx_model(T, 12, dev), ids, 2, f"unsharded 1x{T}")
+    unsharded = train_arm(longctx_model(T, 12, dev, "float32"), ids, 2, f"unsharded 1x{T}")
     for kind in ("seq", "head"):
         with sharded_attention_scope(group, kind=kind):
             n = RING_SHARDS * n_layers
-            arm = train_arm(longctx_model(T, 12, dev), ids, 2, f"{kind} 1x{T}",
+            arm = train_arm(longctx_model(T, 12, dev, "float32"), ids, 2, f"{kind} 1x{T}",
                             want={**dict.fromkeys(launch_counts(), 0),
                                   **dict.fromkeys(TRAIN_KERNELS, n)})
         compare_arms("seq-head", arm, unsharded)
@@ -2600,6 +2785,308 @@ def phase_serve():
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# OPT-1.3b in bfloat16: serve, train, decode and serve, KD
+# ---------------------------------------------------------------------------
+
+
+def opt13b(weights=None, method="perlin", **sea_kw) -> OptForCausalLM:
+    """OPT-1.3b (`opt_1_3b`: hidden 2048, 24 layers, 32 heads of 64, FFN
+    8192, bfloat16 compute) at full width and depth on the card, its SEA
+    config `opt_config(num_heads=32, head_dim=64, **sea_kw)`, cast to
+    bfloat16 as exp_opt27b.py casts its tree: seeded random weights (seed
+    0) or `weights`, a state dict (a dense model takes the shared ones)."""
+    cfg = opt_1_3b(method, sea=opt_config(num_heads=32, head_dim=64, **sea_kw))
+    if weights is None:
+        model = OptForCausalLM(cfg, device="cuda", seed=0)
+    else:
+        # built on the card, where the layers' default init (overwritten by
+        # the weights) takes no host time
+        with torch.device("cuda"):
+            model = OptForCausalLM(cfg, device="cuda", seed=None)
+    model.to(torch.bfloat16)
+    if weights is not None:
+        missing, _ = model.load_state_dict(weights, strict=False)
+        require(not missing, f"OPT-1.3b weights missing {missing[:4]}")
+    return model.eval()
+
+
+def bf16_want(**kw) -> dict:
+    """Launches per step or forward: `kw` for the kernels named, in both
+    counts (all and bf16 instance), 0 for every other kernel."""
+    want = dict.fromkeys(launch_counts(), 0)
+    for kid, n in kw.items():
+        want[kid] = want[f"{kid} bf16"] = n
+    return want
+
+
+def phase_opt13b_serve(weights):
+    """OPT-1.3b's SEA student with bf16 parameters, forward at 1 x 2048 on
+    the benchmark path: 24 launches of K1's bf16 instance and no other
+    kernel; layer 0's K1 against its plain version; ms, tokens/s and peak
+    memory beside the dense model on the same weights. Then the promotion
+    rule on the card: float32 parameters with compute_dtype bfloat16 run
+    every projection and K1 in float32 (24 launches of K1's float32
+    instance), only the embedding and the layer outputs bf16. Returns
+    (K1 launches of each instance, layer 0's K1 inputs and max|err|)."""
+    model = opt13b(weights)
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    g = torch.Generator().manual_seed(31)
+    ids = torch.randint(4, V, (1, OPT13B_T), generator=g).to("cuda")
+    am = torch.ones_like(ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.inference_mode():
+        logits = model(ids, am, benchmarking=True)["logits"]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[opt13b-serve] OPT-1.3b perlin, bf16 parameters, 1x{OPT13B_T}: logits "
+        f"{tuple(logits.shape)} {str(logits.dtype)[6:]} finite="
+        f"{bool(torch.isfinite(logits).all())}, launches {counts}, peak {peak:.2f} GiB")
+    require(counts == bf16_want(K1=L), f"OPT-1.3b forward launches {counts}")
+    require(logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
+            "OPT-1.3b logits")
+    captured = layer0_k1("opt13b-serve", lambda: model(ids, am, benchmarking=True))
+    ms, _ = forward_ms(model, ids, am)
+    del model
+    dense = opt13b(weights, "none")
+    dense_ms, _ = forward_ms(dense, ids, am)
+    del dense
+    torch.cuda.empty_cache()
+    log(f"[opt13b-serve] {ms:.2f} ms per forward ({OPT13B_T / ms * 1e3:.0f} tokens/s), dense "
+        f"OPT-1.3b on the same bf16 weights {dense_ms:.2f} ms ({OPT13B_T / dense_ms * 1e3:.0f} "
+        f"tokens/s)")
+
+    # the promotion rule: float32 parameters, bfloat16 compute
+    model32 = opt13b({n: w.float() for n, w in weights.items()}).float()
+    require(model32.cfg.compute_dtype == "bfloat16", "the builder's compute type")
+    reset_launches()
+    with torch.inference_mode():
+        out = model32(ids, am, benchmarking=True, output_hidden_states=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    types = {str(h.dtype)[6:] for h in out["hidden_states"]}
+    log(f"[opt13b-serve] float32 parameters, compute_dtype bfloat16: launches {counts}; "
+        f"embedding and layer outputs {types}, logits {str(out['logits'].dtype)[6:]}")
+    require(counts == {**bf16_want(), "K1": L}, f"promotion-rule launches {counts}")
+    require(types == {"bfloat16"} and out["logits"].dtype == torch.float32
+            and bool(torch.isfinite(out["logits"]).all()), "promotion-rule types")
+    del model32, out
+    torch.cuda.empty_cache()
+    return L, captured
+
+
+def phase_opt13b_train(weights):
+    """OPT-1.3b with use_fused_train and bf16 parameters, OPT13B_TRAIN_STEPS
+    AdamW steps on 1 x 2048: 24 launches each of K2, K3 and K4's bf16
+    instances a step and no other kernel, the loss finite and falling;
+    layer 0's kernel inputs and incoming gradient from one more step held
+    against the plain versions (`check_bf16_kernels`), K2 reproducing the
+    step's output bit for bit, and timed. Returns ({kernel: bf16
+    launches}, {kernel: max|err|}, times)."""
+    model = opt13b(weights, use_fused_train=True)
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    g = torch.Generator().manual_seed(37)
+    ids = torch.randint(4, V, (1, OPT13B_T), generator=g).to("cuda")
+    want = bf16_want(K2=L, K3=L, K4=L)
+    losses, _, launches, _ = run_train(model, ids, OPT13B_TRAIN_STEPS, f"opt13b 1x{OPT13B_T}",
+                                       want=want, lr=OPT13B_TRAIN_LR)
+    require(losses[-1] < losses[0], f"the OPT-1.3b loss did not fall: {losses}")
+    q, k, v, mask, sc, do, step_o = capture_layer0(model, ids)
+    del model
+    torch.cuda.empty_cache()
+    errs, got = check_bf16_kernels(f"opt13b layer-0 1x{OPT13B_T}", q, k, v, mask, sc, do)
+    require(torch.equal(got[0], step_o), "K2 on the captured inputs differs from the step's output")
+    measured = measure_train(q, k, v, mask, sc, do)
+    log_times(f"opt13b layer-0 1x{OPT13B_T} bf16", measured)
+    torch.cuda.empty_cache()
+    return {kid: launches[f"{kid} bf16"] for kid in TRAIN_KERNELS}, errs, measured
+
+
+def solo_greedy(model, prompt, n, dtype):
+    """`prompt` alone through decode steps at states of `dtype` (the
+    engine's), then n greedy steps: (tokens, top-2 margin at each pick)."""
+    ids = torch.tensor([prompt], device="cuda")
+    states = model.init_decode_states(1, OPT13B_MAX_LEN, dtype)
+    pos = torch.zeros((), dtype=torch.int32, device="cuda")
+    tokens, margins = [], []
+    for t in range(len(prompt) + n - 1):
+        tok = ids[:, t:t + 1] if t < len(prompt) else torch.tensor([[tokens[-1]]], device="cuda")
+        logits, states = model.decode_step(tok, pos + t, states)
+        if t >= len(prompt) - 1:
+            top2 = torch.topk(logits[0, 0].float(), 2)
+            tokens.append(int(top2.indices[0]))
+            margins.append(float(top2.values[0] - top2.values[1]))
+    return tokens, margins
+
+
+def phase_opt13b_decode(weights):
+    """OPT-1.3b with the decode cache and bf16 parameters: generate_greedy
+    of 32 tokens from a 1 x 512 prompt prefilled in one forward (24 bf16
+    K1 launches, no other kernel); the decode logits against the dense
+    forward of the generated sequence within OPT13B_DECODE_REL of the
+    forward's largest |logit| (JAX's own bf16 gap, PERF.md), and the same
+    argmax wherever the forward's top-2 margin exceeds twice the row's gap.
+    In bf16 over 24 layers every row picks otherwise in some layer, so no
+    row is left out: the bound, as JAX's measurement, covers rows that pick
+    otherwise (the layers that differ are counted). Then the serving engine in
+    bf16 (`dtype=torch.bfloat16`), 4 slots, 4 greedy requests, each equal
+    to its prompt decoded alone at the engine's state type up to its first
+    near tie. Returns the prefill's K1 launches."""
+    model = opt13b(weights, use_cache=True)
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    P, n = OPT13B_P, OPT13B_STEPS
+    g = torch.Generator().manual_seed(41)
+    prompt = torch.randint(4, V, (1, P), generator=g).to("cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = model.generate_greedy(prompt, OPT13B_MAX_LEN, n, parallel_prefill=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[opt13b-decode] generate_greedy 1x{P} -> {n} tokens, bf16 parameters and states: "
+        f"{wall:.1f} ms, peak {peak:.2f} GiB; launches {counts}")
+    require(counts == bf16_want(K1=L), f"OPT-1.3b decode launches {counts}")
+    require(tokens.shape == (1, n) and valid_ids(tokens, V), "greedy tokens")
+
+    last, states = model.prefill_parallel(prompt, OPT13B_MAX_LEN, last_only=True)
+    require(all(st.k_cache.dtype == torch.bfloat16 and st.performer_S.dtype == torch.float32
+                for st in states), "prefill state types")
+    dec, dec_masks, _ = decode_steps(model, tokens, states, P)
+    require(torch.equal(last[:, -1].argmax(-1), tokens[:, 0])
+            and torch.equal(dec[:, :-1].argmax(-1), tokens[:, 1:]),
+            "the decode steps do not reproduce generate_greedy's tokens")
+    seq = torch.cat([prompt, tokens], dim=1)
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    with torch.inference_mode():
+        full = model(seq, torch.ones_like(seq))["logits"][:, P:]
+    fwd_masks = bench.buffers["partial_attention_mask_before_interp"]
+    bench.activate_temp_buffers(False)
+    # layers in which each decoded row picks otherwise than the forward's row
+    differ = torch.zeros(n, dtype=torch.int64)
+    for i in range(n):
+        for li in range(L):
+            d = dec_masks[i * L + li][0, :, 0] > -1
+            f = fwd_masks[li][0, :, P + i] > -1
+            differ[i] += int(bool((d != f).any()))
+    bench.buffers = {}
+    del fwd_masks
+    dec, full = dec.float(), full.float()
+    gap = (dec - full).abs().amax(-1)[0].cpu()
+    top2 = torch.topk(full[0], 2, dim=-1).values.cpu()
+    margin = top2[:, 0] - top2[:, 1]
+    agree = (dec.argmax(-1) == full.argmax(-1))[0].cpu()
+    bound = OPT13B_DECODE_REL * float(full.abs().max())
+    decided = margin > 2 * gap
+    log(f"[opt13b-decode] decode vs the dense forward at positions {P}-{P + n - 1}: "
+        f"{int((differ > 0).sum())} of {n} rows pick otherwise in some of the {L} layers "
+        f"(a row in {float(differ.float().mean()):.2f} layers on average, at most "
+        f"{int(differ.max())}); over every row max|gap| {float(gap.max()):.4g} (bound "
+        f"{bound:.4g} = {OPT13B_DECODE_REL} x max|logit| {float(full.abs().max()):.4g}), "
+        f"argmax agreement {float(agree.float().mean()):.4f}; {int(decided.sum())} rows whose "
+        f"top-2 margin exceeds twice their gap, all agreeing: {bool(agree[decided].all())}")
+    require(float(gap.max()) <= bound and bool(agree[decided].all()),
+            "bf16 decode against the forward")
+
+    # the serving engine in bf16
+    rng = np.random.default_rng(43)
+    requests = [(rng.integers(4, V, size=p).tolist(), m)
+                for p, m in zip(OPT13B_SERVE_PROMPTS, OPT13B_SERVE_NEW)]
+    ps = PAGE_SIZE
+    eng = ServingEngine(model, max_slots=len(requests), page_size=ps,
+                        num_pages=1 + len(requests) * (OPT13B_MAX_LEN // ps),
+                        max_pages_per_slot=OPT13B_MAX_LEN // ps, seed=0,
+                        dtype=torch.bfloat16, device="cuda")
+    require(eng.pool_k.dtype == torch.bfloat16, "the engine's pools")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, m) for p, m in requests]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    require(not any(counts.values()), f"the bf16 engine launched kernels: {counts}")
+    new = sum(m for _, m in requests)
+    log(f"[opt13b-decode] engine, bf16 pools and states, {len(requests)} slots: "
+        f"{len(requests)} greedy requests (prompts {OPT13B_SERVE_PROMPTS}) -> {new} tokens in "
+        f"{wall:.1f} ms ({new / wall * 1e3:.1f} tokens/s); pools "
+        f"{2 * eng.pool_k.numel() * eng.pool_k.element_size() / 2 ** 20:.1f} MiB")
+    for rid, (p, m) in zip(rids, requests):
+        got = out[rid].output
+        require(out[rid].done and len(got) == m and all(0 <= x < V for x in got),
+                f"request {rid}")
+        solo, margins = solo_greedy(model, p, m, torch.bfloat16)
+        stop = next((s for s, x in enumerate(margins) if x < OPT13B_NEAR_TIE), m)
+        log(f"[opt13b-decode] request {rid} (prompt {len(p)}): equal to solo decoding on "
+            f"{sum(a == b for a, b in zip(got, solo))} of {m} tokens, compared up to step "
+            f"{stop} (smallest top-2 margin {min(margins):.4g})")
+        require(got[:stop] == solo[:stop], f"engine request {rid} differs from solo decoding")
+    del model, eng
+    torch.cuda.empty_cache()
+    return L
+
+
+def phase_opt13b_kd():
+    """The KD trainer on OPT-1.3b (`OptTrainer(model="opt-1.3b",
+    param_dtype="bfloat16", moment_dtype="bfloat16")`, 1 x 512 windows,
+    accumulation 2) for 2 updates: no kernel, every logged term finite, the
+    student moved and the teacher unchanged bit for bit, AdamW's first
+    moment bf16; ms per micro-step and peak memory."""
+    with tempfile.TemporaryDirectory() as save_dir:
+        cfg = TrainerConfig(model="opt-1.3b", param_dtype="bfloat16", moment_dtype="bfloat16",
+                            max_seq_len=OPT13B_KD_T, stride=OPT13B_KD_T // 2,
+                            gradient_accumulation_steps=OPT13B_KD_ACCUM,
+                            num_steps=OPT13B_KD_STEPS, log_steps=1, eval_steps=10 ** 9,
+                            save_dir=save_dir)
+        t0 = time.perf_counter()
+        tr = OptTrainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[opt13b-kd] OPT-1.3b teacher and student (bf16 parameters, compute "
+            f"{tr.s_cfg.compute_dtype}) built in {time.perf_counter() - t0:.1f} s")
+        require(all(p.dtype == torch.bfloat16 for m in (tr.teacher, tr.student)
+                    for p in m.parameters()), "KD parameters not bf16")
+        student0 = [p.detach().clone() for p in tr.student.parameters()]
+        teacher0 = [p.detach().clone() for p in tr.teacher.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        micro = OPT13B_KD_STEPS * OPT13B_KD_ACCUM
+        with open(tr.metrics_path) as f:
+            records = [json.loads(line) for line in f if "loss_kd_hidden" in line]
+        terms = [{k: v for k, v in r.items() if k.startswith("loss") or k == "student_task_loss"}
+                 for r in records]
+        moved = sum(not torch.equal(p, p0) for p, p0 in zip(tr.student.parameters(), student0))
+        same = all(torch.equal(p, p0) for p, p0 in zip(tr.teacher.parameters(), teacher0))
+        log(f"[opt13b-kd] {OPT13B_KD_STEPS} updates ({micro} micro-steps of 1x{OPT13B_KD_T}) in "
+            f"{wall:.1f} ms: {wall / micro:.2f} ms per micro-step "
+            f"({OPT13B_KD_T * micro / wall * 1e3:.0f} tokens/s), peak {peak:.2f} GiB; launches "
+            f"{counts}; {moved} of {len(student0)} student tensors moved, teacher unchanged "
+            f"{same}; terms {terms}")
+        require(tr.step == OPT13B_KD_STEPS, f"the KD trainer took {tr.step} steps")
+        require(not any(counts.values()), f"the KD step launched kernels: {counts}")
+        require(len(terms) == OPT13B_KD_STEPS
+                and all(math.isfinite(v) for r in terms for v in r.values()),
+                f"KD terms not finite: {terms}")
+        require(moved > 0 and same, "the student did not move or the teacher did")
+        require(all(m.dtype == torch.bfloat16 for m in tr.optimizer.mu), "AdamW's mu not bf16")
+        del tr, student0, teacher0
+    torch.cuda.empty_cache()
+    return dict(micro_ms=wall / micro, peak=peak)
+
+
 def main():
     smi = phase_device()
     phase_sort()
@@ -2635,6 +3122,7 @@ def main():
     }]
 
     phase_train_kernels()
+    bf16_errs = phase_bf16_kernels()
     train_launches, train_errs, train_m = phase_train()
     for kid, (_, name, source, replaces, _) in TRAIN_KERNELS.items():
         t = train_m[kid]
@@ -2746,6 +3234,53 @@ def main():
         f"{dec['step_ms']:.3f} ms per step at N=1, {dec['step8_ms']:.3f} at "
         f"N={DECODE_BATCH}, peak {dec['peak']:.2f} GiB")
     phase_serve()
+
+    # OPT-1.3b in bfloat16: the random weights built once, cast to bf16
+    t0 = time.perf_counter()
+    weights = opt13b().state_dict()
+    log(f"[opt13b] OPT-1.3b weights (seed 0, bf16) built in {time.perf_counter() - t0:.1f} s")
+    serve_launches, captured = phase_opt13b_serve(weights)
+    k1_bf16 = measure(*captured[:5], k_cfg=float(K))
+    log(f"[result] OPT-1.3b layer 0 {tuple(captured[0].shape)} bfloat16: K1 {k1_bf16['ms']:.4f} "
+        f"ms, plain {k1_bf16['plain_ms']:.3f} ms, sdpa {k1_bf16['library_ms']:.4f} ms, bound "
+        f"{k1_bf16['bound_ms']:.4f} ms by {k1_bf16['bound_by']}")
+    kernels[0]["launches"] += serve_launches  # the promotion check's float32 forward
+    train13_launches, train13_errs, train13_m = phase_opt13b_train(weights)
+    prefill_launches = phase_opt13b_decode(weights)
+    del weights
+    torch.cuda.empty_cache()
+    kd13 = phase_opt13b_kd()
+    log(f"[result] OPT-1.3b KD at 1x{OPT13B_KD_T}: {kd13['micro_ms']:.2f} ms per micro-step, "
+        f"peak {kd13['peak']:.2f} GiB")
+    kernels.append({
+        "name": "sea_causal_flat_forward (bfloat16)",
+        "route": "cuda",
+        "source": KERNEL_SOURCE,
+        "replaces": REPLACES,
+        "launches": serve_launches + prefill_launches,
+        "max_abs_err": captured[5],
+        "ms": k1_bf16["ms"],
+        "plain_ms": k1_bf16["plain_ms"],
+        "bound_ms": k1_bf16["bound_ms"],
+        "bound_by": k1_bf16["bound_by"],
+        "library_ms": k1_bf16["library_ms"],
+    })
+    for kid, (_, name, source, replaces, _) in TRAIN_KERNELS.items():
+        t = train13_m[kid]
+        require(train13_launches[kid] > 0, f"the OPT-1.3b train path never launched bf16 {kid}")
+        kernels.append({
+            "name": f"{name} (bfloat16)",
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": train13_launches[kid],
+            "max_abs_err": max(bf16_errs[kid], train13_errs[kid]),
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

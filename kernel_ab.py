@@ -98,8 +98,8 @@ P, I, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 ARGTYPES = {
     "sea_causal_flat_forward": [P] * 9 + [I] * 10 + [FL] * 4 + [I, P],
     "sea_causal_word_range_forward": [P] * 10 + [I] * 11 + [FL] * 4 + [I, P],
-    "sea_causal_dq": [P] * 11 + [I] * 10 + [P],
-    "sea_causal_dkv": [P] * 12 + [I] * 10 + [P],
+    "sea_causal_dq": [P] * 11 + [I] * 11 + [P],
+    "sea_causal_dkv": [P] * 12 + [I] * 11 + [P],
     "sea_window_dq": [P] * 11 + [I] * 11 + [P],
     "sea_window_dkv": [P] * 12 + [I] * 11 + [P],
 }

@@ -7,10 +7,11 @@
 //   * `_causal_kernel_flat` (impl "flat", the causal benchmark path), entry
 //     point `sea_causal_flat_forward` (K1);
 //   * `_causal_kernel_fwd_stats` (the forward of the differentiable
-//     `fused_sparse_attention`), entry point `sea_causal_fwd_stats` (K2): the
-//     body instantiated with STATS = true, without the undersampling
-//     predicate, and writing the per-row logsumexp (+inf on rows with no
-//     alive column) that the backward kernels (block_sparse_diff.cu) read;
+//     `fused_sparse_attention`), entry point `sea_causal_fwd_stats` (K2,
+//     float32 or bf16): the body instantiated with STATS = true, without
+//     the undersampling predicate, and writing the per-row logsumexp (+inf
+//     on rows with no alive column) that the backward kernels
+//     (block_sparse_diff.cu) read;
 //   * `_kernel` (the padded bidirectional path of BERT/LRA benchmarking),
 //     entry point `sea_bidir_forward` (K5): the body instantiated with
 //     BIDIR = true;
@@ -749,20 +750,27 @@ extern "C" int sea_causal_flat_forward(
   return (int)e;
 }
 
-// The forward of the differentiable path: float32 in and out, lse (nh, t_dst)
-// float32.
+// The forward of the differentiable path (K2): f32 or bf16 in and out, lse
+// (nh, t_dst) float32.
 extern "C" int sea_causal_fwd_stats(
     const void* q, const void* k, const void* v, const void* mbits,
     const void* scaler, const void* counts, const void* idx,
     const void* rowbase, void* out, void* lse, int nh, int t_dst, int t_src,
     int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
-    int nkb, void* stream) {
+    int nkb, int is_bf16, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<64, float, true, false>(
-      q, k, v, mbits, scaler, counts, idx, nullptr, rowbase, nullptr, out, lse,
-      nh, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, 0, 1.0f,
-      1.0f, 1.0f, 1.0f, 0, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t e =
+      is_bf16 ? launch<64, __nv_bfloat16, true, false>(
+                    q, k, v, mbits, scaler, counts, idx, nullptr, rowbase,
+                    nullptr, out, lse, nh, t_dst, t_src, t_m, n_words, block_q,
+                    block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0, s)
+              : launch<64, float, true, false>(
+                    q, k, v, mbits, scaler, counts, idx, nullptr, rowbase,
+                    nullptr, out, lse, nh, t_dst, t_src, t_m, n_words, block_q,
+                    block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0, s);
+  return (int)e;
 }
 
 // K6, the forward with stats over one K/V window (float32): k and v are

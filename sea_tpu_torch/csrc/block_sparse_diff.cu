@@ -3,9 +3,10 @@
 //
 // Replaces four TPU kernels of sea_tpu/ops/kernels/block_sparse.py, the
 // backward of `fused_sparse_attention` (`_fused_bwd`):
-//   * `_causal_kernel_dq`, entry point `sea_causal_dq` (K3):
+//   * `_causal_kernel_dq`, entry point `sea_causal_dq` (K3, float32 or bf16):
 //         dq[r] = Σ_s ds[r, s] · k[s];
-//   * `_causal_kernel_dkv`, entry point `sea_causal_dkv` (K4):
+//   * `_causal_kernel_dkv`, entry point `sea_causal_dkv` (K4, float32 or
+//     bf16):
 //         dk[s] = Σ_r ds[r, s] · q[r],   dv[s] = Σ_r p[r, s] · dou[r];
 // and the backward of the ring's `ring_fused_train_attention`
 // (sea_tpu/parallel/sharded_attention.py), the same sums over one K/V window
@@ -30,10 +31,11 @@
 // package does. The element mask is the forward body's, from sea_mask.cuh
 // (`causal_pixel_recip`), so all three kernels agree on it bit for bit.
 //
-// Design. Both kernels are FlashAttention-2's backward on mma.sync, float32
-// as split TF32 ("3xTF32", as the forward body: each operand hi + lo in TF32,
-// a·b summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with m16n8k8 TF32 mmas
-// into float32, each product to about 2^-21 of its size). A block is 4
+// Design (float32; bf16 below). Both kernels are FlashAttention-2's backward
+// on mma.sync, float32 as split TF32 ("3xTF32", as the forward body: each
+// operand hi + lo in TF32, a·b summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
+// with m16n8k8 TF32 mmas into float32, each product to about 2^-21 of its
+// size). A block is 4
 // warps (128 threads); every product is one of the forward's two shapes
 // (sea_mma.cuh): Q·Kᵀ-shaped, with both operands read as float2 along d, or
 // P·V-shaped, with the A operand a C fragment as it stands and B read down
@@ -76,6 +78,31 @@
 //     exactly and so adds exact zeros: lists of other block sizes (or a
 //     shard that never lists it) give the same bits.
 //
+// bfloat16 (K3 and K4 only; the window entries K7 and K8 take float32). The
+// JAX kernels take bf16 operands, and round P and dS to bf16 before their
+// products (`ds.astype(k_ref.dtype)`, `p.astype(do_ref.dtype)`); outputs come
+// back in q's type. These instances keep the float32 bodies' walk, predicate,
+// row terms and epilogue, and change only the element type and the products:
+//   * Q, K, V and dO tiles are bf16, half the float32 bytes. The operand
+//     that stays for the whole block lives in registers as mma A fragments,
+//     read once from global memory (dq: Q and dO, 32 registers; dk/dv: K and
+//     V), as the forward keeps Q; the tiles that walk go through shared
+//     memory, rows padded by 16 bytes so that ldmatrix is free of bank
+//     conflicts. dq takes 40 KB and dk/dv 46 KB of shared memory (float32:
+//     112 and 118 KB), so shared memory no longer caps the blocks an SM
+//     holds: the register cap of two blocks (255 a thread) does, which gives
+//     dk/dv two blocks an SM where float32 fits one.
+//   * Every product is an m16n8k16 bf16 mma with float32 sums: S = Q·Kᵀ and
+//     dP = dO·Vᵀ (dk/dv: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ) are exact products of the
+//     bf16 operands summed in float32; B operands come by ldmatrix (rows of
+//     the walking tile for S and dP, transposed for dS·K, Pᵀ·dO and dSᵀ·Q).
+//   * P and dS (Pᵀ, dSᵀ) are float32 and are split into bf16 hi + lo, two
+//     mmas into the same sum, small terms first, as the forward splits P.
+//     Each product then keeps about 2^-16 of its size where one rounding
+//     of P or dS (JAX's) would cost 2^-9: the gradients track the float32
+//     plain version on the same bf16 operands, rounded once to bf16.
+//
+
 // What bounds them on this card. As functions they are bound by bytes: per
 // alive element dq needs 6·D FLOPs and dk/dv 8·D, and at the main path's
 // densities (6-12% of the causal triangle) reading q, k, v, dO, the mask
@@ -86,6 +113,8 @@
 // some 20 instructions per element, and read each visited sub-tile from L2
 // once per tile of the other side. TMA, wgmma and gathering alive columns
 // are later work.
+
+#include <type_traits>
 
 #include "sea_mask.cuh"
 #include "sea_mma.cuh"
@@ -100,50 +129,139 @@ using sea::cp_async4;
 using sea::cp_async_commit;
 using sea::cp_async_wait;
 using sea::exp2_sfu;
+using sea::ldsm_x4;
+using sea::ldsm_x4_trans;
 using sea::LOG2E;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
 using sea::misaligned;
 using sea::mma_3xtf32;
+using sea::mma_bf16;
 using sea::split_a;
+using sea::split_bf16;
 
 constexpr int BQ = sea::TILE;   // query rows per tile
 constexpr int BKT = sea::TILE;  // key columns per tile
 constexpr int TPB = 128;        // 4 warps of 16 rows (dq) or 16 columns (dk/dv)
-constexpr int LD = 64 + 8;       // floats of a padded tile row
-constexpr int TILE_F = 64 * LD;  // floats of one tile
+constexpr int LD = 64 + 8;       // elements of a padded tile row
+constexpr int TILE_F = 64 * LD;  // elements of one tile
 
-// dq: two stages of (K, V), then Q, dO, then the mask words.
-constexpr int DQ_SMEM = 6 * TILE_F * 4 + BQ * MAX_WORDS * 4;
-// dk/dv: K, V, then two stages of (Q, dO, mask words, row terms).
-constexpr int DKV_STAGE = 2 * TILE_F * 4 + BQ * MAX_WORDS * 4 + BQ * 16;
-constexpr int DKV_SMEM = 2 * TILE_F * 4 + 2 * DKV_STAGE;
+template <typename T>
+constexpr bool IS_F32 = std::is_same<T, float>::value;
+template <typename T>
+constexpr int TILE_BYTES = TILE_F * (int)sizeof(T);
+
+// dq: two stages of (K, V), then (float32) Q, dO, then the mask words.
+template <typename T>
+constexpr int DQ_SMEM = (IS_F32<T> ? 6 : 4) * TILE_BYTES<T> + BQ * MAX_WORDS * 4;
+// dk/dv: (float32) K, V, then two stages of (Q, dO, mask words, row terms).
+template <typename T>
+constexpr int DKV_STAGE = 2 * TILE_BYTES<T> + BQ * MAX_WORDS * 4 + BQ * 16;
+template <typename T>
+constexpr int DKV_SMEM = (IS_F32<T> ? 2 * TILE_BYTES<T> : 0) + 2 * DKV_STAGE<T>;
+// float32 dk/dv fills an SM's shared memory with one block; bf16 fits two
+template <typename T>
+constexpr int DKV_MIN_BLOCKS = IS_F32<T> ? 1 : 2;
 
 __device__ __forceinline__ float2 ld2(const float* tile, int c, int d) {
   return *reinterpret_cast<const float2*>(tile + c * LD + d);
 }
 
-// 64 rows of D floats into a tile
-template <int D>
-__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int tid) {
+// 64 rows of D elements into a tile
+template <int D, typename T>
+__device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, int tid) {
   copy_rows<D, TPB>(dst, LD, src, tid);
 }
 
+// bf16: the A fragments of 16 rows (r0 and r0 + 8 for the thread's g) of a
+// (64, D) tile in global memory, k-step j's four registers
 template <int D>
+__device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4],
+                                       const __nv_bfloat16* __restrict__ r0, int t4) {
+  const __nv_bfloat16* r1 = r0 + 8 * D;
+#pragma unroll
+  for (int j = 0; j < D / 16; ++j) {
+    a[j][0] = *reinterpret_cast<const uint32_t*>(r0 + 16 * j + 2 * t4);
+    a[j][1] = *reinterpret_cast<const uint32_t*>(r1 + 16 * j + 2 * t4);
+    a[j][2] = *reinterpret_cast<const uint32_t*>(r0 + 16 * j + 8 + 2 * t4);
+    a[j][3] = *reinterpret_cast<const uint32_t*>(r1 + 16 * j + 8 + 2 * t4);
+  }
+}
+
+// bf16: c[n] += A·Bᵀ for the 64 rows of a shared tile `b` (B's columns n:
+// tile rows 8·n .. 8·n + 7, k: d), A the fragments `a` of 16 rows by D
+template <int D>
+__device__ __forceinline__ void mma_rows(float (&c)[8][4], const uint32_t (&a)[D / 16][4],
+                                         const __nv_bfloat16* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+#pragma unroll
+    for (int jp = 0; jp < 4; ++jp) {
+      // matrices: (rows 16·jp + 0..7, d + 0..7), (.., d + 8..15),
+      // (rows + 8..15, d + 0..7), (.., d + 8..15)
+      uint32_t f[4];
+      ldsm_x4(f, b + (16 * jp + ((lane >> 4) << 3) + (lane & 7)) * LD + 16 * kk +
+                     (((lane >> 3) & 1) << 3));
+      mma_bf16(c[2 * jp], a[kk], f[0], f[1]);
+      mma_bf16(c[2 * jp + 1], a[kk], f[2], f[3]);
+    }
+}
+
+// bf16: c[n] += X·B over the 64 rows of a shared tile `b` (k: tile rows, B's
+// columns n: d), X the float32 C fragments `x` (16 rows by the 64 k) split
+// into bf16 hi + lo, the lo product first
+template <int D>
+__device__ __forceinline__ void mma_split(float (&c)[D / 8][4], const float (&x)[8][4],
+                                          const __nv_bfloat16* b, int lane) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    // k = 16·kk .. 16·kk + 15 are C fragments 2·kk and 2·kk + 1
+    uint32_t ah[4], al[4];
+    split_bf16(x[2 * kk][0], x[2 * kk][1], ah[0], al[0]);
+    split_bf16(x[2 * kk][2], x[2 * kk][3], ah[1], al[1]);
+    split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], ah[2], al[2]);
+    split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], ah[3], al[3]);
+#pragma unroll
+    for (int jp = 0; jp < D / 16; ++jp) {
+      // matrices (transposed): (k + 0..7, d 16·jp + 0..7), (k + 8..15, ..),
+      // (k + 0..7, d + 8..15), (k + 8..15, ..)
+      uint32_t f[4];
+      ldsm_x4_trans(f, b + (16 * kk + (((lane >> 3) & 1) << 3) + (lane & 7)) * LD +
+                           16 * jp + ((lane >> 4) << 3));
+      mma_bf16(c[2 * jp], al, f[0], f[1]);
+      mma_bf16(c[2 * jp], ah, f[0], f[1]);
+      mma_bf16(c[2 * jp + 1], al, f[2], f[3]);
+      mma_bf16(c[2 * jp + 1], ah, f[2], f[3]);
+    }
+  }
+}
+
+// the thread's two elements (x0, x1) of a C fragment row into `o` (float32
+// or rounded to bf16)
+template <typename T>
+__device__ __forceinline__ void store2(T* o, float x0, float x1) {
+  if constexpr (IS_F32<T>)
+    *reinterpret_cast<float2*>(o) = make_float2(x0, x1);
+  else
+    *reinterpret_cast<__nv_bfloat162*>(o) = __floats2bfloat162_rn(x0, x1);
+}
+
+template <int D, typename T>
 __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const uint32_t* __restrict__ mbits,
-    const float* __restrict__ dou, const float* __restrict__ lse,
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const uint32_t* __restrict__ mbits,
+    const T* __restrict__ dou, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ counts,
     const int* __restrict__ idx, const int* __restrict__ rowbase,
-    float* __restrict__ dq, int t_dst, int t_src, int t_m, int n_words,
+    T* __restrict__ dq, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, int col_base) {
   static_assert(D == 64, "64-wide tiles");
+  constexpr bool F32 = IS_F32<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* const kv_st = reinterpret_cast<float*>(smem);  // stage s: K, then V
-  float* const Qs = kv_st + 4 * TILE_F;
-  float* const Os = Qs + TILE_F;
-  uint32_t* const Ms = reinterpret_cast<uint32_t*>(Os + TILE_F);
+  T* const kv_st = reinterpret_cast<T*>(smem);  // stage s: K, then V
+  T* const Qs = kv_st + 4 * TILE_F;              // float32 only
+  T* const Os = Qs + TILE_F;
+  uint32_t* const Ms = reinterpret_cast<uint32_t*>(smem + (F32 ? 6 : 4) * TILE_BYTES<T>);
 
   // blocks start in order of x, then y: every head's last q-tile first
   const int bh = blockIdx.x;
@@ -157,8 +275,15 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
   const long moff = ((long)bh * t_dst + row0) * n_words;
   for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
   const long qoff = ((long)bh * t_dst + row0) * D;
-  copy_tile<D>(Qs, q + qoff, tid);
-  copy_tile<D>(Os, dou + qoff, tid);
+  // float32: Q and dO tiles in shared memory; bf16: their A fragments
+  uint32_t qa[D / 16][4], oa[D / 16][4];
+  if constexpr (F32) {
+    copy_tile<D>(Qs, q + qoff, tid);
+    copy_tile<D>(Os, dou + qoff, tid);
+  } else {
+    load_a<D>(qa, q + qoff + (long)(wrow0 + g) * D, t4);
+    load_a<D>(oa, dou + qoff + (long)(wrow0 + g) * D, t4);
+  }
 
   // per fragment row h (tile row wrow0 + g + 8·h): lse·log2 e, delta, the
   // causal width and its reciprocal
@@ -197,7 +322,7 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     return false;
   };
   auto load_kv = [&](int stage, int c0) {
-    float* Kd = kv_st + stage * 2 * TILE_F;
+    T* Kd = kv_st + stage * 2 * TILE_F;
     copy_tile<D>(Kd, k + kvbase + (long)c0 * D, tid);
     copy_tile<D>(Kd + TILE_F, v + kvbase + (long)c0 * D, tid);
   };
@@ -214,8 +339,8 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // this stage (and, first time, Q, dO and the words) landed
-    const float* Ks = kv_st + stage * 2 * TILE_F;
-    const float* Vs = Ks + TILE_F;
+    const T* Ks = kv_st + stage * 2 * TILE_F;
+    const T* Vs = Ks + TILE_F;
 
     // S = Q·Kᵀ and dP = dO·Vᵀ: s[j], dp[j] the C fragments of score
     // columns 8·j .. 8·j + 7
@@ -224,19 +349,24 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     for (int j = 0; j < BKT / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const int d = 8 * kk + 2 * t4;
-      uint32_t qh[4], ql[4], oh[4], ol[4];
-      split_a(ld2(Qs, wrow0 + g, d), ld2(Qs, wrow0 + g + 8, d), qh, ql);
-      split_a(ld2(Os, wrow0 + g, d), ld2(Os, wrow0 + g + 8, d), oh, ol);
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int d = 8 * kk + 2 * t4;
+        uint32_t qh[4], ql[4], oh[4], ol[4];
+        split_a(ld2(Qs, wrow0 + g, d), ld2(Qs, wrow0 + g + 8, d), qh, ql);
+        split_a(ld2(Os, wrow0 + g, d), ld2(Os, wrow0 + g + 8, d), oh, ol);
 #pragma unroll
-      for (int j = 0; j < BKT / 8; ++j) {
-        const float2 kf = ld2(Ks, 8 * j + g, d);
-        const float2 vf = ld2(Vs, 8 * j + g, d);
-        mma_3xtf32(s[j], qh, ql, kf.x, kf.y);
-        mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);
+        for (int j = 0; j < BKT / 8; ++j) {
+          const float2 kf = ld2(Ks, 8 * j + g, d);
+          const float2 vf = ld2(Vs, 8 * j + g, d);
+          mma_3xtf32(s[j], qh, ql, kf.x, kf.y);
+          mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);
+        }
       }
+    } else {
+      mma_rows<D>(s, qa, Ks, lane);
+      mma_rows<D>(dp, oa, Vs, lane);
     }
 
     // the element predicate, P and dS, row by row: element (j, b) of row h
@@ -262,14 +392,18 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     }
 
     // dq += dS·K, dS from the S fragments (k = the sub-tile's columns)
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < BKT / 8; ++kk) {
-      uint32_t ah[4], al[4];
-      split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
-      const int c = 8 * kk + 2 * t4;
+      for (int kk = 0; kk < BKT / 8; ++kk) {
+        uint32_t ah[4], al[4];
+        split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
+        const int c = 8 * kk + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        mma_3xtf32(acc[j], ah, al, Ks[c * LD + 8 * j + g], Ks[(c + 1) * LD + 8 * j + g]);
+        for (int j = 0; j < D / 8; ++j)
+          mma_3xtf32(acc[j], ah, al, Ks[c * LD + 8 * j + g], Ks[(c + 1) * LD + 8 * j + g]);
+      }
+    } else {
+      mma_split<D>(acc, s, Ks, lane);
     }
     __syncthreads();  // every warp is done with this stage before it refills
     e = ne;
@@ -281,37 +415,37 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    float* o = dq + qoff + (long)(wrow0 + g + 8 * h) * D + 2 * t4;
+    T* o = dq + qoff + (long)(wrow0 + g + 8 * h) * D + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
+    for (int j = 0; j < D / 8; ++j) store2(o + 8 * j, acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
-// one block an SM, which its shared memory fills
-template <int D>
-__global__ void __launch_bounds__(TPB) causal_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const uint32_t* __restrict__ mbits,
-    const float* __restrict__ dou, const float* __restrict__ lse,
+template <int D, typename T>
+__global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
+    const T* __restrict__ q, const T* __restrict__ k,
+    const T* __restrict__ v, const uint32_t* __restrict__ mbits,
+    const T* __restrict__ dou, const float* __restrict__ lse,
     const float* __restrict__ delta, const int* __restrict__ counts_t,
     const int* __restrict__ idx_t, const int* __restrict__ rowbase,
-    float* __restrict__ dk, float* __restrict__ dv, int t_dst, int t_src,
+    T* __restrict__ dk, T* __restrict__ dv, int t_dst, int t_src,
     int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
     int col_base) {
   static_assert(D == 64, "64-wide tiles");
+  constexpr bool F32 = IS_F32<T>;
+  constexpr int STAGE = DKV_STAGE<T>;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* const Ks = reinterpret_cast<float*>(smem);
-  float* const Vs = Ks + TILE_F;
+  T* const Ks = reinterpret_cast<T*>(smem);  // float32 only
+  T* const Vs = Ks + TILE_F;
   // stage s: Q, dO, the mask words, then per row (lse·log2 e, delta, the
   // causal width, its reciprocal)
-  unsigned char* const q_st = smem + 2 * TILE_F * 4;
-  auto Qs = [&](int s) { return reinterpret_cast<float*>(q_st + s * DKV_STAGE); };
+  unsigned char* const q_st = smem + (F32 ? 2 * TILE_BYTES<T> : 0);
+  auto Qs = [&](int s) { return reinterpret_cast<T*>(q_st + s * STAGE); };
   auto Ms = [&](int s) {
-    return reinterpret_cast<uint32_t*>(q_st + s * DKV_STAGE + 2 * TILE_F * 4);
+    return reinterpret_cast<uint32_t*>(q_st + s * STAGE + 2 * TILE_BYTES<T>);
   };
   auto Rs = [&](int s) {
-    return reinterpret_cast<float4*>(q_st + s * DKV_STAGE + 2 * TILE_F * 4 + BQ * MAX_WORDS * 4);
+    return reinterpret_cast<float4*>(q_st + s * STAGE + 2 * TILE_BYTES<T> + BQ * MAX_WORDS * 4);
   };
 
   // blocks start in order of x, then y: every head's first k-tile first
@@ -324,8 +458,15 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
   const int wcol0 = (tid >> 5) * 16;  // the warp's first column in the tile
 
   const long koff = ((long)bh * t_src + col0) * D;
-  copy_tile<D>(Ks, k + koff, tid);
-  copy_tile<D>(Vs, v + koff, tid);
+  // float32: K and V tiles in shared memory; bf16: their A fragments
+  uint32_t ka[D / 16][4], va[D / 16][4];
+  if constexpr (F32) {
+    copy_tile<D>(Ks, k + koff, tid);
+    copy_tile<D>(Vs, v + koff, tid);
+  } else {
+    load_a<D>(ka, k + koff + (long)(wcol0 + g) * D, t4);
+    load_a<D>(va, v + koff + (long)(wcol0 + g) * D, t4);
+  }
 
   // per fragment row h: the k-tile column wcol0 + g + 8·h, global, and its
   // exact (float)col + 0.5
@@ -394,8 +535,8 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // this stage (and, first time, K and V) landed
-    const float* Qt = Qs(stage);
-    const float* Ot = Qt + TILE_F;
+    const T* Qt = Qs(stage);
+    const T* Ot = Qt + TILE_F;
     const uint32_t* Mt = Ms(stage);
     const float4* Rt = Rs(stage);
     const int grow0 = grow_of(e, r0);
@@ -407,19 +548,24 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
     for (int j = 0; j < BQ / 8; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      const int d = 8 * kk + 2 * t4;
-      uint32_t kh[4], kl[4], vh[4], vl[4];
-      split_a(ld2(Ks, wcol0 + g, d), ld2(Ks, wcol0 + g + 8, d), kh, kl);
-      split_a(ld2(Vs, wcol0 + g, d), ld2(Vs, wcol0 + g + 8, d), vh, vl);
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int d = 8 * kk + 2 * t4;
+        uint32_t kh[4], kl[4], vh[4], vl[4];
+        split_a(ld2(Ks, wcol0 + g, d), ld2(Ks, wcol0 + g + 8, d), kh, kl);
+        split_a(ld2(Vs, wcol0 + g, d), ld2(Vs, wcol0 + g + 8, d), vh, vl);
 #pragma unroll
-      for (int j = 0; j < BQ / 8; ++j) {
-        const float2 qf = ld2(Qt, 8 * j + g, d);
-        const float2 of = ld2(Ot, 8 * j + g, d);
-        mma_3xtf32(st[j], kh, kl, qf.x, qf.y);
-        mma_3xtf32(dpt[j], vh, vl, of.x, of.y);
+        for (int j = 0; j < BQ / 8; ++j) {
+          const float2 qf = ld2(Qt, 8 * j + g, d);
+          const float2 of = ld2(Ot, 8 * j + g, d);
+          mma_3xtf32(st[j], kh, kl, qf.x, qf.y);
+          mma_3xtf32(dpt[j], vh, vl, of.x, of.y);
+        }
       }
+    } else {
+      mma_rows<D>(st, ka, Qt, lane);
+      mma_rows<D>(dpt, va, Ot, lane);
     }
 
     // the element predicate, Pᵀ and dSᵀ: element (j, b) of fragment row h
@@ -443,18 +589,23 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
 
     // dv += Pᵀ·dO and dk += dSᵀ·Q, Pᵀ and dSᵀ from their C fragments
     // (k = the sub-tile's rows)
+    if constexpr (F32) {
 #pragma unroll
-    for (int kk = 0; kk < BQ / 8; ++kk) {
-      uint32_t ph[4], pl[4], dh[4], dl[4];
-      split_a(make_float2(st[kk][0], st[kk][1]), make_float2(st[kk][2], st[kk][3]), ph, pl);
-      split_a(make_float2(dpt[kk][0], dpt[kk][1]), make_float2(dpt[kk][2], dpt[kk][3]), dh, dl);
-      const int c = 8 * kk + 2 * t4;
+      for (int kk = 0; kk < BQ / 8; ++kk) {
+        uint32_t ph[4], pl[4], dh[4], dl[4];
+        split_a(make_float2(st[kk][0], st[kk][1]), make_float2(st[kk][2], st[kk][3]), ph, pl);
+        split_a(make_float2(dpt[kk][0], dpt[kk][1]), make_float2(dpt[kk][2], dpt[kk][3]), dh, dl);
+        const int c = 8 * kk + 2 * t4;
 #pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        const int n = 8 * j + g;
-        mma_3xtf32(acc_v[j], ph, pl, Ot[c * LD + n], Ot[(c + 1) * LD + n]);
-        mma_3xtf32(acc_k[j], dh, dl, Qt[c * LD + n], Qt[(c + 1) * LD + n]);
+        for (int j = 0; j < D / 8; ++j) {
+          const int n = 8 * j + g;
+          mma_3xtf32(acc_v[j], ph, pl, Ot[c * LD + n], Ot[(c + 1) * LD + n]);
+          mma_3xtf32(acc_k[j], dh, dl, Qt[c * LD + n], Qt[(c + 1) * LD + n]);
+        }
       }
+    } else {
+      mma_split<D>(acc_v, st, Ot, lane);
+      mma_split<D>(acc_k, dpt, Qt, lane);
     }
     if (more && tid < BQ) put_terms(stage ^ 1, grow_of(ne, nr0), nl, nd);
     __syncthreads();  // this stage is consumed; the next one's terms are in
@@ -470,13 +621,16 @@ __global__ void __launch_bounds__(TPB) causal_dkv_kernel(
     const long o = koff + (long)(wcol0 + g + 8 * h) * D + 2 * t4;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j) {
-      *reinterpret_cast<float2*>(dk + o + 8 * j) = make_float2(acc_k[j][2 * h], acc_k[j][2 * h + 1]);
-      *reinterpret_cast<float2*>(dv + o + 8 * j) = make_float2(acc_v[j][2 * h], acc_v[j][2 * h + 1]);
+      store2(dk + o + 8 * j, acc_k[j][2 * h], acc_k[j][2 * h + 1]);
+      store2(dv + o + 8 * j, acc_v[j][2 * h], acc_v[j][2 * h + 1]);
     }
   }
 }
 
 // col_base: the global column of k's and v's first row (0 for K3 and K4).
+// T: the element type of q, k, v, dou and the gradients (float or
+// __nv_bfloat16); lse and delta are float32 either way.
+template <typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* mbits, const void* dou, const void* lse,
                       const void* delta, const void* counts, const void* idx,
@@ -486,18 +640,19 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   if (misaligned(q, k, v, dou, dq)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<64>, DQ_SMEM, opted_in);
+  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<64, T>, DQ_SMEM<T>, opted_in);
   if (e != cudaSuccess) return e;
   dim3 grid(nh, t_dst / BQ);
-  causal_dq_kernel<64><<<grid, TPB, DQ_SMEM, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
+  causal_dq_kernel<64, T><<<grid, TPB, DQ_SMEM<T>, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v,
+      (const uint32_t*)mbits, (const T*)dou, (const float*)lse,
       (const float*)delta, (const int*)counts, (const int*)idx,
-      (const int*)rowbase, (float*)dq, t_dst, t_src, t_m, n_words, block_q,
+      (const int*)rowbase, (T*)dq, t_dst, t_src, t_m, n_words, block_q,
       block_k, nq, nkb, col_base);
   return cudaGetLastError();
 }
 
+template <typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* mbits, const void* dou, const void* lse,
                        const void* delta, const void* counts_t,
@@ -507,20 +662,21 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int col_base, cudaStream_t stream) {
   if (misaligned(q, k, v, dou, dk, dv)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<64>, DKV_SMEM, opted_in);
+  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<64, T>, DKV_SMEM<T>, opted_in);
   if (e != cudaSuccess) return e;
   dim3 grid(nh, t_src / BKT);
-  causal_dkv_kernel<64><<<grid, TPB, DKV_SMEM, stream>>>(
-      (const float*)q, (const float*)k, (const float*)v,
-      (const uint32_t*)mbits, (const float*)dou, (const float*)lse,
+  causal_dkv_kernel<64, T><<<grid, TPB, DKV_SMEM<T>, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v,
+      (const uint32_t*)mbits, (const T*)dou, (const float*)lse,
       (const float*)delta, (const int*)counts_t, (const int*)idx_t,
-      (const int*)rowbase, (float*)dk, (float*)dv, t_dst, t_src, t_m, n_words,
+      (const int*)rowbase, (T*)dk, (T*)dv, t_dst, t_src, t_m, n_words,
       block_q, block_k, nq, nkb, col_base);
   return cudaGetLastError();
 }
 
 }  // namespace
 
+// K3: dq (nh, t_dst, D) in q's type, float32 or bf16 (is_bf16).
 extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
                              const void* mbits, const void* dou,
                              const void* lse, const void* delta,
@@ -528,14 +684,20 @@ extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
                              const void* rowbase, void* dq, int nh, int t_dst,
                              int t_src, int head_dim, int t_m, int n_words,
                              int block_q, int block_k, int nq, int nkb,
-                             void* stream) {
+                             int is_bf16, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dq(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
-                        dq, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
-                        nq, nkb, 0, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16
+                   ? launch_dq<__nv_bfloat16>(q, k, v, mbits, dou, lse, delta, counts, idx,
+                                              rowbase, dq, nh, t_dst, t_src, t_m, n_words,
+                                              block_q, block_k, nq, nkb, 0, s)
+                   : launch_dq<float>(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
+                                      dq, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
+                                      nq, nkb, 0, s));
 }
 
+// K4: dk, dv (nh, t_src, D) in q's type, float32 or bf16 (is_bf16).
 extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
                               const void* mbits, const void* dou,
                               const void* lse, const void* delta,
@@ -543,12 +705,17 @@ extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
                               const void* rowbase, void* dk, void* dv, int nh,
                               int t_dst, int t_src, int head_dim, int t_m,
                               int n_words, int block_q, int block_k, int nq,
-                              int nkb, void* stream) {
+                              int nkb, int is_bf16, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dkv(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
-                         rowbase, dk, dv, nh, t_dst, t_src, t_m, n_words,
-                         block_q, block_k, nq, nkb, 0, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16
+                   ? launch_dkv<__nv_bfloat16>(q, k, v, mbits, dou, lse, delta, counts_t,
+                                               idx_t, rowbase, dk, dv, nh, t_dst, t_src, t_m,
+                                               n_words, block_q, block_k, nq, nkb, 0, s)
+                   : launch_dkv<float>(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
+                                       rowbase, dk, dv, nh, t_dst, t_src, t_m, n_words,
+                                       block_q, block_k, nq, nkb, 0, s));
 }
 
 // K7: dq (nh, t_dst, D) of one K/V window. k and v are (nh, t_win, D) and
@@ -566,8 +733,8 @@ extern "C" int sea_window_dq(const void* q, const void* k, const void* v,
   if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dq(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
-                        dq, nh, t_dst, t_win, t_m, n_words, block_q, block_k,
+  return (int)launch_dq<float>(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
+                               dq, nh, t_dst, t_win, t_m, n_words, block_q, block_k,
                         nq, nkw, col_base, (cudaStream_t)stream);
 }
 
@@ -585,8 +752,8 @@ extern "C" int sea_window_dkv(const void* q, const void* k, const void* v,
   if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dkv(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
-                         rowbase, dk, dv, nh, t_dst, t_win, t_m, n_words,
-                         block_q, block_k, nq, nkw, col_base,
-                         (cudaStream_t)stream);
+  return (int)launch_dkv<float>(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
+                                rowbase, dk, dv, nh, t_dst, t_win, t_m, n_words,
+                                block_q, block_k, nq, nkw, col_base,
+                                (cudaStream_t)stream);
 }

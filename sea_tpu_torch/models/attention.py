@@ -64,6 +64,14 @@ window of CNN inputs, the per-row top-k, the row mask resized to the cache
 width by decode's own pixel rule, and dense row attention against the cache
 (plain PyTorch: no kernel, as in JAX).
 
+Types are the JAX module's: every stage runs in the type of q, k, v and
+the parameters (`Dense`, `LayerNorm` and the einsums promote a mix to the
+wider type), with the JAX module's float32 islands: the performer (or
+cosformer), `softmax_fp32`, the convolutions and resizes, the average
+context's running sum, the KD losses, and the decode state's FAVOR+ sums and
+running sum. bfloat16 operands take K1-K4's bf16 instances; the ring's
+windowed kernels (K6-K8) take float32 only.
+
 Not ported yet, and refused with NotImplementedError rather than routed
 elsewhere: `kd_self_teacher`, the non-causal oversampled benchmark path (a
 CSR route in JAX), the uniform-CSR benchmark path (`use_pallas=False`), the
@@ -99,7 +107,17 @@ from ..ops.performer import (
 from ..parallel import sharded_attention as sharded
 from ..parallel.context import current_attention_sharding, resolve_attention_kind
 from ..utils.profiler import get_bench
-from .modules import CausalConv2d, ChannelSplit, KeepRes, interpolate, upsample_nearest
+from .modules import (
+    CausalConv2d,
+    ChannelSplit,
+    Dense,
+    KeepRes,
+    LayerNorm,
+    einsum,
+    gelu,
+    interpolate,
+    upsample_nearest,
+)
 from .state import (
     CNN_WINDOW,
     SeaDecodeState,
@@ -161,9 +179,9 @@ def _kl_div_batchmean(log_input, target):
     return (target * (torch.log(target + 1e-12) - log_input)).sum() / rows
 
 
-def _layer_norm(features: int) -> nn.LayerNorm:
-    # flax's LayerNorm epsilon, not torch's 1e-5
-    return nn.LayerNorm(features, eps=1e-6)
+def _layer_norm(features: int) -> LayerNorm:
+    # flax's LayerNorm: epsilon 1e-6, not torch's 1e-5, and its type rule
+    return LayerNorm(features)
 
 
 def init_random_(root: nn.Module, generator: torch.Generator):
@@ -234,12 +252,12 @@ class SeaAttention(nn.Module):
             self.out_norm_ln = _layer_norm(H * D)
 
         # predictor encoder: Linear(3D -> 2D) + LN + GELU
-        self.enc_dense = nn.Linear(3 * D, 2 * D)
+        self.enc_dense = Dense(3 * D, 2 * D)
         self.enc_ln = _layer_norm(2 * D)
         # decoder row projector + channel split
         splits = cfg.splits
         down = cfg.dec_row_down_scale
-        self.dec_row = nn.Linear(2 * D, (T_M // down) * splits)
+        self.dec_row = Dense(2 * D, (T_M // down) * splits)
         self.channel_split = ChannelSplit(splits)
         ch = splits * H
         if cfg.causal:
@@ -259,7 +277,7 @@ class SeaAttention(nn.Module):
             self.cnn_conv2 = CausalConv2d(4 * H, 4 * H, 3, padding=1)
             self.cnn_conv3 = CausalConv2d(4 * H, H, 3, padding=1)
         # per-query two-channel gate head
-        self.dec_scaler = nn.Linear(2 * D, 2)
+        self.dec_scaler = Dense(2 * D, 2)
         if cfg.causal:
             # learned identity-value embeddings
             self.v_eye_learned_causal = nn.Parameter(
@@ -461,9 +479,7 @@ class SeaAttention(nn.Module):
             if s > 1:
                 assert T_DST % s == 0
                 t_enc_x = t_enc_x[:, :, ::s, :]
-            t_attention_predictor = F.gelu(
-                self.enc_ln(self.enc_dense(t_enc_x)), approximate="none"
-            )
+            t_attention_predictor = gelu(self.enc_ln(self.enc_dense(t_enc_x)))
             estimated_attention_score = self.dec_row(t_attention_predictor)
             # (N, H, T', out_ch) read as NCHW -> ChannelSplit -> CNN
             estimated_attention_score = self.channel_split(estimated_attention_score)
@@ -809,7 +825,7 @@ class SeaAttention(nn.Module):
         k_cache = _rowwise_update(state.k_cache, k, pos_b)
         v_cache = _rowwise_update(state.v_cache, v, pos_b)
         # stage 8: dense row attention against the cache
-        scores = torch.einsum("nhtd,nhsd->nhts", q, k_cache) + row_mask
+        scores = einsum("nhtd,nhsd->nhts", q, k_cache) + row_mask
         out, cum_sum, cum_len = self._decode_mix(scores, row_mask, v_cache, t_pred, state, v)
         return out, SeaDecodeState(
             performer_S=S, performer_z=z, cnn_window=window, cnn_filled=filled,
@@ -869,7 +885,7 @@ class SeaAttention(nn.Module):
             v_pages = pool_v[pages]
         # position-major pages: the flattened (mp, ps) axis is a contiguous
         # cache of width mp·ps
-        scores = torch.einsum("nhtd,npshd->nhtps", q, k_pages).reshape(N, H, 1, mp * page_size)
+        scores = einsum("nhtd,npshd->nhtps", q, k_pages).reshape(N, H, 1, mp * page_size)
         scores = scores + row_mask
         out, cum_sum, cum_len = self._decode_mix(scores, row_mask, v_pages, t_pred, state, v)
         new_state = SeaDecodeState(
@@ -911,7 +927,7 @@ class SeaAttention(nn.Module):
 
         # stages 3-4: per-position predictor rows; the window keeps the last 24
         performer_value = torch.cat([perf_ctx, v], dim=-1)
-        t_pred = F.gelu(self.enc_ln(self.enc_dense(performer_value)), approximate="none")
+        t_pred = gelu(self.enc_ln(self.enc_dense(performer_value)))
         rows = self.channel_split(self.dec_row(t_pred))  # (N, C, P, Wd)
         W = rows.shape[2]
         if W >= CNN_WINDOW:
@@ -971,7 +987,7 @@ class SeaAttention(nn.Module):
         with bench.region("decode.predictor"):
             # stages 3-4: the predictor on the CNN window
             performer_value = torch.cat([perf_ctx, v], dim=-1)
-            t_pred = F.gelu(self.enc_ln(self.enc_dense(performer_value)), approximate="none")
+            t_pred = gelu(self.enc_ln(self.enc_dense(performer_value)))
             row = self.channel_split(self.dec_row(t_pred))  # (N, C, 1, Wd)
             window, filled = cnn_window_push(state.cnn_window, state.cnn_filled, row)
             estimated_attention_score = self._predictor_cnn(window)[:, :, -1:, :]
@@ -1016,9 +1032,9 @@ class SeaAttention(nn.Module):
                 probs = probs * torch.sigmoid(estimated_scales[..., 0:1])
             if v_cache.dim() == 5:  # paged (N, mp, ps, H, D)
                 mp, ps = v_cache.shape[1], v_cache.shape[2]
-                ctx = torch.einsum("nhtps,npshd->nhtd", probs.reshape(N, H, 1, mp, ps), v_cache)
+                ctx = einsum("nhtps,npshd->nhtd", probs.reshape(N, H, 1, mp, ps), v_cache)
             else:
-                ctx = torch.einsum("nhts,nhsd->nhtd", probs, v_cache)
+                ctx = einsum("nhts,nhsd->nhtd", probs, v_cache)
 
             # the running-average mix
             avg, cum_sum, cum_len = cumavg_step(state.cumavg_sum, state.cumavg_len, v)

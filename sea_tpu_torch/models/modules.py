@@ -9,7 +9,14 @@
     the query-time axis never reads a later row;
   * `upsample_nearest` — integer nearest-neighbour upsample in float32;
   * `KeepRes` — run a stack of layers, then resize back to the input height;
-  * `ChannelSplit` — (N, C, H, W) -> (N, C·s, H, W/s).
+  * `ChannelSplit` — (N, C, H, W) -> (N, C·s, H, W/s);
+  * `Dense` and `LayerNorm` — flax's `nn.Dense` and `nn.LayerNorm` type
+    rule (`promote`, `einsum`): a layer computes in the promoted type of
+    its input and its parameters, so a bfloat16 input meets float32
+    parameters in float32 and only bfloat16 parameters compute in bfloat16.
+
+The convolutions and resizes compute in float32 whatever the input and
+parameter types, and return the input's type, as the JAX modules do.
 """
 
 from __future__ import annotations
@@ -21,6 +28,64 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+
+def promote(*xs: torch.Tensor) -> torch.dtype:
+    """The type JAX computes a mixed-type operation in
+    (`jnp.promote_types`): bfloat16 with float32 is float32."""
+    dtype = xs[0].dtype
+    for x in xs[1:]:
+        dtype = torch.promote_types(dtype, x.dtype)
+    return dtype
+
+
+def einsum(equation: str, *xs: torch.Tensor) -> torch.Tensor:
+    """`jnp.einsum`: operands of mixed floating types are multiplied in
+    their promoted type (`torch.einsum` takes one type only)."""
+    dtype = promote(*xs)
+    return torch.einsum(equation, *(x.to(dtype) for x in xs))
+
+
+class Dense(nn.Linear):
+    """`nn.Linear` with flax `nn.Dense`'s types: input, weight and bias
+    promoted to one type first, the output in that type. Below float32 the
+    bias is added to the product after it is rounded, as XLA adds it."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dtype = promote(x, self.weight)
+        x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
+        if dtype == torch.float32:
+            return F.linear(x, w, b)
+        return F.linear(x, w) + b
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.gelu(x, approximate=False)` in x's type. float32: the erf
+    form. bfloat16: JAX's 0.5·x · erfc(−x · 1/√2) with the constant and
+    every operation's result rounded to bfloat16 (one rounding of the
+    whole expression, as F.gelu takes, differs from it in about half the
+    elements by an ulp)."""
+    if x.dtype == torch.float32:
+        return F.gelu(x, approximate="none")
+    dtype = x.dtype
+    half = (x.float() * 0.5).to(dtype)
+    inv_sqrt2 = float(torch.tensor(2 ** -0.5, dtype=dtype))
+    arg = (-x.float() * inv_sqrt2).to(dtype)
+    return (half.float() * torch.special.erfc(arg.float()).to(dtype).float()).to(dtype)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax's `nn.LayerNorm` (epsilon 1e-6): the statistics and the affine
+    in float32, the result in the promoted type of the input, scale and
+    bias."""
+
+    def __init__(self, features: int):
+        super().__init__(features, eps=1e-6)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
+                         self.bias.float(), self.eps)
+        return y.to(promote(x, self.weight, self.bias))
 
 
 def _area_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -129,7 +194,7 @@ class CausalConv2d(nn.Module):
         else:
             pad_h = self.padding
         y = F.conv2d(
-            x.float(), weight, self.bias, stride=self.stride,
+            x.float(), weight.float(), self.bias.float(), stride=self.stride,
             padding=(pad_h, self.padding), dilation=(d, d),
         )
         return y.to(x.dtype)

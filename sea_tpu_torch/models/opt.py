@@ -32,8 +32,24 @@ the benchmark path's, kernel K1), `decode_step` against contiguous caches and
 `generate_greedy`, `generate_sample` and `generate_beam` (Python loops where
 JAX has `lax.scan`; nothing is read back to the host inside them).
 
-Not ported yet: the other attention methods, the chunked cross entropy,
-bfloat16 compute, and the `scan_*` decode helpers of scanned models.
+Types follow the JAX model exactly. `compute_dtype` ("float32" or
+"bfloat16") is the type `embed` casts the embedding to, and the type each
+layer's output is cast back to in `forward`; inside a layer every `Dense`
+and `LayerNorm` computes in the promoted type of its input and parameters
+(flax's rule, `modules.Dense`). So with float32 parameters a bfloat16
+`compute_dtype` rounds only the embedding and the layer outputs, and every
+projection, the SEA attention and its kernels run float32; bfloat16
+parameters (the model cast as a whole, `model.to(torch.bfloat16)`, as the
+JAX scripts and the trainer's `param_dtype` cast the tree) run them in
+bfloat16 (kernels K1-K4's bf16 instances). Decode never casts: `decode_step`
+and `decode_step_paged` embed in the parameters' type, and the layers'
+`decode`, `prefill` and `decode_paged` keep the promoted type; only
+`prefill_parallel` rounds its embedding, through `embed`. The builders
+`opt_350m`, `opt_1_3b` and `opt_2_7b` are the JAX package's (1.3b and 2.7b
+in bfloat16 compute); 2.7b's head width 80 has no kernel instance yet.
+
+Not ported yet: the other attention methods, the chunked cross entropy and
+the `scan_*` decode helpers of scanned models.
 """
 
 from __future__ import annotations
@@ -49,7 +65,10 @@ from ..config import SeaConfig, opt_config
 from ..ops.masks import fp_min_for
 from ..ops.sampling import sample_logits
 from .attention import SeaAttention, _layer_norm, init_random_, softmax_fp32
+from .modules import Dense, promote
 from .state import SeaDecodeState
+
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,6 +96,45 @@ def opt_125m(attention_method: str = "perlin", sea: Optional[SeaConfig] = None) 
     return OptConfig(
         attention_method=attention_method,
         sea=sea if sea is not None else opt_config(),
+    )
+
+
+def opt_350m(attention_method: str = "perlin", sea: Optional[SeaConfig] = None) -> OptConfig:
+    return OptConfig(
+        hidden_size=1024,
+        num_layers=24,
+        num_heads=16,
+        ffn_dim=4096,
+        attention_method=attention_method,
+        sea=sea if sea is not None else opt_config(num_heads=16, head_dim=64),
+    )
+
+
+def opt_1_3b(attention_method: str = "perlin", sea: Optional[SeaConfig] = None) -> OptConfig:
+    """facebook/opt-1.3b's geometry, in bfloat16 compute."""
+    return OptConfig(
+        hidden_size=2048,
+        num_layers=24,
+        num_heads=32,
+        ffn_dim=8192,
+        attention_method=attention_method,
+        compute_dtype="bfloat16",
+        sea=sea if sea is not None else opt_config(num_heads=32, head_dim=64),
+    )
+
+
+def opt_2_7b(attention_method: str = "perlin", sea: Optional[SeaConfig] = None) -> OptConfig:
+    """facebook/opt-2.7b's geometry, in bfloat16 compute. Its head width 80
+    has no kernel instance yet: the fused paths refuse it (ROADMAP queue 2
+    item 6)."""
+    return OptConfig(
+        hidden_size=2560,
+        num_layers=32,
+        num_heads=32,
+        ffn_dim=10240,
+        attention_method=attention_method,
+        compute_dtype="bfloat16",
+        sea=sea if sea is not None else opt_config(num_heads=32, head_dim=80),
     )
 
 
@@ -117,10 +175,10 @@ class OptAttention(nn.Module):
             )
         self.cfg = cfg
         E = cfg.hidden_size
-        self.q_proj = nn.Linear(E, E)
-        self.k_proj = nn.Linear(E, E)
-        self.v_proj = nn.Linear(E, E)
-        self.out_proj = nn.Linear(E, E)
+        self.q_proj = Dense(E, E)
+        self.k_proj = Dense(E, E)
+        self.v_proj = Dense(E, E)
+        self.out_proj = Dense(E, E)
         if cfg.attention_method == "perlin":
             self.perlin = SeaAttention(cfg.sea, device="cpu", seed=None)
 
@@ -211,14 +269,16 @@ class OptDecoderLayer(nn.Module):
         self.cfg = cfg
         self.self_attn = OptAttention(cfg)
         self.self_attn_layer_norm = _layer_norm(cfg.hidden_size)
-        self.fc1 = nn.Linear(cfg.hidden_size, cfg.ffn_dim)
-        self.fc2 = nn.Linear(cfg.ffn_dim, cfg.hidden_size)
+        self.fc1 = Dense(cfg.hidden_size, cfg.ffn_dim)
+        self.fc2 = Dense(cfg.ffn_dim, cfg.hidden_size)
         self.final_layer_norm = _layer_norm(cfg.hidden_size)
 
     def forward(self, hidden_states, causal_mask, teacher=None, *, benchmarking=False,
                 training=False, jitter=None):
-        """Returns (hidden states, aux_loss | None, teacher capture | None)."""
+        """Returns (hidden states in the input's type, aux_loss | None,
+        teacher capture | None)."""
         c = self.cfg
+        in_dtype = hidden_states.dtype
         if c.sea.layerwise and training:
             # every layer optimises its own distillation loss: no gradient
             # crosses a layer boundary
@@ -231,7 +291,10 @@ class OptDecoderLayer(nn.Module):
             )
             return F.dropout(h, c.dropout, training), aux_loss, capture
 
-        return self._around_attention(hidden_states, attend, training)
+        h, aux_loss, capture = self._around_attention(hidden_states, attend, training)
+        # the layer outputs stay in compute_dtype (the float32 islands and
+        # parameters would otherwise promote the residual stream)
+        return h.to(in_dtype), aux_loss, capture
 
     def _around_attention(self, hidden_states, attend, training: bool = False):
         """The layer around one attention call `attend(h) -> (h, *rest)`;
@@ -291,6 +354,7 @@ class OptModel(nn.Module):
         h = self.embed_tokens(input_ids)
         positions = torch.cumsum(attention_mask_1d, dim=1) * attention_mask_1d - 1
         h = h + self.embed_positions((positions + 2).long())
+        h = h.to(COMPUTE_DTYPES[self.cfg.compute_dtype])
         if self.cfg.attention_method == "perlin" and self.cfg.sea.use_fused_train:
             # the thin (N, 1, T, 1) dst-column mask: the fused kernels derive
             # causality themselves, and the (T, T) additive mask would cost
@@ -355,8 +419,8 @@ class OptForCausalLM(nn.Module):
 
     def __init__(self, cfg: OptConfig, *, device="cuda", seed: Optional[int] = 0):
         super().__init__()
-        if cfg.compute_dtype != "float32":
-            raise NotImplementedError("only float32 compute is ported yet")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
         self.cfg = cfg
         self.model = OptModel(cfg)
         if seed is not None:
@@ -364,7 +428,9 @@ class OptForCausalLM(nn.Module):
         self.to(device)
 
     def logits(self, h: torch.Tensor) -> torch.Tensor:
-        return h @ self.model.embed_tokens.weight.T
+        w = self.model.embed_tokens.weight
+        dtype = promote(h, w)
+        return h.to(dtype) @ w.to(dtype).T
 
     # ------------------------------------------------------------------
     # decode and generation (inference: no autograd)

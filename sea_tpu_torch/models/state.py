@@ -14,6 +14,10 @@ loop:
   * the running sum of v (float32) and its length, for the average context;
   * a fixed-capacity K/V cache and the number of tokens already cached.
 
+The window and the K/V cache take the type `init_decode_state` is given
+(the model's type: bfloat16 for a model cast to bfloat16), the FAVOR+ sums
+and the running sum of v stay float32.
+
 The counters (`cnn_filled`, `cumavg_len`, `length`) are () tensors when all
 rows decode in lockstep and (N,) per-slot tensors in the serving engine.
 Every function here is functional: it returns new tensors and leaves its
@@ -28,6 +32,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from .modules import promote
 
 CNN_WINDOW = 24
 
@@ -103,8 +109,11 @@ def performer_decode_step(
 def cnn_window_push(
     window: torch.Tensor, filled: torch.Tensor, row: torch.Tensor
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Shift the window up by one row and append `row` (N, C, 1, Wd)."""
-    window = torch.cat([window[:, :, 1:, :], row.to(window.dtype)], dim=2)
+    """Shift the window up by one row and append `row` (N, C, 1, Wd); the
+    result takes the promoted type of the two, as JAX's concatenation does
+    (a bfloat16 window and a float32 row give a float32 window)."""
+    dtype = promote(window, row)
+    window = torch.cat([window[:, :, 1:, :].to(dtype), row.to(dtype)], dim=2)
     return window, torch.clamp(filled + 1, max=window.shape[2])
 
 

@@ -61,7 +61,8 @@ Layout of this module:
     causal math use global columns. `parallel/sharded_attention.py` merges
     the windows.
 
-Each wrapper counts its kernel launches in a `launches` attribute.
+Each wrapper counts its kernel launches in a `launches` attribute; K1-K4's
+also count those of their bfloat16 instance in `bf16_launches`.
 """
 
 from __future__ import annotations
@@ -78,6 +79,7 @@ NEG_INF = -1e30
 KERNEL_TILE = 64  # rows and columns of the CUDA kernel's tile
 MAX_WORDS = 16  # packed mask words per row the kernel holds (T_M <= 512)
 HEAD_DIM = 64  # the head width the kernel is compiled for
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # q, k, v and the outputs
 SUB_BLOCK = 128  # 'subtile' piece width, min(SUB_BLOCK, block_k) (the JAX default)
 
 
@@ -539,7 +541,7 @@ def _bound(name: str, argtypes: dict) -> ctypes.CDLL:
 def _lib() -> ctypes.CDLL:
     return _bound("block_sparse_causal", {
         "sea_causal_flat_forward": [_P] * 9 + [_I] * 10 + [_F] * 4 + [_I, _P],
-        "sea_causal_fwd_stats": [_P] * 10 + [_I] * 10 + [_P],
+        "sea_causal_fwd_stats": [_P] * 10 + [_I] * 11 + [_P],
         "sea_window_fwd_stats": [_P] * 9 + [_I] * 11 + [_P],
         "sea_bidir_forward": [_P] * 9 + [_I] * 10 + [_I, _P],
         "sea_alive_mask": [_P, _P] + [_I] * 5 + [_P],
@@ -552,11 +554,18 @@ def _lib() -> ctypes.CDLL:
 
 def _diff_lib() -> ctypes.CDLL:
     return _bound("block_sparse_diff", {
-        "sea_causal_dq": [_P] * 11 + [_I] * 10 + [_P],
-        "sea_causal_dkv": [_P] * 12 + [_I] * 10 + [_P],
+        "sea_causal_dq": [_P] * 11 + [_I] * 11 + [_P],
+        "sea_causal_dkv": [_P] * 12 + [_I] * 11 + [_P],
         "sea_window_dq": [_P] * 11 + [_I] * 11 + [_P],
         "sea_window_dkv": [_P] * 12 + [_I] * 11 + [_P],
     })
+
+
+def _count(wrapper, q: torch.Tensor):
+    """One launch of `wrapper`'s kernel: `launches` counts every launch,
+    `bf16_launches` those of its bfloat16 instance (K1-K4 have both)."""
+    wrapper.launches += 1
+    wrapper.bf16_launches += int(q.dtype == torch.bfloat16)
 
 
 def _check(err: int, what: str):
@@ -712,9 +721,10 @@ def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.
     """Check what the kernels take, then build their operands on the inputs'
     device: the packed mask bits and the tile lists (per-example widths on
     the non-causal path). `differentiable` builds those of the causal
-    differentiable path (the port of `_diff_prep`): float32 only, plus the
-    transposed (per-k-block) lists that the dk/dv kernel walks. `impl`
-    (causal forward only) builds the lists of K9a-c beside: `impl_tiles`."""
+    differentiable path (the port of `_diff_prep`): causal only, plus the
+    transposed (per-k-block) lists that the dk/dv kernel walks. Both take
+    float32 or bfloat16. `impl` (causal forward only) builds the lists of
+    K9a-c beside: `impl_tiles`."""
     q, k, v, mask_m = x.q, x.k, x.v, x.mask_m
     N, H, T_DST, D = q.shape
     T_SRC = k.shape[2]
@@ -724,16 +734,16 @@ def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.
     NQ, NKB = T_DST // x.block_q, T_SRC // x.block_k
     if differentiable and not x.is_causal:
         raise ValueError("the differentiable path is causal only")
-    dtypes = (torch.float32,) if differentiable else (torch.float32, torch.bfloat16)
-    if q.dtype not in dtypes:
-        raise ValueError(f"kernel takes {' or '.join(map(str, dtypes))}, got {q.dtype}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"kernel takes {' or '.join(map(str, KERNEL_DTYPES))}, got {q.dtype}")
     for other in (k, v, mask_m, x.scaler):
         if other.device != q.device:
             raise ValueError("all inputs must be on one device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
     if D != HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}, got {D}")
+        raise ValueError(f"kernel takes head_dim {HEAD_DIM}, got {D} (other head widths, "
+                         "OPT-2.7b's 80 among them: ROADMAP queue 2 item 6)")
     if n_words > MAX_WORDS:
         raise ValueError(f"kernel takes T_M <= {32 * MAX_WORDS}, got {T_M}")
     if x.block_q % KERNEL_TILE or x.block_k % KERNEL_TILE:
@@ -802,7 +812,7 @@ def launch_causal_flat(ops: KernelOperands) -> torch.Tensor:
             int(ops.q.dtype == torch.bfloat16), stream,
         )
     _check(err, "sea_causal_flat_forward")
-    sea_block_sparse_attention.launches += 1
+    _count(sea_block_sparse_attention, ops.q)
     return out.reshape(ops.shape)
 
 
@@ -969,6 +979,7 @@ def sea_block_sparse_attention(
 
 
 sea_block_sparse_attention.launches = 0
+sea_block_sparse_attention.bf16_launches = 0
 
 
 def alive_mask(mask_m: torch.Tensor, t_src: int, *, is_causal: bool = True,
@@ -1121,16 +1132,19 @@ def backward_terms(do, o, scaler, dtype):
     return dscaler, dou, delta
 
 
-def _require_f32(ops: KernelOperands, what: str, *per_call: torch.Tensor):
-    """The differentiable path's kernels launch on a CUDA device and take
-    float32 only; the per-call tensors must sit with the operands."""
+def _require_diff(ops: KernelOperands, what: str, dou=None, *stats: torch.Tensor):
+    """The differentiable path's kernels launch on a CUDA device on
+    operands built with `differentiable=True`, float32 or bfloat16; the
+    backward's per-call tensors sit with them, `dou` in q's type and the
+    row statistics (lse, delta) float32."""
     _require_cuda(ops.q, what)
-    for t in (ops.q, *per_call):
-        if t.device != ops.q.device or t.dtype != torch.float32:
-            raise ValueError(f"{what}: float32 tensors on {ops.q.device} only, "
-                             f"got {t.dtype} on {t.device}")
     if ops.idx_t is None:
         raise ValueError(f"{what}: operands built without differentiable=True")
+    want = [(t, ops.q.dtype) for t in (ops.q,) + (() if dou is None else (dou,))]
+    for t, dtype in want + [(t, torch.float32) for t in stats]:
+        if t.device != ops.q.device or t.dtype != dtype:
+            raise ValueError(f"{what}: {dtype} on {ops.q.device} wanted, "
+                             f"got {t.dtype} on {t.device}")
 
 
 def _flat(t: torch.Tensor, nh: int) -> torch.Tensor:
@@ -1140,9 +1154,9 @@ def _flat(t: torch.Tensor, nh: int) -> torch.Tensor:
 
 def causal_fwd_stats(ops: KernelOperands) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the forward-with-stats kernel (K2) on the current
-    stream: (o (N, H, T, D) float32, lse (N, H, T) float32)."""
+    stream: (o (N, H, T, D) in q's type, lse (N, H, T) float32)."""
     N, H, T_DST, D = ops.shape
-    _require_f32(ops, "causal_fwd_stats")
+    _require_diff(ops, "causal_fwd_stats")
     out = torch.empty_like(ops.q)
     lse = torch.empty((N * H, T_DST), dtype=torch.float32, device=ops.q.device)
     lib = _lib()
@@ -1152,21 +1166,23 @@ def causal_fwd_stats(ops: KernelOperands) -> Tuple[torch.Tensor, torch.Tensor]:
             ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(),
             ops.mbits.data_ptr(), ops.scaler.data_ptr(), ops.counts.data_ptr(),
             ops.idx.data_ptr(), ops.row_base.data_ptr(), out.data_ptr(),
-            lse.data_ptr(), *_geometry(ops), stream,
+            lse.data_ptr(), *_geometry(ops), int(ops.q.dtype == torch.bfloat16), stream,
         )
     _check(err, "sea_causal_fwd_stats")
-    causal_fwd_stats.launches += 1
+    _count(causal_fwd_stats, ops.q)
     return out.reshape(N, H, T_DST, D), lse.reshape(N, H, T_DST)
 
 
 causal_fwd_stats.launches = 0
+causal_fwd_stats.bf16_launches = 0
 
 
 def causal_dq(ops: KernelOperands, dou, lse, delta) -> torch.Tensor:
-    """One launch of the dq kernel (K3) on the current stream: (N, H, T, D)."""
+    """One launch of the dq kernel (K3) on the current stream: (N, H, T, D)
+    in q's type."""
     N, H, T_DST, D = ops.shape
     dou, lse, delta = (_flat(x, N * H) for x in (dou, lse, delta))
-    _require_f32(ops, "causal_dq", dou, lse, delta)
+    _require_diff(ops, "causal_dq", dou, lse, delta)
     dq = torch.empty_like(ops.q)
     lib = _diff_lib()
     with torch.cuda.device(ops.q.device):
@@ -1175,23 +1191,25 @@ def causal_dq(ops: KernelOperands, dou, lse, delta) -> torch.Tensor:
             ops.q.data_ptr(), ops.k.data_ptr(), ops.v.data_ptr(),
             ops.mbits.data_ptr(), dou.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), ops.counts.data_ptr(), ops.idx.data_ptr(),
-            ops.row_base.data_ptr(), dq.data_ptr(), *_geometry(ops), stream,
+            ops.row_base.data_ptr(), dq.data_ptr(), *_geometry(ops),
+            int(ops.q.dtype == torch.bfloat16), stream,
         )
     _check(err, "sea_causal_dq")
-    causal_dq.launches += 1
+    _count(causal_dq, ops.q)
     return dq.reshape(N, H, T_DST, D)
 
 
 causal_dq.launches = 0
+causal_dq.bf16_launches = 0
 
 
 def causal_dkv(ops: KernelOperands, dou, lse, delta
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One launch of the dk/dv kernel (K4) on the current stream:
-    (dk, dv), each (N, H, T_SRC, D)."""
+    (dk, dv), each (N, H, T_SRC, D) in q's type."""
     N, H, _, D = ops.shape
     dou, lse, delta = (_flat(x, N * H) for x in (dou, lse, delta))
-    _require_f32(ops, "causal_dkv", dou, lse, delta)
+    _require_diff(ops, "causal_dkv", dou, lse, delta)
     dk = torch.empty_like(ops.k)
     dv = torch.empty_like(ops.v)
     lib = _diff_lib()
@@ -1202,15 +1220,16 @@ def causal_dkv(ops: KernelOperands, dou, lse, delta
             ops.mbits.data_ptr(), dou.data_ptr(), lse.data_ptr(),
             delta.data_ptr(), ops.counts_t.data_ptr(), ops.idx_t.data_ptr(),
             ops.row_base.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            *_geometry(ops), stream,
+            *_geometry(ops), int(ops.q.dtype == torch.bfloat16), stream,
         )
     _check(err, "sea_causal_dkv")
-    causal_dkv.launches += 1
+    _count(causal_dkv, ops.q)
     T_SRC = ops.k.shape[1]
     return dk.reshape(N, H, T_SRC, D), dv.reshape(N, H, T_SRC, D)
 
 
 causal_dkv.launches = 0
+causal_dkv.bf16_launches = 0
 
 
 def fused_forward(q, k, v, mask_m, scaler, row_base, row_widths, block_q, block_k):
@@ -1246,11 +1265,12 @@ def fused_backward(meta, saved, do):
         dk, dv = dkv_reference(q, k, v, mask_m, dou, lse, delta, row_widths=row_widths)
         return dq, dk, dv, dscaler
     ops = ops._replace(**dict(zip(OPERAND_TENSORS, saved)))
+    # the operands' scaler is float32; the input's, and its gradient, q's type
     scaler = ops.scaler.reshape(ops.shape[:3])
-    dscaler, dou, delta = backward_terms(do, o, scaler, torch.float32)
+    dscaler, dou, delta = backward_terms(do, o, scaler, ops.q.dtype)
     dq = causal_dq(ops, dou, lse, delta)
     dk, dv = causal_dkv(ops, dou, lse, delta)
-    return dq, dk, dv, dscaler
+    return dq, dk, dv, dscaler.to(ops.q.dtype)
 
 
 class FusedSparseAttention(torch.autograd.Function):
@@ -1414,7 +1434,8 @@ def _window_args(ops: WindowOperands, w: int, k_win, v_win, what: str, *per_call
                          f"{32 * MAX_WORDS}, got {D} and {ops.t_m}")
     for x in (ops.q, k_win, v_win, *per_call):
         if x.device != ops.q.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{what}: contiguous float32 tensors on {ops.q.device} only")
+            raise ValueError(f"{what}: contiguous float32 tensors on {ops.q.device} only "
+                             "(the bf16 instances of K6-K8: ROADMAP queue 2)")
     if k_win.shape != (N, H, ops.window, D) or v_win.shape != k_win.shape:
         raise ValueError(f"{what}: k and v must be ({N}, {H}, {ops.window}, {D})")
     if not 0 <= w < ops.counts.shape[0]:

@@ -13,7 +13,8 @@ Port of `sea_tpu/ops/performer.py`:
   * `redraw_projections`, the trainers' periodic redraw of every module's
     projection.
 
-Everything is computed in float32 whatever the caller's dtype.
+Everything is computed in float32 whatever the caller's and the projection's
+types.
 """
 
 from __future__ import annotations
@@ -67,7 +68,7 @@ def softmax_kernel_features(
 
     Queries stabilise per position (max over features), keys per
     (batch, head) (max over features and positions)."""
-    x = x.float()
+    x, proj = x.float(), proj.float()
     d = x.shape[-1]
     m = proj.shape[0]
     data_normalizer = d ** -0.25
@@ -90,7 +91,7 @@ def relu_kernel_features(
     data_normalizer = d ** -0.25
     if proj is None:
         return torch.relu(data_normalizer * x) + eps
-    wx = torch.einsum("...td,md->...tm", data_normalizer * x, proj)
+    wx = torch.einsum("...td,md->...tm", data_normalizer * x, proj.float())
     return torch.relu(wx) + eps
 
 

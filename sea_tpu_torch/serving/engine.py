@@ -28,9 +28,16 @@ the step skips the (S, V) sort.
 `step(chunk)` runs `chunk` decode steps on the device between two host syncs:
 one upload of the chunk's inputs and one (chunk, S) download of its tokens.
 
+`dtype` is the type of the K/V pools and of the decode states' CNN
+window (JAX's `dtype=`, float32 by default); the states' FAVOR+ sums and
+running sum of v stay float32 whatever it is. A bfloat16 engine over a
+model cast to bfloat16 decodes in bfloat16 throughout. (Over float32
+parameters the windows promote to float32 after the first step, as JAX's
+concatenation promotes them; JAX's engine refuses that pairing, its scan
+carry changing type.)
+
 Not ported yet: the mesh-sharded engine (`mesh=`), which waits for the
-port's multi-GPU mesh, and the `dtype=` option: pools and states are
-float32 until the port has bfloat16 decode.
+port's multi-GPU mesh.
 """
 
 from __future__ import annotations
@@ -91,6 +98,7 @@ class ServingEngine:
     eos_id: a sampled token that ends its request.
     seed: seeds the sampler's generator; step i of the engine's life takes
         the generator's i-th (S, V) block of Gumbel noise.
+    dtype: the pools' and the CNN windows' type.
     device: where the pools and states live; the model must be there.
     """
 
@@ -104,6 +112,7 @@ class ServingEngine:
         max_pages_per_slot: int = 8,
         eos_id: Optional[int] = None,
         seed: int = 0,
+        dtype=torch.float32,
         device="cuda",
         mesh=None,
     ):
@@ -129,7 +138,7 @@ class ServingEngine:
 
         self.allocator = PageAllocator(num_pages)
         self.pages_np = np.zeros((S, self.max_pages), np.int64)
-        self.pool_k = torch.zeros((L, num_pages, page_size, H, D), device=device)
+        self.pool_k = torch.zeros((L, num_pages, page_size, H, D), dtype=dtype, device=device)
         self.pool_v = torch.zeros_like(self.pool_k)
 
         # per-layer states with zero-width contiguous caches and (S,) per-slot
@@ -138,7 +147,7 @@ class ServingEngine:
             z = torch.zeros((S,), dtype=torch.int32, device=device)
             return st._replace(length=z, cnn_filled=z, cumavg_len=z)
 
-        self.states = [per_slot(st) for st in model.init_decode_states(S, 0)]
+        self.states = [per_slot(st) for st in model.init_decode_states(S, 0, dtype)]
 
         self._generator = torch.Generator(device).manual_seed(seed)
         self._rid = 0

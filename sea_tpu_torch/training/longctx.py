@@ -10,11 +10,15 @@ and the dense O(T²) train path never materialises.
 
 The optimizer is `torch.optim.AdamW(lr, betas=(0.9, 0.999), eps=1e-8,
 weight_decay)`, the update rule of `optax.adamw`; the loss is
-`loss + 0.0 * aux_loss`, as the script writes it. The port runs float32
-without rematerialisation: the script's `scan_layers` and `scan_remat` steer
-XLA's compiler and have no counterpart here, and its
-`compute_dtype="bfloat16"` and `--logit-chunk` (the chunked cross entropy)
-are not ported yet. On the CPU every kernel takes its plain version.
+`loss + 0.0 * aux_loss`, as the script writes it. The model takes the
+script's `compute_dtype="bfloat16"` (`longctx_model`'s default; "float32"
+also): with its float32 parameters, flax's type rule rounds only the
+embedding and each layer's output to bfloat16, and the projections, the
+attention and the kernels run float32 (`models/opt.py`). It runs without
+rematerialisation: the script's `scan_layers` and `scan_remat` steer XLA's
+compiler and have no counterpart here, and its `--logit-chunk` (the chunked
+cross entropy) is not ported yet. On the CPU every kernel takes its plain
+version.
 """
 
 from __future__ import annotations
@@ -82,12 +86,15 @@ def train_steps(
     return losses
 
 
-def longctx_model(t: int, layers: int, device="cuda") -> OptForCausalLM:
+def longctx_model(t: int, layers: int, device="cuda",
+                  compute_dtype: str = "bfloat16") -> OptForCausalLM:
     """OPT-125m widths with `use_fused_train`, `layers` deep, positions up
-    to `t`, random weights from seed 0."""
+    to `t`, in `compute_dtype` (the script's bfloat16 by default), float32
+    random weights from seed 0."""
     sea = opt_config(use_fused_train=True, max_position_embeddings=t)
     cfg = dataclasses.replace(
-        opt_125m("perlin", sea=sea), num_layers=layers, max_position_embeddings=t
+        opt_125m("perlin", sea=sea), num_layers=layers, max_position_embeddings=t,
+        compute_dtype=compute_dtype,
     )
     return OptForCausalLM(cfg, device=device, seed=0)
 
@@ -106,6 +113,7 @@ def main(argv=None):
             raise SystemExit("no CUDA device; pass --device cpu for the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
         name = torch.cuda.get_device_name(device)
     else:
         name = "cpu"

@@ -17,11 +17,18 @@ jitter generator in one `torch.save` file.
     python -m sea_tpu_torch.training.opt_trainer --model tiny --steps 4 --device cpu
     python -m sea_tpu_torch.training.opt_trainer --model opt-125m --seq-len 512 --steps 2
 
-The entry point runs on "cuda" unless `--device` says otherwise, float32
-with TF32 off. Refused with NotImplementedError, each naming its ROADMAP
-item: `scan_kd`, `data_parallel`, `checkpoint_rotation`, `param_dtype`,
-`moment_dtype`, `compute_dtype`, `logit_chunk`, the models past opt-125m
-and LLaMA, and student methods other than 'perlin' and 'none'.
+Models 'tiny', 'opt-125m', 'opt-350m' and 'opt-1.3b' (the JAX builders;
+1.3b computes in bfloat16 by default). The types are the JAX trainer's:
+`compute_dtype` overrides the models' own, `param_dtype` casts every
+floating parameter and buffer of both models (the teacher's checkpoint
+too), and `moment_dtype` is AdamW's first-moment type (optax's `mu_dtype`);
+see `models/opt.py` for what each type rounds.
+
+The entry point runs on "cuda" unless `--device` says otherwise, with TF32
+off and bfloat16 products reduced in float32. Refused with
+NotImplementedError, each naming its ROADMAP item: `scan_kd`,
+`data_parallel`, `checkpoint_rotation`, `logit_chunk`, opt-2.7b (head width
+80) and LLaMA, and student methods other than 'perlin' and 'none'.
 """
 
 from __future__ import annotations
@@ -40,7 +47,7 @@ import torch
 from ..config import SeaConfig, opt_config
 from ..data.wikitext2 import get_corpus
 from ..models.loader import load_opt_params, student_from_teacher
-from ..models.opt import OptConfig, OptForCausalLM, opt_125m
+from ..models.opt import COMPUTE_DTYPES, OptConfig, OptForCausalLM, opt_125m, opt_350m, opt_1_3b
 from ..ops.masks import resize_jitter_draws
 from ..ops.performer import redraw_projections
 from .distill import SeaOptKD
@@ -51,8 +58,8 @@ LEFTOVERS = "ROADMAP queue 1, 'KD and trainer leftovers'"
 
 @dataclasses.dataclass
 class TrainerConfig:
-    # 'tiny' | 'opt-125m' (the JAX trainer's larger OPT and LLaMA models are
-    # refused)
+    # 'tiny' | 'opt-125m' | 'opt-350m' | 'opt-1.3b' (the JAX trainer's
+    # opt-2.7b and LLaMA models are refused)
     model: str = "opt-125m"
     # student attention method
     method: str = "perlin"
@@ -88,13 +95,16 @@ class TrainerConfig:
     halt_on_divergence: bool = True
     # directory of `wikitext2_{split}.npy` token files (None: saves/data)
     data_cache_dir: Optional[str] = None
+    # None keeps each model's own ('bfloat16' for opt-1.3b, 'float32' below)
+    compute_dtype: Optional[str] = None
+    # every floating parameter's type (None: float32)
+    param_dtype: Optional[str] = None
+    # AdamW's first-moment type (None: the parameters')
+    moment_dtype: Optional[str] = None
     # the JAX trainer's options that the port refuses (see the module doc)
     scan_kd: bool = False
     data_parallel: bool = False
     checkpoint_rotation: int = 0
-    compute_dtype: Optional[str] = None
-    param_dtype: Optional[str] = None
-    moment_dtype: Optional[str] = None
     logit_chunk: Optional[int] = None
 
 
@@ -102,16 +112,24 @@ class TrainingDiverged(RuntimeError):
     """A non-finite loss with `halt_on_divergence`."""
 
 
+# the OPT builders the port has, and each one's heads (all of head width 64)
+MODELS = {"opt-125m": (opt_125m, 12), "opt-350m": (opt_350m, 16), "opt-1.3b": (opt_1_3b, 32)}
+
+
 def _refuse_unported(cfg: TrainerConfig):
-    for name in ("scan_kd", "data_parallel", "checkpoint_rotation", "compute_dtype",
-                 "param_dtype", "moment_dtype", "logit_chunk"):
+    for name in ("scan_kd", "data_parallel", "checkpoint_rotation", "logit_chunk"):
         if getattr(cfg, name) != getattr(TrainerConfig, name):
             raise NotImplementedError(f"TrainerConfig.{name} is not ported yet ({LEFTOVERS})")
-    if cfg.model not in ("tiny", "opt-125m"):
+    if cfg.model == "opt-2.7b":
         raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ROADMAP queue 1: the larger OPT "
-            "models need bfloat16 compute and other head widths, LLaMA its own item)"
-        )
+            "model 'opt-2.7b' needs head width 80, which the kernels have no instance of "
+            f"yet (ROADMAP queue 2 item 6; {LEFTOVERS})")
+    if cfg.model not in ("tiny", *MODELS):
+        raise NotImplementedError(
+            f"model {cfg.model!r} is not ported yet (ROADMAP queue 1: LLaMA is its own item)")
+    for name in ("compute_dtype", "param_dtype", "moment_dtype"):
+        if getattr(cfg, name) not in (None, *COMPUTE_DTYPES):
+            raise ValueError(f"TrainerConfig.{name}: one of {sorted(COMPUTE_DTYPES)} or None")
 
 
 def tiny_configs(method: str = "perlin") -> Tuple[OptConfig, OptConfig]:
@@ -128,22 +146,28 @@ def tiny_configs(method: str = "perlin") -> Tuple[OptConfig, OptConfig]:
 
 
 def model_configs(cfg: TrainerConfig) -> Tuple[OptConfig, OptConfig]:
+    """(teacher, student) configurations, `compute_dtype` applied."""
     _refuse_unported(cfg)
     if cfg.model == "tiny":
-        return tiny_configs(cfg.method)
-    sea = opt_config(
-        num_heads=12, head_dim=64, k=cfg.k, predictor_length=cfg.predictor_length,
-        performer_nb_factor=cfg.nb_factor,
-    )
-    return opt_125m("none", sea), opt_125m(cfg.method, sea)
+        pair = tiny_configs(cfg.method)
+    else:
+        builder, heads = MODELS[cfg.model]
+        sea = opt_config(
+            num_heads=heads, head_dim=64, k=cfg.k, predictor_length=cfg.predictor_length,
+            performer_nb_factor=cfg.nb_factor,
+        )
+        pair = builder("none", sea), builder(cfg.method, sea)
+    if cfg.compute_dtype is None:
+        return pair
+    return tuple(dataclasses.replace(c, compute_dtype=cfg.compute_dtype) for c in pair)
 
 
 class OptTrainer:
     """Teacher, student, optimizer and corpora for `cfg`, on `device`.
     Weights are random from seeds (teacher 0, student 1) unless
-    `cfg.teacher_checkpoint` names a local HF OPT directory; the jitter's
-    draws and the projection redraws come from a generator seeded with
-    `cfg.seed` on `device`."""
+    `cfg.teacher_checkpoint` names a local HF OPT directory, in
+    `cfg.param_dtype`; the jitter's draws and the projection redraws come
+    from a generator seeded with `cfg.seed` on `device`."""
 
     def __init__(self, cfg: TrainerConfig, device="cuda"):
         self.cfg = cfg
@@ -151,6 +175,12 @@ class OptTrainer:
         self.t_cfg, self.s_cfg = model_configs(cfg)
         self.teacher = OptForCausalLM(self.t_cfg, device=self.device, seed=0)
         self.student = OptForCausalLM(self.s_cfg, device=self.device, seed=1)
+        if cfg.param_dtype is not None:
+            # every floating leaf, as the JAX trainer casts its trees (the
+            # checkpoint loads into the cast model in its type)
+            dtype = getattr(torch, cfg.param_dtype)
+            self.teacher.to(dtype)
+            self.student.to(dtype)
         if cfg.teacher_checkpoint:
             self.teacher.load_state_dict(
                 load_opt_params(cfg.teacher_checkpoint, self.t_cfg), strict=True)
@@ -171,6 +201,7 @@ class OptTrainer:
         self.optimizer = GroupedAdamW(
             self.student, lr=cfg.lr, wd=cfg.wd,
             lr_high_scale=cfg.lr_high_scale, lr_low_scale=cfg.lr_low_scale,
+            mu_dtype=cfg.moment_dtype,
         )
 
     def _tensors(self, *arrays):
@@ -346,6 +377,7 @@ def main(argv=None):
             raise SystemExit("no CUDA device; pass --device cpu for the plain versions")
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
     cfg = TrainerConfig(
         model=args.model,
         num_steps=args.steps,

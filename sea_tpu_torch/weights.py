@@ -12,6 +12,10 @@ as numpy arrays) to a `state_dict` for the matching port module:
   * the `performer` collection's `projection` -> the SEA module's
     `performer_proj` buffer;
   * a module list `layers_<i>` -> `layers.<i>`.
+
+Each leaf keeps its type. A bfloat16 leaf (an `ml_dtypes` array, which
+`torch.tensor` does not take) comes over through float32, which holds
+every bfloat16 value exactly, and back to bfloat16.
 """
 
 from __future__ import annotations
@@ -41,6 +45,14 @@ def _module_path(names: List[str]) -> List[str]:
     return out
 
 
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    """A CPU copy of `arr` in its own type (bfloat16 by way of float32)."""
+    arr = np.ascontiguousarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.tensor(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.tensor(arr)
+
+
 def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
     """The port's state_dict for a JAX variables tree (see module doc)."""
     out: Dict[str, torch.Tensor] = {}
@@ -54,11 +66,11 @@ def state_dict_from_jax(variables) -> Dict[str, torch.Tensor]:
         else:
             name = leaf
         key = ".".join(_module_path(mods) + [name])
-        out[key] = torch.tensor(np.ascontiguousarray(arr))
+        out[key] = _tensor(arr)
     for path, arr in _leaves(variables.get("performer", {}), []):
         *mods, leaf = path
         if leaf != "projection":
             raise ValueError(f"unexpected performer variable {'/'.join(path)}")
         key = ".".join(_module_path(mods) + ["performer_proj"])
-        out[key] = torch.tensor(np.asarray(arr))
+        out[key] = _tensor(np.asarray(arr))
     return out

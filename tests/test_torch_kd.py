@@ -5,7 +5,7 @@ tests/test_opt_kd.py and at OPT-125m's width with 2 layers.
 
 Tolerances: teacher captures 1e-5 abs (float32, the same arithmetic); the
 KD loss and every detail term 1e-5 relative; one clipped optimizer update
-1e-6 abs; the loader and the student bootstrap exact. Student gradients:
+1e-6 abs (with bf16 parameters, one bf16 ulp); the loader and the student bootstrap exact. Student gradients:
 1e-4 of the tensor's largest |want| (float32 sums over the batch's tokens
 and the (T, T) maps, taken in another order on each side) plus eight times
 the largest gap between JAX's own jitted and eager gradients of the same
@@ -241,6 +241,52 @@ def test_one_clipped_update_matches_optax(tiny, scale):
     for name, p in student.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), atol=1e-6, rtol=0,
                                    err_msg=name)
+
+
+@pytest.mark.parametrize("param_dtype,mu_dtype", [
+    ("float32", "bfloat16"), ("bfloat16", "bfloat16"), ("bfloat16", None)])
+def test_update_with_mu_dtype_matches_optax(tiny, param_dtype, mu_dtype):
+    """optax's `mu_dtype` (the trainer's moment_dtype) and bf16 parameters:
+    two clipped updates of the 4-group AdamW from the same gradients
+    (lr 1e-3, the second above the clipping norm) against `make_optimizer`'s
+    optax chain with that mu_dtype: the first moment stored in mu_dtype (the
+    parameters' type when None), the second in the parameters' type, and
+    the parameters within 1e-6 abs in float32 and, in bfloat16, within two
+    ulps of |p| plus two of the largest step (lr · 10): every operation is
+    JAX's in JAX's types, and the first, unclipped update is bit for bit,
+    but the global norm's sums run in another order (the leaves in module
+    order, not JAX's sorted tree order, and each leaf's bf16 sum reduced as
+    PyTorch reduces it), so in bf16 it lands an ulp apart (103 against JAX's
+    102.5 here) and the clipped gradients with it."""
+    _, _, s_cfg, _, s_vars, _, _ = tiny
+    jdt = jnp.dtype(param_dtype)
+    params = jax.tree_util.tree_map(lambda x: x.astype(jdt), s_vars["params"])
+    grads = [jax.tree_util.tree_map(
+        lambda x: jnp.asarray(np.random.default_rng(x.size + i).standard_normal(x.shape)
+                              .astype(np.float32) * 1e-3 * scale).astype(jdt), params)
+        for i, scale in enumerate((1.0, 1e3))]
+    tx = jax_make_optimizer(lr=1e-3, mu_dtype=mu_dtype)
+    state, want = tx.init(params), params
+    for g in grads:
+        updates, state = tx.update(g, state, want)
+        want = optax.apply_updates(want, updates)
+    want = state_dict_from_jax({"params": want})
+
+    student = port_model(s_cfg, s_vars).to(getattr(torch, param_dtype))
+    opt = GroupedAdamW(student, lr=1e-3, mu_dtype=mu_dtype)
+    for g in grads:
+        gd = state_dict_from_jax({"params": g})
+        for name, p in student.named_parameters():
+            p.grad = gd[name].clone()
+        opt.step()
+    mu_t = getattr(torch, mu_dtype or param_dtype)
+    assert all(m.dtype == mu_t for m in opt.mu)
+    assert all(v.dtype == p.dtype for v, p in zip(opt.nu, opt.params))
+    for name, p in student.named_parameters():
+        w = want[name]
+        assert p.dtype == w.dtype, name
+        atol = 1e-6 if param_dtype == "float32" else 2 ** -6 * (w.float().abs() + 1e-2)
+        assert bool(((p.detach().float() - w.float()).abs() <= atol).all()), name
 
 
 @pytest.mark.parametrize("fmt", ["dict", "safetensors", "bin"])

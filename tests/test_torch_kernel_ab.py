@@ -44,10 +44,9 @@ def test_tensor_core_check_names_every_instance():
             m = chip_smoke.FLAT_INSTANCE.search(mangled)
             assert m, mangled
             d, s, b, i = m.groups()
-            names.add(f"{chip_smoke.INSTANCE_KIDS[int(s), int(b), int(i)]} "
-                      f"{'float32' if d == 'f' else 'bfloat16'}")
-    assert names == {"K1 float32", "K1 bfloat16", "K2/K6 float32", "K5 float32", "K5 bfloat16",
-                     *(f"K9{c} {t}" for c in "abc" for t in ("float32", "bfloat16"))}
+            names.add(chip_smoke.instance_name(mangled))
+    assert names == {"K1 float32", "K1 bfloat16", "K2/K6 float32", "K2 bfloat16", "K5 float32",
+                     "K5 bfloat16", *(f"K9{c} {t}" for c in "abc" for t in ("float32", "bfloat16"))}
 
 
 def _forward_mangled():
@@ -68,14 +67,18 @@ def _forward_mangled():
 
 def _backward_mangled(launcher):
     """The mangled names (up to the first parameter, as nvcc's build log
-    spells them) of the backward-body instances that `launcher` (launch_dq
-    or launch_dkv) of block_sparse_diff.cu launches."""
+    spells them) of the backward-body instances that `launcher` (the
+    template launch_dq or launch_dkv of block_sparse_diff.cu) launches, for
+    each element type the entry points instantiate it with."""
     source = kernel_ab.DIFF_SOURCE.read_text()
     body = source[source.index(f"cudaError_t {launcher}("):]
     body = body[:body.index("\n}\n")]
+    types = set(re.findall(rf"\b{launcher}<(float|__nv_bfloat16)>\(", source))
+    mangled_t = {"float": "f", "__nv_bfloat16": "13__nv_bfloat16"}
     return [f"_ZN53_GLOBAL__N__24bbea32_20_block_sparse_diff_cu_bf66d488{len(name)}{name}"
-            f"ILi{d}EEEvPKf"
-            for name, d in set(re.findall(r"(causal_(?:dq|dkv)_kernel)<(\d+)><<<", body))]
+            f"ILi{d}E{mangled_t[t]}EEvPKT0_"
+            for name, d in set(re.findall(r"(causal_(?:dq|dkv)_kernel)<(\d+), T><<<", body))
+            for t in types]
 
 
 @pytest.mark.parametrize("name", sorted(kernel_ab.DIFF_KNOCKOUTS))
@@ -97,16 +100,18 @@ def test_backward_knockouts_apply_to_the_source(tmp_path, monkeypatch, name):
 @pytest.mark.parametrize("launcher, kids", [("launch_dq", "K3/K7"), ("launch_dkv", "K4/K8")])
 def test_backward_instances_are_named(launcher, kids):
     """The spill and HMMA checks name each backward instance that the
-    launcher launches by its kernels; the entry points are not instances."""
+    launcher launches by its kernels (the bf16 one the unsharded kernel's
+    alone); the entry points are not instances."""
     mangled = _backward_mangled(launcher)
-    assert len(mangled) == 1
-    assert {chip_smoke.instance_name(m) for m in mangled} == {f"{kids} float32"}
+    assert len(mangled) == 2
+    assert {chip_smoke.instance_name(m) for m in mangled} == {
+        f"{kids} float32", f"{kids[:2]} bfloat16"}
     assert chip_smoke.instance_name(f"sea_causal_{launcher[7:]}") is None
 
 
 @pytest.mark.parametrize("want", sorted(
-    f"{kid} {dt}" for kid in chip_smoke.INSTANCE_KIDS.values()
-    for dt in ("float32", "bfloat16") if kid != "K2/K6" or dt == "float32"))
+    name for kid in chip_smoke.INSTANCE_KIDS.values()
+    for name in (f"{kid} float32", f"{chip_smoke.BF16_KIDS.get(kid, kid)} bfloat16")))
 def test_forward_instances_still_named(want):
     """After the PTX helpers moved to sea_mma.cuh, the forward's source still
     launches every instance it did, each named by `instance_name`."""

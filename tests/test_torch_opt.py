@@ -1,8 +1,10 @@
 """Port parity: OPT forward to logits (sea_tpu_torch.models.opt vs
 sea_tpu.models.opt) at a tiny configuration, for the SEA student on the
 fused benchmark path and for the dense teacher; logits to <= 1e-4 abs.
-Also: the port package imports no JAX and nothing of sea_tpu."""
+Also: the port package imports no JAX and nothing of sea_tpu; the OPT
+builders' fields equal JAX's; a bfloat16 tree converts exactly."""
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -17,6 +19,7 @@ from sea_tpu.config import SeaConfig
 from sea_tpu.models import opt as jopt
 from sea_tpu.utils.profiler import get_bench as jax_bench
 from sea_tpu_torch.models import opt as topt
+from sea_tpu_torch.ops.kernels import block_sparse as tb
 from sea_tpu_torch.weights import state_dict_from_jax
 from tests._torch_parity import assert_topk_margin, t, torch_opt_config
 
@@ -108,6 +111,51 @@ def test_seeded_init_is_reproducible_and_finite():
         out = a(ids, torch.ones_like(ids), benchmarking=True)["logits"]
     assert out.shape == (2, 96, cfg.vocab_size)
     assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("builder", ["opt_125m", "opt_350m", "opt_1_3b", "opt_2_7b"])
+@pytest.mark.parametrize("method", ["perlin", "none"])
+def test_builders_match_jax(builder, method):
+    """Every field of the OPT builders, compute_dtype (bfloat16 from 1.3b)
+    and the SEA geometry included, equals the JAX package's."""
+    want = torch_opt_config(getattr(jopt, builder)(method))
+    assert getattr(topt, builder)(method) == want
+
+
+def test_bf16_weights_convert_exactly():
+    """A JAX tree cast to bfloat16 comes over through float32 (exact) as
+    bfloat16 tensors equal to its leaves, and loads into the port cast to
+    bfloat16 unchanged; an unknown compute_dtype is refused."""
+    cfg = tiny_cfg("perlin")
+    ids = jnp.ones((1, 16), jnp.int32)
+    variables = jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.bfloat16) if jnp.issubdtype(x.dtype, jnp.floating) else x,
+        jopt.OptForCausalLM(cfg).init(jax.random.key(0), ids, ids))
+    sd = state_dict_from_jax(variables)
+    assert sd and all(x.dtype == torch.bfloat16 for x in sd.values())
+    port = topt.OptForCausalLM(torch_opt_config(cfg), device="cpu", seed=None).to(torch.bfloat16)
+    port.load_state_dict(sd)
+    for name, x in port.state_dict().items():
+        assert x.dtype == torch.bfloat16 and torch.equal(x, sd[name]), name
+    want = state_dict_from_jax(jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.float32) if jnp.issubdtype(x.dtype, jnp.floating) else x,
+        variables))
+    for name, x in sd.items():
+        assert torch.equal(x.float(), want[name]), name
+    with pytest.raises(ValueError, match="compute_dtype"):
+        topt.OptForCausalLM(dataclasses.replace(torch_opt_config(cfg), compute_dtype="float16"),
+                            device="cpu")
+
+
+def test_head_width_80_is_refused_by_the_kernels():
+    """OPT-2.7b builds, but its fused paths stop at the kernel wrapper's
+    head-width check, which names the ROADMAP item that adds width 80."""
+    cfg = topt.opt_2_7b("perlin")
+    assert cfg.head_dim == cfg.sea.head_dim == 80
+    q = torch.zeros((1, 2, 128, 80))
+    x = tb.prepare_inputs(q, q, q, torch.ones((1, 2, 128, 256)))
+    with pytest.raises(ValueError, match="queue 2 item 6"):
+        tb.kernel_operands(x, differentiable=True)
 
 
 def test_port_imports_no_jax():

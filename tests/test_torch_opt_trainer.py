@@ -4,7 +4,15 @@ the JAX package's `OptTrainer` and `WindowedCorpus`, at the tiny config.
 
 Tolerances: the corpus, its windows and batches exact (the same numpy
 calls); the strided perplexity 1e-5 relative (float32 logits summed in
-another order); a save/load round trip bit for bit.
+another order); a save/load round trip bit for bit; the model configurations
+of every type field and model exact. In bfloat16 (`compute_dtype`,
+`param_dtype`, `moment_dtype`): the KD loss terms 1e-2 relative (2e-3
+measured), and one update of the student against JAX's optax update of
+JAX's gradients at least 90% of elements equal (97.6% measured) and every
+element within 2·s·(1 + 2^-6) + 2^-7·(|p| + 2·s), s = lr·high_scale:
+Adam's first step is about ±s per element (its bf16 moments put it within
+2^-7 of that), so a gradient of another sign moves it by 2·s, and each
+side's rounding adds half an ulp.
 """
 
 import json
@@ -16,14 +24,22 @@ import jax.numpy as jnp
 import pytest
 import torch
 
+import optax
+
 from sea_tpu.data import wikitext2 as jw
+from sea_tpu.models.loader import student_from_teacher as jax_student_from_teacher
 from sea_tpu.models.opt import OptForCausalLM as JaxOpt
+from sea_tpu.training.distill import SeaOptKD as JaxKD
 from sea_tpu.training.opt_trainer import OptTrainer as JaxTrainer
 from sea_tpu.training.opt_trainer import TrainerConfig as JaxTrainerConfig
+from sea_tpu.training.opt_trainer import model_configs as jax_model_configs
 from sea_tpu.training.opt_trainer import tiny_configs as jax_tiny_configs
+from sea_tpu.training.optimizer import make_optimizer as jax_make_optimizer
 from sea_tpu_torch.data import wikitext2 as tw
 from sea_tpu_torch.training import opt_trainer as to
 from sea_tpu_torch.weights import state_dict_from_jax
+from tests._torch_parity import t, torch_opt_config
+from tests.test_opt_kd import make_batch
 
 
 @pytest.fixture(autouse=True)
@@ -141,13 +157,78 @@ def test_save_load_round_trip(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("scan_kd", True), ("data_parallel", True), ("checkpoint_rotation", 2),
-    ("compute_dtype", "bfloat16"), ("param_dtype", "bfloat16"),
-    ("moment_dtype", "bfloat16"), ("logit_chunk", 256), ("model", "opt-1.3b"),
-    ("model", "llama-7b"),
+    ("logit_chunk", 256), ("model", "opt-2.7b"), ("model", "llama-7b"),
 ])
 def test_unported_options_are_refused(tmp_path, field, value):
     with pytest.raises(NotImplementedError):
         to.OptTrainer(tiny_cfg(tmp_path, **{field: value}), device="cpu")
+
+
+@pytest.mark.parametrize("model", ["tiny", "opt-125m", "opt-350m", "opt-1.3b"])
+@pytest.mark.parametrize("compute_dtype", [None, "float32", "bfloat16"])
+def test_model_configs_match_jax(model, compute_dtype):
+    """The (teacher, student) configurations of each model the port trains,
+    with and without `compute_dtype`, equal JAX's `model_configs` (opt-1.3b
+    computes in bf16 unless told otherwise)."""
+    kw = dict(model=model, compute_dtype=compute_dtype)
+    want = jax_model_configs(JaxTrainerConfig(**kw))
+    assert to.model_configs(to.TrainerConfig(**kw)) == tuple(map(torch_opt_config, want))
+
+
+def _cast_bf16(tree):
+    return jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.bfloat16) if jnp.issubdtype(x.dtype, jnp.floating) else x, tree)
+
+
+def test_bf16_type_fields_one_update_match_jax(tmp_path):
+    """compute_dtype, param_dtype and moment_dtype bfloat16 at the tiny
+    config, one update (accumulation 1, lr 1e-3): every parameter of both
+    models bf16 and AdamW's moments bf16; on JAX's cast and bootstrapped
+    weights, the KD loss terms against `SeaOptKD.kd_loss`'s and the student
+    after `OptTrainer.update` against JAX's optax update (`make_optimizer`
+    with mu_dtype) of JAX's gradients, at the module doc's tolerances."""
+    kw = dict(compute_dtype="bfloat16", param_dtype="bfloat16", moment_dtype="bfloat16")
+    t_cfg, s_cfg = jax_model_configs(JaxTrainerConfig(model="tiny", **kw))
+    lr, high = 1e-3, 10.0
+    tr = to.OptTrainer(tiny_cfg(tmp_path, gradient_accumulation_steps=1, lr=lr,
+                                lr_high_scale=high, **kw), device="cpu")
+    assert all(p.dtype == torch.bfloat16 for m in (tr.teacher, tr.student)
+               for p in m.parameters())
+    kd = JaxKD(t_cfg, s_cfg)
+    ids, mask = make_batch(N=2, T=64, vocab=t_cfg.vocab_size, seed=3)
+    t_vars = _cast_bf16(jax.jit(lambda: kd.teacher.init(jax.random.key(0), ids, mask))())
+    s_vars = jax_student_from_teacher(
+        _cast_bf16(jax.jit(lambda: kd.student.init(jax.random.key(1), ids, mask))()),
+        t_vars["params"])
+    tr.teacher.load_state_dict(state_dict_from_jax(t_vars))
+    tr.student.load_state_dict(state_dict_from_jax(s_vars))
+
+    def loss_fn(params):
+        return kd.kd_loss(t_vars, {**s_vars, "params": params}, ids, mask, ids, use_remat=True)
+
+    (_, want_terms), grads = jax.value_and_grad(loss_fn, has_aux=True)(s_vars["params"])
+    loss, terms = tr.kd.kd_loss(t(ids).long(), t(mask).long(), t(ids).long(),
+                                use_remat=True, task_scale=tr.cfg.task_loss_scale)
+    for name, v in terms.items():
+        np.testing.assert_allclose(float(v), float(want_terms[name]), rtol=1e-2, err_msg=name)
+    loss.backward()
+    tr.update()
+    tx = jax_make_optimizer(lr=lr, lr_high_scale=high, mu_dtype="bfloat16")
+    updates, _ = tx.update(grads, tx.init(s_vars["params"]), s_vars["params"])
+    want = state_dict_from_jax({"params": optax.apply_updates(s_vars["params"], updates)})
+    before = state_dict_from_jax(s_vars)
+    assert all(m.dtype == v.dtype == torch.bfloat16
+               for m, v in zip(tr.optimizer.mu, tr.optimizer.nu))
+    equal = total = 0
+    for name, p in tr.student.named_parameters():
+        got, w, p0 = p.detach().float(), want[name].float(), before[name].float()
+        assert p.dtype == torch.bfloat16, name
+        step = lr * high  # the largest group's rate
+        bound = 2 * step * (1 + 2 ** -6) + 2 ** -7 * (p0.abs() + 2 * step)
+        assert bool(((got - w).abs() <= bound).all()), name
+        equal += int((got == w).sum())
+        total += got.numel()
+    assert equal >= 0.9 * total, equal / total
 
 
 def test_main_trains_and_prints_a_perplexity(tmp_path, monkeypatch, capsys):

@@ -7,7 +7,8 @@ Tolerances: paged decode's logits within 1e-6 of the port's contiguous
 decode and 1e-5 of JAX's paged decode (float32 einsums in another order);
 every engine output token for token: equal to per-request
 `generate_greedy`, to chunked runs, and to the JAX engine's on the same
-requests and weights.
+requests and weights, float32 and (a model cast to bf16) with bf16 pools
+and states.
 """
 
 import numpy as np
@@ -222,3 +223,28 @@ def test_engine_refuses_a_mesh():
     port = OptForCausalLM(torch_opt_config(tiny_opt("perlin")), device="cpu", seed=0)
     with pytest.raises(NotImplementedError, match="queue 1 item 8"):
         ServingEngine(port, device="cpu", mesh=object())
+
+
+def test_bf16_engine_matches_jax_engine():
+    """bf16 serving: the tree cast to bf16 and both engines with bf16 pools
+    and states (`dtype=`), on the same requests and schedule as
+    `test_engine_matches_jax_engine`: the pools and windows bf16, the
+    FAVOR+ sums float32, and the same greedy tokens."""
+    cfg, model, variables, port, _ = tiny_model(seed=31)
+    variables = jax.tree_util.tree_map(
+        lambda x: x.astype(jnp.bfloat16) if jnp.issubdtype(x.dtype, jnp.floating) else x,
+        variables)
+    port.to(torch.bfloat16)
+    port.load_state_dict(state_dict_from_jax(variables))
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(4, cfg.vocab_size, size=p).tolist() for p in (3, 6, 5)]
+    kw = dict(max_slots=2, page_size=4, num_pages=32, max_pages_per_slot=8)
+    ours = engine(port, dtype=torch.bfloat16, **kw)
+    assert ours.pool_k.dtype == torch.bfloat16
+    assert all(st.cnn_window.dtype == torch.bfloat16 and st.performer_S.dtype == torch.float32
+               for st in ours.states)
+    outs = []
+    for eng in (JaxEngine(model, variables, dtype=jnp.bfloat16, **kw), ours):
+        rids = [eng.submit(p, 5) for p in prompts]
+        outs.append([r.output for r in map(eng.run(chunk=3).get, rids)])
+    assert outs[0] == outs[1]
