@@ -6,7 +6,9 @@ NVIDIA GPU.
 Builds `sea_tpu_torch/csrc/block_sparse_causal.cu` (the forward body) and
 `sea_tpu_torch/csrc/block_sparse_diff.cu` (the backward bodies) of this tree
 and, with `--parent`, the same two files of another checkout (for one
-commit: `mkdir DIR && git archive <commit> | tar -x -C DIR`), plus copies
+commit: `mkdir DIR && git archive <commit> | tar -x -C DIR`; the window
+entry points take `is_bf16` since the ring's bf16 instances, so a parent
+older than that times K7 and K8 through another signature), plus copies
 of this tree's sources with one part of a body knocked out (nine): 13 nvcc
 builds with a parent, 11 without, all started together (about 20 s on the
 card's host). Then it times, with CUDA events on the same operands, the
@@ -85,12 +87,12 @@ DIFF_KNOCKOUTS = {
     "products": [
         ("mma_3xtf32(s[j], qh, ql, kf.x, kf.y);", ";"),
         ("mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);", ";"),
-        ("mma_3xtf32(acc[j], ah, al, Ks[c * LD + 8 * j + g], Ks[(c + 1) * LD + 8 * j + g]);",
+        ("mma_3xtf32(acc[j], ah, al, Ks[c * LDD + 8 * j + g], Ks[(c + 1) * LDD + 8 * j + g]);",
          ";"),
         ("mma_3xtf32(st[j], kh, kl, qf.x, qf.y);", ";"),
         ("mma_3xtf32(dpt[j], vh, vl, of.x, of.y);", ";"),
-        ("mma_3xtf32(acc_v[j], ph, pl, Ot[c * LD + n], Ot[(c + 1) * LD + n]);", ";"),
-        ("mma_3xtf32(acc_k[j], dh, dl, Qt[c * LD + n], Qt[(c + 1) * LD + n]);", ";")],
+        ("mma_3xtf32(acc_v[j], ph, pl, Ot[c * LDD + n], Ot[(c + 1) * LDD + n]);", ";"),
+        ("mma_3xtf32(acc_k[j], dh, dl, Qt[c * LDD + n], Qt[(c + 1) * LDD + n]);", ";")],
 }
 DIFF_KNOCKOUTS["all"] = DIFF_KNOCKOUTS["pred"] + DIFF_KNOCKOUTS["exp"] + DIFF_KNOCKOUTS["products"]
 P, I, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -100,8 +102,8 @@ ARGTYPES = {
     "sea_causal_word_range_forward": [P] * 10 + [I] * 11 + [FL] * 4 + [I, P],
     "sea_causal_dq": [P] * 11 + [I] * 11 + [P],
     "sea_causal_dkv": [P] * 12 + [I] * 11 + [P],
-    "sea_window_dq": [P] * 11 + [I] * 11 + [P],
-    "sea_window_dkv": [P] * 12 + [I] * 11 + [P],
+    "sea_window_dq": [P] * 11 + [I] * 12 + [P],
+    "sea_window_dkv": [P] * 12 + [I] * 12 + [P],
 }
 
 

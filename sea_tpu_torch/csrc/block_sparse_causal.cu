@@ -159,6 +159,17 @@
 // visited element (K9a, K9b) and the number of visited sub-tiles (K9c), not
 // the bytes.
 //
+// Head widths. The body is templated on D; K1 and K2 (and so K6's
+// instance) are built at D = 64 and D = 80 (OPT-2.7b), in both types, and
+// pick the instance by head_dim at launch (`sea::dispatch`); K5, K6 and
+// K9a-c take 64 only. At D = 80 a row is 160 bytes (bf16) or 320 (float32),
+// whole 16-byte copies, and the padded strides below stay free of bank
+// conflicts: bf16 rows of 88 elements (176 bytes) put ldmatrix's 8 rows on
+// banks 12·i mod 32, disjoint 4-bank groups; float32 K and Q rows of 88
+// floats put the float2 reads of rows g = 0..3 (one half-warp) on banks
+// 24·g + 2·t mod 32, and V rows of 84 put the reads of rows 2·t on banks
+// 8·t + g, as at 64.
+//
 // The element predicates live in sea_mask.cuh (`alive_elem`, `alive_elem_len`,
 // and K9a-c's `alive_elem_wr`, `alive_elem_loop`, `alive_elem_sub`), shared
 // with the backward kernels and with the debug kernels `alive_mask_kernel`
@@ -231,10 +242,11 @@ __device__ __forceinline__ void load_kv(unsigned char* stage, const T* __restric
 }
 
 // Blocks an SM should hold, which caps registers at 65536 / (128·blocks):
-// bf16 fits three (168 registers, no spill) and overlaps their barriers;
-// float32's split products need the 255 of two.
-template <typename T>
-constexpr int MIN_BLOCKS = std::is_same<T, float>::value ? 2 : 3;
+// bf16 at width 64 fits three (168 registers, no spill) and overlaps their
+// barriers; at 80 (Q's fragments 20 registers, the output's 40) K1 spilled
+// at 168 and takes two; float32's split products need the 255 of two.
+template <int D, typename T>
+constexpr int MIN_BLOCKS = std::is_same<T, float>::value || D > 64 ? 2 : 3;
 
 // STATS: the forward of the differentiable path. The undersampling predicate
 // is off and `lse` receives each row's logsumexp.
@@ -245,7 +257,7 @@ constexpr int MIN_BLOCKS = std::is_same<T, float>::value ? 2 : 3;
 // tile's word range (WORD_RANGE, WORD_LOOP) or bitmask of active `sub`-wide
 // pieces (SUBTILE); FLAT reads neither.
 template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>
-__global__ void __launch_bounds__(TPB, MIN_BLOCKS<T>) causal_flat_kernel(
+__global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const uint32_t* __restrict__ mbits, const float* __restrict__ scaler,
     const int* __restrict__ counts, const int* __restrict__ idx,
@@ -706,7 +718,7 @@ int impl_forward(const void* q, const void* k, const void* v,
                  int t_m, int n_words, int block_q, int block_k, int nq,
                  int nkb, int sub, float oversample, float k_cfg,
                  float keep_lo, float keep_hi, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k) ||
+  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k) || head_dim != 64 ||
       bad_pieces(IMPL, block_k, sub))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -735,23 +747,16 @@ extern "C" int sea_causal_flat_forward(
     int is_bf16, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e =
-      is_bf16 ? launch<64, __nv_bfloat16, false, false>(
-                    q, k, v, mbits, scaler, counts, idx, nullptr, rowbase,
-                    nullptr, out, nullptr, nh, t_dst, t_src, t_m, n_words,
-                    block_q, block_k, nq, nkb, 0, oversample, k_cfg, keep_lo,
-                    keep_hi, 0, s)
-              : launch<64, float, false, false>(
-                    q, k, v, mbits, scaler, counts, idx, nullptr, rowbase,
-                    nullptr, out, nullptr, nh, t_dst, t_src, t_m, n_words,
-                    block_q, block_k, nq, nkb, 0, oversample, k_cfg, keep_lo,
-                    keep_hi, 0, s);
-  return (int)e;
+  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+    return launch<decltype(d)::value, typename decltype(t)::type, false, false>(
+        q, k, v, mbits, scaler, counts, idx, nullptr, rowbase, nullptr, out, nullptr, nh,
+        t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, 0, oversample, k_cfg,
+        keep_lo, keep_hi, 0, (cudaStream_t)stream);
+  });
 }
 
 // The forward of the differentiable path (K2): f32 or bf16 in and out, lse
-// (nh, t_dst) float32.
+// (nh, t_dst) float32; head width 64 or 80.
 extern "C" int sea_causal_fwd_stats(
     const void* q, const void* k, const void* v, const void* mbits,
     const void* scaler, const void* counts, const void* idx,
@@ -760,37 +765,38 @@ extern "C" int sea_causal_fwd_stats(
     int nkb, int is_bf16, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e =
-      is_bf16 ? launch<64, __nv_bfloat16, true, false>(
-                    q, k, v, mbits, scaler, counts, idx, nullptr, rowbase,
-                    nullptr, out, lse, nh, t_dst, t_src, t_m, n_words, block_q,
-                    block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0, s)
-              : launch<64, float, true, false>(
-                    q, k, v, mbits, scaler, counts, idx, nullptr, rowbase,
-                    nullptr, out, lse, nh, t_dst, t_src, t_m, n_words, block_q,
-                    block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0, s);
-  return (int)e;
+  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+    return launch<decltype(d)::value, typename decltype(t)::type, true, false>(
+        q, k, v, mbits, scaler, counts, idx, nullptr, rowbase, nullptr, out, lse, nh, t_dst,
+        t_src, t_m, n_words, block_q, block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0,
+        (cudaStream_t)stream);
+  });
 }
 
-// K6, the forward with stats over one K/V window (float32): k and v are
-// (nh, t_win, D) and hold the global columns col_base .. col_base + t_win − 1;
-// idx (nh, nq, nkw) carries global k-block ids of that window; the scaler is
-// one; out (nh, t_dst, D) is the window-normalised output and lse (nh, t_dst)
-// the window's logsumexp, +inf on rows with nothing alive in it.
+// K6, the forward with stats over one K/V window (K2's instance, float32 or
+// bf16, head width 64): k and v are (nh, t_win, D) and hold the global
+// columns col_base .. col_base + t_win − 1; idx (nh, nq, nkw) carries global
+// k-block ids of that window; the scaler is one; out (nh, t_dst, D), in q's
+// type, is the window-normalised output and lse (nh, t_dst) float32 the
+// window's logsumexp, +inf on rows with nothing alive in it.
 extern "C" int sea_window_fwd_stats(
     const void* q, const void* k, const void* v, const void* mbits,
     const void* counts, const void* idx, const void* rowbase, void* out,
     void* lse, int nh, int t_dst, int t_win, int head_dim, int t_m,
     int n_words, int block_q, int block_k, int nq, int nkw, int col_base,
-    void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
+    int is_bf16, void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) || head_dim != 64 ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch<64, float, true, false>(
-      q, k, v, mbits, nullptr, counts, idx, nullptr, rowbase, nullptr, out,
-      lse, nh, t_dst, t_win, t_m, n_words, block_q, block_k, nq, nkw, 0, 1.0f,
-      1.0f, 1.0f, 1.0f, col_base, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16 ? launch<64, __nv_bfloat16, true, false>(
+                             q, k, v, mbits, nullptr, counts, idx, nullptr, rowbase, nullptr,
+                             out, lse, nh, t_dst, t_win, t_m, n_words, block_q, block_k, nq,
+                             nkw, 0, 1.0f, 1.0f, 1.0f, 1.0f, col_base, s)
+                       : launch<64, float, true, false>(
+                             q, k, v, mbits, nullptr, counts, idx, nullptr, rowbase, nullptr,
+                             out, lse, nh, t_dst, t_win, t_m, n_words, block_q, block_k, nq,
+                             nkw, 0, 1.0f, 1.0f, 1.0f, 1.0f, col_base, s));
 }
 
 // The padded bidirectional forward (K5): f32 or bf16 in and out, `lengths`
@@ -801,7 +807,7 @@ extern "C" int sea_bidir_forward(
     const void* lengths, void* out, int nh, int t_dst, int t_src,
     int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
     int nkb, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
+  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k) || head_dim != 64)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e =

@@ -66,7 +66,15 @@
 //     reads down columns (K in dq, Q and dO in dk/dv) meet two-way conflicts
 //     but take immediate offsets, which ran faster than an unpadded layout
 //     permuted to avoid them. dq takes 112 KB (two blocks an SM), dk/dv 118
-//     KB (one).
+//     KB (one), at width 64; at 80 dq takes 136 KB (one) and dk/dv 142 KB.
+//   * Head widths: the bodies are templated on D, the padded row stride
+//     LD<D> = D + 8 included; K3 and K4 are built at D = 64 and D = 80
+//     (OPT-2.7b) in both types and pick the instance by head_dim at launch
+//     (`sea::dispatch`); K7 and K8 take 64 only. At 80 the float32 row reads
+//     stay conflict-free (rows g = 0..3 of a half-warp on banks 24·g + 2·t
+//     mod 32) and the column reads two-way, as at 64 (rows 2·t on banks 16·t
+//     + g mod 32); bf16 rows of 176 bytes put ldmatrix's 8 rows, plain or
+//     transposed, on disjoint 4-bank groups (12·i mod 32).
 //   * The splits round by integer operations (`sea::to_tf32_rna`: cvt.rna's
 //     bits without its NaN and infinity checks, which cost more than any
 //     other part of the splits).
@@ -78,8 +86,8 @@
 //     exactly and so adds exact zeros: lists of other block sizes (or a
 //     shard that never lists it) give the same bits.
 //
-// bfloat16 (K3 and K4 only; the window entries K7 and K8 take float32). The
-// JAX kernels take bf16 operands, and round P and dS to bf16 before their
+// bfloat16 (K3 and K4, and their instances under the window entries K7 and
+// K8). The JAX kernels take bf16 operands, and round P and dS to bf16 before their
 // products (`ds.astype(k_ref.dtype)`, `p.astype(do_ref.dtype)`); outputs come
 // back in q's type. These instances keep the float32 bodies' walk, predicate,
 // row terms and epilogue, and change only the element type and the products:
@@ -143,34 +151,37 @@ using sea::split_bf16;
 constexpr int BQ = sea::TILE;   // query rows per tile
 constexpr int BKT = sea::TILE;  // key columns per tile
 constexpr int TPB = 128;        // 4 warps of 16 rows (dq) or 16 columns (dk/dv)
-constexpr int LD = 64 + 8;       // elements of a padded tile row
-constexpr int TILE_F = 64 * LD;  // elements of one tile
+template <int D>
+constexpr int LD = D + 8;  // elements of a padded tile row
+template <int D>
+constexpr int TILE_F = 64 * LD<D>;  // elements of one tile
 
 template <typename T>
 constexpr bool IS_F32 = std::is_same<T, float>::value;
-template <typename T>
-constexpr int TILE_BYTES = TILE_F * (int)sizeof(T);
+template <int D, typename T>
+constexpr int TILE_BYTES = TILE_F<D> * (int)sizeof(T);
 
 // dq: two stages of (K, V), then (float32) Q, dO, then the mask words.
-template <typename T>
-constexpr int DQ_SMEM = (IS_F32<T> ? 6 : 4) * TILE_BYTES<T> + BQ * MAX_WORDS * 4;
+template <int D, typename T>
+constexpr int DQ_SMEM = (IS_F32<T> ? 6 : 4) * TILE_BYTES<D, T> + BQ * MAX_WORDS * 4;
 // dk/dv: (float32) K, V, then two stages of (Q, dO, mask words, row terms).
-template <typename T>
-constexpr int DKV_STAGE = 2 * TILE_BYTES<T> + BQ * MAX_WORDS * 4 + BQ * 16;
-template <typename T>
-constexpr int DKV_SMEM = (IS_F32<T> ? 2 * TILE_BYTES<T> : 0) + 2 * DKV_STAGE<T>;
+template <int D, typename T>
+constexpr int DKV_STAGE = 2 * TILE_BYTES<D, T> + BQ * MAX_WORDS * 4 + BQ * 16;
+template <int D, typename T>
+constexpr int DKV_SMEM = (IS_F32<T> ? 2 * TILE_BYTES<D, T> : 0) + 2 * DKV_STAGE<D, T>;
 // float32 dk/dv fills an SM's shared memory with one block; bf16 fits two
 template <typename T>
 constexpr int DKV_MIN_BLOCKS = IS_F32<T> ? 1 : 2;
 
+template <int D>
 __device__ __forceinline__ float2 ld2(const float* tile, int c, int d) {
-  return *reinterpret_cast<const float2*>(tile + c * LD + d);
+  return *reinterpret_cast<const float2*>(tile + c * LD<D> + d);
 }
 
 // 64 rows of D elements into a tile
 template <int D, typename T>
 __device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, int tid) {
-  copy_rows<D, TPB>(dst, LD, src, tid);
+  copy_rows<D, TPB>(dst, LD<D>, src, tid);
 }
 
 // bf16: the A fragments of 16 rows (r0 and r0 + 8 for the thread's g) of a
@@ -188,33 +199,33 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4],
   }
 }
 
-// bf16: c[n] += A·Bᵀ for the 64 rows of a shared tile `b` (B's columns n:
+// bf16: c[n] += A·Bᵀ for the 8·N rows of a shared tile `b` (B's columns n:
 // tile rows 8·n .. 8·n + 7, k: d), A the fragments `a` of 16 rows by D
-template <int D>
-__device__ __forceinline__ void mma_rows(float (&c)[8][4], const uint32_t (&a)[D / 16][4],
+template <int D, int N>
+__device__ __forceinline__ void mma_rows(float (&c)[N][4], const uint32_t (&a)[D / 16][4],
                                          const __nv_bfloat16* b, int lane) {
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk)
 #pragma unroll
-    for (int jp = 0; jp < 4; ++jp) {
+    for (int jp = 0; jp < N / 2; ++jp) {
       // matrices: (rows 16·jp + 0..7, d + 0..7), (.., d + 8..15),
       // (rows + 8..15, d + 0..7), (.., d + 8..15)
       uint32_t f[4];
-      ldsm_x4(f, b + (16 * jp + ((lane >> 4) << 3) + (lane & 7)) * LD + 16 * kk +
+      ldsm_x4(f, b + (16 * jp + ((lane >> 4) << 3) + (lane & 7)) * LD<D> + 16 * kk +
                      (((lane >> 3) & 1) << 3));
       mma_bf16(c[2 * jp], a[kk], f[0], f[1]);
       mma_bf16(c[2 * jp + 1], a[kk], f[2], f[3]);
     }
 }
 
-// bf16: c[n] += X·B over the 64 rows of a shared tile `b` (k: tile rows, B's
-// columns n: d), X the float32 C fragments `x` (16 rows by the 64 k) split
-// into bf16 hi + lo, the lo product first
-template <int D>
-__device__ __forceinline__ void mma_split(float (&c)[D / 8][4], const float (&x)[8][4],
+// bf16: c[n] += X·B over the 8·N rows of a shared tile `b` (k: tile rows,
+// B's columns n: d), X the float32 C fragments `x` (16 rows by the 8·N k)
+// split into bf16 hi + lo, the lo product first
+template <int D, int N>
+__device__ __forceinline__ void mma_split(float (&c)[D / 8][4], const float (&x)[N][4],
                                           const __nv_bfloat16* b, int lane) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < N / 2; ++kk) {
     // k = 16·kk .. 16·kk + 15 are C fragments 2·kk and 2·kk + 1
     uint32_t ah[4], al[4];
     split_bf16(x[2 * kk][0], x[2 * kk][1], ah[0], al[0]);
@@ -226,7 +237,7 @@ __device__ __forceinline__ void mma_split(float (&c)[D / 8][4], const float (&x)
       // matrices (transposed): (k + 0..7, d 16·jp + 0..7), (k + 8..15, ..),
       // (k + 0..7, d + 8..15), (k + 8..15, ..)
       uint32_t f[4];
-      ldsm_x4_trans(f, b + (16 * kk + (((lane >> 3) & 1) << 3) + (lane & 7)) * LD +
+      ldsm_x4_trans(f, b + (16 * kk + (((lane >> 3) & 1) << 3) + (lane & 7)) * LD<D> +
                            16 * jp + ((lane >> 4) << 3));
       mma_bf16(c[2 * jp], al, f[0], f[1]);
       mma_bf16(c[2 * jp], ah, f[0], f[1]);
@@ -255,13 +266,14 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     const int* __restrict__ idx, const int* __restrict__ rowbase,
     T* __restrict__ dq, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, int col_base) {
-  static_assert(D == 64, "64-wide tiles");
+  static_assert(D % 16 == 0, "head width");
   constexpr bool F32 = IS_F32<T>;
+  constexpr int LDD = LD<D>, TF = TILE_F<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   T* const kv_st = reinterpret_cast<T*>(smem);  // stage s: K, then V
-  T* const Qs = kv_st + 4 * TILE_F;              // float32 only
-  T* const Os = Qs + TILE_F;
-  uint32_t* const Ms = reinterpret_cast<uint32_t*>(smem + (F32 ? 6 : 4) * TILE_BYTES<T>);
+  T* const Qs = kv_st + 4 * TF;                  // float32 only
+  T* const Os = Qs + TF;
+  uint32_t* const Ms = reinterpret_cast<uint32_t*>(smem + (F32 ? 6 : 4) * TILE_BYTES<D, T>);
 
   // blocks start in order of x, then y: every head's last q-tile first
   const int bh = blockIdx.x;
@@ -322,9 +334,9 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     return false;
   };
   auto load_kv = [&](int stage, int c0) {
-    T* Kd = kv_st + stage * 2 * TILE_F;
+    T* Kd = kv_st + stage * 2 * TF;
     copy_tile<D>(Kd, k + kvbase + (long)c0 * D, tid);
-    copy_tile<D>(Kd + TILE_F, v + kvbase + (long)c0 * D, tid);
+    copy_tile<D>(Kd + TF, v + kvbase + (long)c0 * D, tid);
   };
 
   int e = 0, c0 = -1, stage = 0;
@@ -339,8 +351,8 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // this stage (and, first time, Q, dO and the words) landed
-    const T* Ks = kv_st + stage * 2 * TILE_F;
-    const T* Vs = Ks + TILE_F;
+    const T* Ks = kv_st + stage * 2 * TF;
+    const T* Vs = Ks + TF;
 
     // S = Q·Kᵀ and dP = dO·Vᵀ: s[j], dp[j] the C fragments of score
     // columns 8·j .. 8·j + 7
@@ -354,12 +366,12 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
       for (int kk = 0; kk < D / 8; ++kk) {
         const int d = 8 * kk + 2 * t4;
         uint32_t qh[4], ql[4], oh[4], ol[4];
-        split_a(ld2(Qs, wrow0 + g, d), ld2(Qs, wrow0 + g + 8, d), qh, ql);
-        split_a(ld2(Os, wrow0 + g, d), ld2(Os, wrow0 + g + 8, d), oh, ol);
+        split_a(ld2<D>(Qs, wrow0 + g, d), ld2<D>(Qs, wrow0 + g + 8, d), qh, ql);
+        split_a(ld2<D>(Os, wrow0 + g, d), ld2<D>(Os, wrow0 + g + 8, d), oh, ol);
 #pragma unroll
         for (int j = 0; j < BKT / 8; ++j) {
-          const float2 kf = ld2(Ks, 8 * j + g, d);
-          const float2 vf = ld2(Vs, 8 * j + g, d);
+          const float2 kf = ld2<D>(Ks, 8 * j + g, d);
+          const float2 vf = ld2<D>(Vs, 8 * j + g, d);
           mma_3xtf32(s[j], qh, ql, kf.x, kf.y);
           mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);
         }
@@ -400,7 +412,7 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
         const int c = 8 * kk + 2 * t4;
 #pragma unroll
         for (int j = 0; j < D / 8; ++j)
-          mma_3xtf32(acc[j], ah, al, Ks[c * LD + 8 * j + g], Ks[(c + 1) * LD + 8 * j + g]);
+          mma_3xtf32(acc[j], ah, al, Ks[c * LDD + 8 * j + g], Ks[(c + 1) * LDD + 8 * j + g]);
       }
     } else {
       mma_split<D>(acc, s, Ks, lane);
@@ -431,21 +443,22 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
     T* __restrict__ dk, T* __restrict__ dv, int t_dst, int t_src,
     int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
     int col_base) {
-  static_assert(D == 64, "64-wide tiles");
+  static_assert(D % 16 == 0, "head width");
   constexpr bool F32 = IS_F32<T>;
-  constexpr int STAGE = DKV_STAGE<T>;
+  constexpr int STAGE = DKV_STAGE<D, T>;
+  constexpr int LDD = LD<D>, TF = TILE_F<D>, TB = TILE_BYTES<D, T>;
+  constexpr int PARTS = D > 64 ? 2 : 1;  // see the sub-tile's loop
+  constexpr int NJ = BQ / 8 / PARTS;      // fragment rows of a part
   extern __shared__ __align__(16) unsigned char smem[];
   T* const Ks = reinterpret_cast<T*>(smem);  // float32 only
-  T* const Vs = Ks + TILE_F;
+  T* const Vs = Ks + TF;
   // stage s: Q, dO, the mask words, then per row (lse·log2 e, delta, the
   // causal width, its reciprocal)
-  unsigned char* const q_st = smem + (F32 ? 2 * TILE_BYTES<T> : 0);
+  unsigned char* const q_st = smem + (F32 ? 2 * TB : 0);
   auto Qs = [&](int s) { return reinterpret_cast<T*>(q_st + s * STAGE); };
-  auto Ms = [&](int s) {
-    return reinterpret_cast<uint32_t*>(q_st + s * STAGE + 2 * TILE_BYTES<T>);
-  };
+  auto Ms = [&](int s) { return reinterpret_cast<uint32_t*>(q_st + s * STAGE + 2 * TB); };
   auto Rs = [&](int s) {
-    return reinterpret_cast<float4*>(q_st + s * STAGE + 2 * TILE_BYTES<T> + BQ * MAX_WORDS * 4);
+    return reinterpret_cast<float4*>(q_st + s * STAGE + 2 * TB + BQ * MAX_WORDS * 4);
   };
 
   // blocks start in order of x, then y: every head's first k-tile first
@@ -502,7 +515,7 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
   };
   auto load_q = [&](int s, int r0) {
     copy_tile<D>(Qs(s), q + (rbase + r0) * D, tid);
-    copy_tile<D>(Qs(s) + TILE_F, dou + (rbase + r0) * D, tid);
+    copy_tile<D>(Qs(s) + TF, dou + (rbase + r0) * D, tid);
     const uint32_t* src = mbits + (rbase + r0) * n_words;
     for (int i = tid; i < BQ * n_words; i += TPB) cp_async4(Ms(s) + i, src + i);
   };
@@ -536,76 +549,86 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
     cp_async_wait<1>();
     __syncthreads();  // this stage (and, first time, K and V) landed
     const T* Qt = Qs(stage);
-    const T* Ot = Qt + TILE_F;
+    const T* Ot = Qt + TF;
     const uint32_t* Mt = Ms(stage);
     const float4* Rt = Rs(stage);
     const int grow0 = grow_of(e, r0);
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: st[j], dpt[j] the C fragments of the
-    // sub-tile's rows 8·j .. 8·j + 7
-    float st[BQ / 8][4], dpt[BQ / 8][4];
+    // The sub-tile's rows in PARTS parts of 8·NJ rows (one at width 64, two
+    // at 80, where the four fragment sets of a whole sub-tile would spill):
+    // each part's terms are made and summed into dk and dv before the next
+    // part's, and every sum still takes the rows in increasing order, so
+    // the parts change no bit.
+#pragma unroll 1
+    for (int part = 0; part < PARTS; ++part) {
+      const int j0 = part * NJ;  // the part's first fragment row
+      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: st[j], dpt[j] the C fragments of the
+      // sub-tile's rows 8·(j0 + j) .. 8·(j0 + j) + 7
+      float st[NJ][4], dpt[NJ][4];
 #pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
-    if constexpr (F32) {
+        for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
+      if constexpr (F32) {
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const int d = 8 * kk + 2 * t4;
-        uint32_t kh[4], kl[4], vh[4], vl[4];
-        split_a(ld2(Ks, wcol0 + g, d), ld2(Ks, wcol0 + g + 8, d), kh, kl);
-        split_a(ld2(Vs, wcol0 + g, d), ld2(Vs, wcol0 + g + 8, d), vh, vl);
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const int d = 8 * kk + 2 * t4;
+          uint32_t kh[4], kl[4], vh[4], vl[4];
+          split_a(ld2<D>(Ks, wcol0 + g, d), ld2<D>(Ks, wcol0 + g + 8, d), kh, kl);
+          split_a(ld2<D>(Vs, wcol0 + g, d), ld2<D>(Vs, wcol0 + g + 8, d), vh, vl);
 #pragma unroll
-        for (int j = 0; j < BQ / 8; ++j) {
-          const float2 qf = ld2(Qt, 8 * j + g, d);
-          const float2 of = ld2(Ot, 8 * j + g, d);
-          mma_3xtf32(st[j], kh, kl, qf.x, qf.y);
-          mma_3xtf32(dpt[j], vh, vl, of.x, of.y);
+          for (int j = 0; j < NJ; ++j) {
+            const float2 qf = ld2<D>(Qt, 8 * (j0 + j) + g, d);
+            const float2 of = ld2<D>(Ot, 8 * (j0 + j) + g, d);
+            mma_3xtf32(st[j], kh, kl, qf.x, qf.y);
+            mma_3xtf32(dpt[j], vh, vl, of.x, of.y);
+          }
         }
-      }
-    } else {
-      mma_rows<D>(st, ka, Qt, lane);
-      mma_rows<D>(dpt, va, Ot, lane);
-    }
-
-    // the element predicate, Pᵀ and dSᵀ: element (j, b) of fragment row h
-    // is (column gc[h], sub-tile row 8·j + 2·t4 + b)
-#pragma unroll
-    for (int j = 0; j < BQ / 8; ++j)
-#pragma unroll
-      for (int b = 0; b < 2; ++b) {
-        const int rl = 8 * j + 2 * t4 + b;
-        const float4 rt = Rt[rl];  // lse·log2 e, delta, width, reciprocal
-        const uint32_t* words = Mt + rl * n_words;
-#pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float& pt = st[j][2 * h + b];
-          const float pv = alive_elem_recip(words, xc[h], gc[h], grow0 + rl, rt.z, rt.w, t_m)
-                               ? exp2_sfu(__fmaf_rn(pt, LOG2E, -rt.x)) : 0.f;
-          pt = pv;
-          dpt[j][2 * h + b] = pv * (dpt[j][2 * h + b] - rt.y);
-        }
+      } else {
+        mma_rows<D>(st, ka, Qt + 8 * j0 * LDD, lane);
+        mma_rows<D>(dpt, va, Ot + 8 * j0 * LDD, lane);
       }
 
-    // dv += Pᵀ·dO and dk += dSᵀ·Q, Pᵀ and dSᵀ from their C fragments
-    // (k = the sub-tile's rows)
-    if constexpr (F32) {
+      // the element predicate, Pᵀ and dSᵀ: element (j, b) of fragment row h
+      // is (column gc[h], sub-tile row 8·(j0 + j) + 2·t4 + b)
 #pragma unroll
-      for (int kk = 0; kk < BQ / 8; ++kk) {
-        uint32_t ph[4], pl[4], dh[4], dl[4];
-        split_a(make_float2(st[kk][0], st[kk][1]), make_float2(st[kk][2], st[kk][3]), ph, pl);
-        split_a(make_float2(dpt[kk][0], dpt[kk][1]), make_float2(dpt[kk][2], dpt[kk][3]), dh, dl);
-        const int c = 8 * kk + 2 * t4;
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          const int n = 8 * j + g;
-          mma_3xtf32(acc_v[j], ph, pl, Ot[c * LD + n], Ot[(c + 1) * LD + n]);
-          mma_3xtf32(acc_k[j], dh, dl, Qt[c * LD + n], Qt[(c + 1) * LD + n]);
+        for (int b = 0; b < 2; ++b) {
+          const int rl = 8 * (j0 + j) + 2 * t4 + b;
+          const float4 rt = Rt[rl];  // lse·log2 e, delta, width, reciprocal
+          const uint32_t* words = Mt + rl * n_words;
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            float& pt = st[j][2 * h + b];
+            const float pv = alive_elem_recip(words, xc[h], gc[h], grow0 + rl, rt.z, rt.w, t_m)
+                                 ? exp2_sfu(__fmaf_rn(pt, LOG2E, -rt.x)) : 0.f;
+            pt = pv;
+            dpt[j][2 * h + b] = pv * (dpt[j][2 * h + b] - rt.y);
+          }
         }
+
+      // dv += Pᵀ·dO and dk += dSᵀ·Q, Pᵀ and dSᵀ from their C fragments
+      // (k = the part's rows)
+      if constexpr (F32) {
+#pragma unroll
+        for (int kk = 0; kk < NJ; ++kk) {
+          uint32_t ph[4], pl[4], dh[4], dl[4];
+          split_a(make_float2(st[kk][0], st[kk][1]), make_float2(st[kk][2], st[kk][3]), ph, pl);
+          split_a(make_float2(dpt[kk][0], dpt[kk][1]), make_float2(dpt[kk][2], dpt[kk][3]), dh,
+                  dl);
+          const int c = 8 * (j0 + kk) + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j) {
+            const int n = 8 * j + g;
+            mma_3xtf32(acc_v[j], ph, pl, Ot[c * LDD + n], Ot[(c + 1) * LDD + n]);
+            mma_3xtf32(acc_k[j], dh, dl, Qt[c * LDD + n], Qt[(c + 1) * LDD + n]);
+          }
+        }
+      } else {
+        mma_split<D>(acc_v, st, Ot + 8 * j0 * LDD, lane);
+        mma_split<D>(acc_k, dpt, Qt + 8 * j0 * LDD, lane);
       }
-    } else {
-      mma_split<D>(acc_v, st, Ot, lane);
-      mma_split<D>(acc_k, dpt, Qt, lane);
     }
     if (more && tid < BQ) put_terms(stage ^ 1, grow_of(ne, nr0), nl, nd);
     __syncthreads();  // this stage is consumed; the next one's terms are in
@@ -628,9 +651,9 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
 }
 
 // col_base: the global column of k's and v's first row (0 for K3 and K4).
-// T: the element type of q, k, v, dou and the gradients (float or
-// __nv_bfloat16); lse and delta are float32 either way.
-template <typename T>
+// D: the head width; T: the element type of q, k, v, dou and the gradients
+// (float or __nv_bfloat16); lse and delta are float32 either way.
+template <int D, typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* mbits, const void* dou, const void* lse,
                       const void* delta, const void* counts, const void* idx,
@@ -640,10 +663,10 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   if (misaligned(q, k, v, dou, dq)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<64, T>, DQ_SMEM<T>, opted_in);
+  cudaError_t e = sea::opt_in_smem(causal_dq_kernel<D, T>, DQ_SMEM<D, T>, opted_in);
   if (e != cudaSuccess) return e;
   dim3 grid(nh, t_dst / BQ);
-  causal_dq_kernel<64, T><<<grid, TPB, DQ_SMEM<T>, stream>>>(
+  causal_dq_kernel<D, T><<<grid, TPB, DQ_SMEM<D, T>, stream>>>(
       (const T*)q, (const T*)k, (const T*)v,
       (const uint32_t*)mbits, (const T*)dou, (const float*)lse,
       (const float*)delta, (const int*)counts, (const int*)idx,
@@ -652,7 +675,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T>
+template <int D, typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* mbits, const void* dou, const void* lse,
                        const void* delta, const void* counts_t,
@@ -662,10 +685,10 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int col_base, cudaStream_t stream) {
   if (misaligned(q, k, v, dou, dk, dv)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<64, T>, DKV_SMEM<T>, opted_in);
+  cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<D, T>, DKV_SMEM<D, T>, opted_in);
   if (e != cudaSuccess) return e;
   dim3 grid(nh, t_src / BKT);
-  causal_dkv_kernel<64, T><<<grid, TPB, DKV_SMEM<T>, stream>>>(
+  causal_dkv_kernel<D, T><<<grid, TPB, DKV_SMEM<D, T>, stream>>>(
       (const T*)q, (const T*)k, (const T*)v,
       (const uint32_t*)mbits, (const T*)dou, (const float*)lse,
       (const float*)delta, (const int*)counts_t, (const int*)idx_t,
@@ -676,7 +699,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 
 }  // namespace
 
-// K3: dq (nh, t_dst, D) in q's type, float32 or bf16 (is_bf16).
+// K3: dq (nh, t_dst, D) in q's type, float32 or bf16 (is_bf16); head width
+// 64 or 80.
 extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
                              const void* mbits, const void* dou,
                              const void* lse, const void* delta,
@@ -687,17 +711,15 @@ extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
                              int is_bf16, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16
-                   ? launch_dq<__nv_bfloat16>(q, k, v, mbits, dou, lse, delta, counts, idx,
-                                              rowbase, dq, nh, t_dst, t_src, t_m, n_words,
-                                              block_q, block_k, nq, nkb, 0, s)
-                   : launch_dq<float>(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
-                                      dq, nh, t_dst, t_src, t_m, n_words, block_q, block_k,
-                                      nq, nkb, 0, s));
+  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+    return launch_dq<decltype(d)::value, typename decltype(t)::type>(
+        q, k, v, mbits, dou, lse, delta, counts, idx, rowbase, dq, nh, t_dst, t_src, t_m,
+        n_words, block_q, block_k, nq, nkb, 0, (cudaStream_t)stream);
+  });
 }
 
-// K4: dk, dv (nh, t_src, D) in q's type, float32 or bf16 (is_bf16).
+// K4: dk, dv (nh, t_src, D) in q's type, float32 or bf16 (is_bf16); head
+// width 64 or 80.
 extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
                               const void* mbits, const void* dou,
                               const void* lse, const void* delta,
@@ -708,19 +730,17 @@ extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
                               int nkb, int is_bf16, void* stream) {
   if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  return (int)(is_bf16
-                   ? launch_dkv<__nv_bfloat16>(q, k, v, mbits, dou, lse, delta, counts_t,
-                                               idx_t, rowbase, dk, dv, nh, t_dst, t_src, t_m,
-                                               n_words, block_q, block_k, nq, nkb, 0, s)
-                   : launch_dkv<float>(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
-                                       rowbase, dk, dv, nh, t_dst, t_src, t_m, n_words,
-                                       block_q, block_k, nq, nkb, 0, s));
+  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+    return launch_dkv<decltype(d)::value, typename decltype(t)::type>(
+        q, k, v, mbits, dou, lse, delta, counts_t, idx_t, rowbase, dk, dv, nh, t_dst, t_src,
+        t_m, n_words, block_q, block_k, nq, nkb, 0, (cudaStream_t)stream);
+  });
 }
 
-// K7: dq (nh, t_dst, D) of one K/V window. k and v are (nh, t_win, D) and
-// hold the global columns col_base .. col_base + t_win − 1; idx (nh, nq, nkw)
-// carries global k-block ids of that window; lse and delta are the rows'
+// K7: dq (nh, t_dst, D) of one K/V window, in q's type (float32 or bf16,
+// head width 64: K3's instance). k and v are (nh, t_win, D) and hold the
+// global columns col_base .. col_base + t_win − 1; idx (nh, nq, nkw) carries
+// global k-block ids of that window; lse and delta (float32) are the rows'
 // totals over every window (lse +inf on rows with nothing alive at all).
 extern "C" int sea_window_dq(const void* q, const void* k, const void* v,
                              const void* mbits, const void* dou,
@@ -729,18 +749,24 @@ extern "C" int sea_window_dq(const void* q, const void* k, const void* v,
                              const void* rowbase, void* dq, int nh, int t_dst,
                              int t_win, int head_dim, int t_m, int n_words,
                              int block_q, int block_k, int nq, int nkw,
-                             int col_base, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
+                             int col_base, int is_bf16, void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) || head_dim != 64 ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dq<float>(q, k, v, mbits, dou, lse, delta, counts, idx, rowbase,
-                               dq, nh, t_dst, t_win, t_m, n_words, block_q, block_k,
-                        nq, nkw, col_base, (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16 ? launch_dq<64, __nv_bfloat16>(q, k, v, mbits, dou, lse, delta, counts,
+                                                      idx, rowbase, dq, nh, t_dst, t_win, t_m,
+                                                      n_words, block_q, block_k, nq, nkw,
+                                                      col_base, s)
+                       : launch_dq<64, float>(q, k, v, mbits, dou, lse, delta, counts, idx,
+                                              rowbase, dq, nh, t_dst, t_win, t_m, n_words,
+                                              block_q, block_k, nq, nkw, col_base, s));
 }
 
-// K8: dk, dv (nh, t_win, D) of one K/V window from the local query rows.
-// counts_t (nh, nkw) and idx_t (nh, nkw, nq) are the window's transposed
-// lists: per local k-block, the local q-blocks with an alive element in it.
+// K8: dk, dv (nh, t_win, D) of one K/V window from the local query rows, in
+// q's type (float32 or bf16, head width 64: K4's instance). counts_t (nh,
+// nkw) and idx_t (nh, nkw, nq) are the window's transposed lists: per local
+// k-block, the local q-blocks with an alive element in it.
 extern "C" int sea_window_dkv(const void* q, const void* k, const void* v,
                               const void* mbits, const void* dou,
                               const void* lse, const void* delta,
@@ -748,12 +774,17 @@ extern "C" int sea_window_dkv(const void* q, const void* k, const void* v,
                               const void* rowbase, void* dk, void* dv, int nh,
                               int t_dst, int t_win, int head_dim, int t_m,
                               int n_words, int block_q, int block_k, int nq,
-                              int nkw, int col_base, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) ||
+                              int nkw, int col_base, int is_bf16, void* stream) {
+  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) || head_dim != 64 ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)launch_dkv<float>(q, k, v, mbits, dou, lse, delta, counts_t, idx_t,
-                                rowbase, dk, dv, nh, t_dst, t_win, t_m, n_words,
-                                block_q, block_k, nq, nkw, col_base,
-                                (cudaStream_t)stream);
+  cudaStream_t s = (cudaStream_t)stream;
+  return (int)(is_bf16 ? launch_dkv<64, __nv_bfloat16>(q, k, v, mbits, dou, lse, delta,
+                                                       counts_t, idx_t, rowbase, dk, dv, nh,
+                                                       t_dst, t_win, t_m, n_words, block_q,
+                                                       block_k, nq, nkw, col_base, s)
+                       : launch_dkv<64, float>(q, k, v, mbits, dou, lse, delta, counts_t,
+                                               idx_t, rowbase, dk, dv, nh, t_dst, t_win, t_m,
+                                               n_words, block_q, block_k, nq, nkw, col_base,
+                                               s));
 }

@@ -46,7 +46,7 @@ and `decode_step_paged` embed in the parameters' type, and the layers'
 `decode`, `prefill` and `decode_paged` keep the promoted type; only
 `prefill_parallel` rounds its embedding, through `embed`. The builders
 `opt_350m`, `opt_1_3b` and `opt_2_7b` are the JAX package's (1.3b and 2.7b
-in bfloat16 compute); 2.7b's head width 80 has no kernel instance yet.
+in bfloat16 compute; 2.7b's heads are 80 wide, which K1-K4 take).
 
 Not ported yet: the other attention methods, the chunked cross entropy and
 the `scan_*` decode helpers of scanned models.
@@ -124,9 +124,8 @@ def opt_1_3b(attention_method: str = "perlin", sea: Optional[SeaConfig] = None) 
 
 
 def opt_2_7b(attention_method: str = "perlin", sea: Optional[SeaConfig] = None) -> OptConfig:
-    """facebook/opt-2.7b's geometry, in bfloat16 compute. Its head width 80
-    has no kernel instance yet: the fused paths refuse it (ROADMAP queue 2
-    item 6)."""
+    """facebook/opt-2.7b's geometry (heads of width 80), in bfloat16
+    compute."""
     return OptConfig(
         hidden_size=2560,
         num_layers=32,

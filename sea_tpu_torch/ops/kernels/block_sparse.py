@@ -62,7 +62,9 @@ Layout of this module:
     the windows.
 
 Each wrapper counts its kernel launches in a `launches` attribute; K1-K4's
-also count those of their bfloat16 instance in `bf16_launches`.
+and K6-K8's also count those of their bfloat16 instance in `bf16_launches`.
+The kernels take the head widths of `HEAD_DIMS`: 64 and 80 (OPT-2.7b) on the
+causal forward and the differentiable path, 64 elsewhere.
 """
 
 from __future__ import annotations
@@ -78,7 +80,11 @@ from . import _build
 NEG_INF = -1e30
 KERNEL_TILE = 64  # rows and columns of the CUDA kernel's tile
 MAX_WORDS = 16  # packed mask words per row the kernel holds (T_M <= 512)
-HEAD_DIM = 64  # the head width the kernel is compiled for
+# the head widths each route's kernels are built for: the causal forward
+# (K1) and the differentiable path (K2-K4); the padded bidirectional forward
+# (K5), the impl variants (K9a-c) and the ring's windows (K6-K8). Any other
+# width is ROADMAP queue 2 item 6.
+HEAD_DIMS = {"causal": (64, 80), "bidirectional": (64,), "impl": (64,), "window": (64,)}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # q, k, v and the outputs
 SUB_BLOCK = 128  # 'subtile' piece width, min(SUB_BLOCK, block_k) (the JAX default)
 
@@ -542,7 +548,7 @@ def _lib() -> ctypes.CDLL:
     return _bound("block_sparse_causal", {
         "sea_causal_flat_forward": [_P] * 9 + [_I] * 10 + [_F] * 4 + [_I, _P],
         "sea_causal_fwd_stats": [_P] * 10 + [_I] * 11 + [_P],
-        "sea_window_fwd_stats": [_P] * 9 + [_I] * 11 + [_P],
+        "sea_window_fwd_stats": [_P] * 9 + [_I] * 12 + [_P],
         "sea_bidir_forward": [_P] * 9 + [_I] * 10 + [_I, _P],
         "sea_alive_mask": [_P, _P] + [_I] * 5 + [_P],
         "sea_bidir_alive_mask": [_P, _P, _P] + [_I] * 5 + [_P],
@@ -556,14 +562,15 @@ def _diff_lib() -> ctypes.CDLL:
     return _bound("block_sparse_diff", {
         "sea_causal_dq": [_P] * 11 + [_I] * 11 + [_P],
         "sea_causal_dkv": [_P] * 12 + [_I] * 11 + [_P],
-        "sea_window_dq": [_P] * 11 + [_I] * 11 + [_P],
-        "sea_window_dkv": [_P] * 12 + [_I] * 11 + [_P],
+        "sea_window_dq": [_P] * 11 + [_I] * 12 + [_P],
+        "sea_window_dkv": [_P] * 12 + [_I] * 12 + [_P],
     })
 
 
 def _count(wrapper, q: torch.Tensor):
     """One launch of `wrapper`'s kernel: `launches` counts every launch,
-    `bf16_launches` those of its bfloat16 instance (K1-K4 have both)."""
+    `bf16_launches` those of its bfloat16 instance (K1-K4 and K6-K8 have
+    both)."""
     wrapper.launches += 1
     wrapper.bf16_launches += int(q.dtype == torch.bfloat16)
 
@@ -571,6 +578,14 @@ def _count(wrapper, q: torch.Tensor):
 def _check(err: int, what: str):
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def _check_head_dim(D: int, route: str, what: str = "kernel"):
+    widths = HEAD_DIMS[route]
+    if D not in widths:
+        raise ValueError(f"{what}: the {route} kernels take head_dim "
+                         f"{' or '.join(map(str, widths))}, got {D} (other head widths: "
+                         "ROADMAP queue 2 item 6)")
 
 
 def _require_cuda(t: torch.Tensor, what: str):
@@ -741,9 +756,8 @@ def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.
             raise ValueError("all inputs must be on one device")
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
-    if D != HEAD_DIM:
-        raise ValueError(f"kernel takes head_dim {HEAD_DIM}, got {D} (other head widths, "
-                         "OPT-2.7b's 80 among them: ROADMAP queue 2 item 6)")
+    _check_head_dim(D, "bidirectional" if not x.is_causal else
+                    "impl" if impl != "flat" else "causal")
     if n_words > MAX_WORDS:
         raise ValueError(f"kernel takes T_M <= {32 * MAX_WORDS}, got {T_M}")
     if x.block_q % KERNEL_TILE or x.block_k % KERNEL_TILE:
@@ -1362,7 +1376,7 @@ class WindowOperands(NamedTuple):
     (global ids `row_widths` − 1), their mask, and the tile lists of every
     K/V window. Window w holds the global columns w·CH .. (w + 1)·CH − 1."""
 
-    q: torch.Tensor  # (NH, TL, D) float32
+    q: torch.Tensor  # (NH, TL, D) float32 or bfloat16
     mask_m: Optional[torch.Tensor]  # (N, H, TL, T_M), CPU only: the plain versions' mask
     mbits: torch.Tensor  # (NH, TL, n_words) int32 bit patterns
     row_base: torch.Tensor  # (NQ,) int32 global base row of each q-block
@@ -1424,31 +1438,38 @@ def window_operands(q, mask_m, rows, t_src: int, n_windows: int,
     )
 
 
-def _window_args(ops: WindowOperands, w: int, k_win, v_win, what: str, *per_call):
-    """Check one window launch's tensors; the ints every window entry point
-    takes after its pointers."""
-    _require_cuda(ops.q, what)
+def _window_args(ops: WindowOperands, w: int, k_win, v_win, what: str, dou=None, *stats):
+    """Check one window launch's tensors: q, k, v (and dou) contiguous
+    float32 or bfloat16 of one type on one device, the per-call row
+    statistics (lse, delta) float32. Returns the ints every window entry
+    point takes after its pointers, the last `is_bf16`."""
     N, H, TL, D = ops.shape
-    if D != HEAD_DIM or ops.mbits.shape[-1] > MAX_WORDS:
-        raise ValueError(f"{what}: kernel takes head_dim {HEAD_DIM} and T_M <= "
-                         f"{32 * MAX_WORDS}, got {D} and {ops.t_m}")
-    for x in (ops.q, k_win, v_win, *per_call):
-        if x.device != ops.q.device or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{what}: contiguous float32 tensors on {ops.q.device} only "
-                             "(the bf16 instances of K6-K8: ROADMAP queue 2)")
+    _check_head_dim(D, "window", what)
+    _require_cuda(ops.q, what)
+    if ops.mbits.shape[-1] > MAX_WORDS:
+        raise ValueError(f"{what}: kernel takes T_M <= {32 * MAX_WORDS}, got {ops.t_m}")
+    if ops.q.dtype not in KERNEL_DTYPES:
+        raise ValueError(f"{what}: kernel takes {' or '.join(map(str, KERNEL_DTYPES))}, "
+                         f"got {ops.q.dtype}")
+    typed = (ops.q, k_win, v_win) + (() if dou is None else (dou,))
+    for x, dtype in [(x, ops.q.dtype) for x in typed] + [(x, torch.float32) for x in stats]:
+        if x.device != ops.q.device or x.dtype != dtype or not x.is_contiguous():
+            raise ValueError(f"{what}: contiguous {dtype} wanted on {ops.q.device}, got "
+                             f"{x.dtype} on {x.device}")
     if k_win.shape != (N, H, ops.window, D) or v_win.shape != k_win.shape:
         raise ValueError(f"{what}: k and v must be ({N}, {H}, {ops.window}, {D})")
     if not 0 <= w < ops.counts.shape[0]:
         raise ValueError(f"{what}: window {w} of {ops.counts.shape[0]}")
     return (N * H, TL, ops.window, D, ops.t_m, ops.mbits.shape[-1], ops.block_q,
             ops.block_k, TL // ops.block_q, ops.window // ops.block_k,
-            w * ops.window)
+            w * ops.window, int(ops.q.dtype == torch.bfloat16))
 
 
 def fwd_stats_window(ops: WindowOperands, w: int, k_win, v_win
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
     """K6 over window `w` (k_win, v_win (N, H, CH, D) its columns): the
-    window-normalised output (N, H, TL, D) and logsumexp (N, H, TL) float32.
+    window-normalised output (N, H, TL, D) in q's type and logsumexp (N, H,
+    TL) float32.
     One launch on the current stream for CUDA tensors; the plain version for
     CPU tensors."""
     N, H, TL, D = ops.shape
@@ -1468,16 +1489,18 @@ def fwd_stats_window(ops: WindowOperands, w: int, k_win, v_win
             out.data_ptr(), lse.data_ptr(), *geometry, stream,
         )
     _check(err, "sea_window_fwd_stats")
-    fwd_stats_window.launches += 1
+    _count(fwd_stats_window, ops.q)
     return out.reshape(ops.shape), lse.reshape(N, H, TL)
 
 
 fwd_stats_window.launches = 0
+fwd_stats_window.bf16_launches = 0
 
 
 def dq_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta) -> torch.Tensor:
-    """K7: window `w`'s contribution to dq (N, H, TL, D), given dou (N, H,
-    TL, D) and the rows' total lse and delta (N, H, TL)."""
+    """K7: window `w`'s contribution to dq (N, H, TL, D) in q's type, given
+    dou (N, H, TL, D) in q's type and the rows' total lse and delta (N, H,
+    TL) float32."""
     N, H, TL, D = ops.shape
     if ops.q.device.type == "cpu":
         return dq_window_reference(
@@ -1496,17 +1519,18 @@ def dq_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta) -> tor
             stream,
         )
     _check(err, "sea_window_dq")
-    dq_window.launches += 1
+    _count(dq_window, ops.q)
     return dq.reshape(ops.shape)
 
 
 dq_window.launches = 0
+dq_window.bf16_launches = 0
 
 
 def dkv_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta
                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K8: window `w`'s dk and dv (N, H, CH, D) from the shard's query rows,
-    over the window's transposed tile lists."""
+    """K8: window `w`'s dk and dv (N, H, CH, D), in q's type, from the
+    shard's query rows, over the window's transposed tile lists."""
     N, H, TL, D = ops.shape
     if ops.q.device.type == "cpu":
         return dkv_window_reference(
@@ -1526,8 +1550,9 @@ def dkv_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta
             dv.data_ptr(), *geometry, stream,
         )
     _check(err, "sea_window_dkv")
-    dkv_window.launches += 1
+    _count(dkv_window, ops.q)
     return dk, dv
 
 
 dkv_window.launches = 0
+dkv_window.bf16_launches = 0

@@ -343,10 +343,12 @@ class RingFusedTrainAttention(torch.autograd.Function):
     """The differentiable ring (the JAX package's `ring_fused_train_attention`
     custom_vjp) on inputs whose rows are in the shards' order. Forward:
     `_ring_forward`, keeping the rows' total logsumexp. Backward:
-    `backward_terms` on the merged output; then (k, v, dk_acc, dv_acc)
-    rotate together, each step adding the resident window's dk/dv partials
-    from the shard's rows (K8) and its dq contribution (K7), so that after S
-    hops every dk/dv chunk is home. The mask gets a zero gradient."""
+    `backward_terms` on the merged output, dou rounded to the operands' type
+    as in JAX; then (k, v, dk_acc, dv_acc) rotate together, each step adding
+    the resident window's dk/dv partials from the shard's rows (K8) and its
+    dq contribution (K7) to float32 accumulators, so that after S hops every
+    dk/dv chunk is home. The gradients come back in the operands' type; the
+    mask gets a zero gradient."""
 
     @staticmethod
     def forward(ctx, q, k, v, mask_m, scaler, rows, group, block_q, block_k):
@@ -361,7 +363,8 @@ class RingFusedTrainAttention(torch.autograd.Function):
     def backward(ctx, do):
         k, v, scaler, out, L = ctx.saved_tensors
         g, S = ctx.group, ctx.group.size
-        dscaler, dou, delta = bs.backward_terms(do, out, scaler, torch.float32)
+        # dou in the operands' type (k's is q's), delta from the rounded dou
+        dscaler, dou, delta = bs.backward_terms(do, out, scaler, k.dtype)
         # the merge gives −inf on rows with nothing alive; the kernels'
         # exp(s − lse) -> 0 convention needs +inf there
         L_b = torch.where(torch.isneginf(L), float("inf"), L)
@@ -388,13 +391,14 @@ class RingFusedTrainAttention(torch.autograd.Function):
             # on the last hop only the gradients move: each chunk's dk/dv
             # then lands on the shard that owns the chunk
             state = g.ppermute_next(nxt)
-        dk = g.join_rows([st[0] for st in state])
-        dv = g.join_rows([st[1] for st in state])
+        dq = g.join_rows(dq_acc).to(k.dtype)
+        dk = g.join_rows([st[0] for st in state]).to(k.dtype)
+        dv = g.join_rows([st[1] for st in state]).to(k.dtype)
         dmask = None
         if ctx.needs_input_grad[3]:
             shape, dtype = ctx.mask_like
             dmask = torch.zeros(shape, dtype=dtype, device=k.device)
-        return g.join_rows(dq_acc), dk, dv, dmask, dscaler, None, None, None, None
+        return dq, dk, dv, dmask, dscaler, None, None, None, None
 
 
 def ring_fused_train_attention(
@@ -411,7 +415,7 @@ def ring_fused_train_attention(
     """Differentiable ring attention: K/V and dk/dv stay sequence-sharded
     in forward and backward (per-shard K/V memory O(T/S)), the form of the
     sharded attention that long-context training takes past one device.
-    Float32 only, as the kernels K6-K8."""
+    Float32 or bfloat16 operands, as the kernels K6-K8 (head width 64)."""
     T = q.shape[2]
     block_q, block_k = _ring_blocks(T, group.size, block_q, block_k)
     perm, inv, rows = _row_order(T, group.size, block_q, zigzag, q.device)

@@ -17,8 +17,9 @@ jitter generator in one `torch.save` file.
     python -m sea_tpu_torch.training.opt_trainer --model tiny --steps 4 --device cpu
     python -m sea_tpu_torch.training.opt_trainer --model opt-125m --seq-len 512 --steps 2
 
-Models 'tiny', 'opt-125m', 'opt-350m' and 'opt-1.3b' (the JAX builders;
-1.3b computes in bfloat16 by default). The types are the JAX trainer's:
+Models 'tiny', 'opt-125m', 'opt-350m', 'opt-1.3b' and 'opt-2.7b' (the JAX
+builders; 1.3b and 2.7b compute in bfloat16 by default, and 2.7b's heads are
+80 wide). The types are the JAX trainer's:
 `compute_dtype` overrides the models' own, `param_dtype` casts every
 floating parameter and buffer of both models (the teacher's checkpoint
 too), and `moment_dtype` is AdamW's first-moment type (optax's `mu_dtype`);
@@ -27,8 +28,8 @@ see `models/opt.py` for what each type rounds.
 The entry point runs on "cuda" unless `--device` says otherwise, with TF32
 off and bfloat16 products reduced in float32. Refused with
 NotImplementedError, each naming its ROADMAP item: `scan_kd`,
-`data_parallel`, `checkpoint_rotation`, `logit_chunk`, opt-2.7b (head width
-80) and LLaMA, and student methods other than 'perlin' and 'none'.
+`data_parallel`, `checkpoint_rotation`, `logit_chunk` and LLaMA, and student
+methods other than 'perlin' and 'none'.
 """
 
 from __future__ import annotations
@@ -47,7 +48,8 @@ import torch
 from ..config import SeaConfig, opt_config
 from ..data.wikitext2 import get_corpus
 from ..models.loader import load_opt_params, student_from_teacher
-from ..models.opt import COMPUTE_DTYPES, OptConfig, OptForCausalLM, opt_125m, opt_350m, opt_1_3b
+from ..models.opt import (COMPUTE_DTYPES, OptConfig, OptForCausalLM, opt_125m, opt_350m,
+                          opt_1_3b, opt_2_7b)
 from ..ops.masks import resize_jitter_draws
 from ..ops.performer import redraw_projections
 from .distill import SeaOptKD
@@ -58,8 +60,8 @@ LEFTOVERS = "ROADMAP queue 1, 'KD and trainer leftovers'"
 
 @dataclasses.dataclass
 class TrainerConfig:
-    # 'tiny' | 'opt-125m' | 'opt-350m' | 'opt-1.3b' (the JAX trainer's
-    # opt-2.7b and LLaMA models are refused)
+    # 'tiny' | 'opt-125m' | 'opt-350m' | 'opt-1.3b' | 'opt-2.7b' (the JAX
+    # trainer's LLaMA models are refused)
     model: str = "opt-125m"
     # student attention method
     method: str = "perlin"
@@ -112,18 +114,16 @@ class TrainingDiverged(RuntimeError):
     """A non-finite loss with `halt_on_divergence`."""
 
 
-# the OPT builders the port has, and each one's heads (all of head width 64)
-MODELS = {"opt-125m": (opt_125m, 12), "opt-350m": (opt_350m, 16), "opt-1.3b": (opt_1_3b, 32)}
+# the OPT builders the port has, and each one's heads and head width (the
+# JAX trainer's mapping)
+MODELS = {"opt-125m": (opt_125m, 12, 64), "opt-350m": (opt_350m, 16, 64),
+          "opt-1.3b": (opt_1_3b, 32, 64), "opt-2.7b": (opt_2_7b, 32, 80)}
 
 
 def _refuse_unported(cfg: TrainerConfig):
     for name in ("scan_kd", "data_parallel", "checkpoint_rotation", "logit_chunk"):
         if getattr(cfg, name) != getattr(TrainerConfig, name):
             raise NotImplementedError(f"TrainerConfig.{name} is not ported yet ({LEFTOVERS})")
-    if cfg.model == "opt-2.7b":
-        raise NotImplementedError(
-            "model 'opt-2.7b' needs head width 80, which the kernels have no instance of "
-            f"yet (ROADMAP queue 2 item 6; {LEFTOVERS})")
     if cfg.model not in ("tiny", *MODELS):
         raise NotImplementedError(
             f"model {cfg.model!r} is not ported yet (ROADMAP queue 1: LLaMA is its own item)")
@@ -151,9 +151,9 @@ def model_configs(cfg: TrainerConfig) -> Tuple[OptConfig, OptConfig]:
     if cfg.model == "tiny":
         pair = tiny_configs(cfg.method)
     else:
-        builder, heads = MODELS[cfg.model]
+        builder, heads, head_dim = MODELS[cfg.model]
         sea = opt_config(
-            num_heads=heads, head_dim=64, k=cfg.k, predictor_length=cfg.predictor_length,
+            num_heads=heads, head_dim=head_dim, k=cfg.k, predictor_length=cfg.predictor_length,
             performer_nb_factor=cfg.nb_factor,
         )
         pair = builder("none", sea), builder(cfg.method, sea)

@@ -26,59 +26,72 @@ def test_knockouts_apply_to_the_source(tmp_path, monkeypatch):
         assert include == kernel_ab.SOURCE.parent
 
 
+def _widths():
+    """The head widths `sea::dispatch` (csrc/sea_mask.cuh) instantiates."""
+    header = (kernel_ab.SOURCE.parent / "sea_mask.cuh").read_text()
+    return sorted(set(re.findall(r"std::integral_constant<int, (\d+)>", header)))
+
+
+# a launch's template arguments as the sources spell them: an explicit width
+# and type, or the dispatched ones (every width of `_widths`, both types)
+DISPATCHED = "decltype(d)::value, typename decltype(t)::type"
+MANGLED_T = {"float": "f", "__nv_bfloat16": "13__nv_bfloat16"}
+
+
+def _instances(width_type: str):
+    """[(width, type)] of one launch's first template arguments."""
+    if width_type == DISPATCHED:
+        return [(d, t) for d in _widths() for t in MANGLED_T]
+    d, t = width_type.split(", ")
+    return [(d, t)]
+
+
 def test_tensor_core_check_names_every_instance():
     """The instances the entry points launch, as nvcc mangles them
-    (`causal_flat_kernel<64, T, STATS, BIDIR, IMPL>` in an anonymous
-    namespace), map onto the kernel ids the check requires."""
-    source = kernel_ab.SOURCE.read_text()
-    launched = set(re.findall(
-        r"launch<64, (float|__nv_bfloat16), (true|false), (true|false)(?:, (\w+))?>", source))
-    impl_ids = {"": 0, "FLAT": 0, "WORD_RANGE": 1, "WORD_LOOP": 2, "SUBTILE": 3}
+    (`causal_flat_kernel<D, T, STATS, BIDIR, IMPL>` in an anonymous
+    namespace), map onto the kernel ids and widths the check requires."""
     names = set()
-    for dt, stats, bidir, impl in launched:
-        impls = ["WORD_RANGE", "WORD_LOOP", "SUBTILE"] if impl == "IMPL" else [impl]
-        for im in impls:
-            mangled_t = "f" if dt == "float" else "13__nv_bfloat16"
-            mangled = (f"_ZN12_GLOBAL__N_118causal_flat_kernelILi64E{mangled_t}"
-                       f"Lb{int(stats == 'true')}ELb{int(bidir == 'true')}ELi{impl_ids[im]}EEEvPKT0_")
-            m = chip_smoke.FLAT_INSTANCE.search(mangled)
-            assert m, mangled
-            d, s, b, i = m.groups()
-            names.add(chip_smoke.instance_name(mangled))
-    assert names == {"K1 float32", "K1 bfloat16", "K2/K6 float32", "K2 bfloat16", "K5 float32",
-                     "K5 bfloat16", *(f"K9{c} {t}" for c in "abc" for t in ("float32", "bfloat16"))}
+    for mangled in _forward_mangled():
+        assert chip_smoke.FLAT_INSTANCE.search(mangled), mangled
+        names.add(chip_smoke.instance_name(mangled))
+    assert _widths() == ["64", "80"]
+    assert names == {f"{kid} {t} D{d}" for t in ("float32", "bfloat16") for kid, d in (
+        ("K1", 64), ("K2/K6", 64), ("K5", 64), ("K9a", 64), ("K9b", 64), ("K9c", 64),
+        ("K1", 80), ("K2", 80))}
 
 
 def _forward_mangled():
     """The mangled names of the forward-body instances that the forward's
     `launch<…>` calls instantiate (the impl entry points' `IMPL` standing for
-    each of K9a-c)."""
+    each of K9a-c, a dispatched launch for every width and type)."""
     source = kernel_ab.SOURCE.read_text()
     impl_ids = {"": 0, "FLAT": 0, "WORD_RANGE": 1, "WORD_LOOP": 2, "SUBTILE": 3}
     out = []
-    for dt, stats, bidir, impl in set(re.findall(
-            r"launch<64, (float|__nv_bfloat16), (true|false), (true|false)(?:, (\w+))?>", source)):
-        for im in ["WORD_RANGE", "WORD_LOOP", "SUBTILE"] if impl == "IMPL" else [impl]:
-            mangled_t = "f" if dt == "float" else "13__nv_bfloat16"
-            out.append(f"_ZN12_GLOBAL__N_118causal_flat_kernelILi64E{mangled_t}"
-                       f"Lb{int(stats == 'true')}ELb{int(bidir == 'true')}ELi{impl_ids[im]}EEEvPKT0_")
-    return out
+    for width_type, stats, bidir, impl in set(re.findall(
+            r"launch<(64, float|64, __nv_bfloat16|" + re.escape(DISPATCHED)
+            + r"),\s*(true|false), (true|false)(?:, (\w+))?>", source)):
+        for d, t in _instances(width_type):
+            for im in ["WORD_RANGE", "WORD_LOOP", "SUBTILE"] if impl == "IMPL" else [impl]:
+                out.append(f"_ZN12_GLOBAL__N_118causal_flat_kernelILi{d}E{MANGLED_T[t]}"
+                           f"Lb{int(stats == 'true')}ELb{int(bidir == 'true')}ELi{impl_ids[im]}"
+                           "EEEvPKT0_")
+    return sorted(set(out))
 
 
 def _backward_mangled(launcher):
     """The mangled names (up to the first parameter, as nvcc's build log
     spells them) of the backward-body instances that `launcher` (the
     template launch_dq or launch_dkv of block_sparse_diff.cu) launches, for
-    each element type the entry points instantiate it with."""
+    each width and element type the entry points instantiate it with."""
     source = kernel_ab.DIFF_SOURCE.read_text()
     body = source[source.index(f"cudaError_t {launcher}("):]
     body = body[:body.index("\n}\n")]
-    types = set(re.findall(rf"\b{launcher}<(float|__nv_bfloat16)>\(", source))
-    mangled_t = {"float": "f", "__nv_bfloat16": "13__nv_bfloat16"}
-    return [f"_ZN53_GLOBAL__N__24bbea32_20_block_sparse_diff_cu_bf66d488{len(name)}{name}"
-            f"ILi{d}E{mangled_t[t]}EEvPKT0_"
-            for name, d in set(re.findall(r"(causal_(?:dq|dkv)_kernel)<(\d+), T><<<", body))
-            for t in types]
+    calls = set(re.findall(rf"\b{launcher}<(64, float|64, __nv_bfloat16|"
+                           + re.escape(DISPATCHED) + r")>\(", source))
+    return sorted({f"_ZN53_GLOBAL__N__24bbea32_20_block_sparse_diff_cu_bf66d488{len(name)}{name}"
+                   f"ILi{d}E{MANGLED_T[t]}EEvPKT0_"
+                   for name in set(re.findall(r"(causal_(?:dq|dkv)_kernel)<D, T><<<", body))
+                   for call in calls for d, t in _instances(call)})
 
 
 @pytest.mark.parametrize("name", sorted(kernel_ab.DIFF_KNOCKOUTS))
@@ -100,18 +113,19 @@ def test_backward_knockouts_apply_to_the_source(tmp_path, monkeypatch, name):
 @pytest.mark.parametrize("launcher, kids", [("launch_dq", "K3/K7"), ("launch_dkv", "K4/K8")])
 def test_backward_instances_are_named(launcher, kids):
     """The spill and HMMA checks name each backward instance that the
-    launcher launches by its kernels (the bf16 one the unsharded kernel's
-    alone); the entry points are not instances."""
+    launcher launches by its kernels and width (at 80 the unsharded
+    kernel's alone: the windows take 64); the entry points are not
+    instances."""
     mangled = _backward_mangled(launcher)
-    assert len(mangled) == 2
+    assert len(mangled) == 4
     assert {chip_smoke.instance_name(m) for m in mangled} == {
-        f"{kids} float32", f"{kids[:2]} bfloat16"}
+        f"{kids} float32 D64", f"{kids} bfloat16 D64", f"{kids[:2]} float32 D80",
+        f"{kids[:2]} bfloat16 D80"}
     assert chip_smoke.instance_name(f"sea_causal_{launcher[7:]}") is None
 
 
 @pytest.mark.parametrize("want", sorted(
-    name for kid in chip_smoke.INSTANCE_KIDS.values()
-    for name in (f"{kid} float32", f"{chip_smoke.BF16_KIDS.get(kid, kid)} bfloat16")))
+    name for name in chip_smoke.required_instances() if not name.startswith(("K3", "K4"))))
 def test_forward_instances_still_named(want):
     """After the PTX helpers moved to sea_mma.cuh, the forward's source still
     launches every instance it did, each named by `instance_name`."""

@@ -147,15 +147,42 @@ def test_bf16_weights_convert_exactly():
                             device="cpu")
 
 
-def test_head_width_80_is_refused_by_the_kernels():
-    """OPT-2.7b builds, but its fused paths stop at the kernel wrapper's
-    head-width check, which names the ROADMAP item that adds width 80."""
+# (route, head width, refused): OPT-2.7b's width 80 is built for the causal
+# forward (K1) and the differentiable path (K2-K4); the padded bidirectional
+# forward (K5), the impl variants (K9a-c) and the ring's windows (K6-K8) take
+# 64 only, and no route takes 96
+WIDTH_ROUTES = [("differentiable", 80, False), ("causal", 80, False),
+                ("differentiable", 96, True), ("bidirectional", 80, True),
+                ("impl", 80, True), ("window", 80, True)]
+
+
+@pytest.mark.parametrize("route,width,refused", WIDTH_ROUTES,
+                         ids=[f"{r}-{w}" for r, w, _ in WIDTH_ROUTES])
+def test_head_width_routes(route, width, refused):
+    """OPT-2.7b's heads are 80 wide; the kernels' operands build at that
+    width where the kernels have an instance of it, and every other route
+    or width is refused, naming the ROADMAP item that adds it."""
     cfg = topt.opt_2_7b("perlin")
     assert cfg.head_dim == cfg.sea.head_dim == 80
-    q = torch.zeros((1, 2, 128, 80))
-    x = tb.prepare_inputs(q, q, q, torch.ones((1, 2, 128, 256)))
-    with pytest.raises(ValueError, match="queue 2 item 6"):
-        tb.kernel_operands(x, differentiable=True)
+    q = torch.zeros((1, 2, 128, width))
+    mask = torch.ones((1, 2, 128, 256))
+
+    def build():
+        if route == "window":
+            ops = tb.window_operands(q, mask, torch.arange(128), 256, 2, 64, 64)
+            kv = torch.zeros((1, 2, 128, width))
+            return tb._window_args(ops, 0, kv, kv, "fwd_stats_window")
+        x = tb.prepare_inputs(q, q, q, mask, is_causal=route != "bidirectional")
+        ops = tb.kernel_operands(x, differentiable=route == "differentiable",
+                                 impl="flat_wr" if route == "impl" else "flat")
+        assert ops.q.shape == (2, 128, width) and (ops.idx_t is not None) == (
+            route == "differentiable")
+
+    if refused:
+        with pytest.raises(ValueError, match="queue 2 item 6"):
+            build()
+    else:
+        build()
 
 
 def test_port_imports_no_jax():

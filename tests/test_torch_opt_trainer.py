@@ -157,7 +157,7 @@ def test_save_load_round_trip(tmp_path):
 
 @pytest.mark.parametrize("field,value", [
     ("scan_kd", True), ("data_parallel", True), ("checkpoint_rotation", 2),
-    ("logit_chunk", 256), ("model", "opt-2.7b"), ("model", "llama-7b"),
+    ("logit_chunk", 256), ("model", "llama-13b"), ("model", "llama-7b"),
 ])
 def test_unported_options_are_refused(tmp_path, field, value):
     with pytest.raises(NotImplementedError):

@@ -15,7 +15,13 @@ shard holds 128 rows and every window 128 columns. Tolerances:
     unsharded plain version (the bound of tests/test_sharded_attention.py);
     loss 1e-5 rel and gradients 2e-4 abs against JAX's differentiable ring
     (tests/test_sharded_attention.py:278-313);
-  * `DistGroup` over 4 gloo processes against `LocalGroup(4)`: 1e-6 abs.
+  * `DistGroup` over 4 gloo processes against `LocalGroup(4)`: 1e-6 abs;
+  * bfloat16 operands: the ring's backward rounds dou to the operands' type
+    (JAX's `dou = (do·scaler).astype(q.dtype)`), and the ring's bf16 output
+    and gradients lie within 2e-2·max|want| of JAX's bf16 ring (JAX rounds P
+    and dS to bf16 before the products, the port's plain versions do not,
+    as tests/test_torch_bf16.py holds K2-K4), and no farther from JAX's
+    float32 ring on the same bf16 values than JAX's own bf16 ring is, x1.05.
 
 The CUDA kernels K6-K8 are held against the same plain versions on the card,
 on every (shard, window), by chip_smoke.py.
@@ -221,6 +227,67 @@ def test_ring_empty_rows_and_dead_mask_stay_finite():
     assert float(o.detach().abs().max()) == 0.0
     for g in grads:
         assert torch.isfinite(g).all() and float(g.abs().max()) == 0.0
+
+
+def test_ring_bf16_backward_rounds_dou_to_the_operands_type(monkeypatch):
+    """The bf16 ring hands `backward_terms` the operands' type, so that dou
+    is rounded to bf16 and delta taken from the rounded dou, as JAX's ring
+    does; the gradients come back in that type."""
+    q, k, v, mask, scaler = make_case()
+    seen = []
+    terms = tb.backward_terms
+
+    def spy(do, o, sc, dtype):
+        seen.append(dtype)
+        return terms(do, o, sc, dtype)
+
+    monkeypatch.setattr(tb, "backward_terms", spy)
+    leaves = [t(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v, scaler)]
+    o = tsa.ring_fused_train_attention(leaves[0], leaves[1], leaves[2], t(mask), leaves[3],
+                                       LocalGroup(4), True, B, B)
+    grads = torch.autograd.grad((o.float() ** 2).sum(), leaves)
+    assert seen == [torch.bfloat16]
+    assert o.dtype == torch.bfloat16
+    assert all(g.dtype == torch.bfloat16 and torch.isfinite(g).all() for g in grads)
+
+
+def test_ring_bf16_matches_jax_bf16_ring():
+    """The bf16 ring (zigzag, plain windowed versions) against JAX's bf16
+    differentiable ring: output and the q/k/v/scaler gradients of
+    Σ(o − tgt)² within 2e-2·max|want|, and no farther from JAX's float32
+    ring on the same bf16 values than JAX's bf16 ring is, x1.05."""
+    q, k, v, mask, scaler = make_case()
+    tgt = np.random.default_rng(7).standard_normal(q.shape).astype(np.float32)
+    mesh = make_mesh(dp=2, sp=4)
+
+    def jax_run(dtype):
+        def jloss(q, k, v, sc):
+            o = jsa.ring_fused_train_attention(q, k, v, jnp.asarray(mask, dtype), sc, mesh,
+                                               "sp", True, B, B, True)
+            return jnp.sum((o.astype(jnp.float32) - tgt) ** 2), o
+
+        xs = [jnp.asarray(x).astype(jnp.bfloat16).astype(dtype) for x in (q, k, v, scaler)]
+        (_, o), g = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2, 3), has_aux=True))(*xs)
+        return (o, *g)
+
+    want, want32 = jax_run(jnp.bfloat16), jax_run(jnp.float32)
+    leaves = [t(x).to(torch.bfloat16).requires_grad_() for x in (q, k, v, scaler)]
+    o = tsa.ring_fused_train_attention(leaves[0], leaves[1], leaves[2],
+                                       t(mask).to(torch.bfloat16), leaves[3], LocalGroup(4),
+                                       True, B, B)
+    got = (o, *torch.autograd.grad(((o.float() - t(tgt)) ** 2).sum(), leaves))
+
+    def f32(x):
+        return x.detach().float().numpy() if torch.is_tensor(x) else np.asarray(
+            jnp.asarray(x).astype(jnp.float32))
+
+    for name, g, w, w32 in zip(("o", "dq", "dk", "dv", "dscaler"), got, want, want32):
+        assert g.dtype == torch.bfloat16 and w.dtype == jnp.bfloat16, name
+        assert np.isfinite(f32(g)).all(), name
+        np.testing.assert_allclose(f32(g), f32(w), atol=2e-2 * float(np.abs(f32(w32)).max()),
+                                   rtol=0, err_msg=name)
+        own = float(np.abs(f32(w) - f32(w32)).max())
+        assert float(np.abs(f32(g) - f32(w32)).max()) <= 1.05 * own, name
 
 
 _CHILD = r"""
