@@ -13,8 +13,8 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 spill), and the tensor-core instructions (HMMA) of every
                 instance of the forward body (K1, K2/K6, K5, K9a-c) and of
                 the backward bodies (K3/K7, K4/K8) in `cuobjdump -sass`, in
-                both types at head width 64 and K1-K4's at 80, none of which
-                may lack them;
+                both types at head width 64, K1-K4's at 80 and K1's at 128,
+                none of which may lack them;
   2. mask     — the kernel's element predicate (`alive_mask`) against the
                 torch oracle `element_mask_int8`, bit for bit, for T up to 8192;
                 the forward body's pixel quotients, taken from each row's
@@ -24,10 +24,11 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 T_M=256, k=64, production top-k budget), float32 and
                 bfloat16, plus edge cases; times of the kernel, the plain
                 version and PyTorch's own SDPA at the same shape (a yardstick
-                only); then OPT-2.7b's layer geometry (1 x 32 x T x 80, T =
-                1024 and 2048, both types): the element mask bit for bit, K1
-                against its plain version, the 128 x 256 lists equal to the
-                64 x 64 ones bit for bit, and rows with nothing alive;
+                only); then OPT-2.7b's and LLaMA-7b's layer geometries (1 x
+                32 x T x 80 and 1 x 32 x T x 128, T = 1024 and 2048, both
+                types): the element mask bit for bit, K1 against its plain
+                version, the 128 x 256 lists equal to the 64 x 64 ones bit
+                for bit, and rows with nothing alive;
   4. slice    — the serving path: OPT-125m with the SEA student, seeded
                 random weights, scoring two prompts of 1024 tokens in one
                 batch and then one of 2048 to logits on the fused benchmark
@@ -255,9 +256,32 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 layer 0's op within 1e-2·max|want| of the unsharded kernels'
                 and bit for bit the step's own; K6-K8 bf16 against their
                 plain versions on every (shard, window), timed;
- 30. result   — one JSON line of per-kernel numbers (K1-K4's bf16 instances
-                beside the float32 ones, K1-K4 at width 80 in each type, K6-K8's
-                bf16 instances), then the device line.
+ 30. llama7b-serve — LLaMA-7b (`llama_7b`: hidden 4096, 32 layers, 32
+                heads of 128, SwiGLU 11008, vocabulary 32000, RoPE, RMSNorm;
+                seeded random weights drawn on the card, cast to bf16) at 1 x
+                2048: 32 launches of K1's bf16 instance at width 128 and no
+                other kernel, layer 0's top-k equal to the CPU's and its K1
+                within half a bf16 ulp of the float32 plain result, finite
+                logits; ms and tokens/s beside the dense LLaMA-7b; then
+                float32 parameters under bf16 compute: 32 launches of K1's
+                float32 instance, none of its bf16 one, layer 0 checked;
+ 31. llama7b-decode — a 1 x 256 prompt prefilled in one forward (32 bf16
+                K1 launches), 16 greedy tokens with no kernel launched in the
+                decode steps, every decoded row within 0.36 of the forward's
+                largest |logit| (JAX's own bf16 gap at llama_tiny); ms per
+                decode step beside its device bound (the weights read once);
+ 32. llama7b-engine — the bf16 engine at 4 slots on 4 greedy requests of
+                9-32 prompt tokens: no kernel, bf16 pools, every request
+                finished, each equal to its prompt decoded alone up to its
+                first top-2 margin under 0.0625;
+ 33. llama7b-mmlu — `evaluate_mmlu` over 64 synthetic examples, 0-shot,
+                batches of 8, scored through `make_choice_score_fn(
+                benchmarking=True)`: 32 K1 launches a batch and no other
+                kernel, finite logits, n = 64, the (random model's) accuracy;
+ 34. result   — one JSON line of per-kernel numbers (K1-K4's bf16 instances
+                beside the float32 ones, K1-K4 at width 80 and K1 at width
+                128 in each type, K6-K8's bf16 instances), then the device
+                line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -291,8 +315,16 @@ import torch.nn.functional as F
 
 from sea_tpu_torch.benchmarks import attention_method_sweep, host_topk_mask, sweep_inputs
 from sea_tpu_torch.config import opt_config
-from sea_tpu_torch.models.attention import SeaAttention
+from sea_tpu_torch.data.mmlu import (
+    CHOICES,
+    evaluate_mmlu,
+    load_mmlu,
+    make_choice_score_fn,
+    synthetic_tokenizer,
+)
+from sea_tpu_torch.models.attention import SeaAttention, init_random_
 from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
+from sea_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m, opt_1_3b, opt_2_7b
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
@@ -409,6 +441,17 @@ OPT27B_T, OPT27B_P, OPT27B_STEPS = 2048, 256, 16
 # parameters and moments, (b) float32 parameters under bf16 compute (the
 # long-context path's default); 1 x 2048 waits for the per-layer remat
 OPT27B_TRAIN = ((1024, 3), (512, 2))
+# LLaMA-7b (heads of 128) in bf16: the forward at 1 x max_position_embeddings,
+# then exp_opt27b.py's decode lengths (a 256-token prompt, 16 greedy tokens)
+LLAMA_D, LLAMA_T, LLAMA_P, LLAMA_STEPS = 128, 2048, 256, 16
+# decode against the forward in bf16, of the forward's largest |logit|: the
+# larger of OPT's 0.18 and JAX's own bf16 gap at llama_tiny (seeds 0-4, T = 12
+# and 48, every row: 0.3555; tests/test_torch_llama.py prints it), rounded up
+LLAMA_DECODE_REL = 0.36
+LLAMA_SERVE_PROMPTS = (9, 17, 24, 32)  # tokens; 4 slots, 4 greedy requests
+LLAMA_SERVE_NEW = (8, 6, 8, 4)
+LLAMA_ENGINE_MAX_LEN = 64
+LLAMA_MMLU_N, LLAMA_MMLU_BATCH = 64, 8  # synthetic examples, 0-shot
 # the bf16 ring against the unsharded bf16 kernels: the first step's loss
 # within half a bf16 ulp of the loss (2^-9 of it), gradients where no top-k
 # pick differs within 2e-2 of the largest (tests/test_torch_bf16.py's bound
@@ -597,7 +640,7 @@ def phase_device():
 # `causal_flat_kernel`'s template arguments <D, T, STATS, BIDIR, IMPL> as the
 # mangled name spells them, and the kernels each instance is
 FLAT_INSTANCE = re.compile(
-    r"causal_flat_kernelILi(64|80)E(f|13__nv_bfloat16)Lb([01])ELb([01])ELi([0-3])EE")
+    r"causal_flat_kernelILi(64|80|128)E(f|13__nv_bfloat16)Lb([01])ELb([01])ELi([0-3])EE")
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
 # the backward bodies `causal_dq_kernel<D, T>` and `causal_dkv_kernel<D, T>`,
@@ -605,8 +648,10 @@ INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
 DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_kernelILi(64|80)E(f|13__nv_bfloat16)EE")
 DIFF_KIDS = {"dq": "K3/K7", "dkv": "K4/K8"}
 # at width 80 (OPT-2.7b) only K1-K4 have instances: the windows (K6-K8), K5
-# and K9a-c take 64 alone, so an instance shared at 64 is K1-K4's alone there
+# and K9a-c take 64 alone, so an instance shared at 64 is K1-K4's alone there;
+# at width 128 (LLaMA-7b and 13b) only K1's
 WIDTH80_KIDS = {"K1": "K1", "K2/K6": "K2", "K3/K7": "K3", "K4/K8": "K4"}
+WIDTH128_KIDS = {"K1": "K1"}
 DTYPE_NAMES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
 
 
@@ -630,10 +675,12 @@ def instance_name(mangled: str):
 def required_instances() -> set:
     """The instances (as `instance_name` names them) that the entry points
     launch: every one of the forward body's and the backward bodies' in
-    both types at width 64, and K1-K4's in both types at width 80."""
+    both types at width 64, K1-K4's in both types at width 80 and K1's in
+    both types at width 128."""
     kids = [*INSTANCE_KIDS.values(), *DIFF_KIDS.values()]
     return {f"{kid} {dt} D{width}" for dt in DTYPE_NAMES.values()
-            for width, names in (("64", kids), ("80", WIDTH80_KIDS.values()))
+            for width, names in (("64", kids), ("80", WIDTH80_KIDS.values()),
+                                 ("128", WIDTH128_KIDS.values()))
             for kid in names}
 
 
@@ -757,42 +804,50 @@ def phase_kernel():
 
 
 def phase_kernel_wide():
-    """K1 at OPT-2.7b's layer geometry (1 x 32 x T x 80) in both types, with
-    the gates of width 64: the element mask bit for bit, the plain version,
-    the 128 x 256 lists equal to the 64 x 64 ones bit for bit, and rows with
-    nothing alive. Returns {dtype: max|err|}."""
+    """K1 at OPT-2.7b's layer geometry (1 x 32 x T x 80) and LLaMA-7b's (1 x
+    32 x T x 128) in both types, with the gates of width 64: the element mask
+    bit for bit, the plain version, the 128 x 256 lists equal to the 64 x 64
+    ones bit for bit, and rows with nothing alive. Returns {(width, dtype):
+    max|err|}."""
     dev = "cuda"
-    wide = dict(heads=WIDE_H, width=WIDE_D)
-    errs = dict.fromkeys((torch.float32, torch.bfloat16), 0.0)
-    for T in WIDE_TS:
-        mask = budget_mask(1, T, seed=T + WIDE_D, device=dev, heads=WIDE_H)
-        bad = int((bs.alive_mask(mask, T) != bs.element_mask_int8(mask, T, True)).sum())
-        require(bad == 0, f"alive_mask != element_mask_int8 on the width-80 mask at T={T}")
+    errs = {}
+    for width in (WIDE_D, LLAMA_D):
+        wide = dict(heads=WIDE_H, width=width)
         for dtype in (torch.float32, torch.bfloat16):
-            q, k, v, sc = qkv(1, T, dtype, seed=T + WIDE_D, device=dev, **wide)
-            got = bs.sea_block_sparse_attention(q, k, v, mask, sc)
-            want = bs.dense_reference(q.float(), k.float(), v.float(), mask, sc.to(dtype).float())
-            diff = (got.float() - want).abs()
-            over = float((diff - tolerance(want, dtype)).max())
-            other = bs.sea_block_sparse_attention(q, k, v, mask, sc, block_q=128, block_k=256)
-            log(f"[kernel] width 80, 1x{WIDE_H}x{T}x{WIDE_D} {str(dtype)[6:]}: max|err|="
-                f"{float(diff.max()):.3g} (margin to tol {-over:.3g}); element mask "
-                f"{bad} mismatches; blocks 128 x 256 equal to 64 x 64: {torch.equal(got, other)}")
-            require(over <= 0 and got.dtype == dtype, f"width-80 K1 vs plain at T={T} {dtype}")
-            require(torch.equal(got, other), f"width-80 K1 depends on the block sizes at T={T}")
-            errs[dtype] = max(errs[dtype], float(diff.max()))
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, sc = qkv(1, 1024, dtype, seed=7, device=dev, **wide)
-        empty = budget_mask(1, 1024, seed=7, device=dev, heads=WIDE_H)
-        empty[:, :, 300:400] = 0.0
-        got = bs.sea_block_sparse_attention(q, k, v, empty, sc)
-        want = bs.dense_reference(q.float(), k.float(), v.float(), empty, sc.to(dtype).float())
-        ok = bool(((got.float() - want).abs() <= tolerance(want, dtype)).all())
-        zero = float(got[:, :, 300:400].abs().max())
-        log(f"[kernel] width 80 {str(dtype)[6:]} empty rows: within tolerance {ok}, |out| on "
-            f"empty rows {zero}")
-        require(ok and zero == 0.0, f"width-80 empty rows {dtype}")
-        errs[dtype] = max(errs[dtype], max_err(got, want))
+            errs[width, dtype] = 0.0
+        for T in WIDE_TS:
+            mask = budget_mask(1, T, seed=T + width, device=dev, heads=WIDE_H)
+            bad = int((bs.alive_mask(mask, T) != bs.element_mask_int8(mask, T, True)).sum())
+            require(bad == 0, f"alive_mask != element_mask_int8 on the width-{width} mask at T={T}")
+            for dtype in (torch.float32, torch.bfloat16):
+                q, k, v, sc = qkv(1, T, dtype, seed=T + width, device=dev, **wide)
+                got = bs.sea_block_sparse_attention(q, k, v, mask, sc)
+                want = bs.dense_reference(q.float(), k.float(), v.float(), mask,
+                                          sc.to(dtype).float())
+                diff = (got.float() - want).abs()
+                over = float((diff - tolerance(want, dtype)).max())
+                other = bs.sea_block_sparse_attention(q, k, v, mask, sc, block_q=128, block_k=256)
+                log(f"[kernel] width {width}, 1x{WIDE_H}x{T}x{width} {str(dtype)[6:]}: max|err|="
+                    f"{float(diff.max()):.3g} (margin to tol {-over:.3g}); element mask "
+                    f"{bad} mismatches; blocks 128 x 256 equal to 64 x 64: {torch.equal(got, other)}")
+                require(over <= 0 and got.dtype == dtype,
+                        f"width-{width} K1 vs plain at T={T} {dtype}")
+                require(torch.equal(got, other),
+                        f"width-{width} K1 depends on the block sizes at T={T}")
+                errs[width, dtype] = max(errs[width, dtype], float(diff.max()))
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, sc = qkv(1, 1024, dtype, seed=7, device=dev, **wide)
+            empty = budget_mask(1, 1024, seed=7, device=dev, heads=WIDE_H)
+            empty[:, :, 300:400] = 0.0
+            got = bs.sea_block_sparse_attention(q, k, v, empty, sc)
+            want = bs.dense_reference(q.float(), k.float(), v.float(), empty,
+                                      sc.to(dtype).float())
+            ok = bool(((got.float() - want).abs() <= tolerance(want, dtype)).all())
+            zero = float(got[:, :, 300:400].abs().max())
+            log(f"[kernel] width {width} {str(dtype)[6:]} empty rows: within tolerance {ok}, "
+                f"|out| on empty rows {zero}")
+            require(ok and zero == 0.0, f"width-{width} empty rows {dtype}")
+            errs[width, dtype] = max(errs[width, dtype], max_err(got, want))
     return errs
 
 
@@ -2715,12 +2770,14 @@ def decode_steps(model, tokens, states, start):
     return torch.cat(rows, dim=1), masks, states
 
 
-def decode_ms(model, prompt, steps, reps=3):
+def decode_ms(model, prompt, steps, reps=3, max_len=None):
     """Median host ms per step of `steps` greedy decode steps after a
-    parallel prefill (the prefill not timed), over `reps` runs."""
+    parallel prefill (the prefill not timed), over `reps` runs; caches of
+    `max_len` (DECODE_MAX_LEN by default)."""
     times = []
     for _ in range(reps):
-        logits, states = model.prefill_parallel(prompt, DECODE_MAX_LEN, last_only=True)
+        logits, states = model.prefill_parallel(prompt, max_len or DECODE_MAX_LEN,
+                                                last_only=True)
         tok = logits[:, -1].argmax(-1)[:, None]
         pos = torch.full((), prompt.shape[1], dtype=torch.int32, device=prompt.device)
         torch.cuda.synchronize()
@@ -3109,11 +3166,11 @@ def phase_opt13b_train(weights):
     return {kid: launches[f"{kid} bf16"] for kid in TRAIN_KERNELS}, errs, measured
 
 
-def solo_greedy(model, prompt, n, dtype):
+def solo_greedy(model, prompt, n, dtype, max_len=OPT13B_MAX_LEN):
     """`prompt` alone through decode steps at states of `dtype` (the
     engine's), then n greedy steps: (tokens, top-2 margin at each pick)."""
     ids = torch.tensor([prompt], device="cuda")
-    states = model.init_decode_states(1, OPT13B_MAX_LEN, dtype)
+    states = model.init_decode_states(1, max_len, dtype)
     pos = torch.zeros((), dtype=torch.int32, device="cuda")
     tokens, margins = [], []
     for t in range(len(prompt) + n - 1):
@@ -3126,12 +3183,12 @@ def solo_greedy(model, prompt, n, dtype):
     return tokens, margins
 
 
-def decode_vs_forward(phase, model, prompt, tokens, max_len):
+def decode_vs_forward(phase, model, prompt, tokens, max_len, rel=OPT13B_DECODE_REL):
     """The greedy run's decode steps (bf16 parameters and states) against
     the dense forward of the generated sequence: `prompt` (1, P) prefilled
     in parallel, then the decode steps fed `tokens` (1, n), which must
-    reproduce them and launch no kernel; every row within OPT13B_DECODE_REL
-    of the forward's largest |logit| (JAX's own bf16 gap, PERF.md) and the
+    reproduce them and launch no kernel; every row within `rel` of the
+    forward's largest |logit| (JAX's own bf16 gap, PERF.md) and the
     same argmax wherever the forward's top-2 margin exceeds twice the row's
     gap. In bf16 every row picks otherwise in some layer, so no row is left
     out: the layers that differ are counted."""
@@ -3170,17 +3227,59 @@ def decode_vs_forward(phase, model, prompt, tokens, max_len):
     top2 = torch.topk(full[0], 2, dim=-1).values.cpu()
     margin = top2[:, 0] - top2[:, 1]
     agree = (dec.argmax(-1) == full.argmax(-1))[0].cpu()
-    bound = OPT13B_DECODE_REL * float(full.abs().max())
+    bound = rel * float(full.abs().max())
     decided = margin > 2 * gap
     log(f"[{phase}] decode vs the dense forward at positions {P}-{P + n - 1}: "
         f"{int((differ > 0).sum())} of {n} rows pick otherwise in some of the {L} layers "
         f"(a row in {float(differ.float().mean()):.2f} layers on average, at most "
         f"{int(differ.max())}); over every row max|gap| {float(gap.max()):.4g} (bound "
-        f"{bound:.4g} = {OPT13B_DECODE_REL} x max|logit| {float(full.abs().max()):.4g}), "
+        f"{bound:.4g} = {rel} x max|logit| {float(full.abs().max()):.4g}), "
         f"argmax agreement {float(agree.float().mean()):.4f}; {int(decided.sum())} rows whose "
         f"top-2 margin exceeds twice their gap, all agreeing: {bool(agree[decided].all())}")
     require(float(gap.max()) <= bound and bool(agree[decided].all()),
             f"{phase}: bf16 decode against the forward")
+    return float(gap.max()), float(full.abs().max())
+
+
+def bf16_engine(phase, model, requests, max_len):
+    """The serving engine in bf16 (`dtype=torch.bfloat16`), one slot per
+    request of `requests` [(prompt, new tokens)], greedy: no kernel, bf16
+    pools, every request finished with valid ids, each equal to its prompt
+    decoded alone at the engine's state type up to its first top-2 margin
+    under OPT13B_NEAR_TIE. Returns (generated tokens, ms)."""
+    V = model.cfg.vocab_size
+    ps = PAGE_SIZE
+    eng = ServingEngine(model, max_slots=len(requests), page_size=ps,
+                        num_pages=1 + len(requests) * (max_len // ps),
+                        max_pages_per_slot=max_len // ps, seed=0,
+                        dtype=torch.bfloat16, device="cuda")
+    require(eng.pool_k.dtype == torch.bfloat16, "the engine's pools")
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, m) for p, m in requests]
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    require(not any(counts.values()), f"the bf16 engine launched kernels: {counts}")
+    new = sum(m for _, m in requests)
+    log(f"[{phase}] engine, bf16 pools and states, {len(requests)} slots: "
+        f"{len(requests)} greedy requests (prompts {[len(p) for p, _ in requests]}) -> {new} "
+        f"tokens in {wall:.1f} ms ({new / wall * 1e3:.1f} tokens/s); pools "
+        f"{tuple(eng.pool_k.shape)}, {2 * eng.pool_k.numel() * eng.pool_k.element_size() / 2 ** 20:.1f} MiB")
+    for rid, (p, m) in zip(rids, requests):
+        got = out[rid].output
+        require(out[rid].done and len(got) == m and all(0 <= x < V for x in got),
+                f"request {rid}")
+        solo, margins = solo_greedy(model, p, m, torch.bfloat16, max_len)
+        stop = next((s for s, x in enumerate(margins) if x < OPT13B_NEAR_TIE), m)
+        log(f"[{phase}] request {rid} (prompt {len(p)}): equal to solo decoding on "
+            f"{sum(a == b for a, b in zip(got, solo))} of {m} tokens, compared up to step "
+            f"{stop} (smallest top-2 margin {min(margins):.4g})")
+        require(got[:stop] == solo[:stop], f"engine request {rid} differs from solo decoding")
+    del eng
+    return new, wall
 
 
 def phase_opt13b_decode(weights):
@@ -3221,37 +3320,8 @@ def phase_opt13b_decode(weights):
     rng = np.random.default_rng(43)
     requests = [(rng.integers(4, V, size=p).tolist(), m)
                 for p, m in zip(OPT13B_SERVE_PROMPTS, OPT13B_SERVE_NEW)]
-    ps = PAGE_SIZE
-    eng = ServingEngine(model, max_slots=len(requests), page_size=ps,
-                        num_pages=1 + len(requests) * (OPT13B_MAX_LEN // ps),
-                        max_pages_per_slot=OPT13B_MAX_LEN // ps, seed=0,
-                        dtype=torch.bfloat16, device="cuda")
-    require(eng.pool_k.dtype == torch.bfloat16, "the engine's pools")
-    torch.cuda.synchronize()
-    reset_launches()
-    t0 = time.perf_counter()
-    rids = [eng.submit(p, m) for p, m in requests]
-    out = eng.run()
-    torch.cuda.synchronize()
-    wall = (time.perf_counter() - t0) * 1e3
-    counts = launch_counts()
-    require(not any(counts.values()), f"the bf16 engine launched kernels: {counts}")
-    new = sum(m for _, m in requests)
-    log(f"[opt13b-decode] engine, bf16 pools and states, {len(requests)} slots: "
-        f"{len(requests)} greedy requests (prompts {OPT13B_SERVE_PROMPTS}) -> {new} tokens in "
-        f"{wall:.1f} ms ({new / wall * 1e3:.1f} tokens/s); pools "
-        f"{2 * eng.pool_k.numel() * eng.pool_k.element_size() / 2 ** 20:.1f} MiB")
-    for rid, (p, m) in zip(rids, requests):
-        got = out[rid].output
-        require(out[rid].done and len(got) == m and all(0 <= x < V for x in got),
-                f"request {rid}")
-        solo, margins = solo_greedy(model, p, m, torch.bfloat16)
-        stop = next((s for s, x in enumerate(margins) if x < OPT13B_NEAR_TIE), m)
-        log(f"[opt13b-decode] request {rid} (prompt {len(p)}): equal to solo decoding on "
-            f"{sum(a == b for a, b in zip(got, solo))} of {m} tokens, compared up to step "
-            f"{stop} (smallest top-2 margin {min(margins):.4g})")
-        require(got[:stop] == solo[:stop], f"engine request {rid} differs from solo decoding")
-    del model, eng
+    bf16_engine("opt13b-decode", model, requests, OPT13B_MAX_LEN)
+    del model
     torch.cuda.empty_cache()
     return L
 
@@ -3582,6 +3652,185 @@ def phase_ring_bf16():
     return launches, werrs, timing
 
 
+# ---------------------------------------------------------------------------
+# LLaMA-7b in bfloat16 (heads of 128): serve, decode, the engine, MMLU
+# ---------------------------------------------------------------------------
+
+
+def llama7b(weights=None, method="perlin", dtype=torch.bfloat16, **sea_kw) -> LlamaForCausalLM:
+    """LLaMA-7b (`llama_7b`: hidden 4096, 32 layers, 32 heads of 128, SwiGLU
+    11008, vocabulary 32000, bfloat16 compute) at full width and depth on
+    the card, its SEA config `opt_config(num_heads=32, head_dim=128,
+    **sea_kw)`, parameters in `dtype`: seeded random weights drawn on the
+    card (`init_random_` from a CUDA generator of seed 0: the CPU would take
+    minutes over 6.7 G parameters) or `weights`, a state dict (a dense model
+    takes the shared ones; float32 parameters take the bf16 values)."""
+    cfg = llama_7b(method, sea=opt_config(num_heads=32, head_dim=LLAMA_D, **sea_kw))
+    with torch.device("cuda"):
+        model = LlamaForCausalLM(cfg, device="cuda", seed=None)
+    if weights is None:
+        init_random_(model, torch.Generator(device="cuda").manual_seed(0))
+    model.to(dtype)
+    if weights is not None:
+        missing, _ = model.load_state_dict(weights, strict=False)
+        require(not missing, f"llama_7b weights missing {missing[:4]}")
+    return model.eval()
+
+
+def phase_llama7b_serve(weights):
+    """LLaMA-7b's SEA student with bf16 parameters, forward at 1 x 2048 on
+    the benchmark path: 32 launches of K1's bf16 instance (head width 128)
+    and no other kernel; layer 0's top-k against the CPU's and K1 against
+    its plain version; finite logits; ms and tokens/s beside the dense
+    LLaMA-7b on the same weights. Then float32 parameters under bf16
+    compute: 32 launches of K1's float32 instance and none of its bf16 one,
+    layer 0's K1 checked. Returns (K1 launches of each type, layer 0's bf16
+    and float32 K1 inputs, ms, dense ms)."""
+    model = llama7b(weights)
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    require(model.cfg.head_dim == model.cfg.sea.head_dim == LLAMA_D, "LLaMA-7b's head width")
+    ids = torch.randint(4, V, (1, LLAMA_T), generator=torch.Generator().manual_seed(61)).cuda()
+    am = torch.ones_like(ids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    with torch.inference_mode():
+        logits = model(ids, am, benchmarking=True)["logits"]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[llama7b-serve] LLaMA-7b perlin (32 heads of {LLAMA_D}), bf16 parameters, "
+        f"1x{LLAMA_T}: logits {tuple(logits.shape)} {str(logits.dtype)[6:]} finite="
+        f"{bool(torch.isfinite(logits).all())}, launches {counts}, peak {peak:.2f} GiB")
+    require(counts == bf16_want(K1=L), f"LLaMA-7b forward launches {counts}")
+    require(logits.dtype == torch.bfloat16 and logits.shape == (1, LLAMA_T, V)
+            and bool(torch.isfinite(logits).all()), "LLaMA-7b logits")
+    del logits
+    captured = layer0_k1("llama7b-serve", lambda: infer(model, ids, am))
+    get_bench().reset()
+    ms, _ = forward_ms(model, ids, am)
+    del model
+    torch.cuda.empty_cache()
+    dense = llama7b(weights, "none")
+    dense_ms, dense_out = forward_ms(dense, ids, am)
+    require(bool(torch.isfinite(dense_out).all()), "dense LLaMA-7b logits not finite")
+    del dense, dense_out
+    torch.cuda.empty_cache()
+    log(f"[llama7b-serve] {ms:.2f} ms per forward ({LLAMA_T / ms * 1e3:.0f} tokens/s), dense "
+        f"LLaMA-7b on the same bf16 weights {dense_ms:.2f} ms ({LLAMA_T / dense_ms * 1e3:.0f} "
+        f"tokens/s)")
+
+    # the promotion rule: float32 parameters, bfloat16 compute
+    model32 = llama7b(weights, dtype=torch.float32)
+    require(model32.cfg.compute_dtype == "bfloat16", "the builder's compute type")
+    reset_launches()
+    with torch.inference_mode():
+        out = model32(ids, am, benchmarking=True, output_hidden_states=True)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    types = {str(h.dtype)[6:] for h in out["hidden_states"]}
+    log(f"[llama7b-serve] float32 parameters, compute_dtype bfloat16: launches {counts}; "
+        f"embedding and layer outputs {types}, logits {str(out['logits'].dtype)[6:]}")
+    require(counts == {**bf16_want(), "K1": L}, f"promotion-rule launches {counts}")
+    require(types == {"bfloat16"} and out["logits"].dtype == torch.float32
+            and bool(torch.isfinite(out["logits"]).all()), "promotion-rule types")
+    del out
+    captured32 = layer0_k1("llama7b-serve", lambda: infer(model32, ids, am))
+    get_bench().reset()
+    require(captured32[0].dtype == torch.float32, "the promotion rule's layer-0 K1 inputs")
+    del model32
+    torch.cuda.empty_cache()
+    return {"bfloat16": L, "float32": L}, captured, captured32, ms, dense_ms
+
+
+def phase_llama7b_decode(weights):
+    """LLaMA-7b with the decode cache and bf16 parameters and states:
+    generate_greedy of 16 tokens from a 1 x 256 prompt prefilled in one
+    forward (32 bf16 K1 launches at width 128, no other kernel; the decode
+    steps none), `decode_vs_forward` within LLAMA_DECODE_REL, then ms per
+    decode step beside the step's device bound (every weight but the
+    embedding table read once at the HBM rate). Then [llama7b-engine]: the
+    bf16 engine at 4 slots on 4 greedy requests (`bf16_engine`). Returns
+    the prefill's K1 launches."""
+    model = llama7b(weights, use_cache=True)
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    P, n = LLAMA_P, LLAMA_STEPS
+    prompt = torch.randint(4, V, (1, P), generator=torch.Generator().manual_seed(63)).cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    tokens = model.generate_greedy(prompt, P + n, n, parallel_prefill=True)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[llama7b-decode] generate_greedy 1x{P} -> {n} tokens, bf16 parameters and states: "
+        f"{wall:.1f} ms, peak {peak:.2f} GiB; launches {counts}")
+    require(counts == bf16_want(K1=L), f"LLaMA-7b decode launches {counts}")
+    require(tokens.shape == (1, n) and valid_ids(tokens, V), "greedy tokens")
+    decode_vs_forward("llama7b-decode", model, prompt, tokens, P + n, LLAMA_DECODE_REL)
+    step_ms, runs = decode_ms(model, prompt, n, max_len=P + n)
+    weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters()) - (
+        model.model.embed_tokens.weight.numel() * model.model.embed_tokens.weight.element_size())
+    bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"[llama7b-decode] {step_ms:.2f} ms per decode step at N=1 (runs "
+        f"{', '.join(f'{x:.2f}' for x in runs)}), {1e3 / step_ms:.1f} tokens/s; device bound "
+        f"{bound_ms:.3f} ms ({weight_bytes / 1e9:.2f} GB of weights at "
+        f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s)")
+
+    rng = np.random.default_rng(67)
+    requests = [(rng.integers(4, V, size=p).tolist(), m)
+                for p, m in zip(LLAMA_SERVE_PROMPTS, LLAMA_SERVE_NEW)]
+    bf16_engine("llama7b-engine", model, requests, LLAMA_ENGINE_MAX_LEN)
+    del model
+    torch.cuda.empty_cache()
+    return L
+
+
+def phase_llama7b_mmlu(weights):
+    """MMLU choice scoring over LLaMA-7b's SEA student (bf16 parameters):
+    `evaluate_mmlu` over 64 synthetic examples (`load_mmlu`'s fallback,
+    `synthetic_tokenizer`), 0-shot, batches of 8 left-padded prompts, scored
+    by `make_choice_score_fn(benchmarking=True)`: 32 K1 launches a batch and
+    no other kernel, finite logits, n = 64; the accuracy is a random
+    model's. Returns the K1 launches."""
+    model = llama7b(weights)
+    L, V = model.cfg.num_layers, model.cfg.vocab_size
+    examples = load_mmlu(None, synthetic_examples=LLAMA_MMLU_N)
+    tok = synthetic_tokenizer(V)
+    letters = [tok(c)[0] for c in CHOICES]
+    score = make_choice_score_fn(model, benchmarking=True)
+    per_batch, widths = [], []
+
+    def counted(ids, mask):
+        before = bs.sea_block_sparse_attention.launches
+        logits = score(ids, mask)
+        per_batch.append(bs.sea_block_sparse_attention.launches - before)
+        widths.append(ids.shape[1])
+        require(bool(torch.isfinite(logits).all()) and logits.shape == (ids.shape[0], V),
+                "MMLU final-position logits")
+        return logits
+
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    res = evaluate_mmlu(counted, examples, tok, letters, batch_size=LLAMA_MMLU_BATCH)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    log(f"[llama7b-mmlu] {res['n']} synthetic examples, 0-shot, {len(per_batch)} batches of "
+        f"{LLAMA_MMLU_BATCH} (left-padded to {min(widths)}-{max(widths)} tokens) in {wall:.1f} ms "
+        f"({wall / len(per_batch):.1f} ms a batch): accuracy {res['accuracy']:.4f} (a random "
+        f"model's; chance 0.25), K1 launches a batch {per_batch}, launches {counts}")
+    require(res["n"] == LLAMA_MMLU_N and per_batch == [L] * len(per_batch),
+            f"MMLU: n {res['n']}, K1 launches a batch {per_batch}")
+    require(counts == bf16_want(K1=L * len(per_batch)), f"MMLU launches {counts}")
+    del model
+    torch.cuda.empty_cache()
+    return L * len(per_batch)
+
+
 def time_phase(t0, name):
     log(f"[time] {name} done at {time.perf_counter() - t0:.1f} s")
 
@@ -3810,6 +4059,20 @@ def main():
     ring_launches, ring_layer0_errs, ring_bf16_m = phase_ring_bf16()
     time_phase(t_start, "ring-bf16")
 
+    # LLaMA-7b in bfloat16 (head width 128): the random weights built once
+    t0 = time.perf_counter()
+    weights = llama7b().state_dict()
+    torch.cuda.synchronize()
+    log(f"[llama7b] LLaMA-7b weights (seed 0 on the card, bf16; "
+        f"{sum(w.numel() for w in weights.values()) / 1e9:.3f} G parameters) built in "
+        f"{time.perf_counter() - t0:.1f} s")
+    k1_llama, cap_llama, cap_llama32, llama_ms, llama_dense_ms = phase_llama7b_serve(weights)
+    prefill_llama = phase_llama7b_decode(weights)
+    mmlu_llama = phase_llama7b_mmlu(weights)
+    del weights
+    torch.cuda.empty_cache()
+    time_phase(t_start, "llama7b")
+
     entry = lambda name, source, replaces, launches, err, t: {  # noqa: E731
         "name": name, "route": "cuda", "source": source, "replaces": replaces,
         "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -3823,7 +4086,7 @@ def main():
             f"{m['bound_ms']:.4f} ms by {m['bound_by']}")
         kernels.append(entry(f"sea_causal_flat_forward ({dtype}, head width 80)", KERNEL_SOURCE,
                              REPLACES, launches,
-                             max(kernel_wide_errs[getattr(torch, dtype)], cap[5]), m))
+                             max(kernel_wide_errs[WIDE_D, getattr(torch, dtype)], cap[5]), m))
     # K2-K4 at width 80, at each train arm's layer-0 inputs
     for dtype, wide_errs in (("bfloat16", bf16_wide_errs), ("float32", train_wide_errs)):
         arm = train27[dtype]
@@ -3834,6 +4097,18 @@ def main():
                                  arm["m"][kid]))
         log(f"[result] OPT-2.7b train, {dtype} parameters, 1x{arm['tokens']}: {arm['ms']:.2f} ms "
             f"per step, peak {arm['peak']:.2f} GiB")
+    # K1 at width 128, at the LLaMA-7b forward's own layer-0 inputs
+    for dtype, cap, launches in (
+            ("bfloat16", cap_llama, k1_llama["bfloat16"] + prefill_llama + mmlu_llama),
+            ("float32", cap_llama32, k1_llama["float32"])):
+        m = measure(*cap[:5], k_cfg=float(K))
+        log(f"[result] LLaMA-7b layer 0 {tuple(cap[0].shape)} {dtype}: K1 {m['ms']:.4f} ms, "
+            f"plain {m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms by {m['bound_by']}")
+        kernels.append(entry(f"sea_causal_flat_forward ({dtype}, head width 128)", KERNEL_SOURCE,
+                             REPLACES, launches,
+                             max(kernel_wide_errs[LLAMA_D, getattr(torch, dtype)], cap[5]), m))
+    log(f"[result] LLaMA-7b forward 1x{LLAMA_T}: {llama_ms:.2f} ms, dense {llama_dense_ms:.2f} ms")
     # K6-K8's bf16 instances, at the bf16 ring step's layer-0 inputs (a
     # launch's share of the 16 of a layer)
     for kid, (_, name, source, replaces, _) in RING_KERNELS.items():

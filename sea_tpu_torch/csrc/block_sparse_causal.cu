@@ -159,16 +159,21 @@
 // visited element (K9a, K9b) and the number of visited sub-tiles (K9c), not
 // the bytes.
 //
-// Head widths. The body is templated on D; K1 and K2 (and so K6's
-// instance) are built at D = 64 and D = 80 (OPT-2.7b), in both types, and
-// pick the instance by head_dim at launch (`sea::dispatch`); K5, K6 and
-// K9a-c take 64 only. At D = 80 a row is 160 bytes (bf16) or 320 (float32),
-// whole 16-byte copies, and the padded strides below stay free of bank
-// conflicts: bf16 rows of 88 elements (176 bytes) put ldmatrix's 8 rows on
-// banks 12·i mod 32, disjoint 4-bank groups; float32 K and Q rows of 88
+// Head widths. The body is templated on D; each entry point instantiates
+// the widths of its list (`sea::dispatch` over sea_mask.cuh's
+// FORWARD_WIDTHS, TRAIN_WIDTHS, BASE_WIDTHS): K1 at 64, 80 (OPT-2.7b) and
+// 128 (LLaMA-7b and 13b), K2 (and so K6's instance) at 64 and 80, K5, K6 and
+// K9a-c at 64, each in both types. At D = 80 a row is 160 bytes (bf16) or
+// 320 (float32), at 128 256 or 512, whole 16-byte copies, and the padded
+// strides below stay free of bank conflicts: bf16 rows of D + 8 elements put
+// ldmatrix's 8 rows on banks 12·i (80: 176 bytes) or 4·i (64, 128: 144 and
+// 272 bytes) mod 32, disjoint 4-bank groups; float32 K and Q rows of D + 8
 // floats put the float2 reads of rows g = 0..3 (one half-warp) on banks
-// 24·g + 2·t mod 32, and V rows of 84 put the reads of rows 2·t on banks
-// 8·t + g, as at 64.
+// 24·g + 2·t (80) or 8·g + 2·t (64, 128: 72 and 136 floats, 8 mod 32) mod
+// 32, and V rows of D + 4 put the reads of rows 2·t on banks 8·t + g (84
+// and 132 floats are 20 and 4 mod 32, as 68 is 4), as at 64. Shared memory
+// a block at 128: float32 172 KiB (two K/V stages of 68608 bytes, the
+// q-tile's 34816, the mask words' 4096), bf16 72 KiB.
 //
 // The element predicates live in sea_mask.cuh (`alive_elem`, `alive_elem_len`,
 // and K9a-c's `alive_elem_wr`, `alive_elem_loop`, `alive_elem_sub`), shared
@@ -244,9 +249,12 @@ __device__ __forceinline__ void load_kv(unsigned char* stage, const T* __restric
 // Blocks an SM should hold, which caps registers at 65536 / (128·blocks):
 // bf16 at width 64 fits three (168 registers, no spill) and overlaps their
 // barriers; at 80 (Q's fragments 20 registers, the output's 40) K1 spilled
-// at 168 and takes two; float32's split products need the 255 of two.
+// at 168 and takes two, as at 128 (Q's 32, the output's 64; 72 KiB of
+// shared memory, three of which would still fit); float32's split products
+// need the 255 of two, and at 128 its 172 KiB of shared memory leave room
+// for one block an SM only (the cap is 255 registers either way).
 template <int D, typename T>
-constexpr int MIN_BLOCKS = std::is_same<T, float>::value || D > 64 ? 2 : 3;
+constexpr int MIN_BLOCKS = std::is_same<T, float>::value ? (D > 80 ? 1 : 2) : (D > 64 ? 2 : 3);
 
 // STATS: the forward of the differentiable path. The undersampling predicate
 // is off and `lse` receives each row's logsumexp.
@@ -718,7 +726,7 @@ int impl_forward(const void* q, const void* k, const void* v,
                  int t_m, int n_words, int block_q, int block_k, int nq,
                  int nkb, int sub, float oversample, float k_cfg,
                  float keep_lo, float keep_hi, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k) || head_dim != 64 ||
+  if (bad_geometry(sea::BASE_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k) ||
       bad_pieces(IMPL, block_k, sub))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -745,9 +753,9 @@ extern "C" int sea_causal_flat_forward(
     int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
     int nkb, float oversample, float k_cfg, float keep_lo, float keep_hi,
     int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
+  if (bad_geometry(sea::FORWARD_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+  return (int)sea::dispatch(sea::FORWARD_WIDTHS{}, head_dim, is_bf16, [&](auto d, auto t) {
     return launch<decltype(d)::value, typename decltype(t)::type, false, false>(
         q, k, v, mbits, scaler, counts, idx, nullptr, rowbase, nullptr, out, nullptr, nh,
         t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, 0, oversample, k_cfg,
@@ -763,9 +771,9 @@ extern "C" int sea_causal_fwd_stats(
     const void* rowbase, void* out, void* lse, int nh, int t_dst, int t_src,
     int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
     int nkb, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
+  if (bad_geometry(sea::TRAIN_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+  return (int)sea::dispatch(sea::TRAIN_WIDTHS{}, head_dim, is_bf16, [&](auto d, auto t) {
     return launch<decltype(d)::value, typename decltype(t)::type, true, false>(
         q, k, v, mbits, scaler, counts, idx, nullptr, rowbase, nullptr, out, lse, nh, t_dst,
         t_src, t_m, n_words, block_q, block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0,
@@ -785,7 +793,7 @@ extern "C" int sea_window_fwd_stats(
     void* lse, int nh, int t_dst, int t_win, int head_dim, int t_m,
     int n_words, int block_q, int block_k, int nq, int nkw, int col_base,
     int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) || head_dim != 64 ||
+  if (bad_geometry(sea::BASE_WIDTHS{}, head_dim, n_words, t_dst, t_win, block_q, block_k) ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -807,7 +815,7 @@ extern "C" int sea_bidir_forward(
     const void* lengths, void* out, int nh, int t_dst, int t_src,
     int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
     int nkb, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k) || head_dim != 64)
+  if (bad_geometry(sea::BASE_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   cudaError_t e =

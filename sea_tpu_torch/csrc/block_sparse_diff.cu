@@ -70,7 +70,8 @@
 //   * Head widths: the bodies are templated on D, the padded row stride
 //     LD<D> = D + 8 included; K3 and K4 are built at D = 64 and D = 80
 //     (OPT-2.7b) in both types and pick the instance by head_dim at launch
-//     (`sea::dispatch`); K7 and K8 take 64 only. At 80 the float32 row reads
+//     (`sea::dispatch` over sea::TRAIN_WIDTHS); K7 and K8 take 64 only
+//     (sea::BASE_WIDTHS), and 128 waits for ROADMAP queue 2 item 6. At 80 the float32 row reads
 //     stay conflict-free (rows g = 0..3 of a half-warp on banks 24·g + 2·t
 //     mod 32) and the column reads two-way, as at 64 (rows 2·t on banks 16·t
 //     + g mod 32); bf16 rows of 176 bytes put ldmatrix's 8 rows, plain or
@@ -709,9 +710,9 @@ extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
                              int t_src, int head_dim, int t_m, int n_words,
                              int block_q, int block_k, int nq, int nkb,
                              int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
+  if (bad_geometry(sea::TRAIN_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+  return (int)sea::dispatch(sea::TRAIN_WIDTHS{}, head_dim, is_bf16, [&](auto d, auto t) {
     return launch_dq<decltype(d)::value, typename decltype(t)::type>(
         q, k, v, mbits, dou, lse, delta, counts, idx, rowbase, dq, nh, t_dst, t_src, t_m,
         n_words, block_q, block_k, nq, nkb, 0, (cudaStream_t)stream);
@@ -728,9 +729,9 @@ extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
                               int t_dst, int t_src, int head_dim, int t_m,
                               int n_words, int block_q, int block_k, int nq,
                               int nkb, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_src, block_q, block_k))
+  if (bad_geometry(sea::TRAIN_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  return (int)sea::dispatch(head_dim, is_bf16, [&](auto d, auto t) {
+  return (int)sea::dispatch(sea::TRAIN_WIDTHS{}, head_dim, is_bf16, [&](auto d, auto t) {
     return launch_dkv<decltype(d)::value, typename decltype(t)::type>(
         q, k, v, mbits, dou, lse, delta, counts_t, idx_t, rowbase, dk, dv, nh, t_dst, t_src,
         t_m, n_words, block_q, block_k, nq, nkb, 0, (cudaStream_t)stream);
@@ -750,7 +751,7 @@ extern "C" int sea_window_dq(const void* q, const void* k, const void* v,
                              int t_win, int head_dim, int t_m, int n_words,
                              int block_q, int block_k, int nq, int nkw,
                              int col_base, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) || head_dim != 64 ||
+  if (bad_geometry(sea::BASE_WIDTHS{}, head_dim, n_words, t_dst, t_win, block_q, block_k) ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
@@ -775,7 +776,7 @@ extern "C" int sea_window_dkv(const void* q, const void* k, const void* v,
                               int t_dst, int t_win, int head_dim, int t_m,
                               int n_words, int block_q, int block_k, int nq,
                               int nkw, int col_base, int is_bf16, void* stream) {
-  if (bad_geometry(head_dim, n_words, t_dst, t_win, block_q, block_k) || head_dim != 64 ||
+  if (bad_geometry(sea::BASE_WIDTHS{}, head_dim, n_words, t_dst, t_win, block_q, block_k) ||
       bad_window(col_base, block_k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;

@@ -113,6 +113,7 @@ from .modules import (
     Dense,
     KeepRes,
     LayerNorm,
+    RMSNorm,
     einsum,
     gelu,
     interpolate,
@@ -186,29 +187,33 @@ def _layer_norm(features: int) -> LayerNorm:
 
 def init_random_(root: nn.Module, generator: torch.Generator):
     """Seeded random init of every parameter and buffer under `root`, drawn
-    on the CPU from `generator` (so a seed gives the same weights on every
-    device): linears N(0, 1/fan_in) with zero bias, embeddings
-    N(0, 1/features), LayerNorms the identity, causal convs U(±1/sqrt(fan_in)),
-    each SEA module's FAVOR+ projection and identity-value table."""
+    from `generator` on its device (a CPU generator gives the same weights
+    on every device; the models draw on the CPU): linears N(0, 1/fan_in)
+    with zero bias, embeddings N(0, 1/features), LayerNorms and RMSNorms the
+    identity, causal convs U(±1/sqrt(fan_in)), each SEA module's FAVOR+
+    projection and identity-value table."""
 
     def randn(shape):
-        return torch.randn(shape, generator=generator)
+        return torch.randn(shape, generator=generator, device=generator.device)
 
     with torch.no_grad():
         for m in root.modules():
             if isinstance(m, nn.Linear):
                 m.weight.copy_(randn(m.weight.shape) * m.weight.shape[1] ** -0.5)
-                m.bias.zero_()
+                if m.bias is not None:
+                    m.bias.zero_()
             elif isinstance(m, nn.Embedding):
                 m.weight.copy_(randn(m.weight.shape) * m.weight.shape[1] ** -0.5)
             elif isinstance(m, nn.LayerNorm):
                 m.weight.fill_(1.0)
                 m.bias.zero_()
+            elif isinstance(m, RMSNorm):
+                m.weight.fill_(1.0)
             elif isinstance(m, CausalConv2d):
                 m.reset_parameters(generator)
             elif isinstance(m, SeaAttention):
                 m.performer_proj.copy_(gaussian_orthogonal_random_matrix(
-                    generator, m.cfg.nb_features, m.cfg.head_dim, device="cpu"
+                    generator, m.cfg.nb_features, m.cfg.head_dim, device=generator.device
                 ))
                 if m.cfg.causal:
                     m.v_eye_learned_causal.copy_(randn(m.v_eye_learned_causal.shape))

@@ -1,6 +1,7 @@
-"""HF OPT checkpoint -> the port's state dict, and the student bootstrap.
+"""HF OPT and LLaMA checkpoints -> the port's state dicts, and the student
+bootstrap.
 
-Port of `sea_tpu/models/loader.py`'s OPT half:
+Port of `sea_tpu/models/loader.py`:
 
   * `opt_params_from_state_dict`: an HF-layout OPT state dict (numpy arrays
     or tensors, keys `model.decoder.layers.N.self_attn.q_proj.weight` and
@@ -9,6 +10,11 @@ Port of `sea_tpu/models/loader.py`'s OPT half:
     `nn.Linear` keeps them, so nothing is transposed;
   * `load_opt_params`: the same from a local directory holding
     `*.safetensors` or `*.bin` files. There is no download branch;
+  * `llama_params_from_state_dict` and `load_llama_params`: the same for an
+    HF LLaMA state dict (keys `model.layers.N.self_attn.q_proj.weight`,
+    `.mlp.gate_proj.weight`, `.input_layernorm.weight`, `model.norm.weight`,
+    `lm_head.weight`; no biases) onto `LlamaForCausalLM`'s, whose names are
+    HF's own;
   * `student_from_teacher`: the student takes its own copy of every tensor
     the teacher has and keeps its fresh SEA estimator ('perlin').
 """
@@ -23,6 +29,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from .llama import LlamaConfig
 from .opt import OptConfig
 
 
@@ -43,7 +50,10 @@ def _load_state_dict(path: str) -> Dict[str, np.ndarray]:
     if bins:
         for f in bins:
             part = torch.load(f, map_location="cpu", weights_only=True)
-            sd.update({k: v.numpy() for k, v in part.items()})
+            # numpy has no bfloat16 (LLaMA checkpoints often are): float32
+            # holds every value exactly
+            sd.update({k: (v.float() if v.dtype == torch.bfloat16 else v).numpy()
+                       for k, v in part.items()})
         return sd
     raise FileNotFoundError(f"no checkpoint files in {path}")
 
@@ -71,6 +81,29 @@ def opt_params_from_state_dict(sd, cfg: OptConfig) -> Dict[str, torch.Tensor]:
 
 def load_opt_params(path: str, cfg: OptConfig) -> Dict[str, torch.Tensor]:
     return opt_params_from_state_dict(_load_state_dict(path), cfg)
+
+
+def llama_params_from_state_dict(sd, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """The port's `LlamaForCausalLM` state dict (without the student's
+    'perlin' modules), float32, from an HF LLaMA state dict."""
+
+    def g(key):
+        for prefix in ("model.", ""):
+            if prefix + key in sd:
+                return torch.as_tensor(np.asarray(sd[prefix + key]), dtype=torch.float32)
+        raise KeyError(key)
+
+    names = ["model.embed_tokens.weight", "model.norm.weight", "lm_head.weight"]
+    for i in range(cfg.num_layers):
+        for mod in ("self_attn.q_proj", "self_attn.k_proj", "self_attn.v_proj",
+                    "self_attn.o_proj", "input_layernorm", "post_attention_layernorm",
+                    "mlp.gate_proj", "mlp.up_proj", "mlp.down_proj"):
+            names.append(f"model.layers.{i}.{mod}.weight")
+    return {n: g(n.removeprefix("model.")).clone() for n in names}
+
+
+def load_llama_params(path: str, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    return llama_params_from_state_dict(_load_state_dict(path), cfg)
 
 
 def student_from_teacher(student: nn.Module, teacher: nn.Module) -> nn.Module:

@@ -10,10 +10,11 @@
   * `upsample_nearest` — integer nearest-neighbour upsample in float32;
   * `KeepRes` — run a stack of layers, then resize back to the input height;
   * `ChannelSplit` — (N, C, H, W) -> (N, C·s, H, W/s);
-  * `Dense` and `LayerNorm` — flax's `nn.Dense` and `nn.LayerNorm` type
-    rule (`promote`, `einsum`): a layer computes in the promoted type of
-    its input and its parameters, so a bfloat16 input meets float32
-    parameters in float32 and only bfloat16 parameters compute in bfloat16.
+  * `Dense`, `LayerNorm` and `RMSNorm` — flax's `nn.Dense`, `nn.LayerNorm`
+    and `nn.RMSNorm` type rule (`promote`, `einsum`): a layer computes in the
+    promoted type of its input and its parameters, so a bfloat16 input meets
+    float32 parameters in float32 and only bfloat16 parameters compute in
+    bfloat16 (the norms' statistics in float32 always).
 
 The convolutions and resizes compute in float32 whatever the input and
 parameter types, and return the input's type, as the JAX modules do.
@@ -49,11 +50,15 @@ def einsum(equation: str, *xs: torch.Tensor) -> torch.Tensor:
 class Dense(nn.Linear):
     """`nn.Linear` with flax `nn.Dense`'s types: input, weight and bias
     promoted to one type first, the output in that type. Below float32 the
-    bias is added to the product after it is rounded, as XLA adds it."""
+    bias is added to the product after it is rounded, as XLA adds it.
+    `bias=False` is flax's `use_bias=False` (LLaMA's projections)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dtype = promote(x, self.weight)
-        x, w, b = x.to(dtype), self.weight.to(dtype), self.bias.to(dtype)
+        x, w = x.to(dtype), self.weight.to(dtype)
+        if self.bias is None:
+            return F.linear(x, w)
+        b = self.bias.to(dtype)
         if dtype == torch.float32:
             return F.linear(x, w, b)
         return F.linear(x, w) + b
@@ -74,6 +79,14 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return (half.float() * torch.special.erfc(arg.float()).to(dtype).float()).to(dtype)
 
 
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """`jax.nn.silu(x)` in x's type: x · sigmoid(x), with sigmoid as XLA
+    expands it, 1 / (1 + exp(−x)). In bfloat16 every operation's result is
+    rounded (XLA's expansion rounds exp, the sum and the quotient each; one
+    rounding of sigmoid, or F.silu's of the whole, gives other bits)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
 class LayerNorm(nn.LayerNorm):
     """flax's `nn.LayerNorm` (epsilon 1e-6): the statistics and the affine
     in float32, the result in the promoted type of the input, scale and
@@ -86,6 +99,26 @@ class LayerNorm(nn.LayerNorm):
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(),
                          self.bias.float(), self.eps)
         return y.to(promote(x, self.weight, self.bias))
+
+
+class RMSNorm(nn.Module):
+    """flax's `nn.RMSNorm` (LLaMA's norm; epsilon 1e-6 by default), as flax
+    computes it: the mean of squares in float32, the scale multiplied into
+    rsqrt(mean + eps) in float32 before x is, and the result cast once to
+    the promoted type of the input and the scale. So a bfloat16 input with a
+    float32 scale returns float32 (not HF's `weight · (x · rsqrt).to(x's
+    type)`)."""
+
+    def __init__(self, features: int, eps: float = 1e-6):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        mul = torch.rsqrt(var + self.eps) * self.weight.float()
+        return (xf * mul).to(promote(x, self.weight))
 
 
 def _area_matrix(in_size: int, out_size: int) -> np.ndarray:
@@ -178,8 +211,8 @@ class CausalConv2d(nn.Module):
         for p in (self.weight, self.bias):
             with torch.no_grad():
                 p.copy_(
-                    torch.rand(p.shape, generator=generator) * (2 * self.bound)
-                    - self.bound
+                    torch.rand(p.shape, generator=generator, device=generator.device)
+                    * (2 * self.bound) - self.bound
                 )
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

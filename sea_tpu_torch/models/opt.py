@@ -411,25 +411,17 @@ class OptModel(nn.Module):
         return h, hidden_states, captures, aux_loss
 
 
-class OptForCausalLM(nn.Module):
-    """LM head tied to the input embedding (OPT convention). Built on
-    `device` with seeded random weights (`seed=None` leaves them
-    uninitialised, for `load_state_dict`)."""
-
-    def __init__(self, cfg: OptConfig, *, device="cuda", seed: Optional[int] = 0):
-        super().__init__()
-        if cfg.compute_dtype not in COMPUTE_DTYPES:
-            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
-        self.cfg = cfg
-        self.model = OptModel(cfg)
-        if seed is not None:
-            init_random_(self, torch.Generator().manual_seed(seed))
-        self.to(device)
-
-    def logits(self, h: torch.Tensor) -> torch.Tensor:
-        w = self.model.embed_tokens.weight
-        dtype = promote(h, w)
-        return h.to(dtype) @ w.to(dtype).T
+class CausalLMGeneration:
+    """Decode and generation over a causal LM's SEA decode cache, shared by
+    `OptForCausalLM` and `models.llama.LlamaForCausalLM` (the JAX package's
+    LLaMA reuses OPT's loops the same way). A model supplies `cfg`,
+    `model.embed_tokens`, `model.embed(ids, mask) -> (h, bundle)`,
+    `model.layers` (each with `self_attn.init_state`, `decode(h, state,
+    *extra)`, `decode_paged(h, state, pool_k, pool_v, pages, *extra)` and
+    `prefill(h, bundle, max_len)`), `model.finalize`, `logits` and
+    `_embed_step(token_ids, position) -> (h, extra)`: a step's embedded
+    tokens and what its layers' decode takes besides (OPT nothing, its
+    positions being in the embedding; LLaMA the step's rotary tables)."""
 
     # ------------------------------------------------------------------
     # decode and generation (inference: no autograd)
@@ -449,10 +441,10 @@ class OptForCausalLM(nn.Module):
         loop's. `last_only` projects only the last position's logits
         (N, 1, V), all that generation needs."""
         N, P = prompt_ids.shape
-        h, causal_mask = self.model.embed(prompt_ids, torch.ones_like(prompt_ids))
+        h, bundle = self.model.embed(prompt_ids, torch.ones_like(prompt_ids))
         states = []
         for layer in self.model.layers:
-            h, st = layer.prefill(h, causal_mask, max_len)
+            h, st = layer.prefill(h, bundle, max_len)
             states.append(st)
         h = self.model.finalize(h)
         if last_only:
@@ -477,21 +469,15 @@ class OptForCausalLM(nn.Module):
         """() -> (1, 1) (lockstep), (N,) -> (N, 1) (per slot)."""
         return position.reshape(1, 1) if position.dim() == 0 else position[:, None]
 
-    def _embed_step(self, token_ids: torch.Tensor, position) -> torch.Tensor:
-        position = torch.as_tensor(position, device=token_ids.device)
-        h = self.model.embed_tokens(token_ids)
-        # OPT's learned positions sit 2 rows up
-        return h + self.model.embed_positions(self._decode_pos(position).long() + 2)
-
     @torch.no_grad()
     def decode_step(self, token_ids: torch.Tensor, position, states: List[SeaDecodeState]):
         """One step: token_ids (N, 1); position a () tensor or int (0-based,
         rows in lockstep) or an (N,) tensor (per slot); states one
         `SeaDecodeState` per layer. Returns (logits (N, 1, V), new states)."""
-        h = self._embed_step(token_ids, position)
+        h, extra = self._embed_step(token_ids, position)
         new_states = []
         for layer, st in zip(self.model.layers, states):
-            h, st = layer.decode(h, st)
+            h, st = layer.decode(h, st, *extra)
             new_states.append(st)
         return self.logits(self.model.finalize(h)), new_states
 
@@ -502,10 +488,10 @@ class OptForCausalLM(nn.Module):
         page table for every layer (a page id addresses the same slots in
         each layer's pool). The pools are written in place. Returns (logits,
         new states, pool_k, pool_v)."""
-        h = self._embed_step(token_ids, position)
+        h, extra = self._embed_step(token_ids, position)
         new_states = []
         for li, (layer, st) in enumerate(zip(self.model.layers, states)):
-            h, st, _, _ = layer.decode_paged(h, st, pool_k[li], pool_v[li], pages)
+            h, st, _, _ = layer.decode_paged(h, st, pool_k[li], pool_v[li], pages, *extra)
             new_states.append(st)
         return self.logits(self.model.finalize(h)), new_states, pool_k, pool_v
 
@@ -598,6 +584,34 @@ class OptForCausalLM(nn.Module):
         first = torch.gather(first_tok, 1, beam_ptr)
         seq = torch.stack([first] + rev[::-1], dim=-1)  # (N, B, num_steps)
         return seq, beam_logp / (num_steps ** length_penalty)
+
+
+class OptForCausalLM(CausalLMGeneration, nn.Module):
+    """LM head tied to the input embedding (OPT convention). Built on
+    `device` with seeded random weights (`seed=None` leaves them
+    uninitialised, for `load_state_dict`)."""
+
+    def __init__(self, cfg: OptConfig, *, device="cuda", seed: Optional[int] = 0):
+        super().__init__()
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
+        self.cfg = cfg
+        self.model = OptModel(cfg)
+        if seed is not None:
+            init_random_(self, torch.Generator().manual_seed(seed))
+        self.to(device)
+
+    def logits(self, h: torch.Tensor) -> torch.Tensor:
+        w = self.model.embed_tokens.weight
+        dtype = promote(h, w)
+        return h.to(dtype) @ w.to(dtype).T
+
+    def _embed_step(self, token_ids: torch.Tensor, position):
+        position = torch.as_tensor(position, device=token_ids.device)
+        h = self.model.embed_tokens(token_ids)
+        # OPT's learned positions sit 2 rows up; the layers' decode takes no
+        # more than the hidden states
+        return h + self.model.embed_positions(self._decode_pos(position).long() + 2), ()
 
     def forward(
         self,

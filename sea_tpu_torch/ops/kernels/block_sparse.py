@@ -63,8 +63,9 @@ Layout of this module:
 
 Each wrapper counts its kernel launches in a `launches` attribute; K1-K4's
 and K6-K8's also count those of their bfloat16 instance in `bf16_launches`.
-The kernels take the head widths of `HEAD_DIMS`: 64 and 80 (OPT-2.7b) on the
-causal forward and the differentiable path, 64 elsewhere.
+The kernels take the head widths of `HEAD_DIMS`: 64, 80 (OPT-2.7b) and 128
+(LLaMA-7b and 13b) on the causal forward, 64 and 80 on the differentiable
+path, 64 elsewhere.
 """
 
 from __future__ import annotations
@@ -80,11 +81,13 @@ from . import _build
 NEG_INF = -1e30
 KERNEL_TILE = 64  # rows and columns of the CUDA kernel's tile
 MAX_WORDS = 16  # packed mask words per row the kernel holds (T_M <= 512)
-# the head widths each route's kernels are built for: the causal forward
-# (K1) and the differentiable path (K2-K4); the padded bidirectional forward
-# (K5), the impl variants (K9a-c) and the ring's windows (K6-K8). Any other
-# width is ROADMAP queue 2 item 6.
-HEAD_DIMS = {"causal": (64, 80), "bidirectional": (64,), "impl": (64,), "window": (64,)}
+# the head widths each route's kernels are built for (`sea::dispatch`'s
+# lists in csrc/sea_mask.cuh): the causal forward (K1), the differentiable
+# path (K2-K4), the padded bidirectional forward (K5), the impl variants
+# (K9a-c) and the ring's windows (K6-K8). Any other width is ROADMAP queue 2
+# item 6. The plain versions, which CPU tensors take, have no such limit.
+HEAD_DIMS = {"causal": (64, 80, 128), "differentiable": (64, 80), "bidirectional": (64,),
+             "impl": (64,), "window": (64,)}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # q, k, v and the outputs
 SUB_BLOCK = 128  # 'subtile' piece width, min(SUB_BLOCK, block_k) (the JAX default)
 
@@ -757,6 +760,7 @@ def kernel_operands(x: KernelInputs, oversample: float = 1.0, k_cfg: float = 64.
     if k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError("q, k and v must share one dtype")
     _check_head_dim(D, "bidirectional" if not x.is_causal else
+                    "differentiable" if differentiable else
                     "impl" if impl != "flat" else "causal")
     if n_words > MAX_WORDS:
         raise ValueError(f"kernel takes T_M <= {32 * MAX_WORDS}, got {T_M}")

@@ -48,7 +48,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..models.opt import OptForCausalLM
+from ..models.opt import CausalLMGeneration
 from ..models.state import SeaDecodeState, reset_state_rows, select_state_rows
 from ..ops.sampling import sample_logits
 
@@ -87,7 +87,11 @@ class PageAllocator:
 
 
 class ServingEngine:
-    """Continuous-batching generation over an OPT SEA model (`sea.use_cache`).
+    """Continuous-batching generation over a causal SEA model with the
+    decode cache (`sea.use_cache`): `OptForCausalLM`, or `LlamaForCausalLM`,
+    whose per-slot positions drive its RoPE, the pools holding its roped
+    keys expanded to `num_heads` (GQA included). The engine reads only the
+    model's `cfg`, `device`, `init_decode_states` and `decode_step_paged`.
 
     max_slots: sequences decoded per step.
     page_size: tokens per K/V page.
@@ -104,7 +108,7 @@ class ServingEngine:
 
     def __init__(
         self,
-        model: OptForCausalLM,
+        model: CausalLMGeneration,
         *,
         max_slots: int = 4,
         page_size: int = 16,

@@ -5,8 +5,10 @@ tree of nested dicts of arrays (as the JAX modules' `init` returns them, or
 as numpy arrays) to a `state_dict` for the matching port module:
 
   * Dense `kernel` (in, out) -> `weight` (out, in), the cosformer
-    backend's `q_proj`/`k_proj`/`v_proj` among them;
-  * LayerNorm `scale` -> `weight`; Embed `embedding` -> `weight`;
+    backend's `q_proj`/`k_proj`/`v_proj` among them, and LLaMA's bias-free
+    projections (a Dense without `bias` gives `weight` alone);
+  * LayerNorm and RMSNorm `scale` -> `weight`; Embed `embedding` -> `weight`
+    (OPT's, BERT's and LLaMA's trees alike);
   * conv `weight` (OIHW), `bias` and `v_eye_learned_causal` keep their names
     and layouts;
   * the `performer` collection's `projection` -> the SEA module's

@@ -11,6 +11,7 @@ import numpy as np
 import torch
 
 import sea_tpu_torch.config as torch_config
+import sea_tpu_torch.models.llama as torch_llama
 import sea_tpu_torch.models.opt as torch_opt
 
 
@@ -62,3 +63,10 @@ def assert_topk_margin(masked_probs_list, budgets, margin=1e-4):
     seed), not of the port."""
     for layer, ties in enumerate(topk_near_ties(masked_probs_list, budgets, margin)):
         assert not ties.any(), (layer, np.argwhere(ties)[:5])
+
+
+def torch_llama_config(cfg):
+    """The port's LlamaConfig from a JAX LlamaConfig (the same fields)."""
+    d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
+    d["sea"] = torch_sea_config(cfg.sea)
+    return torch_llama.LlamaConfig(**d)

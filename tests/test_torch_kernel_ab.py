@@ -26,22 +26,34 @@ def test_knockouts_apply_to_the_source(tmp_path, monkeypatch):
         assert include == kernel_ab.SOURCE.parent
 
 
-def _widths():
-    """The head widths `sea::dispatch` (csrc/sea_mask.cuh) instantiates."""
+def _width_lists():
+    """{name: [widths]} of the head-width lists in csrc/sea_mask.cuh
+    (`using NAME = Widths<...>`), each entry point's instances."""
     header = (kernel_ab.SOURCE.parent / "sea_mask.cuh").read_text()
-    return sorted(set(re.findall(r"std::integral_constant<int, (\d+)>", header)))
+    return {name: [w.strip() for w in widths.split(",")]
+            for name, widths in re.findall(r"using (\w+) = Widths<([\d, ]+)>;", header)}
 
 
 # a launch's template arguments as the sources spell them: an explicit width
-# and type, or the dispatched ones (every width of `_widths`, both types)
+# and type, or the dispatched ones (every width of the list the entry point
+# dispatches over, both types)
 DISPATCHED = "decltype(d)::value, typename decltype(t)::type"
 MANGLED_T = {"float": "f", "__nv_bfloat16": "13__nv_bfloat16"}
 
 
+def _dispatched(source: str) -> str:
+    """`source` with each dispatched launch's template arguments replaced by
+    `widths NAME`, NAME the list its `sea::dispatch(sea::NAME{}, ...)`
+    dispatches over."""
+    return re.sub(r"sea::dispatch\(sea::(\w+)\{\}(.*?)" + re.escape(DISPATCHED),
+                  lambda m: f"sea::dispatch(sea::{m.group(1)}{{}}{m.group(2)}widths {m.group(1)}",
+                  source, flags=re.S)
+
+
 def _instances(width_type: str):
     """[(width, type)] of one launch's first template arguments."""
-    if width_type == DISPATCHED:
-        return [(d, t) for d in _widths() for t in MANGLED_T]
+    if width_type.startswith("widths "):
+        return [(d, t) for d in _width_lists()[width_type[7:]] for t in MANGLED_T]
     d, t = width_type.split(", ")
     return [(d, t)]
 
@@ -54,22 +66,23 @@ def test_tensor_core_check_names_every_instance():
     for mangled in _forward_mangled():
         assert chip_smoke.FLAT_INSTANCE.search(mangled), mangled
         names.add(chip_smoke.instance_name(mangled))
-    assert _widths() == ["64", "80"]
+    assert _width_lists() == {"FORWARD_WIDTHS": ["64", "80", "128"],
+                              "TRAIN_WIDTHS": ["64", "80"], "BASE_WIDTHS": ["64"]}
     assert names == {f"{kid} {t} D{d}" for t in ("float32", "bfloat16") for kid, d in (
         ("K1", 64), ("K2/K6", 64), ("K5", 64), ("K9a", 64), ("K9b", 64), ("K9c", 64),
-        ("K1", 80), ("K2", 80))}
+        ("K1", 80), ("K2", 80), ("K1", 128))}
 
 
 def _forward_mangled():
     """The mangled names of the forward-body instances that the forward's
     `launch<…>` calls instantiate (the impl entry points' `IMPL` standing for
     each of K9a-c, a dispatched launch for every width and type)."""
-    source = kernel_ab.SOURCE.read_text()
+    source = _dispatched(kernel_ab.SOURCE.read_text())
     impl_ids = {"": 0, "FLAT": 0, "WORD_RANGE": 1, "WORD_LOOP": 2, "SUBTILE": 3}
     out = []
     for width_type, stats, bidir, impl in set(re.findall(
-            r"launch<(64, float|64, __nv_bfloat16|" + re.escape(DISPATCHED)
-            + r"),\s*(true|false), (true|false)(?:, (\w+))?>", source)):
+            r"launch<(64, float|64, __nv_bfloat16|widths \w+),\s*(true|false), (true|false)"
+            r"(?:, (\w+))?>", source)):
         for d, t in _instances(width_type):
             for im in ["WORD_RANGE", "WORD_LOOP", "SUBTILE"] if impl == "IMPL" else [impl]:
                 out.append(f"_ZN12_GLOBAL__N_118causal_flat_kernelILi{d}E{MANGLED_T[t]}"
@@ -83,11 +96,11 @@ def _backward_mangled(launcher):
     spells them) of the backward-body instances that `launcher` (the
     template launch_dq or launch_dkv of block_sparse_diff.cu) launches, for
     each width and element type the entry points instantiate it with."""
-    source = kernel_ab.DIFF_SOURCE.read_text()
+    source = _dispatched(kernel_ab.DIFF_SOURCE.read_text())
     body = source[source.index(f"cudaError_t {launcher}("):]
     body = body[:body.index("\n}\n")]
-    calls = set(re.findall(rf"\b{launcher}<(64, float|64, __nv_bfloat16|"
-                           + re.escape(DISPATCHED) + r")>\(", source))
+    calls = set(re.findall(rf"\b{launcher}<(64, float|64, __nv_bfloat16|widths \w+)>\(",
+                           source))
     return sorted({f"_ZN53_GLOBAL__N__24bbea32_20_block_sparse_diff_cu_bf66d488{len(name)}{name}"
                    f"ILi{d}E{MANGLED_T[t]}EEvPKT0_"
                    for name in set(re.findall(r"(causal_(?:dq|dkv)_kernel)<D, T><<<", body))

@@ -18,6 +18,7 @@ import torch
 from sea_tpu.config import SeaConfig
 from sea_tpu.models import opt as jopt
 from sea_tpu.utils.profiler import get_bench as jax_bench
+from sea_tpu_torch.models import llama as tllama
 from sea_tpu_torch.models import opt as topt
 from sea_tpu_torch.ops.kernels import block_sparse as tb
 from sea_tpu_torch.weights import state_dict_from_jax
@@ -148,22 +149,27 @@ def test_bf16_weights_convert_exactly():
 
 
 # (route, head width, refused): OPT-2.7b's width 80 is built for the causal
-# forward (K1) and the differentiable path (K2-K4); the padded bidirectional
-# forward (K5), the impl variants (K9a-c) and the ring's windows (K6-K8) take
-# 64 only, and no route takes 96
+# forward (K1) and the differentiable path (K2-K4); LLaMA's 128 for the
+# causal forward alone; the padded bidirectional forward (K5), the impl
+# variants (K9a-c) and the ring's windows (K6-K8) take 64 only, and no route
+# takes 96
 WIDTH_ROUTES = [("differentiable", 80, False), ("causal", 80, False),
                 ("differentiable", 96, True), ("bidirectional", 80, True),
-                ("impl", 80, True), ("window", 80, True)]
+                ("impl", 80, True), ("window", 80, True),
+                ("causal", 128, False), ("differentiable", 128, True),
+                ("bidirectional", 128, True), ("impl", 128, True), ("window", 128, True)]
 
 
 @pytest.mark.parametrize("route,width,refused", WIDTH_ROUTES,
                          ids=[f"{r}-{w}" for r, w, _ in WIDTH_ROUTES])
 def test_head_width_routes(route, width, refused):
-    """OPT-2.7b's heads are 80 wide; the kernels' operands build at that
-    width where the kernels have an instance of it, and every other route
-    or width is refused, naming the ROADMAP item that adds it."""
+    """OPT-2.7b's heads are 80 wide, LLaMA-7b's 128; the kernels' operands
+    build at a width where the kernels have an instance of it, and every
+    other route or width is refused, naming the ROADMAP item that adds it."""
     cfg = topt.opt_2_7b("perlin")
     assert cfg.head_dim == cfg.sea.head_dim == 80
+    cfg = tllama.llama_7b("perlin")
+    assert cfg.head_dim == cfg.sea.head_dim == 128
     q = torch.zeros((1, 2, 128, width))
     mask = torch.ones((1, 2, 128, 256))
 
