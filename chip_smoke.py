@@ -13,8 +13,8 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 spill), and the tensor-core instructions (HMMA) of every
                 instance of the forward body (K1, K2/K6, K5, K9a-c) and of
                 the backward bodies (K3/K7, K4/K8) in `cuobjdump -sass`, in
-                both types at head width 64, K1-K4's at 80 and K1's at 128,
-                none of which may lack them;
+                both types at head width 64 and K1-K4's at 80 and 128, none
+                of which may lack them;
   2. mask     — the kernel's element predicate (`alive_mask`) against the
                 torch oracle `element_mask_int8`, bit for bit, for T up to 8192;
                 the forward body's pixel quotients, taken from each row's
@@ -43,8 +43,9 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 `dense_reference`, two block sizes, and edge cases (empty
                 rows, T=128, a mask with every pixel on); two launches of K3
                 and of K4 on the same operands must give the same bits; the
-                same at width 80 (1 x 32 x T x 80, T = 1024 and 2048, and
-                empty rows);
+                same at widths 80 and 128 (1 x 32 x T x 80 and x 128, T =
+                1024 and 2048, and empty rows), the width-128 instances
+                also timed at T = 2048 beside SDPA's forward and backward;
  5b. bf16-kernels — the bf16 instances of K2, K3 and K4 against their plain
                 versions on the same bf16 operands (the plain result in
                 float32) at T = 1024, 2048 and 4096 and on a band of empty
@@ -53,7 +54,8 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 launches, and blocks 128 x 256 against 64 x 64, equal bit for
                 bit; zeros and no NaN on the empty rows; times at T = 2048
                 beside SDPA's bf16 forward and backward; the same checks at
-                width 80 (1 x 32 x T x 80, T = 1024 and 2048);
+                widths 80 and 128 (1 x 32 x T x 80 and x 128, T = 1024 and
+                2048), the width-128 instances timed at T = 2048;
   6. train    — the training path: OPT-125m with `use_fused_train`, full
                 width and depth, AdamW steps through `train_steps` on one
                 batch of 1 x 2048 tokens (3 steps) and one of 1 x 8192 (2
@@ -278,10 +280,27 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 batches of 8, scored through `make_choice_score_fn(
                 benchmarking=True)`: 32 K1 launches a batch and no other
                 kernel, finite logits, n = 64, the (random model's) accuracy;
- 34. result   — one JSON line of per-kernel numbers (K1-K4's bf16 instances
-                beside the float32 ones, K1-K4 at width 80 and K1 at width
-                128 in each type, K6-K8's bf16 instances), then the device
-                line.
+ 34. llama7b-train — use_fused_train, task-only, two arms, each drawn from
+                the seed on the card: (a) bf16 parameters and moments at
+                full width and depth, 3 AdamW steps (lr 1e-3, one parameter
+                at a time) on 1 x 512, 32 launches each of K2-K4's bf16
+                width-128 instances a step and none of K1 or K6-K8, the loss
+                falling, then the dense LLaMA-7b's CE step on the same
+                starting weights and batch; (b) float32 parameters under
+                bf16 compute at 8 layers, 2 steps on 1 x 512, 8 launches each
+                of the float32 width-128 instances a step; per arm layer 0's
+                kernels against their plain versions (two launches and two
+                block shapes equal bit for bit), timed beside SDPA, ms per
+                step and peak memory;
+ 35. llama7b-kd — `OptTrainer(model="llama-7b", param_dtype="bfloat16",
+                moment_dtype="bfloat16")` at 1 x 512, accumulation 2, 2
+                updates: no kernel, every logged term finite, the student
+                moved, the teacher unchanged bit for bit, the first batch's
+                KD loss lower; ms per micro-step, peak memory, `evaluate`'s
+                PPL (a random model's);
+ 36. result   — one JSON line of per-kernel numbers (K1-K4's bf16 instances
+                beside the float32 ones, K1-K4 at widths 80 and 128 in each
+                type, K6-K8's bf16 instances), then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -343,6 +362,7 @@ from sea_tpu_torch.utils.profiler import get_bench
 
 H, D, T_M, K = 12, 64, 256, 64
 F32_TOL, BF16_HALF_ULP = 1e-5, 2.0 ** -8
+LSE_ULPS = 8  # bf16 K2's lse gate at large |lse|, in float32 ulps of max|lse|
 GRAD_ATOL, GRAD_RTOL = 1e-8, 1e-4  # the latter of max|want|: see the module docstring
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM
 PEAK_FLOPS = {torch.float32: 67e12, torch.bfloat16: 989e12}  # FFMA / tensor cores
@@ -452,6 +472,17 @@ LLAMA_SERVE_PROMPTS = (9, 17, 24, 32)  # tokens; 4 slots, 4 greedy requests
 LLAMA_SERVE_NEW = (8, 6, 8, 4)
 LLAMA_ENGINE_MAX_LEN = 64
 LLAMA_MMLU_N, LLAMA_MMLU_BATCH = 64, 8  # synthetic examples, 0-shot
+# its task-only fused training, (tokens, AdamW steps) of each arm: (a) bf16
+# parameters and moments at full depth, (b) float32 parameters under bf16
+# compute (the long-context path's type default) at LLAMA_F32_LAYERS layers, a
+# memory cut (16 B a parameter: 3.24 GB a layer, 4.2 GB for the embedding and
+# head); 1 x 512, since without the per-layer remat (ROADMAP queue 1 item 2)
+# bf16 state (50.2 GiB) and the activations of 1 x 1024 would need 71-76 GiB
+LLAMA_TRAIN = ((512, 3), (512, 2))
+LLAMA_F32_LAYERS = 8
+# the KD trainer at llama-7b: bf16 teacher, student and moments (62.8 GiB)
+LLAMA_KD_T, LLAMA_KD_ACCUM, LLAMA_KD_STEPS = 512, 2, 2
+LLAMA_KD_EVAL_WINDOWS = 2
 # the bf16 ring against the unsharded bf16 kernels: the first step's loss
 # within half a bf16 ulp of the loss (2^-9 of it), gradients where no top-k
 # pick differs within 2e-2 of the largest (tests/test_torch_bf16.py's bound
@@ -549,14 +580,14 @@ def check_grad(name, got, want) -> float:
     return err
 
 
-def tolerance(want: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+def tolerance(want: torch.Tensor, dtype: torch.dtype, floor: float = F32_TOL) -> torch.Tensor:
     """Per-element limit on |kernel − plain|, `want` being the plain version
-    in float32 on the kernel's inputs: 1e-5 in float32; in bfloat16 also
-    half a bf16 ulp of `want` (2^-8·|want|), since the kernel rounds its
-    float32 result to bfloat16 once."""
+    in float32 on the kernel's inputs: `floor` (1e-5, or `f32_limit`'s) in
+    float32; in bfloat16 also half a bf16 ulp of `want` (2^-8·|want|),
+    since the kernel rounds its float32 result to bfloat16 once."""
     if dtype == torch.bfloat16:
-        return F32_TOL + BF16_HALF_ULP * want.abs()
-    return torch.full_like(want, F32_TOL)
+        return floor + BF16_HALF_ULP * want.abs()
+    return torch.full_like(want, floor)
 
 
 def bound(ops: bs.KernelOperands, mask_m: torch.Tensor):
@@ -645,13 +676,12 @@ INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
 # the backward bodies `causal_dq_kernel<D, T>` and `causal_dkv_kernel<D, T>`,
 # and the kernels each is
-DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_kernelILi(64|80)E(f|13__nv_bfloat16)EE")
+DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_kernelILi(64|80|128)E(f|13__nv_bfloat16)EE")
 DIFF_KIDS = {"dq": "K3/K7", "dkv": "K4/K8"}
-# at width 80 (OPT-2.7b) only K1-K4 have instances: the windows (K6-K8), K5
-# and K9a-c take 64 alone, so an instance shared at 64 is K1-K4's alone there;
-# at width 128 (LLaMA-7b and 13b) only K1's
-WIDTH80_KIDS = {"K1": "K1", "K2/K6": "K2", "K3/K7": "K3", "K4/K8": "K4"}
-WIDTH128_KIDS = {"K1": "K1"}
+# at widths 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b) only K1-K4 have
+# instances: the windows (K6-K8), K5 and K9a-c take 64 alone, so an instance
+# shared at 64 is K1-K4's alone there
+WIDE_KIDS = {"K1": "K1", "K2/K6": "K2", "K3/K7": "K3", "K4/K8": "K4"}
 DTYPE_NAMES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
 
 
@@ -667,20 +697,20 @@ def instance_name(mangled: str):
         if not found:
             return None
         kid, width, dt = DIFF_KIDS[found.group(1)], found.group(2), found.group(3)
-    if width == "80":
-        kid = WIDTH80_KIDS.get(kid, kid)
+    if width != "64":
+        kid = WIDE_KIDS.get(kid, kid)
     return f"{kid} {DTYPE_NAMES[dt]} D{width}"
 
 
 def required_instances() -> set:
     """The instances (as `instance_name` names them) that the entry points
     launch: every one of the forward body's and the backward bodies' in
-    both types at width 64, K1-K4's in both types at width 80 and K1's in
-    both types at width 128."""
+    both types at width 64, and K1-K4's in both types at widths 80 and
+    128."""
     kids = [*INSTANCE_KIDS.values(), *DIFF_KIDS.values()]
     return {f"{kid} {dt} D{width}" for dt in DTYPE_NAMES.values()
-            for width, names in (("64", kids), ("80", WIDTH80_KIDS.values()),
-                                 ("128", WIDTH128_KIDS.values()))
+            for width, names in (("64", kids), ("80", WIDE_KIDS.values()),
+                                 ("128", WIDE_KIDS.values()))
             for kid in names}
 
 
@@ -1230,32 +1260,47 @@ def phase_train_kernels():
     check_train_kernels("every pixel on", q, k, v, full, sc, do)
     check_fused_backward("every pixel on", q, k, v, full, sc, do)
 
-    # OPT-2.7b's layer geometry, 1 x 32 x T x 80, float32
-    wide = dict(heads=WIDE_H, width=WIDE_D)
+    # OPT-2.7b's and LLaMA-7b's layer geometries, 1 x 32 x T x 80 and x 128
+    return {width: wide_train_kernels(width) for width in (WIDE_D, LLAMA_D)}
+
+
+def wide_train_kernels(width):
+    """The float32 K2-K4 checks of `phase_train_kernels` at 1 x 32 x T x
+    `width` for T in WIDE_TS (blocks 128 x 256 against 64 x 64 at each),
+    and on a band of empty rows; at LLaMA-7b's width 128 the kernels are also
+    timed at T = WIDE_TS[-1] beside SDPA. Returns {kernel: max|err|}."""
+    dev = "cuda"
+    wide = dict(heads=WIDE_H, width=width)
     errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
     for T in WIDE_TS:
-        mask = budget_mask(1, T, seed=T + WIDE_D, device=dev, heads=WIDE_H)
-        q, k, v, sc = qkv(1, T, torch.float32, seed=T + WIDE_D, device=dev, **wide)
+        mask = budget_mask(1, T, seed=T + width, device=dev, heads=WIDE_H)
+        q, k, v, sc = qkv(1, T, torch.float32, seed=T + width, device=dev, **wide)
         do = torch.randn(q.shape, generator=torch.Generator().manual_seed(T + 1)).to(dev)
-        e = check_train_kernels(f"width 80 T={T}", q, k, v, mask, sc, do)
+        e = check_train_kernels(f"width {width} T={T}", q, k, v, mask, sc, do)
         errs = {kid: max(errs[kid], e[kid]) for kid in errs}
-        got = check_fused_backward(f"width 80 T={T}", q, k, v, mask, sc, do)
-        other = check_fused_backward(f"width 80 T={T}", q, k, v, mask, sc, do,
+        got = check_fused_backward(f"width {width} T={T}", q, k, v, mask, sc, do)
+        other = check_fused_backward(f"width {width} T={T}", q, k, v, mask, sc, do,
                                      block_q=128, block_k=256)
         diff = max(max_err(a, b) for a, b in zip(got, other))
-        log(f"[train-kernels] width 80 T={T}: blocks 128 x 256 vs 64 x 64, max|diff| {diff:.3g}")
-        require(diff == 0.0, f"width 80: the result depends on the block sizes: {diff}")
+        log(f"[train-kernels] width {width} T={T}: blocks 128 x 256 vs 64 x 64, max|diff| "
+            f"{diff:.3g}")
+        require(diff == 0.0, f"width {width}: the result depends on the block sizes: {diff}")
+        del got, other
+        if width == LLAMA_D and T == WIDE_TS[-1]:
+            log_times(f"width {width} T={T}", measure_train(q, k, v, mask, sc, do))
     q, k, v, sc = qkv(1, 1024, torch.float32, seed=7, device=dev, **wide)
     do = torch.randn(q.shape, generator=torch.Generator().manual_seed(9)).to(dev)
     empty = budget_mask(1, 1024, seed=7, device=dev, heads=WIDE_H)
     empty[:, :, 300:400] = 0.0
-    e = check_train_kernels("width 80 empty rows 300-399", q, k, v, empty, sc, do)
+    e = check_train_kernels(f"width {width} empty rows 300-399", q, k, v, empty, sc, do)
     errs = {kid: max(errs[kid], e[kid]) for kid in errs}
-    o, dq, dk, dv, dsc = check_fused_backward("width 80 empty rows 300-399", q, k, v, empty, sc,
-                                              do)
+    o, dq, dk, dv, dsc = check_fused_backward(f"width {width} empty rows 300-399", q, k, v,
+                                              empty, sc, do)
+    _, lse = bs.causal_fwd_stats(diff_operands(q, k, v, empty, sc))
     zero = max(float(o[:, :, 300:400].abs().max()), float(dq[:, :, 300:400].abs().max()))
-    require(zero == 0.0 and all(bool(torch.isfinite(x).all()) for x in (o, dq, dk, dv, dsc)),
-            "width-80 empty rows: zero rows or NaN")
+    require(bool(torch.isposinf(lse[:, :, 300:400]).all()) and zero == 0.0
+            and all(bool(torch.isfinite(x).all()) for x in (o, dq, dk, dv, dsc)),
+            f"width-{width} empty rows: lse, zero rows or NaN")
     return errs
 
 
@@ -1293,13 +1338,16 @@ def bf16_kernel_outputs(q, k, v, mask, sc, do, lse, delta, dou, **blocks):
     return (o, lse_k, bs.causal_dq(ops, dou, lse, delta), *bs.causal_dkv(ops, dou, lse, delta))
 
 
-def check_bf16_kernels(label, q, k, v, mask, sc, do):
+def check_bf16_kernels(label, q, k, v, mask, sc, do, scaled=False):
     """K2, K3 and K4 in bf16 against their plain versions on the same bf16
     operands: o within 1e-5 plus half a bf16 ulp of the float32 plain
-    result, lse within 1e-5, each gradient within 1e-4·max|want| plus half
-    a bf16 ulp. K3 and K4 read the plain version's lse and the backward
-    terms as the path computes them (dou in bf16, delta float32), so that
-    each kernel is held alone; two launches of each, and the 128 x 256
+    result, lse within 1e-5 (with `scaled`, o's 1e-5 is `f32_limit`'s: 1e-5
+    of max|want| where that exceeds 1, the float32 sum before the rounding
+    being as far from the plain one as on float32 data of that scale; lse's
+    is LSE_ULPS float32 ulps of max|lse| where that exceeds 1e-5), each
+    gradient within 1e-4·max|want| plus half a bf16 ulp. K3 and K4 read the
+    plain version's lse and the backward terms as the path computes them
+    (dou in bf16, delta float32), so that each kernel is held alone; two launches of each, and the 128 x 256
     lists against the 64 x 64 ones, give the same bits. Returns ({kernel:
     max|err|}, the kernels' outputs)."""
     f = [x.float() for x in (q, k, v, sc)]
@@ -1313,9 +1361,16 @@ def check_bf16_kernels(label, q, k, v, mask, sc, do):
     inf = torch.isinf(want_lse)
     require(torch.equal(torch.isinf(lse), inf) and bool((lse[inf] > 0).all()),
             f"{label}: the +inf rows of lse differ")
+    fin = want_lse[~inf] if bool((~inf).any()) else torch.zeros(1, device=lse.device)
     err_lse = max_err(lse[~inf], want_lse[~inf]) if bool((~inf).any()) else 0.0
     err_o = (o.float() - want_o).abs()
-    require(bool((err_o <= tolerance(want_o, torch.bfloat16)).all()) and err_lse <= F32_TOL,
+    lim_o, lim_lse = f32_limit(want_o, scaled), F32_TOL
+    if scaled:
+        lim_lse = max(F32_TOL, LSE_ULPS * float(np.spacing(np.float32(float(fin.abs().max())))))
+        log(f"[bf16-kernels] {label}: max|o| {float(want_o.abs().max()):.4g}, max|lse| "
+            f"{float(fin.abs().max()):.4g}: K2's floors {lim_o:.3g} and {lim_lse:.3g}")
+    require(bool((err_o <= tolerance(want_o, torch.bfloat16, lim_o)).all())
+            and err_lse <= lim_lse,
             f"{label}: K2 bf16 o err {float(err_o.max()):.3g}, lse err {err_lse:.3g}")
     want_dq = bs.dq_reference(f[0], f[1], f[2], mask, dou.float(), want_lse, delta)
     want_dk, want_dv = bs.dkv_reference(f[0], f[1], f[2], mask, dou.float(), want_lse, delta)
@@ -1342,8 +1397,9 @@ def check_bf16_kernels(label, q, k, v, mask, sc, do):
 def phase_bf16_kernels():
     """K2, K3 and K4's bf16 instances against their plain versions at
     CHECK_TS and on rows with nothing alive; times at T = CHECK_TS[1]
-    beside SDPA's bf16 forward and backward; then the same checks at width
-    80 (WIDE_TS). Returns ({kernel: max|err|} at width 64, the same at 80)."""
+    beside SDPA's bf16 forward and backward; then the same checks at widths
+    80 and 128 (`wide_bf16_kernels`). Returns ({kernel: max|err|} at width
+    64, {width: the same} at 80 and 128)."""
     dev = "cuda"
     errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
     for T in CHECK_TS:
@@ -1363,23 +1419,34 @@ def phase_bf16_kernels():
         f"all finite {finite}")
     require(bool(torch.isposinf(lse[:, :, 300:400]).all()) and zero == 0.0 and finite,
             "bf16 empty rows: lse, zero rows or NaN")
-    # OPT-2.7b's layer geometry, 1 x 32 x T x 80
-    wide = dict(heads=WIDE_H, width=WIDE_D)
-    wide_errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
+    # OPT-2.7b's and LLaMA-7b's layer geometries, 1 x 32 x T x 80 and x 128
+    return errs, {width: wide_bf16_kernels(width) for width in (WIDE_D, LLAMA_D)}
+
+
+def wide_bf16_kernels(width):
+    """The bf16 K2-K4 checks of `phase_bf16_kernels` at 1 x 32 x T x
+    `width` for T in WIDE_TS and on a band of empty rows; at LLaMA-7b's
+    width 128 the kernels are also timed at T = WIDE_TS[-1] beside SDPA's
+    bf16 forward and backward. Returns {kernel: max|err|}."""
+    dev = "cuda"
+    wide = dict(heads=WIDE_H, width=width)
+    errs = dict.fromkeys(TRAIN_KERNELS, 0.0)
     for T in WIDE_TS:
-        q, k, v, sc, do, mask = bf16_case(T, seed=T + WIDE_D, device=dev, **wide)
-        e, _ = check_bf16_kernels(f"width 80 T={T}", q, k, v, mask, sc, do)
-        wide_errs = {kid: max(wide_errs[kid], e[kid]) for kid in errs}
+        q, k, v, sc, do, mask = bf16_case(T, seed=T + width, device=dev, **wide)
+        e, _ = check_bf16_kernels(f"width {width} T={T}", q, k, v, mask, sc, do)
+        errs = {kid: max(errs[kid], e[kid]) for kid in errs}
+        if width == LLAMA_D and T == WIDE_TS[-1]:
+            log_times(f"bf16 width {width} T={T}", measure_train(q, k, v, mask, sc, do))
     q, k, v, sc, do, mask = bf16_case(1024, seed=7, device=dev, **wide)
     mask[:, :, 300:400] = 0.0
-    e, (o, lse, dq, dk, dv) = check_bf16_kernels("width 80 empty rows 300-399", q, k, v, mask,
-                                                 sc, do)
-    wide_errs = {kid: max(wide_errs[kid], e[kid]) for kid in errs}
+    e, (o, lse, dq, dk, dv) = check_bf16_kernels(f"width {width} empty rows 300-399", q, k, v,
+                                                 mask, sc, do)
+    errs = {kid: max(errs[kid], e[kid]) for kid in errs}
     zero = max(float(o[:, :, 300:400].abs().max()), float(dq[:, :, 300:400].abs().max()))
     require(bool(torch.isposinf(lse[:, :, 300:400]).all()) and zero == 0.0
             and all(bool(torch.isfinite(x).all()) for x in (o, dq, dk, dv)),
-            "width-80 bf16 empty rows: lse, zero rows or NaN")
-    return errs, wide_errs
+            f"width-{width} bf16 empty rows: lse, zero rows or NaN")
+    return errs
 
 
 def run_train(model, ids, steps, label, want=None, after_step=None, lr=TRAIN_LR):
@@ -2694,7 +2761,8 @@ def phase_kd():
         torch.cuda.reset_peak_memory_stats()
         kd_ms = host_ms(micro_step, KD_ITERS)
         kd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        dense = OptForCausalLM(tr.t_cfg, device=dev, seed=0)
+        dense = OptForCausalLM(tr.t_cfg, device=dev, seed=None)
+        dense.load_state_dict(tr.teacher.state_dict())
         dense_opt = make_optimizer(dense, TRAIN_LR)
         ids, am = fixed_t[0], fixed_t[1]
         torch.cuda.reset_peak_memory_stats()
@@ -3478,6 +3546,29 @@ def phase_opt27b_decode(weights):
     return L
 
 
+def check_arm_layer0(label, arm, q, k, v, mask, sc, do, step_o, scaled_bf16=False):
+    """A train arm's layer-0 kernels on its captured inputs and gradient:
+    bf16 parameters by `check_bf16_kernels` (with `scaled_bf16` its o and
+    lse gates scale-aware), float32 ones by `check_train_kernels` under the
+    scale-aware gate and the fused backward at blocks 64 x 64 and 128 x 256
+    equal bit for bit; either way K2 must reproduce the step's own output.
+    Returns {kernel: max|err|}."""
+    if arm == "bfloat16":
+        errs, got = check_bf16_kernels(label, q, k, v, mask, sc, do, scaled=scaled_bf16)
+        o = got[0]
+    else:
+        errs = check_train_kernels(label, q, k, v, mask, sc, do, scaled=True)
+        o, _ = bs.causal_fwd_stats(diff_operands(q, k, v, mask, sc))
+        a = check_fused_backward(label, q, k, v, mask, sc, do, scaled=True)
+        b = check_fused_backward(label, q, k, v, mask, sc, do, scaled=True,
+                                 block_q=128, block_k=256)
+        require(all(torch.equal(x, y) for x, y in zip(a, b)),
+                f"{label}: blocks 128 x 256 differ from 64 x 64")
+    require(torch.equal(o, step_o), f"{label}: K2 on the captured inputs differs from the "
+            "step's output")
+    return errs
+
+
 def phase_opt27b_train(weights):
     """OPT-2.7b with use_fused_train, task-only, two arms. (a) bf16
     parameters and moments, 3 AdamW steps (lr 1e-3) on 1 x 1024: 32
@@ -3512,23 +3603,7 @@ def phase_opt27b_train(weights):
         del model
         torch.cuda.empty_cache()
         layer0 = f"opt27b layer-0 1x{T} {arm}"
-        if arm == "bfloat16":
-            errs, got = check_bf16_kernels(layer0, q, k, v, mask, sc, do)
-            require(torch.equal(got[0], step_o),
-                    "K2 on the captured inputs differs from the step's output")
-            del got
-        else:
-            # check_layer0's checks, with the fused backward at two block shapes
-            errs = check_train_kernels(layer0, q, k, v, mask, sc, do, scaled=True)
-            o, _ = bs.causal_fwd_stats(diff_operands(q, k, v, mask, sc))
-            require(torch.equal(o, step_o),
-                    f"{layer0}: K2 on the captured inputs differs from the step's output")
-            a = check_fused_backward(layer0, q, k, v, mask, sc, do, scaled=True)
-            b = check_fused_backward(layer0, q, k, v, mask, sc, do, scaled=True,
-                                     block_q=128, block_k=256)
-            require(all(torch.equal(x, y) for x, y in zip(a, b)),
-                    f"{layer0}: blocks 128 x 256 differ from 64 x 64")
-            del o, a, b
+        errs = check_arm_layer0(layer0, arm, q, k, v, mask, sc, do, step_o)
         measured = measure_train(q, k, v, mask, sc, do)
         log_times(layer0, measured)
         del q, k, v, mask, sc, do, step_o
@@ -3657,15 +3732,19 @@ def phase_ring_bf16():
 # ---------------------------------------------------------------------------
 
 
-def llama7b(weights=None, method="perlin", dtype=torch.bfloat16, **sea_kw) -> LlamaForCausalLM:
+def llama7b(weights=None, method="perlin", dtype=torch.bfloat16, layers=None,
+            **sea_kw) -> LlamaForCausalLM:
     """LLaMA-7b (`llama_7b`: hidden 4096, 32 layers, 32 heads of 128, SwiGLU
-    11008, vocabulary 32000, bfloat16 compute) at full width and depth on
-    the card, its SEA config `opt_config(num_heads=32, head_dim=128,
-    **sea_kw)`, parameters in `dtype`: seeded random weights drawn on the
-    card (`init_random_` from a CUDA generator of seed 0: the CPU would take
-    minutes over 6.7 G parameters) or `weights`, a state dict (a dense model
-    takes the shared ones; float32 parameters take the bf16 values)."""
+    11008, vocabulary 32000, bfloat16 compute) at full width on the card,
+    `layers` deep (all 32 by default), its SEA config `opt_config(num_heads=32,
+    head_dim=128, **sea_kw)`, parameters in `dtype`: seeded random weights
+    drawn on the card (`init_random_` from a CUDA generator of seed 0: the
+    CPU would take minutes over 6.7 G parameters; the same draw gives the
+    same weights) or `weights`, a state dict (a dense model takes the shared
+    ones; float32 parameters take the bf16 values)."""
     cfg = llama_7b(method, sea=opt_config(num_heads=32, head_dim=LLAMA_D, **sea_kw))
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     with torch.device("cuda"):
         model = LlamaForCausalLM(cfg, device="cuda", seed=None)
     if weights is None:
@@ -3829,6 +3908,188 @@ def phase_llama7b_mmlu(weights):
     del model
     torch.cuda.empty_cache()
     return L * len(per_batch)
+
+
+def phase_llama7b_train():
+    """LLaMA-7b with use_fused_train, task-only (CE), two arms, each drawn
+    from the seed on the card (the serve phases' weights) and freed before
+    the next model. (a) bf16 parameters and moments at full width and depth,
+    3 AdamW steps (lr 1e-3, torch's default multi-tensor AdamW) on 1 x 512: 32
+    launches each of K2, K3 and K4's bf16 width-128 instances a step and no
+    other kernel, the loss falling; layer 0's captured inputs and gradient
+    against the plain versions (`check_bf16_kernels` under the scale-aware
+    gate: two launches and two block shapes equal bit for bit), K2
+    reproducing the step's output; then,
+    once arm (a)'s model and optimizer state are freed, the dense LLaMA-7b's
+    CE step on the same starting weights and batch. (b) float32 parameters
+    under bf16 compute at LLAMA_F32_LAYERS layers (a memory cut), 2 steps on
+    1 x 512: 8 launches each of the float32 width-128 instances a step;
+    layer 0 as `check_layer0` holds it (the scale-aware gate of OPT-2.7b's
+    arm (b)), and the 128 x 256 lists equal to the 64 x 64 ones. Returns,
+    per arm: launches, max|err| and times of K2-K4 at layer 0, ms per step,
+    peak GiB; and the dense step's ms and peak."""
+    out = {}
+    for arm, (T, steps) in zip(("bfloat16", "float32"), LLAMA_TRAIN):
+        if arm == "bfloat16":
+            model = llama7b(use_fused_train=True)
+        else:
+            model = llama7b(dtype=torch.float32, layers=LLAMA_F32_LAYERS, use_fused_train=True)
+        L, V = model.cfg.num_layers, model.cfg.vocab_size
+        require(model.cfg.compute_dtype == "bfloat16" and model.cfg.sea.head_dim == LLAMA_D
+                and all(p.dtype == getattr(torch, arm) for p in model.parameters()),
+                f"LLaMA-7b arm {arm}: types or head width")
+        ids = torch.randint(4, V, (1, T), generator=torch.Generator().manual_seed(71)).cuda()
+        n = dict.fromkeys(TRAIN_KERNELS, L)
+        want = bf16_want(**n) if arm == "bfloat16" else {**bf16_want(), **n}
+        label = f"llama7b {arm} parameters {L} layers 1x{T}"
+        losses, times, launches, peak = run_train(model, ids, steps, label, want=want,
+                                                  lr=OPT13B_TRAIN_LR)
+        if arm == "bfloat16":
+            require(losses[-1] < losses[0], f"the LLaMA-7b bf16 loss did not fall: {losses}")
+        q, k, v, mask, sc, do, step_o = capture_layer0(model, ids)
+        del model
+        torch.cuda.empty_cache()
+        dense = None
+        if arm == "bfloat16":
+            # the yardstick: the dense model's CE step from the same starting
+            # weights (drawn again from the seed) on the same batch
+            sea = llama7b()
+            shared = {n: w for n, w in sea.state_dict().items() if ".perlin." not in n}
+            dense_model = llama7b(shared, "none")
+            del sea, shared
+            torch.cuda.empty_cache()
+            _, dense_times, _, dense_peak = run_train(
+                dense_model, ids, steps, f"llama7b dense 1x{T}", lr=OPT13B_TRAIN_LR)
+            del dense_model
+            torch.cuda.empty_cache()
+            dense = dict(ms=statistics.median(dense_times[1:]), peak=dense_peak)
+        layer0 = f"llama7b layer-0 1x{T} {arm}"
+        errs = check_arm_layer0(layer0, arm, q, k, v, mask, sc, do, step_o, scaled_bf16=True)
+        measured = measure_train(q, k, v, mask, sc, do)
+        log_times(layer0, measured)
+        del q, k, v, mask, sc, do, step_o
+        torch.cuda.empty_cache()
+        steady = statistics.median(times[1:])
+        out[arm] = dict(launches={kid: launches[kid] for kid in TRAIN_KERNELS}, errs=errs,
+                        m=measured, ms=steady, peak=peak, tokens=T, layers=L, dense=dense)
+        log(f"[llama7b-train] arm {arm} parameters, {L} layers, 1x{T}: {steady:.2f} ms per "
+            f"step after the first ({T / steady * 1e3:.0f} tokens/s), peak {peak:.2f} GiB; "
+            f"losses {losses}" + (f"; the dense LLaMA-7b's CE step {dense['ms']:.2f} ms "
+                                 f"({T / dense['ms'] * 1e3:.0f} tokens/s), peak "
+                                 f"{dense['peak']:.2f} GiB" if dense else ""))
+    return out
+
+
+def phase_llama7b_kd():
+    """The KD trainer on LLaMA-7b (`OptTrainer(model="llama-7b",
+    param_dtype="bfloat16", moment_dtype="bfloat16")`: teacher and student
+    drawn on the card, 1 x 512 windows, accumulation 2) for 2 updates
+    through `train()`: no kernel (the student's dense train path), every
+    logged term finite, the student moved and the teacher unchanged bit for
+    bit (host copies: the card has no room for a second 12.6 GiB copy), the
+    stream's first batch's KD loss lower after the updates, AdamW's first
+    moment bf16; ms per micro-step, peak memory, and `evaluate`'s PPL (a
+    random model's on the synthetic corpus) and ms per window."""
+    with tempfile.TemporaryDirectory() as save_dir:
+        cfg = TrainerConfig(model="llama-7b", param_dtype="bfloat16", moment_dtype="bfloat16",
+                            max_seq_len=LLAMA_KD_T, stride=LLAMA_KD_T // 2,
+                            gradient_accumulation_steps=LLAMA_KD_ACCUM,
+                            num_steps=LLAMA_KD_STEPS, log_steps=1, eval_steps=10 ** 9,
+                            save_dir=save_dir)
+        t0 = time.perf_counter()
+        tr = OptTrainer(cfg, device="cuda")
+        torch.cuda.synchronize()
+        log(f"[llama7b-kd] LLaMA-7b teacher and student (bf16 parameters, compute "
+            f"{tr.s_cfg.compute_dtype}, heads of {tr.s_cfg.head_dim}) drawn on the card in "
+            f"{time.perf_counter() - t0:.1f} s, {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB")
+        require(isinstance(tr.student, LlamaForCausalLM) and isinstance(tr.teacher,
+                                                                        LlamaForCausalLM)
+                and tr.s_cfg.head_dim == LLAMA_D
+                and all(p.dtype == torch.bfloat16 for m in (tr.teacher, tr.student)
+                        for p in m.parameters()), "LLaMA-7b KD models")
+        fixed_t = tr._tensors(*next(tr.corpus.batches(cfg.batch_size, shuffle=True,
+                                                       seed=cfg.seed)))
+
+        def fixed_loss():
+            with torch.no_grad():
+                loss, _ = tr.kd.kd_loss(*fixed_t, use_remat=False)
+            return float(loss)
+
+        before = fixed_loss()
+        student0 = [p.detach().to("cpu", copy=True) for p in tr.student.parameters()]
+        teacher0 = [p.detach().to("cpu", copy=True) for p in tr.teacher.parameters()]
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        tr.train()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        micro = LLAMA_KD_STEPS * LLAMA_KD_ACCUM
+        with open(tr.metrics_path) as f:
+            records = [json.loads(line) for line in f if "loss_kd_hidden" in line]
+        terms = [{k: v for k, v in r.items() if k.startswith("loss") or k == "student_task_loss"}
+                 for r in records]
+        moved = sum(not torch.equal(p.detach().cpu(), p0)
+                    for p, p0 in zip(tr.student.parameters(), student0))
+        same = all(torch.equal(p.detach().cpu(), p0)
+                   for p, p0 in zip(tr.teacher.parameters(), teacher0))
+        del student0, teacher0
+        after = fixed_loss()
+        log(f"[llama7b-kd] {LLAMA_KD_STEPS} updates ({micro} micro-steps of 1x{LLAMA_KD_T}) in "
+            f"{wall:.1f} ms: {wall / micro:.2f} ms per micro-step "
+            f"({LLAMA_KD_T * micro / wall * 1e3:.0f} tokens/s), peak {peak:.2f} GiB; launches "
+            f"{counts}; {moved} of {len(list(tr.student.parameters()))} student tensors moved, "
+            f"teacher unchanged {same}; the first batch's KD loss {before:.6f} -> {after:.6f}; "
+            f"terms {terms}")
+        require(tr.step == LLAMA_KD_STEPS, f"the KD trainer took {tr.step} steps")
+        require(not any(counts.values()), f"the KD step launched kernels: {counts}")
+        require(len(terms) == LLAMA_KD_STEPS
+                and all(math.isfinite(v) for r in terms for v in r.values()),
+                f"KD terms not finite: {terms}")
+        require(moved > 0 and same, "the student did not move or the teacher did")
+        require(after < before, f"the fixed batch's KD loss did not fall: {before} -> {after}")
+        require(all(m.dtype == torch.bfloat16 for m in tr.optimizer.mu), "AdamW's mu not bf16")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ppl = tr.evaluate(max_batches=LLAMA_KD_EVAL_WINDOWS)
+        torch.cuda.synchronize()
+        eval_ms = (time.perf_counter() - t0) * 1e3 / LLAMA_KD_EVAL_WINDOWS
+        require(math.isfinite(ppl), f"evaluate's PPL {ppl}")
+        log(f"[llama7b-kd] evaluate(max_batches={LLAMA_KD_EVAL_WINDOWS}): PPL {ppl:.4f} (a "
+            f"random model's on the synthetic corpus), {eval_ms:.2f} ms per window")
+        del tr
+    torch.cuda.empty_cache()
+    return dict(micro_ms=wall / micro, peak=peak, ppl=ppl, before=before, after=after)
+
+
+def kernel_entry(name, source, replaces, launches, err, t) -> dict:
+    """One kernel of the `kernels` line from its measurements `t`."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+            "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]}
+
+
+def wide_train_entries(kernels, width, model, arms, bf16_errs, f32_errs):
+    """The `kernels` line's K2-K4 entries at head width `width`, one per
+    type, each at its train arm's layer-0 inputs (`arms`, a phase's return:
+    launches, layer-0 errors and times per parameter type), its error the
+    larger of the arm's and the kernel phases' (`bf16_errs`, `f32_errs`:
+    {width: {kernel: max|err|}})."""
+    for dtype, errs in (("bfloat16", bf16_errs), ("float32", f32_errs)):
+        arm = arms[dtype]
+        for kid, (_, name, source, replaces, _) in TRAIN_KERNELS.items():
+            require(arm["launches"][kid] > 0, f"the {model} {dtype} arm never launched {kid}")
+            kernels.append(kernel_entry(f"{name} ({dtype}, head width {width})", source,
+                                        replaces, arm["launches"][kid],
+                                        max(errs[width][kid], arm["errs"][kid]),
+                                        arm["m"][kid]))
+        log(f"[result] {model} train, {dtype} parameters, "
+            f"{arm.get('layers', 'all')} layers, 1x{arm['tokens']}: {arm['ms']:.2f} ms per "
+            f"step, peak {arm['peak']:.2f} GiB")
 
 
 def time_phase(t0, name):
@@ -4072,11 +4333,11 @@ def main():
     del weights
     torch.cuda.empty_cache()
     time_phase(t_start, "llama7b")
+    train_llama = phase_llama7b_train()
+    time_phase(t_start, "llama7b-train")
+    kd_llama = phase_llama7b_kd()
+    time_phase(t_start, "llama7b-kd")
 
-    entry = lambda name, source, replaces, launches, err, t: {  # noqa: E731
-        "name": name, "route": "cuda", "source": source, "replaces": replaces,
-        "launches": launches, "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-        "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"]}
     # K1 at width 80, at the OPT-2.7b forward's own layer-0 inputs
     for dtype, cap, launches in (("bfloat16", cap27, k1_27["bfloat16"] + prefill27),
                                  ("float32", cap27_32, k1_27["float32"])):
@@ -4084,19 +4345,10 @@ def main():
         log(f"[result] OPT-2.7b layer 0 {tuple(cap[0].shape)} {dtype}: K1 {m['ms']:.4f} ms, "
             f"plain {m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms by {m['bound_by']}")
-        kernels.append(entry(f"sea_causal_flat_forward ({dtype}, head width 80)", KERNEL_SOURCE,
-                             REPLACES, launches,
-                             max(kernel_wide_errs[WIDE_D, getattr(torch, dtype)], cap[5]), m))
-    # K2-K4 at width 80, at each train arm's layer-0 inputs
-    for dtype, wide_errs in (("bfloat16", bf16_wide_errs), ("float32", train_wide_errs)):
-        arm = train27[dtype]
-        for kid, (_, name, source, replaces, _) in TRAIN_KERNELS.items():
-            require(arm["launches"][kid] > 0, f"the OPT-2.7b {dtype} arm never launched {kid}")
-            kernels.append(entry(f"{name} ({dtype}, head width 80)", source, replaces,
-                                 arm["launches"][kid], max(wide_errs[kid], arm["errs"][kid]),
-                                 arm["m"][kid]))
-        log(f"[result] OPT-2.7b train, {dtype} parameters, 1x{arm['tokens']}: {arm['ms']:.2f} ms "
-            f"per step, peak {arm['peak']:.2f} GiB")
+        kernels.append(kernel_entry(
+            f"sea_causal_flat_forward ({dtype}, head width 80)", KERNEL_SOURCE, REPLACES,
+            launches, max(kernel_wide_errs[WIDE_D, getattr(torch, dtype)], cap[5]), m))
+    wide_train_entries(kernels, WIDE_D, "OPT-2.7b", train27, bf16_wide_errs, train_wide_errs)
     # K1 at width 128, at the LLaMA-7b forward's own layer-0 inputs
     for dtype, cap, launches in (
             ("bfloat16", cap_llama, k1_llama["bfloat16"] + prefill_llama + mmlu_llama),
@@ -4105,16 +4357,23 @@ def main():
         log(f"[result] LLaMA-7b layer 0 {tuple(cap[0].shape)} {dtype}: K1 {m['ms']:.4f} ms, "
             f"plain {m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
             f"{m['bound_ms']:.4f} ms by {m['bound_by']}")
-        kernels.append(entry(f"sea_causal_flat_forward ({dtype}, head width 128)", KERNEL_SOURCE,
-                             REPLACES, launches,
-                             max(kernel_wide_errs[LLAMA_D, getattr(torch, dtype)], cap[5]), m))
+        kernels.append(kernel_entry(
+            f"sea_causal_flat_forward ({dtype}, head width 128)", KERNEL_SOURCE, REPLACES,
+            launches, max(kernel_wide_errs[LLAMA_D, getattr(torch, dtype)], cap[5]), m))
     log(f"[result] LLaMA-7b forward 1x{LLAMA_T}: {llama_ms:.2f} ms, dense {llama_dense_ms:.2f} ms")
+    wide_train_entries(kernels, LLAMA_D, "LLaMA-7b", train_llama, bf16_wide_errs,
+                       train_wide_errs)
+    dense = train_llama["bfloat16"]["dense"]
+    log(f"[result] LLaMA-7b dense CE step 1x{LLAMA_TRAIN[0][0]}: {dense['ms']:.2f} ms, peak "
+        f"{dense['peak']:.2f} GiB; KD at 1x{LLAMA_KD_T}: {kd_llama['micro_ms']:.2f} ms per "
+        f"micro-step, peak {kd_llama['peak']:.2f} GiB, PPL {kd_llama['ppl']:.4f} (random model)")
     # K6-K8's bf16 instances, at the bf16 ring step's layer-0 inputs (a
     # launch's share of the 16 of a layer)
     for kid, (_, name, source, replaces, _) in RING_KERNELS.items():
         require(ring_launches[kid] > 0, f"the bf16 ring never launched {kid}")
-        kernels.append(entry(f"{name} (bfloat16)", source, replaces, ring_launches[kid],
-                             max(ring_bf16_errs[kid], ring_layer0_errs[kid]), ring_bf16_m[kid]))
+        kernels.append(kernel_entry(f"{name} (bfloat16)", source, replaces, ring_launches[kid],
+                                    max(ring_bf16_errs[kid], ring_layer0_errs[kid]),
+                                    ring_bf16_m[kid]))
 
     print(json.dumps({"kernels": kernels}))
     print(smi)

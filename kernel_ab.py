@@ -31,7 +31,9 @@ A knock-out computes another function; it only splits the time. Forward:
   products no Q·Kᵀ or P·V mma (bf16);
   all      the three above together: what is left is the walk, the copies,
            the barriers, the softmax's bookkeeping and the epilogue.
-Backward (`bwd-`; dq and dk/dv alike):
+Backward (`bwd-`; dq and dk/dv alike, the edits in the bodies that every
+width's instance shares, so the timed width-64 instances say what they cut
+at 80 and 128 too):
   pred     the element predicate reduced to the causal edge;
   exp      P's 2^x left out (P is the exponent itself);
   products no mma at all (S, dP, and dq or dk and dv);

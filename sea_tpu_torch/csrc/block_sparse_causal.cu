@@ -161,9 +161,9 @@
 //
 // Head widths. The body is templated on D; each entry point instantiates
 // the widths of its list (`sea::dispatch` over sea_mask.cuh's
-// FORWARD_WIDTHS, TRAIN_WIDTHS, BASE_WIDTHS): K1 at 64, 80 (OPT-2.7b) and
-// 128 (LLaMA-7b and 13b), K2 (and so K6's instance) at 64 and 80, K5, K6 and
-// K9a-c at 64, each in both types. At D = 80 a row is 160 bytes (bf16) or
+// FORWARD_WIDTHS, TRAIN_WIDTHS, BASE_WIDTHS): K1 and K2 at 64, 80 (OPT-2.7b)
+// and 128 (LLaMA-7b and 13b), K5, K6 (K2's instance at 64) and K9a-c at 64,
+// each in both types. At D = 80 a row is 160 bytes (bf16) or
 // 320 (float32), at 128 256 or 512, whole 16-byte copies, and the padded
 // strides below stay free of bank conflicts: bf16 rows of D + 8 elements put
 // ldmatrix's 8 rows on banks 12·i (80: 176 bytes) or 4·i (64, 128: 144 and
@@ -173,7 +173,8 @@
 // 32, and V rows of D + 4 put the reads of rows 2·t on banks 8·t + g (84
 // and 132 floats are 20 and 4 mod 32, as 68 is 4), as at 64. Shared memory
 // a block at 128: float32 172 KiB (two K/V stages of 68608 bytes, the
-// q-tile's 34816, the mask words' 4096), bf16 72 KiB.
+// q-tile's 34816, the mask words' 4096), bf16 72 KiB, for K1 and K2 alike
+// (K2's STATS instance only adds the row's logsumexp to the epilogue).
 //
 // The element predicates live in sea_mask.cuh (`alive_elem`, `alive_elem_len`,
 // and K9a-c's `alive_elem_wr`, `alive_elem_loop`, `alive_elem_sub`), shared
@@ -764,7 +765,7 @@ extern "C" int sea_causal_flat_forward(
 }
 
 // The forward of the differentiable path (K2): f32 or bf16 in and out, lse
-// (nh, t_dst) float32; head width 64 or 80.
+// (nh, t_dst) float32; head width 64, 80 or 128.
 extern "C" int sea_causal_fwd_stats(
     const void* q, const void* k, const void* v, const void* mbits,
     const void* scaler, const void* counts, const void* idx,

@@ -66,16 +66,31 @@
 //     reads down columns (K in dq, Q and dO in dk/dv) meet two-way conflicts
 //     but take immediate offsets, which ran faster than an unpadded layout
 //     permuted to avoid them. dq takes 112 KB (two blocks an SM), dk/dv 118
-//     KB (one), at width 64; at 80 dq takes 136 KB (one) and dk/dv 142 KB.
+//     KB (one), at width 64; at 80 dq takes 136 KB (one) and dk/dv 142 KB;
+//     at 128 dq 208 KiB (6 tiles of 34816 bytes and 4 KiB of mask words)
+//     and dk/dv 214 KiB (K and V, then two stages of Q, dO, the words and
+//     the row terms), one block an SM each, under the 227 KiB opt-in.
 //   * Head widths: the bodies are templated on D, the padded row stride
-//     LD<D> = D + 8 included; K3 and K4 are built at D = 64 and D = 80
-//     (OPT-2.7b) in both types and pick the instance by head_dim at launch
-//     (`sea::dispatch` over sea::TRAIN_WIDTHS); K7 and K8 take 64 only
-//     (sea::BASE_WIDTHS), and 128 waits for ROADMAP queue 2 item 6. At 80 the float32 row reads
+//     LD<D> = D + 8 included; K3 and K4 are built at D = 64, 80 (OPT-2.7b)
+//     and 128 (LLaMA-7b and 13b) in both types and pick the instance by
+//     head_dim at launch (`sea::dispatch` over sea::TRAIN_WIDTHS); K7 and K8
+//     take 64 only (sea::BASE_WIDTHS). At 80 the float32 row reads
 //     stay conflict-free (rows g = 0..3 of a half-warp on banks 24·g + 2·t
 //     mod 32) and the column reads two-way, as at 64 (rows 2·t on banks 16·t
 //     + g mod 32); bf16 rows of 176 bytes put ldmatrix's 8 rows, plain or
-//     transposed, on disjoint 4-bank groups (12·i mod 32).
+//     transposed, on disjoint 4-bank groups (12·i mod 32). At 128 the strides
+//     (136 floats, 272 bytes) have width 64's residues mod 32, so every read
+//     maps as there.
+//   * Width 128: the accumulators outgrow the registers (dq's is 64 floats
+//     a thread, dk's and dv's 128 together), so three things change there,
+//     none of which moves a bit of a sum's order: the operand that stays for
+//     the whole block lives in shared memory in bf16 too, its A fragments
+//     read by ldmatrix per k-step (`RES_SMEM`); dq walks each 64-column
+//     sub-tile in two parts of 32 columns (`DQ_PARTS`); and dk/dv runs 8
+//     warps (`DKV_SPLIT`): warps w and w + 4 own the same 16 k-columns, each
+//     summing half of D's columns of dk and dv, and both compute the whole
+//     Sᵀ and dPᵀ of those columns (the same bits twice: a third more
+//     products for half the accumulator registers).
 //   * The splits round by integer operations (`sea::to_tf32_rna`: cvt.rna's
 //     bits without its NaN and infinity checks, which cost more than any
 //     other part of the splits).
@@ -100,7 +115,9 @@
 //     conflicts. dq takes 40 KB and dk/dv 46 KB of shared memory (float32:
 //     112 and 118 KB), so shared memory no longer caps the blocks an SM
 //     holds: the register cap of two blocks (255 a thread) does, which gives
-//     dk/dv two blocks an SM where float32 fits one.
+//     dk/dv two blocks an SM where float32 fits one. At 128 the resident
+//     operand moves to shared memory (see "Width 128"): dq 106 KiB (two
+//     blocks an SM), dk/dv 112 KiB (one block of 8 warps).
 //   * Every product is an m16n8k16 bf16 mma with float32 sums: S = Q·Kᵀ and
 //     dP = dO·Vᵀ (dk/dv: Sᵀ = K·Qᵀ, dPᵀ = V·dOᵀ) are exact products of the
 //     bf16 operands summed in float32; B operands come by ldmatrix (rows of
@@ -152,6 +169,15 @@ using sea::split_bf16;
 constexpr int BQ = sea::TILE;   // query rows per tile
 constexpr int BKT = sea::TILE;  // key columns per tile
 constexpr int TPB = 128;        // 4 warps of 16 rows (dq) or 16 columns (dk/dv)
+// dk/dv: the warps that share a k-tile's 16 columns, each summing D / split
+// of dk's and dv's columns (two at width 128, see the header), and its block
+template <int D>
+constexpr int DKV_SPLIT = D > 80 ? 2 : 1;
+template <int D>
+constexpr int DKV_TPB = TPB * DKV_SPLIT<D>;
+// dq: the parts a 64-column sub-tile is walked in
+template <int D>
+constexpr int DQ_PARTS = D > 80 ? 2 : 1;
 template <int D>
 constexpr int LD = D + 8;  // elements of a padded tile row
 template <int D>
@@ -161,28 +187,35 @@ template <typename T>
 constexpr bool IS_F32 = std::is_same<T, float>::value;
 template <int D, typename T>
 constexpr int TILE_BYTES = TILE_F<D> * (int)sizeof(T);
-
-// dq: two stages of (K, V), then (float32) Q, dO, then the mask words.
+// the operand that stays for the whole block (dq: Q and dO; dk/dv: K and V)
+// in shared memory (float32, and bf16 at width 128) or, as A fragments, in
+// registers (bf16 at 64 and 80)
 template <int D, typename T>
-constexpr int DQ_SMEM = (IS_F32<T> ? 6 : 4) * TILE_BYTES<D, T> + BQ * MAX_WORDS * 4;
-// dk/dv: (float32) K, V, then two stages of (Q, dO, mask words, row terms).
+constexpr bool RES_SMEM = IS_F32<T> || D > 80;
+
+// dq: two stages of (K, V), then (RES_SMEM) Q, dO, then the mask words.
+template <int D, typename T>
+constexpr int DQ_SMEM = (RES_SMEM<D, T> ? 6 : 4) * TILE_BYTES<D, T> + BQ * MAX_WORDS * 4;
+// dk/dv: (RES_SMEM) K, V, then two stages of (Q, dO, mask words, row terms).
 template <int D, typename T>
 constexpr int DKV_STAGE = 2 * TILE_BYTES<D, T> + BQ * MAX_WORDS * 4 + BQ * 16;
 template <int D, typename T>
-constexpr int DKV_SMEM = (IS_F32<T> ? 2 * TILE_BYTES<D, T> : 0) + 2 * DKV_STAGE<D, T>;
+constexpr int DKV_SMEM = (RES_SMEM<D, T> ? 2 * TILE_BYTES<D, T> : 0) + 2 * DKV_STAGE<D, T>;
 // float32 dk/dv fills an SM's shared memory with one block; bf16 fits two
-template <typename T>
-constexpr int DKV_MIN_BLOCKS = IS_F32<T> ? 1 : 2;
+// at 64 and 80, and one of 8 warps at 128 (two would cap it at 128
+// registers a thread)
+template <int D, typename T>
+constexpr int DKV_MIN_BLOCKS = IS_F32<T> || D > 80 ? 1 : 2;
 
 template <int D>
 __device__ __forceinline__ float2 ld2(const float* tile, int c, int d) {
   return *reinterpret_cast<const float2*>(tile + c * LD<D> + d);
 }
 
-// 64 rows of D elements into a tile
-template <int D, typename T>
+// 64 rows of D elements into a tile by THREADS threads
+template <int D, int THREADS = TPB, typename T>
 __device__ __forceinline__ void copy_tile(T* dst, const T* __restrict__ src, int tid) {
-  copy_rows<D, TPB>(dst, LD<D>, src, tid);
+  copy_rows<D, THREADS>(dst, LD<D>, src, tid);
 }
 
 // bf16: the A fragments of 16 rows (r0 and r0 + 8 for the thread's g) of a
@@ -200,13 +233,27 @@ __device__ __forceinline__ void load_a(uint32_t (&a)[D / 16][4],
   }
 }
 
+// bf16 (RES_SMEM): k-step kk's A fragments (the four registers load_a
+// gives) of the 16 rows of a shared tile from row `r0`, by ldmatrix:
+// matrices (rows 0..7, d 16·kk + 0..7), (rows 8..15, ..), (rows 0..7,
+// d + 8..15), (rows 8..15, ..)
+template <int D>
+__device__ __forceinline__ void lds_a(uint32_t (&a)[4], const __nv_bfloat16* r0, int kk,
+                                      int lane) {
+  ldsm_x4(a, r0 + ((lane & 7) + (((lane >> 3) & 1) << 3)) * LD<D> + 16 * kk +
+                 ((lane >> 4) << 3));
+}
+
 // bf16: c[n] += A·Bᵀ for the 8·N rows of a shared tile `b` (B's columns n:
-// tile rows 8·n .. 8·n + 7, k: d), A the fragments `a` of 16 rows by D
-template <int D, int N>
-__device__ __forceinline__ void mma_rows(float (&c)[N][4], const uint32_t (&a)[D / 16][4],
-                                         const __nv_bfloat16* b, int lane) {
+// tile rows 8·n .. 8·n + 7, k: d), A 16 rows by D whose k-step kk
+// fragments `a(kk, frag)` gives (from registers, or `lds_a`)
+template <int D, int N, typename AFrag>
+__device__ __forceinline__ void mma_rows(float (&c)[N][4], AFrag a, const __nv_bfloat16* b,
+                                         int lane) {
 #pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk)
+  for (int kk = 0; kk < D / 16; ++kk) {
+    uint32_t af[4];
+    a(kk, af);
 #pragma unroll
     for (int jp = 0; jp < N / 2; ++jp) {
       // matrices: (rows 16·jp + 0..7, d + 0..7), (.., d + 8..15),
@@ -214,16 +261,32 @@ __device__ __forceinline__ void mma_rows(float (&c)[N][4], const uint32_t (&a)[D
       uint32_t f[4];
       ldsm_x4(f, b + (16 * jp + ((lane >> 4) << 3) + (lane & 7)) * LD<D> + 16 * kk +
                      (((lane >> 3) & 1) << 3));
-      mma_bf16(c[2 * jp], a[kk], f[0], f[1]);
-      mma_bf16(c[2 * jp + 1], a[kk], f[2], f[3]);
+      mma_bf16(c[2 * jp], af, f[0], f[1]);
+      mma_bf16(c[2 * jp + 1], af, f[2], f[3]);
     }
+  }
+}
+
+// bf16: the A fragments of the whole block's operand, from registers (`a`)
+// or from its 16 rows of a shared tile (`r0`), as mma_rows takes them
+template <int D, bool SMEM>
+__device__ __forceinline__ auto a_frags(const uint32_t (&a)[SMEM ? 1 : D / 16][4],
+                                        const __nv_bfloat16* r0, int lane) {
+  return [&a, r0, lane](int kk, uint32_t (&f)[4]) {
+    if constexpr (SMEM) {
+      lds_a<D>(f, r0, kk, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = a[kk][i];
+    }
+  };
 }
 
 // bf16: c[n] += X·B over the 8·N rows of a shared tile `b` (k: tile rows,
-// B's columns n: d), X the float32 C fragments `x` (16 rows by the 8·N k)
-// split into bf16 hi + lo, the lo product first
-template <int D, int N>
-__device__ __forceinline__ void mma_split(float (&c)[D / 8][4], const float (&x)[N][4],
+// B's columns n: d, the 8·NC from b's first), X the float32 C fragments `x`
+// (16 rows by the 8·N k) split into bf16 hi + lo, the lo product first
+template <int D, int NC, int N>
+__device__ __forceinline__ void mma_split(float (&c)[NC][4], const float (&x)[N][4],
                                           const __nv_bfloat16* b, int lane) {
 #pragma unroll
   for (int kk = 0; kk < N / 2; ++kk) {
@@ -234,7 +297,7 @@ __device__ __forceinline__ void mma_split(float (&c)[D / 8][4], const float (&x)
     split_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1], ah[2], al[2]);
     split_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3], ah[3], al[3]);
 #pragma unroll
-    for (int jp = 0; jp < D / 16; ++jp) {
+    for (int jp = 0; jp < NC / 2; ++jp) {
       // matrices (transposed): (k + 0..7, d 16·jp + 0..7), (k + 8..15, ..),
       // (k + 0..7, d + 8..15), (k + 8..15, ..)
       uint32_t f[4];
@@ -268,13 +331,14 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     T* __restrict__ dq, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, int col_base) {
   static_assert(D % 16 == 0, "head width");
-  constexpr bool F32 = IS_F32<T>;
+  constexpr bool F32 = IS_F32<T>, RES = RES_SMEM<D, T>;
   constexpr int LDD = LD<D>, TF = TILE_F<D>;
+  constexpr int NJ = BKT / 8 / DQ_PARTS<D>;  // fragment columns of a part
   extern __shared__ __align__(16) unsigned char smem[];
   T* const kv_st = reinterpret_cast<T*>(smem);  // stage s: K, then V
-  T* const Qs = kv_st + 4 * TF;                  // float32 only
+  T* const Qs = kv_st + 4 * TF;                  // RES_SMEM only
   T* const Os = Qs + TF;
-  uint32_t* const Ms = reinterpret_cast<uint32_t*>(smem + (F32 ? 6 : 4) * TILE_BYTES<D, T>);
+  uint32_t* const Ms = reinterpret_cast<uint32_t*>(smem + (RES ? 6 : 4) * TILE_BYTES<D, T>);
 
   // blocks start in order of x, then y: every head's last q-tile first
   const int bh = blockIdx.x;
@@ -288,9 +352,9 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
   const long moff = ((long)bh * t_dst + row0) * n_words;
   for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
   const long qoff = ((long)bh * t_dst + row0) * D;
-  // float32: Q and dO tiles in shared memory; bf16: their A fragments
-  uint32_t qa[D / 16][4], oa[D / 16][4];
-  if constexpr (F32) {
+  // Q and dO tiles in shared memory (RES_SMEM), or their A fragments
+  uint32_t qa[RES ? 1 : D / 16][4], oa[RES ? 1 : D / 16][4];
+  if constexpr (RES) {
     copy_tile<D>(Qs, q + qoff, tid);
     copy_tile<D>(Os, dou + qoff, tid);
   } else {
@@ -355,68 +419,77 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
     const T* Ks = kv_st + stage * 2 * TF;
     const T* Vs = Ks + TF;
 
-    // S = Q·Kᵀ and dP = dO·Vᵀ: s[j], dp[j] the C fragments of score
-    // columns 8·j .. 8·j + 7
-    float s[BKT / 8][4], dp[BKT / 8][4];
+    // The sub-tile's columns in DQ_PARTS parts of 8·NJ (one part at widths
+    // 64 and 80, two at 128, where the score fragments of a whole sub-tile
+    // beside dq's accumulator would spill): each part's dS is made and
+    // summed into dq before the next part's, the columns in increasing
+    // order, so the parts change no bit.
+#pragma unroll 1
+    for (int part = 0; part < DQ_PARTS<D>; ++part) {
+      const int j0 = part * NJ;  // the part's first fragment column
+      // S = Q·Kᵀ and dP = dO·Vᵀ: s[j], dp[j] the C fragments of score
+      // columns 8·(j0 + j) .. 8·(j0 + j) + 7
+      float s[NJ][4], dp[NJ][4];
 #pragma unroll
-    for (int j = 0; j < BKT / 8; ++j)
+      for (int j = 0; j < NJ; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-    if constexpr (F32) {
+        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
+      if constexpr (F32) {
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const int d = 8 * kk + 2 * t4;
-        uint32_t qh[4], ql[4], oh[4], ol[4];
-        split_a(ld2<D>(Qs, wrow0 + g, d), ld2<D>(Qs, wrow0 + g + 8, d), qh, ql);
-        split_a(ld2<D>(Os, wrow0 + g, d), ld2<D>(Os, wrow0 + g + 8, d), oh, ol);
+        for (int kk = 0; kk < D / 8; ++kk) {
+          const int d = 8 * kk + 2 * t4;
+          uint32_t qh[4], ql[4], oh[4], ol[4];
+          split_a(ld2<D>(Qs, wrow0 + g, d), ld2<D>(Qs, wrow0 + g + 8, d), qh, ql);
+          split_a(ld2<D>(Os, wrow0 + g, d), ld2<D>(Os, wrow0 + g + 8, d), oh, ol);
 #pragma unroll
-        for (int j = 0; j < BKT / 8; ++j) {
-          const float2 kf = ld2<D>(Ks, 8 * j + g, d);
-          const float2 vf = ld2<D>(Vs, 8 * j + g, d);
-          mma_3xtf32(s[j], qh, ql, kf.x, kf.y);
-          mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);
+          for (int j = 0; j < NJ; ++j) {
+            const float2 kf = ld2<D>(Ks, 8 * (j0 + j) + g, d);
+            const float2 vf = ld2<D>(Vs, 8 * (j0 + j) + g, d);
+            mma_3xtf32(s[j], qh, ql, kf.x, kf.y);
+            mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);
+          }
         }
+      } else {
+        mma_rows<D>(s, a_frags<D, RES>(qa, Qs + wrow0 * LDD, lane), Ks + 8 * j0 * LDD, lane);
+        mma_rows<D>(dp, a_frags<D, RES>(oa, Os + wrow0 * LDD, lane), Vs + 8 * j0 * LDD, lane);
       }
-    } else {
-      mma_rows<D>(s, qa, Ks, lane);
-      mma_rows<D>(dp, oa, Vs, lane);
-    }
 
-    // the element predicate, P and dS, row by row: element (j, b) of row h
-    // is column c0 + 8·j + 2·t4 + b
+      // the element predicate, P and dS, row by row: element (j, b) of row
+      // h is column c0 + 8·(j0 + j) + 2·t4 + b
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = wrow0 + g + 8 * h;
-      const int r = grow0 + rl;
-      const uint32_t* words = Ms + rl * n_words;
+      for (int h = 0; h < 2; ++h) {
+        const int rl = wrow0 + g + 8 * h;
+        const int r = grow0 + rl;
+        const uint32_t* words = Ms + rl * n_words;
 #pragma unroll
-      for (int j = 0; j < BKT / 8; ++j)
+        for (int j = 0; j < NJ; ++j)
 #pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int col = c0 + 8 * j + 2 * t4 + b;
-          const float x = __fadd_rn((float)col, 0.5f);
-          float& sv = s[j][2 * h + b];
-          // off the mask P is exactly 0 (an empty row's lse = +inf never
-          // meets a score)
-          const float p = alive_elem_recip(words, x, col, r, wf[h], yw[h], t_m)
-                              ? exp2_sfu(__fmaf_rn(sv, LOG2E, -l2[h])) : 0.f;
-          sv = p * (dp[j][2 * h + b] - dl[h]);
+          for (int b = 0; b < 2; ++b) {
+            const int col = c0 + 8 * (j0 + j) + 2 * t4 + b;
+            const float x = __fadd_rn((float)col, 0.5f);
+            float& sv = s[j][2 * h + b];
+            // off the mask P is exactly 0 (an empty row's lse = +inf never
+            // meets a score)
+            const float p = alive_elem_recip(words, x, col, r, wf[h], yw[h], t_m)
+                                ? exp2_sfu(__fmaf_rn(sv, LOG2E, -l2[h])) : 0.f;
+            sv = p * (dp[j][2 * h + b] - dl[h]);
+          }
+      }
+
+      // dq += dS·K, dS from the S fragments (k = the part's columns)
+      if constexpr (F32) {
+#pragma unroll
+        for (int kk = 0; kk < NJ; ++kk) {
+          uint32_t ah[4], al[4];
+          split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
+          const int c = 8 * (j0 + kk) + 2 * t4;
+#pragma unroll
+          for (int j = 0; j < D / 8; ++j)
+            mma_3xtf32(acc[j], ah, al, Ks[c * LDD + 8 * j + g], Ks[(c + 1) * LDD + 8 * j + g]);
         }
-    }
-
-    // dq += dS·K, dS from the S fragments (k = the sub-tile's columns)
-    if constexpr (F32) {
-#pragma unroll
-      for (int kk = 0; kk < BKT / 8; ++kk) {
-        uint32_t ah[4], al[4];
-        split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
-        const int c = 8 * kk + 2 * t4;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          mma_3xtf32(acc[j], ah, al, Ks[c * LDD + 8 * j + g], Ks[(c + 1) * LDD + 8 * j + g]);
+      } else {
+        mma_split<D>(acc, s, Ks + 8 * j0 * LDD, lane);
       }
-    } else {
-      mma_split<D>(acc, s, Ks, lane);
     }
     __syncthreads();  // every warp is done with this stage before it refills
     e = ne;
@@ -435,7 +508,7 @@ __global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
 }
 
 template <int D, typename T>
-__global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
+__global__ void __launch_bounds__(DKV_TPB<D>, DKV_MIN_BLOCKS<D, T>) causal_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k,
     const T* __restrict__ v, const uint32_t* __restrict__ mbits,
     const T* __restrict__ dou, const float* __restrict__ lse,
@@ -445,17 +518,20 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
     int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
     int col_base) {
   static_assert(D % 16 == 0, "head width");
-  constexpr bool F32 = IS_F32<T>;
+  constexpr bool F32 = IS_F32<T>, RES = RES_SMEM<D, T>;
+  constexpr int THREADS = DKV_TPB<D>;
+  constexpr int DH = D / DKV_SPLIT<D>;  // the columns of dk and dv a warp sums
   constexpr int STAGE = DKV_STAGE<D, T>;
   constexpr int LDD = LD<D>, TF = TILE_F<D>, TB = TILE_BYTES<D, T>;
   constexpr int PARTS = D > 64 ? 2 : 1;  // see the sub-tile's loop
   constexpr int NJ = BQ / 8 / PARTS;      // fragment rows of a part
+  static_assert(DH % 16 == 0, "split head width");
   extern __shared__ __align__(16) unsigned char smem[];
-  T* const Ks = reinterpret_cast<T*>(smem);  // float32 only
+  T* const Ks = reinterpret_cast<T*>(smem);  // RES_SMEM only
   T* const Vs = Ks + TF;
   // stage s: Q, dO, the mask words, then per row (lse·log2 e, delta, the
   // causal width, its reciprocal)
-  unsigned char* const q_st = smem + (F32 ? 2 * TB : 0);
+  unsigned char* const q_st = smem + (RES ? 2 * TB : 0);
   auto Qs = [&](int s) { return reinterpret_cast<T*>(q_st + s * STAGE); };
   auto Ms = [&](int s) { return reinterpret_cast<uint32_t*>(q_st + s * STAGE + 2 * TB); };
   auto Rs = [&](int s) {
@@ -469,14 +545,18 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
   const int gcol0 = col_base + col0;  // its global column
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t4 = lane & 3;
-  const int wcol0 = (tid >> 5) * 16;  // the warp's first column in the tile
+  // the warp's first column in the tile, and its first column of dk and dv
+  // (0 without a split: the widths before 128 keep their address math)
+  const int warp = tid >> 5;
+  const int wcol0 = (DKV_SPLIT<D> > 1 ? warp % 4 : warp) * 16;
+  const int d0 = DKV_SPLIT<D> > 1 ? (warp / 4) * DH : 0;
 
   const long koff = ((long)bh * t_src + col0) * D;
-  // float32: K and V tiles in shared memory; bf16: their A fragments
-  uint32_t ka[D / 16][4], va[D / 16][4];
-  if constexpr (F32) {
-    copy_tile<D>(Ks, k + koff, tid);
-    copy_tile<D>(Vs, v + koff, tid);
+  // K and V tiles in shared memory (RES_SMEM), or their A fragments
+  uint32_t ka[RES ? 1 : D / 16][4], va[RES ? 1 : D / 16][4];
+  if constexpr (RES) {
+    copy_tile<D, THREADS>(Ks, k + koff, tid);
+    copy_tile<D, THREADS>(Vs, v + koff, tid);
   } else {
     load_a<D>(ka, k + koff + (long)(wcol0 + g) * D, t4);
     load_a<D>(va, v + koff + (long)(wcol0 + g) * D, t4);
@@ -491,9 +571,9 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
     gc[h] = gcol0 + wcol0 + g + 8 * h;
     xc[h] = __fadd_rn((float)gc[h], 0.5f);
   }
-  float acc_k[D / 8][4], acc_v[D / 8][4];
+  float acc_k[DH / 8][4], acc_v[DH / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DH / 8; ++j)
 #pragma unroll
     for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
 
@@ -515,10 +595,10 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
     return false;
   };
   auto load_q = [&](int s, int r0) {
-    copy_tile<D>(Qs(s), q + (rbase + r0) * D, tid);
-    copy_tile<D>(Qs(s) + TF, dou + (rbase + r0) * D, tid);
+    copy_tile<D, THREADS>(Qs(s), q + (rbase + r0) * D, tid);
+    copy_tile<D, THREADS>(Qs(s) + TF, dou + (rbase + r0) * D, tid);
     const uint32_t* src = mbits + (rbase + r0) * n_words;
-    for (int i = tid; i < BQ * n_words; i += TPB) cp_async4(Ms(s) + i, src + i);
+    for (int i = tid; i < BQ * n_words; i += THREADS) cp_async4(Ms(s) + i, src + i);
   };
   // row tid's terms of the sub-tile whose first global row is grow0
   auto put_terms = [&](int s, int grow0, float l, float dlt) {
@@ -556,10 +636,10 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
     const int grow0 = grow_of(e, r0);
 
     // The sub-tile's rows in PARTS parts of 8·NJ rows (one at width 64, two
-    // at 80, where the four fragment sets of a whole sub-tile would spill):
-    // each part's terms are made and summed into dk and dv before the next
-    // part's, and every sum still takes the rows in increasing order, so
-    // the parts change no bit.
+    // at 80 and 128, where the four fragment sets of a whole sub-tile would
+    // spill): each part's terms are made and summed into dk and dv before
+    // the next part's, and every sum still takes the rows in increasing
+    // order, so the parts change no bit.
 #pragma unroll 1
     for (int part = 0; part < PARTS; ++part) {
       const int j0 = part * NJ;  // the part's first fragment row
@@ -586,8 +666,8 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
           }
         }
       } else {
-        mma_rows<D>(st, ka, Qt + 8 * j0 * LDD, lane);
-        mma_rows<D>(dpt, va, Ot + 8 * j0 * LDD, lane);
+        mma_rows<D>(st, a_frags<D, RES>(ka, Ks + wcol0 * LDD, lane), Qt + 8 * j0 * LDD, lane);
+        mma_rows<D>(dpt, a_frags<D, RES>(va, Vs + wcol0 * LDD, lane), Ot + 8 * j0 * LDD, lane);
       }
 
       // the element predicate, Pᵀ and dSᵀ: element (j, b) of fragment row h
@@ -609,8 +689,8 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
           }
         }
 
-      // dv += Pᵀ·dO and dk += dSᵀ·Q, Pᵀ and dSᵀ from their C fragments
-      // (k = the part's rows)
+      // dv += Pᵀ·dO and dk += dSᵀ·Q over the warp's columns d0 .. d0 + DH − 1,
+      // Pᵀ and dSᵀ from their C fragments (k = the part's rows)
       if constexpr (F32) {
 #pragma unroll
         for (int kk = 0; kk < NJ; ++kk) {
@@ -620,15 +700,15 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
                   dl);
           const int c = 8 * (j0 + kk) + 2 * t4;
 #pragma unroll
-          for (int j = 0; j < D / 8; ++j) {
-            const int n = 8 * j + g;
+          for (int j = 0; j < DH / 8; ++j) {
+            const int n = d0 + 8 * j + g;
             mma_3xtf32(acc_v[j], ph, pl, Ot[c * LDD + n], Ot[(c + 1) * LDD + n]);
             mma_3xtf32(acc_k[j], dh, dl, Qt[c * LDD + n], Qt[(c + 1) * LDD + n]);
           }
         }
       } else {
-        mma_split<D>(acc_v, st, Ot + 8 * j0 * LDD, lane);
-        mma_split<D>(acc_k, dpt, Qt + 8 * j0 * LDD, lane);
+        mma_split<D>(acc_v, st, Ot + 8 * j0 * LDD + d0, lane);
+        mma_split<D>(acc_k, dpt, Qt + 8 * j0 * LDD + d0, lane);
       }
     }
     if (more && tid < BQ) put_terms(stage ^ 1, grow_of(ne, nr0), nl, nd);
@@ -642,9 +722,9 @@ __global__ void __launch_bounds__(TPB, DKV_MIN_BLOCKS<T>) causal_dkv_kernel(
 
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const long o = koff + (long)(wcol0 + g + 8 * h) * D + 2 * t4;
+    const long o = koff + (long)(wcol0 + g + 8 * h) * D + d0 + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DH / 8; ++j) {
       store2(dk + o + 8 * j, acc_k[j][2 * h], acc_k[j][2 * h + 1]);
       store2(dv + o + 8 * j, acc_v[j][2 * h], acc_v[j][2 * h + 1]);
     }
@@ -689,7 +769,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<D, T>, DKV_SMEM<D, T>, opted_in);
   if (e != cudaSuccess) return e;
   dim3 grid(nh, t_src / BKT);
-  causal_dkv_kernel<D, T><<<grid, TPB, DKV_SMEM<D, T>, stream>>>(
+  causal_dkv_kernel<D, T><<<grid, DKV_TPB<D>, DKV_SMEM<D, T>, stream>>>(
       (const T*)q, (const T*)k, (const T*)v,
       (const uint32_t*)mbits, (const T*)dou, (const float*)lse,
       (const float*)delta, (const int*)counts_t, (const int*)idx_t,
@@ -701,7 +781,7 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
 }  // namespace
 
 // K3: dq (nh, t_dst, D) in q's type, float32 or bf16 (is_bf16); head width
-// 64 or 80.
+// 64, 80 or 128.
 extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
                              const void* mbits, const void* dou,
                              const void* lse, const void* delta,
@@ -720,7 +800,7 @@ extern "C" int sea_causal_dq(const void* q, const void* k, const void* v,
 }
 
 // K4: dk, dv (nh, t_src, D) in q's type, float32 or bf16 (is_bf16); head
-// width 64 or 80.
+// width 64, 80 or 128.
 extern "C" int sea_causal_dkv(const void* q, const void* k, const void* v,
                               const void* mbits, const void* dou,
                               const void* lse, const void* delta,

@@ -14,8 +14,13 @@ model's design kept as it is:
     bundle each layer unpacks.
 
 `attention_method` is 'perlin' (the SEA student: the benchmark path, kernel
-K1, with `benchmarking=True`; the dense train path otherwise) or 'none' (the
+K1, with `benchmarking=True`; with `training=True` and the SEA config's
+`use_fused_train`, no KD truths, the differentiable fused path, kernels
+K2-K4, on the (N, 1, T, T) causal mask, as the JAX model hands it to
+`SeaAttention`; the dense train path otherwise, KD's student) or 'none' (the
 dense teacher, whose layers capture their clamped scores and context).
+Training runs through `training.longctx.train_step(s)` (task-only, fused)
+and `training.opt_trainer.OptTrainer(model="llama-*")` (KD, dense path).
 Decode and generation are OPT's (`opt.CausalLMGeneration`): this model
 supplies its step embedding and the step's rotary tables (`_embed_step`).
 
@@ -27,18 +32,18 @@ q's scale is rounded to q's type first (a weak-typed Python float), and the
 SwiGLU's sigmoid is XLA's expansion (`modules.silu`). Decode never casts:
 `decode_step` embeds in the parameters' type. The builders `llama_7b` and
 `llama_13b` are the JAX package's (bfloat16 compute; heads of 128, which
-K1 takes on the card).
+K1-K4 take on the card).
 
 Not ported yet, and refused: the other attention methods and `scan_layers`
-(with `scan_benchmarking`, `scan_remat`) and the chunked cross entropy
-(`logit_chunk`), ROADMAP queue 1 item 2; `external_layers` (pipeline
-stages), item 8; LoRA, item 4.
+(with `scan_benchmarking`, `scan_remat`: the per-layer remat) and the
+chunked cross entropy (`logit_chunk`), ROADMAP queue 1 item 2;
+`external_layers` (pipeline stages), item 8; LoRA, item 4.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -51,6 +56,7 @@ from .opt import (
     CausalLMGeneration,
     JitterDraws,
     LayerTeacherOutput,
+    OptForCausalLM,
     build_causal_mask,
     cross_entropy_shifted,
 )
@@ -468,3 +474,7 @@ class LlamaForCausalLM(CausalLMGeneration, nn.Module):
         loss = cross_entropy_shifted(logits, labels) if labels is not None else None
         return {"logits": logits, "loss": loss, "hidden_states": hidden_states,
                 "teacher_captures": captures, "aux_loss": aux_loss}
+
+
+# the port's causal LMs, which the trainers take alike
+CausalLM = Union[OptForCausalLM, LlamaForCausalLM]

@@ -16,7 +16,8 @@ Port of `sea_tpu/models/loader.py`:
     `lm_head.weight`; no biases) onto `LlamaForCausalLM`'s, whose names are
     HF's own;
   * `student_from_teacher`: the student takes its own copy of every tensor
-    the teacher has and keeps its fresh SEA estimator ('perlin').
+    the teacher has and keeps its fresh SEA estimator ('perlin'), for either
+    family (the KD trainer's bootstrap, `training/opt_trainer.py`).
 """
 
 from __future__ import annotations

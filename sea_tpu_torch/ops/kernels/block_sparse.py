@@ -64,8 +64,8 @@ Layout of this module:
 Each wrapper counts its kernel launches in a `launches` attribute; K1-K4's
 and K6-K8's also count those of their bfloat16 instance in `bf16_launches`.
 The kernels take the head widths of `HEAD_DIMS`: 64, 80 (OPT-2.7b) and 128
-(LLaMA-7b and 13b) on the causal forward, 64 and 80 on the differentiable
-path, 64 elsewhere.
+(LLaMA-7b and 13b) on the causal forward and the differentiable path, 64
+elsewhere.
 """
 
 from __future__ import annotations
@@ -86,7 +86,7 @@ MAX_WORDS = 16  # packed mask words per row the kernel holds (T_M <= 512)
 # path (K2-K4), the padded bidirectional forward (K5), the impl variants
 # (K9a-c) and the ring's windows (K6-K8). Any other width is ROADMAP queue 2
 # item 6. The plain versions, which CPU tensors take, have no such limit.
-HEAD_DIMS = {"causal": (64, 80, 128), "differentiable": (64, 80), "bidirectional": (64,),
+HEAD_DIMS = {"causal": (64, 80, 128), "differentiable": (64, 80, 128), "bidirectional": (64,),
              "impl": (64,), "window": (64,)}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # q, k, v and the outputs
 SUB_BLOCK = 128  # 'subtile' piece width, min(SUB_BLOCK, block_k) (the JAX default)

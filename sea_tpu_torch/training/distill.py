@@ -1,5 +1,6 @@
-"""Knowledge distillation of an OPT student from its dense teacher (port of
-`sea_tpu/training/distill.py`'s `SeaOptKD`, the loop path).
+"""Knowledge distillation of an OPT or LLaMA student from its dense teacher
+(port of `sea_tpu/training/distill.py`'s `SeaOptKD`, the loop path, with
+`causal_lm_for` and `decoder_layer_for`).
 
     loss = task_scale · student CE
          + 5 · mean over the L + 1 hidden states of their float32 MSE
@@ -17,18 +18,41 @@ resize jitter's draws are drawn by the caller before the pair and passed in,
 so that the recomputation sees the same draws (checkpoint's RNG-state
 preservation does not cover an explicit generator).
 
+The wrapper is family-agnostic, as JAX's: it uses only `model.embed`, whose
+second return it threads opaquely to every layer (OPT's causal mask,
+LLaMA's (mask, cos, sin) position bundle), `model.layers[i]`,
+`model.finalize` and `logits`.
+
 Not ported yet: `SeaOptKDScan` (the scanned layer-pair body with chunked
 logits) and `SeaBertKD` (ROADMAP queue 1).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence, Tuple
+from typing import Dict, Optional, Sequence, Tuple, Type, Union
 
 import torch
+from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..models.opt import JitterDraws, OptForCausalLM, cross_entropy_shifted
+from ..models.llama import CausalLM, LlamaConfig, LlamaDecoderLayer, LlamaForCausalLM
+from ..models.opt import (JitterDraws, OptConfig, OptDecoderLayer, OptForCausalLM,
+                          cross_entropy_shifted)
+
+
+def causal_lm_for(cfg: Union[OptConfig, LlamaConfig], **kw) -> CausalLM:
+    """The causal LM of a model family's config (`kw`: the model's
+    `device` and `seed`)."""
+    if isinstance(cfg, OptConfig):
+        return OptForCausalLM(cfg, **kw)
+    if not isinstance(cfg, LlamaConfig):
+        raise TypeError(f"no causal LM for {type(cfg).__name__}")
+    return LlamaForCausalLM(cfg, **kw)
+
+
+def decoder_layer_for(cfg: Union[OptConfig, LlamaConfig]) -> Type[nn.Module]:
+    """The decoder layer class of a model family's config."""
+    return OptDecoderLayer if isinstance(cfg, OptConfig) else LlamaDecoderLayer
 
 
 def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -37,24 +61,28 @@ def _mse(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 class SeaOptKD:
     """KD of `student` (attention_method 'perlin') from the frozen dense
-    `teacher` (attention_method 'none'), both `OptForCausalLM` of the same
+    `teacher` (attention_method 'none'), both causal LMs of one family and
     depth."""
 
-    def __init__(self, teacher: OptForCausalLM, student: OptForCausalLM):
+    def __init__(self, teacher: CausalLM, student: CausalLM):
         if teacher.cfg.attention_method != "none":
             raise ValueError("the teacher must be dense (attention_method='none')")
+        if type(teacher) is not type(student):
+            raise ValueError("teacher and student must be of one model family")
         if teacher.cfg.num_layers != student.cfg.num_layers:
             raise ValueError("teacher and student must have the same depth")
         self.teacher = teacher
         self.student = student
         self.n_layers = teacher.cfg.num_layers
 
-    def _pair(self, i: int, h_t: torch.Tensor, h_s: torch.Tensor, causal_mask: torch.Tensor,
+    def _pair(self, i: int, h_t: torch.Tensor, h_s: torch.Tensor, positions,
               draws: Optional[JitterDraws]):
+        """Teacher and student layer i; `positions` is `embed`'s second
+        return, handed to both as it is."""
         with torch.no_grad():
-            h_t, _, capture = self.teacher.model.layers[i](h_t, causal_mask)
+            h_t, _, capture = self.teacher.model.layers[i](h_t, positions)
         h_s, aux, _ = self.student.model.layers[i](
-            h_s, causal_mask, capture, training=True, jitter=draws)
+            h_s, positions, capture, training=True, jitter=draws)
         if aux is None:
             aux = torch.zeros((), dtype=torch.float32, device=h_s.device)
         return h_t, h_s, aux
@@ -74,17 +102,17 @@ class SeaOptKD:
         `task_scale` weighs the student CE; `ignore_kd` makes the loss the
         CE alone (every term is still computed and reported)."""
         with torch.no_grad():
-            h_t, causal_mask = self.teacher.model.embed(input_ids, attention_mask_1d)
+            h_t, positions = self.teacher.model.embed(input_ids, attention_mask_1d)
         h_s, _ = self.student.model.embed(input_ids, attention_mask_1d)
         loss_hidden = _mse(h_t, h_s)
         loss_special = torch.zeros((), dtype=torch.float32, device=h_s.device)
         for i in range(self.n_layers):
             draws = jitter[i] if jitter is not None else None
             if use_remat:
-                h_t, h_s, aux = checkpoint(self._pair, i, h_t, h_s, causal_mask, draws,
+                h_t, h_s, aux = checkpoint(self._pair, i, h_t, h_s, positions, draws,
                                            use_reentrant=False)
             else:
-                h_t, h_s, aux = self._pair(i, h_t, h_s, causal_mask, draws)
+                h_t, h_s, aux = self._pair(i, h_t, h_s, positions, draws)
             loss_hidden = loss_hidden + _mse(h_t, h_s)
             loss_special = loss_special + aux
         loss_hidden = loss_hidden / (self.n_layers + 1) * 5.0

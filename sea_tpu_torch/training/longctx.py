@@ -3,7 +3,12 @@
 Port of `scripts/longctx_train_step.py`: an OPT-125m-geometry SEA student
 with `use_fused_train`, next-token cross entropy only (no KD truths), so
 every layer's attention runs the forward-with-stats, dq and dk/dv kernels
-and the dense O(T²) train path never materialises.
+and the dense O(T²) train path never materialises. `train_step` and
+`train_steps` take any causal LM of the port whose SEA config sets
+`use_fused_train`: OPT (`OptForCausalLM`) or LLaMA (`LlamaForCausalLM`,
+whose roped, pre-scaled q and k and (N, 1, T, T) causal mask reach the
+same `SeaAttention` dispatch, K2-K4 at its heads of 128 on the card). The
+script itself, and so `main`, is OPT-only.
 
     python -m sea_tpu_torch.training.longctx --t 2048 --steps 3
     python -m sea_tpu_torch.training.longctx --t 256 --layers 2 --steps 2 --device cpu
@@ -32,6 +37,7 @@ from typing import Callable, List, Optional
 import torch
 
 from ..config import opt_config
+from ..models.llama import CausalLM
 from ..models.opt import OptForCausalLM, opt_125m
 
 
@@ -44,7 +50,7 @@ def make_optimizer(model: torch.nn.Module, lr: float = 1e-5,
     )
 
 
-def train_step(model: OptForCausalLM, optimizer: torch.optim.Optimizer,
+def train_step(model: CausalLM, optimizer: torch.optim.Optimizer,
                ids: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
     """One step on one batch; returns the loss before the update (detached).
 
@@ -64,7 +70,7 @@ def train_step(model: OptForCausalLM, optimizer: torch.optim.Optimizer,
 
 
 def train_steps(
-    model: OptForCausalLM,
+    model: CausalLM,
     ids: torch.Tensor,
     mask: torch.Tensor,
     steps: int,

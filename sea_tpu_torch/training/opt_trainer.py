@@ -1,7 +1,7 @@
-"""OPT wikitext-2 KD trainer, the loop path (port of
+"""OPT and LLaMA wikitext-2 KD trainer, the loop path (port of
 `sea_tpu/training/opt_trainer.py`).
 
-A dense OPT teacher (optionally CE-pretrained for `pretrain_teacher_steps`
+A dense teacher (optionally CE-pretrained for `pretrain_teacher_steps`
 first) distils into a SEA student bootstrapped from its weights: every
 micro-step runs `SeaOptKD.kd_loss` (teacher and student interleaved, each
 layer pair checkpointed under `use_remat`) and its backward; every
@@ -15,11 +15,20 @@ JSON lines; `save`/`load` keep the student, the optimizer, the step and the
 jitter generator in one `torch.save` file.
 
     python -m sea_tpu_torch.training.opt_trainer --model tiny --steps 4 --device cpu
+    python -m sea_tpu_torch.training.opt_trainer --model llama-tiny --steps 4 --device cpu
     python -m sea_tpu_torch.training.opt_trainer --model opt-125m --seq-len 512 --steps 2
 
-Models 'tiny', 'opt-125m', 'opt-350m', 'opt-1.3b' and 'opt-2.7b' (the JAX
-builders; 1.3b and 2.7b compute in bfloat16 by default, and 2.7b's heads are
-80 wide). The types are the JAX trainer's:
+Models 'tiny', 'opt-125m', 'opt-350m', 'opt-1.3b', 'opt-2.7b', 'llama-tiny',
+'llama-7b' and 'llama-13b' (the JAX builders and the JAX trainer's heads and
+widths; 1.3b, 2.7b and the LLaMA models compute in bfloat16 by default,
+2.7b's heads are 80 wide and LLaMA's 128). The student and teacher are one
+family (`distill.causal_lm_for`); a LLaMA teacher checkpoint is read by
+`load_llama_params` from a local HF directory. Every model's seeded random
+weights are drawn on the trainer's device (a CPU generator on the CPU, so
+the CPU's weights do not depend on the card; a CUDA one on the card, where
+two 7B models initialised on the host would take minutes and tens of GB of
+host memory). LLaMA-13b's bf16 weights, gradients and moments (about 104
+GB) need more than one card. The types are the JAX trainer's:
 `compute_dtype` overrides the models' own, `param_dtype` casts every
 floating parameter and buffer of both models (the teacher's checkpoint
 too), and `moment_dtype` is AdamW's first-moment type (optax's `mu_dtype`);
@@ -28,7 +37,7 @@ see `models/opt.py` for what each type rounds.
 The entry point runs on "cuda" unless `--device` says otherwise, with TF32
 off and bfloat16 products reduced in float32. Refused with
 NotImplementedError, each naming its ROADMAP item: `scan_kd`,
-`data_parallel`, `checkpoint_rotation`, `logit_chunk` and LLaMA, and student
+`data_parallel`, `checkpoint_rotation` and `logit_chunk`, and student
 methods other than 'perlin' and 'none'.
 """
 
@@ -47,12 +56,13 @@ import torch
 
 from ..config import SeaConfig, opt_config
 from ..data.wikitext2 import get_corpus
-from ..models.loader import load_opt_params, student_from_teacher
-from ..models.opt import (COMPUTE_DTYPES, OptConfig, OptForCausalLM, opt_125m, opt_350m,
-                          opt_1_3b, opt_2_7b)
+from ..models.attention import init_random_
+from ..models.llama import CausalLM, LlamaConfig, llama_13b, llama_7b, llama_tiny
+from ..models.loader import load_llama_params, load_opt_params, student_from_teacher
+from ..models.opt import COMPUTE_DTYPES, OptConfig, opt_125m, opt_350m, opt_1_3b, opt_2_7b
 from ..ops.masks import resize_jitter_draws
 from ..ops.performer import redraw_projections
-from .distill import SeaOptKD
+from .distill import SeaOptKD, causal_lm_for
 from .optimizer import GroupedAdamW
 
 LEFTOVERS = "ROADMAP queue 1, 'KD and trainer leftovers'"
@@ -60,12 +70,13 @@ LEFTOVERS = "ROADMAP queue 1, 'KD and trainer leftovers'"
 
 @dataclasses.dataclass
 class TrainerConfig:
-    # 'tiny' | 'opt-125m' | 'opt-350m' | 'opt-1.3b' | 'opt-2.7b' (the JAX
-    # trainer's LLaMA models are refused)
+    # 'tiny' | 'opt-125m' | 'opt-350m' | 'opt-1.3b' | 'opt-2.7b' |
+    # 'llama-tiny' | 'llama-7b' | 'llama-13b'
     model: str = "opt-125m"
     # student attention method
     method: str = "perlin"
-    teacher_checkpoint: Optional[str] = None  # local dir with HF OPT weights
+    # local dir with the teacher's HF weights (OPT or LLaMA, as `model`)
+    teacher_checkpoint: Optional[str] = None
     k: int = 64
     predictor_length: int = 256
     nb_factor: int = 8
@@ -114,19 +125,19 @@ class TrainingDiverged(RuntimeError):
     """A non-finite loss with `halt_on_divergence`."""
 
 
-# the OPT builders the port has, and each one's heads and head width (the
-# JAX trainer's mapping)
+# the builders the port has, and each one's heads and head width (the JAX
+# trainer's mapping)
 MODELS = {"opt-125m": (opt_125m, 12, 64), "opt-350m": (opt_350m, 16, 64),
-          "opt-1.3b": (opt_1_3b, 32, 64), "opt-2.7b": (opt_2_7b, 32, 80)}
+          "opt-1.3b": (opt_1_3b, 32, 64), "opt-2.7b": (opt_2_7b, 32, 80),
+          "llama-7b": (llama_7b, 32, 128), "llama-13b": (llama_13b, 40, 128)}
 
 
 def _refuse_unported(cfg: TrainerConfig):
     for name in ("scan_kd", "data_parallel", "checkpoint_rotation", "logit_chunk"):
         if getattr(cfg, name) != getattr(TrainerConfig, name):
             raise NotImplementedError(f"TrainerConfig.{name} is not ported yet ({LEFTOVERS})")
-    if cfg.model not in ("tiny", *MODELS):
-        raise NotImplementedError(
-            f"model {cfg.model!r} is not ported yet (ROADMAP queue 1: LLaMA is its own item)")
+    if cfg.model not in ("tiny", "llama-tiny", *MODELS):
+        raise ValueError(f"model {cfg.model!r}: one of {['tiny', 'llama-tiny', *MODELS]}")
     for name in ("compute_dtype", "param_dtype", "moment_dtype"):
         if getattr(cfg, name) not in (None, *COMPUTE_DTYPES):
             raise ValueError(f"TrainerConfig.{name}: one of {sorted(COMPUTE_DTYPES)} or None")
@@ -145,11 +156,14 @@ def tiny_configs(method: str = "perlin") -> Tuple[OptConfig, OptConfig]:
     return OptConfig(attention_method="none", **kw), OptConfig(attention_method=method, **kw)
 
 
-def model_configs(cfg: TrainerConfig) -> Tuple[OptConfig, OptConfig]:
-    """(teacher, student) configurations, `compute_dtype` applied."""
+def model_configs(cfg: TrainerConfig):
+    """(teacher, student) configurations, OPT's or LLaMA's, `compute_dtype`
+    applied."""
     _refuse_unported(cfg)
     if cfg.model == "tiny":
         pair = tiny_configs(cfg.method)
+    elif cfg.model == "llama-tiny":
+        pair = llama_tiny("none"), llama_tiny(cfg.method)
     else:
         builder, heads, head_dim = MODELS[cfg.model]
         sea = opt_config(
@@ -162,28 +176,39 @@ def model_configs(cfg: TrainerConfig) -> Tuple[OptConfig, OptConfig]:
     return tuple(dataclasses.replace(c, compute_dtype=cfg.compute_dtype) for c in pair)
 
 
+def build_model(cfg, seed: int, device, dtype: Optional[str] = None) -> CausalLM:
+    """`cfg`'s causal LM on `device` with seeded random weights drawn there
+    (`init_random_` from a generator of `seed` on `device`: on the CPU the
+    weights of `OptForCausalLM(cfg, seed=seed)`), then cast to `dtype`
+    (every floating leaf, as the JAX trainer casts its trees)."""
+    device = torch.device(device)
+    with device:
+        model = causal_lm_for(cfg, device=device, seed=None)
+    init_random_(model, torch.Generator(device=device).manual_seed(seed))
+    if dtype is not None:
+        model.to(getattr(torch, dtype))
+    return model
+
+
 class OptTrainer:
     """Teacher, student, optimizer and corpora for `cfg`, on `device`.
-    Weights are random from seeds (teacher 0, student 1) unless
-    `cfg.teacher_checkpoint` names a local HF OPT directory, in
-    `cfg.param_dtype`; the jitter's draws and the projection redraws come
+    Weights are random from seeds (teacher 0, student 1), drawn on `device`,
+    unless `cfg.teacher_checkpoint` names a local HF OPT or LLaMA directory,
+    in `cfg.param_dtype`; the jitter's draws and the projection redraws come
     from a generator seeded with `cfg.seed` on `device`."""
 
     def __init__(self, cfg: TrainerConfig, device="cuda"):
         self.cfg = cfg
         self.device = torch.device(device)
         self.t_cfg, self.s_cfg = model_configs(cfg)
-        self.teacher = OptForCausalLM(self.t_cfg, device=self.device, seed=0)
-        self.student = OptForCausalLM(self.s_cfg, device=self.device, seed=1)
-        if cfg.param_dtype is not None:
-            # every floating leaf, as the JAX trainer casts its trees (the
-            # checkpoint loads into the cast model in its type)
-            dtype = getattr(torch, cfg.param_dtype)
-            self.teacher.to(dtype)
-            self.student.to(dtype)
+        # one model at a time in float32 before its cast (a 7B model's
+        # float32 weights alone take 27 GB)
+        self.teacher = build_model(self.t_cfg, 0, self.device, cfg.param_dtype)
+        self.student = build_model(self.s_cfg, 1, self.device, cfg.param_dtype)
         if cfg.teacher_checkpoint:
-            self.teacher.load_state_dict(
-                load_opt_params(cfg.teacher_checkpoint, self.t_cfg), strict=True)
+            # the checkpoint loads into the cast model in its type
+            load = load_llama_params if isinstance(self.t_cfg, LlamaConfig) else load_opt_params
+            self.teacher.load_state_dict(load(cfg.teacher_checkpoint, self.t_cfg), strict=True)
         self.teacher.requires_grad_(False)
         self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.corpus = get_corpus(cfg.max_seq_len, cfg.stride, "train",

@@ -4,14 +4,15 @@
   group      parameters                            lr               weight decay
   ---------  ------------------------------------  ---------------  ------------
   low        the base model's                      lr · low_scale   wd
-  low_nd     its biases and LayerNorm weights      lr · low_scale   0
+  low_nd     its biases and norms' scales          lr · low_scale   0
   high       the SEA estimator's ('perlin')        lr · high_scale  wd
-  high_nd    its biases and LayerNorm weights      lr · high_scale  0
+  high_nd    its biases and norms' scales          lr · high_scale  0
 
 Defaults: lr 1e-5, wd 1e-2, high_scale 10, low_scale 0.2. The JAX package
 tells the no-decay leaves by their Flax names `bias` and `scale`; Flax calls
-a LayerNorm's weight `scale`, so here the set is every `bias` and every
-LayerNorm's `weight`, chosen by the module's type.
+a LayerNorm's and an RMSNorm's weight `scale`, so here the set is every
+`bias` and the `weight` of every `nn.LayerNorm` and every `modules.RMSNorm`
+(LLaMA's norms), chosen by the module's type.
 
 The update is optax's, written out, because it keeps its moments in types
 `torch.optim.AdamW` cannot: `optax.clip_by_global_norm(1.0)` and then, per
@@ -46,6 +47,8 @@ from typing import Dict, List, Optional
 import torch
 from torch import nn
 
+from ..models.modules import RMSNorm
+
 B1, B2, EPS = 0.9, 0.999, 1e-8
 
 
@@ -56,7 +59,7 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
         for p_name, _ in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{p_name}" if mod_name else p_name
             high = "perlin" in name.split(".")
-            nodecay = p_name == "bias" or isinstance(mod, nn.LayerNorm)
+            nodecay = p_name == "bias" or isinstance(mod, (nn.LayerNorm, RMSNorm))
             labels[name] = ("high" if high else "low") + ("_nd" if nodecay else "")
     return labels
 

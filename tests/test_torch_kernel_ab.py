@@ -67,10 +67,10 @@ def test_tensor_core_check_names_every_instance():
         assert chip_smoke.FLAT_INSTANCE.search(mangled), mangled
         names.add(chip_smoke.instance_name(mangled))
     assert _width_lists() == {"FORWARD_WIDTHS": ["64", "80", "128"],
-                              "TRAIN_WIDTHS": ["64", "80"], "BASE_WIDTHS": ["64"]}
+                              "TRAIN_WIDTHS": ["64", "80", "128"], "BASE_WIDTHS": ["64"]}
     assert names == {f"{kid} {t} D{d}" for t in ("float32", "bfloat16") for kid, d in (
         ("K1", 64), ("K2/K6", 64), ("K5", 64), ("K9a", 64), ("K9b", 64), ("K9c", 64),
-        ("K1", 80), ("K2", 80), ("K1", 128))}
+        ("K1", 80), ("K2", 80), ("K1", 128), ("K2", 128))}
 
 
 def _forward_mangled():
@@ -126,14 +126,14 @@ def test_backward_knockouts_apply_to_the_source(tmp_path, monkeypatch, name):
 @pytest.mark.parametrize("launcher, kids", [("launch_dq", "K3/K7"), ("launch_dkv", "K4/K8")])
 def test_backward_instances_are_named(launcher, kids):
     """The spill and HMMA checks name each backward instance that the
-    launcher launches by its kernels and width (at 80 the unsharded
+    launcher launches by its kernels and width (at 80 and 128 the unsharded
     kernel's alone: the windows take 64); the entry points are not
     instances."""
     mangled = _backward_mangled(launcher)
-    assert len(mangled) == 4
+    assert len(mangled) == 6
     assert {chip_smoke.instance_name(m) for m in mangled} == {
         f"{kids} float32 D64", f"{kids} bfloat16 D64", f"{kids[:2]} float32 D80",
-        f"{kids[:2]} bfloat16 D80"}
+        f"{kids[:2]} bfloat16 D80", f"{kids[:2]} float32 D128", f"{kids[:2]} bfloat16 D128"}
     assert chip_smoke.instance_name(f"sea_causal_{launcher[7:]}") is None
 
 

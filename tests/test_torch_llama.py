@@ -49,6 +49,7 @@ from sea_tpu_torch.models import llama as tl
 from sea_tpu_torch.models.loader import load_llama_params
 from sea_tpu_torch.models.modules import RMSNorm
 from sea_tpu_torch.serving import ServingEngine
+from sea_tpu_torch.training.longctx import train_steps
 from sea_tpu_torch.utils.profiler import get_bench
 from sea_tpu_torch.weights import state_dict_from_jax
 from tests._torch_parity import assert_topk_margin, t, torch_llama_config
@@ -441,11 +442,22 @@ def test_large_configs_match_jax(builder):
 
 
 def test_refusals_name_their_items():
+    """What stays refused names its ROADMAP item; LLaMA's task-only training
+    through `use_fused_train` is taken (tests/test_torch_llama_train.py holds
+    it to JAX)."""
     for method in ("performer", "cosformer", "reformer", "sinkhorn"):
         with pytest.raises(NotImplementedError, match="queue 1 item 2"):
             tl.LlamaForCausalLM(tl.llama_tiny(method), device="cpu")
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        tl.LlamaForCausalLM(dataclasses.replace(tl.llama_tiny(), scan_layers=True), device="cpu")
+    for scan in ("scan_layers", "scan_benchmarking", "scan_remat"):
+        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
+            tl.LlamaForCausalLM(dataclasses.replace(tl.llama_tiny(), **{scan: True}),
+                                device="cpu")
+    fused = tl.llama_tiny()
+    fused = dataclasses.replace(fused, sea=dataclasses.replace(fused.sea, use_fused_train=True))
+    ids128 = torch.randint(4, 256, (1, 128), generator=torch.Generator().manual_seed(0))
+    losses = train_steps(tl.LlamaForCausalLM(fused, device="cpu"), ids128,
+                         torch.ones_like(ids128), 1)
+    assert np.isfinite(losses).all()
     cfg = tl.llama_tiny()
     lora = dataclasses.replace(cfg, sea=dataclasses.replace(cfg.sea, lora_enabled=True))
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):

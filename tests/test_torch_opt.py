@@ -148,16 +148,16 @@ def test_bf16_weights_convert_exactly():
                             device="cpu")
 
 
-# (route, head width, refused): OPT-2.7b's width 80 is built for the causal
-# forward (K1) and the differentiable path (K2-K4); LLaMA's 128 for the
-# causal forward alone; the padded bidirectional forward (K5), the impl
-# variants (K9a-c) and the ring's windows (K6-K8) take 64 only, and no route
-# takes 96
+# (route, head width, refused): OPT-2.7b's width 80 and LLaMA's 128 are
+# built for the causal forward (K1) and the differentiable path (K2-K4); the
+# padded bidirectional forward (K5), the impl variants (K9a-c) and the ring's
+# windows (K6-K8) take 64 only, and no route takes 96 or 32
 WIDTH_ROUTES = [("differentiable", 80, False), ("causal", 80, False),
                 ("differentiable", 96, True), ("bidirectional", 80, True),
                 ("impl", 80, True), ("window", 80, True),
-                ("causal", 128, False), ("differentiable", 128, True),
-                ("bidirectional", 128, True), ("impl", 128, True), ("window", 128, True)]
+                ("causal", 128, False), ("differentiable", 128, False),
+                ("bidirectional", 128, True), ("impl", 128, True), ("window", 128, True),
+                ("causal", 32, True), ("differentiable", 32, True)]
 
 
 @pytest.mark.parametrize("route,width,refused", WIDTH_ROUTES,
