@@ -9,16 +9,22 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
   1. device   — the card's name and power limit; TF32 off for matmuls and
                 convolutions (the port's float32 path is checked against
                 float32 references); the build's registers and spills (no
-                instance of the forward body or of the backward bodies may
-                spill), and the tensor-core instructions (HMMA) of every
-                instance of the forward body (K1, K2/K6, K5, K9a-c) and of
-                the backward bodies (K3/K7, K4/K8) in `cuobjdump -sass`, in
-                both types at head width 64 and K1-K4's at 80 and 128, none
-                of which may lack them;
-  2. mask     — the kernel's element predicate (`alive_mask`) against the
-                torch oracle `element_mask_int8`, bit for bit, for T up to 8192;
-                the forward body's pixel quotients, taken from each row's
-                reciprocal, against IEEE division on every row width to 2^17;
+                instance of the forward bodies or of the backward bodies may
+                spill), and the tensor-core instructions of every instance in
+                `cuobjdump -sass`: wgmma's (HGMMA) in each bf16 instance of
+                the forward body (`causal_wgmma_kernel`: K1, K2/K6, K5,
+                K9a-c), mma.sync's (HMMA) in each float32 one
+                (`causal_flat_kernel`) and in the backward bodies (K3/K7,
+                K4/K8), both types at head width 64 and K1-K4's at 80 and
+                128, none of which may lack them;
+  2. mask     — the kernel's element predicate (`alive_mask`: the bf16
+                body's alive words) against the torch oracle
+                `element_mask_int8`, bit for bit, for T up to 8192; the
+                forward bodies' pixel quotients, taken from each row's
+                reciprocal, against IEEE division, and the bf16 body's alive
+                words against the per-column pixel map (T_M = 128, 256, 512,
+                causal and bidirectional, every even and every odd pixel
+                alive), on every row width to 2^17;
   3. kernel   — the causal fused sparse attention kernel (K1) against its
                 plain PyTorch version at the main-path shapes (H=12, D=64,
                 T_M=256, k=64, production top-k budget), float32 and
@@ -668,10 +674,13 @@ def phase_device():
     return smi
 
 
-# `causal_flat_kernel`'s template arguments <D, T, STATS, BIDIR, IMPL> as the
-# mangled name spells them, and the kernels each instance is
+# the forward bodies' template arguments <D, STATS, BIDIR, IMPL> as the
+# mangled name spells them: `causal_flat_kernel`, the float32 instances on
+# mma.sync, and `causal_wgmma_kernel`, the bf16 ones on wgmma; and the
+# kernels each instance is
 FLAT_INSTANCE = re.compile(
-    r"causal_flat_kernelILi(64|80|128)E(f|13__nv_bfloat16)Lb([01])ELb([01])ELi([0-3])EE")
+    r"causal_(flat|wgmma)_kernelILi(64|80|128)ELb([01])ELb([01])ELi([0-3])EE")
+BODY_TYPES = {"flat": "float32", "wgmma": "bfloat16"}
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
 # the backward bodies `causal_dq_kernel<D, T>` and `causal_dkv_kernel<D, T>`,
@@ -690,16 +699,17 @@ def instance_name(mangled: str):
     from its mangled name; None for any other function."""
     found = FLAT_INSTANCE.search(mangled)
     if found:
-        width, dt, stats, bidir, impl = found.groups()
-        kid = INSTANCE_KIDS[int(stats), int(bidir), int(impl)]
+        body, width, stats, bidir, impl = found.groups()
+        kid, dtype = INSTANCE_KIDS[int(stats), int(bidir), int(impl)], BODY_TYPES[body]
     else:
         found = DIFF_INSTANCE.search(mangled)
         if not found:
             return None
-        kid, width, dt = DIFF_KIDS[found.group(1)], found.group(2), found.group(3)
+        kid, width = DIFF_KIDS[found.group(1)], found.group(2)
+        dtype = DTYPE_NAMES[found.group(3)]
     if width != "64":
         kid = WIDE_KIDS.get(kid, kid)
-    return f"{kid} {DTYPE_NAMES[dt]} D{width}"
+    return f"{kid} {dtype} D{width}"
 
 
 def required_instances() -> set:
@@ -715,26 +725,29 @@ def required_instances() -> set:
 
 
 def tensor_core_check():
-    """Count the tensor-core instructions (HMMA) of every instance of the
-    forward body (`causal_flat_kernel`) and of the backward bodies
-    (`causal_dq_kernel`, `causal_dkv_kernel`) in the built libraries' SASS
-    (`cuobjdump -sass`); every instance the entry points launch must be
-    there and have some."""
+    """Count the tensor-core instructions of every instance of the forward
+    bodies and of the backward bodies (`causal_dq_kernel`,
+    `causal_dkv_kernel`) in the built libraries' SASS (`cuobjdump -sass`):
+    every instance the entry points launch must be there, each bf16 forward
+    instance (`causal_wgmma_kernel`) with wgmma's (HGMMA), every other with
+    mma.sync's (HMMA)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    hmma, name = {}, None
+    counts, name, op = {}, None, None
     for lib in ("block_sparse_causal", "block_sparse_diff"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
         for line in sass.splitlines():
             if "Function :" in line:
                 name = instance_name(line)
+                op = "HGMMA" if "causal_wgmma_kernel" in line else "HMMA"
                 if name:
-                    hmma[name] = 0
-            elif name and "HMMA" in line:
-                hmma[name] += 1
-    log(f"[device] HMMA instructions by mma-body instance: {hmma}")
-    require(set(hmma) == required_instances(), f"mma-body instances in the SASS: {sorted(hmma)}")
-    require(all(hmma.values()), f"instances without tensor-core instructions: {hmma}")
+                    counts[name] = 0
+            elif name and op in line:
+                counts[name] += 1
+    log(f"[device] tensor-core instructions by body instance (HGMMA in the bf16 forward, "
+        f"HMMA elsewhere): {counts}")
+    require(set(counts) == required_instances(), f"body instances in the SASS: {sorted(counts)}")
+    require(all(counts.values()), f"instances without tensor-core instructions: {counts}")
 
 
 def phase_sort():
@@ -771,10 +784,16 @@ def phase_mask():
             require(bad == 0, f"alive_mask != element_mask_int8 at T={T} ({name})")
     # the forward kernels' pixels: quotients from the row's reciprocal, which
     # must be IEEE division's bit for bit on every row width they can meet
-    bad = bs.quotient_mismatches(QUOT_W_MAX, dev)
+    # and the bf16 body's alive words, built from run boundaries, against
+    # each column's pixel
+    bad, words = bs.quotient_mismatches(QUOT_W_MAX, dev)
     log(f"[mask] reciprocal quotients vs IEEE division, x = s + 0.5 and s + 1 for every "
         f"0 <= s < w <= {QUOT_W_MAX}: {bad} mismatches of {QUOT_W_MAX * (QUOT_W_MAX + 1)}")
+    log(f"[mask] alive words vs the per-column pixel map, every row width w <= {QUOT_W_MAX}, "
+        f"T_M 128/256/512, causal and bidirectional, even and odd pixels alive: {words} "
+        f"mismatches of {12 * QUOT_W_MAX * (QUOT_W_MAX + 1) // 2} columns")
     require(bad == 0, "the forward's reciprocal quotients differ from IEEE division")
+    require(words == 0, "the bf16 body's alive words differ from the per-column pixel map")
 
 
 def phase_kernel():

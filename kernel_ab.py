@@ -1,4 +1,4 @@
-"""A/B and knock-out timing of the forward and backward mma bodies on one
+"""A/B and knock-out timing of the forward and backward bodies on one
 NVIDIA GPU.
 
     python3 kernel_ab.py [--parent DIR]
@@ -23,14 +23,17 @@ knock-outs:
     shards at 1 x 4096, zigzag rows, blocks 128: shard 0's rows on window
     0), beside SDPA's backward on the same shapes.
 
-A knock-out computes another function; it only splits the time. Forward:
-  pred     the element predicate reduced to the causal edge (no pixel, no
-           mask word);
+A knock-out computes another function; it only splits the time. Forward
+(the bf16 body on wgmma, `causal_wgmma_kernel`; the float32 instances are
+left as they are):
+  pred     the rows' alive words reduced to the causal edge (no pixel, no
+           mask word, no run boundary);
   exp      the softmax's 2^x left out (P is the exponent itself);
-  split    bf16 P·V without P's low half (one mma, not two);
-  products no Q·Kᵀ or P·V mma (bf16);
-  all      the three above together: what is left is the walk, the copies,
-           the barriers, the softmax's bookkeeping and the epilogue.
+  split    P·V without P's low half (one wgmma per 16 columns, not two);
+  products no Q·Kᵀ or P·V wgmma;
+  all      pred, exp and products together: what is left is the walk, the
+           TMA copies, the barriers, the bit test, the softmax's
+           bookkeeping and the epilogue.
 Backward (`bwd-`; dq and dk/dv alike, the edits in the bodies that every
 width's instance shares, so the timed width-64 instances say what they cut
 at 80 and 128 too):
@@ -64,19 +67,18 @@ ROOT = Path(__file__).resolve().parent
 SOURCE = ROOT / "sea_tpu_torch" / "csrc" / "block_sparse_causal.cu"
 DIFF_SOURCE = ROOT / "sea_tpu_torch" / "csrc" / "block_sparse_diff.cu"
 BUILD = ROOT / "sea_tpu_torch" / "_build" / "ab"
-# (text of this tree's source, what replaces it) per knock-out
+# (text of this tree's source, what replaces it) per knock-out of the bf16
+# body (`causal_wgmma_kernel`)
 KNOCKOUTS = {
-    "pred": [("bool a = (BIDIR ? col < len : pix >= 0) & sea::pixel_bit(word, pix);",
-              "bool a = col <= r;")],
-    "exp": [("x = exp2_sfu(__fmaf_rn(x, LOG2E, -ml));", "x = __fmaf_rn(x, LOG2E, -ml);")],
-    "split": [("mma_bf16(acc[2 * jp], pl, b[0], b[1]);", ""),
-              ("mma_bf16(acc[2 * jp + 1], pl, b[2], b[3]);", "")],
-    "products": [("mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);", ""),
-                 ("mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);", ""),
-                 ("mma_bf16(acc[2 * jp], pl, b[0], b[1]);", ""),
-                 ("mma_bf16(acc[2 * jp], ph, b[0], b[1]);", ""),
-                 ("mma_bf16(acc[2 * jp + 1], pl, b[2], b[3]);", ""),
-                 ("mma_bf16(acc[2 * jp + 1], ph, b[2], b[3]);", "")],
+    "pred": [("sea::alive_bits<BIDIR, IMPL == WORD_LOOP>(rows, c0, t_m, wlo, whi, t4, bits);",
+              "for (int h = 0; h < 2; ++h) bits[h] = rows[h].cl < c0 ? 0ull"
+              " : sea::low_bits(min(rows[h].cl, c0 + 63) - c0 + 1);")],
+    "exp": [("x = exp2_sfu(__fmaf_rn(x, LOG2E, -ml));  // 2^-inf == 0: dead elements",
+             "x = __fmaf_rn(x, LOG2E, -ml);")],
+    "split": [("sea::wgmma_rs<D>(acc, pl[kk], vd);", "")],
+    "products": [("sea::wgmma_ss_n64(s, L::kdesc(qs, kk), L::kdesc(ks, kk), kk > 0);", ""),
+                 ("sea::wgmma_rs<D>(acc, pl[kk], vd);", ""),
+                 ("sea::wgmma_rs<D>(acc, ph[kk], vd);", "")],
 }
 KNOCKOUTS["all"] = KNOCKOUTS["pred"] + KNOCKOUTS["exp"] + KNOCKOUTS["products"]
 # the same for the backward bodies, each edit once in dq and once in dk/dv

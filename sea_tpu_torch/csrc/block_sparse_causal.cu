@@ -1,7 +1,8 @@
 // Fused block-sparse SEA attention forward kernels for Hopper (sm_90a): the
 // causal forward, its forward-with-stats variant, the padded bidirectional
 // forward and the causal forward's three impl variants, instances of one
-// kernel body.
+// forward body, written twice: `causal_wgmma_kernel` for bf16 and
+// `causal_flat_kernel` for float32.
 //
 // Replaces these TPU kernels of sea_tpu/ops/kernels/block_sparse.py:
 //   * `_causal_kernel_flat` (impl "flat", the causal benchmark path), entry
@@ -20,14 +21,15 @@
 //     `sea_window_fwd_stats` (K6): K2's instance over one K/V window. The
 //     window holds the global columns col_base .. col_base + t_src − 1; the
 //     tile lists carry global k-block ids, the pixel and causal math use
-//     global columns, and only the K/V loads subtract col_base. The scaler is
-//     one (the ring applies the real one after merging the windows), and a
-//     row with nothing alive in the window gets lse = +inf and a zero output,
-//     as in K2. K1, K2 and K5 pass col_base = 0 and their whole K/V;
+//     global columns, and only the K/V loads (bf16: the tensor maps' rows)
+//     subtract col_base. The scaler is one (the ring applies the real one
+//     after merging the windows), and a row with nothing alive in the window
+//     gets lse = +inf and a zero output, as in K2. K1, K2 and K5 pass
+//     col_base = 0 and their whole K/V;
 //   * the variants that `sea_block_sparse_attention(..., impl=)` selects,
-//     each K1's function with a restricted element predicate (IMPL): entry
-//     points `sea_causal_word_range_forward` (K9a, `_causal_kernel_flat_wr`,
-//     impl "flat_wr"), `sea_causal_word_loop_forward` (K9b,
+//     each K1's function with a restricted predicate (IMPL): entry points
+//     `sea_causal_word_range_forward` (K9a, `_causal_kernel_flat_wr`, impl
+//     "flat_wr"), `sea_causal_word_loop_forward` (K9b,
 //     `_causal_kernel_flat_fori`, impl "flat_fori") and
 //     `sea_causal_subtile_forward` (K9c, `_causal_kernel`, impl "subtile");
 //     see "The impl variants" below.
@@ -47,140 +49,125 @@
 //
 // What bounds it on this card. The function itself is bound by bytes: it
 // needs 4·D FLOPs per alive element only, and the main path's masks keep
-// about 6-12% of the causal triangle, so reading q, k, v, the mask bits and
+// about 2-12% of the causal triangle, so reading q, k, v, the mask bits and
 // the scaler once and writing out at HBM's 3.35 TB/s takes longer than the
-// alive work. The kernel does not gather alive columns: it does dense work on
-// every visited 64 x 64 tile (4·64·64·D FLOPs), and the 64 x 64 lists keep
-// nearly the whole triangle on these masks. So its time goes to the two
-// products of every visited tile, which are the work tensor cores are for,
-// to the element predicate and the softmax's exp, both per element on the
-// ALU and SFU pipes, and to reading each visited K/V sub-tile from L2 once
-// per q-tile. On bench.py's shapes in bf16 the predicate is the largest of
-// the parts measured (PERF.md).
+// alive work. The kernel does not gather alive columns: it does the dense
+// work of every visited 64-column sub-tile (for bf16, 4·64·64·D FLOPs a 64
+// rows: Q·Kᵀ and P·V's two halves), and the 64 x 64 lists keep nearly the
+// whole triangle on these masks. So its time goes to the products, to the
+// predicate and the softmax per element on the ALU and SFU pipes, and to
+// reading each visited K/V sub-tile from L2 once per q-tile.
 //
-// Design. One thread block of 4 warps (128 threads) per (batch·head, 64-row
-// q-tile); blocks start with every head's last q-tile, the heaviest causal
-// one, and end with the first, so that the light blocks fill the tail. It
-// walks the q-block's list of active k-blocks (`counts`/`idx`, a
-// conservative superset built on the host side) in 64-column sub-tiles, in
-// increasing order, and skips sub-tiles that lie wholly past the tile's last
-// row (bidirectional: past the example's length). The body is
-// FlashAttention-2's, on mma.sync:
-//   * each warp owns 16 query rows, and keeps the row max m, the row sum l
-//     and the output accumulator (the mma C fragments, float32) of its rows;
-//     a thread holds two rows (g and g + 8 of the warp's 16) and, of each,
-//     the columns 8·j + 2·(lane % 4) + {0, 1};
-//   * K/V sub-tiles arrive by cp.async (16 bytes a thread) in a ring of two
-//     stages, so that the next listed sub-tile loads while this one's
-//     products run;
-//   * S = Q·Kᵀ on the tensor cores; then the element predicate per element
-//     in the fragment layout (a dead element goes to −inf before the row
-//     max, so exp is taken of alive scores only), the online-softmax update
-//     with row reductions as shuffles inside each lane quad, and P·V with P
-//     re-packed from the S fragments as the A operand, never through shared
-//     memory;
-//   * bfloat16 (FMA-free products): Q's fragments in registers for the
-//     whole tile, m16n8k16 bf16 mmas with float32 sums, K and V operands by
-//     ldmatrix from shared rows padded by 16 bytes (conflict free). The
-//     products of bf16 values are exact in float32. P is split as P_hi =
-//     bf16(P) and P_lo = bf16(P − P_hi), two mmas into the same accumulator
-//     (relative error about 2^-16, where a single rounding of P would cost
-//     2^-9 and break the half-ulp gate on cancelling rows);
-//   * float32: split TF32 ("3xTF32"), Q in shared memory (its fragments
-//     would take the registers the split needs). Each operand is hi + lo in
-//     TF32 (cvt.rna), and a·b is summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi
-//     with m16n8k8 TF32 mmas into float32, for both products; the dropped
-//     a_lo·b_lo and the rounding of the lo parts are about 2^-21 of a
-//     product, so the result keeps float32 accuracy to a few 1e-7 (not the
-//     3-digit TF32 of `allow_tf32`). The reduction index of each product is
-//     permuted inside each 8-wide k-step (column 2·t and 2·t + 1 as k = t and
-//     t + 4) so that the S fragment is the P·V A fragment as it stands and K
-//     and Q are read as float2;
-//   * the predicate keeps the element mask bit for bit and costs no branch:
-//     each element's quotient (s + 0.5) / w comes from the row's reciprocal
-//     by the fast path of IEEE division itself (`sea::quot`; chip_smoke holds
-//     it equal to the division on every row width to 2^17), where a division
-//     per element would cost a reciprocal, a range check and a slow-path
-//     branch;
+// The bf16 body (`causal_wgmma_kernel`). One block of three warpgroups per
+// (batch·head, 128-row q-tile), every head's last (heaviest causal) q-tile
+// first:
+//   * products on wgmma (m64nNk16, bf16 operands, float32 accumulators):
+//     S = Q·Kᵀ with Q and K read from shared memory through descriptors, and
+//     P·V with P from registers as the A operand, the S accumulators as they
+//     stand, and V from shared memory read MN-major (transposed). P is split
+//     as P_hi = bf16(P) and P_lo = bf16(P − P_hi), two wgmmas into the same
+//     accumulator (relative error about 2^-16, where one rounding of P would
+//     cost 2^-9 and break the half-ulp gate on rows that cancel). This
+//     answers the products: mma.sync reached part of the tensor cores' rate;
+//   * copies by TMA: the producer warpgroup (setmaxnreg down to 40
+//     registers) stages both q-blocks' lists in shared memory, and one lane
+//     walks their union in increasing order and fills a ring of four K/V
+//     stages, each completing on an mbarrier, in the swizzled layout the
+//     descriptors read (a 128-byte swizzle at D = 64 and 128; at D = 80,
+//     whose 160-byte rows no 64-column box tiles, a 32-byte swizzle, five
+//     16-column boxes a tile); Q and the block's mask words arrive once on
+//     their own barrier. The C entry points build the tensor maps (over the
+//     window at K6) with cuTensorMapEncodeTiled, found through
+//     cudaGetDriverEntryPointByVersion so that no -lcuda is needed. This
+//     answers the copies: no consumer thread spends an instruction or a
+//     register on them, and the next sub-tiles load while this one runs;
+//   * two consumer warpgroups (setmaxnreg up to 232 registers) of 64 rows
+//     each share every stage, so each K/V sub-tile is read from L2 once per
+//     128 rows, not per 64. A sub-tile absent from a warpgroup's own list
+//     (its q-block's, at block_q 64) is dead for it and skipped; the stage
+//     is released once both warpgroups' warps have arrived. A warpgroup's
+//     P·V stays in flight while its next sub-tile's Q·Kᵀ and alive words
+//     run. This answers the lockstep warps and the L2 reads;
+//   * the predicate is one bit test per element: once per (row, sub-tile)
+//     the row's 64-bit alive word is built from the row's pixel boundaries
+//     (`sea::alive_bits`, sea_mask.cuh: only where aliveness changes, each
+//     boundary by algebra and one evaluation of the pinned pixel), by the
+//     quad of lanes that shares the row, with the causal edge, K5's length,
+//     K9a-b's word range and K1's undersampling keep-predicate folded in.
+//     This answers the predicate's ~20 instructions per element;
 //   * exp(x − m) is 2^(x·log2 e − m·log2 e) on the SFU (ex2.approx, about
-//     2^-22 relative), whose 2^0 is 1 exactly;
+//     2^-22 relative), whose 2^0 is 1 exactly; row max and sum by a fixed
+//     pairwise tree, then the quad's shuffles;
 //   * deterministic: no atomics, no row split across blocks, each row's sums
-//     in a fixed order. A sub-tile with no alive element leaves m, l and acc
-//     exactly as they were (corr = 2^0 = 1, P = 0), so a variant that skips
-//     it or a shard that never lists it gives the same bits.
-// TMA, wgmma and warp specialisation are later work: mma.sync reaches part
-// of the tensor cores' rate, and the predicate still costs some 20
-// instructions per element of every visited tile.
+//     in a fixed order. A sub-tile with no alive element in a row leaves
+//     that row's m, l and acc exactly as they were (corr = 2^0 = 1, P = 0),
+//     so a variant that skips it or a shard that never lists it gives the
+//     same bits.
+// Registers: ptxas reports 168 for the launch (384 threads); the consumers
+// run under 232 and the producer under 40 after setmaxnreg, no spill.
+// Shared memory a block (bytes): Q 256·D, four K/V stages 4·256·D, the
+// mask words 8192, barriers and walk entries 136, the alignment 1024, and
+// 8·nkb (K9a-c 16·nkb) for the lists: 91272, 111752 and 173192 plus the
+// lists at D = 64, 80 and 128. The tiles need t_dst a multiple of 128.
+//
+// The float32 body (`causal_flat_kernel`) is FlashAttention-2's on mma.sync
+// in split TF32 ("3xTF32"), with cp.async double buffering: one block of 4
+// warps per (batch·head, 64-row q-tile); each operand is hi + lo in TF32
+// (rounded as cvt.rna rounds, by integer operations: `split_tf32_rna`), and
+// a·b is summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with m16n8k8 TF32 mmas
+// into float32, for both products, the result keeping float32 accuracy to a
+// few 1e-7. wgmma takes TF32 operands only K-major, so P·V would need Vᵀ in
+// shared memory, with hi and lo copies of K and V besides: a later redesign.
+// Its predicate is per element (the pixel from the row's reciprocal by the
+// fast path of IEEE division, `sea::quot`, a word read, a shift and a
+// select); shared memory at D = 128 172 KiB, at 64 and 80 two blocks an SM.
 //
 // K6 walks the same lists restricted to one window: the ring launches it S
 // times per shard (S² per layer), each over a 1/S slice of the columns, so
-// its bound and its design are K2's on a smaller problem.
-//
-// K5 takes the same design. A BERT-base layer at 32 x 256 tokens is 1536
-// blocks of one 64-row q-tile each, and the padded columns past each
-// example's length are skipped whole sub-tiles at a time. Its bound is bytes
-// as well (4·D FLOPs per alive element against q, k, v read once).
+// its bound and its design are K2's on a smaller problem. K5 takes the same
+// design; its padded columns past each example's length are skipped whole
+// sub-tiles at a time. Its bound is bytes as well.
 //
 // The impl variants K9a-c. The TPU kernels select each element's packed mask
 // word with a chain of vector selects over all T_M/32 words, the largest
-// vector block of the flat kernel; their variants cut that chain. Here a
-// thread indexes its row's word directly, so what carries over is which
-// words a tile may read and which pieces it may skip. Each variant keeps K1's
-// element mask bit for bit (`causal_pixel`, the pinned division form): the
-// restriction only decides which words or pieces are read, and a word it
-// leaves out counts as dead.
-//   * K9a (WORD_RANGE) reads the tile's word range wr = lo | hi << 8 |
-//     exact << 16 (`_tile_word_ranges`: corner evaluation padded by one
-//     pixel, so the few-ulp gap between the TPU's reciprocal form and the
-//     division form stays inside it). With `exact` and one or two words,
-//     each thread takes each of its two rows' word from the candidates it
-//     holds in registers for the sub-tile; otherwise the row's staged word,
-//     dead outside lo .. hi. (The staged word is read either way, so that the
-//     choice is a select, not a branch per element.)
-//   * K9b (WORD_LOOP) keeps no shared-memory copy of the mask words: for each
-//     of its two rows, a thread walks w = lo .. hi (a dynamic trip count of at
-//     most 16), reads word w through L1 once and selects it into the 16
-//     elements whose word it is, as the TPU's fori_loop body does. Against
-//     K9a it saves the staging of 64 x n_words words per block and a
-//     shared-memory lookup per element, and costs one global (L1) load per
-//     word of the range, per row and sub-tile, and a compare-select per
-//     element and word.
+// vector block of the flat kernel; their variants cut that chain. What
+// carries over here is which words a tile may read and which pieces it may
+// skip. Each variant keeps K1's element mask bit for bit: the restriction
+// only decides which words or pieces are read, and a word it leaves out
+// counts as dead.
+//   * K9a (WORD_RANGE) reads only the words of the tile's word range wr =
+//     lo | hi << 8 | exact << 16 (`_tile_word_ranges`: corner evaluation
+//     padded by one pixel, so the few-ulp gap between the TPU's reciprocal
+//     form and the division form stays inside it); bf16 from the block's
+//     staged words, float32 with one or two candidate words in registers.
+//   * K9b (WORD_LOOP) keeps no shared-memory copy of the mask words: the
+//     range's words are read through L1 (float32: a walk over the range per
+//     row and sub-tile, as the TPU's fori_loop body does).
 //   * K9c (SUBTILE) walks outer k-blocks (`block_k`, the JAX package's
-//     auto_block width) and, inside each, visits only the `sub`-wide pieces
-//     whose bit is set in the tile's `submask` (`tile_activity_sub`), skipping
-//     the loads, Q·Kᵀ, the predicate and P·V of every other piece. When the
-//     q-block's first row is wide enough (`sub_short`), a piece's pixels fall
-//     in two words, and each thread loads the two candidates of its rows once
-//     per piece (the TPU kernel's short path).
+//     auto_block width) and visits only the `sub`-wide pieces whose bit is
+//     set in the tile's `submask` (`tile_activity_sub`), skipping the loads,
+//     Q·Kᵀ, the predicate and P·V of every other piece (float32: with the
+//     two candidate words of the TPU kernel's short path).
 // Every variant walks the listed 64-column sub-tiles in increasing order
 // through the same body, and a sub-tile with no alive element changes
 // nothing, so each equals K1's output bit for bit on the same inputs. Their
-// bound is K1's, by bytes; what they change is the predicate's cost per
-// visited element (K9a, K9b) and the number of visited sub-tiles (K9c), not
-// the bytes.
+// bound is K1's, by bytes.
 //
-// Head widths. The body is templated on D; each entry point instantiates
-// the widths of its list (`sea::dispatch` over sea_mask.cuh's
-// FORWARD_WIDTHS, TRAIN_WIDTHS, BASE_WIDTHS): K1 and K2 at 64, 80 (OPT-2.7b)
-// and 128 (LLaMA-7b and 13b), K5, K6 (K2's instance at 64) and K9a-c at 64,
-// each in both types. At D = 80 a row is 160 bytes (bf16) or
-// 320 (float32), at 128 256 or 512, whole 16-byte copies, and the padded
-// strides below stay free of bank conflicts: bf16 rows of D + 8 elements put
-// ldmatrix's 8 rows on banks 12·i (80: 176 bytes) or 4·i (64, 128: 144 and
-// 272 bytes) mod 32, disjoint 4-bank groups; float32 K and Q rows of D + 8
-// floats put the float2 reads of rows g = 0..3 (one half-warp) on banks
-// 24·g + 2·t (80) or 8·g + 2·t (64, 128: 72 and 136 floats, 8 mod 32) mod
-// 32, and V rows of D + 4 put the reads of rows 2·t on banks 8·t + g (84
-// and 132 floats are 20 and 4 mod 32, as 68 is 4), as at 64. Shared memory
-// a block at 128: float32 172 KiB (two K/V stages of 68608 bytes, the
-// q-tile's 34816, the mask words' 4096), bf16 72 KiB, for K1 and K2 alike
-// (K2's STATS instance only adds the row's logsumexp to the epilogue).
+// Head widths. Each entry point instantiates the widths of its list
+// (`sea::dispatch` over sea_mask.cuh's FORWARD_WIDTHS, TRAIN_WIDTHS,
+// BASE_WIDTHS): K1 and K2 at 64, 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b),
+// K5, K6 (K2's instance at 64) and K9a-c at 64, each in both types. In the
+// float32 body the padded strides stay free of bank conflicts at every
+// width: K and Q rows of D + 8 floats put the float2 reads of rows g = 0..3
+// on banks 24·g + 2·t (80) or 8·g + 2·t (64, 128) mod 32, and V rows of D +
+// 4 put the reads of rows 2·t on banks 8·t + g.
 //
-// The element predicates live in sea_mask.cuh (`alive_elem`, `alive_elem_len`,
-// and K9a-c's `alive_elem_wr`, `alive_elem_loop`, `alive_elem_sub`), shared
-// with the backward kernels and with the debug kernels `alive_mask_kernel`
-// and `impl_alive_mask_kernel`, which let the card check each bit for bit
-// against the oracle.
+// The debug kernels `alive_mask_kernel` and `impl_alive_mask_kernel` build
+// the bf16 body's alive words, so that the card checks them bit for bit
+// against the oracle, and `word_check_kernel` holds the construction to the
+// per-column pixel map on every row width to 2^17.
+
+#include <cuda.h>
 
 #include <type_traits>
 
@@ -189,26 +176,21 @@
 
 namespace {
 
-using sea::alive_elem;
-using sea::alive_elem_len;
 using sea::bad_geometry;
 using sea::bad_window;
 using sea::copy_rows;
 using sea::cp_async_commit;
 using sea::cp_async_wait;
 using sea::exp2_sfu;
-using sea::ldsm_x4;
-using sea::ldsm_x4_trans;
 using sea::LOG2E;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
 using sea::misaligned;
-using sea::mma_bf16;
-using sea::mma_tf32;
+using sea::mma_3xtf32;
+using sea::split_a;
 using sea::split_bf16;
-using sea::split_tf32;
 
-constexpr int BQ = sea::TILE;   // query rows per block
+constexpr int BQ = sea::TILE;   // query rows per block (float32)
 constexpr int BKT = sea::TILE;  // key columns per sub-tile
 constexpr int WARPS = BQ / 16;  // each owns 16 query rows
 constexpr int TPB = 32 * WARPS;
@@ -220,66 +202,58 @@ constexpr float M_INIT = -1.0e30f;  // running-max floor: exp(-inf - m) == 0
 // the words of the active pieces only (K9c).
 enum Impl : int { FLAT = 0, WORD_RANGE = 1, WORD_LOOP = 2, SUBTILE = 3 };
 
-// Shared memory: two stages of (K, V) sub-tiles, then (float32) the q-tile,
-// then its mask words. Row strides padded so that every fragment read is free
-// of bank conflicts: bf16 rows by 16 bytes (ldmatrix's 8 rows of a matrix
-// start on banks 4·i); float32 K and Q rows by 8 floats (float2 reads of rows
-// g = 0..3 at banks 8·g + 2·t) and V rows by 4 (reads of rows 2·t at banks
-// 8·t + g). bf16 keeps Q's fragments in registers (16 a thread); float32's
-// would take 32 more than the split products leave.
-template <int D, typename T>
+// The float32 body's shared memory: two stages of (K, V) sub-tiles, then
+// the q-tile, then its mask words. K and Q rows padded by 8 floats (float2
+// reads of rows g = 0..3 at banks 8·g + 2·t), V rows by 4 (reads of rows
+// 2·t at banks 8·t + g): every fragment read is free of bank conflicts.
+template <int D>
 struct Smem {
-  static constexpr bool F32 = std::is_same<T, float>::value;
   static constexpr int KLD = D + 8;
-  static constexpr int VLD = F32 ? D + 4 : D + 8;
-  static constexpr int K_BYTES = BKT * KLD * (int)sizeof(T);
-  static constexpr int STAGE = K_BYTES + BKT * VLD * (int)sizeof(T);
-  static constexpr int Q_BYTES = F32 ? BQ * KLD * 4 : 0;
+  static constexpr int VLD = D + 4;
+  static constexpr int K_BYTES = BKT * KLD * 4;
+  static constexpr int STAGE = K_BYTES + BKT * VLD * 4;
+  static constexpr int Q_BYTES = BQ * KLD * 4;
   static constexpr int bytes = 2 * STAGE + Q_BYTES + BQ * MAX_WORDS * 4;
 };
 
 // One 64-column K/V sub-tile into a stage.
-template <int D, typename T>
-__device__ __forceinline__ void load_kv(unsigned char* stage, const T* __restrict__ k,
-                                        const T* __restrict__ v, long base, int tid) {
-  using S = Smem<D, T>;
-  copy_rows<D, TPB>(reinterpret_cast<T*>(stage), S::KLD, k + base, tid);
-  copy_rows<D, TPB>(reinterpret_cast<T*>(stage + S::K_BYTES), S::VLD, v + base, tid);
+template <int D>
+__device__ __forceinline__ void load_kv(unsigned char* stage, const float* __restrict__ k,
+                                        const float* __restrict__ v, long base, int tid) {
+  using S = Smem<D>;
+  copy_rows<D, TPB>(reinterpret_cast<float*>(stage), S::KLD, k + base, tid);
+  copy_rows<D, TPB>(reinterpret_cast<float*>(stage + S::K_BYTES), S::VLD, v + base, tid);
 }
 
 // Blocks an SM should hold, which caps registers at 65536 / (128·blocks):
-// bf16 at width 64 fits three (168 registers, no spill) and overlaps their
-// barriers; at 80 (Q's fragments 20 registers, the output's 40) K1 spilled
-// at 168 and takes two, as at 128 (Q's 32, the output's 64; 72 KiB of
-// shared memory, three of which would still fit); float32's split products
-// need the 255 of two, and at 128 its 172 KiB of shared memory leave room
-// for one block an SM only (the cap is 255 registers either way).
-template <int D, typename T>
-constexpr int MIN_BLOCKS = std::is_same<T, float>::value ? (D > 80 ? 1 : 2) : (D > 64 ? 2 : 3);
+// the split products need the 255 of two, and at 128 the 172 KiB of shared
+// memory leave room for one block an SM only.
+template <int D>
+constexpr int MIN_BLOCKS = D > 80 ? 1 : 2;
 
-// STATS: the forward of the differentiable path. The undersampling predicate
-// is off and `lse` receives each row's logsumexp.
+// The float32 body on mma.sync (split TF32). STATS: the forward of the
+// differentiable path. The undersampling predicate is off and `lse`
+// receives each row's logsumexp.
 // BIDIR: the padded bidirectional forward. Row widths come from `lengths`
 // (one per batch·head); `rowbase` and the undersampling predicate are unused.
 // IMPL: which mask words the element predicate reads (K9a-c; FLAT for the
 // others). `tiles` (batch·head, nq, nkb) lies beside `idx`: each listed
 // tile's word range (WORD_RANGE, WORD_LOOP) or bitmask of active `sub`-wide
 // pieces (SUBTILE); FLAT reads neither.
-template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>
-__global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+template <int D, bool STATS, bool BIDIR, int IMPL = FLAT>
+__global__ void __launch_bounds__(TPB, MIN_BLOCKS<D>) causal_flat_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     const uint32_t* __restrict__ mbits, const float* __restrict__ scaler,
     const int* __restrict__ counts, const int* __restrict__ idx,
     const int* __restrict__ tiles, const int* __restrict__ rowbase,
-    const int* __restrict__ lengths, T* __restrict__ out,
+    const int* __restrict__ lengths, float* __restrict__ out,
     float* __restrict__ lse, int t_dst, int t_src, int t_m, int n_words,
     int block_q, int block_k, int nq, int nkb, int sub, float oversample,
     float k_cfg, float keep_lo, float keep_hi, int col_base) {
-  using S = Smem<D, T>;
-  constexpr bool F32 = S::F32;
+  using S = Smem<D>;
   static_assert(D % 16 == 0, "head width");
   extern __shared__ __align__(16) unsigned char smem[];
-  const float* Qs = reinterpret_cast<const float*>(smem + 2 * S::STAGE);  // float32
+  const float* Qs = reinterpret_cast<const float*>(smem + 2 * S::STAGE);
   uint32_t* Ms = reinterpret_cast<uint32_t*>(smem + 2 * S::STAGE + S::Q_BYTES);
 
   // blocks start in order of x, then y: every head's last (heaviest causal)
@@ -298,24 +272,9 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
   if (IMPL != WORD_LOOP)
     for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
 
-  // bf16: Q's A fragments for the whole tile, k-step j's four registers
-  // (rows g, g + 8; columns 16·j + 2·t4 (+8)). float32: the q-tile goes to
-  // shared memory with the first K/V sub-tile.
+  // the q-tile goes to shared memory with the first K/V sub-tile
   const long qoff = ((long)bh * t_dst + row0) * D;
-  uint32_t qa[D / 16][4];
-  if constexpr (F32) {
-    copy_rows<D, TPB>(reinterpret_cast<T*>(smem + 2 * S::STAGE), S::KLD, q + qoff, tid);
-  } else {
-    const T* qr0 = q + qoff + (long)(wrow0 + g) * D;
-    const T* qr1 = qr0 + 8 * D;
-#pragma unroll
-    for (int j = 0; j < D / 16; ++j) {
-      qa[j][0] = *reinterpret_cast<const uint32_t*>(qr0 + 16 * j + 2 * t4);
-      qa[j][1] = *reinterpret_cast<const uint32_t*>(qr1 + 16 * j + 2 * t4);
-      qa[j][2] = *reinterpret_cast<const uint32_t*>(qr0 + 16 * j + 8 + 2 * t4);
-      qa[j][3] = *reinterpret_cast<const uint32_t*>(qr1 + 16 * j + 8 + 2 * t4);
-    }
-  }
+  copy_rows<D, TPB>(reinterpret_cast<float*>(smem + 2 * S::STAGE), S::KLD, q + qoff, tid);
 
   // per fragment row h: rows wrow0 + g + 8·h of the tile; wf, the row's
   // width (causal r + 1, bidirectional the length) and yw its reciprocal
@@ -376,18 +335,18 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
 
   int e = 0, c0 = -1, stage = 0;
   bool have = seek(e, c0);
-  if (have) load_kv<D, T>(smem, k, v, kvbase + (long)c0 * D, tid);
+  if (have) load_kv<D>(smem, k, v, kvbase + (long)c0 * D, tid);
   cp_async_commit();
   while (have) {
     int ne = e, nc0 = c0 + BKT;
     const bool more = seek(ne, nc0);
     // the next sub-tile's copies run while this one's products do
-    if (more) load_kv<D, T>(smem + (stage ^ 1) * S::STAGE, k, v, kvbase + (long)nc0 * D, tid);
+    if (more) load_kv<D>(smem + (stage ^ 1) * S::STAGE, k, v, kvbase + (long)nc0 * D, tid);
     cp_async_commit();
     cp_async_wait<1>();
     __syncthreads();  // this stage (and, first time, the mask words) landed
-    const T* Ks = reinterpret_cast<const T*>(smem + stage * S::STAGE);
-    const T* Vs = reinterpret_cast<const T*>(smem + stage * S::STAGE + S::K_BYTES);
+    const float* Ks = reinterpret_cast<const float*>(smem + stage * S::STAGE);
+    const float* Vs = reinterpret_cast<const float*>(smem + stage * S::STAGE + S::K_BYTES);
 
     // S = Q·Kᵀ: s[j] is the C fragment of score columns 8·j .. 8·j + 7
     float s[NT][4];
@@ -395,44 +354,18 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-    if constexpr (F32) {
 #pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        // k = t4 is column 8·kk + 2·t4 of Q and K, k = t4 + 4 the one after
-        const float2 qa0 =
-            *reinterpret_cast<const float2*>(Qs + (wrow0 + g) * S::KLD + 8 * kk + 2 * t4);
-        const float2 qa1 =
-            *reinterpret_cast<const float2*>(Qs + (wrow0 + g + 8) * S::KLD + 8 * kk + 2 * t4);
-        uint32_t ah[4], al[4];
-        split_tf32(qa0.x, ah[0], al[0]);
-        split_tf32(qa1.x, ah[1], al[1]);
-        split_tf32(qa0.y, ah[2], al[2]);
-        split_tf32(qa1.y, ah[3], al[3]);
+    for (int kk = 0; kk < D / 8; ++kk) {
+      // k = t4 is column 8·kk + 2·t4 of Q and K, k = t4 + 4 the one after
+      uint32_t ah[4], al[4];
+      split_a(*reinterpret_cast<const float2*>(Qs + (wrow0 + g) * S::KLD + 8 * kk + 2 * t4),
+              *reinterpret_cast<const float2*>(Qs + (wrow0 + g + 8) * S::KLD + 8 * kk + 2 * t4),
+              ah, al);
 #pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          const float2 kv =
-              *reinterpret_cast<const float2*>(Ks + (8 * j + g) * S::KLD + 8 * kk + 2 * t4);
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(kv.x, bh0, bl0);
-          split_tf32(kv.y, bh1, bl1);
-          mma_tf32(s[j], al, bh0, bh1);
-          mma_tf32(s[j], ah, bl0, bl1);
-          mma_tf32(s[j], ah, bh0, bh1);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-#pragma unroll
-        for (int jp = 0; jp < NT / 2; ++jp) {
-          // matrices: (columns 16·jp + 0..7, d + 0..7), (.., d + 8..15),
-          // (columns + 8..15, d + 0..7), (.., d + 8..15)
-          uint32_t b[4];
-          ldsm_x4(b, Ks + (16 * jp + ((lane >> 4) << 3) + (lane & 7)) * S::KLD + 16 * kk +
-                         (((lane >> 3) & 1) << 3));
-          mma_bf16(s[2 * jp], qa[kk], b[0], b[1]);
-          mma_bf16(s[2 * jp + 1], qa[kk], b[2], b[3]);
-        }
+      for (int j = 0; j < NT; ++j) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(Ks + (8 * j + g) * S::KLD + 8 * kk + 2 * t4);
+        mma_3xtf32(s[j], ah, al, kv.x, kv.y);
       }
     }
 
@@ -530,49 +463,15 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
       m_i[h] = m_new;
     }
 
-    // acc += P·V, P from the S fragments (k = the sub-tile's columns)
-    if constexpr (F32) {
+    // acc += P·V, P from the S fragments (k = the sub-tile's columns; k =
+    // t4 is column 8·kk + 2·t4, k = t4 + 4 the one after)
 #pragma unroll
-      for (int kk = 0; kk < NT; ++kk) {
-        // k = t4 is column 8·kk + 2·t4, k = t4 + 4 is the one after
-        uint32_t ah[4], al[4];
-        split_tf32(s[kk][0], ah[0], al[0]);
-        split_tf32(s[kk][2], ah[1], al[1]);
-        split_tf32(s[kk][1], ah[2], al[2]);
-        split_tf32(s[kk][3], ah[3], al[3]);
-        const T* v0 = Vs + (8 * kk + 2 * t4) * S::VLD + g;
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ah[4], al[4];
+      split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
+      const float* v0 = Vs + (8 * kk + 2 * t4) * S::VLD + g;
 #pragma unroll
-        for (int j = 0; j < D / 8; ++j) {
-          uint32_t bh0, bl0, bh1, bl1;
-          split_tf32(v0[8 * j], bh0, bl0);
-          split_tf32(v0[S::VLD + 8 * j], bh1, bl1);
-          mma_tf32(acc[j], al, bh0, bh1);
-          mma_tf32(acc[j], ah, bl0, bl1);
-          mma_tf32(acc[j], ah, bh0, bh1);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < NT / 2; ++kk) {
-        // columns 16·kk .. 16·kk + 15 are score tiles 2·kk and 2·kk + 1
-        uint32_t ph[4], pl[4];
-        split_bf16(s[2 * kk][0], s[2 * kk][1], ph[0], pl[0]);
-        split_bf16(s[2 * kk][2], s[2 * kk][3], ph[1], pl[1]);
-        split_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1], ph[2], pl[2]);
-        split_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3], ph[3], pl[3]);
-#pragma unroll
-        for (int jp = 0; jp < D / 16; ++jp) {
-          // matrices (transposed): (k + 0..7, d 16·jp + 0..7), (k + 8..15, ..),
-          // (k + 0..7, d + 8..15), (k + 8..15, ..)
-          uint32_t b[4];
-          ldsm_x4_trans(b, Vs + (16 * kk + (((lane >> 3) & 1) << 3) + (lane & 7)) * S::VLD +
-                               16 * jp + ((lane >> 4) << 3));
-          mma_bf16(acc[2 * jp], pl, b[0], b[1]);
-          mma_bf16(acc[2 * jp], ph, b[0], b[1]);
-          mma_bf16(acc[2 * jp + 1], pl, b[2], b[3]);
-          mma_bf16(acc[2 * jp + 1], ph, b[2], b[3]);
-        }
-      }
+      for (int j = 0; j < D / 8; ++j) mma_3xtf32(acc[j], ah, al, v0[8 * j], v0[S::VLD + 8 * j]);
     }
     __syncthreads();  // every warp is done with this stage before it refills
     e = ne;
@@ -588,16 +487,11 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
     const float l = l_i[h];
     const float safe_l = l > 0.f ? l : 1.f;
     const float sc = scaler ? scaler[(long)bh * t_dst + row0 + rl] : 1.f;
-    T* o = out + qoff + (long)rl * D + 2 * t4;
+    float* o = out + qoff + (long)rl * D + 2 * t4;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
-      const float x0 = acc[j][2 * h] / safe_l * sc;
-      const float x1 = acc[j][2 * h + 1] / safe_l * sc;
-      if constexpr (F32)
-        *reinterpret_cast<float2*>(o + 8 * j) = make_float2(x0, x1);
-      else
-        *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(x0, x1);
-    }
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(acc[j][2 * h] / safe_l * sc, acc[j][2 * h + 1] / safe_l * sc);
     // logsumexp; +inf for rows with no alive column, so that the backward's
     // exp(s - lse) is 0 there (m and l are equal across the lane quad)
     if (STATS && t4 == 0)
@@ -606,27 +500,423 @@ __global__ void __launch_bounds__(TPB, MIN_BLOCKS<D, T>) causal_flat_kernel(
   }
 }
 
-// BIDIR: the predicate of K5, with the width lengths[bh]; else that of K1.
+// ---------------------------------------------------------------------------
+// The bf16 body on wgmma (K1, K2, K5, K6, K9a-c in bfloat16)
+// ---------------------------------------------------------------------------
+
+namespace wg {
+
+constexpr int STAGES = 4;                  // K/V sub-tiles in flight
+constexpr int CONSUMERS = 2;               // warpgroups of 64 query rows each
+constexpr int BQ = 64 * CONSUMERS;         // query rows per block
+constexpr int THREADS = 128 * (CONSUMERS + 1);
+// setmaxnreg: the producer warpgroup gives up registers, the consumers take
+// them (40·128 + 232·256 <= 65536)
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+constexpr int SMEM_MAX = 232448;           // what a block may take on the H100
+
+// Shared memory from a 1024-byte aligned base: Q (one 64-row tile per
+// consumer warpgroup), the STAGES K/V stages (K then V), the block's mask
+// words, the barriers, each stage's walk entry (c0 and each warpgroup's list
+// entry, -1 where the sub-tile is dead for it), then the two warpgroups'
+// lists (and, K9a-c, their `tiles` entries), sized at launch. Each 64-row
+// tile is NP panels of PW columns (sea_mma.cuh): a 128-byte swizzle at D =
+// 64 and 128, a 32-byte one at D = 80.
+template <int D>
+struct Layout {
+  static constexpr int PW = D % 64 == 0 ? 64 : 16;
+  static constexpr int NP = D / PW;
+  static constexpr uint32_t SWIZZLE = PW == 64 ? 1u : 3u;
+  static constexpr int ROW = 2 * PW;             // bytes of a panel's row
+  static constexpr int PANEL = 64 * ROW;
+  static constexpr int TILE = NP * PANEL;        // 64 rows x D bf16
+  static constexpr int Q_BYTES = CONSUMERS * TILE;
+  static constexpr int STAGE_OFF = Q_BYTES;
+  static constexpr int STAGE = 2 * TILE;
+  static constexpr int WORDS_OFF = STAGE_OFF + STAGES * STAGE;
+  static constexpr int BAR_OFF = WORDS_OFF + BQ * MAX_WORDS * 4;
+  static constexpr int META_OFF = BAR_OFF + 8 * (2 * STAGES + 1);
+  static constexpr int LIST_OFF = META_OFF + 16 * STAGES;
+  static constexpr int FIXED = LIST_OFF + 1024;  // and the base's alignment
+  static_assert(D % 16 == 0 && TILE % 1024 == 0, "head width");
+
+  // k-step kk (16 columns) of a K-major 64-row tile (Q, K)
+  __device__ static uint64_t kdesc(uint32_t tile, int kk) {
+    return sea::wgmma_desc(tile + (16 * kk / PW) * PANEL + (16 * kk % PW) * 2, 16, 8 * ROW,
+                           SWIZZLE);
+  }
+  // k-step kk (16 rows) of V, read MN-major: its panels are LBO apart
+  __device__ static uint64_t vdesc(uint32_t tile, int kk) {
+    return sea::wgmma_desc(tile + 16 * kk * ROW, PANEL, 8 * ROW, SWIZZLE);
+  }
+};
+
+// One consumer warpgroup's walk over its q-block's list (staged in shared
+// memory): entry e, sub-tile c (first column), and where its rows end.
+struct Walk {
+  int e, c, cnt, end;
+  const int* lst;
+  const int* aux;
+};
+
+// Advance w to the first visited sub-tile at or after (e, c); false when
+// the list is done. The same walk as the float32 body's.
+template <int IMPL>
+__device__ __forceinline__ bool seek(Walk& w, int block_k, int col_stop, int sub) {
+  for (; w.e < w.cnt; ++w.e, w.c = -1) {
+    const int start = w.lst[w.e] * block_k;
+    for (w.c = w.c < start ? start : w.c; w.c < start + block_k; w.c += 64) {
+      if (w.c >= w.end || w.c >= col_stop) break;
+      if (IMPL == SUBTILE && ((((unsigned)w.aux[w.e]) >> ((w.c - start) / sub)) & 1u) == 0u)
+        continue;
+      return true;
+    }
+  }
+  return false;
+}
+
+// The max (MAX) or the sum of a thread's 16 values of one row, pairwise in
+// a fixed order.
+template <bool MAX>
+__device__ __forceinline__ float tree(float (&t)[16]) {
+  auto op = [](float a, float b) { return MAX ? fmaxf(a, b) : a + b; };
+#pragma unroll
+  for (int j = 0; j < 8; ++j) t[j] = op(t[j], t[j + 8]);
+#pragma unroll
+  for (int j = 0; j < 4; ++j) t[j] = op(t[j], t[j + 4]);
+  t[0] = op(t[0], t[2]);
+  t[1] = op(t[1], t[3]);
+  return op(t[0], t[1]);
+}
+
+}  // namespace wg
+
+template <int D, bool STATS, bool BIDIR, int IMPL = FLAT>
+__global__ void __launch_bounds__(wg::THREADS, 1) causal_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const uint32_t* __restrict__ mbits,
+    const float* __restrict__ scaler, const int* __restrict__ counts,
+    const int* __restrict__ idx, const int* __restrict__ tiles,
+    const int* __restrict__ rowbase, const int* __restrict__ lengths,
+    __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int t_dst, int t_src, int t_m,
+    int n_words, int block_q, int block_k, int nq, int nkb, int sub, float oversample,
+    float k_cfg, float keep_lo, float keep_hi, int col_base) {
+  using L = wg::Layout<D>;
+  constexpr int STAGES = wg::STAGES;
+  constexpr int LIST = IMPL == FLAT ? 1 : 2;  // a list's ints per entry
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = sea::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t full = base + L::BAR_OFF;   // stage s landed: full + 8·s
+  const uint32_t empty = full + 8 * STAGES;  // stage s released by both warpgroups
+  const uint32_t qbar = empty + 8 * STAGES;  // Q and the mask words landed
+  int* meta = reinterpret_cast<int*>(smem + L::META_OFF);
+  int* lists = reinterpret_cast<int*>(smem + L::LIST_OFF);
+
+  // blocks start with every head's last (heaviest causal) q-tile
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * wg::BQ;  // first local row of the tile
+  const int tid = threadIdx.x;
+  const int len = BIDIR ? lengths[bh] : 0;
+  // k and v hold the (global) columns col_base .. col_stop − 1
+  const int col_stop = col_base + t_src;
+  // warpgroup w's rows: q-block, first global row, and its list in shared memory
+  auto qblock = [&](int w) { return (row0 + 64 * w) / block_q; };
+  auto first_row = [&](int w) {
+    const int lr = row0 + 64 * w;
+    return BIDIR ? lr : rowbase[qblock(w)] + (lr - qblock(w) * block_q);
+  };
+  auto walk = [&](int w) {
+    const int* l = lists + w * LIST * nkb;
+    return wg::Walk{0, -1, counts[bh * nq + qblock(w)], BIDIR ? len : first_row(w) + 64, l,
+                    l + nkb};
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sea::mbar_init(full + 8 * s, 1);
+      sea::mbar_init(empty + 8 * s, 4 * wg::CONSUMERS);  // one arrival per consumer warp
+    }
+    sea::mbar_init(qbar, 1);
+    sea::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // The producer warpgroup. Lane 0 of warp 0 issues every copy, warp 0
+    // stages the lists first; the other warps leave.
+    sea::setmaxnreg_dec<wg::PRODUCER_REGS>();
+    if (tid >= 32) return;
+    if (tid == 0) {
+      sea::mbar_arrive_expect_tx(qbar, L::Q_BYTES + (IMPL != WORD_LOOP ? wg::BQ * n_words * 4 : 0));
+      for (int w = 0; w < wg::CONSUMERS; ++w)
+        for (int p = 0; p < L::NP; ++p)
+          sea::tma_load_2d(base + w * L::TILE + p * L::PANEL, &tq, qbar, p * L::PW,
+                           bh * t_dst + row0 + 64 * w);
+      if (IMPL != WORD_LOOP)
+        sea::bulk_load(base + L::WORDS_OFF, mbits + ((long)bh * t_dst + row0) * n_words,
+                       wg::BQ * n_words * 4, qbar);
+    }
+    for (int w = 0; w < wg::CONSUMERS; ++w) {
+      const long off = ((long)bh * nq + qblock(w)) * nkb;
+      const int cnt = counts[bh * nq + qblock(w)];
+      int* l = lists + w * LIST * nkb;
+      for (int i = tid; i < cnt; i += 32) {
+        l[i] = idx[off + i];
+        if (IMPL != FLAT) l[nkb + i] = tiles[off + i];
+      }
+    }
+    __syncwarp();
+    if (tid != 0) return;
+    // The walk: the union of the two warpgroups' sub-tiles in increasing
+    // order, each stage tagged with each warpgroup's list entry (-1: dead
+    // for it).
+    wg::Walk w0 = walk(0), w1 = walk(1);
+    bool h0 = wg::seek<IMPL>(w0, block_k, col_stop, sub);
+    bool h1 = wg::seek<IMPL>(w1, block_k, col_stop, sub);
+    for (int it = 0;; ++it) {
+      const int st = it % STAGES;
+      if (it >= STAGES) sea::mbar_wait(empty + 8 * st, ((it / STAGES) + 1) & 1);
+      int* m = meta + 4 * st;
+      if (!h0 && !h1) {
+        m[0] = -1;
+        sea::mbar_arrive(full + 8 * st);
+        break;
+      }
+      const int c0 = !h1 || (h0 && w0.c <= w1.c) ? w0.c : w1.c;
+      m[0] = c0;
+      m[1] = h0 && w0.c == c0 ? w0.e : -1;
+      m[2] = h1 && w1.c == c0 ? w1.e : -1;
+      if (m[1] >= 0) {
+        w0.c += 64;
+        h0 = wg::seek<IMPL>(w0, block_k, col_stop, sub);
+      }
+      if (m[2] >= 0) {
+        w1.c += 64;
+        h1 = wg::seek<IMPL>(w1, block_k, col_stop, sub);
+      }
+      sea::mbar_arrive_expect_tx(full + 8 * st, L::STAGE);
+      const uint32_t ks = base + L::STAGE_OFF + st * L::STAGE;
+      const int krow = bh * t_src + c0 - col_base;
+      for (int p = 0; p < L::NP; ++p) {
+        sea::tma_load_2d(ks + p * L::PANEL, &tk, full + 8 * st, p * L::PW, krow);
+        sea::tma_load_2d(ks + L::TILE + p * L::PANEL, &tv, full + 8 * st, p * L::PW, krow);
+      }
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 query rows, 16 a warp; a thread holds rows g
+  // and g + 8 of its warp's (h = 0, 1) and, of each, the columns 8·j +
+  // 2·t4 + {0, 1} of every 64-column accumulator.
+  sea::setmaxnreg_inc<wg::CONSUMER_REGS>();
+  const int cw = tid / 128 - 1;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int lrow0 = row0 + 64 * cw;  // the warpgroup's first local row
+  const int grow0 = first_row(cw);
+  const int* aux = lists + cw * LIST * nkb + nkb;  // its `tiles` entries (K9a-c)
+  const uint32_t* Ms = reinterpret_cast<const uint32_t*>(smem + L::WORDS_OFF);
+
+  // per row h: its mask words, last live column and width (causal r + 1,
+  // bidirectional the length) for the alive words
+  float m_i[2], l_i[2], ps[2], thr[2];
+  sea::AliveRow rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = 16 * warp + g + 8 * h;
+    const int r = grow0 + rl;
+    m_i[h] = M_INIT;
+    l_i[h] = 0.f;
+    const float wf = BIDIR ? (float)len : (float)(r + 1);
+    rows[h] = sea::AliveRow{IMPL == WORD_LOOP ? mbits + ((long)bh * t_dst + lrow0 + rl) * n_words
+                                              : Ms + (64 * cw + rl) * n_words,
+                            BIDIR ? len - 1 : r, wf, sea::recip(wf), __fdiv_rn((float)t_m, wf),
+                            __fdiv_rn(wf, (float)t_m)};
+    const float w = (float)(r + 1);
+    ps[h] = fmaxf(floorf(__fadd_rn(__fdiv_rn(w, oversample), 0.5f)), 1.0f);
+    const float oys = __fdiv_rn(fminf(fmaxf(w, keep_lo), keep_hi), k_cfg);
+    thr[h] = __fadd_rn(__fmul_rn(__fdiv_rn(1.0f, oys), 0.5f), 1e-4f);
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const bool undersample = !STATS && !BIDIR && oversample != 1.0f;
+  const float dead = __uint_as_float(0xff800000u);  // -inf
+  const uint32_t qs = base + cw * L::TILE;
+
+  // P·V of one sub-tile stays in flight while the next one's Q·Kᵀ and alive
+  // words run: `pending` is its stage, released once it has completed, and
+  // ph, pl are its A fragments, kept until then
+  uint32_t ph[4][4], pl[4][4];
+  int pending = -1;
+
+  sea::mbar_wait(qbar, 0);
+  for (int it = 0;; ++it) {
+    const int st = it % STAGES;
+    sea::mbar_wait(full + 8 * st, (it / STAGES) & 1);
+    const int c0 = meta[4 * st];
+    if (c0 < 0) break;
+    const int e = meta[4 * st + 1 + cw];
+    // a sub-tile not in this warpgroup's list is dead for its rows: it
+    // would leave m, l and acc as they are, so it is skipped
+    if (e < 0) {
+      sea::wgmma_wait<0>();
+      sea::fence_regs(acc);
+      sea::fence_frags(ph);
+      sea::fence_frags(pl);
+      __syncwarp();
+      if (lane == 0) {
+        if (pending >= 0) sea::mbar_arrive(empty + 8 * pending);
+        sea::mbar_arrive(empty + 8 * st);
+      }
+      pending = -1;
+      continue;
+    }
+    const uint32_t ks = base + L::STAGE_OFF + st * L::STAGE, vs = ks + L::TILE;
+    // S = Q·Kᵀ, issued; the rows' alive words are built while it (and the
+    // previous P·V) run
+    float s[32];
+    sea::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      sea::wgmma_ss_n64(s, L::kdesc(qs, kk), L::kdesc(ks, kk), kk > 0);
+    sea::wgmma_commit();
+    int wlo = 0, whi = n_words - 1;
+    if (IMPL == WORD_RANGE || IMPL == WORD_LOOP) {
+      const sea::WordRange r = sea::word_range(aux[e]);
+      wlo = r.lo;
+      whi = r.hi;
+    }
+    uint64_t bits[2];
+    sea::alive_bits<BIDIR, IMPL == WORD_LOOP>(rows, c0, t_m, wlo, whi, t4, bits);
+    if (undersample) {
+      // the keep-predicate on this thread's own columns only, the ones it
+      // tests
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint64_t keep = 0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 8 * (j >> 1) + 2 * t4 + (j & 1);
+          keep |= (uint64_t)sea::keep_quot(sea::quot((float)(c0 + c + 1), rows[h].w, rows[h].y),
+                                           ps[h], thr[h])
+                  << c;
+        }
+        bits[h] &= keep;
+      }
+    }
+    // S, and the previous P·V, have completed: its stage is released
+    sea::wgmma_wait<0>();
+    sea::fence_regs(s);
+    sea::fence_regs(acc);
+    sea::fence_frags(ph);
+    sea::fence_frags(pl);
+    __syncwarp();
+    if (lane == 0 && pending >= 0) sea::mbar_arrive(empty + 8 * pending);
+
+    // the bit test per element, then the online softmax, row by row
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint64_t a = bits[h] >> (2 * t4);
+      float t[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float& x = s[4 * (j >> 1) + 2 * h + (j & 1)];
+        x = (a >> (8 * (j >> 1) + (j & 1))) & 1u ? x : dead;
+        t[j] = x;
+      }
+      float rmax = wg::tree<true>(t);
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m_i[h], rmax);
+      // a row whose max did not move gets corr = 2^0 = 1 exactly
+      corr[h] = exp2_sfu(__fmul_rn(__fsub_rn(m_i[h], m_new), LOG2E));
+      const float ml = __fmul_rn(m_new, LOG2E);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float& x = s[4 * (j >> 1) + 2 * h + (j & 1)];
+        x = exp2_sfu(__fmaf_rn(x, LOG2E, -ml));  // 2^-inf == 0: dead elements
+        t[j] = x;
+      }
+      float psum = wg::tree<false>(t);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_i[h] = l_i[h] * corr[h] + psum;
+      m_i[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * j + i] *= corr[i / 2];
+    // P = P_hi + P_lo in bf16, the A fragments straight from the S
+    // accumulators
+#pragma unroll
+    for (int i = 0; i < 16; ++i)
+      split_bf16(s[2 * i], s[2 * i + 1], ph[i / 4][i % 4], pl[i / 4][i % 4]);
+
+    // acc += P·V, two wgmmas per 16 columns, left in flight
+    sea::fence_regs(acc);
+    sea::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t vd = L::vdesc(vs, kk);
+      sea::wgmma_rs<D>(acc, pl[kk], vd);
+      sea::wgmma_rs<D>(acc, ph[kk], vd);
+    }
+    sea::wgmma_commit();
+    pending = st;
+  }
+  sea::wgmma_wait<0>();
+  sea::fence_regs(acc);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long row = (long)bh * t_dst + lrow0 + 16 * warp + g + 8 * h;
+    const float l = l_i[h];
+    const float safe_l = l > 0.f ? l : 1.f;
+    const float sc = scaler ? scaler[row] : 1.f;
+    __nv_bfloat16* o = out + row * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(o + 8 * j) = __floats2bfloat162_rn(
+          acc[4 * j + 2 * h] / safe_l * sc, acc[4 * j + 2 * h + 1] / safe_l * sc);
+    if (STATS && t4 == 0)
+      lse[row] = l > 0.f ? m_i[h] + logf(l) : __uint_as_float(0x7f800000u);
+  }
+}
+
+// The element masks of the debug entry points, from the bf16 body's own
+// construction (`sea::alive_bits`): a block of 256 threads per (row,
+// 64 sub-tiles), a quad of lanes per 64-column sub-tile, each lane writing
+// its quarter of the columns. BIDIR: the predicate of K5, with the width
+// lengths[bh]; else that of K1.
 template <bool BIDIR>
 __global__ void alive_mask_kernel(const uint32_t* __restrict__ mbits,
                                   const int* __restrict__ lengths,
                                   int8_t* __restrict__ out, int t_dst,
                                   int t_src, int t_m, int n_words) {
-  const int bh = blockIdx.z, r = blockIdx.y;
+  const int bh = blockIdx.z, r = blockIdx.y, t4 = threadIdx.x & 3;
+  const int c0 = 64 * (64 * blockIdx.x + (threadIdx.x >> 2));
   const int len = BIDIR ? lengths[bh] : 0;
-  const uint32_t* words = mbits + ((long)bh * t_dst + r) * n_words;
-  int8_t* row = out + ((long)bh * t_dst + r) * t_src;
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < t_src;
-       s += gridDim.x * blockDim.x)
-    row[s] = (BIDIR ? alive_elem_len(words, s, len, t_m)
-                    : alive_elem(words, s, r, t_m)) ? 1 : 0;
+  const float w = BIDIR ? (float)len : (float)(r + 1);
+  const sea::AliveRow row[1] = {{mbits + ((long)bh * t_dst + r) * n_words, BIDIR ? len - 1 : r, w,
+                                 sea::recip(w), __fdiv_rn((float)t_m, w),
+                                 __fdiv_rn(w, (float)t_m)}};
+  uint64_t bits[1];
+  sea::alive_bits<BIDIR, true>(row, c0, t_m, 0, n_words - 1, t4, bits);
+  int8_t* o = out + ((long)bh * t_dst + r) * t_src;
+  for (int j = t4; j < 64 && c0 + j < t_src; j += 4) o[c0 + j] = (int8_t)((bits[0] >> j) & 1u);
 }
 
-// The restricted predicate of K9a-c alone, for a bit-for-bit check against
-// the oracle. `tiles` (batch·head, nq, nkb) is dense over every (q-block,
-// k-block): the listed tiles' word ranges, -1 where a tile is not listed
-// (WORD_RANGE, WORD_LOOP), or their piece bitmasks, 0 where not listed
-// (SUBTILE). Rows are global (no row base).
+// The restricted predicate of K9a-c alone, from the same construction with
+// the impl's restriction, for a bit-for-bit check against the oracle.
+// `tiles` (batch·head, nq, nkb) is dense over every (q-block, k-block): the
+// listed tiles' word ranges, -1 where a tile is not listed (WORD_RANGE,
+// WORD_LOOP), or their piece bitmasks, 0 where not listed (SUBTILE). Rows
+// are global (no row base).
 template <int IMPL>
 __global__ void impl_alive_mask_kernel(const uint32_t* __restrict__ mbits,
                                        const int* __restrict__ tiles,
@@ -634,38 +924,30 @@ __global__ void impl_alive_mask_kernel(const uint32_t* __restrict__ mbits,
                                        int t_src, int t_m, int n_words,
                                        int block_q, int block_k, int nq,
                                        int nkb, int sub) {
-  const int bh = blockIdx.z, r = blockIdx.y;
-  const int qb = r / block_q;
-  const uint32_t* words = mbits + ((long)bh * t_dst + r) * n_words;
-  const int* tl = tiles + ((long)bh * nq + qb) * nkb;
-  int8_t* row = out + ((long)bh * t_dst + r) * t_src;
-  for (int s = blockIdx.x * blockDim.x + threadIdx.x; s < t_src;
-       s += gridDim.x * blockDim.x) {
-    const int kb = s / block_k;
-    const int aux = tl[kb];
-    bool a;
+  const int bh = blockIdx.z, r = blockIdx.y, t4 = threadIdx.x & 3;
+  const int c0 = 64 * (64 * blockIdx.x + (threadIdx.x >> 2));
+  bool live = c0 < t_src;
+  int wlo = 0, whi = n_words - 1;
+  if (live) {
+    const int kb = c0 / block_k;
+    const int aux = tiles[((long)bh * nq + r / block_q) * nkb + kb];
     if (IMPL == SUBTILE) {
-      const int piece = (s - kb * block_k) / sub;
-      int wlo;
-      uint32_t c0, c1;
-      sea::sub_candidates(words, kb * block_k + piece * sub, r, t_m, n_words,
-                          wlo, c0, c1);
-      a = (((unsigned)aux >> piece) & 1u) &&
-          sea::alive_elem_sub(words, s, r, t_m,
-                              sea::sub_short(qb * block_q, t_m, sub), wlo, c0, c1);
+      live = (((unsigned)aux >> ((c0 - kb * block_k) / sub)) & 1u) != 0u;
     } else {
+      live = aux >= 0;  // -1: not listed
       const sea::WordRange g = sea::word_range(aux);
-      if (IMPL == WORD_LOOP) {
-        a = aux >= 0 && sea::alive_elem_loop(words, s, r, t_m, g);
-      } else {
-        const bool fast = aux >= 0 && (g.one || g.two);  // -1: not listed
-        const uint32_t c0 = fast ? words[g.lo] : 0u;
-        const uint32_t c1 = fast && g.two ? words[g.lo + 1] : 0u;
-        a = aux >= 0 && sea::alive_elem_wr(words, s, r, t_m, g, c0, c1);
-      }
+      wlo = g.lo;
+      whi = g.hi;
     }
-    row[s] = a ? 1 : 0;
   }
+  const float w = (float)(r + 1);
+  const sea::AliveRow row[1] = {{mbits + ((long)bh * t_dst + r) * n_words, live ? r : -1, w,
+                                 sea::recip(w), __fdiv_rn((float)t_m, w),
+                                 __fdiv_rn(w, (float)t_m)}};
+  uint64_t bits[1];
+  sea::alive_bits<false, IMPL == WORD_LOOP>(row, c0, t_m, wlo, whi, t4, bits);
+  int8_t* o = out + ((long)bh * t_dst + r) * t_src;
+  for (int j = t4; j < 64 && c0 + j < t_src; j += 4) o[c0 + j] = (int8_t)((bits[0] >> j) & 1u);
 }
 
 // The forward's quotient from a row's reciprocal (sea::quot) against IEEE
@@ -685,6 +967,91 @@ __global__ void quot_check_kernel(int w_max, unsigned long long* bad) {
   if (n) atomicAdd(bad, n);
 }
 
+// The alive-word construction against the per-column pixel map: for every
+// row width 1 <= w <= w_max, T_M = 128, 256 and 512, and two masks (every
+// even pixel alive, every odd one, so that each run boundary flips a bit),
+// the words `alive_bits` builds over every 64-column sub-tile of the causal
+// row w − 1 and of a bidirectional row of length w, against each column's
+// pixel by IEEE division (`causal_pixel`; the clipped form for the length).
+// The number of columns whose bit differs is added to *bad. 256 threads a
+// block, a quad a sub-tile.
+__global__ void word_check_kernel(int w_max, unsigned long long* bad) {
+  __shared__ uint32_t pattern[2][MAX_WORDS];
+  if (threadIdx.x < 2 * MAX_WORDS)
+    pattern[threadIdx.x / MAX_WORDS][threadIdx.x % MAX_WORDS] =
+        threadIdx.x < MAX_WORDS ? 0x55555555u : 0xaaaaaaaau;
+  __syncthreads();
+  const int t4 = threadIdx.x & 3, quad = threadIdx.x >> 2;
+  unsigned long long n = 0;
+  for (int w = blockIdx.x + 1; w <= w_max; w += gridDim.x) {
+    const float wf = (float)w, y = sea::recip(wf);
+    for (int t_m = 128; t_m <= 512; t_m *= 2) {
+      const float tm_w = __fdiv_rn((float)t_m, wf), w_tm = __fdiv_rn(wf, (float)t_m);
+      for (int pat = 0; pat < 2; ++pat) {
+        for (int c = 0; c < w; c += 64 * 64) {
+          const int c0 = c + 64 * quad;
+          const sea::AliveRow row[1] = {{pattern[pat], w - 1, wf, y, tm_w, w_tm}};
+          uint64_t causal[1], bidir[1];
+          sea::alive_bits<false, false>(row, c0, t_m, 0, MAX_WORDS - 1, t4, causal);
+          sea::alive_bits<true, false>(row, c0, t_m, 0, MAX_WORDS - 1, t4, bidir);
+          for (int j = t4; j < 64 && c0 + j < w; j += 4) {
+            const int s = c0 + j;
+            const int pc = sea::causal_pixel(s, w - 1, t_m);
+            const int pb = sea::len_clip(
+                sea::floor_pixel(__fdiv_rn(__fadd_rn((float)s, 0.5f), wf), t_m), t_m);
+            n += ((causal[0] >> j) & 1u) != (uint64_t)(pc >= 0 && (pc & 1) == pat);
+            n += ((bidir[0] >> j) & 1u) != (uint64_t)((pb & 1) == pat);
+          }
+        }
+      }
+    }
+  }
+  if (n) atomicAdd(bad, n);
+}
+
+// The tensor maps of the bf16 body: a (rows, D) bf16 tensor in boxes of 64
+// rows by one panel of PW columns, swizzled as wgmma reads it.
+// cuTensorMapEncodeTiled is the driver's; it is looked up through the
+// runtime, so that the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)f : nullptr;
+  }();
+  return fn;
+}
+
+template <int D>
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, long rows) {
+  using L = wg::Layout<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)L::PW, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            L::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// One launch of the body: the float32 instances on mma.sync, the bf16 ones
+// on wgmma (128-row tiles, so t_dst a multiple of 128).
 template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mbits, const void* scaler, const void* counts,
@@ -695,18 +1062,35 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float k_cfg, float keep_lo, float keep_hi, int col_base,
                    cudaStream_t stream) {
   if (misaligned(q, k, v, out)) return cudaErrorInvalidValue;
-  constexpr int bytes = Smem<D, T>::bytes;
-  static std::atomic<bool> opted_in[MAX_DEVICES];
-  cudaError_t e = sea::opt_in_smem(causal_flat_kernel<D, T, STATS, BIDIR, IMPL>,
-                                   bytes, opted_in);
-  if (e != cudaSuccess) return e;
-  dim3 grid(nh, t_dst / BQ);
-  causal_flat_kernel<D, T, STATS, BIDIR, IMPL><<<grid, TPB, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const uint32_t*)mbits,
-      (const float*)scaler, (const int*)counts, (const int*)idx,
-      (const int*)tiles, (const int*)rowbase, (const int*)lengths, (T*)out,
-      (float*)lse, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, sub,
-      oversample, k_cfg, keep_lo, keep_hi, col_base);
+  if constexpr (std::is_same<T, float>::value) {
+    constexpr int bytes = Smem<D>::bytes;
+    static std::atomic<bool> opted_in[MAX_DEVICES];
+    cudaError_t e = sea::opt_in_smem(causal_flat_kernel<D, STATS, BIDIR, IMPL>, bytes, opted_in);
+    if (e != cudaSuccess) return e;
+    dim3 grid(nh, t_dst / BQ);
+    causal_flat_kernel<D, STATS, BIDIR, IMPL><<<grid, TPB, bytes, stream>>>(
+        (const float*)q, (const float*)k, (const float*)v, (const uint32_t*)mbits,
+        (const float*)scaler, (const int*)counts, (const int*)idx, (const int*)tiles,
+        (const int*)rowbase, (const int*)lengths, (float*)out, (float*)lse, t_dst, t_src, t_m,
+        n_words, block_q, block_k, nq, nkb, sub, oversample, k_cfg, keep_lo, keep_hi, col_base);
+  } else {
+    const int bytes = wg::Layout<D>::FIXED + wg::CONSUMERS * nkb * 4 * (IMPL == FLAT ? 1 : 2);
+    if (t_dst % wg::BQ != 0 || bytes > wg::SMEM_MAX) return cudaErrorInvalidValue;
+    CUtensorMap tq, tk, tv;
+    cudaError_t e = tile_map<D>(&tq, q, (long)nh * t_dst);
+    if (e == cudaSuccess) e = tile_map<D>(&tk, k, (long)nh * t_src);
+    if (e == cudaSuccess) e = tile_map<D>(&tv, v, (long)nh * t_src);
+    static std::atomic<bool> opted_in[MAX_DEVICES];
+    if (e == cudaSuccess)
+      e = sea::opt_in_smem(causal_wgmma_kernel<D, STATS, BIDIR, IMPL>, wg::SMEM_MAX, opted_in);
+    if (e != cudaSuccess) return e;
+    dim3 grid(nh, t_dst / wg::BQ);
+    causal_wgmma_kernel<D, STATS, BIDIR, IMPL><<<grid, wg::THREADS, bytes, stream>>>(
+        tq, tk, tv, (const uint32_t*)mbits, (const float*)scaler, (const int*)counts,
+        (const int*)idx, (const int*)tiles, (const int*)rowbase, (const int*)lengths,
+        (__nv_bfloat16*)out, (float*)lse, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb,
+        sub, oversample, k_cfg, keep_lo, keep_hi, col_base);
+  }
   return cudaGetLastError();
 }
 
@@ -833,7 +1217,7 @@ extern "C" int sea_bidir_forward(
 
 extern "C" int sea_alive_mask(const void* mbits, void* out, int nh, int t_dst,
                               int t_src, int t_m, int n_words, void* stream) {
-  dim3 grid((t_src + 255) / 256, t_dst, nh);
+  dim3 grid((t_src + 4095) / 4096, t_dst, nh);
   alive_mask_kernel<false><<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)mbits, nullptr, (int8_t*)out, t_dst, t_src, t_m,
       n_words);
@@ -843,7 +1227,7 @@ extern "C" int sea_alive_mask(const void* mbits, void* out, int nh, int t_dst,
 extern "C" int sea_bidir_alive_mask(const void* mbits, const void* lengths,
                                     void* out, int nh, int t_dst, int t_src,
                                     int t_m, int n_words, void* stream) {
-  dim3 grid((t_src + 255) / 256, t_dst, nh);
+  dim3 grid((t_src + 4095) / 4096, t_dst, nh);
   alive_mask_kernel<true><<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)mbits, (const int*)lengths, (int8_t*)out, t_dst, t_src,
       t_m, n_words);
@@ -908,7 +1292,7 @@ extern "C" int sea_impl_alive_mask(const void* mbits, const void* tiles,
   if (n_words > MAX_WORDS || block_q <= 0 || block_k <= 0 || t_dst % block_q ||
       t_src % block_k || (impl == SUBTILE && bad_pieces(impl, block_k, sub)))
     return (int)cudaErrorInvalidValue;
-  dim3 grid((t_src + 255) / 256, t_dst, nh);
+  dim3 grid((t_src + 4095) / 4096, t_dst, nh);
   const int nq = t_dst / block_q, nkb = t_src / block_k;
   cudaStream_t s = (cudaStream_t)stream;
   const uint32_t* m = (const uint32_t*)mbits;
@@ -933,11 +1317,13 @@ extern "C" int sea_impl_alive_mask(const void* mbits, const void* tiles,
   return (int)cudaGetLastError();
 }
 
-// quot_check_kernel over 1 <= w <= w_max; `bad` one uint64 on the device,
-// zeroed by the caller.
+// quot_check_kernel and word_check_kernel over 1 <= w <= w_max; `bad` two
+// uint64 on the device, zeroed by the caller: the quotients' mismatches,
+// then the alive words'.
 extern "C" int sea_quot_check(int w_max, void* bad, void* stream) {
   if (w_max <= 0 || w_max > (1 << 24)) return (int)cudaErrorInvalidValue;
-  quot_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(
-      w_max, (unsigned long long*)bad);
+  unsigned long long* counts = (unsigned long long*)bad;
+  quot_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(w_max, counts);
+  word_check_kernel<<<1024, 256, 0, (cudaStream_t)stream>>>(w_max, counts + 1);
   return (int)cudaGetLastError();
 }

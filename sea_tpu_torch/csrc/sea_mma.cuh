@@ -1,7 +1,9 @@
-// The tensor-core and copy instructions (inline PTX, sm_80 and later) and the
-// shared-memory tile helpers of the fused sparse attention bodies on
-// mma.sync: the forward (block_sparse_causal.cu: K1, K2, K5, K6, K9a-c) and
-// the backward (block_sparse_diff.cu: dq for K3 and K7, dk/dv for K4 and K8).
+// The tensor-core and copy instructions (inline PTX) and the shared-memory
+// tile helpers of the fused sparse attention bodies: on mma.sync (sm_80 and
+// later) the forward's float32 instances (block_sparse_causal.cu: K1, K2, K5,
+// K6, K9a-c) and the backward (block_sparse_diff.cu: dq for K3 and K7, dk/dv
+// for K4 and K8); on Hopper's wgmma, TMA, mbarriers and setmaxnreg (sm_90a,
+// the second half of this file) the forward's bf16 instances.
 //
 // Fragments of mma.sync m16n8k8 (TF32), with g = lane / 4 and t4 = lane % 4:
 // A (16 x 8) holds rows g and g + 8 at k = t4 and t4 + 4; B (8 x 8) holds
@@ -87,18 +89,6 @@ __device__ __forceinline__ float exp2_sfu(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = hi + lo in TF32 (to about 2^-22 of x)
-__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = to_tf32(x);
-  lo = to_tf32(__fsub_rn(x, __uint_as_float(hi)));
-}
-
 // the bf16 pairs hi = (bf16(x0), bf16(x1)) and lo = the bf16 of what is left
 __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
                                            uint32_t& lo) {
@@ -114,13 +104,14 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
 // from zero), by integer operations on its bits: adding half of TF32's last
 // place to the magnitude and clearing the 13 dropped bits gives cvt.rna's
 // bits on every finite x. cvt.rna compiles to a longer sequence that also
-// sorts out NaN and infinity (FSETP and SEL in the SASS), which the backward
+// sorts out NaN and infinity (FSETP and SEL in the SASS), which the mma.sync
 // bodies, splitting only finite values, need not pay (PERF.md).
 __device__ __forceinline__ uint32_t to_tf32_rna(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }
 
-// split_tf32 by to_tf32_rna: the same bits on finite x
+// x = hi + lo in TF32 (to about 2^-22 of x), each part rounded as cvt.rna
+// rounds it
 __device__ __forceinline__ void split_tf32_rna(float x, uint32_t& hi, uint32_t& lo) {
   hi = to_tf32_rna(x);
   lo = to_tf32_rna(__fsub_rn(x, __uint_as_float(hi)));
@@ -172,6 +163,265 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* __restrict__ 
 template <typename... P>
 inline bool misaligned(const P*... p) {
   return ((reinterpret_cast<uintptr_t>(p) | ...) & 15u) != 0;
+}
+
+// ---------------------------------------------------------------------------
+// Hopper (sm_90a): TMA, mbarriers, wgmma and setmaxnreg, for the forward's
+// bf16 body (block_sparse_causal.cu, `causal_wgmma_kernel`).
+//
+// Shared-memory operands are tiles of 64 rows cut into panels of PW columns
+// (bf16), each panel rows x PW·2 bytes, row-major, in the swizzled layout
+// that TMA writes and wgmma's descriptors read: 128-byte rows with the
+// 128-byte swizzle (PW = 64; D = 64 and 128) or 32-byte rows with the 32-byte
+// swizzle (PW = 16; D = 80, whose 160-byte rows no 64-column box tiles). The
+// swizzle XORs address bits 4.. with bits 7.. of the shared address itself,
+// so every panel starts on its swizzle atom (1024 or 256 bytes).
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// the barriers' initialisation visible to the async proxy (TMA) and to the
+// block's other threads (with the __syncthreads that follows)
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// one arrival that also expects `bytes` of copies to complete on the barrier
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+// until the barrier's phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// A box of a 2-D tensor map (columns c, rows r) into shared memory at dst,
+// completing on `bar`.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, uint32_t bar, int c,
+                                            int r) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c), "r"(r)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes into shared memory, completing
+// on `bar`
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::
+          "r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// A wgmma operand descriptor: the start address, the leading and stride
+// byte offsets and the swizzle (1: 128 bytes, 3: 32 bytes). K-major (the
+// reduction index along the rows' bytes): SBO is the step between 8-row
+// groups and LBO is unused. MN-major (transposed): LBO is the step between
+// PW-wide column panels and SBO the step between 8-row groups of the
+// reduction index.
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                               uint32_t swizzle) {
+  return (uint64_t)((addr & 0x3ffffu) >> 4) | ((uint64_t)((lbo >> 4) & 0x3fffu) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3fffu) << 32) | ((uint64_t)swizzle << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins registers that an asynchronous wgmma reads or writes, so that the
+// compiler moves no use of them across the fences and waits.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// the same for the A fragments of a wgmma product from registers
+template <int N>
+__device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// the warpgroup's register budget lowered (the producer) or raised (the
+// consumers); every warp of the warpgroup executes it
+template <int R>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+template <int R>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(R));
+}
+
+// Accumulator and A-fragment layouts (m64nNk16, per warp w of the
+// warpgroup, g = lane / 4, t4 = lane % 4): d[4·j + i] holds row 16·w + g +
+// 8·(i / 2) at column 8·j + 2·t4 + i % 2, as mma.sync's C fragments do; the
+// register A of k-step kk is (rows g, g + 8; columns 16·kk + 2·t4 (+ 1),
+// + 8), which is the pair (d[8·kk + 0..1], d[8·kk + 2..3], d[8·kk + 4..5],
+// d[8·kk + 6..7]) of a 64-column accumulator as it stands.
+
+// d (+)= a·b, m64n64k16: a (64 x 16) and b (16 x 64, K-major, i.e. the rows of
+// Kᵀ's transpose) from shared memory through their descriptors; `accumulate`
+// 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += a·b, m64n64k16: a (64 x 16) from registers (the A fragment), b (16 x 64)
+// from shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a·b, m64n80k16: a (64 x 16) from registers (the A fragment), b (16 x 80)
+// from shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a·b, m64n128k16: a (64 x 16) from registers (the A fragment), b (16 x 128)
+// from shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+// d += a·b with N = D, the P·V product of the bf16 body
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_rs_n64(d, a, db);
+  else if constexpr (D == 80)
+    wgmma_rs_n80(d, a, db);
+  else
+    wgmma_rs_n128(d, a, db);
 }
 
 }  // namespace sea

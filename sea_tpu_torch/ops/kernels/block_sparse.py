@@ -500,6 +500,134 @@ def impl_reference(ops: "KernelOperands", impl: str) -> torch.Tensor:
     return out.to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# The bf16 body's predicate: per-row alive words (csrc/sea_mask.cuh,
+# `alive_bits`), modelled on the CPU
+# ---------------------------------------------------------------------------
+
+WORD_COLS = 64  # columns of one alive word: the bf16 body's sub-tile
+
+
+def _fma32(a, b, c) -> torch.Tensor:
+    """a·b + c in float32 with one rounding, as the kernel's __fmaf_rn (the
+    float32 product is exact in float64; a second rounding could move the
+    result by an ulp, which no boundary depends on: see `pixel_starts`)."""
+    a, b = (torch.as_tensor(x, dtype=torch.float32) for x in (a, b))
+    return (a.double() * b.double() + c).float()
+
+
+def _row_pixel(s: torch.Tensor, w: torch.Tensor, t_m: int, bidir: bool) -> torch.Tensor:
+    """The kernel's `row_pixel`: the pixel of columns s in rows of width w
+    (float32, broadcast), floor((s + 0.5) / w · T_M − 1e-4) in the oracle's
+    roundings; causal, clipped below at 0 with t_m for a pixel past the mask
+    (a dead column); bidirectional, clipped to [0, T_M)."""
+    p = torch.floor((s.to(torch.float32) + 0.5) / w * t_m - 1e-4).to(torch.int64)
+    return p.clamp(0, t_m - 1) if bidir else p.clamp(0, t_m)
+
+
+def pixel_starts(w: torch.Tensor, last: torch.Tensor, t_m: int, bidir: bool = False
+                 ) -> torch.Tensor:
+    """(R, T_M + 1) int64: B(p), the first column of each row whose pixel is
+    p or more, clamped to 0 .. last + 1, by the kernel's steps
+    (`pixel_start`): n, the whole column nearest β = (p + 1e-4)·w/T_M − 0.5,
+    plus one where the pinned pixel at n is still below p (the roundings put
+    the boundary within half a column of β while w/T_M <= 1024, so it is n
+    or n + 1). w (R,) float32 widths, last (R,) int64 last live columns.
+    (The kernel clamps to the sub-tile instead, which gives the same
+    boundary wherever it lies inside the sub-tile.)"""
+    w = w.to(torch.float32)[:, None]
+    last = last.to(torch.int64)[:, None]
+    p = torch.arange(t_m + 1, dtype=torch.int64)[None]
+    n = torch.round(_fma32(p.to(torch.float32) + 1e-4, w / t_m, -0.5)).to(torch.int64)
+    s = n + (_row_pixel(n, w, t_m, bidir) < p).long()
+    return torch.minimum(torch.maximum(s, torch.zeros_like(s)), last + 1)
+
+
+def alive_words(mbits: torch.Tensor, widths: torch.Tensor, last: torch.Tensor, t_src: int,
+                t_m: int, *, bidir: bool = False, word_lo: Optional[torch.Tensor] = None,
+                word_hi: Optional[torch.Tensor] = None, live: Optional[torch.Tensor] = None,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """(R, t_src // 64) int64: the alive words of the bf16 body, bit j of
+    word k for column 64·k + j, for R rows with packed mask words mbits (R,
+    n_words) int32, widths (R,) and last live columns (R,) (causal: the
+    global row; bidirectional: the length − 1). Rows 2·T_M to 1024·T_M wide
+    take their columns' pixels from the run boundaries of `pixel_starts`;
+    the others evaluate each column, as the kernel does. Per (row, word):
+    word_lo .. word_hi (R, t_src // 64), the mask words that may be read
+    (K9a-b's tile ranges: a pixel in any other word is dead), `live` whether
+    the sub-tile is visited at all (listed, K9c's piece active); `keep` (R,
+    t_src) bool, the undersampling keep-predicate."""
+    R = mbits.shape[0]
+    n_sub = t_src // WORD_COLS
+    w = widths.to(torch.float32)
+    last = last.to(torch.int64)
+    cols = torch.arange(t_src, dtype=torch.int64)[None]
+    starts = pixel_starts(w, last, t_m, bidir)[:, 1:].contiguous()  # B(1) .. B(T_M)
+    run_pixel = torch.searchsorted(starts, cols.expand(R, -1).contiguous(), right=True)
+    per_column = (w < 2 * t_m) | (w / t_m > 1024)
+    pix = torch.where(per_column[:, None], _row_pixel(cols, w[:, None], t_m, bidir), run_pixel)
+    wi = torch.clamp(pix, max=t_m - 1) >> 5
+    bit = (torch.gather(mbits.long(), 1, wi) >> (pix & 31)) & 1
+    alive = (bit == 1) & (pix < t_m) & (cols <= last[:, None])
+    if word_lo is not None:
+        lo = word_lo.repeat_interleave(WORD_COLS, 1)
+        hi = word_hi.repeat_interleave(WORD_COLS, 1)
+        alive &= (wi >= lo) & (wi <= hi)
+    if live is not None:
+        alive &= live.repeat_interleave(WORD_COLS, 1)
+    if keep is not None:
+        alive &= keep
+    weights = torch.ones(WORD_COLS, dtype=torch.int64) << torch.arange(WORD_COLS)
+    return (alive.reshape(R, n_sub, WORD_COLS).long() * weights).sum(-1)
+
+
+def words_to_mask(words: torch.Tensor, t_src: int) -> torch.Tensor:
+    """(R, t_src) bool from `alive_words`' (R, t_src // 64) words."""
+    bits = (words[..., None] >> torch.arange(WORD_COLS)) & 1
+    return (bits == 1).reshape(words.shape[0], -1)[:, :t_src]
+
+
+def kernel_alive_words(ops: "KernelOperands", impl: str = "flat") -> torch.Tensor:
+    """(NH, T_DST, T_SRC // 64) int64: the alive words that impl `impl`'s bf16
+    kernel (or K5 on non-causal operands) builds on these CPU operands: each
+    row's words over the sub-tiles its own q-block lists (K9c: whose piece is
+    active), K9a-b restricted to the tile's word range, K1 with the
+    undersampling keep-predicate; zero elsewhere."""
+    NH, T_DST, _ = ops.mbits.shape
+    t_src = ops.k.shape[1]
+    bidir = ops.lengths is not None
+    qb = torch.arange(T_DST) // ops.block_q
+    kb = (torch.arange(t_src // WORD_COLS) * WORD_COLS) // ops.block_k
+    if bidir:
+        widths = ops.lengths.to(torch.float32)[:, None].expand(NH, T_DST)
+        last = ops.lengths.long()[:, None].expand(NH, T_DST) - 1
+    else:
+        widths = _row_widths(ops.row_base, ops.block_q)[None].expand(NH, T_DST)
+        last = widths.long() - 1
+    aux = ops.tile_aux if ops.tile_aux is not None else torch.ones_like(ops.idx)
+    fill = 0 if impl in ("flat", "subtile") else -1
+    dense = _dense_tiles(ops.counts, ops.idx, aux, fill)[:, qb][:, :, kb]  # (NH, T_DST, n_sub)
+    word_lo = word_hi = None
+    if impl == "subtile":
+        piece = ((torch.arange(t_src // WORD_COLS) * WORD_COLS) % ops.block_k) // ops.sub
+        live = ((dense >> piece) & 1) == 1
+    elif impl in ("flat_wr", "flat_fori"):
+        live = dense >= 0
+        word_lo, word_hi = dense & 0xFF, (dense >> 8) & 0xFF
+    else:
+        live = dense > 0
+    keep = None
+    if not bidir and ops.oversample != 1.0:
+        keep = _keep_dense(widths[0][:, None], t_src, ops.oversample, ops.k_cfg)
+    out = torch.empty((NH, T_DST, t_src // WORD_COLS), dtype=torch.int64)
+    for i in range(NH):
+        out[i] = alive_words(ops.mbits[i], widths[i], last[i], t_src, ops.t_m, bidir=bidir,
+                             word_lo=None if word_lo is None else word_lo[i],
+                             word_hi=None if word_hi is None else word_hi[i], live=live[i],
+                             keep=keep)
+    return out
+
+
 def _keep_dense(w: torch.Tensor, t_src: int, oversample: float, k_cfg: float):
     """The undersampling keep-predicate (the train path's, reference
     `resize_m_to_t.py:54-71`) for row widths `w` over t_src columns."""
@@ -1042,17 +1170,22 @@ def alive_mask(mask_m: torch.Tensor, t_src: int, *, is_causal: bool = True,
 alive_mask.launches = 0
 
 
-def quotient_mismatches(w_max: int, device) -> int:
-    """How many of the forward kernels' pixel and keep quotients, taken from
-    a row's reciprocal, differ from IEEE division's: x = s + 0.5 and s + 1
-    over every 0 <= s < w <= w_max (CUDA only)."""
-    bad = torch.zeros(1, dtype=torch.int64, device=device)
+def quotient_mismatches(w_max: int, device) -> Tuple[int, int]:
+    """(quotients, columns) of the forward kernels' predicate arithmetic
+    that differ from the oracle's, over every row width w <= w_max (CUDA
+    only): the pixel and keep quotients taken from a row's reciprocal
+    against IEEE division, x = s + 0.5 and s + 1 for every 0 <= s < w; and
+    the columns of the bf16 body's alive words (`alive_words`' construction)
+    whose bit differs from the per-column pixel map, at T_M = 128, 256 and
+    512, causal and bidirectional, under masks of every even and every odd
+    pixel."""
+    bad = torch.zeros(2, dtype=torch.int64, device=device)
     _require_cuda(bad, "quotient_mismatches")
     with torch.cuda.device(bad.device):
         stream = torch.cuda.current_stream(bad.device).cuda_stream
         err = _lib().sea_quot_check(w_max, bad.data_ptr(), stream)
     _check(err, "sea_quot_check")
-    return int(bad)
+    return tuple(bad.tolist())
 
 
 def _impl_alive_mask(mask_m, t_src, impl, block_q, block_k):

@@ -1,9 +1,10 @@
 """The chip tools' source-reading parts, on the CPU: kernel_ab.py's
 knock-outs must each find their text in the CUDA source exactly once (or the
 tool would time an unchanged copy), and chip_smoke.py's tensor-core check
-must name every instance of the forward body (`causal_flat_kernel`) and of
-the backward bodies (`causal_dq_kernel`, `causal_dkv_kernel`) from its
-mangled name."""
+must name every instance of the forward bodies (`causal_wgmma_kernel`, the
+bf16 instances on wgmma, and `causal_flat_kernel`, the float32 ones on
+mma.sync) and of the backward bodies (`causal_dq_kernel`,
+`causal_dkv_kernel`) from its mangled name."""
 
 import re
 
@@ -60,7 +61,8 @@ def _instances(width_type: str):
 
 def test_tensor_core_check_names_every_instance():
     """The instances the entry points launch, as nvcc mangles them
-    (`causal_flat_kernel<D, T, STATS, BIDIR, IMPL>` in an anonymous
+    (`causal_flat_kernel<D, STATS, BIDIR, IMPL>` for float32 and
+    `causal_wgmma_kernel<D, STATS, BIDIR, IMPL>` for bf16, in an anonymous
     namespace), map onto the kernel ids and widths the check requires."""
     names = set()
     for mangled in _forward_mangled():
@@ -71,6 +73,13 @@ def test_tensor_core_check_names_every_instance():
     assert names == {f"{kid} {t} D{d}" for t in ("float32", "bfloat16") for kid, d in (
         ("K1", 64), ("K2/K6", 64), ("K5", 64), ("K9a", 64), ("K9b", 64), ("K9c", 64),
         ("K1", 80), ("K2", 80), ("K1", 128), ("K2", 128))}
+
+
+# the forward body each element type's `launch<…>` instantiates, and how its
+# mangled name goes on after the template arguments (its first parameters:
+# float32 pointers, or bf16's TMA tensor maps)
+FORWARD_BODIES = {"float": ("causal_flat_kernel", "EEEvPKfS1_"),
+                  "__nv_bfloat16": ("causal_wgmma_kernel", "EEEv14CUtensorMap_stS0_S0_")}
 
 
 def _forward_mangled():
@@ -85,9 +94,10 @@ def _forward_mangled():
             r"(?:, (\w+))?>", source)):
         for d, t in _instances(width_type):
             for im in ["WORD_RANGE", "WORD_LOOP", "SUBTILE"] if impl == "IMPL" else [impl]:
-                out.append(f"_ZN12_GLOBAL__N_118causal_flat_kernelILi{d}E{MANGLED_T[t]}"
+                body, rest = FORWARD_BODIES[t]
+                out.append(f"_ZN12_GLOBAL__N_1{len(body)}{body}ILi{d}E"
                            f"Lb{int(stats == 'true')}ELb{int(bidir == 'true')}ELi{impl_ids[im]}"
-                           "EEEvPKT0_")
+                           + rest)
     return sorted(set(out))
 
 
