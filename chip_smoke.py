@@ -683,15 +683,16 @@ FLAT_INSTANCE = re.compile(
 BODY_TYPES = {"flat": "float32", "wgmma": "bfloat16"}
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
-# the backward bodies `causal_dq_kernel<D, T>` and `causal_dkv_kernel<D, T>`,
-# and the kernels each is
-DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_kernelILi(64|80|128)E(f|13__nv_bfloat16)EE")
+# the backward bodies `causal_dq_kernel<D>` and `causal_dkv_kernel<D>`, the
+# float32 instances on mma.sync, and `causal_dq_wgmma_kernel<D>` and
+# `causal_dkv_wgmma_kernel<D>`, the bf16 ones on wgmma; and the kernels each is
+DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_(wgmma_)?kernelILi(64|80|128)EE")
 DIFF_KIDS = {"dq": "K3/K7", "dkv": "K4/K8"}
 # at widths 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b) only K1-K4 have
 # instances: the windows (K6-K8), K5 and K9a-c take 64 alone, so an instance
 # shared at 64 is K1-K4's alone there
 WIDE_KIDS = {"K1": "K1", "K2/K6": "K2", "K3/K7": "K3", "K4/K8": "K4"}
-DTYPE_NAMES = {"f": "float32", "13__nv_bfloat16": "bfloat16"}
+DTYPE_NAMES = ("float32", "bfloat16")
 
 
 def instance_name(mangled: str):
@@ -705,8 +706,8 @@ def instance_name(mangled: str):
         found = DIFF_INSTANCE.search(mangled)
         if not found:
             return None
-        kid, width = DIFF_KIDS[found.group(1)], found.group(2)
-        dtype = DTYPE_NAMES[found.group(3)]
+        kid, width = DIFF_KIDS[found.group(1)], found.group(3)
+        dtype = "bfloat16" if found.group(2) else "float32"
     if width != "64":
         kid = WIDE_KIDS.get(kid, kid)
     return f"{kid} {dtype} D{width}"
@@ -718,18 +719,25 @@ def required_instances() -> set:
     both types at width 64, and K1-K4's in both types at widths 80 and
     128."""
     kids = [*INSTANCE_KIDS.values(), *DIFF_KIDS.values()]
-    return {f"{kid} {dt} D{width}" for dt in DTYPE_NAMES.values()
+    return {f"{kid} {dt} D{width}" for dt in DTYPE_NAMES
             for width, names in (("64", kids), ("80", WIDE_KIDS.values()),
                                  ("128", WIDE_KIDS.values()))
             for kid in names}
 
 
+def tensor_core_op(function: str) -> str:
+    """The tensor-core instruction a body instance must contain: wgmma's
+    (HGMMA) in the bf16 bodies, mma.sync's (HMMA) in the float32 ones."""
+    return "HGMMA" if "wgmma_kernel" in function else "HMMA"
+
+
 def tensor_core_check():
     """Count the tensor-core instructions of every instance of the forward
-    bodies and of the backward bodies (`causal_dq_kernel`,
-    `causal_dkv_kernel`) in the built libraries' SASS (`cuobjdump -sass`):
-    every instance the entry points launch must be there, each bf16 forward
-    instance (`causal_wgmma_kernel`) with wgmma's (HGMMA), every other with
+    and backward bodies in the built libraries' SASS (`cuobjdump -sass`):
+    every instance the entry points launch must be there, each bf16 one
+    (`causal_wgmma_kernel`, `causal_dq_wgmma_kernel`,
+    `causal_dkv_wgmma_kernel`) with wgmma's (HGMMA), each float32 one
+    (`causal_flat_kernel`, `causal_dq_kernel`, `causal_dkv_kernel`) with
     mma.sync's (HMMA)."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     counts, name, op = {}, None, None
@@ -739,13 +747,13 @@ def tensor_core_check():
         for line in sass.splitlines():
             if "Function :" in line:
                 name = instance_name(line)
-                op = "HGMMA" if "causal_wgmma_kernel" in line else "HMMA"
+                op = tensor_core_op(line)
                 if name:
                     counts[name] = 0
             elif name and op in line:
                 counts[name] += 1
-    log(f"[device] tensor-core instructions by body instance (HGMMA in the bf16 forward, "
-        f"HMMA elsewhere): {counts}")
+    log(f"[device] tensor-core instructions by body instance (HGMMA in the bf16 bodies, "
+        f"HMMA in the float32 ones): {counts}")
     require(set(counts) == required_instances(), f"body instances in the SASS: {sorted(counts)}")
     require(all(counts.values()), f"instances without tensor-core instructions: {counts}")
 

@@ -9,8 +9,8 @@ and, with `--parent`, the same two files of another checkout (for one
 commit: `mkdir DIR && git archive <commit> | tar -x -C DIR`; the window
 entry points take `is_bf16` since the ring's bf16 instances, so a parent
 older than that times K7 and K8 through another signature), plus copies
-of this tree's sources with one part of a body knocked out (nine): 13 nvcc
-builds with a parent, 11 without, all started together (about 20 s on the
+of this tree's sources with one part of a body knocked out (ten): 14 nvcc
+builds with a parent, 12 without, all started together (about 20 s on the
 card's host). Then it times, with CUDA events on the same operands, the
 parent and this tree in the order parent, this, this, parent, then the
 knock-outs:
@@ -18,10 +18,12 @@ knock-outs:
     1 x 12 x 4096 configuration with its `host_topk_mask`, and K1 on the
     budget mask at the main path's 1 x 2048), float32 and bfloat16, beside
     SDPA;
-  * the backward, float32: K3 and K4 on the budget mask at 1 x 2048, and K7
+  * the backward, float32 then bfloat16: K3 and K4 on the budget mask at
+    1 x 12 x 2048 x 64 and at LLaMA-7b's layer, 1 x 32 x 2048 x 128, and K7
     and K8 on one (shard, window) of chip_smoke's ring-kernels geometry (4
     shards at 1 x 4096, zigzag rows, blocks 128: shard 0's rows on window
-    0), beside SDPA's backward on the same shapes.
+    0), beside SDPA's backward on the same shapes in the same type; each
+    output is compared with the first library's bit for bit.
 
 A knock-out computes another function; it only splits the time. Forward
 (the bf16 body on wgmma, `causal_wgmma_kernel`; the float32 instances are
@@ -34,14 +36,17 @@ left as they are):
   all      pred, exp and products together: what is left is the walk, the
            TMA copies, the barriers, the bit test, the softmax's
            bookkeeping and the epilogue.
-Backward (`bwd-`; dq and dk/dv alike, the edits in the bodies that every
-width's instance shares, so the timed width-64 instances say what they cut
-at 80 and 128 too):
-  pred     the element predicate reduced to the causal edge;
+Backward (`bwd-`; the bf16 bodies on wgmma, `causal_dq_wgmma_kernel` and
+`causal_dkv_wgmma_kernel`, each edit made in both; the edits sit in code
+that every width's instance shares; the float32 instances are left as they
+are):
+  pred     the alive words reduced to the causal edge (no pixel, no mask
+           word, no run boundary);
   exp      P's 2^x left out (P is the exponent itself);
-  products no mma at all (S, dP, and dq or dk and dv);
-  all      the three together: the walk, the copies, the barriers, the
-           splits' loads and the epilogue.
+  split    the products of P's and dS's low halves left out;
+  products no wgmma at all (S, dP, and dq or dk and dv);
+  all      pred, exp and products together: the walk, the TMA copies, the
+           barriers, the bit tests, the splits and the epilogue.
 Needs a CUDA device and nvcc; prints one line per timing and the card's
 name and power limit.
 """
@@ -81,22 +86,32 @@ KNOCKOUTS = {
                  ("sea::wgmma_rs<D>(acc, ph[kk], vd);", "")],
 }
 KNOCKOUTS["all"] = KNOCKOUTS["pred"] + KNOCKOUTS["exp"] + KNOCKOUTS["products"]
-# the same for the backward bodies, each edit once in dq and once in dk/dv
+# the same for the backward's bf16 bodies (`causal_dq_wgmma_kernel`,
+# `causal_dkv_wgmma_kernel`), each edit found once, in dq and in dk/dv
 DIFF_KNOCKOUTS = {
-    "pred": [("alive_elem_recip(words, x, col, r, wf[h], yw[h], t_m)", "col <= r"),
-             ("alive_elem_recip(words, xc[h], gc[h], grow0 + rl, rt.z, rt.w, t_m)",
-              "gc[h] <= grow0 + rl")],
-    "exp": [("exp2_sfu(__fmaf_rn(sv, LOG2E, -l2[h]))", "__fmaf_rn(sv, LOG2E, -l2[h])"),
-            ("exp2_sfu(__fmaf_rn(pt, LOG2E, -rt.x))", "__fmaf_rn(pt, LOG2E, -rt.x)")],
+    "pred": [("sea::alive_bits<false, false>(rows, c0, t_m, 0, n_words - 1, t4, bits);",
+              "for (int h = 0; h < 2; ++h) bits[h] = rows[h].cl < c0 ? 0ull"
+              " : sea::low_bits(min(rows[h].cl, c0 + 63) - c0 + 1);"),
+             ("sea::alive_bits<false, false>(wrow, gcol(cw), t_m, 0, n_words - 1, t4, bits);",
+              "for (int h = 0; h < 2; ++h) bits[h] = wrow[h].cl < gcol(cw) ? 0ull"
+              " : sea::low_bits(min(wrow[h].cl, gcol(cw) + 63) - gcol(cw) + 1);")],
+    "exp": [("exp2_sfu(__fmaf_rn(x, LOG2E, -l2[h]))", "__fmaf_rn(x, LOG2E, -l2[h])"),
+            ("exp2_sfu(__fmaf_rn(y, LOG2E, -(i & 1 ? lr.y : lr.x)))",
+             "__fmaf_rn(y, LOG2E, -(i & 1 ? lr.y : lr.x))")],
+    "split": [("sea::wgmma_rs<D>(acc, fl[kk], kd);", ""),
+              ("sea::wgmma_rs<D>(acc_v, pl[kk], od);", ""),
+              ("sea::wgmma_rs<D>(acc_k, sl[kk], qd);", "")],
     "products": [
-        ("mma_3xtf32(s[j], qh, ql, kf.x, kf.y);", ";"),
-        ("mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);", ";"),
-        ("mma_3xtf32(acc[j], ah, al, Ks[c * LDD + 8 * j + g], Ks[(c + 1) * LDD + 8 * j + g]);",
-         ";"),
-        ("mma_3xtf32(st[j], kh, kl, qf.x, qf.y);", ";"),
-        ("mma_3xtf32(dpt[j], vh, vl, of.x, of.y);", ";"),
-        ("mma_3xtf32(acc_v[j], ph, pl, Ot[c * LDD + n], Ot[(c + 1) * LDD + n]);", ";"),
-        ("mma_3xtf32(acc_k[j], dh, dl, Qt[c * LDD + n], Qt[(c + 1) * LDD + n]);", ";")],
+        ("sea::wgmma_ss_n64(s, Pn::kdesc(qs, kk), Pn::kdesc(ks, kk), kk > 0);", ""),
+        ("sea::wgmma_ss_n64(dp, Pn::kdesc(os, kk), Pn::kdesc(vs, kk), kk > 0);", ""),
+        ("sea::wgmma_rs<D>(acc, fl[kk], kd);", ""),
+        ("sea::wgmma_rs<D>(acc, fh[kk], kd);", ""),
+        ("sea::wgmma_ss_n64(s, Pn::kdesc(ks, kk), Pn::kdesc(qs, kk), kk > 0);", ""),
+        ("sea::wgmma_ss_n64(dp, Pn::kdesc(vs, kk), Pn::kdesc(os, kk), kk > 0);", ""),
+        ("sea::wgmma_rs<D>(acc_v, pl[kk], od);", ""),
+        ("sea::wgmma_rs<D>(acc_v, ph[kk], od);", ""),
+        ("sea::wgmma_rs<D>(acc_k, sl[kk], qd);", ""),
+        ("sea::wgmma_rs<D>(acc_k, sh[kk], qd);", "")],
 }
 DIFF_KNOCKOUTS["all"] = DIFF_KNOCKOUTS["pred"] + DIFF_KNOCKOUTS["exp"] + DIFF_KNOCKOUTS["products"]
 P, I, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -171,46 +186,84 @@ def sdpa_bwd_ms(q, k, v, do, causal):
     return cs.time_ms(lambda: torch.autograd.grad(out, (qq, kk, vv), do, retain_graph=True))
 
 
-def backward_cases():
-    """[(label, {kid: launch}, {kid: bound ms}, SDPA backward ms)]: K3 and K4
-    on the budget mask at 1 x 2048, and K7 and K8 on shard 0's rows and
-    window 0 of the ring-kernels geometry, each at the lse and delta of its
-    own forward (this tree's K2 or K6)."""
+def backward_cases(dtype):
+    """[(label, {kid: launch}, {kid: bound ms}, SDPA backward ms)] in
+    `dtype`: K3 and K4 on the budget mask at 1 x 12 x 2048 x 64 and at
+    LLaMA-7b's layer, 1 x 32 x 2048 x 128, and K7 and K8 on shard 0's rows
+    and window 0 of the ring-kernels geometry, each at the lse and delta of
+    its own forward (this tree's K2 or K6)."""
+    cases = []
     T = 2048
-    q, k, v, sc = cs.qkv(1, T, torch.float32, seed=T, device="cuda")
-    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(T + 1)).to("cuda")
-    mask = cs.budget_mask(1, T, seed=T, device="cuda")
-    ops = cs.diff_operands(q, k, v, mask, sc)
-    o, lse = bs.causal_fwd_stats(ops)
-    _, dou, delta = bs.backward_terms(do, o, sc, torch.float32)
-    cases = [(f"budget 1x{cs.H}x{T}", {
-        "K3": lambda: bs.causal_dq(ops, dou, lse, delta),
-        "K4": lambda: bs.causal_dkv(ops, dou, lse, delta),
-    }, {kid: cs.diff_bound(kid, ops, mask)[0] for kid in ("K3", "K4")},
-        sdpa_bwd_ms(q, k, v, do, True))]
+    for heads, width in ((cs.H, cs.D), (cs.WIDE_H, cs.LLAMA_D)):
+        q, k, v, sc = cs.qkv(1, T, dtype, seed=T, device="cuda", heads=heads, width=width)
+        do = torch.randn(q.shape, generator=torch.Generator().manual_seed(T + 1)).to("cuda", dtype)
+        mask = cs.budget_mask(1, T, seed=T, device="cuda", heads=heads)
+        ops = cs.diff_operands(q, k, v, mask, sc)
+        o, lse = bs.causal_fwd_stats(ops)
+        _, dou, delta = bs.backward_terms(do, o, sc.to(dtype), dtype)
+        cases.append((f"budget 1x{heads}x{T}x{width}", {
+            "K3": lambda ops=ops, a=(dou, lse, delta): bs.causal_dq(ops, *a),
+            "K4": lambda ops=ops, a=(dou, lse, delta): bs.causal_dkv(ops, *a),
+        }, {kid: cs.diff_bound(kid, ops, mask)[0] for kid in ("K3", "K4")},
+            sdpa_bwd_ms(q, k, v, do, True)))
 
     T = cs.RING_CHECK_T
-    q, k, v, sc = cs.qkv(1, T, torch.float32, seed=21, device="cuda")
-    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(22)).to("cuda")
+    q, k, v, sc = cs.qkv(1, T, dtype, seed=21, device="cuda")
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(22)).to("cuda", dtype)
     mask = cs.budget_mask(1, T, seed=21, device="cuda")
     group = LocalGroup(cs.RING_SHARDS, q.device)
     bq, bk = sa._ring_blocks(T, group.size, cs.RING_BLOCK, cs.RING_BLOCK)
     perm, _, rows = sa._row_order(T, group.size, bq, True, q.device)
-    qp, maskp, scp, dop = (x[:, :, perm] for x in (q, mask, sc, do))
+    qp, maskp, scp, dop = (x[:, :, perm] for x in (q, mask, sc.to(dtype), do))
     out, L, wops = sa._ring_forward(qp, k, v, maskp, scp, rows, group, bq, bk)
-    _, dou, delta = bs.backward_terms(dop, out, scp, torch.float32)
+    _, dou, delta = bs.backward_terms(dop, out, scp, dtype)
     L = torch.where(torch.isneginf(L), float("inf"), L)
     q_l, m_l, dou_l, L_l, delta_l, k_w, v_w = (
         group.split_rows(x) for x in (qp, maskp, dou, L, delta, k, v))
     r_l = group.split_rows(rows, 0)
-    per_call = (dou_l[0], L_l[0], delta_l[0])
+    per_call = (dou_l[0].contiguous(), L_l[0].contiguous(), delta_l[0].contiguous())
+    k0, v0 = k_w[0].contiguous(), v_w[0].contiguous()
     nnz = cs.window_nnz(m_l[0], r_l[0], 0, wops[0].window)
     cases.append((f"ring 1x{cs.H}x{T} shard 0 window 0", {
-        "K7": lambda: bs.dq_window(wops[0], 0, k_w[0], v_w[0], *per_call),
-        "K8": lambda: bs.dkv_window(wops[0], 0, k_w[0], v_w[0], *per_call),
+        "K7": lambda: bs.dq_window(wops[0], 0, k0, v0, *per_call),
+        "K8": lambda: bs.dkv_window(wops[0], 0, k0, v0, *per_call),
     }, {kid: max(cs.window_bound(kid, wops[0], nnz)) for kid in ("K7", "K8")},
-        sdpa_bwd_ms(q_l[0], k_w[0], v_w[0], dou_l[0], False)))
+        sdpa_bwd_ms(q_l[0], k0, v0, dou_l[0], False)))
     return cases
+
+
+def time_backward(libs: dict, order: list, dtypes=(torch.float32, torch.bfloat16)):
+    """Time the backward cases in each of `dtypes` with each library of
+    `order` (the knock-outs, which edit the bf16 bodies, in bf16 only),
+    printing whether each library's outputs equal the first one's bit for
+    bit. The forward (K2, K6) that gives lse comes from this tree's
+    library."""
+    for dtype in dtypes:
+        tname = str(dtype)[6:]
+        names = [n for n in order if dtype == torch.bfloat16 or not n.startswith("ko-")]
+        for label, launches, bounds, sdpa in backward_cases(dtype):
+            print(f"[ab] {label} {tname} backward: sdpa bwd {sdpa:.4f} ms; bound "
+                  + ", ".join(f"{kid} {b:.4f} ms" for kid, b in bounds.items()), flush=True)
+            ref = None  # the first library's outputs: the others' are held to them
+            for name in names:
+                outs = with_lib(libs[name], lambda: [fn() for fn in launches.values()],
+                                "_diff_lib")
+                ref = ref or (name, outs)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(_tensors(outs), _tensors(ref[1])))
+                times = {kid: with_lib(libs[name], lambda: cs.time_ms(fn), "_diff_lib")
+                         for kid, fn in launches.items()}
+                print(f"[ab] {label} {tname} {name}: "
+                      + ", ".join(f"{kid} {t:.4f} ms" for kid, t in times.items())
+                      + f", together {sum(times.values()):.4f} ms"
+                      + ("" if name.startswith("ko-") else
+                         f"; output bits {'equal to' if same else 'differ from'} {ref[0]}'s"),
+                      flush=True)
+
+
+def _tensors(outs):
+    """The tensors of a list of kernel outputs (a tensor or a tuple each)."""
+    return [t for o in outs for t in (o if isinstance(o, tuple) else (o,))]
 
 
 def main():
@@ -267,16 +320,7 @@ def main():
                      f"; output bits {'equal to' if same else 'differ from'} {ref[0]}'s"),
                   flush=True)
 
-    # the backward; its forward (K2, K6) from this tree's library
-    for label, launches, bounds, sdpa in backward_cases():
-        print(f"[ab] {label} float32 backward: sdpa bwd {sdpa:.4f} ms; bound "
-              + ", ".join(f"{kid} {b:.4f} ms" for kid, b in bounds.items()), flush=True)
-        for name in bwd_order:
-            times = {kid: with_lib(libs[name], lambda: cs.time_ms(fn), "_diff_lib")
-                     for kid, fn in launches.items()}
-            print(f"[ab] {label} float32 {name}: "
-                  + ", ".join(f"{kid} {t:.4f} ms" for kid, t in times.items())
-                  + f", together {sum(times.values()):.4f} ms", flush=True)
+    time_backward(libs, bwd_order)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
 

@@ -167,8 +167,6 @@
 // against the oracle, and `word_check_kernel` holds the construction to the
 // per-column pixel map on every row width to 2^17.
 
-#include <cuda.h>
-
 #include <type_traits>
 
 #include "sea_mask.cuh"
@@ -521,35 +519,19 @@ constexpr int SMEM_MAX = 232448;           // what a block may take on the H100
 // words, the barriers, each stage's walk entry (c0 and each warpgroup's list
 // entry, -1 where the sub-tile is dead for it), then the two warpgroups'
 // lists (and, K9a-c, their `tiles` entries), sized at launch. Each 64-row
-// tile is NP panels of PW columns (sea_mma.cuh): a 128-byte swizzle at D =
-// 64 and 128, a 32-byte one at D = 80.
+// tile is sea::Panels<D> (sea_mma.cuh): a 128-byte swizzle at D = 64 and
+// 128, a 32-byte one at D = 80.
 template <int D>
-struct Layout {
-  static constexpr int PW = D % 64 == 0 ? 64 : 16;
-  static constexpr int NP = D / PW;
-  static constexpr uint32_t SWIZZLE = PW == 64 ? 1u : 3u;
-  static constexpr int ROW = 2 * PW;             // bytes of a panel's row
-  static constexpr int PANEL = 64 * ROW;
-  static constexpr int TILE = NP * PANEL;        // 64 rows x D bf16
-  static constexpr int Q_BYTES = CONSUMERS * TILE;
+struct Layout : sea::Panels<D> {
+  using P = sea::Panels<D>;
+  static constexpr int Q_BYTES = CONSUMERS * P::TILE;
   static constexpr int STAGE_OFF = Q_BYTES;
-  static constexpr int STAGE = 2 * TILE;
+  static constexpr int STAGE = 2 * P::TILE;
   static constexpr int WORDS_OFF = STAGE_OFF + STAGES * STAGE;
   static constexpr int BAR_OFF = WORDS_OFF + BQ * MAX_WORDS * 4;
   static constexpr int META_OFF = BAR_OFF + 8 * (2 * STAGES + 1);
   static constexpr int LIST_OFF = META_OFF + 16 * STAGES;
   static constexpr int FIXED = LIST_OFF + 1024;  // and the base's alignment
-  static_assert(D % 16 == 0 && TILE % 1024 == 0, "head width");
-
-  // k-step kk (16 columns) of a K-major 64-row tile (Q, K)
-  __device__ static uint64_t kdesc(uint32_t tile, int kk) {
-    return sea::wgmma_desc(tile + (16 * kk / PW) * PANEL + (16 * kk % PW) * 2, 16, 8 * ROW,
-                           SWIZZLE);
-  }
-  // k-step kk (16 rows) of V, read MN-major: its panels are LBO apart
-  __device__ static uint64_t vdesc(uint32_t tile, int kk) {
-    return sea::wgmma_desc(tile + 16 * kk * ROW, PANEL, 8 * ROW, SWIZZLE);
-  }
 };
 
 // One consumer warpgroup's walk over its q-block's list (staged in shared
@@ -862,7 +844,7 @@ __global__ void __launch_bounds__(wg::THREADS, 1) causal_wgmma_kernel(
     sea::wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {
-      const uint64_t vd = L::vdesc(vs, kk);
+      const uint64_t vd = L::mndesc(vs, kk);
       sea::wgmma_rs<D>(acc, pl[kk], vd);
       sea::wgmma_rs<D>(acc, ph[kk], vd);
     }
@@ -1009,47 +991,6 @@ __global__ void word_check_kernel(int w_max, unsigned long long* bad) {
   if (n) atomicAdd(bad, n);
 }
 
-// The tensor maps of the bf16 body: a (rows, D) bf16 tensor in boxes of 64
-// rows by one panel of PW columns, swizzled as wgmma reads it.
-// cuTensorMapEncodeTiled is the driver's; it is looked up through the
-// runtime, so that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                           cudaEnableDefault, &found);
-#else
-    const cudaError_t e =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)f : nullptr;
-  }();
-  return fn;
-}
-
-template <int D>
-cudaError_t tile_map(CUtensorMap* map, const void* ptr, long rows) {
-  using L = wg::Layout<D>;
-  const EncodeTiled encode = encode_tiled();
-  if (!encode) return cudaErrorNotSupported;
-  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)L::PW, 64};
-  const cuuint32_t unit[2] = {1, 1};
-  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
-                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                            L::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
-                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
-}
-
 // One launch of the body: the float32 instances on mma.sync, the bf16 ones
 // on wgmma (128-row tiles, so t_dst a multiple of 128).
 template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>
@@ -1077,9 +1018,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
     const int bytes = wg::Layout<D>::FIXED + wg::CONSUMERS * nkb * 4 * (IMPL == FLAT ? 1 : 2);
     if (t_dst % wg::BQ != 0 || bytes > wg::SMEM_MAX) return cudaErrorInvalidValue;
     CUtensorMap tq, tk, tv;
-    cudaError_t e = tile_map<D>(&tq, q, (long)nh * t_dst);
-    if (e == cudaSuccess) e = tile_map<D>(&tk, k, (long)nh * t_src);
-    if (e == cudaSuccess) e = tile_map<D>(&tv, v, (long)nh * t_src);
+    cudaError_t e = sea::tile_map<D>(&tq, q, (long)nh * t_dst);
+    if (e == cudaSuccess) e = sea::tile_map<D>(&tk, k, (long)nh * t_src);
+    if (e == cudaSuccess) e = sea::tile_map<D>(&tv, v, (long)nh * t_src);
     static std::atomic<bool> opted_in[MAX_DEVICES];
     if (e == cudaSuccess)
       e = sea::opt_in_smem(causal_wgmma_kernel<D, STATS, BIDIR, IMPL>, wg::SMEM_MAX, opted_in);

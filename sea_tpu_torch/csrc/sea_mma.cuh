@@ -1,9 +1,12 @@
 // The tensor-core and copy instructions (inline PTX) and the shared-memory
 // tile helpers of the fused sparse attention bodies: on mma.sync (sm_80 and
-// later) the forward's float32 instances (block_sparse_causal.cu: K1, K2, K5,
-// K6, K9a-c) and the backward (block_sparse_diff.cu: dq for K3 and K7, dk/dv
-// for K4 and K8); on Hopper's wgmma, TMA, mbarriers and setmaxnreg (sm_90a,
-// the second half of this file) the forward's bf16 instances.
+// later) the float32 instances of the forward (block_sparse_causal.cu: K1,
+// K2, K5, K6, K9a-c) and of the backward (block_sparse_diff.cu: dq for K3
+// and K7, dk/dv for K4 and K8); on Hopper's wgmma, TMA, mbarriers and
+// setmaxnreg (sm_90a, the second half of this file) the bf16 instances of
+// both. The second half also holds the tile layout that TMA writes and
+// wgmma reads (`Panels`) and the tensor maps that describe it
+// (`tile_map`), which the bf16 bodies share.
 //
 // Fragments of mma.sync m16n8k8 (TF32), with g = lane / 4 and t4 = lane % 4:
 // A (16 x 8) holds rows g and g + 8 at k = t4 and t4 + 4; B (8 x 8) holds
@@ -16,6 +19,7 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -46,28 +50,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_u32(p)));
-}
-
-// c += a·b, a 16 x 16 (row), b 16 x 8 (col), bf16 in, float32 sums
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c += a·b, a 16 x 8 (row), b 8 x 8 (col), TF32 in, float32 sums
@@ -166,8 +148,9 @@ inline bool misaligned(const P*... p) {
 }
 
 // ---------------------------------------------------------------------------
-// Hopper (sm_90a): TMA, mbarriers, wgmma and setmaxnreg, for the forward's
-// bf16 body (block_sparse_causal.cu, `causal_wgmma_kernel`).
+// Hopper (sm_90a): TMA, mbarriers, wgmma and setmaxnreg, for the bf16
+// bodies (block_sparse_causal.cu, `causal_wgmma_kernel`; block_sparse_diff.cu,
+// `causal_dq_wgmma_kernel` and `causal_dkv_wgmma_kernel`).
 //
 // Shared-memory operands are tiles of 64 rows cut into panels of PW columns
 // (bf16), each panel rows x PW·2 bytes, row-major, in the swizzled layout
@@ -274,6 +257,12 @@ __device__ __forceinline__ void fence_frags(uint32_t (&r)[N][4]) {
   for (int i = 0; i < N; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// the `threads` threads (whole warps) that name barrier `id` (1-15; 0 is
+// __syncthreads') wait for each other
+__device__ __forceinline__ void bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 // the warpgroup's register budget lowered (the producer) or raised (the
@@ -422,6 +411,74 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[
     wgmma_rs_n80(d, a, db);
   else
     wgmma_rs_n128(d, a, db);
+}
+
+// A 64-row bf16 tile of D columns in shared memory: NP panels of PW columns,
+// each 64 rows of ROW bytes, in the swizzled layout TMA writes and wgmma's
+// descriptors read (see above: PW = 64 under the 128-byte swizzle at D = 64
+// and 128, PW = 16 under the 32-byte one at D = 80). A tile starts on 1024
+// bytes.
+template <int D>
+struct Panels {
+  static constexpr int PW = D % 64 == 0 ? 64 : 16;
+  static constexpr int NP = D / PW;
+  static constexpr uint32_t SWIZZLE = PW == 64 ? 1u : 3u;
+  static constexpr int ROW = 2 * PW;  // bytes of a panel's row
+  static constexpr int PANEL = 64 * ROW;
+  static constexpr int TILE = NP * PANEL;  // 64 rows x D bf16
+  static_assert(D % 16 == 0 && TILE % 1024 == 0, "head width");
+
+  // k-step kk (16 columns) of a tile read K-major: the reduction index runs
+  // along its rows (A of Q·Kᵀ, and its B, Kᵀ's rows)
+  __device__ static uint64_t kdesc(uint32_t tile, int kk) {
+    return wgmma_desc(tile + (16 * kk / PW) * PANEL + (16 * kk % PW) * 2, 16, 8 * ROW, SWIZZLE);
+  }
+  // k-step kk (16 rows) of a tile read MN-major as B: the reduction index
+  // runs down its rows, N along them, its panels LBO apart (V of P·V)
+  __device__ static uint64_t mndesc(uint32_t tile, int kk) {
+    return wgmma_desc(tile + 16 * kk * ROW, PANEL, 8 * ROW, SWIZZLE);
+  }
+};
+
+// The tensor map of a (rows, D) bf16 tensor in boxes of 64 rows by one panel
+// of PW columns, swizzled as `Panels<D>` lays a tile out.
+// cuTensorMapEncodeTiled is the driver's; it is looked up through the
+// runtime, so that no library needs -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
+                                                           cudaEnableDefault, &found);
+#else
+    const cudaError_t e =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess ? (EncodeTiled)f : nullptr;
+  }();
+  return fn;
+}
+
+template <int D>
+cudaError_t tile_map(CUtensorMap* map, const void* ptr, long rows) {
+  using P = Panels<D>;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)D, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)D * 2};
+  const cuuint32_t box[2] = {(cuuint32_t)P::PW, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            P::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }
 
 }  // namespace sea

@@ -1597,6 +1597,9 @@ def _window_args(ops: WindowOperands, w: int, k_win, v_win, what: str, dou=None,
         raise ValueError(f"{what}: k and v must be ({N}, {H}, {ops.window}, {D})")
     if not 0 <= w < ops.counts.shape[0]:
         raise ValueError(f"{what}: window {w} of {ops.counts.shape[0]}")
+    if ops.q.dtype == torch.bfloat16 and (TL % 128 or ops.window % 128):
+        raise ValueError(f"{what}: the bf16 kernels' tiles take shards and windows of whole "
+                         f"128-row blocks, got {TL} rows and windows of {ops.window}")
     return (N * H, TL, ops.window, D, ops.t_m, ops.mbits.shape[-1], ops.block_q,
             ops.block_k, TL // ops.block_q, ops.window // ops.block_k,
             w * ops.window, int(ops.q.dtype == torch.bfloat16))

@@ -3,8 +3,9 @@ knock-outs must each find their text in the CUDA source exactly once (or the
 tool would time an unchanged copy), and chip_smoke.py's tensor-core check
 must name every instance of the forward bodies (`causal_wgmma_kernel`, the
 bf16 instances on wgmma, and `causal_flat_kernel`, the float32 ones on
-mma.sync) and of the backward bodies (`causal_dq_kernel`,
-`causal_dkv_kernel`) from its mangled name."""
+mma.sync) and of the backward bodies (`causal_dq_wgmma_kernel` and
+`causal_dkv_wgmma_kernel` on wgmma, `causal_dq_kernel` and
+`causal_dkv_kernel` on mma.sync) from its mangled name."""
 
 import re
 
@@ -101,20 +102,34 @@ def _forward_mangled():
     return sorted(set(out))
 
 
+# the backward body each element type's `launch_dq<…>`/`launch_dkv<…>`
+# launches, and how its mangled name goes on after the template argument
+# (its first parameters: float32 pointers, or bf16's TMA tensor maps)
+BACKWARD_BODIES = {"float": ("causal_{}_kernel", "EEvPKfS1_"),
+                   "__nv_bfloat16": ("causal_{}_wgmma_kernel", "EEv14CUtensorMap_stS0_S0_S0_")}
+
+
 def _backward_mangled(launcher):
-    """The mangled names (up to the first parameter, as nvcc's build log
-    spells them) of the backward-body instances that `launcher` (the
-    template launch_dq or launch_dkv of block_sparse_diff.cu) launches, for
-    each width and element type the entry points instantiate it with."""
+    """The mangled names of the backward-body instances that `launcher`
+    (the template launch_dq or launch_dkv of block_sparse_diff.cu) launches,
+    for each width and element type the entry points instantiate it with:
+    its float32 body on mma.sync (`causal_dq_kernel<D>`,
+    `causal_dkv_kernel<D>`) or its bf16 body on wgmma
+    (`causal_dq_wgmma_kernel<D>`, `causal_dkv_wgmma_kernel<D>`)."""
     source = _dispatched(kernel_ab.DIFF_SOURCE.read_text())
     body = source[source.index(f"cudaError_t {launcher}("):]
     body = body[:body.index("\n}\n")]
     calls = set(re.findall(rf"\b{launcher}<(64, float|64, __nv_bfloat16|widths \w+)>\(",
                            source))
-    return sorted({f"_ZN53_GLOBAL__N__24bbea32_20_block_sparse_diff_cu_bf66d488{len(name)}{name}"
-                   f"ILi{d}E{MANGLED_T[t]}EEvPKT0_"
-                   for name in set(re.findall(r"(causal_(?:dq|dkv)_kernel)<D, T><<<", body))
-                   for call in calls for d, t in _instances(call)})
+    out = set()
+    for call in calls:
+        for d, t in _instances(call):
+            pattern, rest = BACKWARD_BODIES[t]
+            name = pattern.format(launcher[7:])
+            assert f"{name}<D><<<" in body, (launcher, name)
+            out.add(f"_ZN53_GLOBAL__N__24bbea32_20_block_sparse_diff_cu_bf66d488{len(name)}{name}"
+                    f"ILi{d}{rest}")
+    return sorted(out)
 
 
 @pytest.mark.parametrize("name", sorted(kernel_ab.DIFF_KNOCKOUTS))
@@ -135,9 +150,9 @@ def test_backward_knockouts_apply_to_the_source(tmp_path, monkeypatch, name):
 
 @pytest.mark.parametrize("launcher, kids", [("launch_dq", "K3/K7"), ("launch_dkv", "K4/K8")])
 def test_backward_instances_are_named(launcher, kids):
-    """The spill and HMMA checks name each backward instance that the
-    launcher launches by its kernels and width (at 80 and 128 the unsharded
-    kernel's alone: the windows take 64); the entry points are not
+    """The spill and tensor-core checks name each backward instance that the
+    launcher launches by its kernels, type and width (at 80 and 128 the
+    unsharded kernel's alone: the windows take 64); the entry points are not
     instances."""
     mangled = _backward_mangled(launcher)
     assert len(mangled) == 6
@@ -161,3 +176,19 @@ def test_required_instances_are_the_launched_ones():
     for launcher in ("launch_dq", "launch_dkv"):
         launched |= {chip_smoke.instance_name(m) for m in _backward_mangled(launcher)}
     assert launched == chip_smoke.required_instances()
+
+
+@pytest.mark.parametrize("launcher", ["launch_dq", "launch_dkv"])
+def test_backward_tensor_core_ops(launcher):
+    """The tensor-core check wants wgmma's HGMMA in every bf16 backward
+    instance and mma.sync's HMMA in every float32 one."""
+    for mangled in _backward_mangled(launcher):
+        want = "HGMMA" if chip_smoke.instance_name(mangled).split()[1] == "bfloat16" else "HMMA"
+        assert chip_smoke.tensor_core_op(mangled) == want, mangled
+
+
+def test_forward_tensor_core_ops():
+    """The same for the forward body's instances."""
+    for mangled in _forward_mangled():
+        want = "HGMMA" if chip_smoke.instance_name(mangled).split()[1] == "bfloat16" else "HMMA"
+        assert chip_smoke.tensor_core_op(mangled) == want, mangled
