@@ -11,12 +11,14 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 float32 references); the build's registers and spills (no
                 instance of the forward bodies or of the backward bodies may
                 spill), and the tensor-core instructions of every instance in
-                `cuobjdump -sass`: wgmma's (HGMMA) in each bf16 instance of
-                the forward body (`causal_wgmma_kernel`: K1, K2/K6, K5,
-                K9a-c), mma.sync's (HMMA) in each float32 one
-                (`causal_flat_kernel`) and in the backward bodies (K3/K7,
-                K4/K8), both types at head width 64 and K1-K4's at 80 and
-                128, none of which may lack them;
+                `cuobjdump -sass`: wgmma's (HGMMA) in each instance of the
+                forward bodies (K1, K2/K6, K5, K9a-c; bf16
+                `causal_wgmma_kernel`, float32 `causal_tf32_wgmma_kernel` in
+                split TF32, but K5's float32 instance) and of the bf16
+                backward bodies, mma.sync's (HMMA) in K5's float32 instance
+                (`causal_flat_kernel`) and in each float32 instance of the
+                backward bodies (K3/K7, K4/K8), both types at head width 64
+                and K1-K4's at 80 and 128, none of which may lack them;
   2. mask     — the kernel's element predicate (`alive_mask`: the bf16
                 body's alive words) against the torch oracle
                 `element_mask_int8`, bit for bit, for T up to 8192; the
@@ -101,7 +103,9 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 bf16 instances of K6-K8 on every (shard, window), both row
                 orders: outputs within 1e-5 plus half a bf16 ulp of the
                 float32 plain result, gradients within 1e-4·max|want| plus
-                half an ulp;
+                half an ulp; then 4 shards of 192 rows at blocks of 64 (1 x
+                768, rows and windows padded to whole 128-row tiles inside
+                the wrappers), float32 and bf16, on every (shard, window);
  11. ring-serve — the OPT-125m benchmark forward at 1 x 16384 inside
                 `sharded_attention_scope(LocalGroup(4), kind="auto")`, which
                 must resolve to 'ring': 192 K6 launches and no other kernel per
@@ -411,6 +415,7 @@ BF16_WRAPPERS.update({kid: w for kid, (w, *_) in RING_KERNELS.items()})
 RING_SHARDS, RING_BLOCK = 4, 128  # LocalGroup(4); the ring's default blocks
 RING_T = 16384  # the ring's main path: kind="auto" resolves to 'ring' from here
 RING_CHECK_T = 4096  # ring-kernels' synthetic inputs and the seq-head phase
+PAD_SHARD, PAD_BLOCK = 192, 64  # ring-kernels' shards that the wrappers pad to 256 rows
 # the JAX package's bounds (see the module docstring)
 RING_OUT_TOL, RING_GRAD_TOL, LAYER_TOL, LOSS_TOL = 3e-5, 2e-4, 1e-4, 1e-4
 # the causal forward's impl variants: (impl, TPU kernel replaced); each one's
@@ -675,12 +680,13 @@ def phase_device():
 
 
 # the forward bodies' template arguments <D, STATS, BIDIR, IMPL> as the
-# mangled name spells them: `causal_flat_kernel`, the float32 instances on
-# mma.sync, and `causal_wgmma_kernel`, the bf16 ones on wgmma; and the
+# mangled name spells them: `causal_tf32_wgmma_kernel`, the float32
+# instances on wgmma in split TF32, `causal_flat_kernel`, K5's float32
+# instance on mma.sync, and `causal_wgmma_kernel`, the bf16 ones; and the
 # kernels each instance is
 FLAT_INSTANCE = re.compile(
-    r"causal_(flat|wgmma)_kernelILi(64|80|128)ELb([01])ELb([01])ELi([0-3])EE")
-BODY_TYPES = {"flat": "float32", "wgmma": "bfloat16"}
+    r"causal_(tf32_wgmma|flat|wgmma)_kernelILi(64|80|128)ELb([01])ELb([01])ELi([0-3])EE")
+BODY_TYPES = {"tf32_wgmma": "float32", "flat": "float32", "wgmma": "bfloat16"}
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
 # the backward bodies `causal_dq_kernel<D>` and `causal_dkv_kernel<D>`, the
@@ -727,18 +733,20 @@ def required_instances() -> set:
 
 def tensor_core_op(function: str) -> str:
     """The tensor-core instruction a body instance must contain: wgmma's
-    (HGMMA) in the bf16 bodies, mma.sync's (HMMA) in the float32 ones."""
+    (HGMMA) in the bodies on wgmma (both forward bodies, the bf16 backward
+    ones), mma.sync's (HMMA) in the float32 ones on mma.sync (K5's forward,
+    the backward's)."""
     return "HGMMA" if "wgmma_kernel" in function else "HMMA"
 
 
 def tensor_core_check():
     """Count the tensor-core instructions of every instance of the forward
     and backward bodies in the built libraries' SASS (`cuobjdump -sass`):
-    every instance the entry points launch must be there, each bf16 one
-    (`causal_wgmma_kernel`, `causal_dq_wgmma_kernel`,
-    `causal_dkv_wgmma_kernel`) with wgmma's (HGMMA), each float32 one
-    (`causal_flat_kernel`, `causal_dq_kernel`, `causal_dkv_kernel`) with
-    mma.sync's (HMMA)."""
+    every instance the entry points launch must be there, each one on wgmma
+    (`causal_wgmma_kernel`, `causal_tf32_wgmma_kernel`,
+    `causal_dq_wgmma_kernel`, `causal_dkv_wgmma_kernel`) with HGMMA, each
+    float32 one on mma.sync (`causal_flat_kernel`, K5's; `causal_dq_kernel`,
+    `causal_dkv_kernel`) with HMMA."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
     counts, name, op = {}, None, None
     for lib in ("block_sparse_causal", "block_sparse_diff"):
@@ -752,8 +760,8 @@ def tensor_core_check():
                     counts[name] = 0
             elif name and op in line:
                 counts[name] += 1
-    log(f"[device] tensor-core instructions by body instance (HGMMA in the bf16 bodies, "
-        f"HMMA in the float32 ones): {counts}")
+    log(f"[device] tensor-core instructions by body instance (HGMMA in the bodies on wgmma, "
+        f"HMMA in the float32 ones on mma.sync): {counts}")
     require(set(counts) == required_instances(), f"body instances in the SASS: {sorted(counts)}")
     require(all(counts.values()), f"instances without tensor-core instructions: {counts}")
 
@@ -1938,10 +1946,10 @@ def window_bound(kid, ops: bs.WindowOperands, nnz):
     return 1e3 * flops / PEAK_FLOPS[ops.q.dtype], 1e3 * nbytes / HBM_BYTES_PER_S
 
 
-def ring_windows(label, q, k, v, mask, sc, do, timed=False, zigzag=True):
+def ring_windows(label, q, k, v, mask, sc, do, timed=False, zigzag=True, block=RING_BLOCK):
     """K6, K7 and K8 against their plain versions on every (shard, window)
     of a ring of RING_SHARDS shards (zigzag rows unless `zigzag` is False,
-    blocks RING_BLOCK) over
+    blocks `block`) over
     (q, k, v, mask, sc) with incoming gradient `do`, at the ring's merged
     logsumexp and delta (dou in the operands' type, as the ring's backward
     takes it). float32 or bf16 operands; the plain versions run in float32
@@ -1955,7 +1963,7 @@ def ring_windows(label, q, k, v, mask, sc, do, timed=False, zigzag=True):
     group = LocalGroup(RING_SHARDS, q.device)
     N, Hh, T, Dd = q.shape
     S = group.size
-    bq, bk = sa._ring_blocks(T, S, RING_BLOCK, RING_BLOCK)
+    bq, bk = sa._ring_blocks(T, S, block, block)
     perm, _, rows = sa._row_order(T, S, bq, zigzag, q.device)
     qp, maskp, scp, dop = (x if perm is None else x[:, :, perm] for x in (q, mask, sc, do))
     out, L, ops = sa._ring_forward(qp, k, v, maskp, scp, rows, group, bq, bk)
@@ -2119,6 +2127,18 @@ def phase_ring_kernels():
     bf16_errs, _ = ring_windows(f"1x{T} zigzag", qb, kb, vb, mask, scb, dob)
     natural, _ = ring_windows(f"1x{T} natural order", qb, kb, vb, mask, scb, dob, zigzag=False)
     bf16_errs = {kid: max(bf16_errs[kid], natural[kid]) for kid in bf16_errs}
+    # shards of whole blocks but not of whole 128-row tiles (the JAX ring's
+    # `_ring_blocks` takes them): the wrappers pad rows and windows inside
+    T = RING_SHARDS * PAD_SHARD
+    q, k, v, sc = qkv(1, T, torch.float32, seed=23, device=dev)
+    do = torch.randn(q.shape, generator=torch.Generator().manual_seed(24)).to(dev)
+    mask = budget_mask(1, T, seed=23, device=dev)
+    for dtype, out in ((torch.float32, errs), (torch.bfloat16, bf16_errs)):
+        padded, _ = ring_windows(f"1x{T} {PAD_SHARD}-row shards, blocks {PAD_BLOCK}",
+                                 *(x.to(dtype) for x in (q, k, v)), mask, sc.to(dtype),
+                                 do.to(dtype), block=PAD_BLOCK)
+        for kid in out:
+            out[kid] = max(out[kid], padded[kid])
     return errs, timing, bf16_errs
 
 

@@ -1,8 +1,9 @@
 // Fused block-sparse SEA attention forward kernels for Hopper (sm_90a): the
 // causal forward, its forward-with-stats variant, the padded bidirectional
 // forward and the causal forward's three impl variants, instances of one
-// forward body, written twice: `causal_wgmma_kernel` for bf16 and
-// `causal_flat_kernel` for float32.
+// forward body, written twice on wgmma and TMA: `causal_wgmma_kernel` for
+// bf16 and `causal_tf32_wgmma_kernel` for float32 (split TF32), but for K5
+// in float32, which keeps `causal_flat_kernel` on mma.sync.
 //
 // Replaces these TPU kernels of sea_tpu/ops/kernels/block_sparse.py:
 //   * `_causal_kernel_flat` (impl "flat", the causal benchmark path), entry
@@ -53,7 +54,8 @@
 // the scaler once and writing out at HBM's 3.35 TB/s takes longer than the
 // alive work. The kernel does not gather alive columns: it does the dense
 // work of every visited 64-column sub-tile (for bf16, 4·64·64·D FLOPs a 64
-// rows: Q·Kᵀ and P·V's two halves), and the 64 x 64 lists keep nearly the
+// rows: Q·Kᵀ and P·V's two halves; for float32 each product three times in
+// TF32), and the 64 x 64 lists keep nearly the
 // whole triangle on these masks. So its time goes to the products, to the
 // predicate and the softmax per element on the ALU and SFU pipes, and to
 // reading each visited K/V sub-tile from L2 once per q-tile.
@@ -110,17 +112,49 @@
 // 8·nkb (K9a-c 16·nkb) for the lists: 91272, 111752 and 173192 plus the
 // lists at D = 64, 80 and 128. The tiles need t_dst a multiple of 128.
 //
-// The float32 body (`causal_flat_kernel`) is FlashAttention-2's on mma.sync
-// in split TF32 ("3xTF32"), with cp.async double buffering: one block of 4
-// warps per (batch·head, 64-row q-tile); each operand is hi + lo in TF32
-// (rounded as cvt.rna rounds, by integer operations: `split_tf32_rna`), and
-// a·b is summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with m16n8k8 TF32 mmas
-// into float32, for both products, the result keeping float32 accuracy to a
-// few 1e-7. wgmma takes TF32 operands only K-major, so P·V would need Vᵀ in
-// shared memory, with hi and lo copies of K and V besides: a later redesign.
-// Its predicate is per element (the pixel from the row's reciprocal by the
-// fast path of IEEE division, `sea::quot`, a word read, a shift and a
-// select); shared memory at D = 128 172 KiB, at 64 and 80 two blocks an SM.
+// The float32 body (`causal_tf32_wgmma_kernel`) is the bf16 body's skeleton
+// (the walk, the TMA copies on mbarriers, warp specialisation under
+// setmaxnreg, the alive words, the softmax, the epilogue) with its products
+// in split TF32 ("3xTF32"): each operand is hi + lo in TF32 (rounded as
+// cvt.rna rounds, by integer operations: `split_tf32_rna`), and a·b is
+// summed as a_lo·b_hi + a_hi·b_lo + a_hi·b_hi per 8-wide k-step on
+// wgmma m64nNk8 TF32 into float32, for both products, keeping float32
+// accuracy to a few 1e-7. What is new is where the operands come from:
+//   * wgmma reads TF32 operands K-major only. S = Q·Kᵀ is K-major as Q and K
+//     stand; P·V reads V as Vᵀ (the keys along each row). Every operand
+//     lands raw by TMA and is split on the chip, hi and lo: Q once per
+//     block, in place, by its warpgroup; each K sub-tile in place in its
+//     stage, and each V sub-tile from a slot of its own, transposed into its
+//     stage's Vᵀ, by seven warps of two producer warpgroups (the eighth
+//     issues the copies), on barriers of their own between the copy and the
+//     consumers. (A pre-pass that wrote K's and Vᵀ's hi and lo to global
+//     memory read twice the bytes from L2 at every stage; one that wrote Vᵀ
+//     alone cost 4-22 µs a launch in its own traffic: PERF.md §6.)
+//     At D = 128 the splits and the wgmmas' operand reads share the SM's
+//     shared-memory bandwidth, which bounds a sub-tile there;
+//   * P comes from the S accumulators as the A operand, split hi + lo. Its
+//     fragment holds each thread's columns 2·t4 and 2·t4 + 1 of a k-step at
+//     k = t4 and t4 + 4, so each group of 8 keys of Vᵀ is written in that
+//     order (`sea::key_at`): no shuffle in the consumers;
+//   * shared memory: a 64-row float32 tile is 256·D bytes, doubled by hi and
+//     lo. So the width decides the block (`tf::Config`): at D = 64 two
+//     consumer warpgroups (128 rows) and two K/Vᵀ stages, 222344 bytes; at
+//     80 two warpgroups and one stage, 193616; at 128 one warpgroup and one
+//     stage, the mask words read through L1, 230480 (plus the lists). K and
+//     Vᵀ have barriers of their own, so a stage's K is refilled while its Vᵀ
+//     is read, and the next V lands while this one is read; each warpgroup
+//     waits for its P·V before the next sub-tile, as one stage needs;
+//   * at D = 80, whose 320-byte rows no 128-byte box tiles, Q, K and V take
+//     8-column panels under the 32-byte swizzle (`sea::TPanels`), the bytes
+//     of the bf16 tiles' 16-column ones.
+// One block per (batch·head, 64- or 128-row q-tile), every head's last
+// q-tile first; t_dst a multiple of the block's rows (the wrappers pad T to
+// 128). Registers: 128 for the 512-thread launches (D = 64, 80; consumers
+// under 216 after setmaxnreg), 168 for the 384-thread ones (D = 128;
+// consumers under 232), the producers under 40; no spill.
+// K5's float32 instance keeps the body that served every float32 instance
+// before (`causal_flat_kernel`, FlashAttention-2's on mma.sync): at BERT's
+// short rows it was faster (see there).
 //
 // K6 walks the same lists restricted to one window: the ring launches it S
 // times per shard (S² per layer), each over a 1/S slice of the columns, so
@@ -138,16 +172,14 @@
 //   * K9a (WORD_RANGE) reads only the words of the tile's word range wr =
 //     lo | hi << 8 | exact << 16 (`_tile_word_ranges`: corner evaluation
 //     padded by one pixel, so the few-ulp gap between the TPU's reciprocal
-//     form and the division form stays inside it); bf16 from the block's
-//     staged words, float32 with one or two candidate words in registers.
+//     form and the division form stays inside it), from the block's staged
+//     words.
 //   * K9b (WORD_LOOP) keeps no shared-memory copy of the mask words: the
-//     range's words are read through L1 (float32: a walk over the range per
-//     row and sub-tile, as the TPU's fori_loop body does).
+//     range's words are read through L1.
 //   * K9c (SUBTILE) walks outer k-blocks (`block_k`, the JAX package's
 //     auto_block width) and visits only the `sub`-wide pieces whose bit is
 //     set in the tile's `submask` (`tile_activity_sub`), skipping the loads,
-//     Q·Kᵀ, the predicate and P·V of every other piece (float32: with the
-//     two candidate words of the TPU kernel's short path).
+//     Q·Kᵀ, the predicate and P·V of every other piece.
 // Every variant walks the listed 64-column sub-tiles in increasing order
 // through the same body, and a sub-tile with no alive element changes
 // nothing, so each equals K1's output bit for bit on the same inputs. Their
@@ -156,11 +188,7 @@
 // Head widths. Each entry point instantiates the widths of its list
 // (`sea::dispatch` over sea_mask.cuh's FORWARD_WIDTHS, TRAIN_WIDTHS,
 // BASE_WIDTHS): K1 and K2 at 64, 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b),
-// K5, K6 (K2's instance at 64) and K9a-c at 64, each in both types. In the
-// float32 body the padded strides stay free of bank conflicts at every
-// width: K and Q rows of D + 8 floats put the float2 reads of rows g = 0..3
-// on banks 24·g + 2·t (80) or 8·g + 2·t (64, 128) mod 32, and V rows of D +
-// 4 put the reads of rows 2·t on banks 8·t + g.
+// K5, K6 (K2's instance at 64) and K9a-c at 64, each in both types.
 //
 // The debug kernels `alive_mask_kernel` and `impl_alive_mask_kernel` build
 // the bf16 body's alive words, so that the card checks them bit for bit
@@ -176,327 +204,19 @@ namespace {
 
 using sea::bad_geometry;
 using sea::bad_window;
-using sea::copy_rows;
-using sea::cp_async_commit;
-using sea::cp_async_wait;
 using sea::exp2_sfu;
 using sea::LOG2E;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
 using sea::misaligned;
-using sea::mma_3xtf32;
-using sea::split_a;
 using sea::split_bf16;
 
-constexpr int BQ = sea::TILE;   // query rows per block (float32)
-constexpr int BKT = sea::TILE;  // key columns per sub-tile
-constexpr int WARPS = BQ / 16;  // each owns 16 query rows
-constexpr int TPB = 32 * WARPS;
-constexpr int NT = BKT / 8;     // 8-column score tiles of a sub-tile
 constexpr float M_INIT = -1.0e30f;  // running-max floor: exp(-inf - m) == 0
 
 // Which mask words the causal element predicate reads: all of the row's
 // (K1, K2, K5, K6), the tile's word range staged (K9a) or walked (K9b), or
 // the words of the active pieces only (K9c).
 enum Impl : int { FLAT = 0, WORD_RANGE = 1, WORD_LOOP = 2, SUBTILE = 3 };
-
-// The float32 body's shared memory: two stages of (K, V) sub-tiles, then
-// the q-tile, then its mask words. K and Q rows padded by 8 floats (float2
-// reads of rows g = 0..3 at banks 8·g + 2·t), V rows by 4 (reads of rows
-// 2·t at banks 8·t + g): every fragment read is free of bank conflicts.
-template <int D>
-struct Smem {
-  static constexpr int KLD = D + 8;
-  static constexpr int VLD = D + 4;
-  static constexpr int K_BYTES = BKT * KLD * 4;
-  static constexpr int STAGE = K_BYTES + BKT * VLD * 4;
-  static constexpr int Q_BYTES = BQ * KLD * 4;
-  static constexpr int bytes = 2 * STAGE + Q_BYTES + BQ * MAX_WORDS * 4;
-};
-
-// One 64-column K/V sub-tile into a stage.
-template <int D>
-__device__ __forceinline__ void load_kv(unsigned char* stage, const float* __restrict__ k,
-                                        const float* __restrict__ v, long base, int tid) {
-  using S = Smem<D>;
-  copy_rows<D, TPB>(reinterpret_cast<float*>(stage), S::KLD, k + base, tid);
-  copy_rows<D, TPB>(reinterpret_cast<float*>(stage + S::K_BYTES), S::VLD, v + base, tid);
-}
-
-// Blocks an SM should hold, which caps registers at 65536 / (128·blocks):
-// the split products need the 255 of two, and at 128 the 172 KiB of shared
-// memory leave room for one block an SM only.
-template <int D>
-constexpr int MIN_BLOCKS = D > 80 ? 1 : 2;
-
-// The float32 body on mma.sync (split TF32). STATS: the forward of the
-// differentiable path. The undersampling predicate is off and `lse`
-// receives each row's logsumexp.
-// BIDIR: the padded bidirectional forward. Row widths come from `lengths`
-// (one per batch·head); `rowbase` and the undersampling predicate are unused.
-// IMPL: which mask words the element predicate reads (K9a-c; FLAT for the
-// others). `tiles` (batch·head, nq, nkb) lies beside `idx`: each listed
-// tile's word range (WORD_RANGE, WORD_LOOP) or bitmask of active `sub`-wide
-// pieces (SUBTILE); FLAT reads neither.
-template <int D, bool STATS, bool BIDIR, int IMPL = FLAT>
-__global__ void __launch_bounds__(TPB, MIN_BLOCKS<D>) causal_flat_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    const uint32_t* __restrict__ mbits, const float* __restrict__ scaler,
-    const int* __restrict__ counts, const int* __restrict__ idx,
-    const int* __restrict__ tiles, const int* __restrict__ rowbase,
-    const int* __restrict__ lengths, float* __restrict__ out,
-    float* __restrict__ lse, int t_dst, int t_src, int t_m, int n_words,
-    int block_q, int block_k, int nq, int nkb, int sub, float oversample,
-    float k_cfg, float keep_lo, float keep_hi, int col_base) {
-  using S = Smem<D>;
-  static_assert(D % 16 == 0, "head width");
-  extern __shared__ __align__(16) unsigned char smem[];
-  const float* Qs = reinterpret_cast<const float*>(smem + 2 * S::STAGE);
-  uint32_t* Ms = reinterpret_cast<uint32_t*>(smem + 2 * S::STAGE + S::Q_BYTES);
-
-  // blocks start in order of x, then y: every head's last (heaviest causal)
-  // q-tile first, then the ones before it
-  const int bh = blockIdx.x;
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // first local row of the tile
-  const int qb = row0 / block_q;     // q-block of the tile lists
-  const int grow0 = BIDIR ? row0 : rowbase[qb] + (row0 - qb * block_q);
-  const int len = BIDIR ? lengths[bh] : 0;
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;  // the fragment row and column pair
-  const int wrow0 = (tid >> 5) * 16;       // the warp's first row in the tile
-
-  const long moff = ((long)bh * t_dst + row0) * n_words;
-  // WORD_LOOP reads its rows' words from global memory (L1) instead
-  if (IMPL != WORD_LOOP)
-    for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
-
-  // the q-tile goes to shared memory with the first K/V sub-tile
-  const long qoff = ((long)bh * t_dst + row0) * D;
-  copy_rows<D, TPB>(reinterpret_cast<float*>(smem + 2 * S::STAGE), S::KLD, q + qoff, tid);
-
-  // per fragment row h: rows wrow0 + g + 8·h of the tile; wf, the row's
-  // width (causal r + 1, bidirectional the length) and yw its reciprocal
-  float m_i[2], l_i[2], ps[2], thr[2], wf[2], yw[2];
-  float acc[D / 8][4];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    m_i[h] = M_INIT;
-    l_i[h] = 0.f;
-    const float w = (float)(grow0 + wrow0 + g + 8 * h + 1);
-    wf[h] = BIDIR ? (float)len : w;
-    yw[h] = sea::recip(wf[h]);
-    ps[h] = fmaxf(floorf(__fadd_rn(__fdiv_rn(w, oversample), 0.5f)), 1.0f);
-    const float oys = __fdiv_rn(fminf(fmaxf(w, keep_lo), keep_hi), k_cfg);
-    thr[h] = __fadd_rn(__fmul_rn(__fdiv_rn(1.0f, oys), 0.5f), 1e-4f);
-  }
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-  const bool undersample = !STATS && !BIDIR && oversample != 1.0f;
-  const float dead = __uint_as_float(0xff800000u);  // -inf
-
-  const int cnt = counts[bh * nq + qb];
-  const int* lst = idx + ((long)bh * nq + qb) * nkb;
-  const int* tls = tiles + ((long)bh * nq + qb) * nkb;  // read unless FLAT
-  // SUBTILE: whether this q-block's rows take the two-candidate path
-  const bool shrt = IMPL == SUBTILE && sea::sub_short(grow0 - (row0 - qb * block_q), t_m, sub);
-  // every column from here on is dead on every row of the tile
-  const int col_end = BIDIR ? len : grow0 + BQ;
-  // k and v hold the (global) columns col_base .. col_stop − 1; col_stop and
-  // every c0 are multiples of 64, so a visited sub-tile lies wholly inside
-  const int col_stop = col_base + t_src;
-  const long kvbase = ((long)bh * t_src - col_base) * D;
-
-  // The walk: advance (e, c0) to the first visited sub-tile at or after it
-  // (list entry e, first column c0); false when the list is done.
-  auto seek = [&](int& e, int& c0) -> bool {
-    for (; e < cnt; ++e, c0 = -1) {
-      const int start = lst[e] * block_k;
-      for (c0 = c0 < start ? start : c0; c0 < start + block_k; c0 += BKT) {
-        // wholly past the causal edge, the length or the window
-        if (c0 >= col_end || c0 >= col_stop) break;
-        // SUBTILE skips the dead pieces whole: no loads, no Q·Kᵀ, no
-        // predicate, no P·V
-        if (IMPL == SUBTILE && ((((unsigned)tls[e]) >> ((c0 - start) / sub)) & 1u) == 0u)
-          continue;
-        return true;
-      }
-    }
-    return false;
-  };
-
-  // SUBTILE: the rows' two candidates of the current piece, kept across its
-  // sub-tiles; WORD_RANGE: the rows' one or two candidate words
-  uint32_t cand0[2] = {0u, 0u}, cand1[2] = {0u, 0u};
-  int cand_w[2] = {0, 0};
-
-  int e = 0, c0 = -1, stage = 0;
-  bool have = seek(e, c0);
-  if (have) load_kv<D>(smem, k, v, kvbase + (long)c0 * D, tid);
-  cp_async_commit();
-  while (have) {
-    int ne = e, nc0 = c0 + BKT;
-    const bool more = seek(ne, nc0);
-    // the next sub-tile's copies run while this one's products do
-    if (more) load_kv<D>(smem + (stage ^ 1) * S::STAGE, k, v, kvbase + (long)nc0 * D, tid);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this stage (and, first time, the mask words) landed
-    const float* Ks = reinterpret_cast<const float*>(smem + stage * S::STAGE);
-    const float* Vs = reinterpret_cast<const float*>(smem + stage * S::STAGE + S::K_BYTES);
-
-    // S = Q·Kᵀ: s[j] is the C fragment of score columns 8·j .. 8·j + 7
-    float s[NT][4];
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < D / 8; ++kk) {
-      // k = t4 is column 8·kk + 2·t4 of Q and K, k = t4 + 4 the one after
-      uint32_t ah[4], al[4];
-      split_a(*reinterpret_cast<const float2*>(Qs + (wrow0 + g) * S::KLD + 8 * kk + 2 * t4),
-              *reinterpret_cast<const float2*>(Qs + (wrow0 + g + 8) * S::KLD + 8 * kk + 2 * t4),
-              ah, al);
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const float2 kv =
-            *reinterpret_cast<const float2*>(Ks + (8 * j + g) * S::KLD + 8 * kk + 2 * t4);
-        mma_3xtf32(s[j], ah, al, kv.x, kv.y);
-      }
-    }
-
-    // WORD_RANGE, WORD_LOOP: the tile's word range; WORD_RANGE keeps each of
-    // its rows' one or two candidate words in registers.
-    // SUBTILE: the candidates at the first sub-tile of each piece.
-    sea::WordRange wr{0, 0, false, false};
-    if (IMPL == WORD_RANGE || IMPL == WORD_LOOP) wr = sea::word_range(tls[e]);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = wrow0 + g + 8 * h;
-      const uint32_t* words = Ms + rl * n_words;
-      if (IMPL == WORD_RANGE && (wr.one || wr.two)) {
-        cand0[h] = words[wr.lo];
-        cand1[h] = wr.two ? words[wr.lo + 1] : 0u;
-      }
-      if (IMPL == SUBTILE && shrt && (c0 - lst[e] * block_k) % sub == 0)
-        sea::sub_candidates(words, c0, grow0 + rl, t_m, n_words, cand_w[h], cand0[h],
-                            cand1[h]);
-    }
-
-    // the element predicate and the online softmax, row by row
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int rl = wrow0 + g + 8 * h;
-      const int r = grow0 + rl;
-      const uint32_t* words = Ms + rl * n_words;
-      // element j's column is c0 + 8·(j / 2) + 2·t4 + j % 2, and its pixel
-      // (causal: -1 where dead whatever the mask holds) comes from the row's
-      // reciprocal; x0 + j's offset is the exact (float)col + 0.5
-      const float x0 = __fadd_rn((float)(c0 + 2 * t4), 0.5f);
-      auto pixel = [&](int j) {
-        const int col = c0 + 8 * (j >> 1) + 2 * t4 + (j & 1);
-        const float x = __fadd_rn(x0, (float)(8 * (j >> 1) + (j & 1)));
-        return BIDIR ? sea::len_clip(sea::floor_pixel(sea::quot(x, wf[h], yw[h]), t_m), t_m)
-                     : sea::causal_pixel_recip(x, col, r, wf[h], yw[h], t_m);
-      };
-      // WORD_LOOP: the words of the thread's 16 columns in one walk over the
-      // range, each word read once through L1
-      uint32_t lw[2 * NT];
-      int lpix[2 * NT];
-      if (IMPL == WORD_LOOP) {
-        int wi[2 * NT];
-#pragma unroll
-        for (int j = 0; j < 2 * NT; ++j) {
-          lpix[j] = pixel(j);
-          wi[j] = lpix[j] >= 0 ? lpix[j] >> 5 : -1;
-        }
-        sea::loop_words<2 * NT>(mbits + moff + (long)rl * n_words, wr.lo, wr.hi, wi, lw);
-      }
-      float rmax = M_INIT;
-#pragma unroll
-      for (int j = 0; j < 2 * NT; ++j) {
-        const int col = c0 + 8 * (j >> 1) + 2 * t4 + (j & 1);
-        const int pix = IMPL == WORD_LOOP ? lpix[j] : pixel(j);
-        const int wi = (pix < 0 ? 0 : pix) >> 5;  // a word to read also when dead
-        uint32_t word;
-        if (IMPL == WORD_RANGE)
-          word = sea::range_word(words, wi, wr, cand0[h], cand1[h]);
-        else if (IMPL == WORD_LOOP)
-          word = lw[j];
-        else if (IMPL == SUBTILE)
-          word = sea::sub_word(words, wi, shrt, cand_w[h], cand0[h], cand1[h]);
-        else
-          word = words[wi];
-        bool a = (BIDIR ? col < len : pix >= 0) & sea::pixel_bit(word, pix);
-        if (undersample)
-          a = a & sea::keep_quot(sea::quot((float)(col + 1), wf[h], yw[h]), ps[h], thr[h]);
-        float& x = s[j >> 1][2 * h + (j & 1)];
-        x = a ? x : dead;
-        rmax = fmaxf(rmax, x);
-      }
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
-      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
-      const float m_new = fmaxf(m_i[h], rmax);
-      // exp(x - m) as 2^(x·log2 e - m·log2 e): one FFMA and the SFU's exp2;
-      // a row whose max did not move gets corr = 2^0 = 1 exactly
-      const float corr = exp2_sfu(__fmul_rn(__fsub_rn(m_i[h], m_new), LOG2E));
-      const float ml = __fmul_rn(m_new, LOG2E);
-      float psum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 2 * NT; ++j) {
-        float& x = s[j >> 1][2 * h + (j & 1)];
-        x = exp2_sfu(__fmaf_rn(x, LOG2E, -ml));  // dead elements: 2^-inf == 0
-        psum += x;
-      }
-      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
-      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
-      l_i[h] = l_i[h] * corr + psum;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) {
-        acc[j][2 * h] *= corr;
-        acc[j][2 * h + 1] *= corr;
-      }
-      m_i[h] = m_new;
-    }
-
-    // acc += P·V, P from the S fragments (k = the sub-tile's columns; k =
-    // t4 is column 8·kk + 2·t4, k = t4 + 4 the one after)
-#pragma unroll
-    for (int kk = 0; kk < NT; ++kk) {
-      uint32_t ah[4], al[4];
-      split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
-      const float* v0 = Vs + (8 * kk + 2 * t4) * S::VLD + g;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j) mma_3xtf32(acc[j], ah, al, v0[8 * j], v0[S::VLD + 8 * j]);
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
-    e = ne;
-    c0 = nc0;
-    have = more;
-    stage ^= 1;
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int rl = wrow0 + g + 8 * h;
-    const float l = l_i[h];
-    const float safe_l = l > 0.f ? l : 1.f;
-    const float sc = scaler ? scaler[(long)bh * t_dst + row0 + rl] : 1.f;
-    float* o = out + qoff + (long)rl * D + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(o + 8 * j) =
-          make_float2(acc[j][2 * h] / safe_l * sc, acc[j][2 * h + 1] / safe_l * sc);
-    // logsumexp; +inf for rows with no alive column, so that the backward's
-    // exp(s - lse) is 0 there (m and l are equal across the lane quad)
-    if (STATS && t4 == 0)
-      lse[(long)bh * t_dst + row0 + rl] =
-          l > 0.f ? m_i[h] + logf(l) : __uint_as_float(0x7f800000u);
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 body on wgmma (K1, K2, K5, K6, K9a-c in bfloat16)
@@ -870,6 +590,701 @@ __global__ void __launch_bounds__(wg::THREADS, 1) causal_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 body on wgmma in split TF32 (K1, K2, K5, K6, K9a-c in float32)
+// ---------------------------------------------------------------------------
+
+namespace tf {
+
+// Consumer warpgroups (64 query rows each), K/Vᵀ stages and where the mask
+// words live, by head width, as a block's 227 KiB of shared memory hold them
+// with every operand in hi and lo (see Layout): at D = 64 two warpgroups and
+// two stages; at 80 two and one; at 128 one and one, the words read through
+// L1. Two producer warpgroups: one warp issues the copies, the other seven
+// split. setmaxnreg moves the producers' registers to the consumers: 2·40 +
+// 2·216 of one 512-thread block's 128 a thread, or 2·40 + 232 of one
+// 384-thread block's 168.
+template <int D>
+struct Config {
+  static constexpr int CONSUMERS = D == 128 ? 1 : 2;
+  static constexpr int STAGES = D == 64 ? 2 : 1;
+  static constexpr bool WORDS_SMEM = D != 128;
+  static constexpr int BQ = 64 * CONSUMERS;  // query rows per block
+  static constexpr int PRODUCERS = 256;      // threads of the producer warpgroups
+  static constexpr int SPLITTERS = PRODUCERS / 32 - 1;  // their warps that split
+  static constexpr int THREADS = PRODUCERS + 128 * CONSUMERS;
+  static constexpr int PRODUCER_REGS = 40;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 216 : 232;
+};
+
+// Shared memory from a 1024-byte aligned base: each consumer warpgroup's Q
+// (hi, then lo; 64 x D), the STAGES stages' K (hi, lo; 64 x D) and Vᵀ (hi,
+// lo; D x 64), the slot where each V sub-tile (64 x D) lands raw, the
+// block's mask words (WORDS_SMEM), the barriers (per stage: K landed, K
+// split, K released, Vᵀ split, Vᵀ released; the raw V landed and consumed;
+// Q landed), each stage's walk entry, then the lists, sized at launch. A Q,
+// K or V tile (64 x D) and a Vᵀ tile (D x 64) are 256·D bytes each.
+template <int D>
+struct Layout {
+  using QT = sea::TPanels<64, D>;  // a q-tile, K or V sub-tile, read K-major along D
+  using VT = sea::TPanels<D, 64>;  // a Vᵀ sub-tile, read K-major along its 64 keys
+  using C = Config<D>;
+  static_assert(QT::TILE == VT::TILE, "V and Vᵀ tiles alike");
+  static constexpr int TILE = QT::TILE;
+  static constexpr int Q_OFF = 0;
+  static constexpr int K_OFF = Q_OFF + C::CONSUMERS * 2 * TILE;
+  static constexpr int V_OFF = K_OFF + C::STAGES * 2 * TILE;
+  static constexpr int RAW_OFF = V_OFF + C::STAGES * 2 * TILE;
+  static constexpr int WORDS_OFF = RAW_OFF + TILE;
+  static constexpr int BAR_OFF = WORDS_OFF + (C::WORDS_SMEM ? C::BQ * MAX_WORDS * 4 : 0);
+  static constexpr int META_OFF = BAR_OFF + 8 * (5 * C::STAGES + 3);
+  static constexpr int LIST_OFF = META_OFF + 16 * C::STAGES;
+  static constexpr int FIXED = LIST_OFF + 1024;  // and the base's alignment
+};
+
+// The byte offset `o` within a panel as TMA's swizzle places it: the
+// 16-byte chunk index (bits 4..) XORed with the bits from 7 up, three of
+// them for 128-byte rows, one for 32-byte rows.
+template <int ROW>
+__device__ __forceinline__ uint32_t swizzled(uint32_t o) {
+  return o ^ ((o >> 3) & (ROW == 128 ? 0x70u : 0x10u));
+}
+
+// A tile of BYTES raw floats split in place by `threads` threads (this one
+// `i0`): TF32 hi over the raw values and lo in the BYTES after them, each
+// rounded as cvt.rna rounds it (`split_tf32_rna`), in the layout TMA wrote
+// (the split is elementwise); then made visible to wgmma's reads.
+template <int BYTES>
+__device__ __forceinline__ void split_tile(unsigned char* tile, int i0, int threads) {
+  uint4* hi = reinterpret_cast<uint4*>(tile);
+#pragma unroll 2
+  for (int i = i0; i < BYTES / 16; i += threads) {
+    uint4 x = hi[i], lo;
+    uint32_t* v = reinterpret_cast<uint32_t*>(&x);
+    uint32_t* l = reinterpret_cast<uint32_t*>(&lo);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) sea::split_tf32_rna(__uint_as_float(v[j]), v[j], l[j]);
+    hi[i] = x;
+    hi[BYTES / 16 + i] = lo;
+  }
+  sea::fence_proxy_async();
+}
+
+// A raw V sub-tile (64 keys x D, as TMA laid it out: `Layout::QT`) written
+// as Vᵀ (D x 64, `Layout::VT`) in TF32 hi at `hi` and lo after it, the keys
+// of each group of 8 in `key_at`'s order, by `warps` warps (this one `w`).
+// A warp takes 32 key positions of one 4-wide column chunk: each lane reads
+// its key's 16 bytes and writes its position in 4 rows of Vᵀ, both without
+// bank conflicts under the swizzles. Then made visible to wgmma's reads.
+template <int D>
+__device__ __forceinline__ void transpose_tile(const unsigned char* raw, unsigned char* hi, int w,
+                                               int warps, int lane) {
+  using QT = typename Layout<D>::QT;
+  using VT = typename Layout<D>::VT;
+  for (int item = w; item < 2 * (D / 4); item += warps) {
+    const int pos = 32 * (item & 1) + lane, d0 = 4 * (item >> 1);
+    const int key = (pos & ~7) + sea::key_at(pos & 7);
+    const uint4 x = *reinterpret_cast<const uint4*>(
+        raw + (d0 / QT::PW) * QT::PANEL + swizzled<QT::ROW>(key * QT::ROW + (d0 % QT::PW) * 4));
+    const float xs[4] = {__uint_as_float(x.x), __uint_as_float(x.y), __uint_as_float(x.z),
+                         __uint_as_float(x.w)};
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      uint32_t h, l;
+      sea::split_tf32_rna(xs[q], h, l);
+      const uint32_t o = (pos / VT::PW) * VT::PANEL +
+                         swizzled<VT::ROW>((d0 + q) * VT::ROW + (pos % VT::PW) * 4);
+      *reinterpret_cast<uint32_t*>(hi + o) = h;
+      *reinterpret_cast<uint32_t*>(hi + VT::TILE + o) = l;
+    }
+  }
+  sea::fence_proxy_async();
+}
+
+}  // namespace tf
+
+// The float32 body: `causal_wgmma_kernel`'s skeleton (the walk, the TMA
+// copies on mbarriers, the alive words, the softmax and the epilogue) with
+// every product in split TF32 on wgmma, a·b = a_lo·b_hi + a_hi·b_lo +
+// a_hi·b_hi per 8-wide k-step, small terms first (a_lo·b_lo dropped, about
+// 2^-21 of a product). S = Q·Kᵀ reads Q and K from shared memory (SS,
+// m64n64k8); P·V takes P from registers, split as the S accumulators stand,
+// and Vᵀ from shared memory (RS, m64nDk8). Every operand lands raw and is
+// split on the chip: Q by its warpgroup once, in place; each K sub-tile in
+// place in its stage, and each V sub-tile from the slot where it lands,
+// transposed into its stage's Vᵀ, by the producer warpgroups' seven warps
+// that issue no copy. K and Vᵀ have barriers of their own, so that a
+// stage's K is refilled while its Vᵀ is read, and the next V is in flight
+// while this one is.
+template <int D, bool STATS, bool BIDIR, int IMPL = FLAT>
+__global__ void __launch_bounds__(tf::Config<D>::THREADS, 1) causal_tf32_wgmma_kernel(
+        const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+        const __grid_constant__ CUtensorMap tv, const uint32_t* __restrict__ mbits,
+        const float* __restrict__ scaler, const int* __restrict__ counts,
+        const int* __restrict__ idx, const int* __restrict__ tiles,
+        const int* __restrict__ rowbase, const int* __restrict__ lengths,
+        float* __restrict__ out, float* __restrict__ lse, int t_dst, int t_src, int t_m,
+        int n_words, int block_q, int block_k, int nq, int nkb, int sub, float oversample,
+        float k_cfg, float keep_lo, float keep_hi, int col_base) {
+  using C = tf::Config<D>;
+  using L = tf::Layout<D>;
+  using QT = typename L::QT;
+  using VT = typename L::VT;
+  constexpr int STAGES = C::STAGES, CONSUMERS = C::CONSUMERS;
+  constexpr int LIST = IMPL == FLAT ? 1 : 2;  // a list's ints per entry
+  constexpr bool WORDS_SMEM = C::WORDS_SMEM && IMPL != WORD_LOOP;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = sea::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t kland = base + L::BAR_OFF;     // stage s's raw K landed: kland + 8·s
+  const uint32_t kfull = kland + 8 * STAGES;    // its K split by the splitter warps
+  const uint32_t kempty = kfull + 8 * STAGES;   // its K released by every consumer warp
+  const uint32_t vfull = kempty + 8 * STAGES;   // its Vᵀ written
+  const uint32_t vempty = vfull + 8 * STAGES;   // its Vᵀ released
+  const uint32_t vland = vempty + 8 * STAGES;   // the raw V landed
+  const uint32_t vtaken = vland + 8;            // the raw V transposed, its slot free
+  const uint32_t qbar = vtaken + 8;             // Q and the mask words landed
+  int* meta = reinterpret_cast<int*>(smem + L::META_OFF);
+  int* lists = reinterpret_cast<int*>(smem + L::LIST_OFF);
+
+  // blocks start with every head's last (heaviest causal) q-tile
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BQ;  // first local row of the tile
+  const int tid = threadIdx.x;
+  const int len = BIDIR ? lengths[bh] : 0;
+  // k and v hold the (global) columns col_base .. col_stop − 1
+  const int col_stop = col_base + t_src;
+  // warpgroup w's rows: q-block, first global row, and its list in shared memory
+  auto qblock = [&](int w) { return (row0 + 64 * w) / block_q; };
+  auto first_row = [&](int w) {
+    const int lr = row0 + 64 * w;
+    return BIDIR ? lr : rowbase[qblock(w)] + (lr - qblock(w) * block_q);
+  };
+  auto walk = [&](int w) {
+    const int* l = lists + w * LIST * nkb;
+    return wg::Walk{0, -1, counts[bh * nq + qblock(w)], BIDIR ? len : first_row(w) + 64, l,
+                    l + nkb};
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      sea::mbar_init(kland + 8 * s, 1);
+      sea::mbar_init(kfull + 8 * s, C::SPLITTERS);  // one arrival per splitter warp
+      sea::mbar_init(kempty + 8 * s, 4 * CONSUMERS);  // one arrival per consumer warp
+      sea::mbar_init(vfull + 8 * s, C::SPLITTERS);
+      sea::mbar_init(vempty + 8 * s, 4 * CONSUMERS);
+    }
+    sea::mbar_init(vland, 1);
+    sea::mbar_init(vtaken, C::SPLITTERS);
+    sea::mbar_init(qbar, 1);
+    sea::mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (tid < C::PRODUCERS) {
+    // The producer warpgroups: lane 0 of warp 0 issues every copy, warp 0
+    // stages the lists first; the other warps split.
+    sea::setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (tid >= 32) {
+      // Sub-tile it: its K, in place, as it lands (the walk's end where its
+      // entry is -1); then its V, from the raw slot into the stage's Vᵀ once
+      // the consumers have released what the stage held.
+      const int sw = (tid >> 5) - 1, lane = tid & 31;
+      for (int it = 0;; ++it) {
+        const int st = it % STAGES;
+        sea::mbar_wait(kland + 8 * st, (it / STAGES) & 1);
+        const bool done = meta[4 * st] < 0;
+        if (!done)
+          tf::split_tile<L::TILE>(smem + L::K_OFF + st * 2 * L::TILE, tid - 32, 32 * C::SPLITTERS);
+        __syncwarp();
+        if (lane == 0) sea::mbar_arrive(kfull + 8 * st);
+        if (done) return;
+        sea::mbar_wait(vland, it & 1);
+        if (it >= STAGES) sea::mbar_wait(vempty + 8 * st, ((it / STAGES) + 1) & 1);
+        tf::transpose_tile<D>(smem + L::RAW_OFF, smem + L::V_OFF + st * 2 * L::TILE, sw,
+                              C::SPLITTERS, lane);
+        __syncwarp();
+        if (lane == 0) {
+          sea::mbar_arrive(vfull + 8 * st);
+          sea::mbar_arrive(vtaken);
+        }
+      }
+    }
+    if (tid == 0) {
+      // Q of the warpgroups whose lists are not empty (K5's padded rows have
+      // none)
+      int live = 0;
+      for (int w = 0; w < CONSUMERS; ++w) live += counts[bh * nq + qblock(w)] > 0;
+      sea::mbar_arrive_expect_tx(qbar, live * L::TILE + (WORDS_SMEM ? C::BQ * n_words * 4 : 0));
+      for (int w = 0; w < CONSUMERS; ++w)
+        if (counts[bh * nq + qblock(w)] > 0)
+          for (int p = 0; p < QT::NP; ++p)
+            sea::tma_load_2d(base + L::Q_OFF + w * 2 * L::TILE + p * QT::PANEL, &tq, qbar,
+                             p * QT::PW, bh * t_dst + row0 + 64 * w);
+      if (WORDS_SMEM)
+        sea::bulk_load(base + L::WORDS_OFF, mbits + ((long)bh * t_dst + row0) * n_words,
+                       C::BQ * n_words * 4, qbar);
+    }
+    for (int w = 0; w < CONSUMERS; ++w) {
+      const long off = ((long)bh * nq + qblock(w)) * nkb;
+      const int cnt = counts[bh * nq + qblock(w)];
+      int* l = lists + w * LIST * nkb;
+      for (int i = tid; i < cnt; i += 32) {
+        l[i] = idx[off + i];
+        if (IMPL != FLAT) l[nkb + i] = tiles[off + i];
+      }
+    }
+    __syncwarp();
+    if (tid != 0) return;
+    // The walk: the union of the warpgroups' sub-tiles in increasing order,
+    // each stage tagged with each warpgroup's list entry (-1: dead for it).
+    wg::Walk w0 = walk(0), w1 = CONSUMERS > 1 ? walk(1) : w0;
+    bool h0 = wg::seek<IMPL>(w0, block_k, col_stop, sub);
+    bool h1 = CONSUMERS > 1 && wg::seek<IMPL>(w1, block_k, col_stop, sub);
+    for (int it = 0;; ++it) {
+      const int st = it % STAGES;
+      if (it >= STAGES) sea::mbar_wait(kempty + 8 * st, ((it / STAGES) + 1) & 1);
+      int* m = meta + 4 * st;
+      if (!h0 && !h1) {
+        m[0] = -1;
+        sea::mbar_arrive(kland + 8 * st);
+        break;
+      }
+      const int c0 = !h1 || (h0 && w0.c <= w1.c) ? w0.c : w1.c;
+      m[0] = c0;
+      m[1] = h0 && w0.c == c0 ? w0.e : -1;
+      m[2] = h1 && w1.c == c0 ? w1.e : -1;
+      if (m[1] >= 0) {
+        w0.c += 64;
+        h0 = wg::seek<IMPL>(w0, block_k, col_stop, sub);
+      }
+      if (m[2] >= 0) {
+        w1.c += 64;
+        h1 = wg::seek<IMPL>(w1, block_k, col_stop, sub);
+      }
+      // raw K into the stage's hi half, raw V into the slot once the last
+      // one was taken
+      const int krow = bh * t_src + c0 - col_base;
+      sea::mbar_arrive_expect_tx(kland + 8 * st, L::TILE);
+      for (int p = 0; p < QT::NP; ++p)
+        sea::tma_load_2d(base + L::K_OFF + st * 2 * L::TILE + p * QT::PANEL, &tk, kland + 8 * st,
+                         p * QT::PW, krow);
+      if (it > 0) sea::mbar_wait(vtaken, (it - 1) & 1);
+      sea::mbar_arrive_expect_tx(vland, L::TILE);
+      for (int p = 0; p < QT::NP; ++p)
+        sea::tma_load_2d(base + L::RAW_OFF + p * QT::PANEL, &tv, vland, p * QT::PW, krow);
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 query rows, 16 a warp; a thread holds rows g
+  // and g + 8 of its warp's (h = 0, 1) and, of each, the columns 8·j +
+  // 2·t4 + {0, 1} of every accumulator.
+  sea::setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int cw = (tid - C::PRODUCERS) / 128;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int lrow0 = row0 + 64 * cw;  // the warpgroup's first local row
+  const int grow0 = first_row(cw);
+  const int* aux = lists + cw * LIST * nkb + nkb;  // its `tiles` entries (K9a-c)
+  const uint32_t* Ms = reinterpret_cast<const uint32_t*>(smem + L::WORDS_OFF);
+
+  // per row h: its mask words, last live column and width (causal r + 1,
+  // bidirectional the length) for the alive words
+  float m_i[2], l_i[2], ps[2], thr[2];
+  sea::AliveRow rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = 16 * warp + g + 8 * h;
+    const int r = grow0 + rl;
+    m_i[h] = M_INIT;
+    l_i[h] = 0.f;
+    const float wf = BIDIR ? (float)len : (float)(r + 1);
+    rows[h] = sea::AliveRow{WORDS_SMEM ? Ms + (64 * cw + rl) * n_words
+                                       : mbits + ((long)bh * t_dst + lrow0 + rl) * n_words,
+                            BIDIR ? len - 1 : r, wf, sea::recip(wf), __fdiv_rn((float)t_m, wf),
+                            __fdiv_rn(wf, (float)t_m)};
+    const float w = (float)(r + 1);
+    ps[h] = fmaxf(floorf(__fadd_rn(__fdiv_rn(w, oversample), 0.5f)), 1.0f);
+    const float oys = __fdiv_rn(fminf(fmaxf(w, keep_lo), keep_hi), k_cfg);
+    thr[h] = __fadd_rn(__fmul_rn(__fdiv_rn(1.0f, oys), 0.5f), 1e-4f);
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const bool undersample = !STATS && !BIDIR && oversample != 1.0f;
+  const float dead = __uint_as_float(0xff800000u);  // -inf
+  const uint32_t qhi = base + L::Q_OFF + cw * 2 * L::TILE, qlo = qhi + L::TILE;
+
+  // Q lands raw; the warpgroup splits it once, in place, before any wgmma
+  // reads it (a warpgroup whose list is empty has none)
+  sea::mbar_wait(qbar, 0);
+  if (counts[bh * nq + qblock(cw)] > 0)
+    tf::split_tile<L::TILE>(smem + L::Q_OFF + cw * 2 * L::TILE, tid & 127, 128);
+  sea::bar_sync(1 + cw, 128);
+
+  for (int it = 0;; ++it) {
+    const int st = it % STAGES;
+    const uint32_t par = (it / STAGES) & 1;
+    sea::mbar_wait(kfull + 8 * st, par);
+    const int c0 = meta[4 * st];
+    if (c0 < 0) break;
+    const int e = meta[4 * st + 1 + cw];
+    // a sub-tile not in this warpgroup's list is dead for its rows: it would
+    // leave m, l and acc as they are, so it is skipped. Its Vᵀ is released
+    // only once written, so that no warp's release runs a phase ahead of the
+    // warpgroup that reads it.
+    if (e < 0) {
+      __syncwarp();
+      if (lane == 0) sea::mbar_arrive(kempty + 8 * st);
+      sea::mbar_wait(vfull + 8 * st, par);
+      __syncwarp();
+      if (lane == 0) sea::mbar_arrive(vempty + 8 * st);
+      continue;
+    }
+    const uint32_t ks = base + L::K_OFF + st * 2 * L::TILE;
+    const uint32_t vs = base + L::V_OFF + st * 2 * L::TILE;
+    // S = Q·Kᵀ in split TF32, issued; the rows' alive words are built while
+    // it runs
+    float s[32];
+    sea::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      sea::wgmma_tf32_ss_n64(s, QT::kdesc(qlo, kk), QT::kdesc(ks, kk), kk > 0);
+      sea::wgmma_tf32_ss_n64(s, QT::kdesc(qhi, kk), QT::kdesc(ks + QT::TILE, kk), 1);
+      sea::wgmma_tf32_ss_n64(s, QT::kdesc(qhi, kk), QT::kdesc(ks, kk), 1);
+    }
+    sea::wgmma_commit();
+    int wlo = 0, whi = n_words - 1;
+    if (IMPL == WORD_RANGE || IMPL == WORD_LOOP) {
+      const sea::WordRange r = sea::word_range(aux[e]);
+      wlo = r.lo;
+      whi = r.hi;
+    }
+    uint64_t bits[2];
+    sea::alive_bits<BIDIR, !WORDS_SMEM>(rows, c0, t_m, wlo, whi, t4, bits);
+    if (undersample) {
+      // the keep-predicate on this thread's own columns only, the ones it
+      // tests
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        uint64_t keep = 0;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          const int c = 8 * (j >> 1) + 2 * t4 + (j & 1);
+          keep |= (uint64_t)sea::keep_quot(sea::quot((float)(c0 + c + 1), rows[h].w, rows[h].y),
+                                           ps[h], thr[h])
+                  << c;
+        }
+        bits[h] &= keep;
+      }
+    }
+    // S has completed: the stage's K is released
+    sea::wgmma_wait<0>();
+    sea::fence_regs(s);
+    __syncwarp();
+    if (lane == 0) sea::mbar_arrive(kempty + 8 * st);
+
+    // the bit test per element, then the online softmax, row by row
+    float corr[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint64_t a = bits[h] >> (2 * t4);
+      float t[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float& x = s[4 * (j >> 1) + 2 * h + (j & 1)];
+        x = (a >> (8 * (j >> 1) + (j & 1))) & 1u ? x : dead;
+        t[j] = x;
+      }
+      float rmax = wg::tree<true>(t);
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m_i[h], rmax);
+      // a row whose max did not move gets corr = 2^0 = 1 exactly
+      corr[h] = exp2_sfu(__fmul_rn(__fsub_rn(m_i[h], m_new), LOG2E));
+      const float ml = __fmul_rn(m_new, LOG2E);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float& x = s[4 * (j >> 1) + 2 * h + (j & 1)];
+        x = exp2_sfu(__fmaf_rn(x, LOG2E, -ml));  // 2^-inf == 0: dead elements
+        t[j] = x;
+      }
+      float psum = wg::tree<false>(t);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_i[h] = l_i[h] * corr[h] + psum;
+      m_i[h] = m_new;
+    }
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[4 * j + i] *= corr[i / 2];
+    // P = P_hi + P_lo in TF32, the A fragments of k-step kk straight from the
+    // S accumulators of its 8 columns (k = t4 is column 2·t4, k = t4 + 4 is
+    // 2·t4 + 1: Vᵀ's keys lie in that order)
+    uint32_t ph[8][4], pl[8][4];
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk)
+      sea::split_a(make_float2(s[4 * kk], s[4 * kk + 1]), make_float2(s[4 * kk + 2], s[4 * kk + 3]),
+                   ph[kk], pl[kk]);
+
+    // acc += P·V, three wgmmas a k-step, then the stage's Vᵀ is released
+    sea::mbar_wait(vfull + 8 * st, par);
+    sea::fence_regs(acc);
+    sea::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 8; ++kk) {
+      const uint64_t vhi = VT::kdesc(vs, kk), vlo = VT::kdesc(vs + VT::TILE, kk);
+      sea::wgmma_tf32_rs<D>(acc, pl[kk], vhi);
+      sea::wgmma_tf32_rs<D>(acc, ph[kk], vlo);
+      sea::wgmma_tf32_rs<D>(acc, ph[kk], vhi);
+    }
+    sea::wgmma_commit();
+    sea::wgmma_wait<0>();
+    sea::fence_regs(acc);
+    sea::fence_frags(ph);
+    sea::fence_frags(pl);
+    __syncwarp();
+    if (lane == 0) sea::mbar_arrive(vempty + 8 * st);
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long row = (long)bh * t_dst + lrow0 + 16 * warp + g + 8 * h;
+    const float l = l_i[h];
+    const float safe_l = l > 0.f ? l : 1.f;
+    const float sc = scaler ? scaler[row] : 1.f;
+    float* o = out + row * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(acc[4 * j + 2 * h] / safe_l * sc, acc[4 * j + 2 * h + 1] / safe_l * sc);
+    // logsumexp; +inf for rows with no alive column, so that the backward's
+    // exp(s - lse) is 0 there (m and l are equal across the lane quad)
+    if (STATS && t4 == 0)
+      lse[row] = l > 0.f ? m_i[h] + logf(l) : __uint_as_float(0x7f800000u);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// K5's float32 instance on mma.sync
+// ---------------------------------------------------------------------------
+//
+// The padded bidirectional forward in float32 (K5, BERT's path) keeps the
+// body that served every float32 instance before `causal_tf32_wgmma_kernel`:
+// FlashAttention-2's on mma.sync m16n8k8 in split TF32 (`mma_3xtf32`), one
+// block of 4 warps per (batch·head, 64-row q-tile), K/V double-buffered by
+// cp.async, the predicate per element (the pixel from the row's reciprocal,
+// `sea::quot`, a word read, a shift and a select). At BERT's 32 x 12 x 256 it
+// ran in 0.108 ms of device time where the wgmma body took 0.117
+// (kernel_ab.py --parent, PERF.md §6): short rows give every block
+// few sub-tiles, so the wgmma body's per-block setup (Q's split, the TMA
+// round trips) is not paid back, while two of these blocks fit an SM.
+namespace flat {
+
+constexpr int BQ = sea::TILE;   // query rows per block
+constexpr int BKT = sea::TILE;  // key columns per sub-tile
+constexpr int TPB = 128;        // 4 warps, each owning 16 query rows
+constexpr int NT = BKT / 8;     // 8-column score tiles of a sub-tile
+
+// Two stages of (K, V) sub-tiles, then the q-tile, then its mask words. K
+// and Q rows padded by 8 floats (float2 reads of rows g = 0..3 at banks 8·g
+// + 2·t), V rows by 4 (reads of rows 2·t at banks 8·t + g): every fragment
+// read is free of bank conflicts.
+template <int D>
+struct Smem {
+  static constexpr int KLD = D + 8;
+  static constexpr int VLD = D + 4;
+  static constexpr int K_BYTES = BKT * KLD * 4;
+  static constexpr int STAGE = K_BYTES + BKT * VLD * 4;
+  static constexpr int Q_BYTES = BQ * KLD * 4;
+  static constexpr int bytes = 2 * STAGE + Q_BYTES + BQ * MAX_WORDS * 4;
+};
+
+// One 64-column K/V sub-tile into a stage.
+template <int D>
+__device__ __forceinline__ void load_kv(unsigned char* stage, const float* __restrict__ k,
+                                        const float* __restrict__ v, long base, int tid) {
+  using S = Smem<D>;
+  sea::copy_rows<D, TPB>(reinterpret_cast<float*>(stage), S::KLD, k + base, tid);
+  sea::copy_rows<D, TPB>(reinterpret_cast<float*>(stage + S::K_BYTES), S::VLD, v + base, tid);
+}
+
+}  // namespace flat
+
+// The template arguments name the instance as the forward bodies' do; this
+// body has K5's alone.
+template <int D, bool STATS, bool BIDIR, int IMPL = FLAT>
+__global__ void __launch_bounds__(flat::TPB, 2) causal_flat_kernel(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const uint32_t* __restrict__ mbits, const float* __restrict__ scaler,
+    const int* __restrict__ counts, const int* __restrict__ idx,
+    const int* __restrict__ lengths, float* __restrict__ out, int t_dst, int t_src, int t_m,
+    int n_words, int block_q, int block_k, int nq, int nkb) {
+  static_assert(D == 64 && !STATS && BIDIR && IMPL == FLAT, "K5's float32 instance");
+  using S = flat::Smem<D>;
+  using flat::BKT;
+  using flat::BQ;
+  using flat::NT;
+  using flat::TPB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const float* Qs = reinterpret_cast<const float*>(smem + 2 * S::STAGE);
+  uint32_t* Ms = reinterpret_cast<uint32_t*>(smem + 2 * S::STAGE + S::Q_BYTES);
+
+  // blocks start in order of x, then y: every head's last q-tile first
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // first row of the tile
+  const int qb = row0 / block_q;                       // q-block of the tile lists
+  const int len = lengths[bh];
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;  // the fragment row and column pair
+  const int wrow0 = (tid >> 5) * 16;       // the warp's first row in the tile
+
+  const long moff = ((long)bh * t_dst + row0) * n_words;
+  for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
+  // the q-tile goes to shared memory with the first K/V sub-tile
+  const long qoff = ((long)bh * t_dst + row0) * D;
+  sea::copy_rows<D, TPB>(reinterpret_cast<float*>(smem + 2 * S::STAGE), S::KLD, q + qoff, tid);
+
+  // every row's width is the example's length, yw its reciprocal
+  const float wf = (float)len, yw = sea::recip(wf);
+  float m_i[2] = {M_INIT, M_INIT}, l_i[2] = {0.f, 0.f};
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
+  const float dead = __uint_as_float(0xff800000u);  // -inf
+
+  const int cnt = counts[bh * nq + qb];
+  const int* lst = idx + ((long)bh * nq + qb) * nkb;
+  const long kvbase = (long)bh * t_src * D;
+  // The walk: advance (e, c0) to the first listed sub-tile at or after it
+  // (list entry e, first column c0); false when the list is done. Columns
+  // from the length on are dead on every row.
+  auto seek = [&](int& e, int& c0) -> bool {
+    for (; e < cnt; ++e, c0 = -1) {
+      const int start = lst[e] * block_k;
+      c0 = c0 < start ? start : c0;
+      if (c0 < start + block_k && c0 < len && c0 < t_src) return true;
+    }
+    return false;
+  };
+
+  int e = 0, c0 = -1, stage = 0;
+  bool have = seek(e, c0);
+  if (have) flat::load_kv<D>(smem, k, v, kvbase + (long)c0 * D, tid);
+  sea::cp_async_commit();
+  while (have) {
+    int ne = e, nc0 = c0 + BKT;
+    const bool more = seek(ne, nc0);
+    // the next sub-tile's copies run while this one's products do
+    if (more) flat::load_kv<D>(smem + (stage ^ 1) * S::STAGE, k, v, kvbase + (long)nc0 * D, tid);
+    sea::cp_async_commit();
+    sea::cp_async_wait<1>();
+    __syncthreads();  // this stage (and, first time, the mask words) landed
+    const float* Ks = reinterpret_cast<const float*>(smem + stage * S::STAGE);
+    const float* Vs = reinterpret_cast<const float*>(smem + stage * S::STAGE + S::K_BYTES);
+
+    // S = Q·Kᵀ: s[j] is the C fragment of score columns 8·j .. 8·j + 7
+    float s[NT][4];
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      // k = t4 is column 8·kk + 2·t4 of Q and K, k = t4 + 4 the one after
+      uint32_t ah[4], al[4];
+      sea::split_a(
+          *reinterpret_cast<const float2*>(Qs + (wrow0 + g) * S::KLD + 8 * kk + 2 * t4),
+          *reinterpret_cast<const float2*>(Qs + (wrow0 + g + 8) * S::KLD + 8 * kk + 2 * t4), ah,
+          al);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float2 kv =
+            *reinterpret_cast<const float2*>(Ks + (8 * j + g) * S::KLD + 8 * kk + 2 * t4);
+        sea::mma_3xtf32(s[j], ah, al, kv.x, kv.y);
+      }
+    }
+
+    // the element predicate and the online softmax, row by row: element j's
+    // column is c0 + 8·(j / 2) + 2·t4 + j % 2, its pixel from the row's
+    // reciprocal (x0 + j's offset is the exact (float)col + 0.5)
+    const float x0 = __fadd_rn((float)(c0 + 2 * t4), 0.5f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint32_t* words = Ms + (wrow0 + g + 8 * h) * n_words;
+      float rmax = M_INIT;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        const int col = c0 + 8 * (j >> 1) + 2 * t4 + (j & 1);
+        const float x = __fadd_rn(x0, (float)(8 * (j >> 1) + (j & 1)));
+        const int pix = sea::len_clip(sea::floor_pixel(sea::quot(x, wf, yw), t_m), t_m);
+        const bool a = (col < len) & sea::pixel_bit(words[pix >> 5], pix);
+        float& xs = s[j >> 1][2 * h + (j & 1)];
+        xs = a ? xs : dead;
+        rmax = fmaxf(rmax, xs);
+      }
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 1));
+      rmax = fmaxf(rmax, __shfl_xor_sync(0xffffffffu, rmax, 2));
+      const float m_new = fmaxf(m_i[h], rmax);
+      // exp(x - m) as 2^(x·log2 e - m·log2 e): one FFMA and the SFU's exp2;
+      // a row whose max did not move gets corr = 2^0 = 1 exactly
+      const float corr = exp2_sfu(__fmul_rn(__fsub_rn(m_i[h], m_new), LOG2E));
+      const float ml = __fmul_rn(m_new, LOG2E);
+      float psum = 0.f;
+#pragma unroll
+      for (int j = 0; j < 2 * NT; ++j) {
+        float& xs = s[j >> 1][2 * h + (j & 1)];
+        xs = exp2_sfu(__fmaf_rn(xs, LOG2E, -ml));  // dead elements: 2^-inf == 0
+        psum += xs;
+      }
+      psum += __shfl_xor_sync(0xffffffffu, psum, 1);
+      psum += __shfl_xor_sync(0xffffffffu, psum, 2);
+      l_i[h] = l_i[h] * corr + psum;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        acc[j][2 * h] *= corr;
+        acc[j][2 * h + 1] *= corr;
+      }
+      m_i[h] = m_new;
+    }
+
+    // acc += P·V, P from the S fragments (k = the sub-tile's columns; k =
+    // t4 is column 8·kk + 2·t4, k = t4 + 4 the one after)
+#pragma unroll
+    for (int kk = 0; kk < NT; ++kk) {
+      uint32_t ah[4], al[4];
+      sea::split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
+      const float* v0 = Vs + (8 * kk + 2 * t4) * S::VLD + g;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        sea::mma_3xtf32(acc[j], ah, al, v0[8 * j], v0[S::VLD + 8 * j]);
+    }
+    __syncthreads();  // every warp is done with this stage before it refills
+    e = ne;
+    c0 = nc0;
+    have = more;
+    stage ^= 1;
+  }
+  sea::cp_async_wait<0>();
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = wrow0 + g + 8 * h;
+    const float l = l_i[h];
+    const float safe_l = l > 0.f ? l : 1.f;
+    const float sc = scaler[(long)bh * t_dst + row0 + rl];
+    float* o = out + qoff + (long)rl * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) =
+          make_float2(acc[j][2 * h] / safe_l * sc, acc[j][2 * h + 1] / safe_l * sc);
+  }
+}
+
 // The element masks of the debug entry points, from the bf16 body's own
 // construction (`sea::alive_bits`): a block of 256 threads per (row,
 // 64 sub-tiles), a quad of lanes per 64-column sub-tile, each lane writing
@@ -991,8 +1406,10 @@ __global__ void word_check_kernel(int w_max, unsigned long long* bad) {
   if (n) atomicAdd(bad, n);
 }
 
-// One launch of the body: the float32 instances on mma.sync, the bf16 ones
-// on wgmma (128-row tiles, so t_dst a multiple of 128).
+// One launch of the body: the float32 instances on wgmma in split TF32
+// (`causal_tf32_wgmma_kernel`; t_dst a multiple of the block's 64 or 128
+// rows) but K5's on mma.sync (`causal_flat_kernel`), the bf16 ones on wgmma
+// (128-row tiles).
 template <int D, typename T, bool STATS, bool BIDIR, int IMPL = FLAT>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* mbits, const void* scaler, const void* counts,
@@ -1003,25 +1420,42 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    float k_cfg, float keep_lo, float keep_hi, int col_base,
                    cudaStream_t stream) {
   if (misaligned(q, k, v, out)) return cudaErrorInvalidValue;
-  if constexpr (std::is_same<T, float>::value) {
-    constexpr int bytes = Smem<D>::bytes;
-    static std::atomic<bool> opted_in[MAX_DEVICES];
-    cudaError_t e = sea::opt_in_smem(causal_flat_kernel<D, STATS, BIDIR, IMPL>, bytes, opted_in);
+  constexpr int LIST = IMPL == FLAT ? 1 : 2;
+  CUtensorMap tq, tk, tv;
+  static std::atomic<bool> opted_in[MAX_DEVICES];
+  cudaError_t e;
+  if constexpr (std::is_same<T, float>::value && BIDIR) {
+    constexpr int bytes = flat::Smem<D>::bytes;
+    e = sea::opt_in_smem(causal_flat_kernel<D, STATS, BIDIR, IMPL>, bytes, opted_in);
     if (e != cudaSuccess) return e;
-    dim3 grid(nh, t_dst / BQ);
-    causal_flat_kernel<D, STATS, BIDIR, IMPL><<<grid, TPB, bytes, stream>>>(
+    causal_flat_kernel<D, STATS, BIDIR, IMPL><<<dim3(nh, t_dst / flat::BQ), flat::TPB, bytes, stream>>>(
         (const float*)q, (const float*)k, (const float*)v, (const uint32_t*)mbits,
-        (const float*)scaler, (const int*)counts, (const int*)idx, (const int*)tiles,
-        (const int*)rowbase, (const int*)lengths, (float*)out, (float*)lse, t_dst, t_src, t_m,
-        n_words, block_q, block_k, nq, nkb, sub, oversample, k_cfg, keep_lo, keep_hi, col_base);
+        (const float*)scaler, (const int*)counts, (const int*)idx, (const int*)lengths,
+        (float*)out, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb);
+  } else if constexpr (std::is_same<T, float>::value) {
+    using C = tf::Config<D>;
+    using QT = typename tf::Layout<D>::QT;
+    const int bytes = tf::Layout<D>::FIXED + C::CONSUMERS * nkb * 4 * LIST;
+    if (t_dst % C::BQ != 0 || bytes > wg::SMEM_MAX) return cudaErrorInvalidValue;
+    e = sea::f32_map<QT::PW>(&tq, q, (long)nh * t_dst, D);
+    if (e == cudaSuccess) e = sea::f32_map<QT::PW>(&tk, k, (long)nh * t_src, D);
+    if (e == cudaSuccess) e = sea::f32_map<QT::PW>(&tv, v, (long)nh * t_src, D);
+    if (e == cudaSuccess)
+      e = sea::opt_in_smem(causal_tf32_wgmma_kernel<D, STATS, BIDIR, IMPL>, wg::SMEM_MAX,
+                           opted_in);
+    if (e != cudaSuccess) return e;
+    causal_tf32_wgmma_kernel<D, STATS, BIDIR, IMPL>
+        <<<dim3(nh, t_dst / C::BQ), C::THREADS, bytes, stream>>>(
+            tq, tk, tv, (const uint32_t*)mbits, (const float*)scaler, (const int*)counts,
+            (const int*)idx, (const int*)tiles, (const int*)rowbase, (const int*)lengths,
+            (float*)out, (float*)lse, t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb,
+            sub, oversample, k_cfg, keep_lo, keep_hi, col_base);
   } else {
-    const int bytes = wg::Layout<D>::FIXED + wg::CONSUMERS * nkb * 4 * (IMPL == FLAT ? 1 : 2);
+    const int bytes = wg::Layout<D>::FIXED + wg::CONSUMERS * nkb * 4 * LIST;
     if (t_dst % wg::BQ != 0 || bytes > wg::SMEM_MAX) return cudaErrorInvalidValue;
-    CUtensorMap tq, tk, tv;
-    cudaError_t e = sea::tile_map<D>(&tq, q, (long)nh * t_dst);
+    e = sea::tile_map<D>(&tq, q, (long)nh * t_dst);
     if (e == cudaSuccess) e = sea::tile_map<D>(&tk, k, (long)nh * t_src);
     if (e == cudaSuccess) e = sea::tile_map<D>(&tv, v, (long)nh * t_src);
-    static std::atomic<bool> opted_in[MAX_DEVICES];
     if (e == cudaSuccess)
       e = sea::opt_in_smem(causal_wgmma_kernel<D, STATS, BIDIR, IMPL>, wg::SMEM_MAX, opted_in);
     if (e != cudaSuccess) return e;

@@ -1142,7 +1142,8 @@ __global__ void __launch_bounds__(wg::THREADS, 1) causal_dkv_wgmma_kernel(
                                 __fdiv_rn((float)t_m, wf), __fdiv_rn(wf, (float)t_m)};
       }
       uint64_t bits[2];
-      sea::alive_bits<false, false>(wrow, gcol(cw), t_m, 0, n_words - 1, t4, bits);
+      // (at D = 128 narrow rows a column at a time: sixteen side by side spill)
+      sea::alive_bits<false, false, D != 128>(wrow, gcol(cw), t_m, 0, n_words - 1, t4, bits);
       if (t4 == 0) {
         words[q] = bits[0];
         words[q + 32] = bits[1];

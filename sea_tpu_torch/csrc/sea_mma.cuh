@@ -1,12 +1,14 @@
 // The tensor-core and copy instructions (inline PTX) and the shared-memory
 // tile helpers of the fused sparse attention bodies: on mma.sync (sm_80 and
-// later) the float32 instances of the forward (block_sparse_causal.cu: K1,
-// K2, K5, K6, K9a-c) and of the backward (block_sparse_diff.cu: dq for K3
-// and K7, dk/dv for K4 and K8); on Hopper's wgmma, TMA, mbarriers and
-// setmaxnreg (sm_90a, the second half of this file) the bf16 instances of
-// both. The second half also holds the tile layout that TMA writes and
-// wgmma reads (`Panels`) and the tensor maps that describe it
-// (`tile_map`), which the bf16 bodies share.
+// later) the float32 instances of the backward (block_sparse_diff.cu: dq for
+// K3 and K7, dk/dv for K4 and K8) and K5's (block_sparse_causal.cu); on
+// Hopper's wgmma, TMA, mbarriers and setmaxnreg (sm_90a, the second half of
+// this file) the bf16 instances of the forward and the backward, and (the
+// last part, in TF32) the other float32 instances of the forward
+// (block_sparse_causal.cu: K1, K2, K6, K9a-c).
+// The second half also holds the tile layouts that TMA writes and wgmma
+// reads (`Panels` for bf16, `TPanels` for float32) and the tensor maps that
+// describe them (`tile_map`, `f32_map`).
 //
 // Fragments of mma.sync m16n8k8 (TF32), with g = lane / 4 and t4 = lane % 4:
 // A (16 x 8) holds rows g and g + 8 at k = t4 and t4 + 4; B (8 x 8) holds
@@ -477,6 +479,195 @@ cudaError_t tile_map(CUtensorMap* map, const void* ptr, long rows) {
   const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(ptr),
                             dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                             P::PW == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
+                            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// ---------------------------------------------------------------------------
+// TF32 on wgmma, for the float32 forward body (block_sparse_causal.cu,
+// `causal_tf32_wgmma_kernel`). wgmma reads TF32 operands K-major only (the
+// reduction index along the rows' bytes), from shared memory or, for A, from
+// registers; its m64nNk8 A fragment (per warp w, g = lane / 4, t4 = lane %
+// 4) holds rows 16·w + g and + 8 at k = t4 (registers 0, 1) and k = t4 + 4
+// (2, 3), as mma.sync m16n8k8's does. So P·V takes P from its accumulators
+// as `split_a` orders them (k = t4 standing for column 2·t4, k = t4 + 4 for
+// 2·t4 + 1), and V is read as Vᵀ whose keys sit in the same order within
+// each group of 8 (`KEY_AT`).
+// ---------------------------------------------------------------------------
+
+// the key that k-position p of an 8-wide TF32 k-step stands for
+__device__ __forceinline__ int key_at(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
+
+// generic-proxy writes to shared memory (the split of Q) made visible to the
+// async proxy that wgmma reads through
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= a·b, m64n64k8 in TF32: a (64 x 8) and b (8 x 64) from shared memory, both
+// K-major; `accumulate` 0 overwrites d
+__device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "%32, %33, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += a·b, m64n64k8 in TF32: a (64 x 8) from registers (the A fragment), b (8 x
+// 64) from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a·b, m64n80k8 in TF32: a (64 x 8) from registers (the A fragment), b (8 x
+// 80) from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n80(float (&d)[40], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a·b, m64n128k8 in TF32: a (64 x 8) from registers (the A fragment), b (8 x
+// 128) from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, "
+      "%42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += a·b with N = D, the P·V product of the float32 body
+template <int D>
+__device__ __forceinline__ void wgmma_tf32_rs(float (&d)[D / 2], const uint32_t (&a)[4],
+                                              uint64_t db) {
+  if constexpr (D == 64)
+    wgmma_tf32_rs_n64(d, a, db);
+  else if constexpr (D == 80)
+    wgmma_tf32_rs_n80(d, a, db);
+  else
+    wgmma_tf32_rs_n128(d, a, db);
+}
+
+// A float32 tile of ROWS rows and COLS columns in shared memory, read
+// K-major (COLS the reduction index) by the TF32 wgmmas: NP panels of PW
+// columns, each ROWS rows of ROW bytes, in the swizzled layout TMA writes:
+// 32-column panels under the 128-byte swizzle where COLS is a multiple of
+// 32, else (COLS = 80, whose 320-byte rows no 128-byte box tiles) 8-column
+// ones under the 32-byte swizzle. The bytes are those of `Panels` at twice
+// the columns, so the descriptors are the bf16 tiles' too.
+template <int ROWS, int COLS>
+struct TPanels {
+  static constexpr int PW = COLS % 32 == 0 ? 32 : 8;
+  static constexpr int NP = COLS / PW;
+  static constexpr uint32_t SWIZZLE = PW == 32 ? 1u : 3u;
+  static constexpr int ROW = 4 * PW;  // bytes of a panel's row
+  static constexpr int PANEL = ROWS * ROW;
+  static constexpr int TILE = NP * PANEL;
+  static_assert(COLS % 8 == 0 && ROWS % 8 == 0 && PANEL % 1024 == 0, "tile shape");
+
+  // k-step kk (8 columns) of the tile read K-major, as A or as B
+  __device__ static uint64_t kdesc(uint32_t tile, int kk) {
+    return wgmma_desc(tile + (8 * kk / PW) * PANEL + (8 * kk % PW) * 4, 16, 8 * ROW, SWIZZLE);
+  }
+};
+
+// The tensor map of a (rows, cols) float32 tensor in boxes of 64 rows by one
+// panel of PW columns, swizzled as `TPanels` lays a tile out.
+template <int PW>
+cudaError_t f32_map(CUtensorMap* map, const void* ptr, long rows, long cols) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)PW, 64};
+  const cuuint32_t unit[2] = {1, 1};
+  const CUresult r = encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(ptr),
+                            dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                            PW == 32 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_32B,
                             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
 }

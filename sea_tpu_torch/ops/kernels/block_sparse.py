@@ -71,6 +71,7 @@ elsewhere.
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
@@ -1578,8 +1579,7 @@ def window_operands(q, mask_m, rows, t_src: int, n_windows: int,
 def _window_args(ops: WindowOperands, w: int, k_win, v_win, what: str, dou=None, *stats):
     """Check one window launch's tensors: q, k, v (and dou) contiguous
     float32 or bfloat16 of one type on one device, the per-call row
-    statistics (lse, delta) float32. Returns the ints every window entry
-    point takes after its pointers, the last `is_bf16`."""
+    statistics (lse, delta) float32."""
     N, H, TL, D = ops.shape
     _check_head_dim(D, "window", what)
     _require_cuda(ops.q, what)
@@ -1597,12 +1597,57 @@ def _window_args(ops: WindowOperands, w: int, k_win, v_win, what: str, dou=None,
         raise ValueError(f"{what}: k and v must be ({N}, {H}, {ops.window}, {D})")
     if not 0 <= w < ops.counts.shape[0]:
         raise ValueError(f"{what}: window {w} of {ops.counts.shape[0]}")
-    if ops.q.dtype == torch.bfloat16 and (TL % 128 or ops.window % 128):
-        raise ValueError(f"{what}: the bf16 kernels' tiles take shards and windows of whole "
-                         f"128-row blocks, got {TL} rows and windows of {ops.window}")
+
+
+WINDOW_TILE = 128  # the bodies' q-tile rows and dk/dv's k-tile columns, at most
+
+
+def pad_window(ops: WindowOperands, k_win, v_win, per_call=()):
+    """One shard's window operands with its rows and the window's columns
+    padded to whole tiles of the bodies (`WINDOW_TILE`, in whole blocks of
+    `block_q` and `block_k`), as `prepare_inputs` pads T for the unsharded
+    kernels: padded rows get empty masks, zero counts and no entry in any
+    transposed list, and padded columns (zeros of k_win and v_win) are in no
+    list, so neither is ever alive; the window keeps its global columns.
+    `per_call` is the backward's (dou, lse, delta), each (NH, TL, ...),
+    padded with zeros (lse with +inf). Returns (ops, k_win, v_win, *per_call),
+    the inputs themselves where both are whole tiles; the wrappers cut their
+    outputs back to ops' rows and window."""
+    N, H, TL, D = ops.shape
+    row_tile = math.lcm(WINDOW_TILE, ops.block_q)
+    col_tile = math.lcm(WINDOW_TILE, ops.block_k)
+    dr = -TL % row_tile
+    dc = -ops.window % col_tile
+    if dr == 0 and dc == 0:
+        return (ops, k_win, v_win, *per_call)
+    dq_, dk_ = dr // ops.block_q, dc // ops.block_k
+    extra = ops.row_base[-1] + ops.block_q * torch.arange(
+        1, dq_ + 1, dtype=torch.int32, device=ops.row_base.device)
+    padded = ops._replace(
+        q=F.pad(ops.q, (0, 0, 0, dr)),
+        mbits=F.pad(ops.mbits, (0, 0, 0, dr)),
+        row_base=torch.cat([ops.row_base, extra.to(ops.row_base.dtype)]),
+        row_widths=F.pad(ops.row_widths, (0, dr)),
+        counts=F.pad(ops.counts, (0, dq_)),
+        idx=F.pad(ops.idx, (0, dk_, 0, dq_)),
+        counts_t=F.pad(ops.counts_t, (0, dk_)),
+        idx_t=F.pad(ops.idx_t, (0, dq_, 0, dk_)),
+        shape=(N, H, TL + dr, D),
+        window=ops.window + dc,
+    )
+    rows = [F.pad(x, (0, 0) * (x.dim() - 2) + (0, dr), value=fill)
+            for x, fill in zip(per_call, (0.0, float("inf"), 0.0))]
+    return (padded, F.pad(k_win, (0, 0, 0, dc)), F.pad(v_win, (0, 0, 0, dc)), *rows)
+
+
+def _window_geometry(ops: WindowOperands, col_base: int):
+    """The ints every window entry point takes after its pointers, the last
+    `is_bf16`, for (padded) operands whose window starts at global column
+    `col_base`."""
+    N, H, TL, D = ops.shape
     return (N * H, TL, ops.window, D, ops.t_m, ops.mbits.shape[-1], ops.block_q,
-            ops.block_k, TL // ops.block_q, ops.window // ops.block_k,
-            w * ops.window, int(ops.q.dtype == torch.bfloat16))
+            ops.block_k, TL // ops.block_q, ops.window // ops.block_k, col_base,
+            int(ops.q.dtype == torch.bfloat16))
 
 
 def fwd_stats_window(ops: WindowOperands, w: int, k_win, v_win
@@ -1610,27 +1655,29 @@ def fwd_stats_window(ops: WindowOperands, w: int, k_win, v_win
     """K6 over window `w` (k_win, v_win (N, H, CH, D) its columns): the
     window-normalised output (N, H, TL, D) in q's type and logsumexp (N, H,
     TL) float32.
-    One launch on the current stream for CUDA tensors; the plain version for
-    CPU tensors."""
+    One launch on the current stream for CUDA tensors (rows and window
+    padded to whole tiles inside, `pad_window`); the plain version for CPU
+    tensors."""
     N, H, TL, D = ops.shape
     if ops.q.device.type == "cpu":
         return fwd_stats_window_reference(
             ops.q.reshape(ops.shape), k_win, v_win, ops.mask_m, w * ops.window,
             row_widths=ops.row_widths)
-    geometry = _window_args(ops, w, k_win, v_win, "fwd_stats_window")
-    out = torch.empty_like(ops.q)
-    lse = torch.empty((N * H, TL), dtype=torch.float32, device=ops.q.device)
+    _window_args(ops, w, k_win, v_win, "fwd_stats_window")
+    p, k_p, v_p = pad_window(ops, k_win, v_win)
+    out = torch.empty_like(p.q)
+    lse = torch.empty(p.q.shape[:2], dtype=torch.float32, device=ops.q.device)
     lib = _lib()
     with torch.cuda.device(ops.q.device):
         stream = torch.cuda.current_stream(ops.q.device).cuda_stream
         err = lib.sea_window_fwd_stats(
-            ops.q.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), ops.mbits.data_ptr(),
-            ops.counts[w].data_ptr(), ops.idx[w].data_ptr(), ops.row_base.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), *geometry, stream,
+            p.q.data_ptr(), k_p.data_ptr(), v_p.data_ptr(), p.mbits.data_ptr(),
+            p.counts[w].data_ptr(), p.idx[w].data_ptr(), p.row_base.data_ptr(),
+            out.data_ptr(), lse.data_ptr(), *_window_geometry(p, w * ops.window), stream,
         )
     _check(err, "sea_window_fwd_stats")
     _count(fwd_stats_window, ops.q)
-    return out.reshape(ops.shape), lse.reshape(N, H, TL)
+    return out[:, :TL].reshape(ops.shape), lse[:, :TL].reshape(N, H, TL)
 
 
 fwd_stats_window.launches = 0
@@ -1647,20 +1694,21 @@ def dq_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta) -> tor
             ops.q.reshape(ops.shape), k_win, v_win, ops.mask_m, dou, lse, delta,
             w * ops.window, row_widths=ops.row_widths)
     dou, lse, delta = (_flat(x, N * H) for x in (dou, lse, delta))
-    geometry = _window_args(ops, w, k_win, v_win, "dq_window", dou, lse, delta)
-    dq = torch.empty_like(ops.q)
+    _window_args(ops, w, k_win, v_win, "dq_window", dou, lse, delta)
+    p, k_p, v_p, dou, lse, delta = pad_window(ops, k_win, v_win, (dou, lse, delta))
+    dq = torch.empty_like(p.q)
     lib = _diff_lib()
     with torch.cuda.device(ops.q.device):
         stream = torch.cuda.current_stream(ops.q.device).cuda_stream
         err = lib.sea_window_dq(
-            ops.q.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), ops.mbits.data_ptr(),
-            dou.data_ptr(), lse.data_ptr(), delta.data_ptr(), ops.counts[w].data_ptr(),
-            ops.idx[w].data_ptr(), ops.row_base.data_ptr(), dq.data_ptr(), *geometry,
-            stream,
+            p.q.data_ptr(), k_p.data_ptr(), v_p.data_ptr(), p.mbits.data_ptr(),
+            dou.data_ptr(), lse.data_ptr(), delta.data_ptr(), p.counts[w].data_ptr(),
+            p.idx[w].data_ptr(), p.row_base.data_ptr(), dq.data_ptr(),
+            *_window_geometry(p, w * ops.window), stream,
         )
     _check(err, "sea_window_dq")
     _count(dq_window, ops.q)
-    return dq.reshape(ops.shape)
+    return dq[:, :TL].reshape(ops.shape)
 
 
 dq_window.launches = 0
@@ -1677,21 +1725,24 @@ def dkv_window(ops: WindowOperands, w: int, k_win, v_win, dou, lse, delta
             ops.q.reshape(ops.shape), k_win, v_win, ops.mask_m, dou, lse, delta,
             w * ops.window, row_widths=ops.row_widths)
     dou, lse, delta = (_flat(x, N * H) for x in (dou, lse, delta))
-    geometry = _window_args(ops, w, k_win, v_win, "dkv_window", dou, lse, delta)
-    dk = torch.empty_like(k_win)
-    dv = torch.empty_like(v_win)
+    _window_args(ops, w, k_win, v_win, "dkv_window", dou, lse, delta)
+    p, k_p, v_p, dou, lse, delta = pad_window(ops, k_win, v_win, (dou, lse, delta))
+    dk = torch.empty_like(k_p)
+    dv = torch.empty_like(v_p)
     lib = _diff_lib()
     with torch.cuda.device(ops.q.device):
         stream = torch.cuda.current_stream(ops.q.device).cuda_stream
         err = lib.sea_window_dkv(
-            ops.q.data_ptr(), k_win.data_ptr(), v_win.data_ptr(), ops.mbits.data_ptr(),
-            dou.data_ptr(), lse.data_ptr(), delta.data_ptr(), ops.counts_t[w].data_ptr(),
-            ops.idx_t[w].data_ptr(), ops.row_base.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), *geometry, stream,
+            p.q.data_ptr(), k_p.data_ptr(), v_p.data_ptr(), p.mbits.data_ptr(),
+            dou.data_ptr(), lse.data_ptr(), delta.data_ptr(), p.counts_t[w].data_ptr(),
+            p.idx_t[w].data_ptr(), p.row_base.data_ptr(), dk.data_ptr(),
+            dv.data_ptr(), *_window_geometry(p, w * ops.window), stream,
         )
     _check(err, "sea_window_dkv")
     _count(dkv_window, ops.q)
-    return dk, dv
+    if k_p is k_win:
+        return dk, dv
+    return dk[:, :, :ops.window].contiguous(), dv[:, :, :ops.window].contiguous()
 
 
 dkv_window.launches = 0

@@ -1,11 +1,13 @@
 """The chip tools' source-reading parts, on the CPU: kernel_ab.py's
-knock-outs must each find their text in the CUDA source exactly once (or the
-tool would time an unchanged copy), and chip_smoke.py's tensor-core check
-must name every instance of the forward bodies (`causal_wgmma_kernel`, the
-bf16 instances on wgmma, and `causal_flat_kernel`, the float32 ones on
-mma.sync) and of the backward bodies (`causal_dq_wgmma_kernel` and
-`causal_dkv_wgmma_kernel` on wgmma, `causal_dq_kernel` and
-`causal_dkv_kernel` on mma.sync) from its mangled name."""
+knock-outs must each find their text in the CUDA source exactly once, within
+the body they knock out (or the tool would time an unchanged copy), and
+chip_smoke.py's tensor-core check must name every instance of the forward
+bodies (`causal_wgmma_kernel`, the bf16 instances on wgmma,
+`causal_tf32_wgmma_kernel`, the float32 ones on wgmma in split TF32, and
+`causal_flat_kernel`, K5's float32 instance on mma.sync) and of the backward
+bodies (`causal_dq_wgmma_kernel` and `causal_dkv_wgmma_kernel`
+on wgmma, `causal_dq_kernel` and `causal_dkv_kernel` on mma.sync) from its
+mangled name."""
 
 import re
 
@@ -15,17 +17,47 @@ import chip_smoke
 import kernel_ab
 
 
+def _scoped(text, scope):
+    """The part of a source that a body's knock-outs edit (kernel_ab's
+    scope markers)."""
+    lo = text.index(scope[0])
+    return text[lo:text.index(scope[1], lo) if scope[1] else len(text)]
+
+
 def test_knockouts_apply_to_the_source(tmp_path, monkeypatch):
+    """The bf16 forward body's knock-outs edit `causal_wgmma_kernel` alone
+    (the float32 body repeats some of their lines)."""
     monkeypatch.setattr(kernel_ab, "BUILD", tmp_path)
     sources = kernel_ab.knockout_sources()
     original = kernel_ab.SOURCE.read_text()
     assert set(sources) == {f"ko-{n}" for n in kernel_ab.KNOCKOUTS}
+    assert "causal_tf32_wgmma_kernel" not in _scoped(original, kernel_ab.BF16_SCOPE)
     for name, (path, include) in sources.items():
         text = path.read_text()
         assert text != original, name
+        assert _scoped(text, kernel_ab.F32_SCOPE) == _scoped(original, kernel_ab.F32_SCOPE)
         for old, _ in kernel_ab.KNOCKOUTS[name[3:]]:
-            assert old not in text, (name, old)
+            assert old not in _scoped(text, kernel_ab.BF16_SCOPE), (name, old)
         assert include == kernel_ab.SOURCE.parent
+
+
+@pytest.mark.parametrize("name", sorted(kernel_ab.F32_KNOCKOUTS))
+def test_f32_knockouts_apply_to_the_new_body(tmp_path, monkeypatch, name):
+    """Each knock-out of the float32 body finds its text once in the source
+    from `causal_tf32_wgmma_kernel`'s section on and leaves the bf16 body as
+    it is."""
+    monkeypatch.setattr(kernel_ab, "BUILD", tmp_path)
+    sources = kernel_ab.knockout_sources(kernel_ab.SOURCE, kernel_ab.F32_KNOCKOUTS, "ko-f32")
+    assert set(sources) == {f"ko-f32-{n}" for n in kernel_ab.F32_KNOCKOUTS}
+    path, include = sources[f"ko-f32-{name}"]
+    text, original = path.read_text(), kernel_ab.SOURCE.read_text()
+    body, knocked = _scoped(original, kernel_ab.F32_SCOPE), _scoped(text, kernel_ab.F32_SCOPE)
+    assert "causal_tf32_wgmma_kernel(" in body and knocked != body
+    assert _scoped(text, kernel_ab.BF16_SCOPE) == _scoped(original, kernel_ab.BF16_SCOPE)
+    for old, new in kernel_ab.F32_KNOCKOUTS[name]:
+        assert body.count(old) == 1, old
+        assert old not in knocked or old in new, old
+    assert include == kernel_ab.SOURCE.parent
 
 
 def _width_lists():
@@ -62,9 +94,10 @@ def _instances(width_type: str):
 
 def test_tensor_core_check_names_every_instance():
     """The instances the entry points launch, as nvcc mangles them
-    (`causal_flat_kernel<D, STATS, BIDIR, IMPL>` for float32 and
-    `causal_wgmma_kernel<D, STATS, BIDIR, IMPL>` for bf16, in an anonymous
-    namespace), map onto the kernel ids and widths the check requires."""
+    (`causal_tf32_wgmma_kernel<D, STATS, BIDIR, IMPL>` for float32 but K5's,
+    `causal_flat_kernel<…>`, and `causal_wgmma_kernel<D, STATS, BIDIR, IMPL>`
+    for bf16, in an anonymous namespace), map onto the kernel ids and widths
+    the check requires."""
     names = set()
     for mangled in _forward_mangled():
         assert chip_smoke.FLAT_INSTANCE.search(mangled), mangled
@@ -78,8 +111,10 @@ def test_tensor_core_check_names_every_instance():
 
 # the forward body each element type's `launch<…>` instantiates, and how its
 # mangled name goes on after the template arguments (its first parameters:
-# float32 pointers, or bf16's TMA tensor maps)
-FORWARD_BODIES = {"float": ("causal_flat_kernel", "EEEvPKfS1_"),
+# the TMA tensor maps of both wgmma bodies), and K5's float32 body on
+# mma.sync (float32 pointers)
+K5_FLOAT_BODY = ("causal_flat_kernel", "EEEvPKfS1_")
+FORWARD_BODIES = {"float": ("causal_tf32_wgmma_kernel", "EEEv14CUtensorMap_stS0_S0_"),
                   "__nv_bfloat16": ("causal_wgmma_kernel", "EEEv14CUtensorMap_stS0_S0_")}
 
 
@@ -95,7 +130,8 @@ def _forward_mangled():
             r"(?:, (\w+))?>", source)):
         for d, t in _instances(width_type):
             for im in ["WORD_RANGE", "WORD_LOOP", "SUBTILE"] if impl == "IMPL" else [impl]:
-                body, rest = FORWARD_BODIES[t]
+                body, rest = (K5_FLOAT_BODY if (t, bidir) == ("float", "true")
+                              else FORWARD_BODIES[t])
                 out.append(f"_ZN12_GLOBAL__N_1{len(body)}{body}ILi{d}E"
                            f"Lb{int(stats == 'true')}ELb{int(bidir == 'true')}ELi{impl_ids[im]}"
                            + rest)
@@ -188,7 +224,9 @@ def test_backward_tensor_core_ops(launcher):
 
 
 def test_forward_tensor_core_ops():
-    """The same for the forward body's instances."""
+    """The forward bodies' instances run on wgmma, the float32 ones in split
+    TF32, but K5's float32 instance, which kept the mma.sync body: the check
+    wants HGMMA in each of them and HMMA in that one."""
     for mangled in _forward_mangled():
-        want = "HGMMA" if chip_smoke.instance_name(mangled).split()[1] == "bfloat16" else "HMMA"
+        want = "HMMA" if chip_smoke.instance_name(mangled) == "K5 float32 D64" else "HGMMA"
         assert chip_smoke.tensor_core_op(mangled) == want, mangled
