@@ -14,11 +14,13 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 `cuobjdump -sass`: wgmma's (HGMMA) in each instance of the
                 forward bodies (K1, K2/K6, K5, K9a-c; bf16
                 `causal_wgmma_kernel`, float32 `causal_tf32_wgmma_kernel` in
-                split TF32, but K5's float32 instance) and of the bf16
-                backward bodies, mma.sync's (HMMA) in K5's float32 instance
-                (`causal_flat_kernel`) and in each float32 instance of the
-                backward bodies (K3/K7, K4/K8), both types at head width 64
-                and K1-K4's at 80 and 128, none of which may lack them;
+                split TF32, but K5's float32 instance) and of the backward
+                bodies (K3/K7, K4/K8; bf16 `causal_dq_wgmma_kernel` and
+                `causal_dkv_wgmma_kernel`, float32 `causal_dq_f32_wgmma_kernel`
+                and `causal_dkv_f32_wgmma_kernel` in three bf16 terms),
+                mma.sync's (HMMA) in K5's float32 instance
+                (`causal_flat_kernel`), both types at head width 64 and
+                K1-K4's at 80 and 128, none of which may lack them;
   2. mask     — the kernel's element predicate (`alive_mask`: the bf16
                 body's alive words) against the torch oracle
                 `element_mask_int8`, bit for bit, for T up to 8192; the
@@ -689,11 +691,14 @@ FLAT_INSTANCE = re.compile(
 BODY_TYPES = {"tf32_wgmma": "float32", "flat": "float32", "wgmma": "bfloat16"}
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
-# the backward bodies `causal_dq_kernel<D>` and `causal_dkv_kernel<D>`, the
-# float32 instances on mma.sync, and `causal_dq_wgmma_kernel<D>` and
-# `causal_dkv_wgmma_kernel<D>`, the bf16 ones on wgmma; and the kernels each is
-DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_(wgmma_)?kernelILi(64|80|128)EE")
+# the backward bodies `causal_dq_f32_wgmma_kernel<D>` and
+# `causal_dkv_f32_wgmma_kernel<D>`, the float32 instances on wgmma in three
+# bf16 terms, and `causal_dq_wgmma_kernel<D>` and `causal_dkv_wgmma_kernel<D>`,
+# the bf16 ones (a float32 instance on mma.sync would be `causal_dq_kernel<D>`
+# or `causal_dkv_kernel<D>`: none is left); and the kernels each is
+DIFF_INSTANCE = re.compile(r"causal_(dq|dkv)_(f32_wgmma_|wgmma_)?kernelILi(64|80|128)EE")
 DIFF_KIDS = {"dq": "K3/K7", "dkv": "K4/K8"}
+DIFF_TYPES = {"wgmma_": "bfloat16", "f32_wgmma_": "float32", None: "float32"}
 # at widths 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b) only K1-K4 have
 # instances: the windows (K6-K8), K5 and K9a-c take 64 alone, so an instance
 # shared at 64 is K1-K4's alone there
@@ -713,7 +718,7 @@ def instance_name(mangled: str):
         if not found:
             return None
         kid, width = DIFF_KIDS[found.group(1)], found.group(3)
-        dtype = "bfloat16" if found.group(2) else "float32"
+        dtype = DIFF_TYPES[found.group(2)]
     if width != "64":
         kid = WIDE_KIDS.get(kid, kid)
     return f"{kid} {dtype} D{width}"
@@ -733,9 +738,8 @@ def required_instances() -> set:
 
 def tensor_core_op(function: str) -> str:
     """The tensor-core instruction a body instance must contain: wgmma's
-    (HGMMA) in the bodies on wgmma (both forward bodies, the bf16 backward
-    ones), mma.sync's (HMMA) in the float32 ones on mma.sync (K5's forward,
-    the backward's)."""
+    (HGMMA) in the bodies on wgmma (both forward bodies, both backward ones),
+    mma.sync's (HMMA) in the float32 one on mma.sync (K5's forward)."""
     return "HGMMA" if "wgmma_kernel" in function else "HMMA"
 
 
@@ -744,11 +748,11 @@ def tensor_core_check():
     and backward bodies in the built libraries' SASS (`cuobjdump -sass`):
     every instance the entry points launch must be there, each one on wgmma
     (`causal_wgmma_kernel`, `causal_tf32_wgmma_kernel`,
-    `causal_dq_wgmma_kernel`, `causal_dkv_wgmma_kernel`) with HGMMA, each
-    float32 one on mma.sync (`causal_flat_kernel`, K5's; `causal_dq_kernel`,
-    `causal_dkv_kernel`) with HMMA."""
+    `causal_dq_wgmma_kernel`, `causal_dkv_wgmma_kernel`,
+    `causal_dq_f32_wgmma_kernel`, `causal_dkv_f32_wgmma_kernel`) with HGMMA,
+    the float32 one on mma.sync (`causal_flat_kernel`, K5's) with HMMA."""
     cuobjdump = Path(_build._nvcc()).with_name("cuobjdump")
-    counts, name, op = {}, None, None
+    counts, ops, name, op = {}, {}, None, None
     for lib in ("block_sparse_causal", "block_sparse_diff"):
         sass = subprocess.run([str(cuobjdump), "-sass", str(_build._target(lib))],
                               capture_output=True, text=True, check=True, timeout=300).stdout
@@ -758,10 +762,15 @@ def tensor_core_check():
                 op = tensor_core_op(line)
                 if name:
                     counts[name] = 0
+                    ops[name] = op
             elif name and op in line:
                 counts[name] += 1
     log(f"[device] tensor-core instructions by body instance (HGMMA in the bodies on wgmma, "
-        f"HMMA in the float32 ones on mma.sync): {counts}")
+        f"HMMA in K5's float32 one on mma.sync): {counts}")
+    f32_bwd = sorted(n for n in ops if n.startswith(("K3", "K4")) and "float32" in n)
+    log(f"[device] float32 backward instances on wgmma (HGMMA): "
+        f"{[n for n in f32_bwd if ops[n] == 'HGMMA']}; kept on mma.sync (HMMA): "
+        f"{[n for n in f32_bwd if ops[n] == 'HMMA']}")
     require(set(counts) == required_instances(), f"body instances in the SASS: {sorted(counts)}")
     require(all(counts.values()), f"instances without tensor-core instructions: {counts}")
 

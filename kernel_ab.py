@@ -7,9 +7,9 @@ Builds `sea_tpu_torch/csrc/block_sparse_causal.cu` (the forward bodies) and
 `sea_tpu_torch/csrc/block_sparse_diff.cu` (the backward bodies) of this tree
 and, with `--parent`, the same two files of another checkout (for one
 commit: `mkdir DIR && git archive <commit> | tar -x -C DIR`), plus copies
-of this tree's sources with one part of a body knocked out (fifteen): 19
-nvcc builds with a parent, 17 without, all started together (about 60-90 s
-on the card's host). Then it times, with CUDA events on the same operands, the parent and
+of this tree's sources with one part of a body knocked out (twenty-one):
+25 nvcc builds with a parent, 23 without, all started together. Then it
+times, with CUDA events on the same operands, the parent and
 this tree in the order parent, this, this, parent, then the knock-outs, each
 case in float32 and in bfloat16 beside SDPA's same call, each time as the
 median of one-call CUDA-event times (`chip_smoke.time_ms`, which counts the
@@ -23,9 +23,9 @@ torch.profiler:
     (shard, window) of chip_smoke's ring-kernels geometry (4 shards at 1 x
     4096, zigzag rows, blocks 128: shard 0's rows on window 0);
   * the backward, float32 then bfloat16: K3 and K4 on the budget mask at
-    1 x 12 x 2048 x 64 and at LLaMA-7b's layer, 1 x 32 x 2048 x 128, and K7
-    and K8 on the same ring window, beside SDPA's backward on the same shapes
-    in the same type.
+    1 x 12 x 2048 x 64, at LLaMA-7b's layer, 1 x 32 x 2048 x 128, and at the
+    train arms' 1 x 32 x 512 x 80 and x 128, and K7 and K8 on the same ring
+    window, beside SDPA's backward on the same shapes in the same type.
 Each output is compared with the first library's: equal bit for bit, or
 its max|diff| (the float32 forward of a parent older than its wgmma body
 sums otherwise).
@@ -54,8 +54,7 @@ left as it is):
            epilogue.
 Backward (`bwd-`; the bf16 bodies on wgmma, `causal_dq_wgmma_kernel` and
 `causal_dkv_wgmma_kernel`, each edit made in both; the edits sit in code
-that every width's instance shares; the float32 instances are left as they
-are):
+that every width's instance shares; `DIFF_KNOCKOUTS`, timed in bf16):
   pred     the alive words reduced to the causal edge (no pixel, no mask
            word, no run boundary);
   exp      P's 2^x left out (P is the exponent itself);
@@ -63,6 +62,19 @@ are):
   products no wgmma at all (S, dP, and dq or dk and dv);
   all      pred, exp and products together: the walk, the TMA copies, the
            barriers, the bit tests, the splits and the epilogue.
+The float32 backward bodies in three bf16 terms
+(`causal_dq_f32_wgmma_kernel`, `causal_dkv_f32_wgmma_kernel`;
+`F32_DIFF_KNOCKOUTS`, `bwd32-`, timed in float32; each edit in both bodies
+or in the helpers they share):
+  pred     the alive words reduced to the causal edge, as above;
+  exp      P's 2^x left out, as above;
+  split    the producer warps' split of each operand into its three terms
+           left out (the consumers read the raw bits as terms);
+  small    the small products left out: one wgmma a k-step (x₁y₁), not six;
+  products no wgmma at all;
+  all      pred, exp and products together: the walk, the TMA copies, the
+           splits, the barriers, the bit tests, the fragment splits and the
+           epilogue.
 Needs a CUDA device and nvcc; prints one line per timing and the card's
 name and power limit.
 """
@@ -94,8 +106,14 @@ BUILD = ROOT / "sea_tpu_torch" / "_build" / "ab"
 # text must stand once
 BF16_SCOPE = ("causal_wgmma_kernel(", "// The float32 body on wgmma in split TF32")
 F32_SCOPE = ("// The float32 body on wgmma in split TF32", None)
-# the scope by the knock-outs' prefix (the backward's edit their whole file)
-SCOPES = {"ko": BF16_SCOPE, "ko-f32": F32_SCOPE}
+# and a backward body's (block_sparse_diff.cu)
+BWD_BF16_SCOPE = ("// The bf16 bodies on wgmma (K3, K4, K7, K8 in bfloat16)",
+                  "// The float32 bodies on wgmma in three bf16 terms")
+BWD_F32_SCOPE = ("// The float32 bodies on wgmma in three bf16 terms",
+                 "// col_base: the global column")
+# the scope by the knock-outs' prefix
+SCOPES = {"ko": BF16_SCOPE, "ko-f32": F32_SCOPE, "ko-bwd": BWD_BF16_SCOPE,
+          "ko-bwd32": BWD_F32_SCOPE}
 # (text of this tree's source, what replaces it) per knock-out of the bf16
 # body (`causal_wgmma_kernel`)
 KNOCKOUTS = {
@@ -129,7 +147,8 @@ F32_KNOCKOUTS = {
 }
 F32_KNOCKOUTS["all"] = F32_KNOCKOUTS["pred"] + F32_KNOCKOUTS["products"]
 # the same for the backward's bf16 bodies (`causal_dq_wgmma_kernel`,
-# `causal_dkv_wgmma_kernel`), each edit found once, in dq and in dk/dv
+# `causal_dkv_wgmma_kernel`), each edit found once in their scope, in dq and
+# in dk/dv
 DIFF_KNOCKOUTS = {
     "pred": [("sea::alive_bits<false, false>(rows, c0, t_m, 0, n_words - 1, t4, bits);",
               "for (int h = 0; h < 2; ++h) bits[h] = rows[h].cl < c0 ? 0ull"
@@ -156,6 +175,31 @@ DIFF_KNOCKOUTS = {
         ("sea::wgmma_rs<D>(acc_k, sh[kk], qd);", "")],
 }
 DIFF_KNOCKOUTS["all"] = DIFF_KNOCKOUTS["pred"] + DIFF_KNOCKOUTS["exp"] + DIFF_KNOCKOUTS["products"]
+# the same for the backward's float32 bodies (`causal_dq_f32_wgmma_kernel`,
+# `causal_dkv_f32_wgmma_kernel`); their products are the shared helpers
+# `f3::product3_ss` (six a k-step, the first overwriting) and
+# `f3::product3_rs`
+_SS3 = ["sea::wgmma_ss_n64(d, P::kdesc(a + 2 * T, kk), P::kdesc(b, kk), kk > 0);",
+        "sea::wgmma_ss_n64(d, P::kdesc(a + T, kk), P::kdesc(b + T, kk), 1);",
+        "sea::wgmma_ss_n64(d, P::kdesc(a, kk), P::kdesc(b + 2 * T, kk), 1);",
+        "sea::wgmma_ss_n64(d, P::kdesc(a + T, kk), P::kdesc(b, kk), 1);",
+        "sea::wgmma_ss_n64(d, P::kdesc(a, kk), P::kdesc(b + T, kk), 1);",
+        "sea::wgmma_ss_n64(d, P::kdesc(a, kk), P::kdesc(b, kk), 1);"]
+_RS3 = ["sea::wgmma_rs<D>(d, f[2][kk], b1);", "sea::wgmma_rs<D>(d, f[1][kk], b2);",
+        "sea::wgmma_rs<D>(d, f[0][kk], b3);", "sea::wgmma_rs<D>(d, f[1][kk], b1);",
+        "sea::wgmma_rs<D>(d, f[0][kk], b2);", "sea::wgmma_rs<D>(d, f[0][kk], b1);"]
+F32_DIFF_KNOCKOUTS = {
+    "pred": DIFF_KNOCKOUTS["pred"],
+    "exp": DIFF_KNOCKOUTS["exp"],
+    "split": [("split3_tile<D>(smem + i * L::TERMS, w, lane);", "{}"),
+              ("split3_tile<D>(stage, w, lane);", ""),
+              ("split3_tile<D>(stage + L::TERMS, w, lane);", "")],
+    "small": [(x, "") for x in _SS3[:5]] + [(_SS3[5], _SS3[5].replace(", 1);", ", kk > 0);"))]
+             + [(x, "") for x in _RS3[:5]],
+    "products": [(x, "") for x in _SS3 + _RS3],
+}
+F32_DIFF_KNOCKOUTS["all"] = (F32_DIFF_KNOCKOUTS["pred"] + F32_DIFF_KNOCKOUTS["exp"]
+                             + F32_DIFF_KNOCKOUTS["products"])
 P, I, FL = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the entry points timed here, by library
 ARGTYPES = {
@@ -317,13 +361,14 @@ def forward_cases(dtype):
 
 def backward_cases(dtype):
     """[(label, {kid: launch}, {kid: bound ms}, SDPA backward ms)] in
-    `dtype`: K3 and K4 on the budget mask at 1 x 12 x 2048 x 64 and at
-    LLaMA-7b's layer, 1 x 32 x 2048 x 128, and K7 and K8 on shard 0's rows
-    and window 0 of the ring-kernels geometry, each at the lse and delta of
-    its own forward (this tree's K2 or K6)."""
+    `dtype`: K3 and K4 on the budget mask at 1 x 12 x 2048 x 64, at
+    LLaMA-7b's layer, 1 x 32 x 2048 x 128, and at the float32 train arms'
+    1 x 32 x 512 x 80 and x 128, and K7 and K8 on shard 0's rows and window
+    0 of the ring-kernels geometry, each at the lse and delta of its own
+    forward (this tree's K2 or K6)."""
     cases = []
-    T = 2048
-    for heads, width in ((cs.H, cs.D), (cs.WIDE_H, cs.LLAMA_D)):
+    for T, heads, width in ((2048, cs.H, cs.D), (2048, cs.WIDE_H, cs.LLAMA_D),
+                            (512, cs.WIDE_H, cs.WIDE_D), (512, cs.WIDE_H, cs.LLAMA_D)):
         q, k, v, sc = cs.qkv(1, T, dtype, seed=T, device="cuda", heads=heads, width=width)
         do = torch.randn(q.shape, generator=torch.Generator().manual_seed(T + 1)).to("cuda", dtype)
         mask = cs.budget_mask(1, T, seed=T, device="cuda", heads=heads)
@@ -407,7 +452,8 @@ def main():
     sources = {"this": (SOURCE, SOURCE.parent), "this-bwd": (DIFF_SOURCE, DIFF_SOURCE.parent),
                **knockout_sources(),
                **knockout_sources(SOURCE, F32_KNOCKOUTS, "ko-f32"),
-               **knockout_sources(DIFF_SOURCE, DIFF_KNOCKOUTS, "ko-bwd")}
+               **knockout_sources(DIFF_SOURCE, DIFF_KNOCKOUTS, "ko-bwd"),
+               **knockout_sources(DIFF_SOURCE, F32_DIFF_KNOCKOUTS, "ko-bwd32")}
     if args.parent:
         psrc = args.parent / "sea_tpu_torch" / "csrc"
         sources["parent"] = (psrc / "block_sparse_causal.cu", psrc)
@@ -417,18 +463,18 @@ def main():
     print(f"[ab] {len(libs)} libraries built in {time.perf_counter() - t0:.1f} s", flush=True)
     order = ["parent", "this", "this", "parent"] if args.parent else ["this"]
     knocked = {prefix: [n for n in libs if n.startswith(prefix + "-")]
-               for prefix in ("ko-f32", "ko-bwd")}
+               for prefix in ("ko-f32", "ko-bwd", "ko-bwd32")}
     knocked["ko"] = [n for n in libs if n.startswith("ko-")
-                     and n not in knocked["ko-f32"] + knocked["ko-bwd"]]
+                     and n not in knocked["ko-f32"] + knocked["ko-bwd"] + knocked["ko-bwd32"]]
 
     # the forward: float32 with the float32 body's knock-outs, bf16 with the bf16 body's
     for dtype, prefix in ((torch.float32, "ko-f32"), (torch.bfloat16, "ko")):
         time_cases(libs, order + knocked[prefix], forward_cases(dtype),
                    f"{str(dtype)[6:]} forward", "_lib")
-    # the backward (its forward, K2 or K6, from this tree's library): the
-    # knock-outs, which edit the bf16 bodies, in bf16 only
+    # the backward (its forward, K2 or K6, from this tree's library): float32
+    # with the float32 bodies' knock-outs, bf16 with the bf16 bodies'
     bwd = [f"{n}-bwd" for n in order]
-    for dtype, ko in ((torch.float32, []), (torch.bfloat16, knocked["ko-bwd"])):
+    for dtype, ko in ((torch.float32, knocked["ko-bwd32"]), (torch.bfloat16, knocked["ko-bwd"])):
         time_cases(libs, bwd + ko, backward_cases(dtype), f"{str(dtype)[6:]} backward",
                    "_diff_lib")
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],

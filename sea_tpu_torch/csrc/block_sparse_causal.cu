@@ -642,14 +642,6 @@ struct Layout {
   static constexpr int FIXED = LIST_OFF + 1024;  // and the base's alignment
 };
 
-// The byte offset `o` within a panel as TMA's swizzle places it: the
-// 16-byte chunk index (bits 4..) XORed with the bits from 7 up, three of
-// them for 128-byte rows, one for 32-byte rows.
-template <int ROW>
-__device__ __forceinline__ uint32_t swizzled(uint32_t o) {
-  return o ^ ((o >> 3) & (ROW == 128 ? 0x70u : 0x10u));
-}
-
 // A tile of BYTES raw floats split in place by `threads` threads (this one
 // `i0`): TF32 hi over the raw values and lo in the BYTES after them, each
 // rounded as cvt.rna rounds it (`split_tf32_rna`), in the layout TMA wrote
@@ -685,7 +677,8 @@ __device__ __forceinline__ void transpose_tile(const unsigned char* raw, unsigne
     const int pos = 32 * (item & 1) + lane, d0 = 4 * (item >> 1);
     const int key = (pos & ~7) + sea::key_at(pos & 7);
     const uint4 x = *reinterpret_cast<const uint4*>(
-        raw + (d0 / QT::PW) * QT::PANEL + swizzled<QT::ROW>(key * QT::ROW + (d0 % QT::PW) * 4));
+        raw + (d0 / QT::PW) * QT::PANEL +
+        sea::swizzled<QT::ROW>(key * QT::ROW + (d0 % QT::PW) * 4));
     const float xs[4] = {__uint_as_float(x.x), __uint_as_float(x.y), __uint_as_float(x.z),
                          __uint_as_float(x.w)};
 #pragma unroll
@@ -693,7 +686,7 @@ __device__ __forceinline__ void transpose_tile(const unsigned char* raw, unsigne
       uint32_t h, l;
       sea::split_tf32_rna(xs[q], h, l);
       const uint32_t o = (pos / VT::PW) * VT::PANEL +
-                         swizzled<VT::ROW>((d0 + q) * VT::ROW + (pos % VT::PW) * 4);
+                         sea::swizzled<VT::ROW>((d0 + q) * VT::ROW + (pos % VT::PW) * 4);
       *reinterpret_cast<uint32_t*>(hi + o) = h;
       *reinterpret_cast<uint32_t*>(hi + VT::TILE + o) = l;
     }

@@ -42,12 +42,13 @@
 // predicate and exp per element, and the reads of each visited sub-tile from
 // L2 once per tile of the other side.
 //
-// Two bodies each, one per element type. Both walk the same lists in the
-// same order and read the same element mask; a sub-tile with no alive
-// element adds exact zeros (P = dS = 0), so lists of other block sizes, or a
-// shard that never lists it, give the same bits. Deterministic: no atomics,
-// no row (dq) or column (dk/dv) split across blocks, every sum in a fixed
-// order; two launches are equal bit for bit. exp is 2^x on the SFU.
+// Two bodies each, one per element type, on one skeleton. Both walk the same
+// lists in the same order and read the same element mask; a sub-tile with no
+// alive element adds exact zeros (P = dS = 0), so lists of other block
+// sizes, or a shard that never lists it, give the same bits. Deterministic:
+// no atomics, no row (dq) or column (dk/dv) split across blocks, every sum
+// in a fixed order; two launches are equal bit for bit. exp is 2^x on the
+// SFU.
 //
 // The bf16 bodies on wgmma (`causal_dq_wgmma_kernel`, K3 and K7;
 // `causal_dkv_wgmma_kernel`, K4 and K8). The JAX kernels take bf16 operands
@@ -102,7 +103,7 @@
 //     instead, published on the stage's barrier, ran slower (PERF.md):
 //     three or four warps build a stage's 128 words where the consumers'
 //     eight share them. This answers the ~20 instructions per element of
-//     the float32 bodies' predicate.
+//     the per-element predicate that the mma.sync bodies took.
 //   * Registers (setmaxnreg): producer 40, consumers 232. dq: dq's
 //     accumulator (D / 2 floats a thread), S and dP (32 each) and the
 //     previous sub-tile's dS fragments (32), whose product stays in flight
@@ -124,60 +125,72 @@
 //   * The tiles need t_dst (dq) or t_src (dk/dv) a multiple of 128: the
 //     wrappers pad T to it, and the ring's shards are whole 128-row blocks.
 //
-// The float32 bodies (`causal_dq_kernel`, `causal_dkv_kernel`) are
-// FlashAttention-2's backward on mma.sync in split TF32 ("3xTF32", as the
-// forward's float32 body: each operand hi + lo in TF32, a·b summed as
-// a_lo·b_hi + a_hi·b_lo + a_hi·b_hi with m16n8k8 TF32 mmas into float32,
-// each product to about 2^-21 of its size). wgmma takes TF32 operands only
-// K-major, and dS·K, Pᵀ·dO and dSᵀ·Q read their B operand MN-major, so they
-// would need transposed copies of K, Q and dO: a later redesign. A block is
-// 4 warps (128 threads); every product is one of the forward's two shapes
-// (sea_mma.cuh): Q·Kᵀ-shaped, with both operands read as float2 along d, or
-// P·V-shaped, with the A operand a C fragment as it stands and B read down
-// its columns.
-//   * dq: one block per (batch·head, 64-row q-tile), every head's last
-//     (heaviest causal) q-tile first; each warp owns 16 rows, and each
-//     thread keeps its two rows' lse·log2 e, delta, width and reciprocal in
-//     registers. Q, dO and the rows' mask words stay in shared memory; the
-//     block walks the q-block's list (`counts`/`idx`) in 64-column
-//     sub-tiles, in increasing order, stopping at the causal edge and the
-//     window's end, with the K and V sub-tiles double-buffered by cp.async.
-//     Per sub-tile: S = Q·Kᵀ and dP = dO·Vᵀ, the element predicate in the
-//     fragment layout, P = 2^(S·log2 e − lse·log2 e) where alive and exactly
-//     0 elsewhere, dS = P·(dP − delta) in place of S, and dq += dS·K.
-//   * dk/dv: one block per (batch·head, 64-column k-tile), every head's
-//     first (heaviest causal) k-tile first; each warp owns 16 k-columns, and
-//     K and V stay in shared memory. The block walks the TRANSPOSED lists
-//     (`counts_t`/`idx_t`) in 64-row q sub-tiles, in increasing order,
-//     skipping sub-tiles whose rows all end before the k-tile; each
-//     sub-tile's Q, dO and mask words arrive by cp.async and its 64 rows'
-//     lse·log2 e, delta, width and reciprocal are computed once, all double-
-//     buffered. Per sub-tile: Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ, the predicate (a
-//     thread's 16 fragment columns are 16 query rows, whose terms come from
-//     shared memory), Pᵀ, dSᵀ = Pᵀ·(dPᵀ − delta) in place of dPᵀ, then
-//     dv += Pᵀ·dO and dk += dSᵀ·Q.
-//   * Shared tiles have rows padded by 8 floats, as the forward pads K and
-//     Q: float2 reads along rows are free of bank conflicts, and the scalar
-//     reads down columns (K in dq, Q and dO in dk/dv) meet two-way conflicts
-//     but take immediate offsets. dq takes 112 KB (two blocks an SM), dk/dv
-//     118 KB (one), at width 64; at 80 dq takes 136 KB (one) and dk/dv 142
-//     KB; at 128 dq 208 KiB (6 tiles of 34816 bytes and 4 KiB of mask words)
-//     and dk/dv 214 KiB (K and V, then two stages of Q, dO, the words and
-//     the row terms), one block an SM each, under the 227 KiB opt-in. At 80
-//     the row reads stay conflict-free (rows g = 0..3 of a half-warp on banks
-//     24·g + 2·t mod 32) and the column reads two-way, as at 64; at 128 the
-//     strides (136 floats) have width 64's residues mod 32.
-//   * Width 128: the accumulators outgrow the registers (dq's is 64 floats
-//     a thread, dk's and dv's 128 together), so dq walks each 64-column
-//     sub-tile in two parts of 32 columns (`DQ_PARTS`), and dk/dv runs 8
-//     warps (`DKV_SPLIT`): warps w and w + 4 own the same 16 k-columns, each
-//     summing half of D's columns of dk and dv, and both compute the whole
-//     Sᵀ and dPᵀ of those columns. Neither moves a bit of a sum's order.
-//   * The splits round by integer operations (`sea::to_tf32_rna`: cvt.rna's
-//     bits without its NaN and infinity checks).
-//   * The predicate is per element: the pixel quotient from each row's
-//     reciprocal (`sea::causal_pixel_recip`, IEEE division's bits), a word
-//     read, a shift and a select.
+// The float32 bodies on wgmma (`causal_dq_f32_wgmma_kernel`, K3 and K7;
+// `causal_dkv_f32_wgmma_kernel`, K4 and K8) are the bf16 bodies' skeleton
+// (the walk over the union of the consumers' lists, heaviest tiles first,
+// the TMA copies on mbarriers, warp specialisation under setmaxnreg, the
+// alive words, 2^x, the epilogue) with every product kept to float32's
+// accuracy in bf16 wgmmas. wgmma takes TF32 operands K-major only, and dS·K,
+// Pᵀ·dO and dSᵀ·Q read their B operand MN-major: split TF32 would need
+// transposed hi + lo copies of K, Q and dO, 384 or 320 KiB a block at
+// D = 128. bf16 wgmma reads either major, so:
+//   * Every operand is three bf16 terms, x = x₁ + x₂ + x₃ with x₁ =
+//     bf16_rn(x), x₂ = bf16_rn(x − x₁), x₃ = bf16_rn(x − x₁ − x₂), the
+//     subtractions exact (`sea::split3_bf16`): 24 significant bits, 384·D
+//     bytes a 64-row tile. A product a·b is six bf16 wgmmas into the float32
+//     accumulator, smallest first, a₃b₁, a₂b₂, a₁b₃, a₂b₁, a₁b₂, a₁b₁
+//     (`f3::product3_ss`, `f3::product3_rs`): the terms left out, a₂b₃, a₃b₂
+//     and a₃b₃, are under 2^-26 of a·b, and what the three terms leave of x
+//     is about 2^-27 of it, where split TF32 keeps about 2^-21. XLA on a TPU
+//     computes a float32 dot at Precision.HIGHEST the same way, in six bf16
+//     passes; at the card's 989 TFLOP/s they cost the tensor time of three
+//     TF32 passes at 495.
+//   * The shared operands are read as the bf16 bodies read them (Q, K, V,
+//     dO K-major for the score products; K, dO and Q MN-major for the
+//     gradient products), each term a `sea::Panels` tile, so no operand is
+//     transposed. P and dS (Pᵀ and dSᵀ) are the register A operands, split
+//     from the accumulators as they stand into three fragment sets.
+//   * Every operand lands raw by TMA (`sea::f32_map`) in its own place and
+//     is split there, on the chip, by the producer warps that issue no copy.
+//     `Panels` has twice the columns of a float32 `TPanels` panel and the
+//     same rows, so each bf16 panel's two raw panels land where its first
+//     and second terms go (`f3::load_raw`); a row's split then reads and
+//     writes only that row's lines and the third term's, and the lanes that
+//     take a row need no more than a __syncwarp between their reads and
+//     their writes (`f3::split3_tile`). No landing slot: each operand's copy
+//     is in flight as soon as its place is released. Warp 0's lane 0 walks
+//     the lists and issues the copies: the resident operands (dq: Q and dO,
+//     with the block's rows' mask words; dk/dv: K and V) at once, then per
+//     stage its walk tag, its early operand (dq: V, read by dP alone and
+//     released once dP has completed; dk/dv: dO with its rows' lse, delta
+//     and mask words, released once dv += Pᵀ·dO has completed) and its late
+//     one (dq: K, read by S and dq += dS·K; dk/dv: Q). Each has barriers of
+//     its own (landed, split, released), so that the early one is refilled
+//     while the late one is still read, and each sub-tile issues its early
+//     product first, under which the late operand lands and is split.
+//   * Shared memory by width (`f3::Config`, `f3::Layout`): at D = 64 two
+//     consumer warpgroups (128 rows or columns) and two stages, dq 204944
+//     and dk/dv 208016 bytes; at 80 one and two (two and one left the
+//     heaviest 128-row blocks of a short T on the critical path), 188560
+//     and 194704; at 128 one and one, 200784 and 202320; each plus 1024 for
+//     the base's alignment. The lists are read from global memory by the
+//     walking lane.
+//   * The alive words are built as in the bf16 bodies, by the consumers
+//     under their early product, from the mask words that TMA brought in
+//     (dq: the block's rows', once; dk/dv: each stage's rows'). Built by the
+//     splitter warps instead, issued after both score products, or with dP
+//     issued ahead of the previous dq product's completion, they measured
+//     slower (PERF.md §6).
+//   * Registers: two producer warpgroups (seven splitter warps) beside two
+//     consumers (512 threads) or one (384); setmaxnreg 48 and 208, or 48
+//     and 248. A consumer's products complete before the next sub-tile's are
+//     issued (the previous gradient product runs while the next stage is
+//     awaited); dk/dv completes dv += Pᵀ·dO before it splits dSᵀ, so that at
+//     D = 128 dk and dv (128 floats), one product's fragment sets (48) and
+//     the other's accumulator fit at once.
+//   * The tiles need t_dst (dq) or t_src (dk/dv) a multiple of the block's
+//     64 or 128 rows or columns: the wrappers pad T to 128, and the ring's
+//     shards are whole 128-row blocks.
 //
 // Head widths: K3 and K4 are built at D = 64, 80 (OPT-2.7b) and 128
 // (LLaMA-7b and 13b) in both types and pick the instance by head_dim at
@@ -191,440 +204,14 @@
 
 namespace {
 
-using sea::alive_elem_recip;
 using sea::bad_geometry;
 using sea::bad_window;
-using sea::copy_rows;
-using sea::cp_async4;
-using sea::cp_async_commit;
-using sea::cp_async_wait;
 using sea::exp2_sfu;
 using sea::LOG2E;
 using sea::MAX_DEVICES;
 using sea::MAX_WORDS;
 using sea::misaligned;
-using sea::mma_3xtf32;
-using sea::split_a;
 using sea::split_bf16;
-
-// ---------------------------------------------------------------------------
-// The float32 bodies on mma.sync (split TF32)
-// ---------------------------------------------------------------------------
-
-constexpr int BQ = sea::TILE;   // query rows per tile
-constexpr int BKT = sea::TILE;  // key columns per tile
-constexpr int TPB = 128;        // 4 warps of 16 rows (dq) or 16 columns (dk/dv)
-// dk/dv: the warps that share a k-tile's 16 columns, each summing D / split
-// of dk's and dv's columns (two at width 128, see the header), and its block
-template <int D>
-constexpr int DKV_SPLIT = D > 80 ? 2 : 1;
-template <int D>
-constexpr int DKV_TPB = TPB * DKV_SPLIT<D>;
-// dq: the parts a 64-column sub-tile is walked in
-template <int D>
-constexpr int DQ_PARTS = D > 80 ? 2 : 1;
-template <int D>
-constexpr int LD = D + 8;  // elements of a padded tile row
-template <int D>
-constexpr int TILE_F = 64 * LD<D>;  // elements of one tile
-template <int D>
-constexpr int TILE_BYTES = TILE_F<D> * 4;
-
-// dq: two stages of (K, V), then Q, dO, then the mask words.
-template <int D>
-constexpr int DQ_SMEM = 6 * TILE_BYTES<D> + BQ * MAX_WORDS * 4;
-// dk/dv: K, V, then two stages of (Q, dO, mask words, row terms).
-template <int D>
-constexpr int DKV_STAGE = 2 * TILE_BYTES<D> + BQ * MAX_WORDS * 4 + BQ * 16;
-template <int D>
-constexpr int DKV_SMEM = 2 * TILE_BYTES<D> + 2 * DKV_STAGE<D>;
-
-template <int D>
-__device__ __forceinline__ float2 ld2(const float* tile, int c, int d) {
-  return *reinterpret_cast<const float2*>(tile + c * LD<D> + d);
-}
-
-// 64 rows of D elements into a tile by THREADS threads
-template <int D, int THREADS = TPB>
-__device__ __forceinline__ void copy_tile(float* dst, const float* __restrict__ src, int tid) {
-  copy_rows<D, THREADS>(dst, LD<D>, src, tid);
-}
-
-template <int D>
-__global__ void __launch_bounds__(TPB, 2) causal_dq_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const uint32_t* __restrict__ mbits,
-    const float* __restrict__ dou, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ counts,
-    const int* __restrict__ idx, const int* __restrict__ rowbase,
-    float* __restrict__ dq, int t_dst, int t_src, int t_m, int n_words,
-    int block_q, int block_k, int nq, int nkb, int col_base) {
-  static_assert(D % 16 == 0, "head width");
-  constexpr int LDD = LD<D>, TF = TILE_F<D>;
-  constexpr int NJ = BKT / 8 / DQ_PARTS<D>;  // fragment columns of a part
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* const kv_st = reinterpret_cast<float*>(smem);  // stage s: K, then V
-  float* const Qs = kv_st + 4 * TF;
-  float* const Os = Qs + TF;
-  uint32_t* const Ms = reinterpret_cast<uint32_t*>(smem + 6 * TILE_BYTES<D>);
-
-  // blocks start in order of x, then y: every head's last q-tile first
-  const int bh = blockIdx.x;
-  const int row0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // first local row of the tile
-  const int qb = row0 / block_q;
-  const int grow0 = rowbase[qb] + (row0 - qb * block_q);
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int wrow0 = (tid >> 5) * 16;
-
-  const long moff = ((long)bh * t_dst + row0) * n_words;
-  for (int i = tid; i < BQ * n_words; i += TPB) Ms[i] = mbits[moff + i];
-  const long qoff = ((long)bh * t_dst + row0) * D;
-  copy_tile<D>(Qs, q + qoff, tid);
-  copy_tile<D>(Os, dou + qoff, tid);
-
-  // per fragment row h (tile row wrow0 + g + 8·h): lse·log2 e, delta, the
-  // causal width and its reciprocal
-  float l2[2], dl[2], wf[2], yw[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int rl = wrow0 + g + 8 * h;
-    l2[h] = __fmul_rn(lse[(long)bh * t_dst + row0 + rl], LOG2E);
-    dl[h] = delta[(long)bh * t_dst + row0 + rl];
-    wf[h] = (float)(grow0 + rl + 1);
-    yw[h] = sea::recip(wf[h]);
-  }
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc[j][i] = 0.f;
-
-  const int cnt = counts[bh * nq + qb];
-  const int* lst = idx + ((long)bh * nq + qb) * nkb;
-  const int col_end = grow0 + BQ;  // every column from here on is dead
-  // k and v hold the (global) columns col_base .. col_stop − 1; col_stop and
-  // every c0 are multiples of 64, so a visited sub-tile lies wholly inside
-  const int col_stop = col_base + t_src;
-  const long kvbase = ((long)bh * t_src - col_base) * D;
-
-  // advance (e, c0) to the first visited sub-tile at or after it; false
-  // when the list is done
-  auto seek = [&](int& e, int& c0) -> bool {
-    for (; e < cnt; ++e, c0 = -1) {
-      const int start = lst[e] * block_k;
-      c0 = c0 < start ? start : c0;
-      // inside the block and not wholly past the causal edge or the window
-      if (c0 < start + block_k && c0 < col_end && c0 < col_stop) return true;
-    }
-    return false;
-  };
-  auto load_kv = [&](int stage, int c0) {
-    float* Kd = kv_st + stage * 2 * TF;
-    copy_tile<D>(Kd, k + kvbase + (long)c0 * D, tid);
-    copy_tile<D>(Kd + TF, v + kvbase + (long)c0 * D, tid);
-  };
-
-  int e = 0, c0 = -1, stage = 0;
-  bool have = seek(e, c0);
-  if (have) load_kv(0, c0);
-  cp_async_commit();
-  while (have) {
-    int ne = e, nc0 = c0 + BKT;
-    const bool more = seek(ne, nc0);
-    // the next sub-tile's copies run while this one's products do
-    if (more) load_kv(stage ^ 1, nc0);
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this stage (and, first time, Q, dO and the words) landed
-    const float* Ks = kv_st + stage * 2 * TF;
-    const float* Vs = Ks + TF;
-
-    // The sub-tile's columns in DQ_PARTS parts of 8·NJ (one part at widths
-    // 64 and 80, two at 128, where the score fragments of a whole sub-tile
-    // beside dq's accumulator would spill): each part's dS is made and
-    // summed into dq before the next part's, the columns in increasing
-    // order, so the parts change no bit.
-#pragma unroll 1
-    for (int part = 0; part < DQ_PARTS<D>; ++part) {
-      const int j0 = part * NJ;  // the part's first fragment column
-      // S = Q·Kᵀ and dP = dO·Vᵀ: s[j], dp[j] the C fragments of score
-      // columns 8·(j0 + j) .. 8·(j0 + j) + 7
-      float s[NJ][4], dp[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = dp[j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const int d = 8 * kk + 2 * t4;
-        uint32_t qh[4], ql[4], oh[4], ol[4];
-        split_a(ld2<D>(Qs, wrow0 + g, d), ld2<D>(Qs, wrow0 + g + 8, d), qh, ql);
-        split_a(ld2<D>(Os, wrow0 + g, d), ld2<D>(Os, wrow0 + g + 8, d), oh, ol);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float2 kf = ld2<D>(Ks, 8 * (j0 + j) + g, d);
-          const float2 vf = ld2<D>(Vs, 8 * (j0 + j) + g, d);
-          mma_3xtf32(s[j], qh, ql, kf.x, kf.y);
-          mma_3xtf32(dp[j], oh, ol, vf.x, vf.y);
-        }
-      }
-
-      // the element predicate, P and dS, row by row: element (j, b) of row
-      // h is column c0 + 8·(j0 + j) + 2·t4 + b
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int rl = wrow0 + g + 8 * h;
-        const int r = grow0 + rl;
-        const uint32_t* words = Ms + rl * n_words;
-#pragma unroll
-        for (int j = 0; j < NJ; ++j)
-#pragma unroll
-          for (int b = 0; b < 2; ++b) {
-            const int col = c0 + 8 * (j0 + j) + 2 * t4 + b;
-            const float x = __fadd_rn((float)col, 0.5f);
-            float& sv = s[j][2 * h + b];
-            // off the mask P is exactly 0 (an empty row's lse = +inf never
-            // meets a score)
-            const float p = alive_elem_recip(words, x, col, r, wf[h], yw[h], t_m)
-                                ? exp2_sfu(__fmaf_rn(sv, LOG2E, -l2[h])) : 0.f;
-            sv = p * (dp[j][2 * h + b] - dl[h]);
-          }
-      }
-
-      // dq += dS·K, dS from the S fragments (k = the part's columns)
-#pragma unroll
-      for (int kk = 0; kk < NJ; ++kk) {
-        uint32_t ah[4], al[4];
-        split_a(make_float2(s[kk][0], s[kk][1]), make_float2(s[kk][2], s[kk][3]), ah, al);
-        const int c = 8 * (j0 + kk) + 2 * t4;
-#pragma unroll
-        for (int j = 0; j < D / 8; ++j)
-          mma_3xtf32(acc[j], ah, al, Ks[c * LDD + 8 * j + g], Ks[(c + 1) * LDD + 8 * j + g]);
-      }
-    }
-    __syncthreads();  // every warp is done with this stage before it refills
-    e = ne;
-    c0 = nc0;
-    have = more;
-    stage ^= 1;
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    float* o = dq + qoff + (long)(wrow0 + g + 8 * h) * D + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < D / 8; ++j)
-      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[j][2 * h], acc[j][2 * h + 1]);
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(DKV_TPB<D>, 1) causal_dkv_kernel(
-    const float* __restrict__ q, const float* __restrict__ k,
-    const float* __restrict__ v, const uint32_t* __restrict__ mbits,
-    const float* __restrict__ dou, const float* __restrict__ lse,
-    const float* __restrict__ delta, const int* __restrict__ counts_t,
-    const int* __restrict__ idx_t, const int* __restrict__ rowbase,
-    float* __restrict__ dk, float* __restrict__ dv, int t_dst, int t_src,
-    int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
-    int col_base) {
-  static_assert(D % 16 == 0, "head width");
-  constexpr int THREADS = DKV_TPB<D>;
-  constexpr int DH = D / DKV_SPLIT<D>;  // the columns of dk and dv a warp sums
-  constexpr int STAGE = DKV_STAGE<D>;
-  constexpr int LDD = LD<D>, TF = TILE_F<D>, TB = TILE_BYTES<D>;
-  constexpr int PARTS = D > 64 ? 2 : 1;  // see the sub-tile's loop
-  constexpr int NJ = BQ / 8 / PARTS;      // fragment rows of a part
-  static_assert(DH % 16 == 0, "split head width");
-  extern __shared__ __align__(16) unsigned char smem[];
-  float* const Ks = reinterpret_cast<float*>(smem);
-  float* const Vs = Ks + TF;
-  // stage s: Q, dO, the mask words, then per row (lse·log2 e, delta, the
-  // causal width, its reciprocal)
-  unsigned char* const q_st = smem + 2 * TB;
-  auto Qs = [&](int s) { return reinterpret_cast<float*>(q_st + s * STAGE); };
-  auto Ms = [&](int s) { return reinterpret_cast<uint32_t*>(q_st + s * STAGE + 2 * TB); };
-  auto Rs = [&](int s) {
-    return reinterpret_cast<float4*>(q_st + s * STAGE + 2 * TB + BQ * MAX_WORDS * 4);
-  };
-
-  // blocks start in order of x, then y: every head's first k-tile first
-  const int bh = blockIdx.x;
-  const int col0 = blockIdx.y * BKT;  // first column of the k-tile in k, v
-  const int kb = col0 / block_k;      // k-block of the transposed lists
-  const int gcol0 = col_base + col0;  // its global column
-  const int tid = threadIdx.x, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  // the warp's first column in the tile, and its first column of dk and dv
-  // (0 without a split: the widths before 128 keep their address math)
-  const int warp = tid >> 5;
-  const int wcol0 = (DKV_SPLIT<D> > 1 ? warp % 4 : warp) * 16;
-  const int d0 = DKV_SPLIT<D> > 1 ? (warp / 4) * DH : 0;
-
-  const long koff = ((long)bh * t_src + col0) * D;
-  copy_tile<D, THREADS>(Ks, k + koff, tid);
-  copy_tile<D, THREADS>(Vs, v + koff, tid);
-
-  // per fragment row h: the k-tile column wcol0 + g + 8·h, global, and its
-  // exact (float)col + 0.5
-  int gc[2];
-  float xc[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    gc[h] = gcol0 + wcol0 + g + 8 * h;
-    xc[h] = __fadd_rn((float)gc[h], 0.5f);
-  }
-  float acc_k[DH / 8][4], acc_v[DH / 8][4];
-#pragma unroll
-  for (int j = 0; j < DH / 8; ++j)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) acc_k[j][i] = acc_v[j][i] = 0.f;
-
-  const int cnt = counts_t[bh * nkb + kb];
-  const int* lst = idx_t + ((long)bh * nkb + kb) * nq;
-  const long rbase = (long)bh * t_dst;
-  // the global row of the sub-tile at local row r0 of list entry e
-  auto grow_of = [&](int e, int r0) { return rowbase[lst[e]] + (r0 - lst[e] * block_q); };
-
-  // advance (e, r0) to the first visited sub-tile at or after it; false
-  // when the list is done
-  auto seek = [&](int& e, int& r0) -> bool {
-    for (; e < cnt; ++e, r0 = -1) {
-      const int start = lst[e] * block_q;
-      for (r0 = r0 < start ? start : r0; r0 < start + block_q && r0 < t_dst; r0 += BQ)
-        // skip a sub-tile whose every row ends before the k-tile
-        if (grow_of(e, r0) + BQ - 1 >= gcol0) return true;
-    }
-    return false;
-  };
-  auto load_q = [&](int s, int r0) {
-    copy_tile<D, THREADS>(Qs(s), q + (rbase + r0) * D, tid);
-    copy_tile<D, THREADS>(Qs(s) + TF, dou + (rbase + r0) * D, tid);
-    const uint32_t* src = mbits + (rbase + r0) * n_words;
-    for (int i = tid; i < BQ * n_words; i += THREADS) cp_async4(Ms(s) + i, src + i);
-  };
-  // row tid's terms of the sub-tile whose first global row is grow0
-  auto put_terms = [&](int s, int grow0, float l, float dlt) {
-    const float w = (float)(grow0 + tid + 1);
-    Rs(s)[tid] = make_float4(__fmul_rn(l, LOG2E), dlt, w, sea::recip(w));
-  };
-
-  int e = 0, r0 = -1, stage = 0;
-  bool have = seek(e, r0);
-  if (have) {
-    load_q(0, r0);
-    if (tid < BQ) put_terms(0, grow_of(e, r0), lse[rbase + r0 + tid], delta[rbase + r0 + tid]);
-  }
-  cp_async_commit();
-  while (have) {
-    int ne = e, nr0 = r0 + BQ;
-    const bool more = seek(ne, nr0);
-    // the next sub-tile's copies, and its lse and delta, load while this
-    // one's products run
-    float nl = 0.f, nd = 0.f;
-    if (more) {
-      load_q(stage ^ 1, nr0);
-      if (tid < BQ) {
-        nl = lse[rbase + nr0 + tid];
-        nd = delta[rbase + nr0 + tid];
-      }
-    }
-    cp_async_commit();
-    cp_async_wait<1>();
-    __syncthreads();  // this stage (and, first time, K and V) landed
-    const float* Qt = Qs(stage);
-    const float* Ot = Qt + TF;
-    const uint32_t* Mt = Ms(stage);
-    const float4* Rt = Rs(stage);
-    const int grow0 = grow_of(e, r0);
-
-    // The sub-tile's rows in PARTS parts of 8·NJ rows (one at width 64, two
-    // at 80 and 128, where the four fragment sets of a whole sub-tile would
-    // spill): each part's terms are made and summed into dk and dv before
-    // the next part's, and every sum still takes the rows in increasing
-    // order, so the parts change no bit.
-#pragma unroll 1
-    for (int part = 0; part < PARTS; ++part) {
-      const int j0 = part * NJ;  // the part's first fragment row
-      // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: st[j], dpt[j] the C fragments of the
-      // sub-tile's rows 8·(j0 + j) .. 8·(j0 + j) + 7
-      float st[NJ][4], dpt[NJ][4];
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) st[j][i] = dpt[j][i] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const int d = 8 * kk + 2 * t4;
-        uint32_t kh[4], kl[4], vh[4], vl[4];
-        split_a(ld2<D>(Ks, wcol0 + g, d), ld2<D>(Ks, wcol0 + g + 8, d), kh, kl);
-        split_a(ld2<D>(Vs, wcol0 + g, d), ld2<D>(Vs, wcol0 + g + 8, d), vh, vl);
-#pragma unroll
-        for (int j = 0; j < NJ; ++j) {
-          const float2 qf = ld2<D>(Qt, 8 * (j0 + j) + g, d);
-          const float2 of = ld2<D>(Ot, 8 * (j0 + j) + g, d);
-          mma_3xtf32(st[j], kh, kl, qf.x, qf.y);
-          mma_3xtf32(dpt[j], vh, vl, of.x, of.y);
-        }
-      }
-
-      // the element predicate, Pᵀ and dSᵀ: element (j, b) of fragment row h
-      // is (column gc[h], sub-tile row 8·(j0 + j) + 2·t4 + b)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-#pragma unroll
-        for (int b = 0; b < 2; ++b) {
-          const int rl = 8 * (j0 + j) + 2 * t4 + b;
-          const float4 rt = Rt[rl];  // lse·log2 e, delta, width, reciprocal
-          const uint32_t* words = Mt + rl * n_words;
-#pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            float& pt = st[j][2 * h + b];
-            const float pv = alive_elem_recip(words, xc[h], gc[h], grow0 + rl, rt.z, rt.w, t_m)
-                                 ? exp2_sfu(__fmaf_rn(pt, LOG2E, -rt.x)) : 0.f;
-            pt = pv;
-            dpt[j][2 * h + b] = pv * (dpt[j][2 * h + b] - rt.y);
-          }
-        }
-
-      // dv += Pᵀ·dO and dk += dSᵀ·Q over the warp's columns d0 .. d0 + DH − 1,
-      // Pᵀ and dSᵀ from their C fragments (k = the part's rows)
-#pragma unroll
-      for (int kk = 0; kk < NJ; ++kk) {
-        uint32_t ph[4], pl[4], dh[4], dl[4];
-        split_a(make_float2(st[kk][0], st[kk][1]), make_float2(st[kk][2], st[kk][3]), ph, pl);
-        split_a(make_float2(dpt[kk][0], dpt[kk][1]), make_float2(dpt[kk][2], dpt[kk][3]), dh,
-                dl);
-        const int c = 8 * (j0 + kk) + 2 * t4;
-#pragma unroll
-        for (int j = 0; j < DH / 8; ++j) {
-          const int n = d0 + 8 * j + g;
-          mma_3xtf32(acc_v[j], ph, pl, Ot[c * LDD + n], Ot[(c + 1) * LDD + n]);
-          mma_3xtf32(acc_k[j], dh, dl, Qt[c * LDD + n], Qt[(c + 1) * LDD + n]);
-        }
-      }
-    }
-    if (more && tid < BQ) put_terms(stage ^ 1, grow_of(ne, nr0), nl, nd);
-    __syncthreads();  // this stage is consumed; the next one's terms are in
-    e = ne;
-    r0 = nr0;
-    have = more;
-    stage ^= 1;
-  }
-  cp_async_wait<0>();
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const long o = koff + (long)(wcol0 + g + 8 * h) * D + d0 + 2 * t4;
-#pragma unroll
-    for (int j = 0; j < DH / 8; ++j) {
-      *reinterpret_cast<float2*>(dk + o + 8 * j) = make_float2(acc_k[j][2 * h], acc_k[j][2 * h + 1]);
-      *reinterpret_cast<float2*>(dv + o + 8 * j) = make_float2(acc_v[j][2 * h], acc_v[j][2 * h + 1]);
-    }
-  }
-}
 
 // ---------------------------------------------------------------------------
 // The bf16 bodies on wgmma (K3, K4, K7, K8 in bfloat16)
@@ -1232,10 +819,707 @@ __global__ void __launch_bounds__(wg::THREADS, 1) causal_dkv_wgmma_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The float32 bodies on wgmma in three bf16 terms (K3, K4, K7, K8 in float32)
+// ---------------------------------------------------------------------------
+
+namespace f3 {
+
+// Consumer warpgroups (64 rows, dq, or 64 columns, dk/dv, each) and stages
+// by head width, as a block's 227 KiB hold them with every operand in three
+// bf16 terms (see Layout): at D = 64 two warpgroups and two stages; at 80
+// one and two (two and one left the heaviest 128-row blocks of a short T
+// as the critical path); at 128 one and one. Two producer warpgroups: warp
+// 0 walks and issues the copies, the other seven split. setmaxnreg moves the
+// producers' registers to the consumers: 256·48 + 256·208 is the 512-thread
+// launch's 128 a thread, 256·48 + 128·248 less than the 384-thread
+// launch's 168.
+template <int D>
+struct Config {
+  static constexpr int CONSUMERS = D == 64 ? 2 : 1;
+  static constexpr int STAGES = D == 128 ? 1 : 2;
+  static constexpr int BLOCK = 64 * CONSUMERS;  // a block's rows (dq) or columns (dk/dv)
+  static constexpr int PRODUCERS = 256;
+  static constexpr int SPLITTERS = PRODUCERS / 32 - 1;  // their warps that split
+  static constexpr int THREADS = PRODUCERS + 128 * CONSUMERS;
+  static constexpr int PRODUCER_REGS = 48;
+  static constexpr int CONSUMER_REGS = CONSUMERS == 2 ? 208 : 248;
+};
+
+// Shared memory from a 1024-byte aligned base: each consumer's two resident
+// operands (dq: Q, dO; dk/dv: K, V), then the STAGES stages of the streamed
+// ones, the early (dq: V; dk/dv: dO) then the late (dq: K; dk/dv: Q), each a
+// 64-row tile in three bf16 terms (`sea::Panels`, the terms TILE apart),
+// where the operand first lands raw (64 x D float32, `sea::TPanels`, in the
+// places of the first two terms: `load_raw`); the mask words (dq: the
+// block's rows'; dk/dv: per stage its 64 rows' lse, delta and mask words);
+// for dk/dv each consumer's two buffers of 64 alive words; the barriers (per
+// stage: early landed, split and released, late the same; the resident
+// operands landed and split); each stage's walk tag.
+template <int D, bool DKV>
+struct Layout {
+  using C = Config<D>;
+  static constexpr int TILE = sea::Panels<D>::TILE;
+  static constexpr int TERMS = 3 * TILE;  // a 64-row operand
+  static constexpr int STAGE_OFF = 2 * C::CONSUMERS * TERMS;
+  static constexpr int STAGE = 2 * TERMS;  // the early operand, then the late one
+  static constexpr int WORDS_OFF = STAGE_OFF + C::STAGES * STAGE;
+  // dk/dv: offsets in a stage's rows
+  static constexpr int DELTA = 4 * 64, MASK = 8 * 64;
+  static constexpr int ROWS = MASK + 64 * MAX_WORDS * 4;
+  static constexpr int ALIVE_OFF =
+      WORDS_OFF + (DKV ? C::STAGES * ROWS : C::BLOCK * MAX_WORDS * 4);
+  static constexpr int BAR_OFF = ALIVE_OFF + (DKV ? C::CONSUMERS * 2 * 512 : 0);
+  static constexpr int META_OFF = BAR_OFF + 8 * (6 * C::STAGES + 2);
+  static constexpr int BYTES = META_OFF + 16 * C::STAGES + 1024;  // and the base's alignment
+  static_assert(BYTES <= 232448, "more shared memory than a block may take");
+};
+
+// The barriers' addresses.
+struct Bars {
+  uint32_t eland, efull, eempty, lland, lfull, lempty, rland, rfull;
+};
+
+template <int D, bool DKV>
+__device__ __forceinline__ Bars bars(uint32_t base) {
+  constexpr int S = 8 * Config<D>::STAGES;
+  const uint32_t b = base + Layout<D, DKV>::BAR_OFF;
+  return Bars{b, b + S, b + 2 * S, b + 3 * S, b + 4 * S, b + 5 * S, b + 6 * S, b + 6 * S + 8};
+}
+
+// The barriers' initialisation, by thread 0.
+template <int D, bool DKV>
+__device__ __forceinline__ void init_bars(uint32_t base) {
+  using C = Config<D>;
+  const Bars b = bars<D, DKV>(base);
+  for (int s = 0; s < C::STAGES; ++s) {
+    sea::mbar_init(b.eland + 8 * s, 1);
+    sea::mbar_init(b.efull + 8 * s, C::SPLITTERS);  // one arrival per splitter warp
+    sea::mbar_init(b.eempty + 8 * s, 4 * C::CONSUMERS);  // one per consumer warp
+    sea::mbar_init(b.lland + 8 * s, 1);
+    sea::mbar_init(b.lfull + 8 * s, C::SPLITTERS);
+    sea::mbar_init(b.lempty + 8 * s, 4 * C::CONSUMERS);
+  }
+  sea::mbar_init(b.rland, 1);
+  sea::mbar_init(b.rfull, C::SPLITTERS);
+  sea::mbar_fence_init();
+}
+
+// Rows row .. row + 63 of a float32 tensor map into the operand at `terms`,
+// raw, completing on `bar`: raw panel q (`TPanels`' PW columns) lands where
+// the first (q even) or second (q odd) term of bf16 panel q / 2 goes, so
+// that each bf16 panel's two raw panels sit under its own first two terms
+// (`Panels` has twice `TPanels`' columns a panel and the same row and panel
+// bytes).
+template <int D>
+__device__ __forceinline__ void load_raw(uint32_t terms, const CUtensorMap* map, uint32_t bar,
+                                         int row) {
+  using R = sea::TPanels<64, D>;
+  using P = sea::Panels<D>;
+  static_assert(P::PW == 2 * R::PW && P::ROW == R::ROW && P::PANEL == R::PANEL,
+                "two raw panels a bf16 panel");
+  for (int q = 0; q < R::NP; ++q)
+    sea::tma_load_2d(terms + (q % 2) * P::TILE + (q / 2) * P::PANEL, map, bar, q * R::PW, row);
+}
+
+// The operand at `terms`, landed raw by `load_raw`, written in place as three
+// bf16 tiles (`Panels`, TILE apart) by the splitter warps (this one `w`).
+// A row of bf16 panel P is one line of each of its two raw panels, and its
+// terms go to the same lines (the first and second terms) and to the third
+// term's tile, which nothing else uses: so the U lanes that take a row's
+// U 16-byte raw pieces read them, meet at __syncwarp, and write their
+// pieces' terms (8 bytes a term) over them, and no warp waits for another.
+// Two pieces a lane at a time; then made visible to wgmma's reads.
+template <int D>
+__device__ __forceinline__ void split3_tile(unsigned char* terms, int w, int lane) {
+  using R = sea::TPanels<64, D>;
+  using P = sea::Panels<D>;
+  constexpr int U = 2 * R::ROW / 16;  // a bf16 panel row's raw pieces: 16 or 4 (D = 80)
+  constexpr int GROUPS = R::TILE / 16 / 32;  // a warp's 32 pieces at a time
+  constexpr int STEP = Config<D>::SPLITTERS;
+  constexpr int K = 2;
+  static_assert(32 % U == 0, "a row's pieces in one warp");
+  for (int g0 = w; g0 < GROUPS; g0 += K * STEP) {
+    uint4 x[K];
+    uint32_t at[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int i = 32 * (g0 + k * STEP) + lane;  // piece j of row r of bf16 panel pn
+      const int u = i / U, j = i % U, pn = u / 64, r = u % 64;
+      const int h = j / (U / 2), jj = j % (U / 2);  // raw panel 2·pn + h, its piece jj
+      at[k] = pn * P::PANEL + sea::swizzled<P::ROW>(r * P::ROW + (h * R::PW + 4 * jj) * 2);
+      if (g0 + k * STEP < GROUPS)
+        x[k] = *reinterpret_cast<const uint4*>(terms + h * P::TILE + pn * P::PANEL +
+                                               sea::swizzled<R::ROW>(r * R::ROW + 16 * jj));
+    }
+    __syncwarp();  // the rows' raw pieces read before any is overwritten
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (g0 + k * STEP >= GROUPS) break;
+      uint2 t1, t2, t3;
+      sea::split3_bf16(__uint_as_float(x[k].x), __uint_as_float(x[k].y), t1.x, t2.x, t3.x);
+      sea::split3_bf16(__uint_as_float(x[k].z), __uint_as_float(x[k].w), t1.y, t2.y, t3.y);
+      *reinterpret_cast<uint2*>(terms + at[k]) = t1;
+      *reinterpret_cast<uint2*>(terms + P::TILE + at[k]) = t2;
+      *reinterpret_cast<uint2*>(terms + 2 * P::TILE + at[k]) = t3;
+    }
+  }
+  sea::fence_proxy_async();
+}
+
+// The splitter warps (this one `w`): the resident operands once they have
+// landed, then each stage's early and late operand in turn, each split in
+// place once it has landed and its barrier signed; the walk's end is a stage
+// whose tag is -1.
+template <int D, bool DKV>
+__device__ __forceinline__ void split_items(unsigned char* smem, uint32_t base, int w, int lane) {
+  using C = Config<D>;
+  using L = Layout<D, DKV>;
+  const Bars b = bars<D, DKV>(base);
+  const int* meta = reinterpret_cast<const int*>(smem + L::META_OFF);
+  auto signed_off = [&](uint32_t bar) {
+    __syncwarp();
+    if (lane == 0) sea::mbar_arrive(bar);
+  };
+  sea::mbar_wait(b.rland, 0);
+  for (int i = 0; i < 2 * C::CONSUMERS; ++i) split3_tile<D>(smem + i * L::TERMS, w, lane);
+  signed_off(b.rfull);
+  for (int it = 0;; ++it) {
+    const int st = it % C::STAGES;
+    const uint32_t par = (it / C::STAGES) & 1;
+    unsigned char* stage = smem + L::STAGE_OFF + st * L::STAGE;
+    sea::mbar_wait(b.eland + 8 * st, par);
+    if (meta[4 * st] < 0) {
+      signed_off(b.efull + 8 * st);
+      return;
+    }
+    split3_tile<D>(stage, w, lane);
+    signed_off(b.efull + 8 * st);
+    sea::mbar_wait(b.lland + 8 * st, par);
+    split3_tile<D>(stage + L::TERMS, w, lane);
+    signed_off(b.lfull + 8 * st);
+  }
+}
+
+// Warp 0's lane 0: the walk's stage `it` with walk tag `tag` (false: the
+// end), once the consumers have released what the stage held: its tag into
+// `meta`, its early operand from rows erow .. erow + 63 of `emap` (dk/dv:
+// with those rows' lse, delta and n_words mask words from `lse`, `delta`
+// and `mask`), then its late one from lrow .. of `lmap`. The end lands
+// nothing and carries a tag of -1.
+template <int D, bool DKV>
+__device__ __forceinline__ void issue_stage(unsigned char* smem, uint32_t base, int it,
+                                            bool live, const int (&tag)[3],
+                                            const CUtensorMap* emap, int erow,
+                                            const CUtensorMap* lmap, int lrow, const float* lse,
+                                            const float* delta, const uint32_t* mask,
+                                            int n_words) {
+  using C = Config<D>;
+  using L = Layout<D, DKV>;
+  const Bars b = bars<D, DKV>(base);
+  int* meta = reinterpret_cast<int*>(smem + L::META_OFF);
+  const int st = it % C::STAGES;
+  const uint32_t par = ((it / C::STAGES) + 1) & 1;
+  const uint32_t stage = base + L::STAGE_OFF + st * L::STAGE;
+  if (it >= C::STAGES) sea::mbar_wait(b.eempty + 8 * st, par);
+  for (int i = 0; i < 3; ++i) meta[4 * st + i] = live ? tag[i] : -1;
+  if (!live) {
+    sea::mbar_arrive(b.eland + 8 * st);
+    return;
+  }
+  sea::mbar_arrive_expect_tx(b.eland + 8 * st, 2 * L::TILE + (DKV ? 512 + 256 * n_words : 0));
+  load_raw<D>(stage, emap, b.eland + 8 * st, erow);
+  if (DKV) {
+    const uint32_t rows = base + L::WORDS_OFF + st * L::ROWS;
+    sea::bulk_load(rows, lse, 256, b.eland + 8 * st);
+    sea::bulk_load(rows + L::DELTA, delta, 256, b.eland + 8 * st);
+    sea::bulk_load(rows + L::MASK, mask, 256 * n_words, b.eland + 8 * st);
+  }
+  if (it >= C::STAGES) sea::mbar_wait(b.lempty + 8 * st, par);
+  sea::mbar_arrive_expect_tx(b.lland + 8 * st, 2 * L::TILE);
+  load_raw<D>(stage + L::TERMS, lmap, b.lland + 8 * st, lrow);
+}
+
+// x as a value the compiler cannot follow: a product's descriptors are
+// then built where it is issued, and none is kept in registers across the
+// walk (a resident operand's would take 48 registers at D = 128).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// d = a·bᵀ over D to float32's accuracy, m64n64k16: a and b 64-row tiles of
+// three bf16 terms each (at a, a + TILE, a + 2·TILE) read K-major; six
+// products a k-step, smallest first: a₃b₁, a₂b₂, a₁b₃, a₂b₁, a₁b₂, a₁b₁.
+template <int D>
+__device__ __forceinline__ void product3_ss(float (&d)[32], uint32_t a, uint32_t b) {
+  using P = sea::Panels<D>;
+  constexpr uint32_t T = P::TILE;
+  a = opaque(a);
+  b = opaque(b);
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    sea::wgmma_ss_n64(d, P::kdesc(a + 2 * T, kk), P::kdesc(b, kk), kk > 0);
+    sea::wgmma_ss_n64(d, P::kdesc(a + T, kk), P::kdesc(b + T, kk), 1);
+    sea::wgmma_ss_n64(d, P::kdesc(a, kk), P::kdesc(b + 2 * T, kk), 1);
+    sea::wgmma_ss_n64(d, P::kdesc(a + T, kk), P::kdesc(b, kk), 1);
+    sea::wgmma_ss_n64(d, P::kdesc(a, kk), P::kdesc(b + T, kk), 1);
+    sea::wgmma_ss_n64(d, P::kdesc(a, kk), P::kdesc(b, kk), 1);
+  }
+}
+
+// d += f·b to float32's accuracy: f a 64-column accumulator in three bf16
+// terms as register A fragments (f[t][kk]: term t + 1 of k-step kk), b a
+// 64-row tile of three terms read MN-major; the same six products a k-step.
+template <int D>
+__device__ __forceinline__ void product3_rs(float (&d)[D / 2], const uint32_t (&f)[3][4][4],
+                                            uint32_t b) {
+  using P = sea::Panels<D>;
+  constexpr uint32_t T = P::TILE;
+  b = opaque(b);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    const uint64_t b1 = P::mndesc(b, kk), b2 = P::mndesc(b + T, kk), b3 = P::mndesc(b + 2 * T, kk);
+    sea::wgmma_rs<D>(d, f[2][kk], b1);
+    sea::wgmma_rs<D>(d, f[1][kk], b2);
+    sea::wgmma_rs<D>(d, f[0][kk], b3);
+    sea::wgmma_rs<D>(d, f[1][kk], b1);
+    sea::wgmma_rs<D>(d, f[0][kk], b2);
+    sea::wgmma_rs<D>(d, f[0][kk], b1);
+  }
+}
+
+// A 64-column accumulator's three terms as the A fragments of its four
+// k-steps, straight from the accumulator (the bf16 bodies' pairing).
+__device__ __forceinline__ void split3_frags(const float (&x)[32], uint32_t (&f)[3][4][4]) {
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+    sea::split3_bf16(x[2 * i], x[2 * i + 1], f[0][i / 4][i % 4], f[1][i / 4][i % 4],
+                     f[2][i / 4][i % 4]);
+}
+
+__device__ __forceinline__ void fence_terms(uint32_t (&f)[3][4][4]) {
+  sea::fence_frags(f[0]);
+  sea::fence_frags(f[1]);
+  sea::fence_frags(f[2]);
+}
+
+// A consumer's release of a sub-tile that is not in its walk (it adds
+// nothing to its rows or columns): its pending gradient product completes
+// and that stage's late operand is released first (at one stage the late
+// operand cannot land again before), and this stage's late operand only
+// once it is split, so that no warp's release runs a phase ahead.
+template <int N>
+__device__ __forceinline__ void skip(const Bars& b, int st, uint32_t par, int& pending, int lane,
+                                     float (&acc)[N], uint32_t (&f)[3][4][4]) {
+  sea::wgmma_wait<0>();
+  sea::fence_regs(acc);
+  fence_terms(f);
+  __syncwarp();
+  if (lane == 0) {
+    if (pending >= 0) sea::mbar_arrive(b.lempty + 8 * pending);
+    sea::mbar_arrive(b.eempty + 8 * st);
+  }
+  pending = -1;
+  sea::mbar_wait(b.lfull + 8 * st, par);
+  __syncwarp();
+  if (lane == 0) sea::mbar_arrive(b.lempty + 8 * st);
+}
+
+}  // namespace f3
+
+// K3 and K7 in float32: dq of 64·CONSUMERS query rows, a consumer warpgroup
+// of 64 each; Q and dO resident, V (early) and K (late) streamed.
+template <int D>
+__global__ void __launch_bounds__(f3::Config<D>::THREADS, 1) causal_dq_f32_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const uint32_t* __restrict__ mbits, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ counts,
+    const int* __restrict__ idx, const int* __restrict__ rowbase, float* __restrict__ dq,
+    int t_dst, int t_src, int t_m, int n_words, int block_q, int block_k, int nq, int nkb,
+    int col_base) {
+  using C = f3::Config<D>;
+  using L = f3::Layout<D, false>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = sea::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const f3::Bars b = f3::bars<D, false>(base);
+  const int* meta = reinterpret_cast<const int*>(smem + L::META_OFF);
+
+  // blocks start with every head's last (heaviest causal) q-tile
+  const int bh = blockIdx.x;
+  const int row0 = (gridDim.y - 1 - blockIdx.y) * C::BLOCK;  // first local row
+  const int tid = threadIdx.x;
+  // k and v hold the (global) columns col_base .. col_stop − 1
+  const int col_stop = col_base + t_src;
+  // consumer w's q-block and first global row
+  auto qblock = [&](int w) { return (row0 + 64 * w) / block_q; };
+  auto first_row = [&](int w) { return rowbase[qblock(w)] + (row0 + 64 * w - qblock(w) * block_q); };
+
+  if (tid == 0) f3::init_bars<D, false>(base);
+  __syncthreads();
+
+  if (tid < C::PRODUCERS) {
+    sea::setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (tid >= 32) {
+      f3::split_items<D, false>(smem, base, (tid >> 5) - 1, tid & 31);
+      return;
+    }
+    if (tid != 0) return;
+    // Q and dO of each consumer and the block's mask words, then the walk:
+    // the union of the consumers' sub-tiles in increasing order, each
+    // stage's V, then its K
+    sea::mbar_arrive_expect_tx(b.rland, 2 * C::CONSUMERS * 2 * L::TILE + C::BLOCK * n_words * 4);
+    for (int w = 0; w < C::CONSUMERS; ++w) {
+      const int row = bh * t_dst + row0 + 64 * w;
+      f3::load_raw<D>(base + 2 * w * L::TERMS, &tq, b.rland, row);
+      f3::load_raw<D>(base + (2 * w + 1) * L::TERMS, &tdo, b.rland, row);
+    }
+    sea::bulk_load(base + L::WORDS_OFF, mbits + ((long)bh * t_dst + row0) * n_words,
+                   C::BLOCK * n_words * 4, b.rland);
+    auto seek = [&](wg::Walk& x) { return wg::seek_cols(x, block_k, col_stop); };
+    wg::Walk w[2];
+    bool have[2] = {false, false};
+    for (int i = 0; i < C::CONSUMERS; ++i) {
+      w[i] = wg::Walk{0, -1, counts[bh * nq + qblock(i)], first_row(i) + 64,
+                      idx + ((long)bh * nq + qblock(i)) * nkb};
+      have[i] = seek(w[i]);
+    }
+    for (int it = 0;; ++it) {
+      int tag[3] = {0, 0, 0};
+      const bool live = wg::next(w, have, tag, seek);
+      const int krow = bh * t_src + tag[0] - col_base;
+      f3::issue_stage<D, false>(smem, base, it, live, tag, &tv, krow, &tk, krow, nullptr,
+                                nullptr, nullptr, 0);
+      if (!live) break;
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 query rows, 16 a warp; a thread holds rows g
+  // and g + 8 of its warp's (h = 0, 1) and, of each, the columns 8·j +
+  // 2·t4 + {0, 1} of every accumulator.
+  sea::setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int cw = (tid - C::PRODUCERS) / 128;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int lrow0 = row0 + 64 * cw;  // the consumer's first local row
+  const int grow0 = first_row(cw);
+  const uint32_t* Ms = reinterpret_cast<const uint32_t*>(smem + L::WORDS_OFF);
+
+  // per row h: lse·log2 e, delta, and what its alive words need
+  float l2[2], dl[2];
+  sea::AliveRow rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int rl = 16 * warp + g + 8 * h;
+    const int r = grow0 + rl;
+    const long gr = (long)bh * t_dst + lrow0 + rl;
+    l2[h] = __fmul_rn(lse[gr], LOG2E);
+    dl[h] = delta[gr];
+    const float wf = (float)(r + 1);
+    rows[h] = sea::AliveRow{Ms + (64 * cw + rl) * n_words, r, wf, sea::recip(wf),
+                            __fdiv_rn((float)t_m, wf), __fdiv_rn(wf, (float)t_m)};
+  }
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  const uint32_t qs = base + 2 * cw * L::TERMS, os = qs + L::TERMS;
+
+  // dq += dS·K of one sub-tile runs while the next stage is awaited:
+  // `pending` is its stage, whose K is released once it has completed, and
+  // f are its A fragments (dS in three terms), kept until then
+  uint32_t f[3][4][4];
+  int pending = -1;
+
+  // the operands split and (TMA's writes seen through their own barrier)
+  // the mask words landed
+  sea::mbar_wait(b.rfull, 0);
+  sea::mbar_wait(b.rland, 0);
+  for (int it = 0;; ++it) {
+    const int st = it % C::STAGES;
+    const uint32_t par = (it / C::STAGES) & 1;
+    sea::mbar_wait(b.efull + 8 * st, par);
+    const int c0 = meta[4 * st];
+    if (c0 < 0) break;
+    if (meta[4 * st + 1 + cw] < 0) {
+      f3::skip(b, st, par, pending, lane, acc, f);
+      continue;
+    }
+    const uint32_t vs = base + L::STAGE_OFF + st * L::STAGE, ks = vs + L::TERMS;
+    // the previous dq product has completed: its K is released
+    sea::wgmma_wait<0>();
+    sea::fence_regs(acc);
+    f3::fence_terms(f);
+    __syncwarp();
+    if (lane == 0 && pending >= 0) sea::mbar_arrive(b.lempty + 8 * pending);
+    // dP = dO·Vᵀ; the rows' alive words while it runs; then S = Q·Kᵀ once K
+    // is split (issuing S before the words, where two stages allow, was
+    // slower)
+    float s[32], dp[32];
+    sea::wgmma_fence();
+    f3::product3_ss<D>(dp, os, vs);
+    sea::wgmma_commit();
+    uint64_t bits[2];
+    sea::alive_bits<false, false>(rows, c0, t_m, 0, n_words - 1, t4, bits);
+    sea::mbar_wait(b.lfull + 8 * st, par);
+    sea::wgmma_fence();  // s's registers may have held the words' temporaries
+    f3::product3_ss<D>(s, qs, ks);
+    sea::wgmma_commit();
+    // dP has completed: V is released
+    sea::wgmma_wait<1>();
+    sea::fence_regs(dp);
+    __syncwarp();
+    if (lane == 0) sea::mbar_arrive(b.eempty + 8 * st);
+    sea::wgmma_wait<0>();
+    sea::fence_regs(s);
+
+    // P by one bit test per element: element j of row h is s[4·(j / 2) +
+    // 2·h + j % 2], column c0 + 8·(j / 2) + 2·t4 + j % 2
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint64_t a = bits[h] >> (2 * t4);
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        float& x = s[4 * (j >> 1) + 2 * h + (j & 1)];
+        x = (a >> (8 * (j >> 1) + (j & 1))) & 1u ? exp2_sfu(__fmaf_rn(x, LOG2E, -l2[h])) : 0.f;
+      }
+    }
+    // dS = P·(dP − delta) in place of P, in three terms
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+    f3::split3_frags(s, f);
+
+    // dq += dS·K, six wgmmas a k-step, left in flight
+    sea::fence_regs(acc);
+    sea::wgmma_fence();
+    f3::product3_rs<D>(acc, f, ks);
+    sea::wgmma_commit();
+    pending = st;
+  }
+  sea::wgmma_wait<0>();
+  sea::fence_regs(acc);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* o = dq + ((long)bh * t_dst + lrow0 + 16 * warp + g + 8 * h) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(o + 8 * j) = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// K4 and K8 in float32: dk and dv of 64·CONSUMERS key columns, a consumer
+// warpgroup of 64 each; K and V resident, dO (early, with its rows' lse,
+// delta and mask words) and Q (late) streamed.
+template <int D>
+__global__ void __launch_bounds__(f3::Config<D>::THREADS, 1) causal_dkv_f32_wgmma_kernel(
+    const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+    const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+    const uint32_t* __restrict__ mbits, const float* __restrict__ lse,
+    const float* __restrict__ delta, const int* __restrict__ counts_t,
+    const int* __restrict__ idx_t, const int* __restrict__ rowbase, float* __restrict__ dk,
+    float* __restrict__ dv, int t_dst, int t_src, int t_m, int n_words, int block_q,
+    int block_k, int nq, int nkb, int col_base) {
+  using C = f3::Config<D>;
+  using L = f3::Layout<D, true>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  const uint32_t raw = sea::smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const f3::Bars b = f3::bars<D, true>(base);
+  const int* meta = reinterpret_cast<const int*>(smem + L::META_OFF);
+
+  // blocks start with every head's first (heaviest causal) k-tile
+  const int bh = blockIdx.x;
+  const int col0 = blockIdx.y * C::BLOCK;  // first local column of the block
+  const int tid = threadIdx.x;
+  // consumer w's k-block of the transposed lists, and its first global column
+  auto kblock = [&](int w) { return (col0 + 64 * w) / block_k; };
+  auto gcol = [&](int w) { return col_base + col0 + 64 * w; };
+
+  if (tid == 0) f3::init_bars<D, true>(base);
+  __syncthreads();
+
+  if (tid < C::PRODUCERS) {
+    sea::setmaxnreg_dec<C::PRODUCER_REGS>();
+    if (tid >= 32) {
+      f3::split_items<D, true>(smem, base, (tid >> 5) - 1, tid & 31);
+      return;
+    }
+    if (tid != 0) return;
+    // K and V of each consumer, then the walk: the union of the consumers'
+    // sub-tiles in increasing order, each stage's dO with its rows' lse,
+    // delta and mask words, then its Q
+    sea::mbar_arrive_expect_tx(b.rland, 2 * C::CONSUMERS * 2 * L::TILE);
+    for (int w = 0; w < C::CONSUMERS; ++w) {
+      const int row = bh * t_src + col0 + 64 * w;
+      f3::load_raw<D>(base + 2 * w * L::TERMS, &tk, b.rland, row);
+      f3::load_raw<D>(base + (2 * w + 1) * L::TERMS, &tv, b.rland, row);
+    }
+    auto seek = [&](wg::Walk& x) { return wg::seek_rows(x, block_q, rowbase); };
+    wg::Walk w[2];
+    bool have[2] = {false, false};
+    for (int i = 0; i < C::CONSUMERS; ++i) {
+      w[i] = wg::Walk{0, -1, counts_t[bh * nkb + kblock(i)], gcol(i),
+                      idx_t + ((long)bh * nkb + kblock(i)) * nq};
+      have[i] = seek(w[i]);
+    }
+    for (int it = 0;; ++it) {
+      int tag[3] = {0, 0, 0};
+      const bool live = wg::next(w, have, tag, seek);
+      const int r0 = bh * t_dst + tag[0];
+      f3::issue_stage<D, true>(smem, base, it, live, tag, &tdo, r0, &tq, r0, lse + r0,
+                               delta + r0, mbits + (long)r0 * n_words, n_words);
+      if (!live) break;
+    }
+    return;
+  }
+
+  // A consumer warpgroup: 64 key columns, 16 a warp; a thread holds columns
+  // kc = 16·warp + g and kc + 8 (h = 0, 1) and, of each, the q rows or the
+  // columns of dk and dv 8·j + 2·t4 + {0, 1} of every accumulator.
+  sea::setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int cw = (tid - C::PRODUCERS) / 128;
+  const int warp = (tid >> 5) & 3, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const int kc = 16 * warp + g;
+  float acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+  const uint32_t ks = base + 2 * cw * L::TERMS, vs = ks + L::TERMS;
+  // the consumer's two buffers of 64 alive words, taken in turn
+  uint64_t* const wbuf = reinterpret_cast<uint64_t*>(smem + L::ALIVE_OFF) + 128 * cw;
+
+  // dk += dSᵀ·Q of one sub-tile runs while the next stage is awaited:
+  // `pending` is its stage, whose Q is released once it has completed, and
+  // f are its A fragments (dSᵀ in three terms; Pᵀ's before)
+  uint32_t f[3][4][4];
+  int pending = -1, built = 0;
+
+  sea::mbar_wait(b.rfull, 0);
+  for (int it = 0;; ++it) {
+    const int st = it % C::STAGES;
+    const uint32_t par = (it / C::STAGES) & 1;
+    sea::mbar_wait(b.efull + 8 * st, par);
+    const int r0 = meta[4 * st];
+    if (r0 < 0) break;
+    if (meta[4 * st + 1 + cw] < 0) {
+      f3::skip(b, st, par, pending, lane, acc_k, f);
+      continue;
+    }
+    const uint32_t os = base + L::STAGE_OFF + st * L::STAGE, qs = os + L::TERMS;
+    // the stage's rows, landed by TMA with dO (seen through their own barrier)
+    sea::mbar_wait(b.eland + 8 * st, par);
+    const unsigned char* rows = smem + L::WORDS_OFF + st * L::ROWS;
+    const float* lses = reinterpret_cast<const float*>(rows);
+    const float* dls = reinterpret_cast<const float*>(rows + L::DELTA);
+    uint64_t* words = wbuf + 64 * (built++ & 1);
+    // the previous dk product has completed: its Q is released
+    sea::wgmma_wait<0>();
+    sea::fence_regs(acc_k);
+    f3::fence_terms(f);
+    __syncwarp();
+    if (lane == 0 && pending >= 0) sea::mbar_arrive(b.lempty + 8 * pending);
+    // dPᵀ = V·dOᵀ; the alive words while it runs; then Sᵀ = K·Qᵀ once Q is
+    // split
+    float s[32], dp[32];
+    sea::wgmma_fence();
+    f3::product3_ss<D>(dp, vs, os);
+    sea::wgmma_commit();
+    {
+      // the alive words of the sub-tile's 64 rows over this consumer's
+      // columns: rows q and q + 32 by the quad q, from the rows' mask words
+      // in the stage, shared through shared memory
+      const int q = (tid & 127) >> 2;
+      const int grow0 = wg::global_row(rowbase, r0, block_q);
+      const uint32_t* mask = reinterpret_cast<const uint32_t*>(rows + L::MASK);
+      sea::AliveRow wrow[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = grow0 + q + 32 * h;
+        const float wf = (float)(r + 1);
+        wrow[h] = sea::AliveRow{mask + (q + 32 * h) * n_words, r, wf, sea::recip(wf),
+                                __fdiv_rn((float)t_m, wf), __fdiv_rn(wf, (float)t_m)};
+      }
+      uint64_t bits[2];
+      // (at D = 128 narrow rows a column at a time: sixteen side by side spill)
+      sea::alive_bits<false, false, D != 128>(wrow, gcol(cw), t_m, 0, n_words - 1, t4, bits);
+      if (t4 == 0) {
+        words[q] = bits[0];
+        words[q + 32] = bits[1];
+      }
+      sea::bar_sync(1 + cw, 128);
+    }
+    sea::mbar_wait(b.lfull + 8 * st, par);
+    sea::wgmma_fence();  // s's registers may have held the words' temporaries
+    f3::product3_ss<D>(s, ks, qs);
+    sea::wgmma_commit();
+    sea::wgmma_wait<0>();
+    sea::fence_regs(s);
+    sea::fence_regs(dp);
+
+    // Pᵀ by one bit test per element: s[4·j + i] is column kc + 8·(i / 2)
+    // and q row 8·j + 2·t4 + i % 2, whose word's bit kc + 8·(i / 2) says it
+    // is alive; then dSᵀ = Pᵀ·(dPᵀ − delta) in place of dPᵀ
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int rl = 8 * j + 2 * t4;
+      const float2 ls = *reinterpret_cast<const float2*>(lses + rl);
+      const float2 lr = make_float2(__fmul_rn(ls.x, LOG2E), __fmul_rn(ls.y, LOG2E));
+      const float2 d = *reinterpret_cast<const float2*>(dls + rl);
+      const ulonglong2 wd = *reinterpret_cast<const ulonglong2*>(words + rl);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint64_t word = i & 1 ? wd.y : wd.x;
+        float& y = s[4 * j + i];
+        y = (word >> (kc + 8 * (i >> 1))) & 1u ? exp2_sfu(__fmaf_rn(y, LOG2E, -(i & 1 ? lr.y : lr.x)))
+                                               : 0.f;
+        dp[4 * j + i] = y * (dp[4 * j + i] - (i & 1 ? d.y : d.x));
+      }
+    }
+
+    // dv += Pᵀ·dO, six wgmmas a k-step; once it has completed dO (and the
+    // stage's rows) are released
+    f3::split3_frags(s, f);
+    sea::fence_regs(acc_v);
+    sea::wgmma_fence();
+    f3::product3_rs<D>(acc_v, f, os);
+    sea::wgmma_commit();
+    sea::wgmma_wait<0>();
+    sea::fence_regs(acc_v);
+    f3::fence_terms(f);
+    __syncwarp();
+    if (lane == 0) sea::mbar_arrive(b.eempty + 8 * st);
+    // dk += dSᵀ·Q, left in flight
+    f3::split3_frags(dp, f);
+    sea::fence_regs(acc_k);
+    sea::wgmma_fence();
+    f3::product3_rs<D>(acc_k, f, qs);
+    sea::wgmma_commit();
+    pending = st;
+  }
+  sea::wgmma_wait<0>();
+  sea::fence_regs(acc_k);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const long o = ((long)bh * t_src + col0 + 64 * cw + kc + 8 * h) * D + 2 * t4;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<float2*>(dk + o + 8 * j) =
+          make_float2(acc_k[4 * j + 2 * h], acc_k[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(dv + o + 8 * j) =
+          make_float2(acc_v[4 * j + 2 * h], acc_v[4 * j + 2 * h + 1]);
+    }
+  }
+}
+
 // col_base: the global column of k's and v's first row (0 for K3 and K4).
 // D: the head width; T: the element type of q, k, v, dou and the gradients
-// (float: the mma.sync body; __nv_bfloat16: the wgmma body, 128-row tiles,
-// so t_dst a multiple of 128); lse and delta are float32 either way.
+// (float: the body in three bf16 terms, __nv_bfloat16: the bf16 body; each
+// on tiles of 128 rows, or 64 for float32 at D = 128, so t_dst a multiple of
+// 128); lse and delta are float32 either way.
 template <int D, typename T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* mbits, const void* dou, const void* lse,
@@ -1246,20 +1530,27 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       cudaStream_t stream) {
   if (misaligned(q, k, v, dou, dq)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
+  CUtensorMap tq, tk, tv, tdo;
   if constexpr (std::is_same<T, float>::value) {
-    cudaError_t e = sea::opt_in_smem(causal_dq_kernel<D>, DQ_SMEM<D>, opted_in);
+    using C = f3::Config<D>;
+    using L = f3::Layout<D, false>;
+    constexpr int PW = sea::TPanels<64, D>::PW;
+    if (t_dst % C::BLOCK != 0 || misaligned(mbits)) return cudaErrorInvalidValue;
+    cudaError_t e = sea::f32_map<PW>(&tq, q, (long)nh * t_dst, D);
+    if (e == cudaSuccess) e = sea::f32_map<PW>(&tk, k, (long)nh * t_src, D);
+    if (e == cudaSuccess) e = sea::f32_map<PW>(&tv, v, (long)nh * t_src, D);
+    if (e == cudaSuccess) e = sea::f32_map<PW>(&tdo, dou, (long)nh * t_dst, D);
+    if (e == cudaSuccess) e = sea::opt_in_smem(causal_dq_f32_wgmma_kernel<D>, L::BYTES, opted_in);
     if (e != cudaSuccess) return e;
-    dim3 grid(nh, t_dst / BQ);
-    causal_dq_kernel<D><<<grid, TPB, DQ_SMEM<D>, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const uint32_t*)mbits,
-        (const float*)dou, (const float*)lse, (const float*)delta, (const int*)counts,
-        (const int*)idx, (const int*)rowbase, (float*)dq, t_dst, t_src, t_m, n_words, block_q,
-        block_k, nq, nkb, col_base);
+    dim3 grid(nh, t_dst / C::BLOCK);
+    causal_dq_f32_wgmma_kernel<D><<<grid, C::THREADS, L::BYTES, stream>>>(
+        tq, tk, tv, tdo, (const uint32_t*)mbits, (const float*)lse, (const float*)delta,
+        (const int*)counts, (const int*)idx, (const int*)rowbase, (float*)dq, t_dst, t_src, t_m,
+        n_words, block_q, block_k, nq, nkb, col_base);
   } else {
     const int bytes = wg::DqLayout<D>::FIXED + wg::CONSUMERS * nkb * 4;
     if (t_dst % wg::BLOCK != 0 || bytes > wg::SMEM_MAX || misaligned(mbits))
       return cudaErrorInvalidValue;
-    CUtensorMap tq, tk, tv, tdo;
     cudaError_t e = sea::tile_map<D>(&tq, q, (long)nh * t_dst);
     if (e == cudaSuccess) e = sea::tile_map<D>(&tk, k, (long)nh * t_src);
     if (e == cudaSuccess) e = sea::tile_map<D>(&tv, v, (long)nh * t_src);
@@ -1275,7 +1566,7 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-// The same for dk/dv (bf16: 128-column tiles, so t_src a multiple of 128).
+// The same for dk/dv (t_src a multiple of 128).
 template <int D, typename T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* mbits, const void* dou, const void* lse,
@@ -1286,20 +1577,27 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        int col_base, cudaStream_t stream) {
   if (misaligned(q, k, v, dou, dk, dv)) return cudaErrorInvalidValue;
   static std::atomic<bool> opted_in[MAX_DEVICES];
+  CUtensorMap tq, tk, tv, tdo;
   if constexpr (std::is_same<T, float>::value) {
-    cudaError_t e = sea::opt_in_smem(causal_dkv_kernel<D>, DKV_SMEM<D>, opted_in);
+    using C = f3::Config<D>;
+    using L = f3::Layout<D, true>;
+    constexpr int PW = sea::TPanels<64, D>::PW;
+    if (t_src % C::BLOCK != 0 || misaligned(mbits, lse, delta)) return cudaErrorInvalidValue;
+    cudaError_t e = sea::f32_map<PW>(&tq, q, (long)nh * t_dst, D);
+    if (e == cudaSuccess) e = sea::f32_map<PW>(&tk, k, (long)nh * t_src, D);
+    if (e == cudaSuccess) e = sea::f32_map<PW>(&tv, v, (long)nh * t_src, D);
+    if (e == cudaSuccess) e = sea::f32_map<PW>(&tdo, dou, (long)nh * t_dst, D);
+    if (e == cudaSuccess) e = sea::opt_in_smem(causal_dkv_f32_wgmma_kernel<D>, L::BYTES, opted_in);
     if (e != cudaSuccess) return e;
-    dim3 grid(nh, t_src / BKT);
-    causal_dkv_kernel<D><<<grid, DKV_TPB<D>, DKV_SMEM<D>, stream>>>(
-        (const float*)q, (const float*)k, (const float*)v, (const uint32_t*)mbits,
-        (const float*)dou, (const float*)lse, (const float*)delta, (const int*)counts_t,
-        (const int*)idx_t, (const int*)rowbase, (float*)dk, (float*)dv, t_dst, t_src, t_m,
-        n_words, block_q, block_k, nq, nkb, col_base);
+    dim3 grid(nh, t_src / C::BLOCK);
+    causal_dkv_f32_wgmma_kernel<D><<<grid, C::THREADS, L::BYTES, stream>>>(
+        tq, tk, tv, tdo, (const uint32_t*)mbits, (const float*)lse, (const float*)delta,
+        (const int*)counts_t, (const int*)idx_t, (const int*)rowbase, (float*)dk, (float*)dv,
+        t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, col_base);
   } else {
     const int bytes = wg::DkvLayout<D>::FIXED + wg::CONSUMERS * nq * 4;
     if (t_src % wg::BLOCK != 0 || bytes > wg::SMEM_MAX || misaligned(mbits, lse, delta))
       return cudaErrorInvalidValue;
-    CUtensorMap tq, tk, tv, tdo;
     cudaError_t e = sea::tile_map<D>(&tq, q, (long)nh * t_dst);
     if (e == cudaSuccess) e = sea::tile_map<D>(&tk, k, (long)nh * t_src);
     if (e == cudaSuccess) e = sea::tile_map<D>(&tv, v, (long)nh * t_src);

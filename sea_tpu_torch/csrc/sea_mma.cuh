@@ -1,11 +1,11 @@
 // The tensor-core and copy instructions (inline PTX) and the shared-memory
 // tile helpers of the fused sparse attention bodies: on mma.sync (sm_80 and
-// later) the float32 instances of the backward (block_sparse_diff.cu: dq for
-// K3 and K7, dk/dv for K4 and K8) and K5's (block_sparse_causal.cu); on
-// Hopper's wgmma, TMA, mbarriers and setmaxnreg (sm_90a, the second half of
-// this file) the bf16 instances of the forward and the backward, and (the
-// last part, in TF32) the other float32 instances of the forward
-// (block_sparse_causal.cu: K1, K2, K6, K9a-c).
+// later) K5's float32 instance (block_sparse_causal.cu); on Hopper's wgmma,
+// TMA, mbarriers and setmaxnreg (sm_90a, the second half of this file) the
+// bf16 instances of the forward and the backward, the float32 instances of
+// the backward in three bf16 terms (block_sparse_diff.cu: dq for K3 and K7,
+// dk/dv for K4 and K8), and (the last part, in TF32) the other float32
+// instances of the forward (block_sparse_causal.cu: K1, K2, K6, K9a-c).
 // The second half also holds the tile layouts that TMA writes and wgmma
 // reads (`Panels` for bf16, `TPanels` for float32) and the tensor maps that
 // describe them (`tile_map`, `f32_map`).
@@ -34,12 +34,6 @@ __device__ __forceinline__ uint32_t smem_u32(const void* p) {
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_u32(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(smem_u32(dst)),
                "l"(src)
                : "memory");
 }
@@ -82,6 +76,25 @@ __device__ __forceinline__ void split_bf16(float x0, float x1, uint32_t& hi,
       __floats2bfloat162_rn(__fsub_rn(x0, hf.x), __fsub_rn(x1, hf.y));
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// The bf16 pairs of x0 and x1 in three terms, x = t1 + t2 + t3 to about
+// 2^-27 of x: t1 = bf16_rn(x), t2 = bf16_rn(x − t1), t3 = bf16_rn(x − t1 −
+// t2). Each bf16 keeps 8 significant bits and each subtraction is exact (its
+// operands lie within a factor of 2 of each other), so t2 is at most 2^-9 of
+// x and t3 at most 2^-18; six bf16 products of the terms (all but t2·t3,
+// t3·t2 and t3·t3, each under 2^-26 of a·b) keep float32's accuracy.
+__device__ __forceinline__ void split3_bf16(float x0, float x1, uint32_t& t1, uint32_t& t2,
+                                            uint32_t& t3) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(x0, x1);
+  const float2 af = __bfloat1622float2(a);
+  const float r0 = __fsub_rn(x0, af.x), r1 = __fsub_rn(x1, af.y);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(r0, r1);
+  const float2 bf = __bfloat1622float2(b);
+  const __nv_bfloat162 c = __floats2bfloat162_rn(__fsub_rn(r0, bf.x), __fsub_rn(r1, bf.y));
+  t1 = *reinterpret_cast<const uint32_t*>(&a);
+  t2 = *reinterpret_cast<const uint32_t*>(&b);
+  t3 = *reinterpret_cast<const uint32_t*>(&c);
 }
 
 // x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
@@ -150,9 +163,11 @@ inline bool misaligned(const P*... p) {
 }
 
 // ---------------------------------------------------------------------------
-// Hopper (sm_90a): TMA, mbarriers, wgmma and setmaxnreg, for the bf16
-// bodies (block_sparse_causal.cu, `causal_wgmma_kernel`; block_sparse_diff.cu,
-// `causal_dq_wgmma_kernel` and `causal_dkv_wgmma_kernel`).
+// Hopper (sm_90a): TMA, mbarriers, wgmma and setmaxnreg, for the bodies on
+// wgmma (block_sparse_causal.cu, `causal_wgmma_kernel` and
+// `causal_tf32_wgmma_kernel`; block_sparse_diff.cu, `causal_dq_wgmma_kernel`,
+// `causal_dkv_wgmma_kernel` and their float32 twins
+// `causal_dq_f32_wgmma_kernel` and `causal_dkv_f32_wgmma_kernel`).
 //
 // Shared-memory operands are tiles of 64 rows cut into panels of PW columns
 // (bf16), each panel rows x PW·2 bytes, row-major, in the swizzled layout
@@ -497,6 +512,15 @@ cudaError_t tile_map(CUtensorMap* map, const void* ptr, long rows) {
 
 // the key that k-position p of an 8-wide TF32 k-step stands for
 __device__ __forceinline__ int key_at(int p) { return p < 4 ? 2 * p : 2 * p - 7; }
+
+// The byte offset `o` within a panel of ROW-byte rows as TMA's swizzle
+// places it: the 16-byte chunk index (bits 4..) XORed with the bits from 7
+// up, three of them for 128-byte rows, one for 32-byte rows (a panel starts
+// on its swizzle atom, so the offset's bits are the address's).
+template <int ROW>
+__device__ __forceinline__ uint32_t swizzled(uint32_t o) {
+  return o ^ ((o >> 3) & (ROW == 128 ? 0x70u : 0x10u));
+}
 
 // generic-proxy writes to shared memory (the split of Q) made visible to the
 // async proxy that wgmma reads through

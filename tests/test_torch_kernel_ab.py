@@ -5,9 +5,10 @@ chip_smoke.py's tensor-core check must name every instance of the forward
 bodies (`causal_wgmma_kernel`, the bf16 instances on wgmma,
 `causal_tf32_wgmma_kernel`, the float32 ones on wgmma in split TF32, and
 `causal_flat_kernel`, K5's float32 instance on mma.sync) and of the backward
-bodies (`causal_dq_wgmma_kernel` and `causal_dkv_wgmma_kernel`
-on wgmma, `causal_dq_kernel` and `causal_dkv_kernel` on mma.sync) from its
-mangled name."""
+bodies (`causal_dq_wgmma_kernel` and `causal_dkv_wgmma_kernel`, the bf16
+instances on wgmma, `causal_dq_f32_wgmma_kernel` and
+`causal_dkv_f32_wgmma_kernel`, the float32 ones on wgmma in three bf16
+terms) from its mangled name."""
 
 import re
 
@@ -140,8 +141,8 @@ def _forward_mangled():
 
 # the backward body each element type's `launch_dq<…>`/`launch_dkv<…>`
 # launches, and how its mangled name goes on after the template argument
-# (its first parameters: float32 pointers, or bf16's TMA tensor maps)
-BACKWARD_BODIES = {"float": ("causal_{}_kernel", "EEvPKfS1_"),
+# (its first parameters: the TMA tensor maps of both bodies)
+BACKWARD_BODIES = {"float": ("causal_{}_f32_wgmma_kernel", "EEv14CUtensorMap_stS0_S0_S0_"),
                    "__nv_bfloat16": ("causal_{}_wgmma_kernel", "EEv14CUtensorMap_stS0_S0_S0_")}
 
 
@@ -149,9 +150,10 @@ def _backward_mangled(launcher):
     """The mangled names of the backward-body instances that `launcher`
     (the template launch_dq or launch_dkv of block_sparse_diff.cu) launches,
     for each width and element type the entry points instantiate it with:
-    its float32 body on mma.sync (`causal_dq_kernel<D>`,
-    `causal_dkv_kernel<D>`) or its bf16 body on wgmma
-    (`causal_dq_wgmma_kernel<D>`, `causal_dkv_wgmma_kernel<D>`)."""
+    its float32 body in three bf16 terms (`causal_dq_f32_wgmma_kernel<D>`,
+    `causal_dkv_f32_wgmma_kernel<D>`) or its bf16 body
+    (`causal_dq_wgmma_kernel<D>`, `causal_dkv_wgmma_kernel<D>`), both on
+    wgmma."""
     source = _dispatched(kernel_ab.DIFF_SOURCE.read_text())
     body = source[source.index(f"cudaError_t {launcher}("):]
     body = body[:body.index("\n}\n")]
@@ -170,17 +172,44 @@ def _backward_mangled(launcher):
 
 @pytest.mark.parametrize("name", sorted(kernel_ab.DIFF_KNOCKOUTS))
 def test_backward_knockouts_apply_to_the_source(tmp_path, monkeypatch, name):
-    """Each backward knock-out's edits find their text in
-    block_sparse_diff.cu exactly once, and the copy differs where they do."""
+    """Each knock-out of the bf16 backward bodies finds its text exactly
+    once in their part of block_sparse_diff.cu (the float32 bodies repeat
+    some of its lines), the copy differs where it does, and the float32
+    bodies' part is left as it is."""
     monkeypatch.setattr(kernel_ab, "BUILD", tmp_path)
     sources = kernel_ab.knockout_sources(kernel_ab.DIFF_SOURCE, kernel_ab.DIFF_KNOCKOUTS, "ko-bwd")
     assert set(sources) == {f"ko-bwd-{n}" for n in kernel_ab.DIFF_KNOCKOUTS}
     path, include = sources[f"ko-bwd-{name}"]
     text, original = path.read_text(), kernel_ab.DIFF_SOURCE.read_text()
+    body = _scoped(original, kernel_ab.BWD_BF16_SCOPE)
+    assert "causal_dq_wgmma_kernel(" in body and "causal_dq_f32_wgmma_kernel(" not in body
     assert text != original
+    assert _scoped(text, kernel_ab.BWD_F32_SCOPE) == _scoped(original, kernel_ab.BWD_F32_SCOPE)
     for old, _ in kernel_ab.DIFF_KNOCKOUTS[name]:
-        assert original.count(old) == 1, old
-        assert old not in text, old
+        assert body.count(old) == 1, old
+        assert old not in _scoped(text, kernel_ab.BWD_BF16_SCOPE), old
+    assert include == kernel_ab.DIFF_SOURCE.parent
+
+
+@pytest.mark.parametrize("name", sorted(kernel_ab.F32_DIFF_KNOCKOUTS))
+def test_f32_backward_knockouts_apply_to_the_new_bodies(tmp_path, monkeypatch, name):
+    """Each knock-out of the float32 backward bodies in three bf16 terms
+    finds its text once in their part of block_sparse_diff.cu (the bodies
+    and the product and split helpers they share), changes it there, and
+    leaves the bf16 bodies as they are."""
+    monkeypatch.setattr(kernel_ab, "BUILD", tmp_path)
+    sources = kernel_ab.knockout_sources(kernel_ab.DIFF_SOURCE, kernel_ab.F32_DIFF_KNOCKOUTS,
+                                         "ko-bwd32")
+    assert set(sources) == {f"ko-bwd32-{n}" for n in kernel_ab.F32_DIFF_KNOCKOUTS}
+    path, include = sources[f"ko-bwd32-{name}"]
+    text, original = path.read_text(), kernel_ab.DIFF_SOURCE.read_text()
+    body, knocked = (_scoped(x, kernel_ab.BWD_F32_SCOPE) for x in (original, text))
+    assert "causal_dq_f32_wgmma_kernel(" in body and "causal_dkv_f32_wgmma_kernel(" in body
+    assert knocked != body
+    assert _scoped(text, kernel_ab.BWD_BF16_SCOPE) == _scoped(original, kernel_ab.BWD_BF16_SCOPE)
+    for old, new in kernel_ab.F32_DIFF_KNOCKOUTS[name]:
+        assert body.count(old) == 1, old
+        assert knocked.count(old) == (1 if old in new else 0), old
     assert include == kernel_ab.DIFF_SOURCE.parent
 
 
@@ -216,11 +245,15 @@ def test_required_instances_are_the_launched_ones():
 
 @pytest.mark.parametrize("launcher", ["launch_dq", "launch_dkv"])
 def test_backward_tensor_core_ops(launcher):
-    """The tensor-core check wants wgmma's HGMMA in every bf16 backward
-    instance and mma.sync's HMMA in every float32 one."""
+    """The tensor-core check wants wgmma's HGMMA in every backward
+    instance: the bf16 ones and the float32 ones in three bf16 terms; a
+    float32 instance on mma.sync (`causal_dq_kernel<D>`), none of which is
+    left, would be named as float32 and want HMMA."""
     for mangled in _backward_mangled(launcher):
-        want = "HGMMA" if chip_smoke.instance_name(mangled).split()[1] == "bfloat16" else "HMMA"
-        assert chip_smoke.tensor_core_op(mangled) == want, mangled
+        assert chip_smoke.tensor_core_op(mangled) == "HGMMA", mangled
+    old = mangled.replace("_f32_wgmma_kernel", "_kernel").replace("_wgmma_kernel", "_kernel")
+    assert chip_smoke.instance_name(old).split()[1] == "float32"
+    assert chip_smoke.tensor_core_op(old) == "HMMA"
 
 
 def test_forward_tensor_core_ops():
