@@ -76,6 +76,21 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 request, are held against the plain versions; ms/step,
                 tokens/s and peak memory beside the
                 dense OPT-125m train step at 1 x 2048;
+ 6b. longctx-32k — `training.longctx.main`'s model (OPT-125m widths, 12
+                layers, use_fused_train, bf16 compute, `scan_layers` and
+                `scan_remat`) at 1 x 32768 with `--logit-chunk 2048`, 2 AdamW
+                steps at lr 1e-5: 24 launches of K2 and 12 each of K3 and K4
+                a step (the remat's backward runs each layer's forward
+                again), no other kernel, finite losses that fall; ms per
+                step and peak memory; then layer 0 of one more step, the
+                model freed: the recompute's top-k mask equal to the
+                forward's and the card's to the CPU's, K2, K3 and K4
+                launched on every head (K2 reproducing the step's output bit
+                for bit, two launches of K3 and K4 equal) and held on the
+                last head against their plain versions of that head alone,
+                and FusedSparseAttention on that head against autograd
+                through the plain version (a head's plain versions at this
+                length take about 4.3 GB a score tensor);
   7. bidir-mask — the padded bidirectional kernel's (K5) element predicate
                 against the lengths-aware oracle, bit for bit, for T = 128,
                 512 and 2048 with example lengths 1, 77, 128, 255, 383 and T;
@@ -181,10 +196,12 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 `evaluate(max_batches=4)`'s PPL and ms per window, and one
                 micro-step at 1 x 2048 with its time and peak memory;
  20. decode   — OPT-125m with the decode cache (`opt_config` plus use_cache,
-                full width and depth, seeded random weights, float32):
-                `generate_greedy` with `parallel_prefill` on 1 x 1024 prompt
-                tokens, max_len 2048, 64 new tokens; the prefill must launch
-                K1 exactly 12 times and nothing in the phase any other kernel;
+                full width, 6 of its 12 layers, seeded random weights,
+                float32; the depth cut because the phase's steps are
+                host-bound): `generate_greedy` with `parallel_prefill` on
+                1 x 1024 prompt tokens, max_len 2048, 64 new tokens; the
+                prefill must launch K1 once a layer and nothing in the phase
+                any other kernel;
                 layer 0's K1 inputs, captured from the prefill, held against
                 the plain version; the decode logits at positions 1024-1087
                 against the full SEA forward of the generated sequence (the
@@ -223,7 +240,13 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 loss finite and falling; layer 0's captured inputs and
                 gradient against the plain versions (as bf16-kernels), K2
                 reproducing the step's output bit for bit, timed beside
-                SDPA; ms per step, tokens/s, peak memory;
+                SDPA; ms per step, tokens/s, peak memory; then the remat arm
+                (`scan_layers`, `scan_remat`) on the same weights and batch,
+                2 steps: 48 K2 and 24 each of K3 and K4 launches a step, its first loss
+                equal to the plain arm's bit for bit (a gap within half a
+                bf16 ulp of the loss is logged, a larger one fails), the loss
+                falling, layer 0's recomputed top-k mask equal to the
+                forward's bit for bit, both arms' peaks;
  24. opt13b-decode — OPT-1.3b with the decode cache, bf16 parameters and
                 states: generate_greedy of 32 tokens from a 1 x 512 prompt
                 prefilled in one forward (24 bf16 K1 launches, no other
@@ -236,9 +259,11 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 4 slots, 4 greedy requests of 17-64 prompt tokens, no kernel,
                 each equal to its prompt decoded alone at bf16 states up to
                 its first top-2 margin under 0.0625;
- 25. opt13b-kd — `OptTrainer(model="opt-1.3b", param_dtype="bfloat16",
-                moment_dtype="bfloat16")` at 1 x 512, accumulation 2, 2
-                updates: no kernel, every logged term finite, the student
+ 25. opt13b-kd — exp_opt13b.py's configuration, `OptTrainer(model=
+                "opt-1.3b", scan_kd=True, logit_chunk=256, param_dtype=
+                "bfloat16", moment_dtype="bfloat16")` at 1 x 1024,
+                accumulation 1, 2 updates: the scanned pair, no kernel,
+                every logged term finite, the student
                 moved, the teacher unchanged bit for bit, AdamW's first
                 moment bf16; ms per micro-step and peak memory;
  26. opt27b-serve — OPT-2.7b (`opt_2_7b`: hidden 2560, 32 layers, 32 heads
@@ -254,9 +279,11 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 tokens with no kernel launched in the decode steps, every
                 decoded row within 0.18 of the forward's largest |logit|;
  28. opt27b-train — use_fused_train, task-only, two arms: (a) bf16
-                parameters and moments, 3 AdamW steps (lr 1e-3) on 1 x
-                1024, 32 launches each of K2-K4's bf16 width-80 instances a
-                step, the loss falling; (b) float32 parameters under bf16
+                parameters and moments under the per-layer remat, 3 AdamW
+                steps (lr 1e-3) on 1 x 2048, 64 launches of K2's and 32 each
+                of K3's and K4's bf16 width-80 instances a step, the loss
+                falling, layer 0's recomputed top-k mask equal to the
+                forward's; (b) float32 parameters under bf16
                 compute, 2 steps on 1 x 512, 32 launches each of the float32
                 width-80 instances a step; per arm layer 0's kernels against
                 their plain versions (two launches and two block shapes equal
@@ -294,11 +321,14 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 kernel, finite logits, n = 64, the (random model's) accuracy;
  34. llama7b-train — use_fused_train, task-only, two arms, each drawn from
                 the seed on the card: (a) bf16 parameters and moments at
-                full width and depth, 3 AdamW steps (lr 1e-3, one parameter
-                at a time) on 1 x 512, 32 launches each of K2-K4's bf16
-                width-128 instances a step and none of K1 or K6-K8, the loss
-                falling, then the dense LLaMA-7b's CE step on the same
-                starting weights and batch; (b) float32 parameters under
+                full width and depth under the per-layer remat and the
+                chunked cross entropy (chunk 256), 3 AdamW steps (lr 1e-3)
+                on 1 x 2048, 64 launches of K2's and 32 each of K3's and
+                K4's bf16 width-128 instances a step and none of K1 or
+                K6-K8, the loss falling, layer 0's recomputed top-k mask
+                equal to the forward's, then 2 of the dense LLaMA-7b's CE
+                steps on the same starting weights and batch, with the same
+                remat and chunk; (b) float32 parameters under
                 bf16 compute at 8 layers, 2 steps on 1 x 512, 8 launches each
                 of the float32 width-128 instances a step; per arm layer 0's
                 kernels against their plain versions (two launches and two
@@ -368,6 +398,7 @@ from sea_tpu_torch.parallel import (
 )
 from sea_tpu_torch.parallel import sharded_attention as sa
 from sea_tpu_torch.serving import ServingEngine
+from sea_tpu_torch.training.distill import SeaOptKDScan
 from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
 from sea_tpu_torch.training.opt_trainer import OptTrainer, TrainerConfig
 from sea_tpu_torch.utils.profiler import get_bench
@@ -441,6 +472,9 @@ KD_ITERS = 3  # timed steady micro-steps and dense CE steps
 KD_EVAL_WINDOWS = 4
 KD_LONG_T = 2048  # one KD micro-step at OPT's context
 DECODE_P, DECODE_MAX_LEN, DECODE_STEPS = 1024, 2048, 64  # the decode phase's request
+# the decode and serve phases' depth: OPT-125m cut from 12 layers to 6, since
+# their steps are host-bound (launches a layer) and set most of the run's time
+DECODE_LAYERS = 6
 DECODE_BATCH = 8  # the second decode rate's rows
 DECODE_TOL = 2e-2  # decode against the forward (tests/test_opt_decode.py:13)
 PAGED_STEPS, PAGED_TOL = 16, 1e-5
@@ -454,6 +488,7 @@ SERVE_CHUNKS = (1, 8)
 NEAR_TIE = 1e-4  # a top-2 logit margin under which a greedy pick may flip
 OPT13B_T = 2048  # the OPT-1.3b serve and train requests, 1 x OPT13B_T
 OPT13B_TRAIN_STEPS = 3
+OPT13B_REMAT_STEPS = 2  # the remat arm: the first loss is the comparison
 # a bf16 weight of OPT-1.3b's random init (|w| about 0.02, an ulp 1.2e-4)
 # does not move under longctx's rate 1e-5; Adam's first steps move each
 # weight by about the rate
@@ -466,14 +501,18 @@ OPT13B_DECODE_REL = 0.18
 OPT13B_NEAR_TIE = 0.0625  # a bf16 top-2 margin (2 ulps at logits in [4, 8))
 OPT13B_SERVE_PROMPTS = (17, 33, 50, 64)  # tokens; 4 slots, 4 greedy requests
 OPT13B_SERVE_NEW = (16, 12, 16, 8)
-OPT13B_KD_T, OPT13B_KD_ACCUM, OPT13B_KD_STEPS = 512, 2, 2
+# the KD trainer at OPT-1.3b as exp_opt13b.py configures it: scan_kd,
+# logit_chunk 256, 1 x 1024, accumulation 1, bf16 parameters and moments
+OPT13B_KD_T, OPT13B_KD_ACCUM, OPT13B_KD_STEPS = 1024, 1, 2
+LOGIT_CHUNK = 256  # exp_opt13b.py's logit_chunk
 # OPT-2.7b (scripts/exp_opt27b.py's stages): the forward at 1 x 2048, a 256-
 # token prompt and 16 greedy tokens (max_len their sum, as the script's)
 OPT27B_T, OPT27B_P, OPT27B_STEPS = 2048, 256, 16
 # its task-only fused training, (tokens, AdamW steps) of each arm: (a) bf16
-# parameters and moments, (b) float32 parameters under bf16 compute (the
-# long-context path's default); 1 x 2048 waits for the per-layer remat
-OPT27B_TRAIN = ((1024, 3), (512, 2))
+# parameters and moments at exp_opt27b.py's --seq-len under the per-layer
+# remat, (b) float32 parameters under bf16 compute (the long-context path's
+# default), no remat
+OPT27B_TRAIN = ((2048, 3), (512, 2))
 # LLaMA-7b (heads of 128) in bf16: the forward at 1 x max_position_embeddings,
 # then exp_opt27b.py's decode lengths (a 256-token prompt, 16 greedy tokens)
 LLAMA_D, LLAMA_T, LLAMA_P, LLAMA_STEPS = 128, 2048, 256, 16
@@ -489,9 +528,11 @@ LLAMA_MMLU_N, LLAMA_MMLU_BATCH = 64, 8  # synthetic examples, 0-shot
 # parameters and moments at full depth, (b) float32 parameters under bf16
 # compute (the long-context path's type default) at LLAMA_F32_LAYERS layers, a
 # memory cut (16 B a parameter: 3.24 GB a layer, 4.2 GB for the embedding and
-# head); 1 x 512, since without the per-layer remat (ROADMAP queue 1 item 2)
+# head), no remat; arm (a) at LLaMA's max_position_embeddings under the
+# per-layer remat and the chunked cross entropy (LOGIT_CHUNK): without them
 # bf16 state (50.2 GiB) and the activations of 1 x 1024 would need 71-76 GiB
-LLAMA_TRAIN = ((512, 3), (512, 2))
+LLAMA_TRAIN = ((2048, 3), (512, 2))
+LLAMA_DENSE_STEPS = 2  # the dense yardstick of arm (a): one steady step
 LLAMA_F32_LAYERS = 8
 # the KD trainer at llama-7b: bf16 teacher, student and moments (62.8 GiB)
 LLAMA_KD_T, LLAMA_KD_ACCUM, LLAMA_KD_STEPS = 512, 2, 2
@@ -502,6 +543,10 @@ LLAMA_KD_EVAL_WINDOWS = 2
 # against JAX); layer 0's op on captured inputs and the forward's layer-0
 # attention output within 1e-2 of the largest |want|
 RING_BF16_LOSS_REL, RING_BF16_GRAD_REL, RING_BF16_LAYER_REL = 2.0 ** -9, 2e-2, 1e-2
+# the long-context step: longctx.main's model (OPT-125m widths, 12 layers,
+# use_fused_train, bf16 compute, scan_layers + scan_remat) at the length the
+# JAX script's --logit-chunk help names, --logit-chunk 2048, lr 1e-5
+LONGCTX_T, LONGCTX_STEPS, LONGCTX_CHUNK = 32768, 2, 2048
 
 
 def log(*a):
@@ -1493,14 +1538,16 @@ def wide_bf16_kernels(width):
     return errs
 
 
-def run_train(model, ids, steps, label, want=None, after_step=None, lr=TRAIN_LR):
-    """`steps` AdamW steps through `train_steps` on one batch, the launch
-    counts set to 0 just before and read after every step. Checks a finite
-    loss and, for the SEA student, 12 launches of each of K2, K3 and K4 and
-    none of the other kernels per step (no kernel launch at all for the
-    dense model), or the launches `want` per step. `after_step(i)` runs after
-    step i's checks, outside its time. Returns (losses, ms per step,
-    launches over the run, peak GiB)."""
+def run_train(model, ids, steps, label, want=None, after_step=None, lr=TRAIN_LR,
+              logit_chunk=None):
+    """`steps` AdamW steps through `train_steps` on one batch (the chunked
+    cross entropy with `logit_chunk`), the launch counts set to 0 just
+    before and read after every step. Checks a finite loss and, for the SEA
+    student, one launch of each of K2, K3 and K4 a layer and none of the
+    other kernels per step (no kernel launch at all for the dense model), or
+    the launches `want` per step. `after_step(i)` runs after step i's checks,
+    outside its time. Returns (losses, ms per step, launches over the run,
+    peak GiB)."""
     n_layers = model.cfg.num_layers
     sparse = model.cfg.attention_method == "perlin"
     torch.cuda.synchronize()
@@ -1522,7 +1569,8 @@ def run_train(model, ids, steps, label, want=None, after_step=None, lr=TRAIN_LR)
             torch.cuda.synchronize()
             last[:] = [time.perf_counter(), launch_counts()]
 
-    losses = train_steps(model, ids, torch.ones_like(ids), steps, lr=lr, callback=on_step)
+    losses = train_steps(model, ids, torch.ones_like(ids), steps, lr=lr, callback=on_step,
+                         logit_chunk=logit_chunk)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     if want is None:
         want = {**dict.fromkeys(launch_counts(), 0),
@@ -1552,19 +1600,31 @@ def layer0_registry(model):
         bench.activate_temp_buffers(False)
 
 
-def capture_layer0(model, ids):
+def capture_layer0(model, ids, logit_chunk=None):
     """Layer 0's kernel inputs and the gradient reaching its kernel output,
     from one forward and backward of a train step (buffer registry for
     layer 0 and a tensor hook); the parameters' gradients are cleared
-    afterwards."""
+    afterwards. Under `scan_remat` the backward recomputes layer 0, whose
+    top-k mask must equal the forward's bit for bit (else the gradient would
+    be another mask's)."""
     grads = []
     with layer0_registry(model) as bench:
-        out = model(ids, torch.ones_like(ids), labels=ids, training=True)
+        out = model(ids, torch.ones_like(ids), labels=ids, training=True,
+                    logit_chunk=logit_chunk)
         buf = {n: bench.get_temp_buffer(n, 0) for n in (
             "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
             "masked_estimated_attention_probs", "per_item_top_k", "fused_attention_output")}
         buf["fused_attention_output"].register_hook(grads.append)
         (out["loss"] + 0.0 * out["aux_loss"]).backward()
+        if model.cfg.scan_remat:
+            # the recompute's registry replaced the forward's buffers
+            again = bench.get_temp_buffer("partial_attention_mask_before_interp", 0)
+            fwd = buf["partial_attention_mask_before_interp"]
+            require(again is not fwd, "the remat backward did not recompute layer 0")
+            same = torch.equal(again, fwd)
+            log(f"[train] layer-0 top-k mask of the remat recompute equal to the forward's "
+                f"bit for bit: {same}")
+            require(same, "the remat recompute picked another top-k mask than the forward")
     model.zero_grad(set_to_none=True)
     buf = {n: b.detach() for n, b in buf.items()}
     # the train-mode grouped top-k on the card against the CPU on the same estimates
@@ -1594,6 +1654,53 @@ def check_layer0(label, q, k, v, mask, sc, do, step_o):
     o, _ = bs.causal_fwd_stats(diff_operands(q, k, v, mask, sc))
     require(torch.equal(o, step_o), f"{label}: K2 on the captured inputs differs from the step's output")
     check_fused_backward(label, q, k, v, mask, sc, do)
+    return errs
+
+
+def check_layer0_head(label, q, k, v, mask, sc, do, step_o, head):
+    """Layer 0's check at a length where the plain versions fit for one
+    head only: K2, K3 and K4 launched on every head, K2 reproducing the
+    step's output bit for bit and two launches of K3 and of K4 equal; each
+    held on head `head` against its plain version of that head alone (K3's
+    and K4's reading the kernels' lse and backward terms, the same as the
+    kernels read), K2's under `f32_limit`'s gate; then FusedSparseAttention
+    on that head against autograd through `dense_reference`. Returns
+    {kernel: max|err|}."""
+    ops = diff_operands(q, k, v, mask, sc)
+    o, lse = bs.causal_fwd_stats(ops)
+    require(torch.equal(o, step_o), f"{label}: K2 on the captured inputs differs from the step's output")
+    _, dou, delta = bs.backward_terms(do, o, sc, torch.float32)
+    dq = bs.causal_dq(ops, dou, lse, delta)
+    dk, dv = bs.causal_dkv(ops, dou, lse, delta)
+    again = (bs.causal_dq(ops, dou, lse, delta), *bs.causal_dkv(ops, dou, lse, delta))
+    require(all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)),
+            f"{label}: two launches of K3 or K4 on the same operands differ")
+    del ops, again
+    one = slice(head, head + 1)
+    q1, k1, v1, m1, sc1, do1 = (x[:, one].contiguous() for x in (q, k, v, mask, sc, do))
+    want_o, want_lse = bs.fwd_with_stats_reference(q1, k1, v1, m1, sc1)
+    inf = torch.isinf(want_lse)
+    got_lse = lse[:, one]
+    require(torch.equal(torch.isinf(got_lse), inf) and bool((got_lse[inf] > 0).all()),
+            f"{label}: the +inf rows of lse differ")
+    err_o = max_err(o[:, one], want_o)
+    err_lse = max_err(got_lse[~inf], want_lse[~inf]) if bool((~inf).any()) else 0.0
+    require(err_o <= F32_TOL and err_lse <= F32_TOL,
+            f"{label}: K2 o err {err_o:.3g}, lse err {err_lse:.3g}")
+    del want_o, want_lse
+    stats = [x[:, one].contiguous() for x in (dou, lse, delta)]
+    errs = {"K2": max(err_o, err_lse),
+            "K3": check_grad(f"{label} K3 dq", dq[:, one], bs.dq_reference(q1, k1, v1, m1, *stats))}
+    want_dk, want_dv = bs.dkv_reference(q1, k1, v1, m1, *stats)
+    errs["K4"] = max(check_grad(f"{label} K4 dk", dk[:, one], want_dk),
+                     check_grad(f"{label} K4 dv", dv[:, one], want_dv))
+    del want_dk, want_dv, stats
+    torch.cuda.empty_cache()
+    log(f"[train-kernels] {label}: K2-K4 on all {q.shape[1]} heads of {tuple(q.shape)}, K2 "
+        f"equal to the step's output, two launches of K3 and of K4 equal bit for bit; on head "
+        f"{head} against the plain versions: K2 o {err_o:.3g}, lse {err_lse:.3g} "
+        f"({int(inf.sum())} +inf rows); K3 dq {errs['K3']:.3g}; K4 dk/dv {errs['K4']:.3g}")
+    check_fused_backward(f"{label} head {head}", q1, k1, v1, m1, sc1, do1)
     return errs
 
 
@@ -1643,6 +1750,41 @@ def phase_train():
     launches = {kid: launches_a[kid] + launches_b[kid] for kid in TRAIN_KERNELS}
     errs = {kid: max(errs_a[kid], errs_b[kid]) for kid in TRAIN_KERNELS}
     return launches, errs, measured
+
+
+def phase_longctx_32k():
+    """`training.longctx.main`'s model (OPT-125m widths, 12 layers,
+    use_fused_train, float32 parameters under bf16 compute, `scan_layers`
+    and `scan_remat`) at 1 x LONGCTX_T with the chunked cross entropy
+    (LONGCTX_CHUNK), LONGCTX_STEPS AdamW steps at lr 1e-5: 24 launches of
+    K2's float32 instance and 12 each of K3's and K4's a step, no other
+    kernel, finite losses that fall; ms per step and peak memory; then layer
+    0 of one more step, the recompute's top-k mask checked, held by
+    `check_layer0_head` on the last head. Returns ({kernel: launches},
+    {kernel: max|err|}, ms per step, peak GiB)."""
+    model = longctx_model(LONGCTX_T, 12, "cuda", remat=True)
+    L = model.cfg.num_layers
+    require(model.cfg.scan_remat and model.cfg.compute_dtype == "bfloat16",
+            "longctx model: remat or compute type")
+    ids = torch.randint(4, model.cfg.vocab_size, (1, LONGCTX_T),
+                        generator=torch.Generator().manual_seed(83)).cuda()
+    losses, times, launches, peak = run_train(
+        model, ids, LONGCTX_STEPS, f"longctx 1x{LONGCTX_T} remat, logit_chunk {LONGCTX_CHUNK}",
+        want=train_want(L, True, False), logit_chunk=LONGCTX_CHUNK)
+    require(losses[-1] < losses[0], f"the 1x{LONGCTX_T} loss did not fall: {losses}")
+    ms = statistics.median(times[1:])
+    log(f"[longctx-32k] 1x{LONGCTX_T}, {L} layers: losses {losses}, {ms:.2f} ms per step "
+        f"after the first ({LONGCTX_T / ms * 1e3:.0f} tokens/s), peak {peak:.2f} GiB")
+    # layer 0 of one more step (the recompute's mask checked in the capture),
+    # held once the model is freed
+    captured = capture_layer0(model, ids, LONGCTX_CHUNK)
+    del model
+    torch.cuda.empty_cache()
+    errs = check_layer0_head(f"longctx layer-0 1x{LONGCTX_T}", *captured,
+                             head=captured[0].shape[1] - 1)
+    del captured
+    torch.cuda.empty_cache()
+    return {kid: launches[kid] for kid in TRAIN_KERNELS}, errs, ms, peak
 
 
 # ---------------------------------------------------------------------------
@@ -2868,9 +3010,10 @@ def phase_kd():
 
 
 def decode_model():
-    """OPT-125m with the decode cache: `opt_config` plus use_cache, seeded
-    random weights, float32."""
-    cfg = dataclasses.replace(opt_125m("perlin"), sea=opt_config(use_cache=True))
+    """OPT-125m at DECODE_LAYERS layers with the decode cache: `opt_config`
+    plus use_cache, seeded random weights, float32."""
+    cfg = dataclasses.replace(opt_125m("perlin"), sea=opt_config(use_cache=True),
+                              num_layers=DECODE_LAYERS)
     return OptForCausalLM(cfg, device="cuda", seed=0).eval()
 
 
@@ -3162,26 +3305,30 @@ def phase_serve():
 # ---------------------------------------------------------------------------
 
 
-def opt13b(weights=None, method="perlin", **sea_kw) -> OptForCausalLM:
+def opt13b(weights=None, method="perlin", remat=False, **sea_kw) -> OptForCausalLM:
     """OPT-1.3b (`opt_1_3b`: hidden 2048, 24 layers, 32 heads of 64, FFN
     8192, bfloat16 compute) at full width and depth on the card, its SEA
     config `opt_config(num_heads=32, head_dim=64, **sea_kw)`, cast to
     bfloat16 as exp_opt27b.py casts its tree: seeded random weights (seed
-    0) or `weights`, a state dict (a dense model takes the shared ones)."""
-    return bf16_opt(opt_1_3b, 64, weights, method, **sea_kw)
+    0) or `weights`, a state dict (a dense model takes the shared ones);
+    `remat` sets `scan_layers` and `scan_remat`."""
+    return bf16_opt(opt_1_3b, 64, weights, method, remat, **sea_kw)
 
 
-def opt27b(weights=None, method="perlin", **sea_kw) -> OptForCausalLM:
+def opt27b(weights=None, method="perlin", remat=False, **sea_kw) -> OptForCausalLM:
     """OPT-2.7b (`opt_2_7b`: hidden 2560, 32 layers, 32 heads of 80, FFN
     10240, vocabulary 50272, bfloat16 compute) at full width and depth, as
     `opt13b` builds OPT-1.3b."""
-    return bf16_opt(opt_2_7b, 80, weights, method, **sea_kw)
+    return bf16_opt(opt_2_7b, 80, weights, method, remat, **sea_kw)
 
 
-def bf16_opt(builder, head_dim, weights=None, method="perlin", **sea_kw) -> OptForCausalLM:
+def bf16_opt(builder, head_dim, weights=None, method="perlin", remat=False,
+             **sea_kw) -> OptForCausalLM:
     """`builder`'s OPT with 32 heads of `head_dim` on the card, cast to
-    bfloat16: seeded random weights (seed 0) or the state dict `weights`."""
+    bfloat16: seeded random weights (seed 0) or the state dict `weights`;
+    `remat` sets `scan_layers` and `scan_remat` (the per-layer remat)."""
     cfg = builder(method, sea=opt_config(num_heads=32, head_dim=head_dim, **sea_kw))
+    cfg = dataclasses.replace(cfg, scan_layers=remat, scan_remat=remat)
     if weights is None:
         model = OptForCausalLM(cfg, device="cuda", seed=0)
     else:
@@ -3203,6 +3350,14 @@ def bf16_want(**kw) -> dict:
     for kid, n in kw.items():
         want[kid] = want[f"{kid} bf16"] = n
     return want
+
+
+def train_want(layers: int, remat: bool, bf16: bool) -> dict:
+    """A fused train step's launches: K2, K3 and K4 once a layer, K2 twice
+    under the per-layer remat (the backward recomputes each layer's forward),
+    in the bf16 instances or the float32 ones; 0 for every other kernel."""
+    n = dict(K2=2 * layers if remat else layers, K3=layers, K4=layers)
+    return bf16_want(**n) if bf16 else {**bf16_want(), **n}
 
 
 def phase_opt13b_serve(weights):
@@ -3269,15 +3424,21 @@ def phase_opt13b_train(weights):
     instances a step and no other kernel, the loss finite and falling;
     layer 0's kernel inputs and incoming gradient from one more step held
     against the plain versions (`check_bf16_kernels`), K2 reproducing the
-    step's output bit for bit, and timed. Returns ({kernel: bf16
-    launches}, {kernel: max|err|}, times)."""
+    step's output bit for bit, and timed. Then the remat arm on the same
+    weights and batch (`scan_layers`, `scan_remat`), OPT13B_REMAT_STEPS
+    steps: 48 launches of K2 and
+    24 each of K3 and K4 a step, the first loss equal to the plain arm's bit
+    for bit (a difference within half a bf16 ulp of the loss is logged as a
+    finding, a larger one fails), the loss falling, layer 0's recomputed
+    top-k mask equal to the forward's; both arms' peaks logged. Returns
+    ({kernel: bf16 launches}, {kernel: max|err|}, times, peaks)."""
     model = opt13b(weights, use_fused_train=True)
     L, V = model.cfg.num_layers, model.cfg.vocab_size
     g = torch.Generator().manual_seed(37)
     ids = torch.randint(4, V, (1, OPT13B_T), generator=g).to("cuda")
-    want = bf16_want(K2=L, K3=L, K4=L)
-    losses, _, launches, _ = run_train(model, ids, OPT13B_TRAIN_STEPS, f"opt13b 1x{OPT13B_T}",
-                                       want=want, lr=OPT13B_TRAIN_LR)
+    losses, times, launches, peak = run_train(
+        model, ids, OPT13B_TRAIN_STEPS, f"opt13b 1x{OPT13B_T}",
+        want=train_want(L, False, True), lr=OPT13B_TRAIN_LR)
     require(losses[-1] < losses[0], f"the OPT-1.3b loss did not fall: {losses}")
     q, k, v, mask, sc, do, step_o = capture_layer0(model, ids)
     del model
@@ -3286,8 +3447,27 @@ def phase_opt13b_train(weights):
     require(torch.equal(got[0], step_o), "K2 on the captured inputs differs from the step's output")
     measured = measure_train(q, k, v, mask, sc, do)
     log_times(f"opt13b layer-0 1x{OPT13B_T} bf16", measured)
+    del q, k, v, mask, sc, do, step_o, got
     torch.cuda.empty_cache()
-    return {kid: launches[f"{kid} bf16"] for kid in TRAIN_KERNELS}, errs, measured
+
+    # the remat arm: the same weights and batch under the per-layer remat
+    model = opt13b(weights, use_fused_train=True, remat=True)
+    r_losses, r_times, r_launches, r_peak = run_train(
+        model, ids, OPT13B_REMAT_STEPS, f"opt13b remat 1x{OPT13B_T}",
+        want=train_want(L, True, True), lr=OPT13B_TRAIN_LR)
+    require(r_losses[-1] < r_losses[0], f"the OPT-1.3b remat loss did not fall: {r_losses}")
+    first_gap = abs(r_losses[0] - losses[0])
+    log(f"[opt13b-train] remat arm against the plain arm on the same weights and batch: "
+        f"first loss {r_losses[0]!r} vs {losses[0]!r} (bit for bit: {first_gap == 0.0}), "
+        f"losses {r_losses} vs {losses}; {statistics.median(r_times[1:]):.2f} vs "
+        f"{statistics.median(times[1:]):.2f} ms a step, peak {r_peak:.2f} vs {peak:.2f} GiB")
+    require(first_gap <= RING_BF16_LOSS_REL * abs(losses[0]),
+            f"the remat arm's first loss {r_losses[0]} is not the plain arm's {losses[0]}")
+    capture_layer0(model, ids)  # the recompute's top-k mask against the forward's
+    del model
+    torch.cuda.empty_cache()
+    launches = {kid: launches[f"{kid} bf16"] + r_launches[f"{kid} bf16"] for kid in TRAIN_KERNELS}
+    return launches, errs, measured, dict(plain=peak, remat=r_peak)
 
 
 def solo_greedy(model, prompt, n, dtype, max_len=OPT13B_MAX_LEN):
@@ -3451,22 +3631,27 @@ def phase_opt13b_decode(weights):
 
 
 def phase_opt13b_kd():
-    """The KD trainer on OPT-1.3b (`OptTrainer(model="opt-1.3b",
-    param_dtype="bfloat16", moment_dtype="bfloat16")`, 1 x 512 windows,
-    accumulation 2) for 2 updates: no kernel, every logged term finite, the
-    student moved and the teacher unchanged bit for bit, AdamW's first
-    moment bf16; ms per micro-step and peak memory."""
+    """The KD trainer on OPT-1.3b as exp_opt13b.py configures it
+    (`OptTrainer(model="opt-1.3b", scan_kd=True, logit_chunk=256,
+    param_dtype="bfloat16", moment_dtype="bfloat16")`, 1 x 1024 windows,
+    accumulation 1) for 2 updates: the scanned pair (`SeaOptKDScan`), no
+    kernel, every logged term finite, the student moved and the teacher
+    unchanged bit for bit, AdamW's first moment bf16; ms per micro-step and
+    peak memory."""
     with tempfile.TemporaryDirectory() as save_dir:
         cfg = TrainerConfig(model="opt-1.3b", param_dtype="bfloat16", moment_dtype="bfloat16",
                             max_seq_len=OPT13B_KD_T, stride=OPT13B_KD_T // 2,
                             gradient_accumulation_steps=OPT13B_KD_ACCUM,
                             num_steps=OPT13B_KD_STEPS, log_steps=1, eval_steps=10 ** 9,
-                            save_dir=save_dir)
+                            scan_kd=True, logit_chunk=LOGIT_CHUNK, save_dir=save_dir)
         t0 = time.perf_counter()
         tr = OptTrainer(cfg, device="cuda")
         torch.cuda.synchronize()
         log(f"[opt13b-kd] OPT-1.3b teacher and student (bf16 parameters, compute "
-            f"{tr.s_cfg.compute_dtype}) built in {time.perf_counter() - t0:.1f} s")
+            f"{tr.s_cfg.compute_dtype}, scan_kd, logit_chunk {tr.kd.logit_chunk}) built in "
+            f"{time.perf_counter() - t0:.1f} s")
+        require(isinstance(tr.kd, SeaOptKDScan) and tr.kd.logit_chunk == LOGIT_CHUNK,
+                "the OPT-1.3b KD trainer does not run the scanned pair")
         require(all(p.dtype == torch.bfloat16 for m in (tr.teacher, tr.student)
                     for p in m.parameters()), "KD parameters not bf16")
         student0 = [p.detach().clone() for p in tr.student.parameters()]
@@ -3627,11 +3812,13 @@ def check_arm_layer0(label, arm, q, k, v, mask, sc, do, step_o, scaled_bf16=Fals
 
 def phase_opt27b_train(weights):
     """OPT-2.7b with use_fused_train, task-only, two arms. (a) bf16
-    parameters and moments, 3 AdamW steps (lr 1e-3) on 1 x 1024: 32
-    launches each of K2, K3 and K4's bf16 width-80 instances a step and no
-    other kernel, the loss falling; layer 0's captured inputs and gradient
-    against the plain versions (`check_bf16_kernels`: two launches and two
-    block shapes equal bit for bit), K2 reproducing the step's output. (b)
+    parameters and moments under the per-layer remat, 3 AdamW steps (lr
+    1e-3) on 1 x 2048: 64 launches of K2's and 32 each of K3 and K4's bf16
+    width-80 instances a step and no other kernel, the loss falling, layer
+    0's recomputed top-k mask equal to the forward's; layer 0's captured
+    inputs and gradient against the plain versions (`check_bf16_kernels`:
+    two launches and two block shapes equal bit for bit), K2 reproducing the
+    step's output. (b)
     float32 parameters under bf16 compute, 2 steps on 1 x 512: 32 launches
     each of the float32 width-80 instances a step, finite losses; layer 0
     as `check_layer0` holds it, and the 128 x 256 lists equal to the 64 x 64
@@ -3639,8 +3826,9 @@ def phase_opt27b_train(weights):
     max|err| and times of K2-K4 at layer 0, ms per step and peak GiB."""
     out = {}
     for arm, (T, steps) in zip(("bfloat16", "float32"), OPT27B_TRAIN):
+        remat = arm == "bfloat16"
         if arm == "bfloat16":
-            model = opt27b(weights, use_fused_train=True)
+            model = opt27b(weights, use_fused_train=True, remat=True)
         else:
             model = opt27b({n: w.float() for n, w in weights.items()}, use_fused_train=True)
             model.float()
@@ -3648,10 +3836,9 @@ def phase_opt27b_train(weights):
         require(model.cfg.compute_dtype == "bfloat16" and all(
             p.dtype == getattr(torch, arm) for p in model.parameters()), f"arm {arm}: types")
         ids = torch.randint(4, V, (1, T), generator=torch.Generator().manual_seed(57)).cuda()
-        n = dict.fromkeys(TRAIN_KERNELS, L)
-        want = bf16_want(**n) if arm == "bfloat16" else {**bf16_want(), **n}
-        label = f"opt27b {arm} parameters 1x{T}"
-        losses, times, launches, peak = run_train(model, ids, steps, label, want=want,
+        label = f"opt27b {arm} parameters 1x{T}" + (" remat" if remat else "")
+        losses, times, launches, peak = run_train(model, ids, steps, label,
+                                                  want=train_want(L, remat, remat),
                                                   lr=OPT13B_TRAIN_LR)
         if arm == "bfloat16":
             require(losses[-1] < losses[0], f"the OPT-2.7b bf16 loss did not fall: {losses}")
@@ -3788,7 +3975,7 @@ def phase_ring_bf16():
 # ---------------------------------------------------------------------------
 
 
-def llama7b(weights=None, method="perlin", dtype=torch.bfloat16, layers=None,
+def llama7b(weights=None, method="perlin", dtype=torch.bfloat16, layers=None, remat=False,
             **sea_kw) -> LlamaForCausalLM:
     """LLaMA-7b (`llama_7b`: hidden 4096, 32 layers, 32 heads of 128, SwiGLU
     11008, vocabulary 32000, bfloat16 compute) at full width on the card,
@@ -3797,8 +3984,10 @@ def llama7b(weights=None, method="perlin", dtype=torch.bfloat16, layers=None,
     drawn on the card (`init_random_` from a CUDA generator of seed 0: the
     CPU would take minutes over 6.7 G parameters; the same draw gives the
     same weights) or `weights`, a state dict (a dense model takes the shared
-    ones; float32 parameters take the bf16 values)."""
+    ones; float32 parameters take the bf16 values); `remat` sets
+    `scan_layers` and `scan_remat`."""
     cfg = llama_7b(method, sea=opt_config(num_heads=32, head_dim=LLAMA_D, **sea_kw))
+    cfg = dataclasses.replace(cfg, scan_layers=remat, scan_remat=remat)
     if layers is not None:
         cfg = dataclasses.replace(cfg, num_layers=layers)
     with torch.device("cuda"):
@@ -3969,16 +4158,19 @@ def phase_llama7b_mmlu(weights):
 def phase_llama7b_train():
     """LLaMA-7b with use_fused_train, task-only (CE), two arms, each drawn
     from the seed on the card (the serve phases' weights) and freed before
-    the next model. (a) bf16 parameters and moments at full width and depth,
-    3 AdamW steps (lr 1e-3, torch's default multi-tensor AdamW) on 1 x 512: 32
-    launches each of K2, K3 and K4's bf16 width-128 instances a step and no
-    other kernel, the loss falling; layer 0's captured inputs and gradient
-    against the plain versions (`check_bf16_kernels` under the scale-aware
-    gate: two launches and two block shapes equal bit for bit), K2
-    reproducing the step's output; then,
-    once arm (a)'s model and optimizer state are freed, the dense LLaMA-7b's
-    CE step on the same starting weights and batch. (b) float32 parameters
-    under bf16 compute at LLAMA_F32_LAYERS layers (a memory cut), 2 steps on
+    the next model. (a) bf16 parameters and moments at full width and depth
+    under the per-layer remat and the chunked cross entropy (`logit_chunk`
+    256), 3 AdamW steps (lr 1e-3, torch's default multi-tensor AdamW) on 1 x
+    2048: 64 launches of K2's and 32 each of K3's and K4's bf16 width-128
+    instances a step and no other kernel, the loss falling, layer 0's
+    recomputed top-k mask equal to the forward's; layer 0's captured inputs
+    and gradient against the plain versions (`check_bf16_kernels` under the
+    scale-aware gate: two launches and two block shapes equal bit for bit),
+    K2 reproducing the step's output; then, once arm (a)'s model and
+    optimizer state are freed, LLAMA_DENSE_STEPS of the dense LLaMA-7b's CE
+    steps on the same starting weights and batch, with the same remat and
+    chunk. (b) float32 parameters under bf16 compute at LLAMA_F32_LAYERS
+    layers (a memory cut), 2 steps on
     1 x 512: 8 launches each of the float32 width-128 instances a step;
     layer 0 as `check_layer0` holds it (the scale-aware gate of OPT-2.7b's
     arm (b)), and the 128 x 256 lists equal to the 64 x 64 ones. Returns,
@@ -3986,8 +4178,10 @@ def phase_llama7b_train():
     peak GiB; and the dense step's ms and peak."""
     out = {}
     for arm, (T, steps) in zip(("bfloat16", "float32"), LLAMA_TRAIN):
+        remat = arm == "bfloat16"
+        chunk = LOGIT_CHUNK if remat else None
         if arm == "bfloat16":
-            model = llama7b(use_fused_train=True)
+            model = llama7b(use_fused_train=True, remat=True)
         else:
             model = llama7b(dtype=torch.float32, layers=LLAMA_F32_LAYERS, use_fused_train=True)
         L, V = model.cfg.num_layers, model.cfg.vocab_size
@@ -3995,27 +4189,30 @@ def phase_llama7b_train():
                 and all(p.dtype == getattr(torch, arm) for p in model.parameters()),
                 f"LLaMA-7b arm {arm}: types or head width")
         ids = torch.randint(4, V, (1, T), generator=torch.Generator().manual_seed(71)).cuda()
-        n = dict.fromkeys(TRAIN_KERNELS, L)
-        want = bf16_want(**n) if arm == "bfloat16" else {**bf16_want(), **n}
-        label = f"llama7b {arm} parameters {L} layers 1x{T}"
-        losses, times, launches, peak = run_train(model, ids, steps, label, want=want,
-                                                  lr=OPT13B_TRAIN_LR)
+        label = f"llama7b {arm} parameters {L} layers 1x{T}" + (
+            f" remat, logit_chunk {chunk}" if remat else "")
+        losses, times, launches, peak = run_train(model, ids, steps, label,
+                                                  want=train_want(L, remat, remat),
+                                                  lr=OPT13B_TRAIN_LR, logit_chunk=chunk)
         if arm == "bfloat16":
             require(losses[-1] < losses[0], f"the LLaMA-7b bf16 loss did not fall: {losses}")
-        q, k, v, mask, sc, do, step_o = capture_layer0(model, ids)
+        q, k, v, mask, sc, do, step_o = capture_layer0(model, ids, chunk)
         del model
         torch.cuda.empty_cache()
         dense = None
         if arm == "bfloat16":
             # the yardstick: the dense model's CE step from the same starting
-            # weights (drawn again from the seed) on the same batch
+            # weights (drawn again from the seed) on the same batch, with the
+            # same remat and chunk
             sea = llama7b()
             shared = {n: w for n, w in sea.state_dict().items() if ".perlin." not in n}
-            dense_model = llama7b(shared, "none")
+            dense_model = llama7b(shared, "none", remat=True)
             del sea, shared
             torch.cuda.empty_cache()
             _, dense_times, _, dense_peak = run_train(
-                dense_model, ids, steps, f"llama7b dense 1x{T}", lr=OPT13B_TRAIN_LR)
+                dense_model, ids, LLAMA_DENSE_STEPS,
+                f"llama7b dense 1x{T} remat, logit_chunk {chunk}",
+                lr=OPT13B_TRAIN_LR, logit_chunk=chunk)
             del dense_model
             torch.cuda.empty_cache()
             dense = dict(ms=statistics.median(dense_times[1:]), peak=dense_peak)
@@ -4194,6 +4391,10 @@ def main():
     time_phase(t_start, "train-kernels, bf16-kernels")
     train_launches, train_errs, train_m = phase_train()
     time_phase(t_start, "train")
+    long_launches, long_errs, long_ms, long_peak = phase_longctx_32k()
+    time_phase(t_start, "longctx-32k")
+    train_launches = {kid: train_launches[kid] + long_launches[kid] for kid in TRAIN_KERNELS}
+    train_errs = {kid: max(train_errs[kid], long_errs[kid]) for kid in TRAIN_KERNELS}
     for kid, (_, name, source, replaces, _) in TRAIN_KERNELS.items():
         t = train_m[kid]
         require(train_launches[kid] > 0, f"the training path never launched {kid}")
@@ -4324,13 +4525,16 @@ def main():
         f"ms, plain {k1_bf16['plain_ms']:.3f} ms, sdpa {k1_bf16['library_ms']:.4f} ms, bound "
         f"{k1_bf16['bound_ms']:.4f} ms by {k1_bf16['bound_by']}")
     kernels[0]["launches"] += serve_launches  # the promotion check's float32 forward
-    train13_launches, train13_errs, train13_m = phase_opt13b_train(weights)
+    train13_launches, train13_errs, train13_m, train13_peaks = phase_opt13b_train(weights)
     prefill_launches = phase_opt13b_decode(weights)
     del weights
     torch.cuda.empty_cache()
     kd13 = phase_opt13b_kd()
-    log(f"[result] OPT-1.3b KD at 1x{OPT13B_KD_T}: {kd13['micro_ms']:.2f} ms per micro-step, "
-        f"peak {kd13['peak']:.2f} GiB")
+    log(f"[result] OPT-1.3b KD at 1x{OPT13B_KD_T} (scan_kd, logit_chunk {LOGIT_CHUNK}): "
+        f"{kd13['micro_ms']:.2f} ms per micro-step, peak {kd13['peak']:.2f} GiB; train at "
+        f"1x{OPT13B_T}: peak {train13_peaks['plain']:.2f} GiB plain, "
+        f"{train13_peaks['remat']:.2f} GiB under remat; the 1x{LONGCTX_T} step "
+        f"{long_ms:.2f} ms, peak {long_peak:.2f} GiB")
     time_phase(t_start, "opt13b")
     kernels.append({
         "name": "sea_causal_flat_forward (bfloat16)",

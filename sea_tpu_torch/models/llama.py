@@ -34,10 +34,14 @@ SwiGLU's sigmoid is XLA's expansion (`modules.silu`). Decode never casts:
 `llama_13b` are the JAX package's (bfloat16 compute; heads of 128, which
 K1-K4 take on the card).
 
-Not ported yet, and refused: the other attention methods and `scan_layers`
-(with `scan_benchmarking`, `scan_remat`: the per-layer remat) and the
-chunked cross entropy (`logit_chunk`), ROADMAP queue 1 item 2;
-`external_layers` (pipeline stages), item 8; LoRA, item 4.
+The long-context memory plan is OPT's (`models/opt.py`): `scan_layers` runs
+the stack as JAX's `_LlamaScanBody` does (`opt.scan_layers`), `scan_remat`
+checkpoints each layer under grad, and `forward(..., labels=,
+logit_chunk=)` streams the cross entropy through the untied, bias-free head
+per chunk, with `logits=None`.
+
+Not ported yet, and refused: the other attention methods, ROADMAP queue 1
+item 2; `external_layers` (pipeline stages), item 8; LoRA, item 4.
 """
 
 from __future__ import annotations
@@ -58,7 +62,9 @@ from .opt import (
     LayerTeacherOutput,
     OptForCausalLM,
     build_causal_mask,
-    cross_entropy_shifted,
+    check_plain_scan_forward,
+    lm_loss,
+    scan_layers,
 )
 from .state import SeaDecodeState
 
@@ -350,7 +356,7 @@ class LlamaDecoderLayer(nn.Module):
 
 class LlamaModel(nn.Module):
     """The LLaMA decoder stack: `embed` (with the position bundle), the
-    layer loop, `finalize`."""
+    layer loop (or `opt.scan_layers`), `finalize`."""
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
@@ -387,8 +393,13 @@ class LlamaModel(nn.Module):
         output_captures=False,
     ):
         """Returns (final hidden states, [hidden states] | None, teacher
-        captures (empty without `output_captures`), aux_loss)."""
+        captures (empty without `output_captures`), aux_loss); under
+        `cfg.scan_layers` the layers run as `opt.scan_layers` runs them."""
         h, bundle = self.embed(input_ids, attention_mask_1d)
+        if self.cfg.scan_layers:
+            check_plain_scan_forward(teacher_outputs, output_hidden_states)
+            h, aux_loss = scan_layers(self.cfg, self.layers, h, bundle)
+            return self.finalize(h), None, [], aux_loss
         hidden_states = [h] if output_hidden_states else None
         captures: List[LayerTeacherOutput] = []
         aux_losses = []
@@ -421,10 +432,6 @@ class LlamaForCausalLM(CausalLMGeneration, nn.Module):
         super().__init__()
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
-        if cfg.scan_layers or cfg.scan_benchmarking or cfg.scan_remat:
-            raise NotImplementedError(
-                "scan_layers is not ported yet (ROADMAP queue 1 item 2): the port runs a "
-                "plain layer loop")
         if cfg.external_layers:
             raise NotImplementedError(
                 "external_layers (pipeline stages) is not ported yet (ROADMAP queue 1 item 8)")
@@ -461,17 +468,14 @@ class LlamaForCausalLM(CausalLMGeneration, nn.Module):
         output_captures: bool = False,
         logit_chunk: Optional[int] = None,
     ):
-        if logit_chunk:
-            raise NotImplementedError(
-                "logit_chunk (the chunked cross entropy) is not ported yet "
-                "(ROADMAP queue 1 item 2)")
+        """With `labels` and `logit_chunk` the loss is the chunked cross
+        entropy through `lm_head` and `logits` is None."""
         h, hidden_states, captures, aux_loss = self.model(
             input_ids, attention_mask_1d, teacher_outputs, benchmarking=benchmarking,
             training=training, jitter=jitter, output_hidden_states=output_hidden_states,
             output_captures=output_captures,
         )
-        logits = self.logits(h)
-        loss = cross_entropy_shifted(logits, labels) if labels is not None else None
+        logits, loss = lm_loss(self, h, labels, logit_chunk)
         return {"logits": logits, "loss": loss, "hidden_states": hidden_states,
                 "teacher_captures": captures, "aux_loss": aux_loss}
 

@@ -20,9 +20,25 @@ alive through the backward (XLA drops outputs nobody reads; eager PyTorch
 cannot), 2.2 GiB more for the dense OPT-125m train step at 1 x 2048. The KD
 loop takes each layer's capture from the layer itself. With
 `sea.layerwise`, training detaches every layer's input, as the JAX model
-does. Model dims follow facebook/opt-125m. The JAX package's `scan_layers`,
-`scan_benchmarking`, `scan_remat` and `external_layers` fields steer its
-compiler; the port has no such fields and runs a plain layer loop.
+does. Model dims follow facebook/opt-125m.
+
+The long-context memory plan (the JAX package's, field for field):
+`scan_layers` runs the stack as JAX's scanned body runs it (`scan_layers`
+below): every layer is called with `benchmarking=cfg.scan_benchmarking` and
+neither `training` nor jitter, whatever the caller passes, and `aux_loss` is
+the mean of the per-layer aux values (0.0 where a layer has none); the
+scanned forward takes no KD truths and returns no hidden states. The model
+keeps its `nn.ModuleList` and its `state_dict` (eager PyTorch has no
+compiled graph for a scan to shrink; `weights.py` reads JAX's stacked
+`layers_scan` trees into it). `scan_remat` runs each layer under
+`torch.utils.checkpoint` while grad is enabled: the backward keeps each
+layer's inputs and recomputes the rest, so one layer's activations are
+live at a time, and the recompute launches the layer's forward kernels
+again (K2 twice a layer a step under `use_fused_train`, as JAX's `nn.remat`
+does). `forward(..., labels=, logit_chunk=C)` returns the next-token cross
+entropy computed per chunk of the sequence under a checkpoint each
+(`chunked_cross_entropy_shifted`), so one (N, C, V) logits block is live,
+and returns `logits=None`.
 
 Decode and generation (the SEA student with `sea.use_cache`): per-layer
 `SeaDecodeState`s (`init_decode_states`), the prompt ingested by P decode
@@ -48,8 +64,11 @@ and `decode_step_paged` embed in the parameters' type, and the layers'
 `opt_350m`, `opt_1_3b` and `opt_2_7b` are the JAX package's (1.3b and 2.7b
 in bfloat16 compute; 2.7b's heads are 80 wide, which K1-K4 take).
 
-Not ported yet: the other attention methods, the chunked cross entropy and
-the `scan_*` decode helpers of scanned models.
+`scan_decode_step`, `scan_prefill_parallel` and `scan_generate_greedy` are
+the JAX package's scanned decode helpers: they drive the loop decode and take
+and return the per-layer decode states stacked on axis 0, in JAX's layout.
+
+Not ported yet: the other attention methods.
 """
 
 from __future__ import annotations
@@ -60,6 +79,7 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import SeaConfig, opt_config
 from ..ops.masks import fp_min_for
@@ -85,6 +105,12 @@ class OptConfig:
     dropout: float = 0.0
     attention_method: str = "perlin"  # 'none' | 'perlin'
     compute_dtype: str = "float32"
+    # the scanned layer stack (see the module doc): its mode of every layer
+    # (False: the train paths, True: the fused benchmark path) and the
+    # per-layer rematerialisation under grad
+    scan_layers: bool = False
+    scan_benchmarking: bool = False
+    scan_remat: bool = False
     sea: SeaConfig = dataclasses.field(default_factory=SeaConfig)
 
     @property
@@ -331,8 +357,43 @@ class OptDecoderLayer(nn.Module):
             lambda h: self.self_attn.decode_paged(h, state, pool_k, pool_v, pages))
 
 
+def _scan_body(layer: nn.Module, h: torch.Tensor, bundle, benchmarking: bool):
+    """One layer as JAX's scan body calls it (no `training`, no jitter):
+    (hidden states, aux loss, 0.0 where the layer has none)."""
+    h, aux, _ = layer(h, bundle, benchmarking=benchmarking)
+    if aux is None:
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
+    return h, aux
+
+
+def scan_layers(cfg, layers: Sequence[nn.Module], h: torch.Tensor, bundle):
+    """The layer stack as the JAX package's `nn.scan` body runs it (OPT's
+    `_LayerScanBody`, LLaMA's `_LlamaScanBody`), under `nn.remat` with
+    `cfg.scan_remat`: returns (hidden states, mean of the per-layer aux
+    values). With `scan_remat` and grad enabled each layer runs under a
+    non-reentrant checkpoint that keeps its inputs alone. The recompute must
+    pick the same top-k mask as the forward, so it refuses cuDNN's
+    benchmark mode, under which a convolution of the predictor may take
+    another algorithm, and other bits, the second time."""
+    remat = cfg.scan_remat and torch.is_grad_enabled()
+    if remat and h.is_cuda and torch.backends.cudnn.benchmark:
+        raise RuntimeError(
+            "scan_remat with torch.backends.cudnn.benchmark on: the recompute could "
+            "choose another convolution algorithm and so another top-k mask")
+    auxes = []
+    for layer in layers:
+        if remat:
+            h, aux = checkpoint(_scan_body, layer, h, bundle, cfg.scan_benchmarking,
+                                use_reentrant=False)
+        else:
+            h, aux = _scan_body(layer, h, bundle, cfg.scan_benchmarking)
+        auxes.append(aux)
+    return h, torch.stack(auxes).mean()
+
+
 class OptModel(nn.Module):
-    """OPT decoder stack: `embed`, the layer loop, `finalize`."""
+    """OPT decoder stack: `embed`, the layer loop (or `scan_layers`),
+    `finalize`."""
 
     def __init__(self, cfg: OptConfig):
         super().__init__()
@@ -386,8 +447,14 @@ class OptModel(nn.Module):
     ):
         """Returns (final hidden states, [hidden states] | None, teacher
         captures (empty without `output_captures`), aux_loss).
-        `teacher_outputs` and `jitter` hold one entry per layer."""
+        `teacher_outputs` and `jitter` hold one entry per layer. Under
+        `cfg.scan_layers` the layers run as `scan_layers` runs them
+        (`benchmarking`, `training` and `jitter` unread)."""
         h, causal_mask = self.embed(input_ids, attention_mask_1d)
+        if self.cfg.scan_layers:
+            check_plain_scan_forward(teacher_outputs, output_hidden_states)
+            h, aux_loss = scan_layers(self.cfg, self.layers, h, causal_mask)
+            return self.finalize(h), None, [], aux_loss
         hidden_states = [h] if output_hidden_states else None
         captures: List[LayerTeacherOutput] = []
         aux_losses = []
@@ -409,6 +476,13 @@ class OptModel(nn.Module):
             else torch.zeros((), device=h.device)
         )
         return h, hidden_states, captures, aux_loss
+
+
+def check_plain_scan_forward(teacher_outputs, output_hidden_states: bool):
+    """The scanned forward's limits (JAX's assertion, `opt.py:594-597`)."""
+    if teacher_outputs is not None or output_hidden_states:
+        raise ValueError("scan_layers runs the plain forward only: no teacher outputs, "
+                         "no hidden states (use the loop path for KD and introspection)")
 
 
 class CausalLMGeneration:
@@ -625,14 +699,16 @@ class OptForCausalLM(CausalLMGeneration, nn.Module):
         jitter: Optional[Sequence[JitterDraws]] = None,
         output_hidden_states: bool = False,
         output_captures: bool = False,
+        logit_chunk: Optional[int] = None,
     ):
+        """With `labels` and `logit_chunk` the loss is the chunked cross
+        entropy through the tied embedding and `logits` is None."""
         h, hidden_states, captures, aux_loss = self.model(
             input_ids, attention_mask_1d, teacher_outputs, benchmarking=benchmarking,
             training=training, jitter=jitter, output_hidden_states=output_hidden_states,
             output_captures=output_captures,
         )
-        logits = self.logits(h)
-        loss = cross_entropy_shifted(logits, labels) if labels is not None else None
+        logits, loss = lm_loss(self, h, labels, logit_chunk)
         return {"logits": logits, "loss": loss, "hidden_states": hidden_states,
                 "teacher_captures": captures, "aux_loss": aux_loss}
 
@@ -650,15 +726,126 @@ def _map_rows(state: SeaDecodeState, fn) -> SeaDecodeState:
     return SeaDecodeState(*(fn(x) if x.dim() > 0 else x for x in state))
 
 
+def lm_loss(lm, h: torch.Tensor, labels: Optional[torch.Tensor], logit_chunk: Optional[int]):
+    """(logits, loss) of a causal LM's final hidden states: with `labels` and
+    `logit_chunk`, no logits and the chunked cross entropy through
+    `lm.logits`; else `lm.logits(h)` and its cross entropy (None without
+    labels)."""
+    if labels is not None and logit_chunk:
+        return None, chunked_cross_entropy_shifted(h, lm.logits, labels, logit_chunk)
+    logits = lm.logits(h)
+    return logits, cross_entropy_shifted(logits, labels) if labels is not None else None
+
+
+def logit_chunk_size(t: int, chunk: int) -> int:
+    """The chunk the sequence is cut into: `chunk` if it divides `t`, else
+    the largest divisor of `t` below it (a gcd can collapse to 1)."""
+    c = int(chunk)
+    if t % c:
+        c = next(d for d in range(min(c, t), 0, -1) if t % d == 0)
+    return c
+
+
+def next_token_labels(labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """labels shifted by one: position t's target is labels[:, t + 1], and
+    `ignore_index` after the last."""
+    pad = torch.full((labels.shape[0], 1), ignore_index, dtype=labels.dtype,
+                     device=labels.device)
+    return torch.cat([labels[:, 1:], pad], dim=1)
+
+
+def chunk_sums(fn, seqs: Sequence[torch.Tensor], chunk: int):
+    """The sums over the chunks of the sequence (axis 1, cut by
+    `logit_chunk_size`) of fn's tuple of outputs on each chunk of `seqs`.
+    While grad is enabled each chunk runs under a non-reentrant checkpoint,
+    so one chunk's intermediates (its (N, C, V) logits) are live at a time,
+    in the forward and in the backward."""
+    T = seqs[0].shape[1]
+    C = logit_chunk_size(T, chunk)
+    sums = None
+    for s in range(0, T, C):
+        part = [x[:, s:s + C] for x in seqs]
+        if torch.is_grad_enabled():
+            out = checkpoint(fn, *part, use_reentrant=False)
+        else:
+            out = fn(*part)
+        sums = out if sums is None else tuple(a + b for a, b in zip(sums, out))
+    return sums
+
+
+def chunked_cross_entropy_shifted(
+    h: torch.Tensor, logits_fn, labels: torch.Tensor, chunk: int, ignore_index: int = -100,
+) -> torch.Tensor:
+    """`cross_entropy_shifted` of the logits `logits_fn(h)`, computed per
+    chunk of the sequence (`chunk_sums`): h (N, T, E) the finalized hidden
+    states, `logits_fn` the LM head (`logits` of a causal LM). The labels
+    are shifted once, so the chunks need no overlap. The same sums as the
+    unchunked loss, added in another order."""
+    lab_next = next_token_labels(labels, ignore_index)
+
+    def nll(h_c, lab_c):
+        logp = torch.log_softmax(logits_fn(h_c).float(), -1)
+        return (masked_nll(logp, lab_c, ignore_index),)
+
+    (total,) = chunk_sums(nll, (h, lab_next), chunk)
+    return total / torch.clamp((lab_next != ignore_index).sum(), min=1)
+
+
+def masked_nll(logp: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100
+               ) -> torch.Tensor:
+    """The summed NLL of `labels` under the log-probabilities `logp` (...,
+    V), positions labelled `ignore_index` left out."""
+    valid = labels != ignore_index
+    safe = torch.where(valid, labels, torch.zeros_like(labels))
+    nll = -torch.gather(logp, -1, safe[..., None].long())[..., 0]
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum()
+
+
 def cross_entropy_shifted(
     logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100
 ) -> torch.Tensor:
     """Next-token cross entropy with -100 masking."""
-    shift_logits = logits[:, :-1].float()
     shift_labels = labels[:, 1:]
-    valid = shift_labels != ignore_index
-    safe_labels = torch.where(valid, shift_labels, torch.zeros_like(shift_labels))
-    logp = torch.log_softmax(shift_logits, dim=-1)
-    nll = -torch.gather(logp, -1, safe_labels[..., None].long())[..., 0]
-    nll = torch.where(valid, nll, torch.zeros_like(nll))
-    return nll.sum() / torch.clamp(valid.sum(), min=1)
+    logp = torch.log_softmax(logits[:, :-1].float(), dim=-1)
+    nll = masked_nll(logp, shift_labels, ignore_index)
+    return nll / torch.clamp((shift_labels != ignore_index).sum(), min=1)
+
+
+# ---------------------------------------------------------------------------
+# The scanned decode helpers (JAX `opt.py:1036-1120`): the JAX package runs
+# the layer stack as one `lax.scan` over stacked parameters and carries the
+# per-layer decode states stacked on a leading layer axis. The port drives
+# its loop decode and keeps that layout at the boundary.
+
+
+def stack_states(states: Sequence[SeaDecodeState]) -> SeaDecodeState:
+    """Per-layer decode states -> one state, every field stacked on axis 0."""
+    return SeaDecodeState(*(torch.stack(fields) for fields in zip(*states)))
+
+
+def unstack_states(stacked: SeaDecodeState) -> List[SeaDecodeState]:
+    """The inverse of `stack_states`."""
+    return [SeaDecodeState(*(x[i] for x in stacked)) for i in range(stacked[0].shape[0])]
+
+
+def scan_decode_step(model: CausalLMGeneration, token_ids: torch.Tensor, position,
+                     states: SeaDecodeState):
+    """One decode step (`decode_step`) on stacked states: (logits (N, 1, V),
+    the new states stacked)."""
+    logits, new_states = model.decode_step(token_ids, position, unstack_states(states))
+    return logits, stack_states(new_states)
+
+
+def scan_prefill_parallel(model: CausalLMGeneration, prompt_ids: torch.Tensor, max_len: int,
+                          last_only: bool = True):
+    """`prefill_parallel` with the per-layer states stacked: (logits, stacked
+    states at position P)."""
+    logits, states = model.prefill_parallel(prompt_ids, max_len, last_only=last_only)
+    return logits, stack_states(states)
+
+
+def scan_generate_greedy(model: CausalLMGeneration, prompt_ids: torch.Tensor, max_len: int,
+                         num_steps: int) -> torch.Tensor:
+    """Greedy generation from one batched prefill (JAX's scanned prefill,
+    then scanned decode steps): (N, num_steps) tokens."""
+    return model.generate_greedy(prompt_ids, max_len, num_steps, parallel_prefill=True)

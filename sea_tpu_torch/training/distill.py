@@ -23,8 +23,14 @@ second return it threads opaquely to every layer (OPT's causal mask,
 LLaMA's (mask, cos, sin) position bundle), `model.layers[i]`,
 `model.finalize` and `logits`.
 
-Not ported yet: `SeaOptKDScan` (the scanned layer-pair body with chunked
-logits) and `SeaBertKD` (ROADMAP queue 1).
+`SeaOptKDScan` is the JAX package's scanned pair (`scan_kd`): every pair
+runs under its checkpoint, the student layer with `training=True` and no
+jitter (the scanned body passes no rng), and with `logit_chunk` the task
+cross entropy and the logit KL run per chunk of the sequence, each chunk's
+logits under a checkpoint of their own, so one (N, C, V) pair of logits is
+live (as JAX's `_chunked_logit_losses` computes them).
+
+Not ported yet: `SeaBertKD` (ROADMAP queue 1 item 3).
 """
 
 from __future__ import annotations
@@ -37,7 +43,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..models.llama import CausalLM, LlamaConfig, LlamaDecoderLayer, LlamaForCausalLM
 from ..models.opt import (JitterDraws, OptConfig, OptDecoderLayer, OptForCausalLM,
-                          cross_entropy_shifted)
+                          chunk_sums, cross_entropy_shifted, masked_nll, next_token_labels)
 
 
 def causal_lm_for(cfg: Union[OptConfig, LlamaConfig], **kw) -> CausalLM:
@@ -117,19 +123,7 @@ class SeaOptKD:
             loss_special = loss_special + aux
         loss_hidden = loss_hidden / (self.n_layers + 1) * 5.0
         loss_special = loss_special / self.n_layers
-
-        with torch.no_grad():
-            logits_t = self.teacher.logits(self.teacher.model.finalize(h_t))
-        logits_s = self.student.logits(self.student.model.finalize(h_s))
-        task_loss = cross_entropy_shifted(logits_s, labels)
-
-        lt = logits_t.reshape(-1, logits_t.shape[-1]).float()
-        ls = logits_s.reshape(-1, logits_s.shape[-1]).float()
-        target = torch.softmax(lt, -1)
-        log_input = torch.log_softmax(ls, -1)
-        loss_logit_kl = (
-            (target * (torch.log(target + 1e-12) - log_input)).sum() / lt.shape[0] * 0.2
-        )
+        task_loss, loss_logit_kl = self._logit_losses(h_t, h_s, labels)
         if ignore_kd:
             loss = task_loss
         else:
@@ -142,3 +136,63 @@ class SeaOptKD:
             "loss_sp": loss_special,
             "student_task_loss": task_loss,
         }
+
+    def _logit_losses(self, h_t: torch.Tensor, h_s: torch.Tensor, labels: torch.Tensor):
+        """(task CE, 0.2 · logit KL) from the last layers' hidden states."""
+        with torch.no_grad():
+            logits_t = self.teacher.logits(self.teacher.model.finalize(h_t))
+        logits_s = self.student.logits(self.student.model.finalize(h_s))
+        task_loss = cross_entropy_shifted(logits_s, labels)
+        lt = logits_t.reshape(-1, logits_t.shape[-1]).float()
+        ls = logits_s.reshape(-1, logits_s.shape[-1]).float()
+        target = torch.softmax(lt, -1)
+        log_input = torch.log_softmax(ls, -1)
+        loss_logit_kl = (
+            (target * (torch.log(target + 1e-12) - log_input)).sum() / lt.shape[0] * 0.2
+        )
+        return task_loss, loss_logit_kl
+
+
+class SeaOptKDScan(SeaOptKD):
+    """The JAX package's `SeaOptKDScan.kd_loss`: `SeaOptKD`'s interleaved
+    pair with every pair checkpointed and no jitter, and with `logit_chunk`
+    the logit losses per chunk of the sequence. The parameters stay in the
+    two models (the combined JAX tree reads in through
+    `weights.kd_state_dicts_from_jax`)."""
+
+    def __init__(self, teacher: CausalLM, student: CausalLM,
+                 logit_chunk: Optional[int] = None):
+        super().__init__(teacher, student)
+        self.logit_chunk = logit_chunk
+
+    def kd_loss(
+        self,
+        input_ids: torch.Tensor,
+        attention_mask_1d: torch.Tensor,
+        labels: torch.Tensor,
+        task_scale: float = 0.1,
+        ignore_kd: bool = False,
+    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, details), as `SeaOptKD.kd_loss` with no jitter and
+        `use_remat`."""
+        return super().kd_loss(input_ids, attention_mask_1d, labels, jitter=None,
+                               use_remat=True, task_scale=task_scale, ignore_kd=ignore_kd)
+
+    def _logit_losses(self, h_t: torch.Tensor, h_s: torch.Tensor, labels: torch.Tensor):
+        if not self.logit_chunk:
+            return super()._logit_losses(h_t, h_s, labels)
+        N, T, _ = h_s.shape
+        lab_next = next_token_labels(labels)
+        ce_sum, kl_sum = chunk_sums(self._chunk_losses, (h_t, h_s, lab_next), self.logit_chunk)
+        task_loss = ce_sum / torch.clamp((lab_next != -100).sum(), min=1)
+        return task_loss, kl_sum / (N * T) * 0.2
+
+    def _chunk_losses(self, h_t: torch.Tensor, h_s: torch.Tensor, labels: torch.Tensor):
+        """One chunk's summed CE and summed KL (JAX's `chunk_losses`)."""
+        with torch.no_grad():
+            lt = self.teacher.logits(self.teacher.model.finalize(h_t)).float()
+        ls = self.student.logits(self.student.model.finalize(h_s)).float()
+        logp = torch.log_softmax(ls, -1)
+        tgt = torch.softmax(lt, -1)
+        kl_sum = (tgt * (torch.log(tgt + 1e-12) - logp)).sum()
+        return masked_nll(logp, labels), kl_sum

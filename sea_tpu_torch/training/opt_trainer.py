@@ -1,4 +1,4 @@
-"""OPT and LLaMA wikitext-2 KD trainer, the loop path (port of
+"""OPT and LLaMA wikitext-2 KD trainer (port of
 `sea_tpu/training/opt_trainer.py`).
 
 A dense teacher (optionally CE-pretrained for `pretrain_teacher_steps`
@@ -11,8 +11,20 @@ one clipped 4-group AdamW update (`training.optimizer`), as
 `projection_redraw_steps` updates the student's FAVOR+ projections are
 redrawn. Evaluation is the strided-window perplexity of the student (the
 dense train path, no jitter); metrics go to `{save_dir}/metrics.jsonl` as
-JSON lines; `save`/`load` keep the student, the optimizer, the step and the
-jitter generator in one `torch.save` file.
+JSON lines; `save`/`load` keep the student, the optimizer, the step, the
+jitter generator and the layout (`{"scan_kd": 0 | 1}`) in one `torch.save`
+file, and `load` raises `CheckpointLayoutError` when the saved layout is
+not the trainer's.
+
+`scan_kd` is the JAX trainer's scanned pair (`distill.SeaOptKDScan`): no
+jitter is drawn, every pair is checkpointed, and `logit_chunk` (read only
+under `scan_kd`, as in JAX) computes the logit losses per chunk of the
+sequence. The student is built with `scan_layers`, so that `evaluate`
+reads it through the scanned forward, as JAX's `_eval_step_scan_impl`
+does (the same layers and state dict: training calls them one by one);
+`pretrain_teacher` after construction is refused, as JAX refuses it once
+the teacher's layers are stacked; and the projections are not redrawn,
+since JAX's scanned step never reads the redrawn ones (ROADMAP §3).
 
     python -m sea_tpu_torch.training.opt_trainer --model tiny --steps 4 --device cpu
     python -m sea_tpu_torch.training.opt_trainer --model llama-tiny --steps 4 --device cpu
@@ -36,9 +48,8 @@ see `models/opt.py` for what each type rounds.
 
 The entry point runs on "cuda" unless `--device` says otherwise, with TF32
 off and bfloat16 products reduced in float32. Refused with
-NotImplementedError, each naming its ROADMAP item: `scan_kd`,
-`data_parallel`, `checkpoint_rotation` and `logit_chunk`, and student
-methods other than 'perlin' and 'none'.
+NotImplementedError, each naming its ROADMAP item: `data_parallel` and
+`checkpoint_rotation`, and student methods other than 'perlin' and 'none'.
 """
 
 from __future__ import annotations
@@ -62,7 +73,7 @@ from ..models.loader import load_llama_params, load_opt_params, student_from_tea
 from ..models.opt import COMPUTE_DTYPES, OptConfig, opt_125m, opt_350m, opt_1_3b, opt_2_7b
 from ..ops.masks import resize_jitter_draws
 from ..ops.performer import redraw_projections
-from .distill import SeaOptKD, causal_lm_for
+from .distill import SeaOptKD, SeaOptKDScan, causal_lm_for
 from .optimizer import GroupedAdamW
 
 LEFTOVERS = "ROADMAP queue 1, 'KD and trainer leftovers'"
@@ -114,15 +125,22 @@ class TrainerConfig:
     param_dtype: Optional[str] = None
     # AdamW's first-moment type (None: the parameters')
     moment_dtype: Optional[str] = None
-    # the JAX trainer's options that the port refuses (see the module doc)
+    # the teacher/student pair as JAX's scanned body (see the module doc)
     scan_kd: bool = False
+    # the logit losses per chunk of this many positions (scan_kd only)
+    logit_chunk: Optional[int] = None
+    # the JAX trainer's options that the port refuses (see the module doc)
     data_parallel: bool = False
     checkpoint_rotation: int = 0
-    logit_chunk: Optional[int] = None
 
 
 class TrainingDiverged(RuntimeError):
     """A non-finite loss with `halt_on_divergence`."""
+
+
+class CheckpointLayoutError(ValueError):
+    """A checkpoint saved under another `scan_kd` than the trainer's. The
+    checkpoint is intact: the trainer's layout differs."""
 
 
 # the builders the port has, and each one's heads and head width (the JAX
@@ -133,7 +151,7 @@ MODELS = {"opt-125m": (opt_125m, 12, 64), "opt-350m": (opt_350m, 16, 64),
 
 
 def _refuse_unported(cfg: TrainerConfig):
-    for name in ("scan_kd", "data_parallel", "checkpoint_rotation", "logit_chunk"):
+    for name in ("data_parallel", "checkpoint_rotation"):
         if getattr(cfg, name) != getattr(TrainerConfig, name):
             raise NotImplementedError(f"TrainerConfig.{name} is not ported yet ({LEFTOVERS})")
     if cfg.model not in ("tiny", "llama-tiny", *MODELS):
@@ -204,7 +222,10 @@ class OptTrainer:
         # one model at a time in float32 before its cast (a 7B model's
         # float32 weights alone take 27 GB)
         self.teacher = build_model(self.t_cfg, 0, self.device, cfg.param_dtype)
-        self.student = build_model(self.s_cfg, 1, self.device, cfg.param_dtype)
+        # under scan_kd the student evaluates through the scanned forward
+        s_model_cfg = (dataclasses.replace(self.s_cfg, scan_layers=True) if cfg.scan_kd
+                       else self.s_cfg)
+        self.student = build_model(s_model_cfg, 1, self.device, cfg.param_dtype)
         if cfg.teacher_checkpoint:
             # the checkpoint loads into the cast model in its type
             load = load_llama_params if isinstance(self.t_cfg, LlamaConfig) else load_opt_params
@@ -222,7 +243,8 @@ class OptTrainer:
         if cfg.pretrain_teacher_steps > 0:
             self.pretrain_teacher(cfg.pretrain_teacher_steps)
         student_from_teacher(self.student, self.teacher)
-        self.kd = SeaOptKD(self.teacher, self.student)
+        self.kd = (SeaOptKDScan(self.teacher, self.student, cfg.logit_chunk) if cfg.scan_kd
+                   else SeaOptKD(self.teacher, self.student))
         self.optimizer = GroupedAdamW(
             self.student, lr=cfg.lr, wd=cfg.wd,
             lr_high_scale=cfg.lr_high_scale, lr_low_scale=cfg.lr_low_scale,
@@ -234,7 +256,14 @@ class OptTrainer:
 
     def pretrain_teacher(self, steps: int):
         """CE-train the dense teacher on the corpus (AdamW 3e-4, weight
-        decay 1e-2), a stand-in for a pretrained finetuned teacher."""
+        decay 1e-2), a stand-in for a pretrained finetuned teacher. Under
+        `scan_kd` only the constructor may (`pretrain_teacher_steps`), as
+        in JAX, which stacks the teacher's layers into the pair's tree."""
+        if self.cfg.scan_kd and hasattr(self, "kd"):
+            raise RuntimeError(
+                "pretrain_teacher is unavailable after scan_kd layer stacking: set "
+                "TrainerConfig.pretrain_teacher_steps so that the constructor pretrains "
+                "before stacking")
         self.teacher.requires_grad_(True)
         opt = torch.optim.AdamW(self.teacher.parameters(), lr=3e-4, betas=(0.9, 0.999),
                                 eps=1e-8, weight_decay=1e-2)
@@ -256,8 +285,8 @@ class OptTrainer:
 
     def jitter_draws(self, n: int, t: int):
         """One layer's resize-jitter draws per student layer, for a batch
-        of `n` x `t` tokens (none for a dense student)."""
-        if self.s_cfg.attention_method != "perlin":
+        of `n` x `t` tokens (none for a dense student or under `scan_kd`)."""
+        if self.s_cfg.attention_method != "perlin" or self.cfg.scan_kd:
             return None
         return [resize_jitter_draws((n, 1, t, t), self.generator)
                 for _ in range(self.s_cfg.num_layers)]
@@ -266,11 +295,10 @@ class OptTrainer:
         """One KD forward and backward on one batch; the gradients add up
         in the student's `.grad`. Returns the detached loss terms."""
         ids, mask, labels = self._tensors(ids, mask, labels)
-        loss, details = self.kd.kd_loss(
-            ids, mask, labels, jitter=self.jitter_draws(*ids.shape),
-            use_remat=self.cfg.use_remat, task_scale=self.cfg.task_loss_scale,
-            ignore_kd=self.cfg.ignore_kd_loss,
-        )
+        kw = dict(task_scale=self.cfg.task_loss_scale, ignore_kd=self.cfg.ignore_kd_loss)
+        if not self.cfg.scan_kd:
+            kw.update(jitter=self.jitter_draws(*ids.shape), use_remat=self.cfg.use_remat)
+        loss, details = self.kd.kd_loss(ids, mask, labels, **kw)
         loss.backward()
         return {k: v.detach() for k, v in details.items()}
 
@@ -287,7 +315,7 @@ class OptTrainer:
         self.optimizer.zero_grad()
         self.step += 1
         every = self.cfg.projection_redraw_steps
-        if every > 0 and self.step % every == 0:
+        if every > 0 and self.step % every == 0 and not self.cfg.scan_kd:
             redraw_projections(self.student, self.generator)
 
     def train(self):
@@ -368,6 +396,7 @@ class OptTrainer:
             "optimizer": self.optimizer.state_dict(),
             "step": self.step,
             "generator": self.generator.get_state(),
+            "layout": {"scan_kd": int(self.cfg.scan_kd)},
         }, tmp)
         os.replace(tmp, path)
 
@@ -376,6 +405,11 @@ class OptTrainer:
         if not os.path.exists(path):
             return False
         state = torch.load(path, map_location=self.device, weights_only=True)
+        saved = int(state.get("layout", {"scan_kd": 0})["scan_kd"])
+        if saved != int(self.cfg.scan_kd):
+            raise CheckpointLayoutError(
+                f"checkpoint layout mismatch: saved scan_kd={bool(saved)}, trainer "
+                f"scan_kd={self.cfg.scan_kd}")
         self.student.load_state_dict(state["student"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

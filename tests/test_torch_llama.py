@@ -444,14 +444,14 @@ def test_large_configs_match_jax(builder):
 def test_refusals_name_their_items():
     """What stays refused names its ROADMAP item; LLaMA's task-only training
     through `use_fused_train` is taken (tests/test_torch_llama_train.py holds
-    it to JAX)."""
+    it to JAX), and so are `scan_layers`, `scan_remat` and `logit_chunk`
+    (tests/test_torch_remat.py)."""
     for method in ("performer", "cosformer", "reformer", "sinkhorn"):
         with pytest.raises(NotImplementedError, match="queue 1 item 2"):
             tl.LlamaForCausalLM(tl.llama_tiny(method), device="cpu")
-    for scan in ("scan_layers", "scan_benchmarking", "scan_remat"):
-        with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-            tl.LlamaForCausalLM(dataclasses.replace(tl.llama_tiny(), **{scan: True}),
-                                device="cpu")
+    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
+        tl.LlamaForCausalLM(dataclasses.replace(tl.llama_tiny(), external_layers=True),
+                            device="cpu")
     fused = tl.llama_tiny()
     fused = dataclasses.replace(fused, sea=dataclasses.replace(fused.sea, use_fused_train=True))
     ids128 = torch.randint(4, 256, (1, 128), generator=torch.Generator().manual_seed(0))
@@ -462,7 +462,3 @@ def test_refusals_name_their_items():
     lora = dataclasses.replace(cfg, sea=dataclasses.replace(cfg.sea, lora_enabled=True))
     with pytest.raises(NotImplementedError, match="queue 1 item 4"):
         tl.LlamaForCausalLM(lora, device="cpu")
-    port = tl.LlamaForCausalLM(cfg, device="cpu")
-    ids = torch.ones((1, 8), dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="queue 1 item 2"):
-        port(ids, ids, ids, logit_chunk=4)

@@ -156,14 +156,12 @@ def test_save_load_round_trip(tmp_path):
 
 
 @pytest.mark.parametrize("model", ["tiny", "llama-tiny"])
-@pytest.mark.parametrize("field,value", [
-    ("scan_kd", True), ("data_parallel", True), ("checkpoint_rotation", 2),
-    ("logit_chunk", 256),
-])
+@pytest.mark.parametrize("field,value", [("data_parallel", True), ("checkpoint_rotation", 2)])
 def test_unported_options_are_refused(tmp_path, field, value, model):
     """The JAX trainer's options the port does not have are refused for
     either family, naming their ROADMAP item; the LLaMA models are taken
-    (tests/test_torch_llama_train.py)."""
+    (tests/test_torch_llama_train.py), and so are `scan_kd` and
+    `logit_chunk` (tests/test_torch_kd_scan.py)."""
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         to.OptTrainer(tiny_cfg(tmp_path, model=model, **{field: value}), device="cpu")
 
