@@ -195,10 +195,44 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 own CE step on the same batch, a [breakdown] of a micro-step,
                 `evaluate(max_batches=4)`'s PPL and ms per window, and one
                 micro-step at 1 x 2048 with its time and peak memory;
+ 19a. baselines — the baseline students and methods (plain PyTorch, no
+                kernel): OPT-125m at full width and depth on 1 x 2048 with
+                each causal student ('performer', 'reformer', 'sinkhorn',
+                'cosformer'), one forward and one task-only AdamW step, the
+                logits and the loss finite; BERT-base on the 32 x 256 padded
+                request with each other method ('performer', 'synthesizer',
+                'cosformer', 'reformer', 'scatterbrain', 'sinkhorn'), one
+                forward, then the padding's token ids changed: the logits
+                unchanged (within 1e-5 of max|logit|) for the methods the
+                reference masks padding in (synthesizer, cosformer), the
+                change reported for the others (their reference semantics
+                read the padding); ms per forward and step, no kernel
+                launched;
+ 19b. glue-kd — `GlueTrainer(model="bert-base", subset="mrpc")` through its
+                own constructor on the synthetic fallback (batch 32, T = 64):
+                `train()` for 3 KD steps (the student on the dense train
+                path, no kernel), the final `evaluate` and `evaluate_teacher`,
+                every loss term finite and the student moved; ms per step and
+                peak memory; one KD micro-step at 32 x 256 (GLUE's
+                max_length) from `synthetic_glue`; then one benchmarking
+                forward of the trained student through K5 (12 launches and no
+                other kernel), layer 0's K5 held to its plain version and
+                reproducing the run's output bit for bit;
+ 19c. lra     — `LraTrainer` on ListOps at full task scale (6 layers, width
+                512, 8 heads, batch 32, T = 512, remat_layers): 2 'dense'
+                steps through `train()`, the teacher saved and resumed into
+                a new trainer with parameters, optimizer state and step equal
+                bit for bit; 2 'distill' steps of 2 micro-batches each; the
+                trained student's benchmarking forward through K5 (6
+                launches) with layer 0 held to the plain version and timed
+                (32 x 8 x 512 x 64); one 'text' KD step at 16 x 1024; ms per
+                step and peak memory, remat on;
  20. decode   — OPT-125m with the decode cache (`opt_config` plus use_cache,
-                full width, 6 of its 12 layers, seeded random weights,
+                full width, 3 of its 12 layers, seeded random weights,
                 float32; the depth cut because the phase's steps are
-                host-bound): `generate_greedy` with `parallel_prefill` on
+                host-bound, about 125 launches a layer, and the run's time
+                limit is shared by every phase): `generate_greedy` with
+                `parallel_prefill` on
                 1 x 1024 prompt tokens, max_len 2048, 64 new tokens; the
                 prefill must launch K1 once a layer and nothing in the phase
                 any other kernel;
@@ -226,7 +260,8 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 greedy outputs must be equal; tokens/s, ms per engine step,
                 steps and the pool's bytes;
  22. opt13b-serve — OPT-1.3b (`opt_1_3b`, full width and depth, seeded
-                random weights cast to bf16 as exp_opt27b.py casts its tree),
+                random weights drawn on the card and cast to bf16 as
+                exp_opt27b.py casts its tree),
                 the SEA student's forward at 1 x 2048: 24 launches of K1's
                 bf16 instance and no other kernel, finite bf16 logits, layer
                 0's K1 against its plain version; ms, tokens/s and peak
@@ -376,6 +411,7 @@ import torch.nn.functional as F
 
 from sea_tpu_torch.benchmarks import attention_method_sweep, host_topk_mask, sweep_inputs
 from sea_tpu_torch.config import opt_config
+from sea_tpu_torch.data.glue import synthetic_glue
 from sea_tpu_torch.data.mmlu import (
     CHOICES,
     evaluate_mmlu,
@@ -386,7 +422,8 @@ from sea_tpu_torch.data.mmlu import (
 from sea_tpu_torch.models.attention import SeaAttention, init_random_
 from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
 from sea_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
-from sea_tpu_torch.models.opt import OptForCausalLM, opt_125m, opt_1_3b, opt_2_7b
+from sea_tpu_torch.models.opt import (BASELINE_METHODS, OptForCausalLM, opt_125m, opt_1_3b,
+                                      opt_2_7b)
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
 from sea_tpu_torch.ops.masks import _ranks_desc, fp_min_for, topk_mask
@@ -399,8 +436,10 @@ from sea_tpu_torch.parallel import (
 from sea_tpu_torch.parallel import sharded_attention as sa
 from sea_tpu_torch.serving import ServingEngine
 from sea_tpu_torch.training.distill import SeaOptKDScan
+from sea_tpu_torch.training.glue_trainer import GlueTrainer, GlueTrainerConfig, build_bert
+from sea_tpu_torch.training.lra_trainer import LraTrainer, LraTrainerConfig
 from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
-from sea_tpu_torch.training.opt_trainer import OptTrainer, TrainerConfig
+from sea_tpu_torch.training.opt_trainer import OptTrainer, TrainerConfig, build_model
 from sea_tpu_torch.utils.profiler import get_bench
 
 H, D, T_M, K = 12, 64, 256, 64
@@ -474,7 +513,14 @@ KD_LONG_T = 2048  # one KD micro-step at OPT's context
 DECODE_P, DECODE_MAX_LEN, DECODE_STEPS = 1024, 2048, 64  # the decode phase's request
 # the decode and serve phases' depth: OPT-125m cut from 12 layers to 6, since
 # their steps are host-bound (launches a layer) and set most of the run's time
-DECODE_LAYERS = 6
+# the baselines' request, the GLUE and LRA trainers' steps
+BASELINE_T = 2048
+BERT_BASELINES = ("performer", "synthesizer", "cosformer", "reformer", "scatterbrain",
+                  "sinkhorn")
+PADDING_MASKED = ("synthesizer", "cosformer")  # the methods whose reference masks padding
+GLUE_STEPS, GLUE_LONG_T = 3, 256
+LRA_STEPS, LRA_N_TRAIN, LRA_TEXT_T = 2, 128, 1024
+DECODE_LAYERS = 3  # [decode] and [serve]: host-bound steps, cut in depth
 DECODE_BATCH = 8  # the second decode rate's rows
 DECODE_TOL = 2e-2  # decode against the forward (tests/test_opt_decode.py:13)
 PAGED_STEPS, PAGED_TOL = 16, 1e-5
@@ -1981,7 +2027,7 @@ def capture_bert_layer0(model, inputs):
         f"{bad} mismatches of {cpu_mask.numel()}")
     require(bad == 0, "non-causal top-k masks differ between the card and the CPU")
     # the kernel's own operands: q / sqrt(D), v zeroed on the padded rows
-    q = buf["q"] / math.sqrt(D)
+    q = buf["q"] / math.sqrt(model.cfg.head_dim)
     v = torch.where(alive, buf["v"], torch.zeros_like(buf["v"]))
     mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
     sc = torch.sigmoid(buf["estimated_scales"][..., 0])
@@ -3005,6 +3051,236 @@ def phase_kd():
 
 
 # ---------------------------------------------------------------------------
+# The baseline methods, BERT's KD through the GLUE and LRA trainers
+# ---------------------------------------------------------------------------
+
+
+def no_kernel(phase, counts):
+    require(not any(counts.values()), f"[{phase}] launched kernels: {counts}")
+
+
+def timed_sync(fn):
+    """(host ms of `fn()` ending in a synchronise, its result)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3, out
+
+
+def phase_baselines():
+    dev = "cuda"
+    g = torch.Generator().manual_seed(19)
+    ids = torch.randint(4, 50272, (1, BASELINE_T), generator=g).to(dev)
+    am = torch.ones_like(ids)
+    reset_launches()
+    for method in BASELINE_METHODS:
+        t0 = time.perf_counter()
+        model = build_model(opt_125m(method), 0, dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        fwd_ms = host_ms(lambda: infer(model, ids, am), 1)
+        logits = infer(model, ids, am)
+        opt = make_optimizer(model, TRAIN_LR)
+        train_step(model, opt, ids, am)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, loss = timed_sync(lambda: float(train_step(model, opt, ids, am)))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        finite = bool(torch.isfinite(logits).all()) and math.isfinite(loss)
+        log(f"[baselines] OPT-125m '{method}' student 1x{BASELINE_T} (built in {build_s:.1f} s): "
+            f"forward {fwd_ms:.2f} ms, task-only step {step_ms:.2f} ms, loss {loss:.6f}, "
+            f"peak {peak:.2f} GiB, finite {finite}")
+        require(finite and logits.shape == (1, BASELINE_T, 50272),
+                f"OPT '{method}' logits or loss not finite")
+        del model, opt, logits
+        torch.cuda.empty_cache()
+
+    n, T, lo, hi = BERT_REQUESTS[0]
+    ids, am, types = bert_batch(n, T, lo, hi, seed=20, vocab=30522, device=dev)
+    ids_pad = torch.where(am > 0, ids, torch.full_like(ids, 7))
+    for method in BERT_BASELINES:
+        model = build_bert(bert_base(method), 0, dev).eval()
+        ms, logits = forward_ms(model, ids, am, types, iters=3)
+        moved = max_err(infer(model, ids_pad, am, types), logits)
+        scale = float(logits.abs().max())
+        log(f"[baselines] BERT-base '{method}' {n}x{T} (lengths {lo}-{hi}): forward {ms:.2f} ms, "
+            f"logits finite {bool(torch.isfinite(logits).all())}; padding's ids changed: "
+            f"max|logit change| {moved:.3g} of max|logit| {scale:.3g}"
+            + (" (the reference masks padding here)" if method in PADDING_MASKED
+               else " (the reference reads the padding here)"))
+        require(bool(torch.isfinite(logits).all()), f"BERT '{method}' logits not finite")
+        if method in PADDING_MASKED:
+            require(moved <= F32_TOL * scale, f"BERT '{method}': padding moved the logits")
+        del model
+        torch.cuda.empty_cache()
+    no_kernel("baselines", launch_counts())
+
+
+def student_k5(phase, model, inputs, timed=False):
+    """One benchmarking forward of a trained BERT student through K5: one
+    launch a layer and no other kernel; layer 0's captured inputs reproduce
+    the run's output bit for bit and K5 holds its plain version. Returns
+    (launches, max|err|)."""
+    model.eval()
+    reset_launches()
+    logits = infer(model, *inputs)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {**dict.fromkeys(counts, 0), "K5": model.cfg.num_layers}
+    require(counts == want, f"[{phase}] the student's forward launched {counts}, want {want}")
+    require(bool(torch.isfinite(logits).all()), f"[{phase}] the student's logits")
+    q, k, v, mask, sc, lengths, run_out = capture_bert_layer0(model, inputs)
+    err, got = check_bidir(f"{phase} student layer-0 {tuple(q.shape)}", q, k, v, mask, sc,
+                           lengths, timed=timed)
+    require(torch.equal(got, run_out), f"[{phase}] K5 on the captured inputs differs")
+    log(f"[{phase}] trained student through K5: {counts['K5']} launches, layer-0 max|err| "
+        f"{err:.3g}")
+    return counts["K5"], err
+
+
+def phase_glue_kd():
+    dev = "cuda"
+    with tempfile.TemporaryDirectory() as save_dir:
+        t0 = time.perf_counter()
+        tr = GlueTrainer(GlueTrainerConfig(model="bert-base", subset="mrpc",
+                                           num_steps=GLUE_STEPS, eval_steps=10 ** 9,
+                                           save_dir=save_dir), device=dev)
+        torch.cuda.synchronize()
+        T = tr.train_ds.input_ids.shape[1]
+        log(f"[glue-kd] GlueTrainer(bert-base, mrpc) on {dev} in {time.perf_counter() - t0:.1f} "
+            f"s: batch {tr.batch_size}, T = {T} (synthetic fallback), {len(tr.train_ds)} "
+            f"training and {len(tr.eval_ds)} validation examples")
+        student0 = {n: x.clone() for n, x in tr.student.state_dict().items()}
+        teacher0 = {n: x.clone() for n, x in tr.teacher.state_dict().items()}
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        wall, _ = timed_sync(tr.train)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        no_kernel("glue-kd", launch_counts())
+        with open(tr.metrics_path) as f:
+            records = [json.loads(line) for line in f]
+        moved = sum(not torch.equal(x, student0[n]) for n, x in tr.student.state_dict().items())
+        same = all(torch.equal(x, teacher0[n]) for n, x in tr.teacher.state_dict().items())
+        require(tr.step == GLUE_STEPS and moved > 0 and same,
+                f"steps {tr.step}, {moved} tensors moved, teacher unchanged {same}")
+        batch = next(tr.train_ds.batches(tr.batch_size, shuffle=True, seed=7))
+        tr.train_step(*batch)  # warm-up
+        step_ms, details = timed_sync(lambda: tr.train_step(*batch))
+        terms = {n: float(x) for n, x in details.items()}
+        require(all(math.isfinite(v) for v in terms.values()), f"a KD term: {terms}")
+        eval_ms, score = timed_sync(lambda: tr.evaluate(max_batches=16, return_dict=True))
+        teacher_ms, acc = timed_sync(lambda: tr.evaluate_teacher(max_batches=16))
+        log(f"[glue-kd] main path: train() of {GLUE_STEPS} steps and its evaluation in "
+            f"{wall:.1f} ms (records {records}), peak {peak:.2f} GiB; {moved} of {len(student0)} "
+            f"student tensors moved, teacher unchanged; a steady step {step_ms:.2f} ms, terms "
+            f"{terms}; evaluate {score} in {eval_ms:.1f} ms, evaluate_teacher {acc:.4f} in "
+            f"{teacher_ms:.1f} ms (random teacher, synthetic data)")
+
+        long = synthetic_glue("mrpc", "train", n=tr.batch_size, max_length=GLUE_LONG_T)
+        long_t = tr._tensors(*next(long.batches(tr.batch_size)))
+        ids, am, tt, labels = long_t
+
+        def micro():
+            loss, det = tr.kd.kd_loss(ids, am, labels, tt)
+            loss.backward()
+            tr.student.zero_grad(set_to_none=True)
+            return {n: float(x.detach()) for n, x in det.items() if n != "logits"}
+
+        micro()  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        long_ms, long_terms = timed_sync(micro)
+        long_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[glue-kd] KD micro-step {tr.batch_size}x{GLUE_LONG_T}: {long_ms:.2f} ms, peak "
+            f"{long_peak:.2f} GiB, terms {long_terms}")
+        require(all(math.isfinite(v) for v in long_terms.values()), "a 256-token KD term")
+        launches, err = student_k5("glue-kd", tr.student, (ids, am, tt))
+        del tr
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=err, step_ms=step_ms, peak=peak, long_ms=long_ms,
+                long_peak=long_peak)
+
+
+def lra_config(save_dir, **kw):
+    return LraTrainerConfig(task="listops", num_steps=LRA_STEPS, n_train=LRA_N_TRAIN,
+                            log_every=1, save_dir=save_dir, data_cache_dir=save_dir, **kw)
+
+
+def phase_lra():
+    dev = "cuda"
+    with tempfile.TemporaryDirectory() as save_dir:
+        t0 = time.perf_counter()
+        dense = LraTrainer(lra_config(save_dir, phase="dense"), device=dev)
+        torch.cuda.synchronize()
+        c = dense.t_cfg
+        log(f"[lra] ListOps teacher on {dev} in {time.perf_counter() - t0:.1f} s: {c.num_layers} "
+            f"layers, width {c.hidden_size}, {c.num_heads} heads, batch {dense.batch_size}, T = "
+            f"{dense.train_ds.input_ids.shape[1]}, remat_layers {c.remat_layers}")
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        wall, _ = timed_sync(lambda: dense.train(log=log))
+        dense_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        no_kernel("lra", launch_counts())
+
+        back = LraTrainer(lra_config(save_dir, phase="dense"), device=dev)
+        same = all(torch.equal(x, y) for x, y in zip(dense.teacher.state_dict().values(),
+                                                       back.teacher.state_dict().values()))
+        sa, sb = dense.t_optimizer.state_dict(), back.t_optimizer.state_dict()
+        same_opt = sa["count"] == sb["count"] and all(
+            torch.equal(sa["state"][n][m], sb["state"][n][m]) for n in sa["state"]
+            for m in ("mu", "nu"))
+        log(f"[lra] dense: {LRA_STEPS} steps through train() in {wall:.1f} ms with the save "
+            f"({wall / LRA_STEPS:.1f} ms a step), peak {dense_peak:.2f} GiB; resumed at step "
+            f"{back.step}: parameters equal {same}, optimizer state equal {same_opt}")
+        require(back.step == dense.step == LRA_STEPS and same and same_opt,
+                "the LRA teacher's resume is not bit for bit")
+        del dense, back
+        torch.cuda.empty_cache()
+
+        kd = LraTrainer(lra_config(save_dir, phase="distill", accum_steps=2), device=dev)
+        student0 = {n: x.clone() for n, x in kd.student.state_dict().items()}
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        wall, _ = timed_sync(lambda: kd.train(log=log))
+        kd_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        no_kernel("lra", launch_counts())
+        moved = sum(not torch.equal(x, student0[n]) for n, x in kd.student.state_dict().items())
+        require(kd.step == LRA_STEPS and moved > 0, f"the distill phase: step {kd.step}, "
+                f"{moved} tensors moved")
+        micro = list(kd.train_ds.batches(kd.batch_size))[:2]
+        torch.cuda.reset_peak_memory_stats()
+        step_ms, (loss, terms) = timed_sync(lambda: kd.kd_step(micro))
+        step_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        terms = {n: float(x) for n, x in terms.items()}
+        require(math.isfinite(float(loss)) and all(math.isfinite(v) for v in terms.values()),
+                f"an LRA KD term: {terms}")
+        log(f"[lra] distill: {LRA_STEPS} steps of 2 micro-batches through train() (with the "
+            f"bootstrap probe and the save) in {wall:.1f} ms, peak {kd_peak:.2f} GiB; one more "
+            f"step {step_ms:.2f} ms, peak {step_peak:.2f} GiB, loss {float(loss):.6f}, terms "
+            f"{terms}")
+        ids, am, tt, _ = kd._tensors(*next(kd.eval_ds.batches(kd.batch_size)))
+        launches, err = student_k5("lra", kd.student, (ids, am, tt), timed=True)
+        del kd
+        torch.cuda.empty_cache()
+
+        text = LraTrainer(LraTrainerConfig(task="text", n_train=16, save_dir=save_dir),
+                          device=dev)
+        batch = [next(text.train_ds.batches(text.batch_size))]
+        text.kd_step(batch)  # warm-up
+        torch.cuda.reset_peak_memory_stats()
+        text_ms, (loss, _) = timed_sync(lambda: text.kd_step(batch))
+        text_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        log(f"[lra] text KD step {text.batch_size}x{text.train_ds.input_ids.shape[1]} "
+            f"({text.s_cfg.num_layers} layers, "
+            f"width {text.s_cfg.hidden_size}, remat {text.s_cfg.remat_layers}): {text_ms:.2f} ms, "
+            f"peak {text_peak:.2f} GiB, loss {float(loss):.6f}")
+        require(math.isfinite(float(loss)), "the text KD loss")
+        del text
+    torch.cuda.empty_cache()
+    return dict(launches=launches, err=err, step_ms=step_ms, peak=step_peak, text_ms=text_ms,
+                text_peak=text_peak)
+
+
+# ---------------------------------------------------------------------------
 # Decode and serving
 # ---------------------------------------------------------------------------
 
@@ -3325,17 +3601,18 @@ def opt27b(weights=None, method="perlin", remat=False, **sea_kw) -> OptForCausal
 def bf16_opt(builder, head_dim, weights=None, method="perlin", remat=False,
              **sea_kw) -> OptForCausalLM:
     """`builder`'s OPT with 32 heads of `head_dim` on the card, cast to
-    bfloat16: seeded random weights (seed 0) or the state dict `weights`;
+    bfloat16: seeded random weights drawn on the card (`init_random_` from a
+    CUDA generator of seed 0: the CPU takes 25-45 s over 1.3-2.7 G
+    parameters, set-up time of no path) or the state dict `weights`;
     `remat` sets `scan_layers` and `scan_remat` (the per-layer remat)."""
     cfg = builder(method, sea=opt_config(num_heads=32, head_dim=head_dim, **sea_kw))
     cfg = dataclasses.replace(cfg, scan_layers=remat, scan_remat=remat)
+    # built on the card, where the layers' default init (overwritten below)
+    # takes no host time
+    with torch.device("cuda"):
+        model = OptForCausalLM(cfg, device="cuda", seed=None)
     if weights is None:
-        model = OptForCausalLM(cfg, device="cuda", seed=0)
-    else:
-        # built on the card, where the layers' default init (overwritten by
-        # the weights) takes no host time
-        with torch.device("cuda"):
-            model = OptForCausalLM(cfg, device="cuda", seed=None)
+        init_random_(model, torch.Generator(device="cuda").manual_seed(0))
     model.to(torch.bfloat16)
     if weights is not None:
         missing, _ = model.load_state_dict(weights, strict=False)
@@ -4423,19 +4700,10 @@ def main():
         f"plain {m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
         f"{m['bound_ms']:.4f} ms by {m['bound_by']}; max|err| of the bidir-kernel phase "
         f"{bidir_err:.3g}")
-    kernels.append({
-        "name": "sea_bidir_forward",
-        "route": "cuda",
-        "source": KERNEL_SOURCE,
-        "replaces": BIDIR_REPLACES,
-        "launches": bidir_launches,
-        "max_abs_err": bert_err,
-        "ms": m["ms"],
-        "plain_ms": m["plain_ms"],
-        "bound_ms": m["bound_ms"],
-        "bound_by": m["bound_by"],
-        "library_ms": m["library_ms"],
-    })
+    # the trained BERT students' forwards (glue-kd, lra) add their launches
+    k5_entry = kernel_entry("sea_bidir_forward", KERNEL_SOURCE, BIDIR_REPLACES, bidir_launches,
+                            bert_err, m)
+    kernels.append(k5_entry)
 
     ring_errs, _, ring_bf16_errs = phase_ring_kernels()
     time_phase(t_start, "ring-kernels")
@@ -4505,6 +4773,19 @@ def main():
     log(f"[result] KD at 1x512: {kd['micro_ms']:.2f} ms per micro-step, peak "
         f"{kd['peak']:.2f} GiB, PPL {kd['ppl']:.4f}; 1x{KD_LONG_T}: {kd['long_ms']:.2f} ms, "
         f"peak {kd['long_peak']:.2f} GiB")
+    phase_baselines()
+    time_phase(t_start, "baselines")
+    glue = phase_glue_kd()
+    time_phase(t_start, "glue-kd")
+    lra = phase_lra()
+    time_phase(t_start, "lra")
+    k5_entry["launches"] += glue["launches"] + lra["launches"]
+    k5_entry["max_abs_err"] = max(k5_entry["max_abs_err"], glue["err"], lra["err"])
+    log(f"[result] GLUE KD (bert-base, 32x64): {glue['step_ms']:.2f} ms a step, peak "
+        f"{glue['peak']:.2f} GiB; 32x{GLUE_LONG_T} micro-step {glue['long_ms']:.2f} ms, peak "
+        f"{glue['long_peak']:.2f} GiB; LRA ListOps KD step (2 x 32x512, remat) "
+        f"{lra['step_ms']:.2f} ms, peak {lra['peak']:.2f} GiB; text 16x{LRA_TEXT_T} "
+        f"{lra['text_ms']:.2f} ms, peak {lra['text_peak']:.2f} GiB")
 
     dec = phase_decode()
     kernels[0]["launches"] += dec["launches"]
@@ -4518,7 +4799,8 @@ def main():
     # OPT-1.3b in bfloat16: the random weights built once, cast to bf16
     t0 = time.perf_counter()
     weights = opt13b().state_dict()
-    log(f"[opt13b] OPT-1.3b weights (seed 0, bf16) built in {time.perf_counter() - t0:.1f} s")
+    log(f"[opt13b] OPT-1.3b weights (seed 0 on the card, bf16) built in "
+        f"{time.perf_counter() - t0:.1f} s")
     serve_launches, captured = phase_opt13b_serve(weights)
     k1_bf16 = measure(*captured[:5], k_cfg=float(K))
     log(f"[result] OPT-1.3b layer 0 {tuple(captured[0].shape)} bfloat16: K1 {k1_bf16['ms']:.4f} "
@@ -4570,7 +4852,8 @@ def main():
     # OPT-2.7b in bfloat16 (head width 80): the random weights built once
     t0 = time.perf_counter()
     weights = opt27b().state_dict()
-    log(f"[opt27b] OPT-2.7b weights (seed 0, bf16) built in {time.perf_counter() - t0:.1f} s")
+    log(f"[opt27b] OPT-2.7b weights (seed 0 on the card, bf16) built in "
+        f"{time.perf_counter() - t0:.1f} s")
     k1_27, cap27, cap27_32 = phase_opt27b_serve(weights)
     prefill27 = phase_opt27b_decode(weights)
     train27 = phase_opt27b_train(weights)

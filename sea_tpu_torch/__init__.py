@@ -18,7 +18,11 @@ dense train path of the SEA attention with, on it, the OPT-125m
 knowledge-distillation trainer (`training.opt_trainer`, `training.distill`);
 and decode: the SEA decode cache (`models.state`), OPT's parallel prefill
 (kernel K1) and greedy, sampled (`ops.sampling`) and beam generation, and
-the continuous-batching serving engine over a paged K/V pool (`serving`).
+the continuous-batching serving engine over a paged K/V pool (`serving`);
+and the baseline attention methods (`ops.baselines`, OPT's and LLaMA's
+students, BERT's methods), BERT's SEA train path with ToMe (`ops.tome`) and
+its other heads, and BERT's distillation through the GLUE and LRA trainers
+(`training.glue_trainer`, `training.lra_trainer`, `data.glue`, `data.lra`).
 """
 
 from .config import SeaConfig, opt_config

@@ -6,8 +6,10 @@ tokens start every `stride` tokens, and only each window's last `stride`
 targets are supervised (labels -100 before them), so that the windowed
 perplexity is the standard strided one. Tokens come from a local cache,
 `{cache_dir}/wikitext2_{split}.npy` (`saves/data` at the repository root by
-default); without it, `synthetic_corpus` gives a deterministic Zipf-like
-stream with the same interface. Nothing is downloaded.
+default), or for `dataset="openwebtext"` (the reference's OpenWebText swap)
+`{cache_dir}/openwebtext_{split}.npy`; without it, `synthetic_corpus` gives
+a deterministic Zipf-like stream with the same interface. Nothing is
+downloaded.
 """
 
 from __future__ import annotations
@@ -102,6 +104,19 @@ def load_wikitext2_tokens(split: str = "train", cache_dir: Optional[str] = None)
     return np.load(cache)
 
 
+def load_openwebtext_tokens(split: str = "train", cache_dir: Optional[str] = None) -> np.ndarray:
+    """The cached token array of OpenWebText's `split` (its first documents,
+    tokenised with facebook/opt-125m's tokenizer); FileNotFoundError
+    without it."""
+    cache = os.path.join(cache_dir or DEFAULT_CACHE_DIR, f"openwebtext_{split}.npy")
+    if not os.path.exists(cache):
+        raise FileNotFoundError(f"no cached tokens at {cache}")
+    return np.load(cache)
+
+
+CORPORA = {"wikitext2": load_wikitext2_tokens, "openwebtext": load_openwebtext_tokens}
+
+
 def get_corpus(
     max_length: int,
     stride: int,
@@ -109,12 +124,15 @@ def get_corpus(
     synthetic_fallback: bool = True,
     vocab_size: int = 50272,
     cache_dir: Optional[str] = None,
+    dataset: str = "wikitext2",
 ) -> WindowedCorpus:
-    """The cached wikitext-2 split, or the synthetic stream (seed 0 for
-    'train', 1 otherwise) when the cache is absent and
-    `synthetic_fallback`."""
+    """The cached split of `dataset` ('wikitext2' or 'openwebtext'), or the
+    synthetic stream (seed 0 for 'train', 1 otherwise) when the cache is
+    absent and `synthetic_fallback`."""
+    if dataset not in CORPORA:
+        raise ValueError(f"dataset {dataset!r}: one of {sorted(CORPORA)}")
     try:
-        tokens = load_wikitext2_tokens(split, cache_dir)
+        tokens = CORPORA[dataset](split, cache_dir)
     except FileNotFoundError:
         if not synthetic_fallback:
             raise

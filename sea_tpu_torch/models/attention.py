@@ -72,10 +72,13 @@ context's running sum, the KD losses, and the decode state's FAVOR+ sums and
 running sum. bfloat16 operands take K1-K4's bf16 instances; the ring's
 windowed kernels (K6-K8) take float32 only.
 
+`kd_self_teacher` trains the dense path against the student's own detached
+dense scores (plus the mask) when no teacher truth is given.
+
 Not ported yet, and refused with NotImplementedError rather than routed
-elsewhere: `kd_self_teacher`, the non-causal oversampled benchmark path (a
-CSR route in JAX), the uniform-CSR benchmark path (`use_pallas=False`), the
-'comp' predictor, `enc_per_layer` and LoRA.
+elsewhere: the non-causal oversampled benchmark path (a CSR route in JAX),
+the uniform-CSR benchmark path (`use_pallas=False`), the 'comp' predictor,
+`enc_per_layer` and LoRA.
 """
 
 from __future__ import annotations
@@ -217,6 +220,10 @@ def init_random_(root: nn.Module, generator: torch.Generator):
                 ))
                 if m.cfg.causal:
                     m.v_eye_learned_causal.copy_(randn(m.v_eye_learned_causal.shape))
+            elif hasattr(m, "performer_proj"):
+                # a baseline performer's (or scatterbrain's) projection
+                m.performer_proj.copy_(gaussian_orthogonal_random_matrix(
+                    generator, *m.performer_proj.shape, device=generator.device))
 
 
 class SeaAttention(nn.Module):
@@ -384,12 +391,9 @@ class SeaAttention(nn.Module):
         `training` and causal; None draws nothing, as the JAX module does
         without an `rng`."""
         cfg = self.cfg
-        if cfg.kd_self_teacher and training and attention_scores_truth is None:
-            raise NotImplementedError(
-                "kd_self_teacher is not ported yet (ROADMAP queue 1, "
-                "'KD and trainer leftovers')"
-            )
-        truths = attention_scores_truth is not None or context_layer_truth is not None
+        # a self-teacher student (below) trains against its own scores
+        truths = (attention_scores_truth is not None or context_layer_truth is not None
+                  or (cfg.kd_self_teacher and training))
         # task-only training through the differentiable fused kernel
         use_fused_train = (
             not benchmarking
@@ -434,6 +438,14 @@ class SeaAttention(nn.Module):
             attention_mask = dst_attention_mask.transpose(-1, -2)
         zero_one_attention_mask = (attention_mask > -1).float()
         dst_alive = dst_attention_mask > -1  # (N, 1, T_DST, 1)
+
+        # the self-teacher: the student's own detached dense scores as its
+        # truth (no context truth)
+        if cfg.kd_self_teacher and attention_scores_truth is None and training:
+            attention_scores_truth = torch.einsum(
+                "nhtd,nhsd->nhts", q_for_score.detach(), k_for_score.detach()
+            ) + (causal_attention_mask if cfg.causal else attention_mask)
+            context_layer_truth = None
 
         bench.register_temp_buffer("q", q)
         bench.register_temp_buffer("k", k)

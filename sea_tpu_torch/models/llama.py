@@ -18,7 +18,10 @@ K1, with `benchmarking=True`; with `training=True` and the SEA config's
 `use_fused_train`, no KD truths, the differentiable fused path, kernels
 K2-K4, on the (N, 1, T, T) causal mask, as the JAX model hands it to
 `SeaAttention`; the dense train path otherwise, KD's student) or 'none' (the
-dense teacher, whose layers capture their clamped scores and context).
+dense teacher, whose layers capture their clamped scores and context), or
+one of OPT's causal baseline students, 'performer', 'reformer', 'sinkhorn'
+and 'cosformer' (`opt.causal_baseline_context` on the roped, expanded
+heads; decode stays the SEA student's).
 Training runs through `training.longctx.train_step(s)` (task-only, fused)
 and `training.opt_trainer.OptTrainer(model="llama-*")` (KD, dense path).
 Decode and generation are OPT's (`opt.CausalLMGeneration`): this model
@@ -40,8 +43,8 @@ checkpoints each layer under grad, and `forward(..., labels=,
 logit_chunk=)` streams the cross entropy through the untied, bias-free head
 per chunk, with `logits=None`.
 
-Not ported yet, and refused: the other attention methods, ROADMAP queue 1
-item 2; `external_layers` (pipeline stages), item 8; LoRA, item 4.
+Not ported yet, and refused: `external_layers` (pipeline stages), ROADMAP
+queue 1 item 8; LoRA, item 4.
 """
 
 from __future__ import annotations
@@ -56,12 +59,15 @@ from ..config import SeaConfig, opt_config
 from .attention import SeaAttention, init_random_, softmax_fp32
 from .modules import Dense, RMSNorm, silu
 from .opt import (
+    BASELINE_METHODS,
     COMPUTE_DTYPES,
     CausalLMGeneration,
     JitterDraws,
     LayerTeacherOutput,
     OptForCausalLM,
+    add_causal_baseline,
     build_causal_mask,
+    causal_baseline_context,
     check_plain_scan_forward,
     lm_loss,
     scan_layers,
@@ -206,11 +212,8 @@ class LlamaAttention(nn.Module):
 
     def __init__(self, cfg: LlamaConfig):
         super().__init__()
-        if cfg.attention_method not in ("perlin", "none"):
-            raise NotImplementedError(
-                f"attention_method={cfg.attention_method!r} is not ported yet "
-                "(ROADMAP queue 1 item 2)"
-            )
+        if cfg.attention_method not in ("perlin", "none", *BASELINE_METHODS):
+            raise ValueError(f"attention_method {cfg.attention_method!r}")
         if cfg.attention_method == "perlin" and (
                 cfg.sea.lora_enabled or cfg.sea.lora_in_approx_enabled):
             raise NotImplementedError("LoRA is not ported yet (ROADMAP queue 1 item 4)")
@@ -222,6 +225,8 @@ class LlamaAttention(nn.Module):
         self.o_proj = Dense(E, E, bias=False)
         if cfg.attention_method == "perlin":
             self.perlin = SeaAttention(cfg.sea, device="cpu", seed=None)
+        elif cfg.attention_method != "none":
+            add_causal_baseline(self, cfg.attention_method, E, cfg.num_heads, cfg.sea)
 
     def _heads(self, x: torch.Tensor, heads: int) -> torch.Tensor:
         N, T, _ = x.shape
@@ -261,6 +266,10 @@ class LlamaAttention(nn.Module):
             ctx = ctx.permute(0, 2, 1, 3).reshape(N, T, E)
             capture = LayerTeacherOutput(attention_scores=scores, context_layer=ctx)
             return self.o_proj(ctx), None, capture
+        if self.cfg.attention_method != "perlin":
+            ctx = causal_baseline_context(self, self.cfg.attention_method, q, k, v, causal_mask,
+                                          self.cfg.sea.k, hidden_states.dtype, jitter)
+            return self.o_proj(ctx), None, None
 
         out = self.perlin(
             q, k, v, q, k, v, q, k, causal_mask,

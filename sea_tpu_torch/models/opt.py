@@ -68,13 +68,21 @@ in bfloat16 compute; 2.7b's heads are 80 wide, which K1-K4 take).
 the JAX package's scanned decode helpers: they drive the loop decode and take
 and return the per-layer decode states stacked on axis 0, in JAX's layout.
 
-Not ported yet: the other attention methods.
+The baseline students 'performer' (causal generalised FAVOR+ on the
+layer's own `performer_proj` buffer), 'reformer' (LSH attention; the
+rotations are the layer's draws, JAX's `rng`: passed in through `jitter`
+or, without them, drawn from a generator seeded 7 as JAX falls back on
+`key(7)`), 'sinkhorn' (causal sparse Sinkhorn, blocks of `sea.k`) and
+'cosformer' (the causal `CosformerAttention` with its own projections) run
+`causal_baseline_context` (`ops/baselines.py`, plain PyTorch, float32
+islands), their padded value rows zeroed; they carry no KD loss and no
+capture. Decode is the SEA student's alone, as in JAX.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -82,7 +90,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..config import SeaConfig, opt_config
+from ..ops.baselines import (lsh_buckets, lsh_rotations, reformer_lsh_attention,
+                             sinkhorn_causal_attention)
+from ..ops.cosformer import CosformerAttention
 from ..ops.masks import fp_min_for
+from ..ops.performer import fast_attention
 from ..ops.sampling import sample_logits
 from .attention import SeaAttention, _layer_norm, init_random_, softmax_fp32
 from .modules import Dense, promote
@@ -170,8 +182,70 @@ class LayerTeacherOutput(NamedTuple):
     context_layer: torch.Tensor  # (N, T, H·D) before out_proj
 
 
-# one layer's resize-jitter draws (`ops.masks.resize_jitter_draws`)
-JitterDraws = Tuple[torch.Tensor, torch.Tensor]
+# one layer's random draws, JAX's per-layer `rng`: a 'perlin' student's
+# resize jitter (`ops.masks.resize_jitter_draws`), or a 'reformer' student's
+# LSH rotations (`reformer_draws`)
+JitterDraws = Union[Tuple[torch.Tensor, torch.Tensor], List[torch.Tensor]]
+
+# the causal baseline students, and the reformer's fallback seed (JAX's
+# `key(7)` when no rng is given)
+BASELINE_METHODS = ("performer", "reformer", "sinkhorn", "cosformer")
+REFORMER_SEED = 7
+REFORMER_BUCKET, REFORMER_HASHES = 64, 4
+
+
+def add_causal_baseline(attn: nn.Module, method: str, hidden_size: int, num_heads: int,
+                        sea: SeaConfig) -> None:
+    """Give a decoder's attention module what its baseline student keeps:
+    the performer's FAVOR+ projection (a buffer, as SEA's) or the
+    cosformer's projections; the reformer and sinkhorn learn nothing."""
+    if method == "performer":
+        attn.register_buffer("performer_proj", torch.empty(sea.nb_features, sea.head_dim))
+    elif method == "cosformer":
+        attn.cosformer = CosformerAttention(hidden_size, num_heads, has_outproj=False,
+                                            causal=True, device="cpu")
+
+
+def reformer_draws(head_dim: int, t: int, generator: Optional[torch.Generator] = None,
+                   device="cpu") -> List[torch.Tensor]:
+    """One reformer layer's rotations at length `t` (`REFORMER_HASHES` of
+    (head_dim, n_buckets / 2)), from `generator` (None: seed
+    `REFORMER_SEED`'s)."""
+    _, n_buckets = lsh_buckets(t, REFORMER_BUCKET)
+    return lsh_rotations(head_dim, n_buckets, REFORMER_HASHES, generator,
+                         seed=REFORMER_SEED, device=device)
+
+
+def causal_baseline_context(attn: nn.Module, method: str, q, k, v, causal_mask,
+                            k_cfg: int, dtype: torch.dtype,
+                            draws: Optional[List[torch.Tensor]] = None) -> torch.Tensor:
+    """The (N, T, H·D) context of a causal baseline student (OPT's and
+    LLaMA's alike, `sea_tpu/models/opt.py:246-294`) from its heads q, k, v
+    (N, H, T, D; q scaled), in `dtype`; each method computes in float32."""
+    N, H, T, D = q.shape
+    if method == "performer":
+        out = fast_attention(q.float(), k.float(), v.float(), attn.performer_proj,
+                             causal=True, generalized=True)
+        return out.to(dtype).permute(0, 2, 1, 3).reshape(N, T, H * D)
+    # padded value rows zeroed, as the reference's v * (mask[..., :1] > -1)
+    v = torch.where(causal_mask[:, :, :, :1] > -1, v, torch.zeros((), dtype=v.dtype,
+                                                                    device=v.device))
+    if method == "cosformer":
+        def to_seq(x):  # (N, H, T, D) -> (T, N, H·D), float32
+            return x.permute(0, 2, 1, 3).reshape(N, T, H * D).transpose(0, 1).float()
+
+        return attn.cosformer(to_seq(q), to_seq(k), to_seq(v)).transpose(0, 1).to(dtype)
+    if method == "reformer":
+        if draws is None:
+            draws = reformer_draws(D, T, device=q.device)
+        out = reformer_lsh_attention(q.float(), v.float(), bucket_size=REFORMER_BUCKET,
+                                     n_hashes=REFORMER_HASHES, causal=True, rotations=draws)
+    elif method == "sinkhorn":
+        out = sinkhorn_causal_attention(q.float(), k.float(), v.float(),
+                                        block_size=min(k_cfg, T))
+    else:
+        raise ValueError(f"attention_method {method!r}")
+    return out.to(dtype).permute(0, 2, 1, 3).reshape(N, T, H * D)
 
 
 def build_causal_mask(
@@ -194,10 +268,8 @@ class OptAttention(nn.Module):
 
     def __init__(self, cfg: OptConfig):
         super().__init__()
-        if cfg.attention_method not in ("perlin", "none"):
-            raise NotImplementedError(
-                f"attention_method={cfg.attention_method!r} is not ported yet"
-            )
+        if cfg.attention_method not in ("perlin", "none", *BASELINE_METHODS):
+            raise ValueError(f"attention_method {cfg.attention_method!r}")
         self.cfg = cfg
         E = cfg.hidden_size
         self.q_proj = Dense(E, E)
@@ -206,6 +278,8 @@ class OptAttention(nn.Module):
         self.out_proj = Dense(E, E)
         if cfg.attention_method == "perlin":
             self.perlin = SeaAttention(cfg.sea, device="cpu", seed=None)
+        elif cfg.attention_method != "none":
+            add_causal_baseline(self, cfg.attention_method, E, cfg.num_heads, cfg.sea)
 
     def _heads(self, x: torch.Tensor) -> torch.Tensor:
         N, T, _ = x.shape
@@ -223,8 +297,9 @@ class OptAttention(nn.Module):
         jitter: Optional[JitterDraws] = None,
     ):
         """Returns (attn_output (N, T, E), aux_loss | None, teacher capture
-        | None): the 'none' method captures, the student takes `teacher` as
-        its KD truths and `jitter` as its resize-jitter draws."""
+        | None): the 'none' method captures, the SEA student takes `teacher`
+        as its KD truths and `jitter` as its resize-jitter draws, a reformer
+        student `jitter` as its rotations."""
         c = self.cfg
         N, T, E = hidden_states.shape
         scaling = c.head_dim ** -0.5
@@ -240,6 +315,10 @@ class OptAttention(nn.Module):
             ctx = ctx.permute(0, 2, 1, 3).reshape(N, T, E)
             capture = LayerTeacherOutput(attention_scores=scores, context_layer=ctx)
             return self.out_proj(ctx), None, capture
+        if c.attention_method != "perlin":
+            ctx = causal_baseline_context(self, c.attention_method, q, k, v, causal_mask,
+                                          c.sea.k, hidden_states.dtype, jitter)
+            return self.out_proj(ctx), None, None
 
         out = self.perlin(
             q, k, v, q, k, v, q, k, causal_mask,

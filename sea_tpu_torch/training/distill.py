@@ -30,7 +30,13 @@ cross entropy and the logit KL run per chunk of the sequence, each chunk's
 logits under a checkpoint of their own, so one (N, C, V) pair of logits is
 live (as JAX's `_chunked_logit_losses` computes them).
 
-Not ported yet: `SeaBertKD` (ROADMAP queue 1 item 3).
+`SeaBertKD` is BERT's (the GLUE and LRA trainers'): BERT sequences are
+short, so the teacher runs in full first under `torch.no_grad()` and the
+student takes the list of its captures:
+
+    loss = 0.1 · task + 10 · mean over the L + 1 hidden states of their
+           float32 MSE + 0.1 · logit KL (batchmean over N) + the student's
+           aux loss (its attention-distill loss, 0 for a baseline)
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..models.bert import BertForSequenceClassification
 from ..models.llama import CausalLM, LlamaConfig, LlamaDecoderLayer, LlamaForCausalLM
 from ..models.opt import (JitterDraws, OptConfig, OptDecoderLayer, OptForCausalLM,
                           chunk_sums, cross_entropy_shifted, masked_nll, next_token_labels)
@@ -196,3 +203,49 @@ class SeaOptKDScan(SeaOptKD):
         tgt = torch.softmax(lt, -1)
         kl_sum = (tgt * (torch.log(tgt + 1e-12) - logp)).sum()
         return masked_nll(logp, labels), kl_sum
+
+
+class SeaBertKD:
+    """KD of a BERT student (any attention method) from its frozen dense
+    teacher (attention_method 'none'), both `BertForSequenceClassification`
+    of one depth."""
+
+    def __init__(self, teacher: BertForSequenceClassification,
+                 student: BertForSequenceClassification):
+        if teacher.cfg.attention_method != "none":
+            raise ValueError("the teacher must be dense (attention_method='none')")
+        if teacher.cfg.num_layers != student.cfg.num_layers:
+            raise ValueError("teacher and student must have the same depth")
+        self.teacher = teacher
+        self.student = student
+
+    def kd_loss(self, input_ids: torch.Tensor, attention_mask_1d: torch.Tensor,
+                labels: torch.Tensor, token_type_ids: Optional[torch.Tensor] = None,
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """(loss, details); details hold every term and the student's
+        logits."""
+        with torch.no_grad():
+            t_out = self.teacher(input_ids, attention_mask_1d, token_type_ids, labels=labels,
+                                 output_hidden_states=True)
+        s_out = self.student(input_ids, attention_mask_1d, token_type_ids, labels=labels,
+                             teacher_outputs=t_out["teacher_captures"], training=True,
+                             output_hidden_states=True)
+        pairs = list(zip(t_out["hidden_states"], s_out["hidden_states"]))
+        loss_hidden = sum(_mse(ht, hs) for ht, hs in pairs) / len(pairs) * 10.0
+        lt, ls = t_out["logits"].float(), s_out["logits"].float()
+        target = torch.softmax(lt, -1)
+        loss_logit_kl = (
+            (target * (torch.log(target + 1e-12) - torch.log_softmax(ls, -1))).sum()
+            / lt.shape[0] * 0.1
+        )
+        task = s_out["loss"]
+        loss = 0.1 * task + loss_hidden + loss_logit_kl + s_out["aux_loss"]
+        return loss, {
+            "loss": loss,
+            "loss_model": 0.1 * task,
+            "loss_kd_hidden": loss_hidden,
+            "loss_kd_logit": loss_logit_kl,
+            "loss_sp": s_out["aux_loss"],
+            "student_task_loss": task,
+            "logits": s_out["logits"],
+        }

@@ -49,7 +49,11 @@ see `models/opt.py` for what each type rounds.
 The entry point runs on "cuda" unless `--device` says otherwise, with TF32
 off and bfloat16 products reduced in float32. Refused with
 NotImplementedError, each naming its ROADMAP item: `data_parallel` and
-`checkpoint_rotation`, and student methods other than 'perlin' and 'none'.
+`checkpoint_rotation`. The students are JAX's: 'perlin' and the causal
+baselines 'performer', 'reformer', 'sinkhorn' and 'cosformer'
+(`models/opt.py`); a reformer student's LSH rotations are drawn each
+micro-step from the trainer's generator, as JAX draws them from each
+layer's rng. `load(only_additionals=True)` restores the SEA modules alone.
 """
 
 from __future__ import annotations
@@ -70,13 +74,16 @@ from ..data.wikitext2 import get_corpus
 from ..models.attention import init_random_
 from ..models.llama import CausalLM, LlamaConfig, llama_13b, llama_7b, llama_tiny
 from ..models.loader import load_llama_params, load_opt_params, student_from_teacher
-from ..models.opt import COMPUTE_DTYPES, OptConfig, opt_125m, opt_350m, opt_1_3b, opt_2_7b
+from ..models.opt import (COMPUTE_DTYPES, OptConfig, opt_125m, opt_350m, opt_1_3b, opt_2_7b,
+                          reformer_draws)
 from ..ops.masks import resize_jitter_draws
 from ..ops.performer import redraw_projections
 from .distill import SeaOptKD, SeaOptKDScan, causal_lm_for
 from .optimizer import GroupedAdamW
 
-LEFTOVERS = "ROADMAP queue 1, 'KD and trainer leftovers'"
+# the JAX trainer's options still to port, and the ROADMAP item of each
+UNPORTED = {"data_parallel": "ROADMAP queue 1 item 8, multi-GPU",
+            "checkpoint_rotation": "ROADMAP queue 1 item 9, tooling"}
 
 
 @dataclasses.dataclass
@@ -151,9 +158,9 @@ MODELS = {"opt-125m": (opt_125m, 12, 64), "opt-350m": (opt_350m, 16, 64),
 
 
 def _refuse_unported(cfg: TrainerConfig):
-    for name in ("data_parallel", "checkpoint_rotation"):
+    for name, item in UNPORTED.items():
         if getattr(cfg, name) != getattr(TrainerConfig, name):
-            raise NotImplementedError(f"TrainerConfig.{name} is not ported yet ({LEFTOVERS})")
+            raise NotImplementedError(f"TrainerConfig.{name} is not ported yet ({item})")
     if cfg.model not in ("tiny", "llama-tiny", *MODELS):
         raise ValueError(f"model {cfg.model!r}: one of {['tiny', 'llama-tiny', *MODELS]}")
     for name in ("compute_dtype", "param_dtype", "moment_dtype"):
@@ -284,10 +291,16 @@ class OptTrainer:
         self.log({"teacher_pretrain_loss": float(loss), "teacher_steps": steps})
 
     def jitter_draws(self, n: int, t: int):
-        """One layer's resize-jitter draws per student layer, for a batch
-        of `n` x `t` tokens (none for a dense student or under `scan_kd`)."""
-        if self.s_cfg.attention_method != "perlin" or self.cfg.scan_kd:
+        """One layer's draws per student layer, for a batch of `n` x `t`
+        tokens: a SEA student's resize jitter, a reformer student's LSH
+        rotations (none for the other students or under `scan_kd`)."""
+        method = self.s_cfg.attention_method
+        if self.cfg.scan_kd or method not in ("perlin", "reformer"):
             return None
+        if method == "reformer":
+            head_dim = self.s_cfg.hidden_size // self.s_cfg.num_heads
+            return [reformer_draws(head_dim, t, self.generator, self.device)
+                    for _ in range(self.s_cfg.num_layers)]
         return [resize_jitter_draws((n, 1, t, t), self.generator)
                 for _ in range(self.s_cfg.num_layers)]
 
@@ -400,7 +413,12 @@ class OptTrainer:
         }, tmp)
         os.replace(tmp, path)
 
-    def load(self, tag: str = "checkpoint") -> bool:
+    def load(self, tag: str = "checkpoint", only_additionals: bool = False) -> bool:
+        """Restore a checkpoint; False when there is none. `only_additionals`
+        restores only the SEA modules' parameters (every name with a part
+        containing `perlin`, as JAX selects its leaves) and keeps the base
+        weights, the projections, the optimizer state, the step and the
+        generator (the reference's `--load-only-additionals`)."""
         path = os.path.join(self.cfg.save_dir, tag + ".pt")
         if not os.path.exists(path):
             return False
@@ -410,6 +428,12 @@ class OptTrainer:
             raise CheckpointLayoutError(
                 f"checkpoint layout mismatch: saved scan_kd={bool(saved)}, trainer "
                 f"scan_kd={self.cfg.scan_kd}")
+        if only_additionals:
+            with torch.no_grad():
+                for n, p in self.student.named_parameters():
+                    if any("perlin" in part for part in n.split(".")):
+                        p.copy_(state["student"][n])
+            return True
         self.student.load_state_dict(state["student"])
         self.optimizer.load_state_dict(state["optimizer"])
         self.step = int(state["step"])

@@ -38,11 +38,18 @@ multiply a bfloat16 tensor by the float32 constant).
 stored type, the parameters' own type when None; the second moment is
 stored in the parameters' type. A parameter without a gradient gets a zero
 one, since optax updates (and decays) every leaf.
+
+`lr` is a float or, as optax takes one, a schedule: a function of the
+number of updates before this one, evaluated in float32 and multiplied by
+each group's scale in float32 (`linear_warmup` and `rsqrt_schedule`, the
+LRA trainer's). `clip_norm=None` skips the clipping and `decay_all` decays
+every parameter (plain `optax.adamw` over the whole tree, the GLUE
+trainer's teacher pretraining).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 from torch import nn
@@ -74,22 +81,43 @@ def _c(x: float, t: torch.Tensor) -> float:
     return float(torch.tensor(x, dtype=t.dtype))
 
 
+def linear_warmup(peak: float, warmup: int) -> Callable[[int], torch.Tensor]:
+    """optax.linear_schedule(0, peak, warmup): peak · min(step / warmup, 1),
+    in float32."""
+    def schedule(step: int) -> torch.Tensor:
+        frac = 1 - torch.tensor(min(max(step, 0), warmup), dtype=torch.int32) / warmup
+        return (0.0 - peak) * frac + peak
+    return schedule
+
+
+def rsqrt_schedule(peak: float, warmup: int) -> Callable[[int], torch.Tensor]:
+    """The LRA paper's shape: peak · min(step / warmup, sqrt(warmup /
+    max(step, 1))), in float32."""
+    def schedule(step: int) -> torch.Tensor:
+        sf = torch.tensor(step, dtype=torch.float32)
+        return peak * torch.minimum(sf / warmup, torch.sqrt(warmup / torch.clamp(sf, min=1.0)))
+    return schedule
+
+
 class GroupedAdamW:
     """Clip by global norm, then one AdamW update over the four groups, in
     optax's types (see the module doc). `mu_dtype`: "bfloat16", "float32"
     or None (the parameters' type)."""
 
-    def __init__(self, model: nn.Module, lr: float = 1e-5, wd: float = 1e-2,
+    def __init__(self, model: nn.Module, lr: Union[float, Callable] = 1e-5, wd: float = 1e-2,
                  lr_high_scale: float = 10.0, lr_low_scale: float = 0.2,
-                 clip_norm: float = 1.0, mu_dtype: Optional[str] = None):
+                 clip_norm: Optional[float] = 1.0, mu_dtype: Optional[str] = None,
+                 decay_all: bool = False):
         self.clip_norm = clip_norm
+        self.lr = lr
         labels = param_labels(model)
         named = dict(model.named_parameters())
         self.names: List[str] = list(named)
         self.params: List[torch.nn.Parameter] = list(named.values())
-        rate = {"low": (lr * lr_low_scale, wd), "low_nd": (lr * lr_low_scale, 0.0),
-                "high": (lr * lr_high_scale, wd), "high_nd": (lr * lr_high_scale, 0.0)}
-        self.rates = [rate[labels[n]] for n in self.names]
+        nd_wd = wd if decay_all else 0.0
+        scale = {"low": (lr_low_scale, wd), "low_nd": (lr_low_scale, nd_wd),
+                 "high": (lr_high_scale, wd), "high_nd": (lr_high_scale, nd_wd)}
+        self.scales = [scale[labels[n]] for n in self.names]
         mu_t = _dtype(mu_dtype)
         self.count = 0
         self.mu = [torch.zeros_like(p, dtype=mu_t or p.dtype) for p in self.params]
@@ -114,12 +142,24 @@ class GroupedAdamW:
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
-        norm = self._clip([p.grad for p in self.params])
+        if self.clip_norm is None:
+            norm = torch.sqrt(sum(torch.sum(p.grad * p.grad) for p in self.params))
+        else:
+            norm = self._clip([p.grad for p in self.params])
+        if callable(self.lr):
+            base = torch.as_tensor(self.lr(self.count), dtype=torch.float32)
+
+            def rate(scale):
+                return float(base * scale)
+        else:
+            def rate(scale):
+                return self.lr * scale
         self.count += 1
         c = torch.tensor(self.count, dtype=torch.float32)
         bc1 = 1 - torch.tensor(B1, dtype=torch.float32) ** c
         bc2 = 1 - torch.tensor(B2, dtype=torch.float32) ** c
-        for i, (p, (lr, wd)) in enumerate(zip(self.params, self.rates)):
+        for i, (p, (scale, wd)) in enumerate(zip(self.params, self.scales)):
+            lr = rate(scale)
             g, m0, v0 = p.grad, self.mu[i], self.nu[i]
             mu = _c(1 - B1, g) * g + _c(B1, m0) * m0
             g2 = g * g

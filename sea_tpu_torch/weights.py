@@ -11,8 +11,11 @@ as numpy arrays) to a `state_dict` for the matching port module:
     (OPT's, BERT's and LLaMA's trees alike);
   * conv `weight` (OIHW), `bias` and `v_eye_learned_causal` keep their names
     and layouts;
-  * the `performer` collection's `projection` -> the SEA module's
-    `performer_proj` buffer;
+  * the `performer` collection's `projection` -> the `performer_proj`
+    buffer of the module that holds it (the SEA module's, or a baseline
+    performer or scatterbrain attention's); a baseline cosformer's and a
+    synthesizer's Dense layers, and BERT's masked-LM `decoder_bias`, by the
+    rules above;
   * a module list `layers_<i>` -> `layers.<i>`, and the scan layout's
     stacked `layers_scan/layer/...` (each leaf with a leading layer axis,
     in both collections; OPT's and LLaMA's alike) -> `layers.<i>` for each

@@ -70,3 +70,78 @@ def torch_llama_config(cfg):
     d = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)}
     d["sea"] = torch_sea_config(cfg.sea)
     return torch_llama.LlamaConfig(**d)
+
+
+def jax_variables_from_state_dict(template, state_dict):
+    """A JAX variables tree shaped like `template` (e.g. `jax.eval_shape` of
+    a module's `init`, which compiles nothing) filled from a port state
+    dict, or from any name -> tensor map such as gradients: the inverse of
+    `weights.state_dict_from_jax` on a loop-layout tree (Dense kernels
+    transposed back, `scale`/`embedding` from `weight`, the `performer`
+    collection's `projection` from `performer_proj`). A template without
+    collections is read as a `params` tree."""
+    import re
+
+    import jax.numpy as jnp
+
+    def port_name(path, leaf, coll):
+        mods = []
+        for n in path:
+            m = re.match(r"^layers_(\d+)$", n)
+            mods.extend(["layers", m.group(1)] if m else [n])
+        if coll == "performer":
+            name = "performer_proj"
+        else:
+            name = "weight" if leaf in ("kernel", "scale", "embedding") else leaf
+        return ".".join(mods + [name])
+
+    def fill(tree, path, coll):
+        out = {}
+        for key, val in tree.items():
+            if hasattr(val, "items"):
+                out[key] = fill(val, path + [key], coll)
+                continue
+            # a copy: jnp.asarray may alias a numpy buffer, which the port's
+            # in-place updates would then change under JAX
+            x = state_dict[port_name(path, key, coll)].detach().float().numpy().copy()
+            if key == "kernel" and coll == "params":
+                x = x.T
+            assert x.shape == tuple(val.shape), (path, key)
+            out[key] = jnp.asarray(x, val.dtype)
+        return out
+
+    if "params" not in template:
+        return fill(template, [], "params")
+    return {coll: fill(tree, [], coll) for coll, tree in template.items()}
+
+
+def sharpen_port(model, scale=30.0):
+    """Scale every non-causal SEA module's last conv (`cnn_conv3`) by
+    `scale` in place, as tests/test_torch_bert.py's `sharpen` does on the
+    JAX side: the estimator then no longer ties at random init."""
+    import torch
+
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            if ".cnn_conv3." in f".{name}":
+                p.mul_(scale)
+    return model
+
+
+def port_topk_guard(run, margin=1e-7):
+    """`run()` with the port's buffer registry on; asserts that no top-k
+    cut of the port's estimates is a near tie (`assert_topk_margin`), as
+    the JAX side's eager guard would, without an eager JAX run."""
+    from sea_tpu_torch.utils.profiler import get_bench
+
+    bench = get_bench()
+    bench.activate_temp_buffers(True)
+    try:
+        out = run()
+        probs = [x.detach().numpy() for x in bench.buffers.get("masked_estimated_attention_probs", [])]
+        budget = [x.detach().numpy() for x in bench.buffers.get("per_item_top_k", [])]
+    finally:
+        bench.activate_temp_buffers(False)
+        bench.reset()
+    assert_topk_margin(probs, budget, margin)
+    return out

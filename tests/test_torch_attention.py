@@ -147,10 +147,11 @@ def test_buffers_capture_the_kernel_inputs():
 
 
 def test_train_path_is_refused():
-    """What stays refused around the train path: the self-teacher KD loss in
-    training, the uniform-CSR benchmark path and the non-causal oversampled
-    module. The dense train path itself now runs, causal and non-causal
-    (tests/test_torch_train_path.py holds it against JAX)."""
+    """What stays refused around the train path: LoRA, the uniform-CSR
+    benchmark path and the non-causal oversampled module. The dense train
+    path itself runs, causal and non-causal (tests/test_torch_train_path.py
+    holds it against JAX), and so does the self-teacher KD loss in training
+    (tests/test_torch_baselines.py holds it against JAX)."""
     cfg = tiny_cfg()
     model = SeaAttention(torch_sea_config(cfg), device="cpu", seed=0)
     q, k, v, mask = (t(x) for x in make_inputs(cfg, T=64))
@@ -159,8 +160,10 @@ def test_train_path_is_refused():
     assert torch.isfinite(out.context_layer).all()
     selfteach = SeaAttention(torch_sea_config(dataclasses.replace(cfg, kd_self_teacher=True)),
                              device="cpu", seed=0)
+    out = selfteach(q, k, v, q, k, v, q, k, mask, benchmarking=False, training=True)
+    assert float(out.loss) > 0
     with pytest.raises(NotImplementedError):
-        selfteach(q, k, v, q, k, v, q, k, mask, benchmarking=False, training=True)
+        SeaAttention(torch_sea_config(dataclasses.replace(cfg, lora_enabled=True)), device="cpu")
     csr = SeaAttention(torch_sea_config(dataclasses.replace(cfg, use_pallas=False)),
                        device="cpu", seed=0)
     with pytest.raises(NotImplementedError):

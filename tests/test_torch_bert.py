@@ -183,14 +183,25 @@ def test_bert_base_config_and_seeded_init():
 
 
 def test_bert_refuses_what_is_not_ported():
+    """What BERT still refuses: LoRA, `enc_per_layer`, the 'comp' predictor
+    and the non-causal uniform-CSR route (an oversampled top-k). The SEA
+    train path, the other methods and token merging run
+    (tests/test_torch_bert_kd.py and tests/test_torch_baselines.py hold them
+    to JAX)."""
     small = torch_bert_config(tiny_bert("perlin"))
     model = tbert.BertForSequenceClassification(small, device="cpu", seed=0)
     ids, am, types, _ = (t(x).long() for x in bert_batch((40, 64), 64, seed=0))
-    with pytest.raises(NotImplementedError):
-        model(ids, am, types, benchmarking=False)
-    with pytest.raises(NotImplementedError):
+    with torch.no_grad():
+        assert torch.isfinite(model(ids, am, types, benchmarking=False)["logits"]).all()
+    for method in ("performer", "synthesizer", "cosformer", "reformer", "scatterbrain",
+                   "sinkhorn"):
         tbert.BertForSequenceClassification(
-            dataclasses.replace(small, attention_method="performer"), device="cpu")
-    with pytest.raises(NotImplementedError):
-        tbert.BertForSequenceClassification(
-            dataclasses.replace(small, token_merging=True), device="cpu")
+            dataclasses.replace(small, attention_method=method), device="cpu")
+    tbert.BertForSequenceClassification(dataclasses.replace(small, token_merging=True),
+                                        device="cpu")
+    for sea_kw in (dict(lora_enabled=True), dict(enc_per_layer=True),
+                   dict(predictor_method="comp"), dict(k_oversample=2.0)):
+        with pytest.raises(NotImplementedError):
+            tbert.BertForSequenceClassification(
+                dataclasses.replace(small, sea=dataclasses.replace(small.sea, **sea_kw)),
+                device="cpu")
