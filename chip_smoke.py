@@ -123,15 +123,17 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 half an ulp; then 4 shards of 192 rows at blocks of 64 (1 x
                 768, rows and windows padded to whole 128-row tiles inside
                 the wrappers), float32 and bf16, on every (shard, window);
- 11. ring-serve — the OPT-125m benchmark forward at 1 x 16384 inside
+ 11. ring-serve — the OPT-125m benchmark forward at 1 x 16384 (full width,
+                6 of its 12 layers since PR 20) inside
                 `sharded_attention_scope(LocalGroup(4), kind="auto")`, which
-                must resolve to 'ring': 192 K6 launches and no other kernel per
+                must resolve to 'ring': 96 K6 launches and no other kernel per
                 forward, finite logits, layer 0's attention output within 1e-4
                 of the unsharded forward's (K1); ms/forward beside the
                 unsharded forward;
- 12. ring-train — OPT-125m with `use_fused_train` at full width and depth,
+ 12. ring-train — OPT-125m with `use_fused_train` at full width (6 of its
+                12 layers since PR 20),
                 2 AdamW steps on 1 x 16384 tokens inside the same scope, then
-                the same from the same weights unsharded (K2-K4): 192 launches
+                the same from the same weights unsharded (K2-K4): 96 launches
                 each of K6, K7 and K8 per step and none of K1-K5, the loss
                 falling, the first step's loss within 1e-4 of the unsharded
                 step's, every layer's top-k mask compared between the arms and
@@ -142,9 +144,10 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 within 2e-4 of the unsharded kernels', and K6-K8 against their
                 plain versions on every (shard, window), timed; ms/step,
                 tokens/s and peak memory of both arms;
- 13. seq-head  — the 'seq' and 'head' kinds at 1 x 4096 over LocalGroup(4):
-                the benchmark forward (K1 with row_base, 48 launches) and two
-                train steps (K2-K4, 48 launches each a step) against the
+ 13. seq-head  — the 'seq' and 'head' kinds at 1 x 4096 over LocalGroup(4)
+                at 6 of OPT-125m's 12 layers (since PR 20):
+                the benchmark forward (K1 with row_base, 24 launches) and two
+                train steps (K2-K4, 24 launches each a step) against the
                 unsharded ones; the 'auto' rule ('seq' at 4096, 'ring' at 16384,
                 never 'ring' for one shard);
  14. impl-mask — the restricted element predicates of the impl variants K9a
@@ -227,6 +230,41 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 launches) with layer 0 held to the plain version and timed
                 (32 x 8 x 512 x 64); one 'text' KD step at 16 x 1024; ms per
                 step and peak memory, remat on;
+ 19d. lora    — OPT-125m's SEA student with `lora_enabled` and
+                `lora_in_approx_enabled`, r = 32, every B drawn N(0, 0.02²)
+                from the seed (B is zero at init): the 1 x 2048 benchmark
+                forward, 12 K1 launches and no other kernel, the logits moved
+                from the same base without LoRA, layer 0's K1 (on the score
+                branch's q and k) against its plain version, ms beside the
+                LoRA-free forward; the 1 x 1024 prefill's logits and decode
+                states equal bit for bit to the LoRA-free model's (JAX's
+                prefill takes no deltas); 2 `use_fused_train` steps, 12 each
+                of K2-K4 a step, finite losses, layer 0's kernels against
+                their plain versions; BERT-base with both flags on the 32 x
+                256 GLUE batch, 12 K5 launches, layer 0 within K5's gate;
+ 19e. csr     — OPT-125m with `use_pallas=False` at 1 x 2048 (the uniform-
+                CSR benchmark path, Z = 1664 slots a row): no kernel launched,
+                finite logits; layer 0's `cols` equal bit for bit to the
+                CPU's expansion of the same compressed mask, its context
+                within 1e-5 of a dense masked softmax built from
+                `flat_csr_to_dense` of the same CSR; ms and peak memory beside
+                the K1 path on the same weights; then BERT-base at 8 x 512
+                with `k_oversample=2.0` (JAX's CSR route), no kernel;
+ 19f. variants — OPT-125m at 1 x 2048 with `predictor_method='comp'` and
+                with `enc_per_layer=True`: 12 K1 launches each, layer 0's K1
+                against its plain version;
+ 19g. long-context — `exp_long_context.sweep` on OPT-125m stretched to 4096
+                and 8192 positions (`extend_opt_context`), dynamic_k 0 and
+                32, query_skips 1 and 2, 2 windows each of the synthetic
+                corpus: 12 K1 launches a forward and no other kernel, finite
+                PPL, ms per window; layer 0's K1 at 8192 against its plain
+                version;
+ 19h. cli     — `cli.main` in-process: wikitext2, OPT-125m, --enable-lora,
+                --checkpoint-rotation 2, 3 KD updates at 1 x 512: no kernel,
+                exactly the two newest `ckpt_*` kept, LATEST naming the
+                newest, a fresh heartbeat; a second trainer resumed from the
+                newest, and its next update equal bit for bit to the
+                uninterrupted run's (both under deterministic algorithms);
  20. decode   — OPT-125m with the decode cache (`opt_config` plus use_cache,
                 full width, 3 of its 12 layers, seeded random weights,
                 float32; the depth cut because the phase's steps are
@@ -324,8 +362,9 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 their plain versions (two launches and two block shapes equal
                 bit for bit), timed beside SDPA, ms per step and peak memory;
  29. ring-bf16 — OPT-125m with bf16 parameters at 1 x 16384 under the
-                ring scope: the forward launches K6's bf16 instance 192 times,
-                2 train steps K6-K8's 192 times each a step (the loss
+                ring scope, 6 of its 12 layers since PR 20: the forward
+                launches K6's bf16 instance 96 times,
+                2 train steps K6-K8's 96 times each a step (the loss
                 falling); the unsharded bf16 arms (K1, K2-K4) from the same
                 weights; the first step's loss within 2^-9 of it, gradients
                 within 2e-2 of the largest where no top-k pick differs,
@@ -422,8 +461,11 @@ from sea_tpu_torch.data.mmlu import (
 from sea_tpu_torch.models.attention import SeaAttention, init_random_
 from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
 from sea_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
+from sea_tpu_torch.models.long_context import extend_opt_model
+from sea_tpu_torch.models.lora import LoraDelta
 from sea_tpu_torch.models.opt import (BASELINE_METHODS, OptForCausalLM, opt_125m, opt_1_3b,
                                       opt_2_7b)
+from sea_tpu_torch.ops import flat_csr
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
 from sea_tpu_torch.ops.masks import _ranks_desc, fp_min_for, topk_mask
@@ -435,11 +477,12 @@ from sea_tpu_torch.parallel import (
 )
 from sea_tpu_torch.parallel import sharded_attention as sa
 from sea_tpu_torch.serving import ServingEngine
+from sea_tpu_torch.training import cli, exp_long_context, resilience
 from sea_tpu_torch.training.distill import SeaOptKDScan
 from sea_tpu_torch.training.glue_trainer import GlueTrainer, GlueTrainerConfig, build_bert
 from sea_tpu_torch.training.lra_trainer import LraTrainer, LraTrainerConfig
 from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
-from sea_tpu_torch.training.opt_trainer import OptTrainer, TrainerConfig, build_model
+from sea_tpu_torch.training.opt_trainer import OptTrainer, TrainerConfig, build_model, model_configs
 from sea_tpu_torch.utils.profiler import get_bench
 
 H, D, T_M, K = 12, 64, 256, 64
@@ -487,6 +530,10 @@ BF16_WRAPPERS.update({kid: w for kid, (w, *_) in RING_KERNELS.items()})
 RING_SHARDS, RING_BLOCK = 4, 128  # LocalGroup(4); the ring's default blocks
 RING_T = 16384  # the ring's main path: kind="auto" resolves to 'ring' from here
 RING_CHECK_T = 4096  # ring-kernels' synthetic inputs and the seq-head phase
+# ring-serve, ring-train, seq-head and ring-bf16 run 6 of OPT-125m's 12
+# layers (their host-bound steps set most of their time; the launch gates
+# scale with it)
+RING_LAYERS = 6
 PAD_SHARD, PAD_BLOCK = 192, 64  # ring-kernels' shards that the wrappers pad to 256 rows
 # the JAX package's bounds (see the module docstring)
 RING_OUT_TOL, RING_GRAD_TOL, LAYER_TOL, LOSS_TOL = 3e-5, 2e-4, 1e-4, 1e-4
@@ -593,6 +640,13 @@ RING_BF16_LOSS_REL, RING_BF16_GRAD_REL, RING_BF16_LAYER_REL = 2.0 ** -9, 2e-2, 1
 # use_fused_train, bf16 compute, scan_layers + scan_remat) at the length the
 # JAX script's --logit-chunk help names, --logit-chunk 2048, lr 1e-5
 LONGCTX_T, LONGCTX_STEPS, LONGCTX_CHUNK = 32768, 2, 2048
+# queue 1 item 4's phases: LoRA at the reference's rank, B drawn N(0, 0.02²)
+# (zero at init); the serving request's length; the long-context sweep at 2
+# and 4 times OPT's 2048 positions; the CLI's KD updates at 1 x 512
+LORA_T, LORA_R, LORA_B_SCALE, LORA_PREFILL = 2048, 32, 0.02, 1024
+CSR_T = VARIANT_T = 2048
+EXT_CONTEXTS, EXT_DYNAMIC_KS, EXT_QUERY_SKIPS, EXT_WINDOWS = (4096, 8192), (0, 32), (1, 2), 2
+CLI_STEPS, CLI_T = 3, 512
 
 
 def log(*a):
@@ -1059,8 +1113,8 @@ def layer0_k1(phase, run):
     bench.activate_temp_buffers(True)
     run()
     buf = {n: bench.get_temp_buffer(n, 0) for n in (
-        "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
-        "masked_estimated_attention_probs", "per_item_top_k")}
+        "q_for_score", "k_for_score", "v", "partial_attention_mask_before_interp",
+        "estimated_scales", "masked_estimated_attention_probs", "per_item_top_k")}
     bench.activate_temp_buffers(False)
     # the grouped top-k on the card against the CPU on the same estimates
     probs = buf["masked_estimated_attention_probs"]
@@ -1072,7 +1126,7 @@ def layer0_k1(phase, run):
     log(f"[{phase}] layer-0 top-k mask, card vs CPU on the same estimates: "
         f"{bad} mismatches of {cpu_mask.numel()}")
     require(bad == 0, "top-k masks differ between the card and the CPU")
-    q, k, v = buf["q"], buf["k"], buf["v"]
+    q, k, v = buf["q_for_score"], buf["k_for_score"], buf["v"]
     mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
     sc = torch.sigmoid(buf["estimated_scales"][..., 0])
     got = bs.sea_block_sparse_attention(q, k, v, mask, sc, k_cfg=float(K))
@@ -1658,8 +1712,9 @@ def capture_layer0(model, ids, logit_chunk=None):
         out = model(ids, torch.ones_like(ids), labels=ids, training=True,
                     logit_chunk=logit_chunk)
         buf = {n: bench.get_temp_buffer(n, 0) for n in (
-            "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
-            "masked_estimated_attention_probs", "per_item_top_k", "fused_attention_output")}
+            "q_for_score", "k_for_score", "v", "partial_attention_mask_before_interp",
+            "estimated_scales", "masked_estimated_attention_probs", "per_item_top_k",
+            "fused_attention_output")}
         buf["fused_attention_output"].register_hook(grads.append)
         (out["loss"] + 0.0 * out["aux_loss"]).backward()
         if model.cfg.scan_remat:
@@ -1685,7 +1740,8 @@ def capture_layer0(model, ids, logit_chunk=None):
     require(bad == 0, "train-mode top-k masks differ between the card and the CPU")
     mask = (buf["partial_attention_mask_before_interp"] > -1.0).float()
     sc = torch.sigmoid(buf["estimated_scales"][..., 0])
-    return buf["q"], buf["k"], buf["v"], mask, sc, grads[0], buf["fused_attention_output"]
+    return (buf["q_for_score"], buf["k_for_score"], buf["v"], mask, sc, grads[0],
+            buf["fused_attention_output"])
 
 
 def check_layer0(label, q, k, v, mask, sc, do, step_o):
@@ -2011,14 +2067,14 @@ def capture_bert_layer0(model, inputs):
         with torch.inference_mode():
             model(*inputs, benchmarking=True)
         buf = {n: bench.get_temp_buffer(n, 0) for n in (
-            "q", "k", "v", "partial_attention_mask_before_interp", "estimated_scales",
-            "lengths", "fused_attention_output", "masked_estimated_attention_probs",
-            "per_item_top_k")}
+            "q_for_score", "k_for_score", "v", "partial_attention_mask_before_interp",
+            "estimated_scales", "lengths", "fused_attention_output",
+            "masked_estimated_attention_probs", "per_item_top_k")}
     finally:
         bench.activate_temp_buffers(False)
         bench.reset()  # the other layers' buffers
     lengths = buf["lengths"]
-    alive = key_padding(lengths, buf["q"].shape[2])[:, None, :, None]
+    alive = key_padding(lengths, buf["q_for_score"].shape[2])[:, None, :, None]
     probs = buf["masked_estimated_attention_probs"]
     cpu_mask = topk_mask(probs.cpu(), alive.cpu(), buf["per_item_top_k"].cpu(),
                          "causal_batch", True, fp_min_for(probs.dtype))
@@ -2027,11 +2083,11 @@ def capture_bert_layer0(model, inputs):
         f"{bad} mismatches of {cpu_mask.numel()}")
     require(bad == 0, "non-causal top-k masks differ between the card and the CPU")
     # the kernel's own operands: q / sqrt(D), v zeroed on the padded rows
-    q = buf["q"] / math.sqrt(model.cfg.head_dim)
+    q = buf["q_for_score"] / math.sqrt(model.cfg.head_dim)
     v = torch.where(alive, buf["v"], torch.zeros_like(buf["v"]))
     mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
     sc = torch.sigmoid(buf["estimated_scales"][..., 0])
-    return q, buf["k"], v, mask, sc, lengths, buf["fused_attention_output"]
+    return q, buf["k_for_score"], v, mask, sc, lengths, buf["fused_attention_output"]
 
 
 def phase_bert():
@@ -2339,11 +2395,12 @@ def phase_ring_kernels():
     return errs, timing, bf16_errs
 
 
-def serve_model(t):
-    """The serving OPT-125m SEA student with positions up to `t`, random
-    weights from seed 0."""
+def serve_model(t, layers=12):
+    """The serving OPT-125m SEA student with positions up to `t` and
+    `layers` of its 12 layers, random weights from seed 0."""
     sea = opt_config(max_position_embeddings=t)
-    cfg = dataclasses.replace(opt_125m("perlin", sea=sea), max_position_embeddings=t)
+    cfg = dataclasses.replace(opt_125m("perlin", sea=sea), max_position_embeddings=t,
+                              num_layers=layers)
     return OptForCausalLM(cfg, device="cuda", seed=0).eval()
 
 
@@ -2365,7 +2422,7 @@ def layer0_forward(model, ids, scope=None):
 def phase_ring_serve():
     dev = "cuda"
     T = RING_T
-    model = serve_model(T)
+    model = serve_model(T, RING_LAYERS)
     n_layers = model.cfg.num_layers
     ids = torch.randint(4, model.cfg.vocab_size, (1, T),
                         generator=torch.Generator().manual_seed(13)).to(dev)
@@ -2396,7 +2453,7 @@ def phase_ring_serve():
     err_ctx, err_kernel, err_logits = (max_err(a, b) for a, b in zip(ring[1:] + ring[:1],
                                                                       plain[1:] + plain[:1]))
     log(f"[ring-serve] layer 0 ring vs unsharded: attention output max|err| {err_ctx:.3g}, "
-        f"kernel output {err_kernel:.3g}; logits after 12 layers {err_logits:.3g}; the run's "
+        f"kernel output {err_kernel:.3g}; logits after {n_layers} layers {err_logits:.3g}; the run's "
         f"logits reproduced {torch.equal(ring[0], logits)}")
     require(err_ctx <= LAYER_TOL, f"layer-0 attention output, ring vs unsharded: {err_ctx}")
     del ring, plain
@@ -2478,7 +2535,7 @@ def phase_ring_train():
     with sharded_attention_scope(group, kind="auto") as ctx:
         kind = resolve_attention_kind(ctx, t=T)
         require(kind == "ring", f"kind='auto' at T={T} over {RING_SHARDS} shards gave {kind}")
-        model = longctx_model(T, 12, dev, "float32")
+        model = longctx_model(T, RING_LAYERS, dev, "float32")
         ids = torch.randint(4, model.cfg.vocab_size, (1, T),
                             generator=torch.Generator().manual_seed(14)).to(dev)
         n = RING_SHARDS ** 2 * model.cfg.num_layers
@@ -2493,7 +2550,7 @@ def phase_ring_train():
     torch.cuda.empty_cache()
 
     # the unsharded arm (K2-K4) from the same weights and batch
-    model = longctx_model(T, 12, dev, "float32")
+    model = longctx_model(T, RING_LAYERS, dev, "float32")
     plain = train_arm(model, ids, steps, f"unsharded 1x{T}")
     del model
     torch.cuda.empty_cache()
@@ -2521,7 +2578,7 @@ def phase_seq_head():
         require(got == want, f"the auto rule at T={t}, {size} shards: {got}, want {want}")
 
     group = LocalGroup(RING_SHARDS, dev)
-    model = serve_model(T)
+    model = serve_model(T, RING_LAYERS)
     n_layers = model.cfg.num_layers
     ids = torch.randint(4, model.cfg.vocab_size, (1, T),
                         generator=torch.Generator().manual_seed(15)).to(dev)
@@ -2542,11 +2599,13 @@ def phase_seq_head():
     del model, plain, got
     torch.cuda.empty_cache()
 
-    unsharded = train_arm(longctx_model(T, 12, dev, "float32"), ids, 2, f"unsharded 1x{T}")
+    unsharded = train_arm(longctx_model(T, RING_LAYERS, dev, "float32"), ids, 2,
+                          f"unsharded 1x{T}")
     for kind in ("seq", "head"):
         with sharded_attention_scope(group, kind=kind):
             n = RING_SHARDS * n_layers
-            arm = train_arm(longctx_model(T, 12, dev, "float32"), ids, 2, f"{kind} 1x{T}",
+            arm = train_arm(longctx_model(T, RING_LAYERS, dev, "float32"), ids, 2,
+                            f"{kind} 1x{T}",
                             want={**dict.fromkeys(launch_counts(), 0),
                                   **dict.fromkeys(TRAIN_KERNELS, n)})
         compare_arms("seq-head", arm, unsharded)
@@ -4137,12 +4196,13 @@ def phase_opt27b_train(weights):
 
 
 def phase_ring_bf16():
-    """OPT-125m with bf16 parameters and bf16 compute at 1 x 16384 inside
+    """OPT-125m (6 of its 12 layers since PR 20) with bf16 parameters and
+    bf16 compute at 1 x 16384 inside
     `sharded_attention_scope(LocalGroup(4), kind="auto")` (the ring): the
-    forward launches K6's bf16 instance 192 times and nothing else, layer
+    forward launches K6's bf16 instance 96 times and nothing else, layer
     0's attention output within 1e-2·max of the unsharded forward's (K1
     bf16); 2 AdamW steps (lr 1e-3) with `use_fused_train` launch K6, K7 and
-    K8's bf16 instances 192 times each a step, the loss falling; the
+    K8's bf16 instances 96 times each a step, the loss falling; the
     unsharded arm (K2-K4 bf16) from the same weights and batch, compared by
     `compare_arms` at the bf16 bounds; layer 0's op on the captured inputs
     (ring against unsharded bf16 kernels, and bit for bit against the
@@ -4155,7 +4215,7 @@ def phase_ring_bf16():
     scope = dict(group=group, kind="auto")
     sea = opt_config(max_position_embeddings=T)
     cfg = dataclasses.replace(opt_125m("perlin", sea=sea), max_position_embeddings=T,
-                              compute_dtype="bfloat16")
+                              compute_dtype="bfloat16", num_layers=RING_LAYERS)
     model = OptForCausalLM(cfg, device=dev, seed=0).to(torch.bfloat16).eval()
     L = cfg.num_layers
     n = RING_SHARDS ** 2 * L
@@ -4595,6 +4655,342 @@ def phase_llama7b_kd():
     return dict(micro_ms=wall / micro, peak=peak, ppl=ppl, before=before, after=after)
 
 
+# ---------------------------------------------------------------------------
+# item 4 of the port's queue: LoRA, the uniform CSR, the predictor variants,
+# the long-context extension and the trainer CLI
+
+
+def seed_lora_(model, seed, scale=LORA_B_SCALE):
+    """Every LoRA delta's A (kaiming-uniform) and B (N(0, scale²)) drawn
+    from a generator of `seed` on the model's device: B is zero at init,
+    and a zero B makes every delta vanish."""
+    dev = next(model.parameters()).device
+    g = torch.Generator(device=dev).manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, LoraDelta):
+                m.reset_parameters(g)
+                m.lora_b.copy_(torch.randn(m.lora_b.shape, generator=g, device=dev) * scale)
+    return model
+
+
+def sea_variant(sea, **kw):
+    return dataclasses.replace(sea, **kw).validate()
+
+
+def opt125m_variant(weights=None, seed=0, **sea_kw):
+    """OPT-125m's SEA student with its SEA config's fields replaced, on the
+    card: random weights from `seed`, or `weights` loaded (the keys it has)."""
+    cfg = opt_125m("perlin", sea=sea_variant(opt_config(), **sea_kw))
+    model = OptForCausalLM(cfg, device="cuda", seed=seed if weights is None else None).eval()
+    if weights is not None:
+        missing = model.load_state_dict(weights, strict=False).missing_keys
+        require(not missing, f"weights lack {missing[:4]}")
+    return model
+
+
+@contextlib.contextmanager
+def deterministic():
+    """PyTorch's deterministic algorithms on (warnings only where an op has
+    none), then off."""
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+
+
+def counted(run):
+    """`run()` with the launch counts set to 0 just before and read just
+    after: (its result, the counts)."""
+    reset_launches()
+    out = run()
+    torch.cuda.synchronize()
+    return out, launch_counts()
+
+
+def require_launches(phase, counts, **want):
+    """Exactly `want`'s launches and none of any other kernel."""
+    full = {**dict.fromkeys(counts, 0), **want}
+    require(counts == full, f"[{phase}] launches {counts}, want {want} and no other kernel")
+
+
+def phase_lora():
+    dev = "cuda"
+    T = LORA_T
+    lora_kw = dict(lora_enabled=True, lora_in_approx_enabled=True, lora_r=LORA_R)
+    model = seed_lora_(opt125m_variant(**lora_kw), 31)
+    n_layers = model.cfg.num_layers
+    plain = opt125m_variant(model.state_dict())  # the same base, no deltas
+    ids = torch.randint(4, model.cfg.vocab_size, (1, T),
+                        generator=torch.Generator().manual_seed(32)).to(dev)
+    am = torch.ones_like(ids)
+    n_delta = sum(isinstance(m, LoraDelta) for m in model.modules())
+    require(n_delta == 8 * n_layers, f"{n_delta} LoRA deltas, want 8 a layer")
+
+    # the main path: the benchmark forward, launches counted around it
+    logits, counts = counted(lambda: infer(model, ids, am))
+    require_launches("lora", counts, K1=n_layers)
+    require(bool(torch.isfinite(logits).all()), "LoRA logits not finite")
+    base_logits = infer(plain, ids, am)
+    moved = max_err(logits, base_logits)
+    log(f"[lora] OPT-125m, both LoRA flags, r={LORA_R}, B ~ N(0, {LORA_B_SCALE}²): 1x{T} "
+        f"forward, launches {counts}; logits moved {moved:.3g} from the same base without "
+        f"LoRA")
+    require(moved > 1e-3, "the LoRA deltas did not move the logits")
+    # layer 0's kernel inputs (the score branch's q and k) against the plain version
+    *_, err = layer0_k1("lora", lambda: infer(model, ids, am))
+    get_bench().reset()
+    lora_ms, _ = forward_ms(model, ids, am)
+    base_ms, _ = forward_ms(plain, ids, am)
+    log(f"[lora] forward 1x{T}: with LoRA {lora_ms:.2f} ms, the same weights without "
+        f"{base_ms:.2f} ms")
+
+    # the prefill takes no deltas, as JAX's: equal to the LoRA-free model's
+    cached = opt125m_variant(model.state_dict(), use_cache=True, **lora_kw)
+    cached_plain = opt125m_variant(model.state_dict(), use_cache=True)
+    P = LORA_PREFILL
+    (pl, pst), counts_p = counted(lambda: cached.prefill_parallel(ids[:, :P], P))
+    require_launches("lora", counts_p, K1=n_layers)
+    bl, bst = cached_plain.prefill_parallel(ids[:, :P], P)
+    same = torch.equal(pl, bl) and all(torch.equal(x, y) for a, b in zip(pst, bst)
+                                       for x, y in zip(a, b))
+    log(f"[lora] prefill 1x{P}: logits and decode states equal to the LoRA-free model's "
+        f"bit for bit: {same}")
+    require(same, "the LoRA model's prefill differs from the LoRA-free one's")
+    launches = {"K1": counts["K1"] + counts_p["K1"]}
+    del cached, cached_plain, plain, pst, bst
+    torch.cuda.empty_cache()
+
+    # two task-only steps through the differentiable kernels
+    train = opt125m_variant(model.state_dict(), use_fused_train=True, **lora_kw)
+    del model
+    losses, _, train_counts, peak = run_train(train, ids, 2, f"lora 1x{T}")
+    require(all(np.isfinite(losses)), f"LoRA train losses {losses}")
+    captured = capture_layer0(train, ids)
+    errs = check_layer0(f"lora layer-0 1x{T}", *captured)
+    del train, captured
+    torch.cuda.empty_cache()
+    launches.update({kid: train_counts[kid] for kid in TRAIN_KERNELS})
+    log(f"[lora] 2 fused train steps 1x{T}: losses {[f'{x:.6f}' for x in losses]}, "
+        f"peak {peak:.2f} GiB")
+
+    # BERT-base with both flags on the GLUE batch: K5
+    bcfg = dataclasses.replace(bert_base("perlin"), sea=sea_variant(bert_base().sea, **lora_kw))
+    bert = seed_lora_(BertForSequenceClassification(bcfg, device=dev, seed=0), 33)
+    n, Tb, lo, hi = BERT_REQUESTS[0]
+    inputs = bert_batch(n, Tb, lo, hi, seed=34, vocab=bcfg.vocab_size, device=dev)
+    k5, k5_err = student_k5("lora", bert, inputs)
+    del bert
+    torch.cuda.empty_cache()
+    launches["K5"] = k5
+    return dict(launches=launches, err={"K1": err, **errs, "K5": k5_err})
+
+
+def capture_csr(run):
+    """`run()` with the uniform-CSR functions wrapped to keep layer 0's
+    operands (the first call of each): the compressed mask and its CSR, the
+    scores' q and k, the row scaler, v and the context."""
+    names = ("resize_from_m_to_t_csr", "flat_csr_masked_bmm", "flat_csr_elmul",
+             "flat_csr_sdbmm")
+    real = {n: getattr(flat_csr, n) for n in names}
+    seen = {}
+
+    def wrap(name):
+        def call(*args, **kw):
+            out = real[name](*args, **kw)
+            seen.setdefault(name, (args, out))
+            return out
+        return call
+
+    for n in names:
+        setattr(flat_csr, n, wrap(n))
+    try:
+        run()
+    finally:
+        for n in names:
+            setattr(flat_csr, n, real[n])
+    (mask_m, *_), csr = seen["resize_from_m_to_t_csr"]
+    (q, k, _), _ = seen["flat_csr_masked_bmm"]
+    (_, scaler), _ = seen["flat_csr_elmul"]
+    (_, v), ctx = seen["flat_csr_sdbmm"]
+    return mask_m, csr, q, k, scaler, v, ctx
+
+
+def phase_csr():
+    dev = "cuda"
+    T = CSR_T
+    model = opt125m_variant(use_pallas=False)
+    fused = opt125m_variant(model.state_dict())
+    cfg = model.cfg
+    ids = torch.randint(4, cfg.vocab_size, (1, T),
+                        generator=torch.Generator().manual_seed(35)).to(dev)
+    am = torch.ones_like(ids)
+    Z = cfg.sea.max_nnz_for(T)
+    log(f"[csr] OPT-125m use_pallas=False, 1x{T}: Z = {Z} slots a row; a gathered K or V "
+        f"{T * Z * cfg.sea.head_dim * 4 / 1e9:.3f} GB a layer (float32)")
+
+    # the main path: no kernel may launch
+    torch.cuda.reset_peak_memory_stats()
+    logits, counts = counted(lambda: infer(model, ids, am))
+    csr_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require_launches("csr", counts)
+    require(bool(torch.isfinite(logits).all()), "CSR logits not finite")
+    torch.cuda.reset_peak_memory_stats()
+    k1_logits = infer(fused, ids, am)
+    k1_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"[csr] no kernel launched; logits finite; max|logits - K1 path's| "
+        f"{max_err(logits, k1_logits):.3g} (round-half-away expansion against the kernels' "
+        f"floor, PARITY.md §2.1); peak {csr_peak:.2f} GiB against the K1 path's "
+        f"{k1_peak:.2f}")
+
+    # layer 0: the context against a dense masked softmax of the same CSR
+    mask_m, csr, q, k, scaler, v, ctx = capture_csr(lambda: infer(model, ids, am))
+    cpu = flat_csr.resize_from_m_to_t_csr(mask_m.cpu(), cfg.sea.effective_k, T,
+                                          is_causal=True, max_nnz=Z)
+    same_cols = torch.equal(cpu.cols, csr.cols.cpu())
+    log(f"[csr] layer-0 cols (1, {T}, {Z}) on the card equal to the CPU's on the same "
+        f"mask bit for bit: {same_cols}; {int(csr.nnz_per_row.sum())} slots alive")
+    require(same_cols, "CSR cols differ between the card and the CPU")
+    alive = flat_csr.flat_csr_to_dense(csr) > 0
+    scores = torch.einsum("nhtd,nhsd->nhts", q.float(), k.float()).masked_fill(~alive, -math.inf)
+    probs = torch.nan_to_num(torch.softmax(scores, -1)) * scaler.float()[..., None]
+    want = probs @ v.float()
+    err = max_err(ctx, want)
+    log(f"[csr] layer-0 context against the dense masked softmax of the same CSR: "
+        f"max|err| {err:.3g}")
+    require(err <= F32_TOL, f"CSR context vs its dense rebuild: {err}")
+    del scores, probs, want, alive
+    csr_ms, _ = forward_ms(model, ids, am, iters=3)
+    k1_ms, _ = forward_ms(fused, ids, am, iters=3)
+    log(f"[csr] forward 1x{T}: CSR {csr_ms:.2f} ms, peak {csr_peak:.2f} GiB; K1 path "
+        f"{k1_ms:.2f} ms, peak {k1_peak:.2f} GiB (the same weights)")
+    del model, fused
+    torch.cuda.empty_cache()
+
+    # BERT-base oversampled: JAX's use_fused predicate routes it to the CSR
+    bcfg = dataclasses.replace(bert_base("perlin"),
+                               sea=sea_variant(bert_base().sea, k_oversample=2.0))
+    bert = BertForSequenceClassification(bcfg, device=dev, seed=0).eval()
+    n, Tb, lo, hi = BERT_REQUESTS[1]
+    inputs = bert_batch(n, Tb, lo, hi, seed=36, vocab=bcfg.vocab_size, device=dev)
+    torch.cuda.reset_peak_memory_stats()
+    blogits, bcounts = counted(lambda: infer(bert, *inputs))
+    bpeak = torch.cuda.max_memory_allocated() / 2 ** 30
+    require_launches("csr", bcounts)
+    require(bool(torch.isfinite(blogits).all()), "oversampled BERT logits not finite")
+    bms = host_ms(lambda: infer(bert, *inputs), iters=2)
+    log(f"[csr] BERT-base k_oversample=2.0 {n}x{Tb}: no kernel, finite logits, "
+        f"{bms:.2f} ms a forward, peak {bpeak:.2f} GiB (Z = {bcfg.sea.max_nnz_for(Tb)})")
+    del bert
+    torch.cuda.empty_cache()
+    return dict(err=err, csr_ms=csr_ms, k1_ms=k1_ms, csr_peak=csr_peak, k1_peak=k1_peak)
+
+
+def phase_variants():
+    dev = "cuda"
+    T = VARIANT_T
+    ids = torch.randint(4, opt_125m().vocab_size, (1, T),
+                        generator=torch.Generator().manual_seed(37)).to(dev)
+    am = torch.ones_like(ids)
+    launches, errs = 0, []
+    for label, kw in (("comp", dict(predictor_method="comp")),
+                      ("enc_per_layer", dict(enc_per_layer=True))):
+        model = opt125m_variant(**kw)
+        logits, counts = counted(lambda: infer(model, ids, am))
+        require_launches("variants", counts, K1=model.cfg.num_layers)
+        require(bool(torch.isfinite(logits).all()), f"{label} logits not finite")
+        *_, err = layer0_k1(f"variants {label}", lambda: infer(model, ids, am))
+        get_bench().reset()
+        ms, _ = forward_ms(model, ids, am, iters=3)
+        log(f"[variants] OPT-125m {label} 1x{T}: launches {counts}, finite logits, layer-0 "
+            f"K1 max|err| {err:.3g}, {ms:.2f} ms a forward")
+        launches += counts["K1"]
+        errs.append(err)
+        del model
+        torch.cuda.empty_cache()
+    return dict(launches=launches, err=max(errs))
+
+
+def phase_long_context():
+    dev = "cuda"
+    contexts = EXT_CONTEXTS
+    n_windows = EXT_WINDOWS
+    _, s_cfg = model_configs(TrainerConfig(model="opt-125m"))
+    recs, counts = counted(lambda: exp_long_context.sweep(
+        model="opt-125m", contexts=contexts, dynamic_ks=EXT_DYNAMIC_KS,
+        query_skips=EXT_QUERY_SKIPS, n_eval_batches=n_windows, device=dev))
+    forwards = len(recs) * n_windows
+    require(len(recs) == len(contexts) * len(EXT_DYNAMIC_KS) * len(EXT_QUERY_SKIPS),
+            "a record per combination")
+    require_launches("long-context", counts, K1=s_cfg.num_layers * forwards)
+    require(all(np.isfinite(r["ppl"]) for r in recs), f"non-finite PPL: {recs}")
+    for r in recs:
+        log(f"[long-context] {json.dumps(r)}")
+    # layer 0's K1 at the longest context against its plain version, once
+    base = build_model(s_cfg, 0, dev)
+    T = contexts[-1]
+    ext = extend_opt_model(base, T).eval()
+    del base
+    ids = torch.randint(4, s_cfg.vocab_size, (1, T),
+                        generator=torch.Generator().manual_seed(38)).to(dev)
+    *_, err = layer0_k1(f"long-context 1x{T}", lambda: infer(ext, ids, torch.ones_like(ids)))
+    get_bench().reset()
+    del ext
+    torch.cuda.empty_cache()
+    ms = {c: [r["ms_per_window"] for r in recs if r["context"] == c] for c in contexts}
+    log("[long-context] ms per window: " + "; ".join(
+        f"{c}: {min(v):.2f}-{max(v):.2f}" for c, v in ms.items()))
+    return dict(launches=counts["K1"], err=err, recs=recs)
+
+
+def phase_cli():
+    dev = "cuda"
+    with tempfile.TemporaryDirectory() as root:
+        argv = ["--dataset", "wikitext2", "--model", "opt-125m", "--enable-lora",
+                "--checkpoint-rotation", "2", "--num-steps", str(CLI_STEPS),
+                "--max-seq-len", str(CLI_T), "--gradient-accumulation-steps", "1",
+                "--eval-steps", "1", "--log-steps", "1", "--device", dev, "--save-root", root]
+        t0 = time.perf_counter()
+        tr, counts = counted(lambda: cli.main(argv))
+        torch.cuda.synchronize()
+        took = time.perf_counter() - t0
+        require_launches("cli", counts)
+        save_dir = tr.cfg.save_dir
+        tags = resilience._step_tags(save_dir)
+        latest = resilience.resolve_latest(save_dir)
+        age = resilience.heartbeat_age_s(save_dir)
+        log(f"[cli] cli.main({' '.join(argv[:-1])} DIR): {CLI_STEPS} updates in {took:.1f} s, "
+            f"checkpoints {tags}, LATEST {latest}, heartbeat {age:.2f} s old, LoRA on the "
+            f"student: {tr.s_cfg.sea.lora_enabled}")
+        require(tr.s_cfg.sea.lora_enabled, "--enable-lora did not reach the student")
+        require(tags == [f"ckpt_{s:08d}" for s in (CLI_STEPS - 1, CLI_STEPS)],
+                f"rotating checkpoints {tags}")
+        require(latest == tags[-1], f"LATEST names {latest}, not {tags[-1]}")
+        require(age is not None and age < 120, f"heartbeat {age} s old")
+        # a second trainer resumed from the newest checkpoint; then the
+        # uninterrupted run's next update against the resumed one's, each
+        # under deterministic algorithms (the estimator's gathers back-
+        # propagate through CUDA's atomic scatter-add otherwise)
+        args = cli.build_parser().parse_args(argv)
+        args.num_steps = CLI_STEPS + 1
+        resumed, _ = cli.build_trainer(args)
+        step = resilience.resume_latest(resumed)
+        require(step == CLI_STEPS, f"resumed at step {step}, not {CLI_STEPS}")
+        tr.cfg.num_steps = CLI_STEPS + 1
+        for trainer in (tr, resumed):
+            with deterministic():
+                trainer.train()
+        a, b = tr.student.state_dict(), resumed.student.state_dict()
+        differ = [n for n in a if not torch.equal(a[n], b[n])]
+        log(f"[cli] resumed at step {step}; its next update against the uninterrupted run's: "
+            f"{len(a) - len(differ)} of {len(a)} tensors equal bit for bit")
+        require(not differ, f"the resumed update differs: {differ[:4]}")
+        del tr, resumed
+    torch.cuda.empty_cache()
+    return dict(seconds=took)
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     """One kernel of the `kernels` line from its measurements `t`."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -4672,6 +5068,7 @@ def main():
     time_phase(t_start, "longctx-32k")
     train_launches = {kid: train_launches[kid] + long_launches[kid] for kid in TRAIN_KERNELS}
     train_errs = {kid: max(train_errs[kid], long_errs[kid]) for kid in TRAIN_KERNELS}
+    train_entries = {}
     for kid, (_, name, source, replaces, _) in TRAIN_KERNELS.items():
         t = train_m[kid]
         require(train_launches[kid] > 0, f"the training path never launched {kid}")
@@ -4688,6 +5085,7 @@ def main():
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
         })
+        train_entries[kid] = kernels[-1]
 
     phase_bidir_mask()
     bidir_err = phase_bidir_kernel()
@@ -4786,6 +5184,30 @@ def main():
         f"{glue['long_peak']:.2f} GiB; LRA ListOps KD step (2 x 32x512, remat) "
         f"{lra['step_ms']:.2f} ms, peak {lra['peak']:.2f} GiB; text 16x{LRA_TEXT_T} "
         f"{lra['text_ms']:.2f} ms, peak {lra['text_peak']:.2f} GiB")
+
+    # queue 1 item 4: LoRA, the uniform CSR, the predictor variants, the
+    # long-context sweep and the trainer CLI; their launches join K1-K5's
+    lora = phase_lora()
+    time_phase(t_start, "lora")
+    csr = phase_csr()
+    time_phase(t_start, "csr")
+    variants = phase_variants()
+    time_phase(t_start, "variants")
+    ext = phase_long_context()
+    time_phase(t_start, "long-context")
+    phase_cli()
+    time_phase(t_start, "cli")
+    kernels[0]["launches"] += lora["launches"]["K1"] + variants["launches"] + ext["launches"]
+    kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], lora["err"]["K1"],
+                                    variants["err"], ext["err"])
+    for kid, entry in train_entries.items():
+        entry["launches"] += lora["launches"][kid]
+        entry["max_abs_err"] = max(entry["max_abs_err"], lora["err"][kid])
+    k5_entry["launches"] += lora["launches"]["K5"]
+    k5_entry["max_abs_err"] = max(k5_entry["max_abs_err"], lora["err"]["K5"])
+    log(f"[result] uniform CSR at OPT-125m 1x{CSR_T}: {csr['csr_ms']:.2f} ms a forward, peak "
+        f"{csr['csr_peak']:.2f} GiB; the K1 path {csr['k1_ms']:.2f} ms, peak "
+        f"{csr['k1_peak']:.2f} GiB; layer-0 context vs its dense rebuild {csr['err']:.3g}")
 
     dec = phase_decode()
     kernels[0]["launches"] += dec["launches"]

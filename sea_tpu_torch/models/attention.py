@@ -75,10 +75,24 @@ windowed kernels (K6-K8) take float32 only.
 `kd_self_teacher` trains the dense path against the student's own detached
 dense scores (plus the mask) when no teacher truth is given.
 
-Not ported yet, and refused with NotImplementedError rather than routed
-elsewhere: the non-causal oversampled benchmark path (a CSR route in JAX),
-the uniform-CSR benchmark path (`use_pallas=False`), the 'comp' predictor,
-`enc_per_layer` and LoRA.
+The uniform-CSR benchmark path (`ops/flat_csr.py`, plain PyTorch as in
+JAX) runs stages 7-8 when `benchmarking` and `use_pallas=False`, or, as
+JAX's `use_fused` predicate routes it, for the non-causal module with
+`k_oversample != 1`: the compressed mask expanded to a `UniformCsr` by
+round-half-away ("interp"), then the masked score product (with 1/sqrt(D)
+non-causal), the per-(row, head) softmax, the row scaler and the sparse
+product with V ("attention"). It launches no kernel; it is a parity and
+debug path, and nothing falls back to it.
+
+The predictor is the MLP encoder above (`predictor_method='mlp'`; with
+`enc_per_layer` one encoder over the heads concatenated, (N, T, H·3D) ->
+(N, T, H·2D)) or the codebook ('comp': an encoder, `comp_dec_row` to
+`comp_patch_count` softmaxes over `comp_book_size` codes, each code a
+`comp_patch_size`-wide row of `comp_codebook`; no CNN, no `query_skips`).
+As in JAX, decode and `prefill_state` take the 'mlp' predictor only and
+read `enc_dense` even under `enc_per_layer` (so the module keeps
+`enc_dense`/`enc_ln` beside the per-layer encoder when `use_cache`).
+LoRA lives in the models' projections (`models/lora.py`), not here.
 """
 
 from __future__ import annotations
@@ -92,6 +106,7 @@ from torch import nn
 
 from ..config import SeaConfig
 from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
+from ..ops import flat_csr
 from ..ops.cosformer import CosformerAttention
 from ..ops.masks import (
     _ranks_desc,
@@ -110,6 +125,7 @@ from ..ops.performer import (
 from ..parallel import sharded_attention as sharded
 from ..parallel.context import current_attention_sharding, resolve_attention_kind
 from ..utils.profiler import get_bench
+from .lora import LoraDelta
 from .modules import (
     CausalConv2d,
     ChannelSplit,
@@ -194,7 +210,8 @@ def init_random_(root: nn.Module, generator: torch.Generator):
     on every device; the models draw on the CPU): linears N(0, 1/fan_in)
     with zero bias, embeddings N(0, 1/features), LayerNorms and RMSNorms the
     identity, causal convs U(±1/sqrt(fan_in)), each SEA module's FAVOR+
-    projection and identity-value table."""
+    projection, identity-value table and codebook (N(0, 1)), and each LoRA
+    delta's own init (A kaiming-uniform, B zero)."""
 
     def randn(shape):
         return torch.randn(shape, generator=generator, device=generator.device)
@@ -220,6 +237,10 @@ def init_random_(root: nn.Module, generator: torch.Generator):
                 ))
                 if m.cfg.causal:
                     m.v_eye_learned_causal.copy_(randn(m.v_eye_learned_causal.shape))
+                if m.cfg.predictor_method == "comp":
+                    m.comp_codebook.copy_(randn(m.comp_codebook.shape))
+            elif isinstance(m, LoraDelta):
+                m.reset_parameters(generator)
             elif hasattr(m, "performer_proj"):
                 # a baseline performer's (or scatterbrain's) projection
                 m.performer_proj.copy_(gaussian_orthogonal_random_matrix(
@@ -230,19 +251,15 @@ class SeaAttention(nn.Module):
     """The SEA attention module, one per transformer layer. Built on
     `device` with seeded random weights (`seed=None` leaves them
     uninitialised, for `load_state_dict` or a parent's init). Only the
-    modules the JAX package builds for `cfg` exist, so that its variable
-    trees map one to one."""
+    modules the JAX package's forward builds for `cfg` exist, so that its
+    variable trees map one to one; with `enc_per_layer` and `use_cache` also
+    `enc_dense`/`enc_ln`, which decode reads (as a JAX tree initialised
+    through the prefill has them)."""
 
     def __init__(self, cfg: SeaConfig, *, device="cuda", seed: Optional[int] = 0):
         super().__init__()
-        if not cfg.causal and cfg.k_oversample != 1.0:
-            raise NotImplementedError(
-                "the non-causal oversampled benchmark path (uniform CSR) is not ported"
-            )
-        if cfg.predictor_method != "mlp":
-            raise NotImplementedError("only predictor_method='mlp' is ported")
-        if cfg.enc_per_layer or cfg.lora_enabled or cfg.lora_in_approx_enabled:
-            raise NotImplementedError("enc_per_layer and LoRA are not ported yet")
+        if cfg.predictor_method not in ("mlp", "comp"):
+            raise ValueError(f"predictor_method {cfg.predictor_method!r}")
         self.cfg = cfg
         D, H, T_M = cfg.head_dim, cfg.num_heads, cfg.predictor_length
 
@@ -263,16 +280,30 @@ class SeaAttention(nn.Module):
         if cfg.out_norm:
             self.out_norm_ln = _layer_norm(H * D)
 
-        # predictor encoder: Linear(3D -> 2D) + LN + GELU
-        self.enc_dense = Dense(3 * D, 2 * D)
-        self.enc_ln = _layer_norm(2 * D)
+        mlp = cfg.predictor_method == "mlp"
+        # predictor encoder: Linear(3D -> 2D) + LN + GELU (decode's even
+        # under enc_per_layer)
+        if mlp and (not cfg.enc_per_layer or cfg.use_cache):
+            self.enc_dense = Dense(3 * D, 2 * D)
+            self.enc_ln = _layer_norm(2 * D)
+        if mlp and cfg.enc_per_layer:
+            # one encoder over the heads concatenated
+            self.enc_per_layer_dense = Dense(3 * D * H, 2 * D * H)
+            self.enc_per_layer_ln = _layer_norm(2 * D * H)
+        if cfg.predictor_method == "comp":
+            self.comp_codebook = nn.Parameter(
+                torch.empty(cfg.comp_book_size, cfg.comp_patch_size))
+            self.comp_enc_dense = Dense(3 * D, 2 * D)
+            self.comp_enc_ln = _layer_norm(2 * D)
+            self.comp_dec_row = Dense(2 * D, cfg.comp_book_size * cfg.comp_patch_count)
         # decoder row projector + channel split
         splits = cfg.splits
         down = cfg.dec_row_down_scale
-        self.dec_row = Dense(2 * D, (T_M // down) * splits)
+        if mlp:
+            self.dec_row = Dense(2 * D, (T_M // down) * splits)
         self.channel_split = ChannelSplit(splits)
         ch = splits * H
-        if cfg.causal:
+        if mlp and cfg.causal:
             # LN -> 2x dilated causal conv -> up(1,4) -> 1x1 conv (padding 1
             # widens T_M to T_M+2) -> area resize back to T_M -> LN
             self.cnn_ln1 = _layer_norm(T_M // down)
@@ -282,7 +313,7 @@ class SeaAttention(nn.Module):
                 self.cnn_conv3 = CausalConv2d(ch, ch, 3, padding=2, dilation=2, causal=True)
             self.cnn_conv4 = CausalConv2d(ch, H, 1, padding=1, causal=True)
             self.cnn_ln2 = _layer_norm(T_M)
-        else:
+        elif mlp:
             # strided conv (2, 1) -> conv -> nearest up (2, 1) -> conv, then
             # a resize to (T, T_M) (linear widening of T_M/2)
             self.cnn_conv1 = CausalConv2d(ch, 4 * H, 3, padding=1, stride=(2, 1))
@@ -403,8 +434,6 @@ class SeaAttention(nn.Module):
             and not truths
             and cfg.k_oversample == 1.0
         )
-        if benchmarking and not cfg.use_pallas:
-            raise NotImplementedError("the uniform-CSR path is not ported")
         bench = get_bench()
         N, H, T, D = q.shape
         assert H == cfg.num_heads and D == cfg.head_dim, (
@@ -450,6 +479,10 @@ class SeaAttention(nn.Module):
         bench.register_temp_buffer("q", q)
         bench.register_temp_buffer("k", k)
         bench.register_temp_buffer("v", v)
+        # the scores' q and k (LoRA's estimator branch makes them differ
+        # from q and k): the fused kernels' inputs
+        bench.register_temp_buffer("q_for_score", q_for_score)
+        bench.register_temp_buffer("k_for_score", k_for_score)
 
         # --- 1 "vmask" ----------------------------------------------------
         with bench.region("vmask"):
@@ -491,23 +524,12 @@ class SeaAttention(nn.Module):
 
         # --- 4 "predictor" -------------------------------------------------
         with bench.region("predictor"):
-            s = cfg.query_skips
-            t_enc_x = performer_value
-            if s > 1:
-                assert T_DST % s == 0
-                t_enc_x = t_enc_x[:, :, ::s, :]
-            t_attention_predictor = gelu(self.enc_ln(self.enc_dense(t_enc_x)))
-            estimated_attention_score = self.dec_row(t_attention_predictor)
-            # (N, H, T', out_ch) read as NCHW -> ChannelSplit -> CNN
-            estimated_attention_score = self.channel_split(estimated_attention_score)
-            estimated_attention_score = self._predictor_cnn(estimated_attention_score)
-            if s > 1:
-                estimated_attention_score = torch.repeat_interleave(
-                    estimated_attention_score, s, dim=2
-                )
-                t_attention_predictor = torch.repeat_interleave(
-                    t_attention_predictor, s, dim=2
-                )
+            if cfg.predictor_method == "comp":
+                t_attention_predictor, estimated_attention_score = self._comp_predictor(
+                    performer_value)
+            else:
+                t_attention_predictor, estimated_attention_score = self._mlp_predictor(
+                    performer_value)
             bench.register_temp_buffer("t_attention_predictor", t_attention_predictor)
 
         # --- 5 "mask_softmax" + the estimator's KD losses ---------------------
@@ -584,7 +606,13 @@ class SeaAttention(nn.Module):
         )
 
         partial_attention_probs = dense_attention_probs = None
-        if benchmarking or use_fused_train:
+        if benchmarking and not (cfg.use_pallas and (cfg.causal or cfg.k_oversample == 1.0)):
+            # --- 7-8 the uniform-CSR chain (JAX's use_fused predicate) ----
+            partial_attention_mask, partial_attention_probs, partial_context_layer, \
+                estimated_scales = self._csr_attention(
+                    q_for_score, k_for_score, v, partial_attention_mask_m,
+                    t_attention_predictor, T_SRC)
+        elif benchmarking or use_fused_train:
             partial_attention_mask = partial_attention_mask_m
             partial_context_layer, estimated_scales = self._fused_attention(
                 q_for_score, k_for_score, v, partial_attention_mask_m,
@@ -678,6 +706,75 @@ class SeaAttention(nn.Module):
             key_for_score=k_for_score,
             state=None,
         )
+
+    def _mlp_predictor(self, performer_value: torch.Tensor):
+        """Stage 4, 'mlp': the encoder on every `query_skips`-th row (per
+        head, or with `enc_per_layer` over the heads concatenated), dec_row,
+        the channel split and the CNN, each row then repeated. Returns the
+        encoder's (N, H, T, 2D) output and the (N, H, T, T_M) scores."""
+        cfg = self.cfg
+        s = cfg.query_skips
+        x = performer_value
+        if s > 1:
+            assert x.shape[2] % s == 0
+            x = x[:, :, ::s, :]
+        if cfg.enc_per_layer:
+            N, H, T, D3 = x.shape
+            flat = x.permute(0, 2, 1, 3).reshape(N, T, H * D3)
+            enc = gelu(self.enc_per_layer_ln(self.enc_per_layer_dense(flat)))
+            t_pred = enc.reshape(N, T, H, -1).permute(0, 2, 1, 3)
+        else:
+            t_pred = gelu(self.enc_ln(self.enc_dense(x)))
+        # (N, H, T', out_ch) read as NCHW -> ChannelSplit -> CNN
+        score = self._predictor_cnn(self.channel_split(self.dec_row(t_pred)))
+        if s > 1:
+            score = torch.repeat_interleave(score, s, dim=2)
+            t_pred = torch.repeat_interleave(t_pred, s, dim=2)
+        return t_pred, score
+
+    def _comp_predictor(self, performer_value: torch.Tensor):
+        """Stage 4, 'comp': the encoder, then `comp_patch_count` float32
+        softmaxes over the codebook's `comp_book_size` codes, each patch
+        the probability-weighted mix of the codes' rows. Returns the
+        encoder's output and the (N, H, T, count · patch) scores."""
+        cfg = self.cfg
+        N, H, T, _ = performer_value.shape
+        t_pred = gelu(self.comp_enc_ln(self.comp_enc_dense(performer_value)))
+        code = self.comp_dec_row(t_pred).reshape(
+            N, H, T, cfg.comp_patch_count, cfg.comp_book_size)
+        code = softmax_fp32(code, -1)
+        score = einsum("nhtpb,bs->nhtps", code, self.comp_codebook).reshape(N, H, T, -1)
+        return t_pred, score
+
+    def _csr_attention(self, q_for_score, k_for_score, v, partial_attention_mask_m,
+                       t_attention_predictor, T_SRC):
+        """Stages 7-8 on the uniform CSR: the binary compressed mask expanded
+        by round-half-away ("interp"), then the masked score product (scaled
+        by 1/sqrt(D) non-causal), the segment softmax, the row scaler and
+        the sparse product with V ("attention"). Returns the CSR mask, the
+        CSR probabilities, the (N, H, T_DST, D) context and the gate head's
+        estimated scales."""
+        cfg = self.cfg
+        bench = get_bench()
+        D = q_for_score.shape[-1]
+        with bench.region("interp"):
+            csr_mask = flat_csr.resize_from_m_to_t_csr(
+                partial_attention_mask_m, cfg.effective_k, T_SRC, is_causal=cfg.causal,
+                max_nnz=cfg.max_nnz_for(T_SRC))
+        with bench.region("attention"):
+            estimated_scales = self.dec_scaler(t_attention_predictor)
+            bench.register_temp_buffer("estimated_scales", estimated_scales)
+            csr = flat_csr.flat_csr_masked_bmm(q_for_score, k_for_score, csr_mask)
+            if not cfg.causal:
+                # a true division (a CUDA division by a Python number takes
+                # the reciprocal)
+                csr = csr.replace(values=csr.values / torch.full_like(
+                    csr.values, math.sqrt(D)))
+            csr = flat_csr.flat_csr_softmax(csr)
+            if cfg.partial_attention_scaler:
+                csr = flat_csr.flat_csr_elmul(csr, torch.sigmoid(estimated_scales[..., 0]))
+            context = flat_csr.flat_csr_sdbmm(csr, v)
+        return csr_mask, csr, context, estimated_scales
 
     def _fused_attention(self, q_for_score, k_for_score, v, partial_attention_mask_m,
                          t_attention_predictor, zero_one_attention_mask, T_DST, T_SRC,
@@ -809,6 +906,10 @@ class SeaAttention(nn.Module):
         cfg = self.cfg
         if not cfg.use_cache:
             raise ValueError("decode needs SeaConfig(use_cache=True)")
+        if cfg.predictor_method != "mlp":
+            raise NotImplementedError(
+                "decode and prefill_state take predictor_method='mlp' only, as the JAX "
+                "package's do (it asserts it)")
         if not cfg.causal or cfg.predictor_backend != "performer":
             raise ValueError(
                 "the decode cache is causal and carries the FAVOR+ prefix only "

@@ -38,8 +38,9 @@ right-padded: `attention_mask_1d` (N, T) is 1 on the tokens. Attribute names
 follow the JAX modules, so that `weights.state_dict_from_jax` maps their
 variables unchanged.
 
-Not ported yet, and refused with NotImplementedError: LoRA (ROADMAP queue 1
-item 4).
+LoRA (`sea.lora_enabled`, `sea.lora_in_approx_enabled`) adds the SEA
+student's deltas to q, k and v and to the estimator's inputs, as JAX's
+model does (`models/lora.py`).
 """
 
 from __future__ import annotations
@@ -61,6 +62,7 @@ from ..ops.masks import fp_min_for
 from ..ops.performer import fast_attention
 from ..ops.tome import tome_merge, tome_unmerge
 from .attention import SeaAttention, init_random_, softmax_fp32
+from .lora import add_lora, lora_branches
 from .opt import LayerTeacherOutput
 
 METHODS = ("perlin", "none", "performer", "synthesizer", "cosformer", "reformer",
@@ -119,9 +121,6 @@ class BertSelfAttention(nn.Module):
         super().__init__()
         if cfg.attention_method not in METHODS:
             raise ValueError(f"attention_method {cfg.attention_method!r}")
-        if cfg.attention_method == "perlin" and (
-                cfg.sea.lora_enabled or cfg.sea.lora_in_approx_enabled):
-            raise NotImplementedError("LoRA is not ported yet (ROADMAP queue 1 item 4)")
         self.cfg = cfg
         E = cfg.hidden_size
         self.query = nn.Linear(E, E)
@@ -130,6 +129,7 @@ class BertSelfAttention(nn.Module):
         method = cfg.attention_method
         if method == "perlin":
             self.perlin = SeaAttention(cfg.sea, device="cpu", seed=None)
+            add_lora(self, cfg.sea, E, E, E)
         elif method in ("performer", "scatterbrain"):
             self.register_buffer("performer_proj", torch.empty(cfg.sea.nb_features, cfg.head_dim))
         elif method == "synthesizer":
@@ -177,8 +177,10 @@ class BertSelfAttention(nn.Module):
             ctx = merged(torch.einsum("nhts,nhsd->nhtd", probs, v))
             return ctx, None, LayerTeacherOutput(scores, ctx), merge_sim
         if method == "perlin":
+            branches = lora_branches(self, c.sea, hidden_states, q, k, v,
+                                     self._heads, self._heads, self._heads)
             out = self.perlin(
-                q, k, v, q, k, v, q, k, attention_mask,
+                *branches, attention_mask,
                 attention_scores_truth=teacher.attention_scores if teacher else None,
                 context_layer_truth=teacher.context_layer if teacher else None,
                 benchmarking=benchmarking, training=training,

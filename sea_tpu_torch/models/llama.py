@@ -43,8 +43,13 @@ checkpoints each layer under grad, and `forward(..., labels=,
 logit_chunk=)` streams the cross entropy through the untied, bias-free head
 per chunk, with `logits=None`.
 
+LoRA (`sea.lora_enabled`, `sea.lora_in_approx_enabled`) adds the SEA
+student's deltas as JAX's model does (`models/lora.py`): each roped on its
+own, q's scaled, k's and v's repeated for GQA; prefill and decode take
+none.
+
 Not ported yet, and refused: `external_layers` (pipeline stages), ROADMAP
-queue 1 item 8; LoRA, item 4.
+queue 1 item 8.
 """
 
 from __future__ import annotations
@@ -57,6 +62,7 @@ from torch import nn
 
 from ..config import SeaConfig, opt_config
 from .attention import SeaAttention, init_random_, softmax_fp32
+from .lora import add_lora, lora_branches
 from .modules import Dense, RMSNorm, silu
 from .opt import (
     BASELINE_METHODS,
@@ -214,9 +220,6 @@ class LlamaAttention(nn.Module):
         super().__init__()
         if cfg.attention_method not in ("perlin", "none", *BASELINE_METHODS):
             raise ValueError(f"attention_method {cfg.attention_method!r}")
-        if cfg.attention_method == "perlin" and (
-                cfg.sea.lora_enabled or cfg.sea.lora_in_approx_enabled):
-            raise NotImplementedError("LoRA is not ported yet (ROADMAP queue 1 item 4)")
         self.cfg = cfg
         E, kv_width = cfg.hidden_size, cfg.kv_heads * cfg.head_dim
         self.q_proj = Dense(E, E, bias=False)
@@ -225,6 +228,7 @@ class LlamaAttention(nn.Module):
         self.o_proj = Dense(E, E, bias=False)
         if cfg.attention_method == "perlin":
             self.perlin = SeaAttention(cfg.sea, device="cpu", seed=None)
+            add_lora(self, cfg.sea, E, E, kv_width)
         elif cfg.attention_method != "none":
             add_causal_baseline(self, cfg.attention_method, E, cfg.num_heads, cfg.sea)
 
@@ -271,8 +275,19 @@ class LlamaAttention(nn.Module):
                                           self.cfg.sea.k, hidden_states.dtype, jitter)
             return self.o_proj(ctx), None, None
 
+        # the LoRA deltas, each roped on its own and k's and v's repeated
+        # for GQA (none in prefill and decode, as in JAX)
+        c = self.cfg
+        n_rep = c.num_heads // c.kv_heads
+        branches = lora_branches(
+            self, c.sea, hidden_states, q, k, v,
+            lambda d: _scale(apply_rope(self._heads(d, c.num_heads), cos, sin),
+                             c.head_dim ** -0.5),
+            lambda d: repeat_kv(apply_rope(self._heads(d, c.kv_heads), cos, sin), n_rep),
+            lambda d: repeat_kv(self._heads(d, c.kv_heads), n_rep),
+        )
         out = self.perlin(
-            q, k, v, q, k, v, q, k, causal_mask,
+            *branches, causal_mask,
             attention_scores_truth=teacher.attention_scores if teacher else None,
             context_layer_truth=teacher.context_layer if teacher else None,
             benchmarking=benchmarking, training=training, jitter=jitter,

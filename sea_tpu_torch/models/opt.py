@@ -97,6 +97,7 @@ from ..ops.masks import fp_min_for
 from ..ops.performer import fast_attention
 from ..ops.sampling import sample_logits
 from .attention import SeaAttention, _layer_norm, init_random_, softmax_fp32
+from .lora import add_lora, lora_branches
 from .modules import Dense, promote
 from .state import SeaDecodeState
 
@@ -278,6 +279,7 @@ class OptAttention(nn.Module):
         self.out_proj = Dense(E, E)
         if cfg.attention_method == "perlin":
             self.perlin = SeaAttention(cfg.sea, device="cpu", seed=None)
+            add_lora(self, cfg.sea, E, E, E)
         elif cfg.attention_method != "none":
             add_causal_baseline(self, cfg.attention_method, E, cfg.num_heads, cfg.sea)
 
@@ -285,6 +287,10 @@ class OptAttention(nn.Module):
         N, T, _ = x.shape
         c = self.cfg
         return x.reshape(N, T, c.num_heads, c.head_dim).permute(0, 2, 1, 3)
+
+    def _q_heads(self, x: torch.Tensor) -> torch.Tensor:
+        """q's heads (or its LoRA deltas'), scaled by head_dim^-0.5 first."""
+        return self._heads(x * self.cfg.head_dim ** -0.5)
 
     def forward(
         self,
@@ -302,8 +308,7 @@ class OptAttention(nn.Module):
         student `jitter` as its rotations."""
         c = self.cfg
         N, T, E = hidden_states.shape
-        scaling = c.head_dim ** -0.5
-        q = self._heads(self.q_proj(hidden_states) * scaling)
+        q = self._q_heads(self.q_proj(hidden_states))
         k = self._heads(self.k_proj(hidden_states))
         v = self._heads(self.v_proj(hidden_states))
 
@@ -320,8 +325,11 @@ class OptAttention(nn.Module):
                                           c.sea.k, hidden_states.dtype, jitter)
             return self.out_proj(ctx), None, None
 
+        # the LoRA deltas (none in prefill and decode, as in JAX)
+        branches = lora_branches(self, c.sea, hidden_states, q, k, v,
+                                 self._q_heads, self._heads, self._heads)
         out = self.perlin(
-            q, k, v, q, k, v, q, k, causal_mask,
+            *branches, causal_mask,
             attention_scores_truth=teacher.attention_scores if teacher else None,
             context_layer_truth=teacher.context_layer if teacher else None,
             benchmarking=benchmarking, training=training, jitter=jitter,
@@ -331,8 +339,7 @@ class OptAttention(nn.Module):
     def _qkv(self, hidden_states: torch.Tensor):
         if self.cfg.attention_method != "perlin":
             raise NotImplementedError("decode is ported for the SEA student ('perlin') only")
-        scaling = self.cfg.head_dim ** -0.5
-        return (self._heads(self.q_proj(hidden_states) * scaling),
+        return (self._q_heads(self.q_proj(hidden_states)),
                 self._heads(self.k_proj(hidden_states)),
                 self._heads(self.v_proj(hidden_states)))
 

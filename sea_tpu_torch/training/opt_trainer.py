@@ -14,7 +14,14 @@ dense train path, no jitter); metrics go to `{save_dir}/metrics.jsonl` as
 JSON lines; `save`/`load` keep the student, the optimizer, the step, the
 jitter generator and the layout (`{"scan_kd": 0 | 1}`) in one `torch.save`
 file, and `load` raises `CheckpointLayoutError` when the saved layout is
-not the trainer's.
+not the trainer's. With `checkpoint_rotation` = n > 0, `save()` keeps the n
+newest step-tagged checkpoints (`ckpt_{step:08d}/state.pt`) behind an
+atomically flipped `LATEST` pointer, `load("latest")` follows it, and
+`training.resilience` resumes from the newest intact one and supervises
+`train()` (`Supervisor`: roll back, skip the failed window through
+`data_offset`, retry). At each log boundary the trainer writes
+`{save_dir}/heartbeat.json` (the step, the time and the logged terms,
+through `os.replace`) and raises `TrainingDiverged` on a non-finite term.
 
 `scan_kd` is the JAX trainer's scanned pair (`distill.SeaOptKDScan`): no
 jitter is drawn, every pair is checkpointed, and `logit_chunk` (read only
@@ -48,8 +55,8 @@ see `models/opt.py` for what each type rounds.
 
 The entry point runs on "cuda" unless `--device` says otherwise, with TF32
 off and bfloat16 products reduced in float32. Refused with
-NotImplementedError, each naming its ROADMAP item: `data_parallel` and
-`checkpoint_rotation`. The students are JAX's: 'perlin' and the causal
+NotImplementedError, naming its ROADMAP item: `data_parallel`. The
+students are JAX's: 'perlin' and the causal
 baselines 'performer', 'reformer', 'sinkhorn' and 'cosformer'
 (`models/opt.py`); a reformer student's LSH rotations are drawn each
 micro-step from the trainer's generator, as JAX draws them from each
@@ -80,10 +87,10 @@ from ..ops.masks import resize_jitter_draws
 from ..ops.performer import redraw_projections
 from .distill import SeaOptKD, SeaOptKDScan, causal_lm_for
 from .optimizer import GroupedAdamW
+from .resilience import TrainingDiverged, checkpoint_file, resolve_latest, save_rotating
 
 # the JAX trainer's options still to port, and the ROADMAP item of each
-UNPORTED = {"data_parallel": "ROADMAP queue 1 item 8, multi-GPU",
-            "checkpoint_rotation": "ROADMAP queue 1 item 9, tooling"}
+UNPORTED = {"data_parallel": "ROADMAP queue 1 item 8, multi-GPU"}
 
 
 @dataclasses.dataclass
@@ -136,13 +143,15 @@ class TrainerConfig:
     scan_kd: bool = False
     # the logit losses per chunk of this many positions (scan_kd only)
     logit_chunk: Optional[int] = None
+    # keep this many step-tagged checkpoints behind a LATEST pointer (0: one
+    # 'checkpoint' file, overwritten)
+    checkpoint_rotation: int = 0
+    # SEA fields of the student's config replaced (the trainer CLI's
+    # --enable-lora, --attention-predictor-method, --enc-per-layer, ...);
+    # None or {} keeps the JAX trainer's student
+    sea_overrides: Optional[Dict[str, Any]] = None
     # the JAX trainer's options that the port refuses (see the module doc)
     data_parallel: bool = False
-    checkpoint_rotation: int = 0
-
-
-class TrainingDiverged(RuntimeError):
-    """A non-finite loss with `halt_on_divergence`."""
 
 
 class CheckpointLayoutError(ValueError):
@@ -196,6 +205,10 @@ def model_configs(cfg: TrainerConfig):
             performer_nb_factor=cfg.nb_factor,
         )
         pair = builder("none", sea), builder(cfg.method, sea)
+    if cfg.sea_overrides:
+        t_cfg, s_cfg = pair
+        sea = dataclasses.replace(s_cfg.sea, **cfg.sea_overrides).validate()
+        pair = t_cfg, dataclasses.replace(s_cfg, sea=sea)
     if cfg.compute_dtype is None:
         return pair
     return tuple(dataclasses.replace(c, compute_dtype=cfg.compute_dtype) for c in pair)
@@ -238,7 +251,6 @@ class OptTrainer:
             load = load_llama_params if isinstance(self.t_cfg, LlamaConfig) else load_opt_params
             self.teacher.load_state_dict(load(cfg.teacher_checkpoint, self.t_cfg), strict=True)
         self.teacher.requires_grad_(False)
-        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
         self.corpus = get_corpus(cfg.max_seq_len, cfg.stride, "train",
                                  vocab_size=self.s_cfg.vocab_size, cache_dir=cfg.data_cache_dir)
         self.eval_corpus = get_corpus(cfg.max_seq_len, cfg.stride, "test",
@@ -247,16 +259,29 @@ class OptTrainer:
         os.makedirs(cfg.save_dir, exist_ok=True)
         self.metrics_path = os.path.join(cfg.save_dir, "metrics.jsonl")
         self.step = 0
+        # micro-batches a resumed stream skips past what it has consumed
+        # (the Supervisor's rollback moves it past a failed window)
+        self.data_offset = 0
         if cfg.pretrain_teacher_steps > 0:
             self.pretrain_teacher(cfg.pretrain_teacher_steps)
         student_from_teacher(self.student, self.teacher)
         self.kd = (SeaOptKDScan(self.teacher, self.student, cfg.logit_chunk) if cfg.scan_kd
                    else SeaOptKD(self.teacher, self.student))
+        self.reset_optimizer()
+
+    def reset_optimizer(self):
+        """A fresh optimizer, step 0 and the generator reseeded (the
+        Supervisor's restart when no checkpoint exists yet; the weights stay
+        as they are, as in JAX)."""
+        cfg = self.cfg
         self.optimizer = GroupedAdamW(
             self.student, lr=cfg.lr, wd=cfg.wd,
             lr_high_scale=cfg.lr_high_scale, lr_low_scale=cfg.lr_low_scale,
             mu_dtype=cfg.moment_dtype,
         )
+        self.optimizer.zero_grad()
+        self.step = 0
+        self.generator = torch.Generator(device=self.device).manual_seed(cfg.seed)
 
     def _tensors(self, *arrays):
         return [torch.as_tensor(a).to(self.device, torch.long) for a in arrays]
@@ -345,7 +370,7 @@ class OptTrainer:
                 if done >= micro_steps:
                     break
                 consumed += 1
-                if consumed <= done:  # a resumed run skips what it has seen
+                if consumed <= done + self.data_offset:  # seen before a resume
                     continue
                 details = self.micro_step(ids, mask, labels)
                 done += 1
@@ -356,6 +381,7 @@ class OptTrainer:
                     rec = {name: float(v) for name, v in details.items()}
                     rec["steps_per_s"] = self.step / (time.time() - t0)
                     self.log(rec)
+                    self._heartbeat(rec)
                     if cfg.halt_on_divergence and not all(map(math.isfinite, rec.values())):
                         raise TrainingDiverged(f"non-finite loss at step {self.step}: {rec}")
                 if self.step % cfg.eval_steps == 0:
@@ -401,8 +427,28 @@ class OptTrainer:
         with open(self.metrics_path, "a") as f:
             f.write(json.dumps(record) + "\n")
 
+    def _heartbeat(self, extra: Optional[Dict[str, Any]] = None):
+        """Publish liveness: `{save_dir}/heartbeat.json`, written whole
+        through `os.replace` (`resilience.heartbeat_age_s` reads its age)."""
+        hb = {"step": self.step, "time": time.time()}
+        if extra:
+            hb.update({k: float(v) for k, v in extra.items()})
+        tmp = os.path.join(self.cfg.save_dir, ".heartbeat.tmp")
+        with open(tmp, "w") as f:
+            f.write(json.dumps(hb))
+        os.replace(tmp, os.path.join(self.cfg.save_dir, "heartbeat.json"))
+
     def save(self, tag: str = "checkpoint"):
-        path = os.path.join(self.cfg.save_dir, tag + ".pt")
+        """The full state under `tag` (`{save_dir}/{tag}.pt`), or, with
+        `checkpoint_rotation` and the default tag, a rotating checkpoint."""
+        if self.cfg.checkpoint_rotation > 0 and tag == "checkpoint":
+            save_rotating(self, keep=self.cfg.checkpoint_rotation)
+            return
+        self.write_state(os.path.join(self.cfg.save_dir, tag + ".pt"))
+
+    def write_state(self, path: str):
+        """The full train state to `path`, whole or not at all (a temporary
+        file, then `os.replace`)."""
         tmp = path + ".tmp"
         torch.save({
             "student": self.student.state_dict(),
@@ -414,12 +460,17 @@ class OptTrainer:
         os.replace(tmp, path)
 
     def load(self, tag: str = "checkpoint", only_additionals: bool = False) -> bool:
-        """Restore a checkpoint; False when there is none. `only_additionals`
+        """Restore a checkpoint (`tag="latest"`: the rotating checkpoints'
+        LATEST pointer); False when there is none. `only_additionals`
         restores only the SEA modules' parameters (every name with a part
         containing `perlin`, as JAX selects its leaves) and keeps the base
         weights, the projections, the optimizer state, the step and the
         generator (the reference's `--load-only-additionals`)."""
-        path = os.path.join(self.cfg.save_dir, tag + ".pt")
+        if tag == "latest":
+            tag = resolve_latest(self.cfg.save_dir)
+            if tag is None:
+                return False
+        path = checkpoint_file(self.cfg.save_dir, tag)
         if not os.path.exists(path):
             return False
         state = torch.load(path, map_location=self.device, weights_only=True)
@@ -436,6 +487,7 @@ class OptTrainer:
             return True
         self.student.load_state_dict(state["student"])
         self.optimizer.load_state_dict(state["optimizer"])
+        self.optimizer.zero_grad()  # nothing of an interrupted accumulation
         self.step = int(state["step"])
         self.generator.set_state(state["generator"].cpu())
         return True

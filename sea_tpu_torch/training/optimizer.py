@@ -5,7 +5,8 @@
   ---------  ------------------------------------  ---------------  ------------
   low        the base model's                      lr · low_scale   wd
   low_nd     its biases and norms' scales          lr · low_scale   0
-  high       the SEA estimator's ('perlin')        lr · high_scale  wd
+  high       'perlin' in the name (the SEA         lr · high_scale  wd
+             estimator's, the LoRA deltas')
   high_nd    its biases and norms' scales          lr · high_scale  0
 
 Defaults: lr 1e-5, wd 1e-2, high_scale 10, low_scale 0.2. The JAX package
@@ -65,7 +66,9 @@ def param_labels(model: nn.Module) -> Dict[str, str]:
     for mod_name, mod in model.named_modules():
         for p_name, _ in mod.named_parameters(recurse=False):
             name = f"{mod_name}.{p_name}" if mod_name else p_name
-            high = "perlin" in name.split(".")
+            # JAX's rule: "perlin" anywhere in the path (the LoRA deltas'
+            # `perlin_*_lora` too)
+            high = "perlin" in name.lower()
             nodecay = p_name == "bias" or isinstance(mod, (nn.LayerNorm, RMSNorm))
             labels[name] = ("high" if high else "low") + ("_nd" if nodecay else "")
     return labels

@@ -9,8 +9,11 @@ as numpy arrays) to a `state_dict` for the matching port module:
     projections (a Dense without `bias` gives `weight` alone);
   * LayerNorm and RMSNorm `scale` -> `weight`; Embed `embedding` -> `weight`
     (OPT's, BERT's and LLaMA's trees alike);
-  * conv `weight` (OIHW), `bias` and `v_eye_learned_causal` keep their names
-    and layouts;
+  * conv `weight` (OIHW), `bias`, `v_eye_learned_causal`, the 'comp'
+    predictor's `comp_codebook` and LoRA's `lora_a` (in, r) and `lora_b`
+    (r, out) keep their names and layouts (raw parameters, no transpose);
+    the LoRA deltas (`perlin_*_lora`), `comp_*` and `enc_per_layer_*`
+    Dense and LayerNorm modules convert as every other;
   * the `performer` collection's `projection` -> the `performer_proj`
     buffer of the module that holds it (the SEA module's, or a baseline
     performer or scatterbrain attention's); a baseline cosformer's and a

@@ -18,6 +18,7 @@ from sea_tpu.config import SeaConfig
 from sea_tpu.models.attention import SeaAttention as JaxSeaAttention
 from sea_tpu.utils.profiler import get_bench as jax_bench
 from sea_tpu_torch.models.attention import SeaAttention
+from sea_tpu_torch.ops import flat_csr
 from sea_tpu_torch.utils.profiler import get_bench
 from sea_tpu_torch.weights import state_dict_from_jax
 from tests._torch_parity import assert_topk_margin, t, torch_sea_config
@@ -147,11 +148,15 @@ def test_buffers_capture_the_kernel_inputs():
 
 
 def test_train_path_is_refused():
-    """What stays refused around the train path: LoRA, the uniform-CSR
-    benchmark path and the non-causal oversampled module. The dense train
-    path itself runs, causal and non-causal (tests/test_torch_train_path.py
-    holds it against JAX), and so does the self-teacher KD loss in training
-    (tests/test_torch_baselines.py holds it against JAX)."""
+    """The routes around the train path that were refused before the CSR
+    and LoRA slice now run: LoRA builds and runs (its deltas live in the
+    models' projections, tests/test_torch_lora.py), the uniform-CSR
+    benchmark path (`use_pallas=False`) runs without the fused kernel, and
+    so does the non-causal oversampled module (JAX's CSR route;
+    tests/test_torch_flat_csr.py holds both to JAX). What stays refused is
+    decode with the 'comp' predictor, as JAX asserts 'mlp'. The dense train
+    path runs, causal and non-causal (tests/test_torch_train_path.py), and
+    so does the self-teacher KD loss in training (tests/test_torch_baselines.py)."""
     cfg = tiny_cfg()
     model = SeaAttention(torch_sea_config(cfg), device="cpu", seed=0)
     q, k, v, mask = (t(x) for x in make_inputs(cfg, T=64))
@@ -162,17 +167,31 @@ def test_train_path_is_refused():
                              device="cpu", seed=0)
     out = selfteach(q, k, v, q, k, v, q, k, mask, benchmarking=False, training=True)
     assert float(out.loss) > 0
-    with pytest.raises(NotImplementedError):
-        SeaAttention(torch_sea_config(dataclasses.replace(cfg, lora_enabled=True)), device="cpu")
+    # LoRA's flags build the module unchanged (the deltas are the models')
+    lora = SeaAttention(torch_sea_config(dataclasses.replace(cfg, lora_enabled=True)),
+                        device="cpu", seed=0)
+    assert set(lora.state_dict()) == set(model.state_dict())
     csr = SeaAttention(torch_sea_config(dataclasses.replace(cfg, use_pallas=False)),
                        device="cpu", seed=0)
-    with pytest.raises(NotImplementedError):
-        csr(q, k, v, q, k, v, q, k, mask, benchmarking=True)
+    with torch.no_grad():
+        fused = model(q, k, v, q, k, v, q, k, mask, benchmarking=True)
+        out = csr(q, k, v, q, k, v, q, k, mask, benchmarking=True)
+    assert isinstance(out.partial_attention_mask, flat_csr.UniformCsr)
+    assert out.context_layer.shape == fused.context_layer.shape
+    assert torch.isfinite(out.context_layer).all()
     noncausal = torch_sea_config(dataclasses.replace(cfg, causal=False))
     model = SeaAttention(noncausal, device="cpu")
     pad = torch.zeros((1, 1, 1, 64))  # (N, 1, 1, T) additive: no padding
     with torch.no_grad():
         out = model(q, k, v, q, k, v, q, k, pad, benchmarking=False)
     assert torch.isfinite(out.context_layer).all()
-    with pytest.raises(NotImplementedError):
-        SeaAttention(dataclasses.replace(noncausal, k_oversample=2.0), device="cpu")
+    over = SeaAttention(dataclasses.replace(noncausal, k_oversample=2.0), device="cpu", seed=0)
+    with torch.no_grad():
+        out = over(q, k, v, q, k, v, q, k, pad, benchmarking=True)
+    assert isinstance(out.partial_attention_mask, flat_csr.UniformCsr)
+    assert torch.isfinite(out.context_layer).all()
+    comp = SeaAttention(torch_sea_config(dataclasses.replace(
+        cfg, predictor_method="comp", use_cache=True, comp_patch_count=2,
+        comp_patch_size=cfg.predictor_length // 2)), device="cpu", seed=0)
+    with pytest.raises(NotImplementedError, match="'mlp' only"):
+        comp.prefill_state(q, k, v, 64)

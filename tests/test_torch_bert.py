@@ -183,11 +183,13 @@ def test_bert_base_config_and_seeded_init():
 
 
 def test_bert_refuses_what_is_not_ported():
-    """What BERT still refuses: LoRA, `enc_per_layer`, the 'comp' predictor
-    and the non-causal uniform-CSR route (an oversampled top-k). The SEA
-    train path, the other methods and token merging run
-    (tests/test_torch_bert_kd.py and tests/test_torch_baselines.py hold them
-    to JAX)."""
+    """BERT refuses none of what it once did: LoRA, `enc_per_layer`, the
+    'comp' predictor and the non-causal uniform-CSR route (an oversampled
+    top-k) now build and run the benchmark forward to finite logits
+    (tests/test_torch_lora.py, test_torch_variants.py and
+    test_torch_flat_csr.py hold them to JAX). The SEA train path, the other
+    methods and token merging run (tests/test_torch_bert_kd.py and
+    tests/test_torch_baselines.py hold them to JAX)."""
     small = torch_bert_config(tiny_bert("perlin"))
     model = tbert.BertForSequenceClassification(small, device="cpu", seed=0)
     ids, am, types, _ = (t(x).long() for x in bert_batch((40, 64), 64, seed=0))
@@ -199,9 +201,13 @@ def test_bert_refuses_what_is_not_ported():
             dataclasses.replace(small, attention_method=method), device="cpu")
     tbert.BertForSequenceClassification(dataclasses.replace(small, token_merging=True),
                                         device="cpu")
+    T_M = small.sea.predictor_length
     for sea_kw in (dict(lora_enabled=True), dict(enc_per_layer=True),
-                   dict(predictor_method="comp"), dict(k_oversample=2.0)):
-        with pytest.raises(NotImplementedError):
-            tbert.BertForSequenceClassification(
-                dataclasses.replace(small, sea=dataclasses.replace(small.sea, **sea_kw)),
-                device="cpu")
+                   dict(predictor_method="comp", comp_patch_count=2, comp_patch_size=T_M // 2),
+                   dict(k_oversample=2.0)):
+        variant = tbert.BertForSequenceClassification(
+            dataclasses.replace(small, sea=dataclasses.replace(small.sea, **sea_kw)),
+            device="cpu", seed=0)
+        with torch.no_grad():
+            out = variant(ids, am, types, benchmarking=True)["logits"]
+        assert out.shape == (2, 2) and torch.isfinite(out).all(), sea_kw

@@ -462,7 +462,10 @@ def test_refusals_name_their_items():
     losses = train_steps(tl.LlamaForCausalLM(fused, device="cpu"), ids128,
                          torch.ones_like(ids128), 1)
     assert np.isfinite(losses).all()
+    # LoRA, refused until queue 1 item 4, builds and runs
+    # (tests/test_torch_lora.py holds it to JAX)
     cfg = tl.llama_tiny()
     lora = dataclasses.replace(cfg, sea=dataclasses.replace(cfg.sea, lora_enabled=True))
-    with pytest.raises(NotImplementedError, match="queue 1 item 4"):
-        tl.LlamaForCausalLM(lora, device="cpu")
+    with torch.no_grad():
+        out = tl.LlamaForCausalLM(lora, device="cpu")(ids128, torch.ones_like(ids128))
+    assert torch.isfinite(out["logits"]).all()
