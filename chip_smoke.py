@@ -19,8 +19,9 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 `causal_dkv_wgmma_kernel`, float32 `causal_dq_f32_wgmma_kernel`
                 and `causal_dkv_f32_wgmma_kernel` in three bf16 terms),
                 mma.sync's (HMMA) in K5's float32 instance
-                (`causal_flat_kernel`), both types at head width 64 and
-                K1-K4's at 80 and 128, none of which may lack them;
+                (`causal_flat_kernel`), both types at head width 64,
+                K1-K4's at 80 and 128 and K1's and K5's at 32, none of
+                which may lack them;
   2. mask     — the kernel's element predicate (`alive_mask`: the bf16
                 body's alive words) against the torch oracle
                 `element_mask_int8`, bit for bit, for T up to 8192; the
@@ -265,6 +266,34 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 newest, a fresh heartbeat; a second trainer resumed from the
                 newest, and its next update equal bit for bit to the
                 uninterrupted run's (both under deterministic algorithms);
+ 19i. width32-kernels — head width 32: K1 at the scaling sweep's
+                1 x 4 x 1024 x 32 (T_M 32, k 8) and K5 at LRA image's 256 x 1
+                x 1024 x 32 (T_M 128, k 64, half the examples ragged, one
+                empty), float32 and bf16, under the width-64 gates: the
+                element mask bit for bit, the plain version within the
+                tolerances below, K1's 128 x 256 lists equal to 64 x 64, rows
+                with nothing alive zero; each timed beside its plain
+                version, SDPA and its bound;
+ 19j. scaling — `benchmarks.scaling_sweep` at 1, 2 and 4 LocalGroup
+                positions of the card (the JAX sweep's 4 heads of 32, T =
+                1024, kind 'seq'): 43 launches of K1 at width 32 and no other
+                kernel, finite records (on one card the split's cost, not
+                scaling); layer 0's top-k and K1 checked; the 'seq' context
+                over 2 and 4 positions within 2e-5 of the unsharded one; the
+                forward again with bf16 parameters (K1's bf16 instance);
+ 19k. lra-image — `LraTrainer` on LRA's image task at its own geometry (1
+                layer, one head of 32, batch 256 x 1024, the synthetic pixel
+                stream): a 'dense' step and a 'distill' step through
+                `train()`, one more KD step timed, `evaluate('student')` (the
+                dense train path, as JAX's: no kernel), finite losses; then
+                the student's benchmarking forward through K5 at width 32 in
+                float32 and in bf16, one launch each, layer 0 held to the
+                plain version and reproducing the run's output bit for bit;
+ 19l. dp     — `cli.main` on wikitext2 at OPT-125m, 2 KD updates at 1 x 256,
+                with and without `--data-parallel` in one process: no
+                kernel, the same logged losses and the same student bit for
+                bit (deterministic algorithms); the NCCL run over several
+                cards waits for a machine that has them;
  20. decode   — OPT-125m with the decode cache (`opt_config` plus use_cache,
                 full width, 3 of its 12 layers, seeded random weights,
                 float32; the depth cut because the phase's steps are
@@ -321,7 +350,7 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 falling, layer 0's recomputed top-k mask equal to the
                 forward's bit for bit, both arms' peaks;
  24. opt13b-decode — OPT-1.3b with the decode cache, bf16 parameters and
-                states: generate_greedy of 32 tokens from a 1 x 512 prompt
+                states: generate_greedy of 16 tokens from a 1 x 512 prompt
                 prefilled in one forward (24 bf16 K1 launches, no other
                 kernel); the decode logits against the dense forward of the
                 generated sequence, every row (in bf16 over 24 layers each
@@ -409,14 +438,15 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 block shapes equal bit for bit), timed beside SDPA, ms per
                 step and peak memory;
  35. llama7b-kd — `OptTrainer(model="llama-7b", param_dtype="bfloat16",
-                moment_dtype="bfloat16")` at 1 x 512, accumulation 2, 2
+                moment_dtype="bfloat16")` at 1 x 512, accumulation 1, 2
                 updates: no kernel, every logged term finite, the student
                 moved, the teacher unchanged bit for bit, the first batch's
                 KD loss lower; ms per micro-step, peak memory, `evaluate`'s
                 PPL (a random model's);
  36. result   — one JSON line of per-kernel numbers (K1-K4's bf16 instances
                 beside the float32 ones, K1-K4 at widths 80 and 128 in each
-                type, K6-K8's bf16 instances), then the device line.
+                type, K6-K8's bf16 instances, K1 and K5 at width 32 in each
+                type), then the device line.
 
 Tolerances: float32 1e-5 abs for outputs and the logsumexp (both sides do
 float32 arithmetic, summed in another order); bfloat16 1e-5 plus half a
@@ -437,6 +467,7 @@ import contextlib
 import dataclasses
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -448,7 +479,10 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from sea_tpu_torch.benchmarks import attention_method_sweep, host_topk_mask, sweep_inputs
+from sea_tpu_torch.benchmarks import (SCALING_CONFIG, SCALING_COUNTS, attention_method_sweep,
+                                      host_topk_mask, scaling_forward, scaling_inputs,
+                                      scaling_sweep, sweep_inputs)
+from sea_tpu_torch.data.lra import LRA_TASKS
 from sea_tpu_torch.config import opt_config
 from sea_tpu_torch.data.glue import synthetic_glue
 from sea_tpu_torch.data.mmlu import (
@@ -472,6 +506,7 @@ from sea_tpu_torch.ops.masks import _ranks_desc, fp_min_for, topk_mask
 from sea_tpu_torch.parallel import (
     AttnShardingContext,
     LocalGroup,
+    make_mesh,
     resolve_attention_kind,
     sharded_attention_scope,
 )
@@ -527,6 +562,7 @@ RING_KERNELS = {
            "sea_tpu/ops/kernels/block_sparse.py:1698", 8),  # _causal_kernel_dkv_win
 }
 BF16_WRAPPERS.update({kid: w for kid, (w, *_) in RING_KERNELS.items()})
+BF16_WRAPPERS["K5"] = bs.bidir_forward
 RING_SHARDS, RING_BLOCK = 4, 128  # LocalGroup(4); the ring's default blocks
 RING_T = 16384  # the ring's main path: kind="auto" resolves to 'ring' from here
 RING_CHECK_T = 4096  # ring-kernels' synthetic inputs and the seq-head phase
@@ -586,14 +622,16 @@ OPT13B_REMAT_STEPS = 2  # the remat arm: the first loss is the comparison
 # does not move under longctx's rate 1e-5; Adam's first steps move each
 # weight by about the rate
 OPT13B_TRAIN_LR = 1e-3
-OPT13B_P, OPT13B_STEPS, OPT13B_MAX_LEN = 512, 32, 1024  # the decode request
+# the decode request: 16 greedy tokens (the steps are host-bound, and the
+# run's time limit is shared by every phase)
+OPT13B_P, OPT13B_STEPS, OPT13B_MAX_LEN = 512, 16, 1024
 # decode against the forward in bf16, of the forward's largest |logit|:
 # JAX's own bf16 run of tests/test_opt_decode.py's comparison (tiny OPT cast
 # to bf16, T = 12 and 48, seeds 0-4, every row) reaches 0.18 (PERF.md)
 OPT13B_DECODE_REL = 0.18
 OPT13B_NEAR_TIE = 0.0625  # a bf16 top-2 margin (2 ulps at logits in [4, 8))
 OPT13B_SERVE_PROMPTS = (17, 33, 50, 64)  # tokens; 4 slots, 4 greedy requests
-OPT13B_SERVE_NEW = (16, 12, 16, 8)
+OPT13B_SERVE_NEW = (8, 6, 8, 4)  # new tokens (host-bound engine steps)
 # the KD trainer at OPT-1.3b as exp_opt13b.py configures it: scan_kd,
 # logit_chunk 256, 1 x 1024, accumulation 1, bf16 parameters and moments
 OPT13B_KD_T, OPT13B_KD_ACCUM, OPT13B_KD_STEPS = 1024, 1, 2
@@ -627,8 +665,12 @@ LLAMA_MMLU_N, LLAMA_MMLU_BATCH = 64, 8  # synthetic examples, 0-shot
 LLAMA_TRAIN = ((2048, 3), (512, 2))
 LLAMA_DENSE_STEPS = 2  # the dense yardstick of arm (a): one steady step
 LLAMA_F32_LAYERS = 8
-# the KD trainer at llama-7b: bf16 teacher, student and moments (62.8 GiB)
-LLAMA_KD_T, LLAMA_KD_ACCUM, LLAMA_KD_STEPS = 512, 2, 2
+# the KD trainer at llama-7b: bf16 teacher, student and moments (62.8 GiB);
+# accumulation 1 (the kd phase accumulates 8 at OPT-125m)
+LLAMA_KD_T, LLAMA_KD_ACCUM, LLAMA_KD_STEPS = 512, 1, 2
+# forwards timed by [opt13b-serve] and [llama7b-serve], and decode runs
+# timed by [llama7b-decode] (host-bound; the run's time limit is shared)
+BIG_FORWARD_ITERS, LLAMA_DECODE_REPS = 3, 2
 LLAMA_KD_EVAL_WINDOWS = 2
 # the bf16 ring against the unsharded bf16 kernels: the first step's loss
 # within half a bf16 ulp of the loss (2^-9 of it), gradients where no top-k
@@ -647,6 +689,18 @@ LORA_T, LORA_R, LORA_B_SCALE, LORA_PREFILL = 2048, 32, 0.02, 1024
 CSR_T = VARIANT_T = 2048
 EXT_CONTEXTS, EXT_DYNAMIC_KS, EXT_QUERY_SKIPS, EXT_WINDOWS = (4096, 8192), (0, 32), (1, 2), 2
 CLI_STEPS, CLI_T = 3, 512
+# head width 32 (queue 2 item 6's first part): K1 at the scaling sweep's
+# 1 x 4 x 1024 x 32 (T_M 32, k 8; `benchmarks.SCALING_CONFIG`) and K5 at LRA
+# image's 256 x 1 x 1024 x 32 (T_M 128, k 64, `LraTrainerConfig`'s defaults);
+# the image trainer's examples (1024: 4 training batches of 256 and one
+# evaluation batch)
+SWEEP_H, SWEEP_D = SCALING_CONFIG["num_heads"], SCALING_CONFIG["head_dim"]
+SWEEP_T_M, SWEEP_K, SWEEP_T = SCALING_CONFIG["predictor_length"], SCALING_CONFIG["k"], 1024
+IMAGE = LRA_TASKS["image"]
+IMAGE_N, IMAGE_T, IMAGE_T_M, IMAGE_K = IMAGE.batch_size, IMAGE.max_length, 128, 64
+IMAGE_N_TRAIN = 1024
+# the data-parallel CLI's runs: 2 KD updates at 1 x 256
+DP_STEPS, DP_T = 2, 256
 
 
 def log(*a):
@@ -676,18 +730,18 @@ def time_ms(fn, iters=20, warmup=3) -> float:
     return statistics.median(times)
 
 
-def budget_mask(N, T, seed, device, heads=H):
-    """(N, heads, T, T_M) compressed mask with the production per-row
-    budget round(heads·k·T_M/(r+1)), clipped to [1, heads·T_M], spread at
-    random over the row's heads·T_M pixels (the schedule of bench.py,
+def budget_mask(N, T, seed, device, heads=H, t_m=T_M, k=K):
+    """(N, heads, T, t_m) compressed mask with the production per-row
+    budget round(heads·k·t_m/(r+1)), clipped to [1, heads·t_m], spread at
+    random over the row's heads·t_m pixels (the schedule of bench.py,
     written out)."""
     rng = np.random.default_rng(seed)
-    flat = np.zeros((N, T, heads * T_M), np.float32)
+    flat = np.zeros((N, T, heads * t_m), np.float32)
     for r in range(T):
-        budget = min(max(round(heads * K * T_M / (r + 1)), 1), heads * T_M)
+        budget = min(max(round(heads * k * t_m / (r + 1)), 1), heads * t_m)
         for n in range(N):
-            flat[n, r, rng.choice(heads * T_M, size=budget, replace=False)] = 1.0
-    m = np.transpose(flat.reshape(N, T, heads, T_M), (0, 2, 1, 3)).copy()
+            flat[n, r, rng.choice(heads * t_m, size=budget, replace=False)] = 1.0
+    m = np.transpose(flat.reshape(N, T, heads, t_m), (0, 2, 1, 3)).copy()
     return torch.from_numpy(m).to(device)
 
 
@@ -718,8 +772,8 @@ def reset_launches():
 
 
 def launch_counts() -> dict:
-    """Launches by kernel; 'K1'-'K4' and 'K6'-'K8' count both types, 'K1
-    bf16'-'K4 bf16' and 'K6 bf16'-'K8 bf16' the bfloat16 instances alone."""
+    """Launches by kernel; 'K1'-'K8' count both types, 'K1 bf16'-'K8 bf16'
+    the bfloat16 instances alone."""
     return {"K1": bs.sea_block_sparse_attention.launches,
             **{kid: TRAIN_KERNELS[kid][0].launches for kid in TRAIN_KERNELS},
             "K5": bs.bidir_forward.launches,
@@ -832,7 +886,7 @@ def phase_device():
 # instance on mma.sync, and `causal_wgmma_kernel`, the bf16 ones; and the
 # kernels each instance is
 FLAT_INSTANCE = re.compile(
-    r"causal_(tf32_wgmma|flat|wgmma)_kernelILi(64|80|128)ELb([01])ELb([01])ELi([0-3])EE")
+    r"causal_(tf32_wgmma|flat|wgmma)_kernelILi(32|64|80|128)ELb([01])ELb([01])ELi([0-3])EE")
 BODY_TYPES = {"tf32_wgmma": "float32", "flat": "float32", "wgmma": "bfloat16"}
 INSTANCE_KIDS = {(0, 0, 0): "K1", (1, 0, 0): "K2/K6", (0, 1, 0): "K5",
                  (0, 0, 1): "K9a", (0, 0, 2): "K9b", (0, 0, 3): "K9c"}
@@ -846,8 +900,10 @@ DIFF_KIDS = {"dq": "K3/K7", "dkv": "K4/K8"}
 DIFF_TYPES = {"wgmma_": "bfloat16", "f32_wgmma_": "float32", None: "float32"}
 # at widths 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b) only K1-K4 have
 # instances: the windows (K6-K8), K5 and K9a-c take 64 alone, so an instance
-# shared at 64 is K1-K4's alone there
+# shared at 64 is K1-K4's alone there; at 32 K1 (the scaling sweep) and K5
+# (LRA image) alone
 WIDE_KIDS = {"K1": "K1", "K2/K6": "K2", "K3/K7": "K3", "K4/K8": "K4"}
+NARROW_KIDS = ("K1", "K5")
 DTYPE_NAMES = ("float32", "bfloat16")
 
 
@@ -864,7 +920,7 @@ def instance_name(mangled: str):
             return None
         kid, width = DIFF_KIDS[found.group(1)], found.group(3)
         dtype = DIFF_TYPES[found.group(2)]
-    if width != "64":
+    if width not in ("32", "64"):
         kid = WIDE_KIDS.get(kid, kid)
     return f"{kid} {dtype} D{width}"
 
@@ -872,12 +928,12 @@ def instance_name(mangled: str):
 def required_instances() -> set:
     """The instances (as `instance_name` names them) that the entry points
     launch: every one of the forward body's and the backward bodies' in
-    both types at width 64, and K1-K4's in both types at widths 80 and
-    128."""
+    both types at width 64, K1-K4's in both types at widths 80 and 128, and
+    K1's and K5's at 32."""
     kids = [*INSTANCE_KIDS.values(), *DIFF_KIDS.values()]
     return {f"{kid} {dt} D{width}" for dt in DTYPE_NAMES
-            for width, names in (("64", kids), ("80", WIDE_KIDS.values()),
-                                 ("128", WIDE_KIDS.values()))
+            for width, names in (("32", NARROW_KIDS), ("64", kids),
+                                 ("80", WIDE_KIDS.values()), ("128", WIDE_KIDS.values()))
             for kid in names}
 
 
@@ -2082,8 +2138,9 @@ def capture_bert_layer0(model, inputs):
     log(f"[bert] layer-0 top-k mask, card vs CPU on the same estimates: "
         f"{bad} mismatches of {cpu_mask.numel()}")
     require(bad == 0, "non-causal top-k masks differ between the card and the CPU")
-    # the kernel's own operands: q / sqrt(D), v zeroed on the padded rows
-    q = buf["q_for_score"] / math.sqrt(model.cfg.head_dim)
+    # the kernel's own operands: q / sqrt(D) (the model's true division),
+    # v zeroed on the padded rows
+    q = bs._div(buf["q_for_score"], math.sqrt(model.cfg.head_dim))
     v = torch.where(alive, buf["v"], torch.zeros_like(buf["v"]))
     mask = (buf["partial_attention_mask_before_interp"] > 0).to(q.dtype)
     sc = torch.sigmoid(buf["estimated_scales"][..., 0])
@@ -3185,7 +3242,9 @@ def student_k5(phase, model, inputs, timed=False):
     logits = infer(model, *inputs)
     torch.cuda.synchronize()
     counts = launch_counts()
-    want = {**dict.fromkeys(counts, 0), "K5": model.cfg.num_layers}
+    n = model.cfg.num_layers
+    bf16 = next(model.parameters()).dtype == torch.bfloat16
+    want = {**dict.fromkeys(counts, 0), "K5": n, **({"K5 bf16": n} if bf16 else {})}
     require(counts == want, f"[{phase}] the student's forward launched {counts}, want {want}")
     require(bool(torch.isfinite(logits).all()), f"[{phase}] the student's logits")
     q, k, v, mask, sc, lengths, run_out = capture_bert_layer0(model, inputs)
@@ -3725,10 +3784,10 @@ def phase_opt13b_serve(weights):
     require(logits.dtype == torch.bfloat16 and bool(torch.isfinite(logits).all()),
             "OPT-1.3b logits")
     captured = layer0_k1("opt13b-serve", lambda: model(ids, am, benchmarking=True))
-    ms, _ = forward_ms(model, ids, am)
+    ms, _ = forward_ms(model, ids, am, iters=BIG_FORWARD_ITERS)
     del model
     dense = opt13b(weights, "none")
-    dense_ms, _ = forward_ms(dense, ids, am)
+    dense_ms, _ = forward_ms(dense, ids, am, iters=BIG_FORWARD_ITERS)
     del dense
     torch.cuda.empty_cache()
     log(f"[opt13b-serve] {ms:.2f} ms per forward ({OPT13B_T / ms * 1e3:.0f} tokens/s), dense "
@@ -3924,7 +3983,7 @@ def bf16_engine(phase, model, requests, max_len):
 
 def phase_opt13b_decode(weights):
     """OPT-1.3b with the decode cache and bf16 parameters: generate_greedy
-    of 32 tokens from a 1 x 512 prompt prefilled in one forward (24 bf16
+    of 16 tokens from a 1 x 512 prompt prefilled in one forward (24 bf16
     K1 launches, no other kernel); the decode logits against the dense
     forward of the generated sequence within OPT13B_DECODE_REL of the
     forward's largest |logit| (JAX's own bf16 gap, PERF.md), and the same
@@ -4369,11 +4428,11 @@ def phase_llama7b_serve(weights):
     del logits
     captured = layer0_k1("llama7b-serve", lambda: infer(model, ids, am))
     get_bench().reset()
-    ms, _ = forward_ms(model, ids, am)
+    ms, _ = forward_ms(model, ids, am, iters=BIG_FORWARD_ITERS)
     del model
     torch.cuda.empty_cache()
     dense = llama7b(weights, "none")
-    dense_ms, dense_out = forward_ms(dense, ids, am)
+    dense_ms, dense_out = forward_ms(dense, ids, am, iters=BIG_FORWARD_ITERS)
     require(bool(torch.isfinite(dense_out).all()), "dense LLaMA-7b logits not finite")
     del dense, dense_out
     torch.cuda.empty_cache()
@@ -4431,7 +4490,7 @@ def phase_llama7b_decode(weights):
     require(counts == bf16_want(K1=L), f"LLaMA-7b decode launches {counts}")
     require(tokens.shape == (1, n) and valid_ids(tokens, V), "greedy tokens")
     decode_vs_forward("llama7b-decode", model, prompt, tokens, P + n, LLAMA_DECODE_REL)
-    step_ms, runs = decode_ms(model, prompt, n, max_len=P + n)
+    step_ms, runs = decode_ms(model, prompt, n, reps=LLAMA_DECODE_REPS, max_len=P + n)
     weight_bytes = sum(p.numel() * p.element_size() for p in model.parameters()) - (
         model.model.embed_tokens.weight.numel() * model.model.embed_tokens.weight.element_size())
     bound_ms = weight_bytes / HBM_BYTES_PER_S * 1e3
@@ -4573,7 +4632,7 @@ def phase_llama7b_train():
 def phase_llama7b_kd():
     """The KD trainer on LLaMA-7b (`OptTrainer(model="llama-7b",
     param_dtype="bfloat16", moment_dtype="bfloat16")`: teacher and student
-    drawn on the card, 1 x 512 windows, accumulation 2) for 2 updates
+    drawn on the card, 1 x 512 windows, accumulation 1) for 2 updates
     through `train()`: no kernel (the student's dense train path), every
     logged term finite, the student moved and the teacher unchanged bit for
     bit (host copies: the card has no room for a second 12.6 GiB copy), the
@@ -4991,6 +5050,238 @@ def phase_cli():
     return dict(seconds=took)
 
 
+# ---------------------------------------------------------------------------
+# Head width 32: K1 and K5, the scaling sweep, LRA image, data parallelism
+# ---------------------------------------------------------------------------
+
+
+def image_mask(lengths, T, seed, device):
+    """(N, 1, T, 128) compressed mask of right-padded one-head examples,
+    each token row keeping each pixel with the probability of the non-causal
+    budget round(k·T_M/len) / T_M (k = 64); padded rows keep nothing."""
+    g = torch.Generator().manual_seed(seed)
+    lt = torch.tensor(lengths, dtype=torch.float32)
+    density = (torch.round(IMAGE_K * IMAGE_T_M / lt.clamp(min=1)).clamp(1, IMAGE_T_M)
+               / IMAGE_T_M)
+    m = (torch.rand((len(lengths), 1, T, IMAGE_T_M), generator=g)
+         < density[:, None, None, None]).float()
+    m *= (torch.arange(T)[None, None, :, None] < lt[:, None, None, None]).float()
+    return m.to(device)
+
+
+def phase_width32_kernels():
+    """K1 at the scaling sweep's 1 x 4 x 1024 x 32 and K5 at LRA image's 256
+    x 1 x 1024 x 32, in float32 and bf16, under the width-64 gates: the
+    element mask bit for bit, each kernel within `tolerance` of its plain
+    version, K1's 128 x 256 lists equal to its 64 x 64 ones bit for bit,
+    rows with nothing alive zero; each timed beside its plain version, SDPA
+    at the same shape and its bound. Returns {(kernel, dtype): max|err|}."""
+    dev = "cuda"
+    errs = {}
+    sweep = dict(heads=SWEEP_H, width=SWEEP_D)
+    mask = budget_mask(1, SWEEP_T, seed=32, device=dev, heads=SWEEP_H, t_m=SWEEP_T_M,
+                       k=SWEEP_K)
+    bad = int((bs.alive_mask(mask, SWEEP_T) != bs.element_mask_int8(mask, SWEEP_T, True)).sum())
+    require(bad == 0, "alive_mask != element_mask_int8 on the width-32 causal mask")
+    empty = mask.clone()
+    empty[:, :, 300:400] = 0.0
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, sc = qkv(1, SWEEP_T, dtype, seed=32, device=dev, **sweep)
+        got = bs.sea_block_sparse_attention(q, k, v, mask, sc)
+        want = bs.dense_reference(q.float(), k.float(), v.float(), mask, sc.to(dtype).float())
+        diff = (got.float() - want).abs()
+        over = float((diff - tolerance(want, dtype)).max())
+        other = bs.sea_block_sparse_attention(q, k, v, mask, sc, block_q=128, block_k=256)
+        hole = bs.sea_block_sparse_attention(q, k, v, empty, sc)
+        hole_want = bs.dense_reference(q.float(), k.float(), v.float(), empty,
+                                       sc.to(dtype).float())
+        hole_ok = bool(((hole.float() - hole_want).abs() <= tolerance(hole_want, dtype)).all())
+        zero = float(hole[:, :, 300:400].abs().max())
+        m = measure(q, k, v, mask, sc)
+        log(f"[width32-kernels] K1 1x{SWEEP_H}x{SWEEP_T}x{SWEEP_D} {str(dtype)[6:]}: max|err|="
+            f"{float(diff.max()):.3g} (margin to tol {-over:.3g}); element mask {bad} "
+            f"mismatches; blocks 128 x 256 equal to 64 x 64: {torch.equal(got, other)}; rows "
+            f"300-399 empty: within tolerance {hole_ok}, |out| there {zero}; kernel "
+            f"{m['ms']:.4f} ms (with prep {m['wrapper_ms']:.4f}), plain {m['plain_ms']:.3f} ms, "
+            f"sdpa {m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by {m['bound_by']} "
+            f"({m['flops'] / 1e9:.4f} GFLOP, {m['bytes'] / 1e6:.2f} MB)")
+        require(over <= 0 and got.dtype == dtype, f"width-32 K1 vs plain {dtype}")
+        require(torch.equal(got, other), f"width-32 K1 depends on the block sizes {dtype}")
+        require(hole_ok and zero == 0.0, f"width-32 K1 empty rows {dtype}")
+        errs["K1", dtype] = max(float(diff.max()), max_err(hole, hole_want))
+
+    rng = np.random.default_rng(32)
+    lengths = [IMAGE_T] * (IMAGE_N // 2) + [int(x) for x in
+                                            rng.integers(1, IMAGE_T + 1, IMAGE_N // 2)]
+    lengths[-1] = 0
+    lt = torch.tensor(lengths, dtype=torch.int32, device=dev)
+    mask = image_mask(lengths, IMAGE_T, seed=33, device=dev)
+    bad = int((bs.alive_mask(mask, IMAGE_T, is_causal=False, lengths=lt)
+               != bs.element_mask_int8(mask, IMAGE_T, False, lengths=lt)).sum())
+    log(f"[width32-kernels] K5 {IMAGE_N}x1x{IMAGE_T}x{SWEEP_D}: element mask {bad} mismatches "
+        f"(lengths 0-{IMAGE_T}, half of them {IMAGE_T})")
+    require(bad == 0, "K5's predicate != the oracle on the width-32 mask")
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, sc = qkv(IMAGE_N, IMAGE_T, dtype, seed=33, device=dev, heads=1, width=SWEEP_D)
+        err, got = check_bidir(f"width 32, {IMAGE_N}x1x{IMAGE_T}x{SWEEP_D} {str(dtype)[6:]}",
+                               bs._div(q, math.sqrt(SWEEP_D)), k, v, mask, sc, lt, timed=True)
+        zero = max(float(got[-1].abs().max()),
+                   max(float(got[n, :, length:].abs().max()) if length < IMAGE_T else 0.0
+                       for n, length in enumerate(lengths)))
+        require(zero == 0.0 and bool(torch.isfinite(got).all()),
+                f"width-32 K5 padded rows {dtype}: |out| {zero}")
+        errs["K5", dtype] = err
+    return errs
+
+
+def phase_scaling():
+    """`scaling_sweep` at 1, 2 and 4 positions of one card: K1 at width 32
+    launched once a shard a forward and no other kernel, finite records;
+    then layer 0 of the sweep's forward held to the plain version (the
+    card's top-k to the CPU's), the 'seq' kind's context over 2 and 4
+    positions within 2e-5 of the unsharded one (tests/test_torch_mesh.py's
+    bound), and the same forward with bf16 parameters and input (K1's bf16
+    instance). Returns the launches and the captured inputs of each type."""
+    dev = "cuda"
+    reset_launches()
+    t0 = time.perf_counter()
+    records = scaling_sweep(device=dev)
+    torch.cuda.synchronize()
+    took = time.perf_counter() - t0
+    counts = launch_counts()
+    # the mask's forward, then one warm-up and five timed forwards a count
+    n = 1 + 6 * sum(SCALING_COUNTS)
+    for rec in records:
+        log(f"[scaling] {json.dumps(rec)}")
+    log(f"[scaling] scaling_sweep({list(SCALING_COUNTS)}) in {took:.1f} s; launches {counts}")
+    require([r["devices"] for r in records] == list(SCALING_COUNTS)
+            and all(math.isfinite(r["nnz_per_s"]) and r["nnz_per_s"] > 0 for r in records),
+            f"scaling records {records}")
+    require_launches("scaling", counts, K1=n)
+
+    cfg, q, causal = scaling_inputs(dev)
+    model = SeaAttention(cfg, device=dev, seed=0)
+    cap = layer0_k1("scaling", lambda: scaling_forward(model, q, causal))
+    ctx, _ = scaling_forward(model, q, causal)
+    for size in SCALING_COUNTS[1:]:
+        with sharded_attention_scope(make_mesh(dp=1, sp=size, devices=[dev] * size),
+                                     axis="sp", kind="seq"):
+            got, _ = scaling_forward(model, q, causal)
+        err = max_err(got, ctx)
+        log(f"[scaling] 'seq' over {size} positions vs unsharded: context max|err| {err:.3g}")
+        require(err <= 2e-5, f"the sharded sweep forward over {size} positions: {err}")
+    model.to(torch.bfloat16)
+    qb = q.bfloat16()
+    (ctx_bf, _), counts_bf = counted(lambda: scaling_forward(model, qb, causal))
+    require_launches("scaling", counts_bf, K1=1, **{"K1 bf16": 1})
+    require(ctx_bf.dtype == torch.bfloat16 and bool(torch.isfinite(ctx_bf).all()),
+            "the sweep's bf16 forward")
+    cap_bf = layer0_k1("scaling", lambda: scaling_forward(model, qb, causal))
+    del model
+    torch.cuda.empty_cache()
+    return dict(launches=n, cap=cap, launches_bf16=counts_bf["K1 bf16"], cap_bf16=cap_bf,
+                records=records)
+
+
+def phase_lra_image():
+    """`LraTrainer` on LRA's image task at its own geometry (1 layer, one
+    head of 32, ffn 64, batch 256, T = 1024; the synthetic pixel stream): a
+    'dense' step through `train()` (the teacher saved), a 'distill' step
+    through `train()` from that teacher, one more KD step timed, the
+    student's `evaluate` (the dense train path, as JAX's, no kernel), then
+    the student's benchmarking forward through K5 at width 32 (one launch,
+    layer 0 held to the plain version and reproducing the run's output bit
+    for bit), again with the student in bf16. Returns the launches, errors
+    and layer-0 inputs of each type."""
+    dev = "cuda"
+    with tempfile.TemporaryDirectory() as save_dir:
+        def config(phase):
+            return LraTrainerConfig(task="image", phase=phase, num_steps=1,
+                                    n_train=IMAGE_N_TRAIN, log_every=1, save_dir=save_dir)
+
+        t0 = time.perf_counter()
+        dense = LraTrainer(config("dense"), device=dev)
+        torch.cuda.synchronize()
+        c = dense.t_cfg
+        T = dense.train_ds.input_ids.shape[1]
+        log(f"[lra-image] image teacher on {dev} in {time.perf_counter() - t0:.1f} s: "
+            f"{c.num_layers} layer, width {c.hidden_size}, {c.num_heads} head of "
+            f"{c.hidden_size // c.num_heads}, batch {dense.batch_size}, T = {T}")
+        require((c.num_layers, c.num_heads, c.hidden_size, dense.batch_size, T)
+                == (1, 1, SWEEP_D, IMAGE_N, IMAGE_T), "the image task's geometry")
+        (dense_ms, _), counts = counted(lambda: timed_sync(lambda: dense.train(log=log)))
+        no_kernel("lra-image", counts)
+        batch = next(dense.train_ds.batches(dense.batch_size))
+        loss = float(dense.dense_step([batch]))
+        require(math.isfinite(loss), "the image teacher's loss")
+        del dense
+        torch.cuda.empty_cache()
+
+        kd = LraTrainer(config("distill"), device=dev)
+        torch.cuda.reset_peak_memory_stats()
+        (kd_ms, _), counts = counted(lambda: timed_sync(lambda: kd.train(log=log)))
+        no_kernel("lra-image", counts)
+        require(kd.step == 1, f"the distill phase's step {kd.step}")
+        step_ms, (kd_loss, terms) = timed_sync(lambda: kd.kd_step([batch]))
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        terms = {n: float(x) for n, x in terms.items()}
+        require(math.isfinite(float(kd_loss)) and all(map(math.isfinite, terms.values())),
+                f"an image KD term: {terms}")
+        (acc, counts) = counted(lambda: kd.evaluate("student"))
+        no_kernel("lra-image", counts)
+        log(f"[lra-image] dense: a step through train() (with the save) in {dense_ms:.1f} ms, "
+            f"one more loss {loss:.6f}; distill: a step through train() (with the bootstrap "
+            f"probe and the save) in {kd_ms:.1f} ms, one more {step_ms:.2f} ms, peak "
+            f"{peak:.2f} GiB, loss {float(kd_loss):.6f}, terms {terms}; evaluate('student') "
+            f"{acc:.4f} (a random model's on the synthetic stream; the dense train path)")
+        inputs = kd._tensors(*next(kd.eval_ds.batches(kd.batch_size)))[:3]
+        out = {}
+        for dtype in (torch.float32, torch.bfloat16):
+            kd.student.to(dtype)
+            launches, err = student_k5("lra-image", kd.student, inputs)
+            cap = capture_bert_layer0(kd.student, inputs)
+            require(cap[0].dtype == dtype and cap[0].shape == (IMAGE_N, 1, IMAGE_T, SWEEP_D),
+                    f"the image student's layer-0 inputs {tuple(cap[0].shape)}")
+            out[dtype] = dict(launches=launches, err=err, cap=cap[:6])
+        del kd
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_dp():
+    """`cli.main` on wikitext2 at OPT-125m, 2 KD updates at 1 x 256, with and
+    without `--data-parallel`, in one process (no torch.distributed world):
+    the flag is taken, no kernel is launched, and both runs log the same
+    losses and end with the same student, bit for bit (under deterministic
+    algorithms)."""
+    dev = "cuda"
+    runs = {}
+    with tempfile.TemporaryDirectory() as root:
+        for flag in (False, True):
+            argv = ["--dataset", "wikitext2", "--model", "opt-125m", "--num-steps",
+                    str(DP_STEPS), "--max-seq-len", str(DP_T), "--gradient-accumulation-steps",
+                    "1", "--eval-steps", "1000", "--log-steps", "1", "--device", dev,
+                    "--save-root", os.path.join(root, str(int(flag)))]
+            if flag:
+                argv.append("--data-parallel")
+            with deterministic():
+                tr, counts = counted(lambda: cli.main(argv))
+            require_launches("dp", counts)
+            with open(tr.metrics_path) as f:
+                losses = [json.loads(line)["loss"] for line in f if '"loss"' in line]
+            require(tr.cfg.data_parallel == flag and tr.dp is None and len(losses) == DP_STEPS,
+                    f"--data-parallel {flag}: config {tr.cfg.data_parallel}, group {tr.dp}, "
+                    f"losses {losses}")
+            runs[flag] = (losses, tr.student.state_dict())
+            del tr
+    (a, sa_), (b, sb_) = runs[False], runs[True]
+    same = all(torch.equal(sa_[n], sb_[n]) for n in sa_)
+    log(f"[dp] cli.main wikitext2 OPT-125m, {DP_STEPS} updates at 1x{DP_T}, one process: losses "
+        f"{a} without --data-parallel, {b} with it; students equal bit for bit: {same}")
+    require(a == b and same, "--data-parallel in one process changed the run")
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     """One kernel of the `kernels` line from its measurements `t`."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5197,6 +5488,36 @@ def main():
     time_phase(t_start, "long-context")
     phase_cli()
     time_phase(t_start, "cli")
+
+    # head width 32: K1 (the scaling sweep) and K5 (LRA image), and the
+    # data-parallel CLI
+    w32_errs = phase_width32_kernels()
+    time_phase(t_start, "width32-kernels")
+    scaling = phase_scaling()
+    time_phase(t_start, "scaling")
+    image = phase_lra_image()
+    time_phase(t_start, "lra-image")
+    phase_dp()
+    time_phase(t_start, "dp")
+    w32_entries = []
+    for dtype, launches, cap in (("float32", scaling["launches"], scaling["cap"]),
+                                 ("bfloat16", scaling["launches_bf16"], scaling["cap_bf16"])):
+        m = measure(*cap[:5])
+        log(f"[result] scaling sweep layer {tuple(cap[0].shape)} {dtype}: K1 {m['ms']:.4f} ms, "
+            f"plain {m['plain_ms']:.3f} ms, sdpa {m['library_ms']:.4f} ms, bound "
+            f"{m['bound_ms']:.4f} ms by {m['bound_by']}")
+        w32_entries.append(kernel_entry(
+            f"sea_causal_flat_forward ({dtype}, head width 32)", KERNEL_SOURCE, REPLACES,
+            launches, max(w32_errs["K1", getattr(torch, dtype)], cap[5]), m))
+    for dtype in (torch.float32, torch.bfloat16):
+        run = image[dtype]
+        m = measure_bidir(*run["cap"])
+        log(f"[result] LRA image student layer 0 {tuple(run['cap'][0].shape)} "
+            f"{str(dtype)[6:]}: K5 {m['ms']:.4f} ms, plain {m['plain_ms']:.3f} ms, sdpa "
+            f"{m['library_ms']:.4f} ms, bound {m['bound_ms']:.4f} ms by {m['bound_by']}")
+        w32_entries.append(kernel_entry(
+            f"sea_bidir_forward ({str(dtype)[6:]}, head width 32)", KERNEL_SOURCE,
+            BIDIR_REPLACES, run["launches"], max(w32_errs["K5", dtype], run["err"]), m))
     kernels[0]["launches"] += lora["launches"]["K1"] + variants["launches"] + ext["launches"]
     kernels[0]["max_abs_err"] = max(kernels[0]["max_abs_err"], lora["err"]["K1"],
                                     variants["err"], ext["err"])
@@ -5340,6 +5661,7 @@ def main():
                                     max(ring_bf16_errs[kid], ring_layer0_errs[kid]),
                                     ring_bf16_m[kid]))
 
+    kernels.extend(w32_entries)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

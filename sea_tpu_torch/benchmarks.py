@@ -21,10 +21,21 @@ mask is here too (`host_topk_mask`), for the kernels' checks.
 
     python -m sea_tpu_torch.benchmarks --suite attention [--seq-lens 1024 2048 4096]
         [--dtype float32|bfloat16] [--json out.json]
+    python -m sea_tpu_torch.benchmarks --suite scaling [--json out.json]
 
 It runs on the card; `attention_method_sweep(device="cpu", ...)` runs the
-plain versions at a small size. The JAX sweep's `--suite scaling` is not
-ported.
+plain versions at a small size.
+
+`--suite scaling` (`scaling_sweep`, the JAX sweep's) times SeaAttention's
+benchmark forward (4 heads of 32, T = 1024, T_M = 32, k = 8; K1 at head
+width 32 on the card) inside `sharded_attention_scope(mesh, axis="sp",
+kind="seq")` over (1, n) meshes, n = 1, 2, 4 by default, and reports the
+realised mask's nonzeros per second and the efficiency against n times the
+one-position rate. The positions are `LocalGroup` positions on the one
+device (`make_mesh(dp=1, sp=n, devices=[device] * n)`), run one after the
+other: on one card a record measures what the split costs, not scaling
+(each record says so); a run over several cards, one process each
+(DistGroup), waits for a machine that has them.
 """
 
 from __future__ import annotations
@@ -37,9 +48,13 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
+from .config import SeaConfig
+from .models.attention import SeaAttention
 from .ops.cosformer import _cos_features, cosformer_causal
-from .ops.kernels.block_sparse import sea_block_sparse_attention
+from .ops.kernels.block_sparse import mask_nnz, sea_block_sparse_attention
 from .ops.performer import fast_attention, gaussian_orthogonal_random_matrix
+from .parallel.context import sharded_attention_scope
+from .parallel.mesh import make_mesh
 
 METHODS = ("dense", "performer", "cosformer", "sea_fused")
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -214,14 +229,88 @@ def attention_method_sweep(
     return results
 
 
+# the scaling sweep's SeaAttention (the JAX sweep's configuration) and input
+SCALING_CONFIG = dict(num_heads=4, head_dim=32, predictor_length=32, k=8,
+                      performer_nb_factor=1, causal=True, max_position_embeddings=1024,
+                      use_pallas=True)
+SCALING_N, SCALING_T = 1, 1024
+SCALING_COUNTS = (1, 2, 4)  # LocalGroup positions on the one device
+
+
+def scaling_inputs(device="cuda"):
+    """(config, q (1, 4, 1024, 32), the additive causal mask (1, 1, T, T)):
+    q from numpy's generator seeded 0, times 0.3, as the JAX sweep draws
+    it."""
+    cfg = SeaConfig(**SCALING_CONFIG).validate()
+    N, T, H, D = SCALING_N, SCALING_T, cfg.num_heads, cfg.head_dim
+    rng = np.random.default_rng(0)
+    q = rng.standard_normal((N, H, T, D)).astype(np.float32) * 0.3
+    fpmin = float(np.finfo(np.float32).min) / 2
+    causal = np.broadcast_to(
+        np.where(np.tril(np.ones((T, T))) > 0, 0.0, fpmin)[None, None], (N, 1, T, T)
+    ).astype(np.float32)
+    return cfg, torch.from_numpy(q).to(device), torch.from_numpy(causal).to(device)
+
+
+def scaling_forward(model: SeaAttention, q: torch.Tensor, mask: torch.Tensor):
+    """The sweep's forward: q in every role, the benchmark path; (context,
+    the compressed mask)."""
+    with torch.no_grad():
+        out = model(q, q, q, q, q, q, q, q, mask, benchmarking=True)
+    return out.context_layer, out.partial_attention_mask
+
+
+def scaling_sweep(device_counts: Optional[List[int]] = None, kind: str = "seq",
+                  device="cuda") -> List[Dict]:
+    """SeaAttention's benchmark forward on (1, n) meshes of `n` positions
+    (`LocalGroup`s on `device`) under `sharded_attention_scope(kind=kind)`,
+    as the JAX sweep runs it: per n the ms of a forward (5 timed after one
+    warm-up), the realised mask's nonzeros per second and the efficiency
+    against n times the first count's per-position rate; counts whose
+    shards would hold fewer than 128 rows are skipped. Weights seeded 0 in
+    the port's initialiser (the JAX sweep's come from `jax.random.key(0)`)."""
+    device = torch.device(device)
+    counts = list(device_counts or SCALING_COUNTS)
+    cfg, q, causal = scaling_inputs(device)
+    T = q.shape[2]
+    model = SeaAttention(cfg, device=device, seed=0)
+    _, mask_m = scaling_forward(model, q, causal)
+    nnz = int(mask_nnz(mask_m > 0, T, True))
+    name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
+    results = []
+    base = None
+    for n in counts:
+        if T // n < 128:
+            continue
+        mesh = make_mesh(dp=1, sp=n, devices=[device] * n)
+        with sharded_attention_scope(mesh, axis="sp", kind=kind):
+            dt = timeit(lambda x, m: scaling_forward(model, x, m)[0], q, causal, iters=5)
+        tput = nnz / dt
+        if base is None:
+            base = tput / n
+        results.append({
+            "devices": n,
+            "mesh": f"sp{n} ({kind} fused kernel)",
+            "ms": dt * 1e3,
+            "nnz_per_s": tput,
+            "scaling_eff": tput / (n * base) if base else 1.0,
+            "positions": f"{n} LocalGroup position(s) on one {name}: the split's cost, "
+                         "not scaling",
+        })
+    return results
+
+
 def main():
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    p.add_argument("--suite", default="attention", choices=["attention"])
+    p.add_argument("--suite", default="attention", choices=["attention", "scaling"])
     p.add_argument("--json", default=None)
     p.add_argument("--seq-lens", type=int, nargs="*", default=None)
     p.add_argument("--dtype", default="float32", choices=sorted(DTYPES))
     args = p.parse_args()
-    res = attention_method_sweep(seq_lens=args.seq_lens, dtype=args.dtype)
+    if args.suite == "attention":
+        res = attention_method_sweep(seq_lens=args.seq_lens, dtype=args.dtype)
+    else:
+        res = scaling_sweep()
     out = json.dumps(res, indent=2)
     print(out)
     if args.json:

@@ -77,7 +77,7 @@
 //     stages, each completing on an mbarrier, in the swizzled layout the
 //     descriptors read (a 128-byte swizzle at D = 64 and 128; at D = 80,
 //     whose 160-byte rows no 64-column box tiles, a 32-byte swizzle, five
-//     16-column boxes a tile); Q and the block's mask words arrive once on
+//     16-column boxes a tile, and at D = 32 two); Q and the block's mask words arrive once on
 //     their own barrier. The C entry points build the tensor maps (over the
 //     window at K6) with cuTensorMapEncodeTiled, found through
 //     cudaGetDriverEntryPointByVersion so that no -lcuda is needed. This
@@ -109,8 +109,9 @@
 // run under 232 and the producer under 40 after setmaxnreg, no spill.
 // Shared memory a block (bytes): Q 256·D, four K/V stages 4·256·D, the
 // mask words 8192, barriers and walk entries 136, the alignment 1024, and
-// 8·nkb (K9a-c 16·nkb) for the lists: 91272, 111752 and 173192 plus the
-// lists at D = 64, 80 and 128. The tiles need t_dst a multiple of 128.
+// 8·nkb (K9a-c 16·nkb) for the lists: 50312, 91272, 111752 and 173192 plus
+// the lists at D = 32, 64, 80 and 128. The tiles need t_dst a multiple of
+// 128.
 //
 // The float32 body (`causal_tf32_wgmma_kernel`) is the bf16 body's skeleton
 // (the walk, the TMA copies on mbarriers, warp specialisation under
@@ -137,10 +138,11 @@
 //     k = t4 and t4 + 4, so each group of 8 keys of Vᵀ is written in that
 //     order (`sea::key_at`): no shuffle in the consumers;
 //   * shared memory: a 64-row float32 tile is 256·D bytes, doubled by hi and
-//     lo. So the width decides the block (`tf::Config`): at D = 64 two
-//     consumer warpgroups (128 rows) and two K/Vᵀ stages, 222344 bytes; at
-//     80 two warpgroups and one stage, 193616; at 128 one warpgroup and one
-//     stage, the mask words read through L1, 230480 (plus the lists). K and
+//     lo. So the width decides the block (`tf::Config`): at D = 32 and 64
+//     two consumer warpgroups (128 rows) and two K/Vᵀ stages, 115848 and
+//     222344 bytes; at 80 two warpgroups and one stage, 193616; at 128 one
+//     warpgroup and one stage, the mask words read through L1, 230480 (plus
+//     the lists). K and
 //     Vᵀ have barriers of their own, so a stage's K is refilled while its Vᵀ
 //     is read, and the next V lands while this one is read; each warpgroup
 //     waits for its P·V before the next sub-tile, as one stage needs;
@@ -149,7 +151,7 @@
 //     of the bf16 tiles' 16-column ones.
 // One block per (batch·head, 64- or 128-row q-tile), every head's last
 // q-tile first; t_dst a multiple of the block's rows (the wrappers pad T to
-// 128). Registers: 128 for the 512-thread launches (D = 64, 80; consumers
+// 128). Registers: 128 for the 512-thread launches (D = 32, 64, 80; consumers
 // under 216 after setmaxnreg), 168 for the 384-thread ones (D = 128;
 // consumers under 232), the producers under 40; no spill.
 // K5's float32 instance keeps the body that served every float32 instance
@@ -187,8 +189,12 @@
 //
 // Head widths. Each entry point instantiates the widths of its list
 // (`sea::dispatch` over sea_mask.cuh's FORWARD_WIDTHS, TRAIN_WIDTHS,
-// BASE_WIDTHS): K1 and K2 at 64, 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b),
-// K5, K6 (K2's instance at 64) and K9a-c at 64, each in both types.
+// BIDIR_WIDTHS, BASE_WIDTHS): K1 at 32 (the scaling sweep's 4 heads of 32),
+// 64, 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b), K2 at 64, 80 and 128, K5 at
+// 32 (LRA's image task) and 64, K6 (K2's instance at 64) and K9a-c at 64,
+// each in both types. Width 32 is the other widths' body at N = 32 (wgmma
+// m64n32k16 and m64n32k8 for P·V, two k-steps of Q·Kᵀ in bf16, four in
+// TF32); it is a correct instance, not yet a tuned one.
 //
 // The debug kernels `alive_mask_kernel` and `impl_alive_mask_kernel` build
 // the bf16 body's alive words, so that the card checks them bit for bit
@@ -240,7 +246,7 @@ constexpr int SMEM_MAX = 232448;           // what a block may take on the H100
 // entry, -1 where the sub-tile is dead for it), then the two warpgroups'
 // lists (and, K9a-c, their `tiles` entries), sized at launch. Each 64-row
 // tile is sea::Panels<D> (sea_mma.cuh): a 128-byte swizzle at D = 64 and
-// 128, a 32-byte one at D = 80.
+// 128, a 32-byte one at D = 32 and 80.
 template <int D>
 struct Layout : sea::Panels<D> {
   using P = sea::Panels<D>;
@@ -598,16 +604,19 @@ namespace tf {
 
 // Consumer warpgroups (64 query rows each), K/Vᵀ stages and where the mask
 // words live, by head width, as a block's 227 KiB of shared memory hold them
-// with every operand in hi and lo (see Layout): at D = 64 two warpgroups and
-// two stages; at 80 two and one; at 128 one and one, the words read through
-// L1. Two producer warpgroups: one warp issues the copies, the other seven
-// split. setmaxnreg moves the producers' registers to the consumers: 2·40 +
-// 2·216 of one 512-thread block's 128 a thread, or 2·40 + 232 of one
-// 384-thread block's 168.
+// with every operand in hi and lo (see Layout): at D = 32 and 64 two
+// warpgroups and two stages; at 80 two and one; at 128 one and one, the
+// words read through L1. At 32 a block takes 113 KiB: more stages would fit,
+// but the one raw-V slot paces the stages (a V sub-tile is transposed before
+// the next lands), and 64's proven two are kept; a second block would not
+// fit the SM's registers (512 threads of 128). Two producer warpgroups: one
+// warp issues the copies, the other seven split. setmaxnreg moves the
+// producers' registers to the consumers: 2·40 + 2·216 of one 512-thread
+// block's 128 a thread, or 2·40 + 232 of one 384-thread block's 168.
 template <int D>
 struct Config {
   static constexpr int CONSUMERS = D == 128 ? 1 : 2;
-  static constexpr int STAGES = D == 64 ? 2 : 1;
+  static constexpr int STAGES = D <= 64 ? 2 : 1;
   static constexpr bool WORDS_SMEM = D != 128;
   static constexpr int BQ = 64 * CONSUMERS;  // query rows per block
   static constexpr int PRODUCERS = 256;      // threads of the producer warpgroups
@@ -1115,7 +1124,8 @@ __global__ void __launch_bounds__(flat::TPB, 2) causal_flat_kernel(
     const int* __restrict__ counts, const int* __restrict__ idx,
     const int* __restrict__ lengths, float* __restrict__ out, int t_dst, int t_src, int t_m,
     int n_words, int block_q, int block_k, int nq, int nkb) {
-  static_assert(D == 64 && !STATS && BIDIR && IMPL == FLAT, "K5's float32 instance");
+  static_assert((D == 32 || D == 64) && !STATS && BIDIR && IMPL == FLAT,
+                "K5's float32 instances");
   using S = flat::Smem<D>;
   using flat::BKT;
   using flat::BQ;
@@ -1561,26 +1571,21 @@ extern "C" int sea_window_fwd_stats(
 }
 
 // The padded bidirectional forward (K5): f32 or bf16 in and out, `lengths`
-// (nh,) int32, the row width of each batch·head.
+// (nh,) int32, the row width of each batch·head; head width 32 or 64.
 extern "C" int sea_bidir_forward(
     const void* q, const void* k, const void* v, const void* mbits,
     const void* scaler, const void* counts, const void* idx,
     const void* lengths, void* out, int nh, int t_dst, int t_src,
     int head_dim, int t_m, int n_words, int block_q, int block_k, int nq,
     int nkb, int is_bf16, void* stream) {
-  if (bad_geometry(sea::BASE_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k))
+  if (bad_geometry(sea::BIDIR_WIDTHS{}, head_dim, n_words, t_dst, t_src, block_q, block_k))
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t e =
-      is_bf16 ? launch<64, __nv_bfloat16, false, true>(
-                    q, k, v, mbits, scaler, counts, idx, nullptr, nullptr,
-                    lengths, out, nullptr, nh, t_dst, t_src, t_m, n_words,
-                    block_q, block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0, s)
-              : launch<64, float, false, true>(
-                    q, k, v, mbits, scaler, counts, idx, nullptr, nullptr,
-                    lengths, out, nullptr, nh, t_dst, t_src, t_m, n_words,
-                    block_q, block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0, s);
-  return (int)e;
+  return (int)sea::dispatch(sea::BIDIR_WIDTHS{}, head_dim, is_bf16, [&](auto d, auto t) {
+    return launch<decltype(d)::value, typename decltype(t)::type, false, true>(
+        q, k, v, mbits, scaler, counts, idx, nullptr, nullptr, lengths, out, nullptr, nh,
+        t_dst, t_src, t_m, n_words, block_q, block_k, nq, nkb, 0, 1.0f, 1.0f, 1.0f, 1.0f, 0,
+        (cudaStream_t)stream);
+  });
 }
 
 extern "C" int sea_alive_mask(const void* mbits, void* out, int nh, int t_dst,

@@ -173,7 +173,8 @@ inline bool misaligned(const P*... p) {
 // (bf16), each panel rows x PW·2 bytes, row-major, in the swizzled layout
 // that TMA writes and wgmma's descriptors read: 128-byte rows with the
 // 128-byte swizzle (PW = 64; D = 64 and 128) or 32-byte rows with the 32-byte
-// swizzle (PW = 16; D = 80, whose 160-byte rows no 64-column box tiles). The
+// swizzle (PW = 16; D = 80, whose 160-byte rows no 64-column box tiles, and
+// D = 32, whose 64-byte rows take two such panels). The
 // swizzle XORs address bits 4.. with bits 7.. of the shared address itself,
 // so every panel starts on its swizzle atom (1024 or 256 bytes).
 // ---------------------------------------------------------------------------
@@ -327,6 +328,24 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d += a·b, m64n32k16: a (64 x 16) from registers (the A fragment), b (16 x 32)
+// from shared memory, MN-major (transposed)
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d += a·b, m64n64k16: a (64 x 16) from registers (the A fragment), b (16 x 64)
 // from shared memory, MN-major (transposed)
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -419,22 +438,30 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 
 
-// d += a·b with N = D, the P·V product of the bf16 body
+// d += a·b with N = D, the P·V product of the bf16 body; a width without an
+// instruction here does not compile
 template <int D>
 __device__ __forceinline__ void wgmma_rs(float (&d)[D / 2], const uint32_t (&a)[4], uint64_t db) {
-  if constexpr (D == 64)
+  if constexpr (D == 32) {
+    wgmma_rs_n32(d, a, db);
+  } else if constexpr (D == 64) {
     wgmma_rs_n64(d, a, db);
-  else if constexpr (D == 80)
+  } else if constexpr (D == 80) {
     wgmma_rs_n80(d, a, db);
-  else
+  } else {
+    static_assert(D == 128, "wgmma_rs: no m64nDk16 instruction for this head width");
     wgmma_rs_n128(d, a, db);
+  }
 }
 
 // A 64-row bf16 tile of D columns in shared memory: NP panels of PW columns,
 // each 64 rows of ROW bytes, in the swizzled layout TMA writes and wgmma's
 // descriptors read (see above: PW = 64 under the 128-byte swizzle at D = 64
-// and 128, PW = 16 under the 32-byte one at D = 80). A tile starts on 1024
-// bytes.
+// and 128, PW = 16 under the 32-byte one at D = 32 and 80). A tile starts on
+// 1024 bytes. At D = 32 the tile is two 16-column panels, width 80's layout
+// cut to two panels, not one 32-column panel under the 64-byte swizzle:
+// `wgmma_desc`, `tile_map` and `swizzled` know the 128- and 32-byte swizzles
+// only, and both have run on the card.
 template <int D>
 struct Panels {
   static constexpr int PW = D % 64 == 0 ? 64 : 16;
@@ -553,6 +580,24 @@ __device__ __forceinline__ void wgmma_tf32_ss_n64(float (&d)[32], uint64_t da, u
       : "l"(da), "l"(db), "r"(accumulate));
 }
 
+// d += a·b, m64n32k8 in TF32: a (64 x 8) from registers (the A fragment), b (8 x
+// 32) from shared memory, K-major
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, "
+      "%6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
 // d += a·b, m64n64k8 in TF32: a (64 x 8) from registers (the A fragment), b (8 x
 // 64) from shared memory, K-major
 __device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32], const uint32_t (&a)[4],
@@ -644,16 +689,21 @@ __device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64], const uint32_
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
-// d += a·b with N = D, the P·V product of the float32 body
+// d += a·b with N = D, the P·V product of the float32 body; a width without
+// an instruction here does not compile
 template <int D>
 __device__ __forceinline__ void wgmma_tf32_rs(float (&d)[D / 2], const uint32_t (&a)[4],
                                               uint64_t db) {
-  if constexpr (D == 64)
+  if constexpr (D == 32) {
+    wgmma_tf32_rs_n32(d, a, db);
+  } else if constexpr (D == 64) {
     wgmma_tf32_rs_n64(d, a, db);
-  else if constexpr (D == 80)
+  } else if constexpr (D == 80) {
     wgmma_tf32_rs_n80(d, a, db);
-  else
+  } else {
+    static_assert(D == 128, "wgmma_tf32_rs: no m64nDk8 instruction for this head width");
     wgmma_tf32_rs_n128(d, a, db);
+  }
 }
 
 // A float32 tile of ROWS rows and COLS columns in shared memory, read

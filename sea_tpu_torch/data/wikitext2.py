@@ -56,12 +56,17 @@ class WindowedCorpus:
 
     def batches(
         self, batch_size: int, shuffle: bool = False, seed: int = 0,
+        shard_id: int = 0, num_shards: int = 1,
     ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
         """(input_ids, attention_mask, labels) batches padded to max_length
-        (pad id 1, mask 0, label -100); the last partial batch is dropped."""
+        (pad id 1, mask 0, label -100); the last partial batch is dropped.
+        Shard `shard_id` of `num_shards` takes every num_shards-th window of
+        the (shuffled) order from its own, round-robin (JAX's
+        DistributedSampler analogue)."""
         order = np.arange(len(self))
         if shuffle:
             np.random.default_rng(seed).shuffle(order)
+        order = order[shard_id::num_shards]
         L = self.max_length
         for i in range(0, len(order), batch_size):
             chunk = order[i : i + batch_size]

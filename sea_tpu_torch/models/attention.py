@@ -105,7 +105,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config import SeaConfig
-from ..ops.kernels.block_sparse import fused_sparse_attention, sea_block_sparse_attention
+from ..ops.kernels.block_sparse import _div, fused_sparse_attention, sea_block_sparse_attention
 from ..ops import flat_csr
 from ..ops.cosformer import CosformerAttention
 from ..ops.masks import (
@@ -806,9 +806,11 @@ class SeaAttention(nn.Module):
                 if cfg.causal:
                     q_kern, lengths = q_for_score, None
                 else:
-                    # the BERT path scales the scores by 1/sqrt(D); for D = 64
-                    # (and 16) the reciprocal a CUDA division takes is exact
-                    q_kern = q_for_score / math.sqrt(D)
+                    # the BERT path scales the scores by 1/sqrt(D), sqrt(D) in
+                    # q's type as JAX's weak float is: a true division, since a
+                    # CUDA tensor divided by a Python number is multiplied by
+                    # the reciprocal, which is inexact at D = 32 (LRA image)
+                    q_kern = _div(q_for_score, math.sqrt(D))
                     lengths = zero_one_attention_mask[:, 0, 0, :].sum(-1).to(torch.int32)
                     bench.register_temp_buffer("lengths", lengths)
                 kernel_kw = dict(oversample=cfg.k_oversample, k_cfg=float(cfg.effective_k))

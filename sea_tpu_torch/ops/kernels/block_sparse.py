@@ -61,11 +61,12 @@ Layout of this module:
     causal math use global columns. `parallel/sharded_attention.py` merges
     the windows.
 
-Each wrapper counts its kernel launches in a `launches` attribute; K1-K4's
-and K6-K8's also count those of their bfloat16 instance in `bf16_launches`.
-The kernels take the head widths of `HEAD_DIMS`: 64, 80 (OPT-2.7b) and 128
-(LLaMA-7b and 13b) on the causal forward and the differentiable path, 64
-elsewhere.
+Each wrapper counts its kernel launches in a `launches` attribute; K1-K8's
+also count those of their bfloat16 instance in `bf16_launches`.
+The kernels take the head widths of `HEAD_DIMS`: 32 (the scaling sweep's
+heads), 64, 80 (OPT-2.7b) and 128 (LLaMA-7b and 13b) on the causal forward;
+64, 80 and 128 on the differentiable path; 32 (LRA's image task) and 64 on
+the padded bidirectional forward; 64 elsewhere.
 """
 
 from __future__ import annotations
@@ -87,8 +88,8 @@ MAX_WORDS = 16  # packed mask words per row the kernel holds (T_M <= 512)
 # path (K2-K4), the padded bidirectional forward (K5), the impl variants
 # (K9a-c) and the ring's windows (K6-K8). Any other width is ROADMAP queue 2
 # item 6. The plain versions, which CPU tensors take, have no such limit.
-HEAD_DIMS = {"causal": (64, 80, 128), "differentiable": (64, 80, 128), "bidirectional": (64,),
-             "impl": (64,), "window": (64,)}
+HEAD_DIMS = {"causal": (32, 64, 80, 128), "differentiable": (64, 80, 128),
+             "bidirectional": (32, 64), "impl": (64,), "window": (64,)}
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)  # q, k, v and the outputs
 SUB_BLOCK = 128  # 'subtile' piece width, min(SUB_BLOCK, block_k) (the JAX default)
 
@@ -701,8 +702,7 @@ def _diff_lib() -> ctypes.CDLL:
 
 def _count(wrapper, q: torch.Tensor):
     """One launch of `wrapper`'s kernel: `launches` counts every launch,
-    `bf16_launches` those of its bfloat16 instance (K1-K4 and K6-K8 have
-    both)."""
+    `bf16_launches` those of its bfloat16 instance (K1-K8 have both)."""
     wrapper.launches += 1
     wrapper.bf16_launches += int(q.dtype == torch.bfloat16)
 
@@ -1041,7 +1041,7 @@ def impl_blocks(impl: str, t_dst: int, t_src: int, block_q: Optional[int] = None
 
 def bidir_forward(ops: KernelOperands) -> torch.Tensor:
     """One launch of the padded bidirectional kernel (K5) on the current
-    stream; (N, H, T, D). It counts its own launches."""
+    stream; (N, H, T, D). It counts its own launches (`_count`)."""
     _require_cuda(ops.q, "sea_block_sparse_attention")
     if ops.lengths is None:
         raise ValueError("bidir_forward: operands of the causal path")
@@ -1056,11 +1056,12 @@ def bidir_forward(ops: KernelOperands) -> torch.Tensor:
             *_geometry(ops), int(ops.q.dtype == torch.bfloat16), stream,
         )
     _check(err, "sea_bidir_forward")
-    bidir_forward.launches += 1
+    _count(bidir_forward, ops.q)
     return out.reshape(ops.shape)
 
 
 bidir_forward.launches = 0
+bidir_forward.bf16_launches = 0
 
 
 def sea_block_sparse_attention(

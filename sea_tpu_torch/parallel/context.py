@@ -3,10 +3,13 @@ benchmark forward and the `use_fused_train` path) through the sharded
 attention functions of `parallel/sharded_attention.py`.
 
 The port of `sea_tpu/parallel/context.py`, with a shard group (`LocalGroup`
-or `DistGroup`, `parallel/group.py`) in place of the mesh and its axis:
+or `DistGroup`, `parallel/group.py`) in place of the mesh and its axis, or a
+mesh (`parallel/mesh.py`) and the name of its axis, as in JAX:
 
     with sharded_attention_scope(LocalGroup(4), kind="ring"):
         losses = train_steps(model, ids, mask, steps)
+    with sharded_attention_scope(make_mesh(dp=1, sp=4, devices=["cuda"] * 4), axis="sp"):
+        out = model(ids, mask, benchmarking=True)
 
 The scope is thread-local, as in JAX; the model reads it while it runs its
 forward (the sharded functions keep what their backward needs).
@@ -18,6 +21,8 @@ import dataclasses
 import threading
 from contextlib import contextmanager
 from typing import Any, Optional
+
+from .mesh import Mesh
 
 _TLS = threading.local()
 
@@ -70,9 +75,13 @@ def sharded_attention_scope(
     zigzag: bool = True,
     block_q: Optional[int] = None,
     block_k: Optional[int] = None,
+    axis: str = "sp",
 ):
+    """`group`: a shard group, or a `Mesh`, whose `axis` group is taken."""
     if kind not in ("auto", "seq", "head", "ring"):
         raise ValueError(f"unknown sharded attention kind {kind!r}")
+    if isinstance(group, Mesh):
+        group = group.group(axis)
     prev = getattr(_TLS, "ctx", None)
     _TLS.ctx = AttnShardingContext(
         group=group, kind=kind, zigzag=zigzag, block_q=block_q, block_k=block_k,

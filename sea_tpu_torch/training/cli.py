@@ -24,8 +24,14 @@ refused, as are `--supervised`, `--checkpoint-rotation`,
 trainer's alone).
 `--checkpoint-rotation n` keeps the n newest checkpoints behind a LATEST
 pointer, `--supervised` runs `training.resilience.Supervisor` (resume the
-newest intact checkpoint, roll back on divergence). `--data-parallel` is refused, naming ROADMAP queue 1
-item 8.
+newest intact checkpoint, roll back on divergence). `--data-parallel` splits
+each batch over the processes of a `torch.distributed` world (the KD
+trainer's `data_parallel`; refused for GLUE and LRA, as the other KD-trainer
+options): launched by torchrun (WORLD_SIZE > 1), the CLI joins the world
+itself, gloo on the CPU or NCCL with one card a process (LOCAL_RANK's):
+
+    torchrun --nproc_per_node=2 -m sea_tpu_torch.training.cli --model tiny \
+        --data-parallel --batch-size 2 --num-steps 4 --device cpu
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ import argparse
 import os
 
 import torch
+import torch.distributed as dist
 
 # CLI option -> the SEA config field it sets on the KD student
 SEA_KNOBS = {
@@ -137,9 +144,26 @@ def sea_overrides(args) -> dict:
             if getattr(args, opt) != parser.get_default(opt)}
 
 
+def join_world(args) -> torch.device:
+    """The device of this process. Under torchrun (WORLD_SIZE > 1) with
+    `--data-parallel` and wikitext2, the process joins the torch.distributed
+    world from torchrun's environment first (gloo on the CPU; NCCL on the
+    card of its LOCAL_RANK)."""
+    device = torch.device(args.device)
+    if not (args.data_parallel and args.dataset == "wikitext2"
+            and int(os.environ.get("WORLD_SIZE", "1")) > 1):
+        return device
+    if device.type == "cuda":
+        device = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+        torch.cuda.set_device(device)
+    if not dist.is_initialized():
+        dist.init_process_group("nccl" if device.type == "cuda" else "gloo")
+    return device
+
+
 def build_trainer(args):
     """(trainer, experiment name) of the parsed `args`."""
-    device = torch.device(args.device)
+    device = join_world(args)
     if args.dataset == "wikitext2":
         from .opt_trainer import OptTrainer, TrainerConfig
 

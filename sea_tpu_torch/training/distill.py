@@ -109,11 +109,14 @@ class SeaOptKD:
         use_remat: bool = True,
         task_scale: float = 0.1,
         ignore_kd: bool = False,
+        task_weight: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The interleaved KD forward: (loss, details). `jitter` holds one
         layer's resize-jitter draws per layer (None: no jitter).
         `task_scale` weighs the student CE; `ignore_kd` makes the loss the
-        CE alone (every term is still computed and reported)."""
+        CE alone (every term is still computed and reported).
+        `task_weight` multiplies the CE as it is reported and summed (a data-
+        parallel rank's share of the batch's targets, `opt_trainer`)."""
         with torch.no_grad():
             h_t, positions = self.teacher.model.embed(input_ids, attention_mask_1d)
         h_s, _ = self.student.model.embed(input_ids, attention_mask_1d)
@@ -131,6 +134,8 @@ class SeaOptKD:
         loss_hidden = loss_hidden / (self.n_layers + 1) * 5.0
         loss_special = loss_special / self.n_layers
         task_loss, loss_logit_kl = self._logit_losses(h_t, h_s, labels)
+        if task_weight is not None:
+            task_loss = task_loss * task_weight
         if ignore_kd:
             loss = task_loss
         else:
@@ -179,11 +184,13 @@ class SeaOptKDScan(SeaOptKD):
         labels: torch.Tensor,
         task_scale: float = 0.1,
         ignore_kd: bool = False,
+        task_weight: Optional[torch.Tensor] = None,
     ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """(loss, details), as `SeaOptKD.kd_loss` with no jitter and
         `use_remat`."""
         return super().kd_loss(input_ids, attention_mask_1d, labels, jitter=None,
-                               use_remat=True, task_scale=task_scale, ignore_kd=ignore_kd)
+                               use_remat=True, task_scale=task_scale, ignore_kd=ignore_kd,
+                               task_weight=task_weight)
 
     def _logit_losses(self, h_t: torch.Tensor, h_s: torch.Tensor, labels: torch.Tensor):
         if not self.logit_chunk:

@@ -54,13 +54,28 @@ too), and `moment_dtype` is AdamW's first-moment type (optax's `mu_dtype`);
 see `models/opt.py` for what each type rounds.
 
 The entry point runs on "cuda" unless `--device` says otherwise, with TF32
-off and bfloat16 products reduced in float32. Refused with
-NotImplementedError, naming its ROADMAP item: `data_parallel`. The
-students are JAX's: 'perlin' and the causal
+off and bfloat16 products reduced in float32. The students are JAX's:
+'perlin' and the causal
 baselines 'performer', 'reformer', 'sinkhorn' and 'cosformer'
 (`models/opt.py`); a reformer student's LSH rotations are drawn each
 micro-step from the trainer's generator, as JAX draws them from each
 layer's rng. `load(only_additionals=True)` restores the SEA modules alone.
+
+`data_parallel` is JAX's batch sharding over a 'dp' mesh axis
+(`parallel.mesh.make_mesh(dp=world, sp=1)`): when a `torch.distributed`
+world of more than one process runs the trainer, every rank reads the same
+global batches (batch_size a multiple of the world size), draws the jitter
+and the projection redraws for the whole batch from the same generator, and
+takes its own contiguous rows of them. The loss stays the global batch's:
+the token cross entropy's share of each rank is weighted by its share of
+the batch's supervised targets (the strided windows mask most of the first
+ones'), every other term being a mean over equal shares of rows. The
+gradients are summed over the ranks and divided by the world size once an
+update, before the clip (`gradient_accumulation_steps` micro-steps
+accumulate locally first); the logged terms are the ranks' mean; `evaluate`
+sums the ranks' NLL and target counts. Parameters and optimizer state stay
+replicated, and only rank 0 writes metrics, heartbeats and checkpoints. In
+one process it changes nothing, as JAX's guard on one device does.
 """
 
 from __future__ import annotations
@@ -75,22 +90,21 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import SeaConfig, opt_config
 from ..data.wikitext2 import get_corpus
 from ..models.attention import init_random_
 from ..models.llama import CausalLM, LlamaConfig, llama_13b, llama_7b, llama_tiny
 from ..models.loader import load_llama_params, load_opt_params, student_from_teacher
-from ..models.opt import (COMPUTE_DTYPES, OptConfig, opt_125m, opt_350m, opt_1_3b, opt_2_7b,
-                          reformer_draws)
+from ..models.opt import (COMPUTE_DTYPES, OptConfig, next_token_labels, opt_125m, opt_350m,
+                          opt_1_3b, opt_2_7b, reformer_draws)
 from ..ops.masks import resize_jitter_draws
 from ..ops.performer import redraw_projections
+from ..parallel.mesh import make_mesh
 from .distill import SeaOptKD, SeaOptKDScan, causal_lm_for
 from .optimizer import GroupedAdamW
 from .resilience import TrainingDiverged, checkpoint_file, resolve_latest, save_rotating
-
-# the JAX trainer's options still to port, and the ROADMAP item of each
-UNPORTED = {"data_parallel": "ROADMAP queue 1 item 8, multi-GPU"}
 
 
 @dataclasses.dataclass
@@ -150,7 +164,8 @@ class TrainerConfig:
     # --enable-lora, --attention-predictor-method, --enc-per-layer, ...);
     # None or {} keeps the JAX trainer's student
     sea_overrides: Optional[Dict[str, Any]] = None
-    # the JAX trainer's options that the port refuses (see the module doc)
+    # split each batch over the torch.distributed world's processes (see the
+    # module doc); a no-op in one process
     data_parallel: bool = False
 
 
@@ -167,9 +182,6 @@ MODELS = {"opt-125m": (opt_125m, 12, 64), "opt-350m": (opt_350m, 16, 64),
 
 
 def _refuse_unported(cfg: TrainerConfig):
-    for name, item in UNPORTED.items():
-        if getattr(cfg, name) != getattr(TrainerConfig, name):
-            raise NotImplementedError(f"TrainerConfig.{name} is not ported yet ({item})")
     if cfg.model not in ("tiny", "llama-tiny", *MODELS):
         raise ValueError(f"model {cfg.model!r}: one of {['tiny', 'llama-tiny', *MODELS]}")
     for name in ("compute_dtype", "param_dtype", "moment_dtype"):
@@ -214,6 +226,20 @@ def model_configs(cfg: TrainerConfig):
     return tuple(dataclasses.replace(c, compute_dtype=cfg.compute_dtype) for c in pair)
 
 
+def data_parallel_group(cfg: TrainerConfig):
+    """The shard group that `cfg.data_parallel` splits each batch over: the
+    'dp' axis of a (world, 1) mesh of the initialised `torch.distributed`
+    world, or None in one process (or without `data_parallel`)."""
+    if not (cfg.data_parallel and dist.is_available() and dist.is_initialized()
+            and dist.get_world_size() > 1):
+        return None
+    group = make_mesh(dp=dist.get_world_size(), sp=1).group("dp")
+    if cfg.batch_size % group.size:
+        raise ValueError(f"data_parallel: batch_size {cfg.batch_size} does not split over "
+                         f"{group.size} processes")
+    return group
+
+
 def build_model(cfg, seed: int, device, dtype: Optional[str] = None) -> CausalLM:
     """`cfg`'s causal LM on `device` with seeded random weights drawn there
     (`init_random_` from a generator of `seed` on `device`: on the CPU the
@@ -239,6 +265,8 @@ class OptTrainer:
         self.cfg = cfg
         self.device = torch.device(device)
         self.t_cfg, self.s_cfg = model_configs(cfg)
+        self.dp = data_parallel_group(cfg)
+        self.is_writer = self.dp is None or dist.get_rank() == 0
         # one model at a time in float32 before its cast (a 7B model's
         # float32 weights alone take 27 GB)
         self.teacher = build_model(self.t_cfg, 0, self.device, cfg.param_dtype)
@@ -329,22 +357,63 @@ class OptTrainer:
         return [resize_jitter_draws((n, 1, t, t), self.generator)
                 for _ in range(self.s_cfg.num_layers)]
 
+    def _rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's contiguous rows of a global batch tensor (JAX's
+        P("dp") on axis 0); the tensor itself in one process."""
+        return x if self.dp is None else self.dp.split_rows(x, 0)[0]
+
+    def _rank_mean(self, values: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The mean over the ranks of each 0-d value (one all-reduce)."""
+        stacked = torch.stack([v.float() for v in values.values()])
+        total = self.dp.all_reduce_sum([stacked]) / self.dp.size
+        return dict(zip(values, total.unbind()))
+
     def micro_step(self, ids, mask, labels) -> Dict[str, torch.Tensor]:
         """One KD forward and backward on one batch; the gradients add up
-        in the student's `.grad`. Returns the detached loss terms."""
+        in the student's `.grad`. Returns the detached loss terms (under
+        `data_parallel`, of the global batch)."""
         ids, mask, labels = self._tensors(ids, mask, labels)
         kw = dict(task_scale=self.cfg.task_loss_scale, ignore_kd=self.cfg.ignore_kd_loss)
         if not self.cfg.scan_kd:
             kw.update(jitter=self.jitter_draws(*ids.shape), use_remat=self.cfg.use_remat)
+        if self.dp is not None:
+            # the cross entropy's share: this rank's supervised targets over
+            # the batch's, times the world size (the ranks' losses are averaged)
+            valid = next_token_labels(labels) != -100
+            kw["task_weight"] = (self._rows(valid).sum().float() * self.dp.size
+                                 / valid.sum().clamp(min=1).float())
+            if kw.get("jitter") is not None and self.s_cfg.attention_method == "perlin":
+                kw["jitter"] = [(self._rows(noise), gate) for noise, gate in kw["jitter"]]
+            ids, mask, labels = (self._rows(x) for x in (ids, mask, labels))
         loss, details = self.kd.kd_loss(ids, mask, labels, **kw)
         loss.backward()
-        return {k: v.detach() for k, v in details.items()}
+        details = {k: v.detach() for k, v in details.items()}
+        return details if self.dp is None else self._rank_mean(details)
+
+    @torch.no_grad()
+    def _all_reduce_grads(self):
+        """Each gradient summed over the ranks and divided by their number,
+        one all-reduce per gradient type; a parameter without a gradient
+        takes a zero one first (as the optimizer would), so that every rank
+        sends the same buffers."""
+        by_type: Dict[torch.dtype, list] = {}
+        for p in self.student.parameters():
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+            by_type.setdefault(p.grad.dtype, []).append(p.grad)
+        for grads in by_type.values():
+            flat = torch.cat([g.reshape(-1) for g in grads])
+            flat = self.dp.all_reduce_sum([flat]) / self.dp.size
+            for g, part in zip(grads, flat.split([g.numel() for g in grads])):
+                g.copy_(part.view_as(g))
 
     def update(self):
         """One clipped update with the mean of the accumulated gradients;
         the step count advances and the projections are redrawn on
         schedule."""
         k = self.cfg.gradient_accumulation_steps
+        if self.dp is not None:
+            self._all_reduce_grads()
         if k > 1:
             for p in self.student.parameters():
                 if p.grad is not None:
@@ -413,13 +482,18 @@ class OptTrainer:
         for i, (ids, mask, labels) in enumerate(self.eval_corpus.batches(self.cfg.batch_size)):
             if max_batches is not None and i >= max_batches:
                 break
-            ids, mask, labels = self._tensors(ids, mask, labels)
+            ids, mask, labels = (self._rows(x) for x in self._tensors(ids, mask, labels))
             nll, tok = self._eval_nll(self.student(ids, mask)["logits"], labels)
+            if self.dp is not None:
+                nll, tok = self.dp.all_reduce_sum(
+                    [torch.stack([nll.double(), tok.double()])]).unbind()
             total_nll += float(nll)
             total_tok += int(tok)
         return float(np.exp(total_nll / max(total_tok, 1)))
 
     def log(self, record: Dict[str, Any]):
+        if not self.is_writer:
+            return
         record = {k: (float(v) if isinstance(v, (int, float, torch.Tensor)) else v)
                   for k, v in record.items()}
         record["step"] = self.step
@@ -430,6 +504,8 @@ class OptTrainer:
     def _heartbeat(self, extra: Optional[Dict[str, Any]] = None):
         """Publish liveness: `{save_dir}/heartbeat.json`, written whole
         through `os.replace` (`resilience.heartbeat_age_s` reads its age)."""
+        if not self.is_writer:
+            return
         hb = {"step": self.step, "time": time.time()}
         if extra:
             hb.update({k: float(v) for k, v in extra.items()})
@@ -440,11 +516,15 @@ class OptTrainer:
 
     def save(self, tag: str = "checkpoint"):
         """The full state under `tag` (`{save_dir}/{tag}.pt`), or, with
-        `checkpoint_rotation` and the default tag, a rotating checkpoint."""
-        if self.cfg.checkpoint_rotation > 0 and tag == "checkpoint":
-            save_rotating(self, keep=self.cfg.checkpoint_rotation)
-            return
-        self.write_state(os.path.join(self.cfg.save_dir, tag + ".pt"))
+        `checkpoint_rotation` and the default tag, a rotating checkpoint.
+        Under `data_parallel` rank 0 writes it and every rank waits for it."""
+        if self.is_writer:
+            if self.cfg.checkpoint_rotation > 0 and tag == "checkpoint":
+                save_rotating(self, keep=self.cfg.checkpoint_rotation)
+            else:
+                self.write_state(os.path.join(self.cfg.save_dir, tag + ".pt"))
+        if self.dp is not None:
+            dist.barrier()
 
     def write_state(self, path: str):
         """The full train state to `path`, whole or not at all (a temporary

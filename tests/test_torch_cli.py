@@ -175,11 +175,17 @@ def test_main_in_process_with_lora_and_rotation(tmp_path, capsys):
     assert ev.step == 3 and "ppl:" in capsys.readouterr().out
 
 
-def test_refusals():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-        tcli.main(["--model", "tiny", "--data-parallel", "--device", "cpu"])
+def test_refusals(tmp_path):
+    """The KD trainer's options stay refused for GLUE and LRA; wikitext2
+    takes `--data-parallel` (queue 1 item 8.1; in one process a trainer
+    without a group)."""
+    args = tcli.build_parser().parse_args(["--model", "tiny", "--data-parallel", "--device",
+                                           "cpu", "--save-root", str(tmp_path)])
+    tr, _ = tcli.build_trainer(args)
+    assert tr.cfg.data_parallel and tr.dp is None
     for argv in (["--dataset", "glue", "--enable-lora"],
                  ["--dataset", "lra", "--checkpoint-rotation", "2"],
-                 ["--dataset", "glue", "--supervised"]):
+                 ["--dataset", "glue", "--supervised"],
+                 ["--dataset", "lra", "--data-parallel"]):
         with pytest.raises(SystemExit, match="only supported with --dataset wikitext2"):
             tcli.main(argv + ["--device", "cpu"])

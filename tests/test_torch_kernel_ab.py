@@ -103,11 +103,12 @@ def test_tensor_core_check_names_every_instance():
     for mangled in _forward_mangled():
         assert chip_smoke.FLAT_INSTANCE.search(mangled), mangled
         names.add(chip_smoke.instance_name(mangled))
-    assert _width_lists() == {"FORWARD_WIDTHS": ["64", "80", "128"],
-                              "TRAIN_WIDTHS": ["64", "80", "128"], "BASE_WIDTHS": ["64"]}
+    assert _width_lists() == {"FORWARD_WIDTHS": ["32", "64", "80", "128"],
+                              "TRAIN_WIDTHS": ["64", "80", "128"],
+                              "BIDIR_WIDTHS": ["32", "64"], "BASE_WIDTHS": ["64"]}
     assert names == {f"{kid} {t} D{d}" for t in ("float32", "bfloat16") for kid, d in (
         ("K1", 64), ("K2/K6", 64), ("K5", 64), ("K9a", 64), ("K9b", 64), ("K9c", 64),
-        ("K1", 80), ("K2", 80), ("K1", 128), ("K2", 128))}
+        ("K1", 80), ("K2", 80), ("K1", 128), ("K2", 128), ("K1", 32), ("K5", 32))}
 
 
 # the forward body each element type's `launch<…>` instantiates, and how its
@@ -258,8 +259,10 @@ def test_backward_tensor_core_ops(launcher):
 
 def test_forward_tensor_core_ops():
     """The forward bodies' instances run on wgmma, the float32 ones in split
-    TF32, but K5's float32 instance, which kept the mma.sync body: the check
-    wants HGMMA in each of them and HMMA in that one."""
+    TF32, but K5's float32 instances (widths 64 and 32), which kept the
+    mma.sync body: the check wants HGMMA in each of them and HMMA in those."""
     for mangled in _forward_mangled():
-        want = "HMMA" if chip_smoke.instance_name(mangled) == "K5 float32 D64" else "HGMMA"
+        want = ("HMMA" if chip_smoke.instance_name(mangled) in ("K5 float32 D64",
+                                                                "K5 float32 D32")
+                else "HGMMA")
         assert chip_smoke.tensor_core_op(mangled) == want, mangled

@@ -151,13 +151,15 @@ def test_bf16_weights_convert_exactly():
 # (route, head width, refused): OPT-2.7b's width 80 and LLaMA's 128 are
 # built for the causal forward (K1) and the differentiable path (K2-K4); the
 # padded bidirectional forward (K5), the impl variants (K9a-c) and the ring's
-# windows (K6-K8) take 64 only, and no route takes 96 or 32
+# windows (K6-K8) take neither; width 32 (the scaling sweep's heads) is built
+# for the causal forward (and, tests/test_torch_width32.py, K5) but not for
+# the differentiable path; no route takes 96
 WIDTH_ROUTES = [("differentiable", 80, False), ("causal", 80, False),
                 ("differentiable", 96, True), ("bidirectional", 80, True),
                 ("impl", 80, True), ("window", 80, True),
                 ("causal", 128, False), ("differentiable", 128, False),
                 ("bidirectional", 128, True), ("impl", 128, True), ("window", 128, True),
-                ("causal", 32, True), ("differentiable", 32, True)]
+                ("causal", 32, False), ("differentiable", 32, True)]
 
 
 @pytest.mark.parametrize("route,width,refused", WIDTH_ROUTES,

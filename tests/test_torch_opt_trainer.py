@@ -159,20 +159,20 @@ def test_save_load_round_trip(tmp_path):
 @pytest.mark.parametrize("model", ["tiny", "llama-tiny"])
 @pytest.mark.parametrize("field,value", [("data_parallel", True), ("checkpoint_rotation", 2)])
 def test_unported_options_are_refused(tmp_path, field, value, model):
-    """The JAX trainer's option the port does not have, `data_parallel`, is
-    refused for either family, naming its ROADMAP item; the LLaMA models are
-    taken (tests/test_torch_llama_train.py), and so are `scan_kd` and
-    `logit_chunk` (tests/test_torch_kd_scan.py). `checkpoint_rotation`,
-    refused until queue 1 item 9's recovery was ported, keeps two
-    checkpoints behind LATEST for either family (tests/test_torch_cli.py
-    holds the rest of the recovery)."""
-    if field == "data_parallel":
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 8"):
-            to.OptTrainer(tiny_cfg(tmp_path, model=model, **{field: value}), device="cpu")
-        return
+    """Options once refused, now taken for either family. `data_parallel`
+    (queue 1 item 8.1): in one process it takes no group and trains as
+    the default trainer does (tests/test_torch_data_parallel.py holds two
+    gloo processes and the bit-for-bit equality). `checkpoint_rotation`
+    (queue 1 item 9's recovery) keeps two checkpoints behind LATEST
+    (tests/test_torch_cli.py holds the rest of the recovery). The LLaMA
+    models are taken (tests/test_torch_llama_train.py), and so are `scan_kd`
+    and `logit_chunk` (tests/test_torch_kd_scan.py)."""
     tr = to.OptTrainer(tiny_cfg(tmp_path, model=model, num_steps=3, eval_steps=1,
                                 **{field: value}), device="cpu")
     tr.train()
+    if field == "data_parallel":
+        assert tr.dp is None and tr.step == 3
+        return
     assert sorted(d for d in os.listdir(tmp_path) if d.startswith("ckpt_")) == [
         "ckpt_00000002", "ckpt_00000003"]
     with open(tmp_path / "LATEST") as f:
