@@ -326,6 +326,34 @@ Needs a CUDA device and nvcc; it builds the port's kernels from `csrc/`
                 there is under 1e-4; run with chunk 1 and chunk 8, whose
                 greedy outputs must be equal; tokens/s, ms per engine step,
                 steps and the pool's bytes;
+ 21a. tp      — OPT-125m (full width and depth, float32) tensor parallel
+                (`parallel.tp.tensor_parallel`) over 2 and 4 LocalGroup
+                positions of the card: the benchmark forward at 1 x 2048
+                launches K1 12·tp times (each position's heads) and no other
+                kernel; the top-k picks that float reassociation flips are
+                counted, and the unsharded forward run on the TP run's masks
+                (`recorded_masks`) holds layer 0's attention output within
+                1e-5·max|want| and the logits within 1e-4·max|logit|; one
+                dense-path KD micro-step at 1 x 512 the same way, its
+                gradients within 5e-4 (tests/test_tp.py:131-160); ms a
+                forward beside the unsharded one (the split's cost on one
+                card, not scaling);
+ 21b. pp      — the same model pipelined (`parallel.pp`) over 4 stages of 3
+                layers at 4 x 512 in 4 microbatches: the benchmark forward
+                launches K1 48 times and no other kernel, its logits within
+                1e-4·max|logit| of the unsharded model's on the same
+                microbatches, the task-loss gradients within 1e-5·max|g|;
+                the interleaved pipeline (2 stages x 2 chunks) the same; KD
+                through GPipe (with and without remat) and 1F1B, 1F1B's
+                gradients within 1e-4·max|g| of GPipe's, one AdamW update
+                after it; ms and peak GiB of each KD schedule (the stages'
+                sum on one card);
+ 21c. tp-serve — [serve]'s model and requests through the head-sharded
+                engine (`mesh=`, 2 positions): every request's tokens those
+                of [serve]'s unsharded engine at chunk 8, no kernel;
+ 21d. dryrun  — `sea_tpu_torch.dryrun.dryrun_multichip(8)`: every section
+                of JAX's dry run within its bound, at heads of 64 (K1, K2-K4
+                and K6-K8 launched);
  22. opt13b-serve — OPT-1.3b (`opt_1_3b`, full width and depth, seeded
                 random weights drawn on the card and cast to bf16 as
                 exp_opt27b.py casts its tree),
@@ -464,6 +492,7 @@ attention output 1e-4 (:257), the first train step's loss 1e-4
 from __future__ import annotations
 
 import contextlib
+import copy
 import dataclasses
 import json
 import math
@@ -497,8 +526,8 @@ from sea_tpu_torch.models.bert import BertForSequenceClassification, bert_base
 from sea_tpu_torch.models.llama import LlamaForCausalLM, llama_7b
 from sea_tpu_torch.models.long_context import extend_opt_model
 from sea_tpu_torch.models.lora import LoraDelta
-from sea_tpu_torch.models.opt import (BASELINE_METHODS, OptForCausalLM, opt_125m, opt_1_3b,
-                                      opt_2_7b)
+from sea_tpu_torch.models.opt import (BASELINE_METHODS, OptForCausalLM, cross_entropy_shifted,
+                                      opt_125m, opt_1_3b, opt_2_7b)
 from sea_tpu_torch.ops import flat_csr
 from sea_tpu_torch.ops.kernels import _build
 from sea_tpu_torch.ops.kernels import block_sparse as bs
@@ -511,9 +540,14 @@ from sea_tpu_torch.parallel import (
     sharded_attention_scope,
 )
 from sea_tpu_torch.parallel import sharded_attention as sa
+from sea_tpu_torch.parallel.pp import (make_pp_mesh, pp_causal_lm_forward,
+                                       pp_kd_1f1b_value_and_grad, pp_kd_loss)
+from sea_tpu_torch.parallel.tp import gather_tp, tensor_parallel
+from sea_tpu_torch.dryrun import dryrun_multichip
 from sea_tpu_torch.serving import ServingEngine
 from sea_tpu_torch.training import cli, exp_long_context, resilience
-from sea_tpu_torch.training.distill import SeaOptKDScan
+from sea_tpu_torch.training.distill import SeaOptKD, SeaOptKDScan
+from sea_tpu_torch.training.optimizer import GroupedAdamW
 from sea_tpu_torch.training.glue_trainer import GlueTrainer, GlueTrainerConfig, build_bert
 from sea_tpu_torch.training.lra_trainer import LraTrainer, LraTrainerConfig
 from sea_tpu_torch.training.longctx import longctx_model, make_optimizer, train_step, train_steps
@@ -701,6 +735,15 @@ IMAGE_N, IMAGE_T, IMAGE_T_M, IMAGE_K = IMAGE.batch_size, IMAGE.max_length, 128, 
 IMAGE_N_TRAIN = 1024
 # the data-parallel CLI's runs: 2 KD updates at 1 x 256
 DP_STEPS, DP_T = 2, 256
+# tensor parallelism ([tp]): OPT-125m's benchmark forward at 1 x TP_T over
+# these LocalGroup sizes on the card, a dense KD micro-step at 1 x TP_KD_T
+TP_T, TP_SIZES, TP_KD_T = 2048, (2, 4), 512
+# pipelines ([pp]): OPT-125m at PP_N x PP_T in PP_M microbatches over PP_S
+# stages (3 layers a stage); the interleaved run at PP_IL_S stages x PP_IL_V
+# chunks
+PP_N, PP_T, PP_M, PP_S, PP_IL_S, PP_IL_V = 4, 512, 4, 4, 2, 2
+# [tp-serve]: [serve]'s requests through the head-sharded engine, chunk 8
+TP_SERVE, TP_SERVE_CHUNK = 2, 8
 
 
 def log(*a):
@@ -3620,14 +3663,17 @@ def greedy_margins(model, prompt, tokens):
     return margins
 
 
-def serve_run(model, requests, chunk):
-    """Every request through one engine, SERVE_FIRST at once and the rest
-    after SERVE_STAGGER decode steps: (outputs by request, ms, engine steps,
-    pool bytes), no kernel launched."""
+def serve_run(model, requests, chunk, mesh=None):
+    """Every request through one engine (head-sharded over `mesh`, a group,
+    if given), SERVE_FIRST at once and the rest after SERVE_STAGGER decode
+    steps: (outputs by request, ms, engine steps, pool bytes), no kernel
+    launched."""
     eng = ServingEngine(model, max_slots=SERVE_SLOTS, page_size=PAGE_SIZE,
                         num_pages=1 + SERVE_SLOTS * SERVE_PAGES_PER_SLOT,
-                        max_pages_per_slot=SERVE_PAGES_PER_SLOT, seed=0, device="cuda")
-    pool_bytes = 2 * eng.pool_k.numel() * eng.pool_k.element_size()
+                        max_pages_per_slot=SERVE_PAGES_PER_SLOT, seed=0, device="cuda",
+                        mesh=mesh)
+    pools = eng.pool_k if mesh is not None else [eng.pool_k]
+    pool_bytes = 2 * sum(p.numel() * p.element_size() for p in pools)
     torch.cuda.synchronize()
     reset_launches()
     t0 = time.perf_counter()
@@ -3692,6 +3738,7 @@ def phase_serve():
                 f"greedy request {i} differs from generate_greedy before step {stop}")
     del model
     torch.cuda.empty_cache()
+    return requests, runs
 
 
 # ---------------------------------------------------------------------------
@@ -5282,6 +5329,277 @@ def phase_dp():
     torch.cuda.empty_cache()
 
 
+@contextlib.contextmanager
+def recorded_masks(replay=None):
+    """Every SEA layer's compressed top-k mask in call order: recorded (the
+    list yielded) or, with `replay`, those masks handed back in place of the
+    layer's own picks (so two runs that would flip near-tied picks
+    otherwise compare at one mask)."""
+    import sea_tpu_torch.models.attention as attention
+
+    own, masks = attention.topk_mask, []
+    picks = iter(replay) if replay is not None else None
+
+    def topk(*a, **k):
+        if picks is not None:
+            return next(picks).detach()
+        out = own(*a, **k)
+        masks.append(out.detach())
+        return out
+
+    attention.topk_mask = topk
+    try:
+        yield masks
+    finally:
+        attention.topk_mask = own
+
+
+def flip_stats(masks, ref):
+    """The top-k picks that differ from `ref`'s, layer by layer, and the
+    first row (over every layer and head) holding one (T: none)."""
+    flips, first = [], ref[0].shape[2]
+    for a, b in zip(masks, ref):
+        diff = a != b
+        flips.append(int(diff.sum()))
+        rows = diff.any(dim=3).any(dim=1).any(dim=0).nonzero()
+        if len(rows):
+            first = min(first, int(rows[0]))
+    return flips, first
+
+
+def attn_out_hook(model):
+    """Layer 0's attention output (before the residual) on each call."""
+    got = []
+    handle = model.model.layers[0].self_attn.register_forward_hook(
+        lambda mod, args, out: got.append(out[0].detach()))
+    return got, handle
+
+
+def kd_step_grads(teacher, student, ids, replay=None):
+    """One dense-path KD micro-step (SeaOptKD, no remat), its masks
+    recorded or replayed: (loss, the student's gradients by name, the
+    masks); a tensor-parallel student's gradients come back joined
+    (`gather_tp`)."""
+    student.zero_grad()
+    with recorded_masks(replay) as masks:
+        loss, _ = SeaOptKD(teacher, student).kd_loss(ids, torch.ones_like(ids), ids,
+                                                     use_remat=False)
+        loss.backward()
+    if getattr(student, "tp_group", None) is not None:
+        grads = gather_tp(student, grads=True)
+    else:
+        grads = {n: p.grad for n, p in student.named_parameters()}
+    return loss.detach(), {n: g for n, g in grads.items() if g is not None}, masks
+
+
+def phase_tp():
+    """OPT-125m (12 layers, 12 heads of 64, float32) tensor parallel over 2
+    and 4 LocalGroup positions of one card (`parallel.tp.tensor_parallel`):
+    the benchmark forward at 1 x TP_T launches K1 12·tp times (each
+    position's heads) and no other kernel. Float reassociation (the row-
+    parallel sums) flips near-tied top-k picks past layer 0; they are
+    counted, and the unsharded forward is then run again on the TP run's
+    own masks (`recorded_masks`): layer 0's attention output within
+    1e-5·max|want| of it and the logits within 1e-4·max|logit|, every row.
+    One dense-path KD micro-step at 1 x TP_KD_T likewise: its picks' flips
+    counted, its gradients within 5e-4 of the unsharded step's on its masks
+    (tests/test_tp.py:131-160's bound). ms a forward beside the unsharded
+    forward's; the positions share one card, so these are the split's
+    cost, not scaling. Returns the K1 launches."""
+    dev = "cuda"
+    model = OptForCausalLM(opt_125m("perlin"), device=dev, seed=0).eval()
+    g = torch.Generator().manual_seed(41)
+    ids = torch.randint(4, model.cfg.vocab_size, (1, TP_T), generator=g).to(dev)
+    mask = torch.ones_like(ids)
+    L = model.cfg.num_layers
+    with recorded_masks() as ref_masks:
+        infer(model, ids, mask)
+    ms_ref, _ = forward_ms(model, ids, mask)
+    log(f"[tp] unsharded OPT-125m benchmark forward 1x{TP_T}: {ms_ref:.2f} ms")
+    teacher = OptForCausalLM(opt_125m("none"), device=dev, seed=1)
+    kd_ids = ids[:, :TP_KD_T]
+    _, _, kd_masks = kd_step_grads(teacher, model, kd_ids)
+    launches = 0
+    for size in TP_SIZES:
+        tp_model = tensor_parallel(copy.deepcopy(model), LocalGroup(size, dev))
+        got0, hook = attn_out_hook(tp_model)
+        with recorded_masks() as masks:
+            logits, counts = counted(lambda: infer(tp_model, ids, mask))
+        hook.remove()
+        require_launches("tp", counts, K1=L * size)
+        launches += counts["K1"]
+        flips, first = flip_stats(masks[:L], ref_masks[:L])
+        want0, hook = attn_out_hook(model)
+        with recorded_masks(replay=masks):
+            want = infer(model, ids, mask)
+        hook.remove()
+        err0, scale0 = max_err(got0[0], want0[0]), float(want0[0].abs().max())
+        err, scale = max_err(logits, want), float(want.abs().max())
+        ms, _ = forward_ms(tp_model, ids, mask)
+        log(f"[tp] tp={size}: K1 launches {counts['K1']}; top-k picks flipped by layer {flips} "
+            f"(of {masks[0].numel()} a layer; the first at row {first}); on the TP run's masks "
+            f"layer 0's attention output max|err| {err0:.3g} (max|want| {scale0:.3g}), the "
+            f"logits {err:.3g} (max|logit| {scale:.3g}); {ms:.2f} ms a forward "
+            f"({ms_ref:.2f} unsharded)")
+        require(err0 <= 1e-5 * scale0, f"tp={size} layer 0 attention output: {err0}")
+        require(err <= 1e-4 * scale, f"tp={size} logits: {err}")
+        loss, grads, masks = kd_step_grads(teacher, tp_model, kd_ids)
+        kd_flips, _ = flip_stats(masks, kd_masks)
+        loss_ref, ref, _ = kd_step_grads(teacher, model, kd_ids, replay=masks)
+        gerr = max(max_err(grads[n], ref[n]) for n in ref)
+        log(f"[tp] tp={size}: KD micro-step 1x{TP_KD_T}: top-k picks flipped {sum(kd_flips)}; "
+            f"on its masks loss {float(loss):.6f} ({float(loss_ref):.6f} unsharded), gradients "
+            f"max|err| {gerr:.3g} over {len(ref)} parameters")
+        require(set(ref) <= set(grads) and gerr <= 5e-4, f"tp={size} KD gradients: {gerr}")
+        del tp_model
+    del model, teacher
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_pp():
+    """OPT-125m pipelined over PP_S LocalGroup stages of one card (3 layers
+    a stage), PP_N x PP_T in PP_M microbatches: the benchmark forward
+    launches K1 12·PP_M times (each layer once a microbatch) and no other
+    kernel, its logits within 1e-4·max|logit| of the unsharded model's
+    (microbatch by microbatch, the same shapes); GPipe's task-loss gradients
+    against the unsharded model's (1e-5·max|g|); the interleaved pipeline
+    (PP_IL_S stages x PP_IL_V chunks) likewise; then KD through GPipe (with
+    and without remat) and through 1F1B, 1F1B's gradients within
+    1e-4·max|g| of GPipe's, one AdamW update after it; peak GiB of each KD
+    schedule (one card: the stages' sum). Returns the K1 launches."""
+    dev = "cuda"
+    model = OptForCausalLM(opt_125m("perlin"), device=dev, seed=0)
+    L = model.cfg.num_layers
+    g = torch.Generator().manual_seed(43)
+    ids = torch.randint(4, model.cfg.vocab_size, (PP_N, PP_T), generator=g).to(dev)
+    mask = torch.ones_like(ids)
+    micro = list(zip(ids.chunk(PP_M), mask.chunk(PP_M)))
+    with torch.inference_mode():
+        want = torch.cat([model(i, m, benchmarking=True)["logits"] for i, m in micro])
+        whole = model(ids, mask, benchmarking=True)["logits"]
+    scale = float(want.abs().max())
+    launches = 0
+    for size, V in ((PP_S, 1), (PP_IL_S, PP_IL_V)):
+        mesh = make_pp_mesh(dp=1, pp=size, devices=[dev] * size)
+
+        def fwd():
+            with torch.inference_mode():
+                return pp_causal_lm_forward(model, ids, mask, mesh=mesh, num_microbatches=PP_M,
+                                            benchmarking=True, interleave=V)[0]
+
+        logits, counts = counted(fwd)
+        require_launches("pp", counts, K1=L * PP_M)
+        launches += counts["K1"]
+        err = max_err(logits, want)
+        ms = host_ms(fwd, 3)
+        log(f"[pp] pp={size} V={V} benchmark forward {PP_N}x{PP_T}, M={PP_M}: K1 launches "
+            f"{counts['K1']}; logits max|err| {err:.3g} (max|logit| {scale:.3g}; "
+            f"{max_err(logits, whole):.3g} against the whole-batch forward); {ms:.2f} ms")
+        require(err <= 1e-4 * scale, f"pp={size} V={V} logits: {err}")
+
+        # the task loss's gradients through the schedule, against the
+        # unsharded model's over the same microbatches
+        model.zero_grad()
+        for i, m in micro:
+            (cross_entropy_shifted(model(i, m)["logits"], i) / PP_M).backward()
+        ref = {n: p.grad.clone() for n, p in model.named_parameters() if p.grad is not None}
+        model.zero_grad()
+        out, _ = pp_causal_lm_forward(model, ids, mask, mesh=mesh, num_microbatches=PP_M,
+                                      interleave=V)
+        cross_entropy_shifted(out, ids).backward()
+        got = {n: p.grad for n, p in model.named_parameters() if p.grad is not None}
+        gscale = max(float(x.abs().max()) for x in ref.values())
+        gerr = max(max_err(got[n], ref[n]) for n in ref)
+        log(f"[pp] pp={size} V={V} task-loss gradients max|err| {gerr:.3g} (max|g| "
+            f"{gscale:.3g}) over {len(ref)} parameters")
+        require(set(got) == set(ref) and gerr <= 1e-5 * gscale,
+                f"pp={size} V={V} gradients: {gerr}")
+        model.zero_grad()
+    del model
+    torch.cuda.empty_cache()
+
+    teacher = OptForCausalLM(opt_125m("none"), device=dev, seed=1)
+    student = OptForCausalLM(opt_125m("perlin"), device=dev, seed=2)
+    mesh = make_pp_mesh(dp=1, pp=PP_S, devices=[dev] * PP_S)
+    peaks, runs = {}, {}
+    for name, remat in (("GPipe", False), ("GPipe+remat", True)):
+        student.zero_grad()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss, det = pp_kd_loss(teacher, student, ids, mask, ids, mesh=mesh,
+                               num_microbatches=PP_M, use_remat=remat)
+        loss.backward()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peaks[name] = torch.cuda.max_memory_allocated() / 2 ** 30
+        runs[name] = (float(loss), {n: p.grad.clone() for n, p in student.named_parameters()
+                                    if p.grad is not None}, ms)
+    student.zero_grad()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    loss, det, d_s = pp_kd_1f1b_value_and_grad(teacher, student, ids, mask, ids, mesh=mesh,
+                                               num_microbatches=PP_M)
+    torch.cuda.synchronize()
+    ms_1f1b = (time.perf_counter() - t0) * 1e3
+    peaks["1F1B"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    gpipe_loss, gpipe, gpipe_ms = runs["GPipe"]
+    gscale = max(float(x.abs().max()) for x in gpipe.values())
+    gerr = max(max_err(d_s[n], gpipe[n]) for n in gpipe)
+    rerr = max(max_err(runs["GPipe+remat"][1][n], gpipe[n]) for n in gpipe)
+    before = {n: p.detach().clone() for n, p in student.named_parameters()}
+    for n, p in student.named_parameters():
+        p.grad = d_s.get(n)
+    GroupedAdamW(student, lr=1e-4).step()
+    moved = max(max_err(p, before[n]) for n, p in student.named_parameters())
+    log(f"[pp] KD {PP_N}x{PP_T}, M={PP_M}, pp={PP_S}: loss GPipe {gpipe_loss:.6f}, 1F1B "
+        f"{float(loss):.6f}; 1F1B vs GPipe gradients max|err| {gerr:.3g} (max|g| {gscale:.3g}), "
+        f"remat vs not {rerr:.3g}; an AdamW update moved the student by up to {moved:.3g}; "
+        f"{gpipe_ms:.1f} ms GPipe, {runs['GPipe+remat'][2]:.1f} ms with remat, {ms_1f1b:.1f} ms "
+        f"1F1B; peak {peaks['GPipe']:.2f} GiB GPipe, {peaks['GPipe+remat']:.2f} GiB GPipe+remat, "
+        f"{peaks['1F1B']:.2f} GiB 1F1B (the stages' sum on one card)")
+    require(all(math.isfinite(float(v)) for v in det.values()), f"1F1B KD details {det}")
+    require(set(gpipe) <= set(d_s) and gerr <= 1e-4 * gscale, f"1F1B vs GPipe: {gerr}")
+    require(abs(float(loss) - gpipe_loss) <= 1e-4 * abs(gpipe_loss), "1F1B vs GPipe loss")
+    require(moved > 0 and math.isfinite(moved), "the update after 1F1B")
+    del teacher, student
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_tp_serve(requests, runs):
+    """[serve]'s cut model and requests through the head-sharded engine
+    over TP_SERVE positions of one card (the pools and decode states split
+    by head, `mesh=`): every request's tokens those of [serve]'s unsharded
+    engine at the same chunk, no kernel launched."""
+    model = tensor_parallel(decode_model(), LocalGroup(TP_SERVE, "cuda"))
+    outs, wall, steps, pool_bytes = serve_run(model, requests, TP_SERVE_CHUNK,
+                                              mesh=model.tp_group)
+    same = sum(a == b for a, b in zip(outs, runs[TP_SERVE_CHUNK]))
+    log(f"[tp-serve] tp={TP_SERVE}, chunk {TP_SERVE_CHUNK}: {len(requests)} requests in "
+        f"{wall:.1f} ms over {steps} engine steps ({wall / steps:.2f} ms a step); pools "
+        f"{pool_bytes / 2 ** 20:.1f} MiB over {TP_SERVE} positions; {same} of {len(requests)} "
+        f"requests' tokens equal to the unsharded engine's")
+    require(outs == runs[TP_SERVE_CHUNK], "the head-sharded engine's tokens differ")
+    del model
+    torch.cuda.empty_cache()
+
+
+def phase_dryrun():
+    """`dryrun_multichip(8)` on the card: every section of JAX's dry run
+    over LocalGroup positions, each within JAX's bound (it raises
+    otherwise), at heads of 64 (K1, K2-K4 and K6-K8 on the card)."""
+    t0 = time.perf_counter()
+    _, counts = counted(lambda: dryrun_multichip(8, device="cuda"))
+    log(f"[dryrun] dryrun_multichip(8) on the card in {time.perf_counter() - t0:.1f} s; "
+        f"launches {counts}")
+    require(counts["K1"] > 0 and counts["K2"] > 0 and counts["K6"] > 0,
+            f"the dry run's kernel paths: {counts}")
+    torch.cuda.empty_cache()
+
+
 def kernel_entry(name, source, replaces, launches, err, t) -> dict:
     """One kernel of the `kernels` line from its measurements `t`."""
     return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -5536,8 +5854,18 @@ def main():
     log(f"[result] decode: prefill 1x{DECODE_P} {dec['prefill_ms']:.2f} ms, "
         f"{dec['step_ms']:.3f} ms per step at N=1, {dec['step8_ms']:.3f} at "
         f"N={DECODE_BATCH}, peak {dec['peak']:.2f} GiB")
-    phase_serve()
+    serve_requests, serve_runs = phase_serve()
     time_phase(t_start, "decode, serve")
+
+    # tensor and pipeline parallelism over LocalGroup positions of this card
+    kernels[0]["launches"] += phase_tp()
+    time_phase(t_start, "tp")
+    kernels[0]["launches"] += phase_pp()
+    time_phase(t_start, "pp")
+    phase_tp_serve(serve_requests, serve_runs)
+    time_phase(t_start, "tp-serve")
+    phase_dryrun()
+    time_phase(t_start, "dryrun")
 
     # OPT-1.3b in bfloat16: the random weights built once, cast to bf16
     t0 = time.perf_counter()

@@ -123,7 +123,8 @@ from ..ops.performer import (
     relu_kernel_features,
 )
 from ..parallel import sharded_attention as sharded
-from ..parallel.context import current_attention_sharding, resolve_attention_kind
+from ..parallel.context import (AttnShardingContext, current_attention_sharding,
+                                resolve_attention_kind)
 from ..utils.profiler import get_bench
 from .lora import LoraDelta
 from .modules import (
@@ -255,6 +256,11 @@ class SeaAttention(nn.Module):
     variable trees map one to one; with `enc_per_layer` and `use_cache` also
     `enc_dense`/`enc_ln`, which decode reads (as a JAX tree initialised
     through the prefill has them)."""
+
+    # the shard group of a tensor-parallel model (`parallel.tp.tensor_parallel`):
+    # the fused causal paths run on each of its positions' heads (the 'head'
+    # kind) when no sharding scope is active
+    head_group = None
 
     def __init__(self, cfg: SeaConfig, *, device="cuda", seed: Optional[int] = 0):
         super().__init__()
@@ -799,6 +805,9 @@ class SeaAttention(nn.Module):
                 else None
             )
             shard_ctx = current_attention_sharding() if cfg.causal else None
+            if shard_ctx is None and cfg.causal and self.head_group is not None:
+                # a tensor-parallel model: each position's own heads
+                shard_ctx = AttnShardingContext(group=self.head_group, kind="head")
             kind = None if shard_ctx is None else resolve_attention_kind(
                 shard_ctx, t=T_SRC, oversample=cfg.k_oversample)
             if benchmarking:
@@ -974,15 +983,28 @@ class SeaAttention(nn.Module):
         (int8 data, float32 per-(token, head) scale) pair (`quantize_kv`): new
         K/V are quantised on write and the gathered pages dequantised on
         read."""
+        page_size = (pool_k[0] if isinstance(pool_k, tuple) else pool_k).shape[1]
+        row_mask, t_pred, S, z, window, filled, pos_b = self._decode_common(
+            q, k, v, state, max_len=pages.shape[1] * page_size
+        )
+        return self.paged_attend(q, k, v, row_mask, t_pred, (S, z, window, filled), state,
+                                 pool_k, pool_v, pages, pos_b)
+
+    def paged_attend(self, q, k, v, row_mask, t_pred, step, state: SeaDecodeState, pool_k,
+                     pool_v, pages, pos_b):
+        """`decode_paged` after the row mask: the new K/V written into the
+        pools, the masked row attention against the pages and the average
+        mix, on whichever heads q, k, v, the mask, the pools and the state
+        hold (a head-sharded engine calls it on each position's). `step` is
+        `_decode_rows`' (S, z, window, filled). Returns (out (N, 1, H·D),
+        new state, pool_k, pool_v)."""
+        S, z, window, filled = step
         quant = isinstance(pool_k, tuple)
         if quant:
             (pool_k, pool_k_scale), (pool_v, pool_v_scale) = pool_k, pool_v
         page_size = pool_k.shape[1]
         N, H, _, D = q.shape
         mp = pages.shape[1]
-        row_mask, t_pred, S, z, window, filled, pos_b = self._decode_common(
-            q, k, v, state, max_len=mp * page_size
-        )
 
         # the new K/V written at (page, offset) per row
         pages = pages.long()
@@ -1079,16 +1101,22 @@ class SeaAttention(nn.Module):
         value, the FAVOR+ prefix step, the predictor on the CNN window, the
         per-row top-k and the row mask resized to the cache width. Positions
         are () (lockstep) or (N,) (per slot); everything is per row."""
-        self._check_decode()
-        cfg = self.cfg
-        bench = get_bench()
-        N, H, _, D = q.shape
-        T_M = cfg.predictor_length
         if max_len is None:
             max_len = state.k_cache.shape[2]
-        FP_MIN = fp_min_for(q.dtype)
+        t_pred, S, z, window, filled, pos_b = self._decode_rows(q, k, v, state)
+        row_mask = self.decode_row_mask(window, pos_b, max_len, q.dtype)
+        return row_mask, t_pred, S, z, window, filled, pos_b
+
+    def _decode_rows(self, q, k, v, state: SeaDecodeState):
+        """Stages 1-4 up to the CNN's input, head by head: the identity
+        value, the FAVOR+ prefix step, the encoder and dec_row, the row
+        pushed into the window. Returns (t_pred, S, z, window, filled,
+        pos_b) for the heads of q, k, v and the state (a head-sharded engine
+        runs it on each position's)."""
+        self._check_decode()
+        bench = get_bench()
+        N, H, _, D = q.shape
         pos_b = torch.broadcast_to(state.length, (N,))
-        new_len = (pos_b + 1).float()  # (N,)
 
         with bench.region("decode.performer"):
             # stage 1: the identity value row, gathered per row
@@ -1105,11 +1133,30 @@ class SeaAttention(nn.Module):
             perf_ctx = perf_ctx.to(q.dtype)
 
         with bench.region("decode.predictor"):
-            # stages 3-4: the predictor on the CNN window
+            # stage 3 and the CNN's row: the encoder, dec_row, the window
             performer_value = torch.cat([perf_ctx, v], dim=-1)
             t_pred = gelu(self.enc_ln(self.enc_dense(performer_value)))
             row = self.channel_split(self.dec_row(t_pred))  # (N, C, 1, Wd)
             window, filled = cnn_window_push(state.cnn_window, state.cnn_filled, row)
+        return t_pred, S, z, window, filled, pos_b
+
+    def decode_row_mask(self, window: torch.Tensor, pos_b: torch.Tensor, max_len: int,
+                        dtype: torch.dtype) -> torch.Tensor:
+        """Stages 4-7 on every head: the CNN on the window (splits·H
+        head-major channels), the softmax, the row's grouped top-k over
+        H·T_M and the (N, H, 1, max_len) additive row mask resized to the
+        cache width. The heads mix here: a head-sharded engine gathers the
+        window first."""
+        cfg = self.cfg
+        bench = get_bench()
+        N = window.shape[0]
+        H = cfg.num_heads
+        T_M = cfg.predictor_length
+        FP_MIN = fp_min_for(dtype)
+        new_len = (pos_b + 1).float()  # (N,)
+        device = window.device
+
+        with bench.region("decode.predictor"):
             estimated_attention_score = self._predictor_cnn(window)[:, :, -1:, :]
             estimated_attention_probs = softmax_fp32(estimated_attention_score, -1)
 
@@ -1122,21 +1169,21 @@ class SeaAttention(nn.Module):
             budget = torch.clamp(torch.floor(num / new_len + 0.5), min=1.0)  # (N,)
             ranks = _ranks_desc(t)
             dead_m = (ranks >= budget[:, None, None]).reshape(N, 1, H, T_M).permute(0, 2, 1, 3)
-            fp_min = torch.full((), FP_MIN, dtype=q.dtype, device=q.device)
+            fp_min = torch.full((), FP_MIN, dtype=dtype, device=device)
             mask_m = torch.where(dead_m, fp_min, torch.zeros_like(fp_min))
             bench.register_temp_buffer("decode_mask_m", mask_m)
 
         with bench.region("decode.interp"):
             # stage 7: the row resized to the cache width, decode's own pixel
             # rule floor((s + 0.5) / new_len · T_M − 1e-4), in this order
-            s_idx = torch.arange(max_len, dtype=torch.float32, device=q.device)
+            s_idx = torch.arange(max_len, dtype=torch.float32, device=device)
             pix = torch.floor((s_idx[None, :] + 0.5) / new_len[:, None] * T_M - 1e-4).long()
             pix = torch.clamp(pix, 0, T_M - 1)  # (N, max_len)
             row_mask = torch.gather(mask_m[:, :, 0, :], -1,
                                     pix[:, None, :].expand(N, H, max_len))[:, :, None, :]
             alive_src = (s_idx[None, :] < new_len[:, None])[:, None, None, :]
             row_mask = torch.where(alive_src, row_mask, fp_min)
-        return row_mask, t_pred, S, z, window, filled, pos_b
+        return row_mask
 
     def _decode_mix(self, scores, row_mask, v_cache, t_pred, state: SeaDecodeState, v):
         """Stage 8 and the average mix, whatever the cache layout: the masked

@@ -48,8 +48,8 @@ student's deltas as JAX's model does (`models/lora.py`): each roped on its
 own, q's scaled, k's and v's repeated for GQA; prefill and decode take
 none.
 
-Not ported yet, and refused: `external_layers` (pipeline stages), ROADMAP
-queue 1 item 8.
+`external_layers` builds the shell of JAX's pipeline stages: embed,
+finalize and the head with no layers (`parallel/pp.py` runs the stack).
 """
 
 from __future__ import annotations
@@ -98,7 +98,8 @@ class LlamaConfig:
     eos_token_id: int = 2
     attention_method: str = "perlin"
     compute_dtype: str = "float32"
-    # the JAX package's compiler fields: refused unless False
+    # the scanned stack (`opt.scan_layers`) and the pipeline's layerless
+    # shell (`external_layers`)
     scan_layers: bool = False
     scan_benchmarking: bool = False
     scan_remat: bool = False
@@ -386,7 +387,8 @@ class LlamaModel(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.embed_tokens = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
-        self.layers = nn.ModuleList([LlamaDecoderLayer(cfg) for _ in range(cfg.num_layers)])
+        self.layers = nn.ModuleList(
+            [] if cfg.external_layers else [LlamaDecoderLayer(cfg) for _ in range(cfg.num_layers)])
         self.norm = RMSNorm(cfg.hidden_size, cfg.rms_norm_eps)
 
     def embed(self, input_ids: torch.Tensor, attention_mask_1d: torch.Tensor):
@@ -456,9 +458,6 @@ class LlamaForCausalLM(CausalLMGeneration, nn.Module):
         super().__init__()
         if cfg.compute_dtype not in COMPUTE_DTYPES:
             raise ValueError(f"compute_dtype {cfg.compute_dtype!r}: one of {sorted(COMPUTE_DTYPES)}")
-        if cfg.external_layers:
-            raise NotImplementedError(
-                "external_layers (pipeline stages) is not ported yet (ROADMAP queue 1 item 8)")
         self.cfg = cfg
         self.model = LlamaModel(cfg)
         self.lm_head = Dense(cfg.hidden_size, cfg.vocab_size, bias=False)

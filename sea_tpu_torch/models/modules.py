@@ -47,21 +47,27 @@ def einsum(equation: str, *xs: torch.Tensor) -> torch.Tensor:
     return torch.einsum(equation, *(x.to(dtype) for x in xs))
 
 
+def linear(x: torch.Tensor, weight: torch.Tensor, bias: Optional[torch.Tensor] = None
+           ) -> torch.Tensor:
+    """flax `nn.Dense`'s types: input, weight and bias promoted to one type
+    first, the output in that type. Below float32 the bias is added to the
+    product after it is rounded, as XLA adds it."""
+    dtype = promote(x, weight)
+    x, w = x.to(dtype), weight.to(dtype)
+    if bias is None:
+        return F.linear(x, w)
+    b = bias.to(dtype)
+    if dtype == torch.float32:
+        return F.linear(x, w, b)
+    return F.linear(x, w) + b
+
+
 class Dense(nn.Linear):
-    """`nn.Linear` with flax `nn.Dense`'s types: input, weight and bias
-    promoted to one type first, the output in that type. Below float32 the
-    bias is added to the product after it is rounded, as XLA adds it.
-    `bias=False` is flax's `use_bias=False` (LLaMA's projections)."""
+    """`nn.Linear` with flax `nn.Dense`'s types (`linear`). `bias=False` is
+    flax's `use_bias=False` (LLaMA's projections)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dtype = promote(x, self.weight)
-        x, w = x.to(dtype), self.weight.to(dtype)
-        if self.bias is None:
-            return F.linear(x, w)
-        b = self.bias.to(dtype)
-        if dtype == torch.float32:
-            return F.linear(x, w, b)
-        return F.linear(x, w) + b
+        return linear(x, self.weight, self.bias)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

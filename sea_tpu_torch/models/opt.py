@@ -64,6 +64,10 @@ and `decode_step_paged` embed in the parameters' type, and the layers'
 `opt_350m`, `opt_1_3b` and `opt_2_7b` are the JAX package's (1.3b and 2.7b
 in bfloat16 compute; 2.7b's heads are 80 wide, which K1-K4 take).
 
+`external_layers` builds the shell of JAX's pipeline stages: embed,
+finalize and logits with no layers (its forward is embed and finalize);
+`parallel/pp.py` runs the layer stack.
+
 `scan_decode_step`, `scan_prefill_parallel` and `scan_generate_greedy` are
 the JAX package's scanned decode helpers: they drive the loop decode and take
 and return the per-layer decode states stacked on axis 0, in JAX's layout.
@@ -124,6 +128,9 @@ class OptConfig:
     scan_layers: bool = False
     scan_benchmarking: bool = False
     scan_remat: bool = False
+    # a shell without layers (embed, finalize, logits) whose layer stack runs
+    # elsewhere: the pipeline's stages (`parallel/pp.py`)
+    external_layers: bool = False
     sea: SeaConfig = dataclasses.field(default_factory=SeaConfig)
 
     @property
@@ -490,7 +497,7 @@ class OptModel(nn.Module):
             cfg.max_position_embeddings + 2, cfg.hidden_size
         )
         self.layers = nn.ModuleList(
-            [OptDecoderLayer(cfg) for _ in range(cfg.num_layers)]
+            [] if cfg.external_layers else [OptDecoderLayer(cfg) for _ in range(cfg.num_layers)]
         )
         if cfg.do_layer_norm_before:
             self.final_layer_norm = _layer_norm(cfg.hidden_size)

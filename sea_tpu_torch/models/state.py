@@ -180,3 +180,15 @@ def quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
     return q.to(dtype) * scale[..., None].to(dtype)
+
+
+# the per-head leaves of a decode state, each with the heads on dim 1 (the
+# CNN window's splits·H channels head-major): what a head-sharded serving
+# engine splits over its positions
+HEAD_FIELDS = ("performer_S", "performer_z", "cnn_window", "cumavg_sum", "k_cache", "v_cache")
+
+
+def head_shard(state: SeaDecodeState, n: int, p: int) -> SeaDecodeState:
+    """Position p's share of `state` over n positions: its 1/n of the heads
+    in every per-head leaf, the counters as they are."""
+    return state._replace(**{f: getattr(state, f).chunk(n, 1)[p].clone() for f in HEAD_FIELDS})

@@ -1,15 +1,18 @@
-"""Sharded attention over shard groups, and the (dp, sp) mesh (the port of
-`sea_tpu/parallel/`'s context, sharded attention and mesh).
+"""Sharded attention over shard groups, the meshes, tensor and pipeline
+parallelism (the port of `sea_tpu/parallel/`).
 
-`LocalGroup` / `DistGroup` (`group.py`) stand for a mesh axis; `make_mesh`
+`LocalGroup` / `DistGroup` (`group.py`) stand for a mesh axis, with the
+differentiable collectives of tensor and pipeline parallelism; `make_mesh`
 (`mesh.py`) builds the (dp, sp) mesh of them, one process holding every
 position or one process per position, with its sharding rules
 (`batch_sharding`, `replicated`, `param_sharding`, `opt_state_sharding`);
 `sharded_attention_scope` (`context.py`) routes SeaAttention's fused causal
 paths through the 'seq', 'head' and 'ring' kinds of `sharded_attention.py`,
-over a group or a mesh's axis. The KD trainer's `data_parallel`
-(`training/opt_trainer.py`) splits the batch over the world's processes. The
-JAX package's `tp.py` and `pp.py` are not ported yet.
+over a group or a mesh's axis. `tp.py` makes a model tensor parallel over a
+(dp, tp) mesh (`make_tp_mesh`, `tensor_parallel`, JAX's `tp_param_specs`
+rule), `pp.py` pipelines its layers over a (dp, pp) mesh (`make_pp_mesh`,
+GPipe, interleaved, 1F1B, KD). The KD trainer's `data_parallel`
+(`training/opt_trainer.py`) splits the batch over the world's processes.
 """
 
 from .context import (
@@ -24,11 +27,14 @@ from .mesh import (
     Mesh,
     NamedSharding,
     batch_sharding,
+    make_axes_mesh,
     make_mesh,
     opt_state_sharding,
     param_sharding,
     replicated,
 )
+from .pp import make_pp_mesh
+from .tp import make_tp_mesh, tensor_parallel
 
 __all__ = [
     "RING_MIN_T",
@@ -39,10 +45,14 @@ __all__ = [
     "NamedSharding",
     "batch_sharding",
     "current_attention_sharding",
+    "make_axes_mesh",
     "make_mesh",
+    "make_pp_mesh",
+    "make_tp_mesh",
     "opt_state_sharding",
     "param_sharding",
     "replicated",
     "resolve_attention_kind",
     "sharded_attention_scope",
+    "tensor_parallel",
 ]

@@ -1,13 +1,15 @@
-"""The (dp, sp) mesh and its sharding rules (port of
-`sea_tpu/parallel/mesh.py`).
+"""Two-axis meshes and their sharding rules (port of
+`sea_tpu/parallel/mesh.py`, with the meshes of `tp.py` and `pp.py`).
 
-A mesh is dp × sp positions, row-major: position (i, j) is the i-th data-
-parallel replica's j-th sequence shard.
+A mesh is a × b positions over two named axes, row-major: position (i, j) is
+the i-th replica of the first axis's j-th shard of the second. The axes:
 
   * `dp` — data parallel: the batch axis of activations; the optimizer's
     moments may be sharded over it (`opt_state_sharding`, the ZeRO-1 rule);
   * `sp` — sequence parallel: the query-row axis of the SEA attention
-    (`sharded_attention_scope(mesh, axis="sp")`).
+    (`sharded_attention_scope(mesh, axis="sp")`), `make_mesh`'s second axis;
+  * `tp` — tensor parallel (`tp.make_tp_mesh`): the heads and FFN columns;
+  * `pp` — pipeline parallel (`pp.make_pp_mesh`): the blocks of layers.
 
 Each axis of this process's positions is a shard group (`group.py`):
 
@@ -15,14 +17,15 @@ Each axis of this process's positions is a shard group (`group.py`):
     on one device `d`): each axis is a `LocalGroup`, as the JAX tests' virtual
     CPU devices are one process's;
   * one process per position (`devices=None` inside a `torch.distributed`
-    world of dp·sp processes, rank r at (r // sp, r % sp)): each axis is a
-    `DistGroup` over its row (sp) or column (dp), one
+    world of a·b processes, rank r at (r // b, r % b)): each axis is a
+    `DistGroup` over its row (the second axis) or column (the first), one
     `torch.distributed.new_group` each, which every process creates.
 
 The shardings are specs, as `jax.sharding.NamedSharding` is one: the mesh
 and one axis name (or None) per leading dimension of the leaf; the empty
-spec replicates. Parameters stay replicated; the trainer shards only the
-batch (`training/opt_trainer.py`'s `data_parallel`), as JAX's does.
+spec replicates. Under `make_mesh` parameters stay replicated and the
+trainer shards only the batch (`training/opt_trainer.py`'s
+`data_parallel`), as JAX's does; `tp.tp_param_specs` shards them by name.
 """
 
 from __future__ import annotations
@@ -39,15 +42,16 @@ AXES = ("dp", "sp")
 
 
 class Mesh:
-    """dp × sp positions and this process's shard group along each axis
-    (`group("dp")`, `group("sp")`). `devices` is the (dp, sp) array of the
-    positions' devices (a local mesh) or of their ranks (one process per
-    position)."""
+    """Positions over two named axes (`axis_names`, `make_mesh`'s ("dp",
+    "sp") by default) and this process's shard group along each
+    (`group(name)`). `devices` is the array of the positions' devices (a
+    local mesh) or of their ranks (one process per position), one dimension
+    per axis."""
 
-    def __init__(self, devices: np.ndarray, groups: dict):
+    def __init__(self, devices: np.ndarray, groups: dict, axis_names: Tuple[str, ...] = AXES):
         self.devices = devices
-        self.shape = {name: int(n) for name, n in zip(AXES, devices.shape)}
-        self.axis_names = AXES
+        self.axis_names = tuple(axis_names)
+        self.shape = {name: int(n) for name, n in zip(self.axis_names, devices.shape)}
         self._groups = groups
 
     @property
@@ -55,57 +59,67 @@ class Mesh:
         return int(self.devices.size)
 
     def group(self, axis: str):
-        """This process's shard group along `axis` ('dp' or 'sp')."""
-        if axis not in AXES:
-            raise ValueError(f"unknown mesh axis {axis!r}; one of {AXES}")
+        """This process's shard group along `axis` (one of `axis_names`)."""
+        if axis not in self.axis_names:
+            raise ValueError(f"unknown mesh axis {axis!r}; one of {self.axis_names}")
         return self._groups[axis]
 
 
-def _axis_groups(dp: int, sp: int):
-    """This rank's (dp, sp) groups of a world of dp·sp processes: its column
-    and its row, each a `torch.distributed` group that every rank creates (a
-    group of the whole world is the default one)."""
-    n, rank = dp * sp, dist.get_rank()
+def _axis_groups(a: int, b: int, names: Tuple[str, str]):
+    """This rank's groups of a world of a·b processes over the axes `names`:
+    its column (the first axis) and its row (the second), each a
+    `torch.distributed` group that every rank creates (a group of the whole
+    world is the default one)."""
+    n, rank = a * b, dist.get_rank()
 
     def made(members):
         return None if len(members) == n else dist.new_group(members)
 
-    rows = [made(list(range(i * sp, (i + 1) * sp))) for i in range(dp)]
-    cols = [made(list(range(j, n, sp))) for j in range(sp)]
-    return {"dp": DistGroup(cols[rank % sp]), "sp": DistGroup(rows[rank // sp])}
+    rows = [made(list(range(i * b, (i + 1) * b))) for i in range(a)]
+    cols = [made(list(range(j, n, b))) for j in range(b)]
+    return {names[0]: DistGroup(cols[rank % b]), names[1]: DistGroup(rows[rank // b])}
 
 
-def make_mesh(dp: Optional[int] = None, sp: Optional[int] = None,
-              devices: Optional[Sequence] = None) -> Mesh:
-    """A (dp, sp) mesh over `devices`: one entry per position, every one on
-    this process's one device (LocalGroup axes), or None: one position per
-    process of the initialised `torch.distributed` world (DistGroup axes),
-    and outside one a single position on "cuda". JAX's defaults: with
-    neither size given, sp = min(n, 4) and dp = n // sp; with one, the other
-    is n over it; dp · sp must be n."""
+def make_axes_mesh(names: Tuple[str, str], a: Optional[int] = None, b: Optional[int] = None,
+                   devices: Optional[Sequence] = None) -> Mesh:
+    """An (a, b) mesh over the axes `names` and `devices`: one entry per
+    position, every one on this process's one device (LocalGroup axes), or
+    None: one position per process of the initialised `torch.distributed`
+    world (DistGroup axes), and outside one a single position on "cuda".
+    JAX's defaults: with neither size given, b = min(n, 4) and a = n // b;
+    with one, the other is n over it; a · b must be n."""
     distributed = devices is None and dist.is_available() and dist.is_initialized()
     if distributed:
         n = dist.get_world_size()
     else:
         devices = [torch.device(d) for d in (devices if devices is not None else ["cuda"])]
         n = len(devices)
-    if dp is None and sp is None:
-        # favour sequence sharding, as JAX does within a host
-        sp = min(n, 4)
-        dp = n // sp
-    elif dp is None:
-        dp = n // sp
-    elif sp is None:
-        sp = n // dp
-    assert dp * sp == n, (dp, sp, n)
+    if a is None and b is None:
+        # favour the second (within-host) axis, as JAX does
+        b = min(n, 4)
+        a = n // b
+    elif a is None:
+        a = n // b
+    elif b is None:
+        b = n // a
+    assert a * b == n, (a, b, n)
     if distributed:
-        return Mesh(np.arange(n).reshape(dp, sp), _axis_groups(dp, sp))
+        return Mesh(np.arange(n).reshape(a, b), _axis_groups(a, b, names), names)
     if len(set(devices)) != 1:
         raise ValueError(f"a local mesh holds its positions on one device, got {set(devices)}")
     arr = np.empty(n, dtype=object)
     arr[:] = devices
     d = devices[0]
-    return Mesh(arr.reshape(dp, sp), {"dp": LocalGroup(dp, d), "sp": LocalGroup(sp, d)})
+    return Mesh(arr.reshape(a, b), {names[0]: LocalGroup(a, d), names[1]: LocalGroup(b, d)},
+                names)
+
+
+def make_mesh(dp: Optional[int] = None, sp: Optional[int] = None,
+              devices: Optional[Sequence] = None) -> Mesh:
+    """A (dp, sp) mesh (`make_axes_mesh`): with neither size given, sp =
+    min(n, 4) and dp = n // sp, favouring sequence sharding as JAX does
+    within a host."""
+    return make_axes_mesh(AXES, dp, sp, devices)
 
 
 class NamedSharding(NamedTuple):
@@ -145,8 +159,9 @@ def _tree(x) -> Any:
 
 
 def param_sharding(mesh: Mesh, params):
-    """Parameters replicated (the 125m scale); larger models would shard the
-    FFN and the embedding over sp (tensor parallelism, not ported)."""
+    """Parameters replicated (the 125m scale); a larger model shards its
+    projections by name over a tp axis (`tp.tp_param_specs`,
+    `tp.shard_params_tp`)."""
     return _tree_map(lambda _: replicated(mesh), _tree(params))
 
 

@@ -36,8 +36,15 @@ parameters the windows promote to float32 after the first step, as JAX's
 concatenation promotes them; JAX's engine refuses that pairing, its scan
 carry changing type.)
 
-Not ported yet: the mesh-sharded engine (`mesh=`), which waits for the
-port's multi-GPU mesh.
+`mesh=` (a `Mesh` and its `head_axis`, or a shard group) serves a
+tensor-parallel model (`parallel.tp.tensor_parallel` over the same group)
+with the pools (L, P, page_size, H, D) and each decode state's per-head
+leaves (`models.state.HEAD_FIELDS`) split over the group's positions by
+head: each position keeps its own heads' pools and states, decodes them,
+and the output projection ends in the sum
+(`parallel.tp.tp_decode_step_paged`). The estimator mixes heads, so every
+step gathers the CNN windows. The same requests give the unsharded
+engine's tokens.
 """
 
 from __future__ import annotations
@@ -49,8 +56,10 @@ import numpy as np
 import torch
 
 from ..models.opt import CausalLMGeneration
-from ..models.state import SeaDecodeState, reset_state_rows, select_state_rows
+from ..models.state import SeaDecodeState, head_shard, reset_state_rows, select_state_rows
 from ..ops.sampling import sample_logits
+from ..parallel.mesh import Mesh
+from ..parallel.tp import tp_decode_step_paged
 
 
 @dataclasses.dataclass
@@ -104,6 +113,10 @@ class ServingEngine:
         the generator's i-th (S, V) block of Gumbel noise.
     dtype: the pools' and the CNN windows' type.
     device: where the pools and states live; the model must be there.
+    mesh, head_axis: head-sharded serving over `mesh`'s `head_axis` group
+        (or `mesh` a group itself); the model must be tensor parallel over
+        that group, and the group's size must divide num_heads. The pools
+        and states are then lists, one entry per held position.
     """
 
     def __init__(
@@ -119,12 +132,8 @@ class ServingEngine:
         dtype=torch.float32,
         device="cuda",
         mesh=None,
+        head_axis: str = "tp",
     ):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the mesh-sharded serving engine is not ported yet: it waits for "
-                "the port's multi-GPU mesh (ROADMAP queue 1 item 8)"
-            )
         device = torch.device(device)
         if model.device.type != device.type:
             raise ValueError(f"the model is on {model.device}, the engine on {device}")
@@ -142,8 +151,6 @@ class ServingEngine:
 
         self.allocator = PageAllocator(num_pages)
         self.pages_np = np.zeros((S, self.max_pages), np.int64)
-        self.pool_k = torch.zeros((L, num_pages, page_size, H, D), dtype=dtype, device=device)
-        self.pool_v = torch.zeros_like(self.pool_k)
 
         # per-layer states with zero-width contiguous caches and (S,) per-slot
         # counters
@@ -151,7 +158,27 @@ class ServingEngine:
             z = torch.zeros((S,), dtype=torch.int32, device=device)
             return st._replace(length=z, cnn_filled=z, cumavg_len=z)
 
-        self.states = [per_slot(st) for st in model.init_decode_states(S, 0, dtype)]
+        states = [per_slot(st) for st in model.init_decode_states(S, 0, dtype)]
+        self.group = None
+        if mesh is None:
+            self.pool_k = torch.zeros((L, num_pages, page_size, H, D), dtype=dtype,
+                                      device=device)
+            self.pool_v = torch.zeros_like(self.pool_k)
+            self.states = states
+        else:
+            group = mesh.group(head_axis) if isinstance(mesh, Mesh) else mesh
+            if H % group.size:
+                raise ValueError(f"{H} heads do not split over {group.size} positions")
+            if getattr(model, "tp_group", None) is not group:
+                raise ValueError("a head-sharded engine serves a model made tensor parallel "
+                                 "over its group (parallel.tp.tensor_parallel)")
+            self.group = group
+            n = group.size
+            # one entry per held position: its heads' pools and states
+            self.pool_k = [torch.zeros((L, num_pages, page_size, H // n, D), dtype=dtype,
+                                       device=device) for _ in group.positions]
+            self.pool_v = [torch.zeros_like(pk) for pk in self.pool_k]
+            self.states = [[head_shard(st, n, p) for st in states] for p in group.positions]
 
         self._generator = torch.Generator(device).manual_seed(seed)
         self._rid = 0
@@ -178,13 +205,17 @@ class ServingEngine:
         toks = []
         for i in range(C):
             tok = torch.where(use_fed[i], fed[i], last)[:, None]
-            logits, new_states, self.pool_k, self.pool_v = self.model.decode_step_paged(
-                tok, start_pos + i, self.states, self.pool_k, self.pool_v, pages)
+            if self.group is None:
+                logits, new_states, self.pool_k, self.pool_v = self.model.decode_step_paged(
+                    tok, start_pos + i, self.states, self.pool_k, self.pool_v, pages)
+            else:
+                logits, new_states = tp_decode_step_paged(
+                    self.model, tok, start_pos + i, self.states, self.pool_k, self.pool_v, pages)
             # with every request unfiltered, constant filters skip the (S, V) sort
             last = sample_logits(logits[:, 0], temps, top_ks if use_filter else 0,
                                  top_ps if use_filter else 1.0, generator=self._generator)
-            self.states = [select_state_rows(ns, os_, sched)
-                           for ns, os_ in zip(new_states, self.states)]
+            self.states = self._map_states(lambda os_, ns: select_state_rows(ns, os_, sched),
+                                           new_states)
             toks.append(last)
         return torch.stack(toks)
 
@@ -215,7 +246,15 @@ class ServingEngine:
             reset_rows[s] = True
         if reset_rows.any():
             rows = self._upload(reset_rows)
-            self.states = [reset_state_rows(st, rows) for st in self.states]
+            self.states = self._map_states(lambda st, _: reset_state_rows(st, rows))
+
+    def _map_states(self, fn, others=None):
+        """`fn(state, other)` on every layer's state (each held position's,
+        when head-sharded), `other` the matching entry of `others`."""
+        if self.group is None:
+            return [fn(st, o) for st, o in zip(self.states, others or self.states)]
+        return [[fn(st, o) for st, o in zip(sts, os_)]
+                for sts, os_ in zip(self.states, others or self.states)]
 
     def _finish(self, s: int, truncated: bool = False) -> None:
         req = self.slots[s]

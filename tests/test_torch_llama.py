@@ -442,23 +442,29 @@ def test_large_configs_match_jax(builder):
 
 
 def test_refusals_name_their_items():
-    """What stays refused names its ROADMAP item or, for the baseline
-    students' decode, the one student that decodes; LLaMA's task-only training
-    through `use_fused_train` is taken (tests/test_torch_llama_train.py holds
-    it to JAX), and so are `scan_layers`, `scan_remat` and `logit_chunk`
-    (tests/test_torch_remat.py)."""
+    """What stays refused names, for the baseline students' decode, the one
+    student that decodes; LLaMA's task-only training through
+    `use_fused_train` is taken (tests/test_torch_llama_train.py holds it to
+    JAX), and so are `scan_layers`, `scan_remat` and `logit_chunk`
+    (tests/test_torch_remat.py) and `external_layers`'s shell."""
     for method in ("performer", "cosformer", "reformer", "sinkhorn"):
         # the baseline students build (tests/test_torch_baselines.py holds
         # them to JAX); decode stays the SEA student's, as in JAX
         student = tl.LlamaForCausalLM(tl.llama_tiny(method), device="cpu")
         with pytest.raises(NotImplementedError, match="perlin"):
             student.init_decode_states(1, 16)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        tl.LlamaForCausalLM(dataclasses.replace(tl.llama_tiny(), external_layers=True),
-                            device="cpu")
     fused = tl.llama_tiny()
     fused = dataclasses.replace(fused, sea=dataclasses.replace(fused.sea, use_fused_train=True))
     ids128 = torch.randint(4, 256, (1, 128), generator=torch.Generator().manual_seed(0))
+    # external_layers, refused until queue 1 item 8, builds the pipeline's
+    # layerless shell: embed, finalize and the head (tests/test_torch_pp.py
+    # runs the stages)
+    shell = tl.LlamaForCausalLM(dataclasses.replace(tl.llama_tiny(), external_layers=True),
+                                device="cpu")
+    assert len(shell.model.layers) == 0 and shell.lm_head.weight.shape == (256, 32)
+    with torch.no_grad():
+        logits = shell(ids128, torch.ones_like(ids128))["logits"]
+    assert logits.shape == (1, 128, 256) and bool(torch.isfinite(logits).all())
     losses = train_steps(tl.LlamaForCausalLM(fused, device="cpu"), ids128,
                          torch.ones_like(ids128), 1)
     assert np.isfinite(losses).all()

@@ -166,7 +166,10 @@ def test_unported_options_are_refused(tmp_path, field, value, model):
     (queue 1 item 9's recovery) keeps two checkpoints behind LATEST
     (tests/test_torch_cli.py holds the rest of the recovery). The LLaMA
     models are taken (tests/test_torch_llama_train.py), and so are `scan_kd`
-    and `logit_chunk` (tests/test_torch_kd_scan.py)."""
+    and `logit_chunk` (tests/test_torch_kd_scan.py). The rest of item 8,
+    tensor and pipeline parallelism and the head-sharded engine, is the
+    `parallel` package's and the engine's, not the trainer's
+    (tests/test_torch_tp.py, tests/test_torch_pp.py)."""
     tr = to.OptTrainer(tiny_cfg(tmp_path, model=model, num_steps=3, eval_steps=1,
                                 **{field: value}), device="cpu")
     tr.train()

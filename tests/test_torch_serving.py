@@ -8,8 +8,10 @@ decode and 1e-5 of JAX's paged decode (float32 einsums in another order);
 every engine output token for token: equal to per-request
 `generate_greedy`, to chunked runs, and to the JAX engine's on the same
 requests and weights, float32 and (a model cast to bf16) with bf16 pools
-and states.
+and states, and head-sharded over two tensor-parallel positions.
 """
+
+import copy
 
 import numpy as np
 import jax
@@ -20,6 +22,7 @@ import torch
 from sea_tpu.models.opt import OptForCausalLM as JaxOpt
 from sea_tpu.serving import ServingEngine as JaxEngine
 from sea_tpu_torch.models.opt import OptForCausalLM
+from sea_tpu_torch.parallel.tp import make_tp_mesh, tensor_parallel
 from sea_tpu_torch.serving import PageAllocator, ServingEngine
 from sea_tpu_torch.weights import state_dict_from_jax
 from tests._torch_parity import t, torch_opt_config
@@ -218,11 +221,28 @@ def test_engine_matches_jax_engine():
 
 
 def test_engine_refuses_a_mesh():
-    """The mesh-sharded engine is not ported: `mesh=` is refused, naming
-    what it waits for."""
-    port = OptForCausalLM(torch_opt_config(tiny_opt("perlin")), device="cpu", seed=0)
-    with pytest.raises(NotImplementedError, match="queue 1 item 8"):
-        ServingEngine(port, device="cpu", mesh=object())
+    """The head-sharded engine (`mesh=`): over a tensor-parallel model
+    (tp = 2 LocalGroup positions) its pools and states hold each position's
+    heads, and the requests and schedule of `test_engine_matches_jax_engine`
+    give the JAX engine's tokens; a model that is not tensor parallel over
+    the engine's group is refused."""
+    cfg, model, variables, port, _ = tiny_model(seed=31)
+    mesh = make_tp_mesh(dp=1, tp=2, devices=["cpu"] * 2)
+    with pytest.raises(ValueError, match="tensor parallel"):
+        ServingEngine(port, device="cpu", mesh=mesh)
+    rng = np.random.default_rng(4)
+    prompts = [rng.integers(4, cfg.vocab_size, size=p).tolist() for p in (3, 6, 5)]
+    kw = dict(max_slots=2, page_size=4, num_pages=32, max_pages_per_slot=8)
+    sharded = engine(tensor_parallel(copy.deepcopy(port), mesh), mesh=mesh, **kw)
+    H, D = cfg.sea.num_heads, cfg.sea.head_dim
+    assert [tuple(p.shape) for p in sharded.pool_k] == [(cfg.num_layers, 32, 4, H // 2, D)] * 2
+    assert all(st.cnn_window.shape[1] == cfg.sea.splits * H // 2 for sts in sharded.states
+               for st in sts)
+    outs = []
+    for eng in (JaxEngine(model, variables, **kw), sharded):
+        rids = [eng.submit(p, 5) for p in prompts]
+        outs.append([r.output for r in map(eng.run(chunk=3).get, rids)])
+    assert outs[0] == outs[1]
 
 
 def test_bf16_engine_matches_jax_engine():
